@@ -1,0 +1,4 @@
+"""Architecture configs: ``repro_torch.configs.get("<arch-id>")`` -> ArchSpec."""
+from repro_torch.configs.base import ArchSpec, SHAPES, get, names, register
+
+__all__ = ["ArchSpec", "SHAPES", "get", "names", "register"]

@@ -1,0 +1,63 @@
+"""Architecture registry (counterpart of ``repro.configs.base``).
+
+Each spec carries the full published config and a reduced same-family
+SMOKE config.  Architectures register here as their families are ported;
+the parallel plan the JAX spec carries comes with the planner.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, FrozenSet
+
+# The four assigned LM shapes (seq_len, global_batch) and their entry points.
+SHAPES: Dict[str, Dict[str, Any]] = {
+    "train_4k":    {"seq": 4_096,   "batch": 256, "step": "train"},
+    "prefill_32k": {"seq": 32_768,  "batch": 32,  "step": "prefill"},
+    "decode_32k":  {"seq": 32_768,  "batch": 128, "step": "decode"},
+    "long_500k":   {"seq": 524_288, "batch": 1,   "step": "decode"},
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    name: str
+    family: str                      # "lm" | "encdec" | "t2d"
+    config: Any
+    smoke: Any
+    skip_shapes: FrozenSet[str] = frozenset()
+    skip_reason: str = ""
+    source: str = ""
+    notes: str = ""
+
+    def shapes(self) -> Dict[str, Dict[str, Any]]:
+        return {k: v for k, v in SHAPES.items() if k not in self.skip_shapes}
+
+
+_REGISTRY: Dict[str, ArchSpec] = {}
+
+_MODULES = ["qwen3_14b"]
+
+
+def register(spec: ArchSpec) -> ArchSpec:
+    if spec.name in _REGISTRY:
+        raise ValueError(f"{spec.name} registered twice")
+    _REGISTRY[spec.name] = spec
+    return spec
+
+
+def _ensure_loaded() -> None:
+    import importlib
+    for m in _MODULES:
+        importlib.import_module(f"repro_torch.configs.{m}")
+
+
+def get(name: str) -> ArchSpec:
+    _ensure_loaded()
+    if name not in _REGISTRY:
+        raise KeyError(f"{name!r} is not ported; ported: {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def names() -> list:
+    _ensure_loaded()
+    return sorted(_REGISTRY)

@@ -1,0 +1,62 @@
+"""Guards of the port's two rules: it imports nothing of JAX or of the JAX
+package, and its entry points run on the card unless the caller asks for
+the CPU."""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.configs import qwen3_14b
+from repro_torch.models import lm
+from repro_torch.serving.engine import ServingEngine
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import repro_torch
+mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                              "repro_torch.")]
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(mods), bad)
+assert not bad, bad
+assert "repro_torch.serving.scheduler" in mods, mods
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax_and_no_repro():
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([os.path.join(ROOT, "src"), ROOT]))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_cuda(no_cuda):
+    cfg = qwen3_14b.SMOKE
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_lm(0, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_caches(cfg, 1, 8)
+    params = lm.init_lm(0, cfg, device="cpu")
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ServingEngine(params, cfg, **kw)
+    assert ServingEngine(params, cfg, device="cpu").device.type == "cpu"
+
+
+def test_serve_cli_defaults_to_cuda(no_cuda):
+    from repro_torch.launch.serve import main
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--arch", "qwen3-14b"])
