@@ -8,17 +8,27 @@ Phases, in order; any failure raises and exits non-zero:
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together);
-3. each kernel against its plain PyTorch version on the card, over the
-   kernel test cases and every shape the served trace gives it;
-4. time each kernel, its plain version and one PyTorch library call that
-   computes the same function (a yardstick the port never calls);
+3. each kernel against its plain PyTorch version on the card: flash
+   attention (K1) over its test cases and every shape the served trace
+   gives it; the SSD scan (K2) over its test cases, the training slice's
+   full-width shape and a ragged length at that width (bf16 and f32);
+4. time each kernel, its plain version and, where one exists, one PyTorch
+   library call that computes the same function (a yardstick the port
+   never calls);
 5. qwen3-14b at full width, random weights from a seeded generator:
    at depth 2, prefill logits through the kernel against the plain path
    at the longest prompt and at a ragged one;
    at depth 40, eight requests through ``ContinuousScheduler`` with every
    launch counter set to 0 just before and read just after;
 6. the serve CLI (``repro_torch.launch.serve``) at SMOKE size;
-7. a ``{"kernels": [...]}`` line, then the last line
+7. mamba2-370m at full width, random weights from a seeded generator:
+   at depth 2, ``lm_loss`` and every gradient through the kernel against
+   the plain path; at depth 48, six AdamW steps of the port's ``Trainer``
+   at batch 8 x 4096 tokens, with the launch counters set to 0 just
+   before and read just after;
+8. the train CLI (``repro_torch.launch.train``) at SMOKE size, where the
+   loss must fall;
+9. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
@@ -35,13 +45,18 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import qwen3_14b  # noqa: E402
+from repro_torch.configs import mamba2_370m, qwen3_14b  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, make_batch  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_fwd, flash_attention_plain)
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    ssd_scan_fwd, ssd_scan_plain)
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.optim.adamw import OptConfig  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 from repro_torch.serving.scheduler import ContinuousScheduler  # noqa: E402
+from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
 # published H100 SXM peaks (NVIDIA data sheet, dense)
 PEAK_BF16_FLOPS = 989e12
@@ -63,7 +78,24 @@ ATTN_CASES = [
 # output: one ulp, at most 2**-7 |x|.  The bar allows two.
 TOL = {torch.float32: (0.0, 1e-4), torch.bfloat16: (2.0 ** -6, 1e-6)}
 
+# B, L, H, P, G, S, chunk (tests/test_kernels.py SSD_CASES)
+SSD_CASES = [
+    (2, 128, 4, 16, 2, 32, 64),
+    (1, 64, 2, 32, 1, 16, 16),
+    (1, 200, 4, 16, 4, 32, 64),
+    (2, 96, 8, 8, 2, 64, 32),
+]
+# the training slice: one mamba2-370m layer's scan at train_4k's sequence,
+# batch 8; and a ragged length at the same width
+SSD_SLICE = (8, 4096, 32, 64, 1, 128, 128)
+SSD_RAGGED = (8, 4000, 32, 64, 1, 128, 128)
+# mamba2 depth-2 loss and grads, kernel against plain: the loss's
+# |delta| / |loss| and every grad leaf's max |delta| / max |plain|
+LOSS_BAR, GRAD_BAR = 1e-4, 2e-2
+
 N_REQUESTS, MAX_BATCH, NEW_TOKENS = 8, 4, 32
+# the training slice: train_4k's sequence at batch 8 (of its 256, one card)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 4096, 6
 PROMPT_LENS = np.linspace(512, 2048, N_REQUESTS).astype(int).tolist()
 
 
@@ -157,6 +189,75 @@ def attention_bound_ms(case, dtype) -> dict:
             "flops": flops, "bytes": nbytes}
 
 
+def ssd_inputs(case, dtype, seed):
+    """As tests/test_kernels.py builds them, in the kernel layout that
+    ``kernels.ops.ssd_scan`` forms: xdt = x dt, da = dt a (float32)."""
+    b, l, h, p, g, s, _ = case
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x = r(b, l, h, p).to(dtype)
+    dt = F.softplus(r(b, l, h)).to(dtype)
+    a = -torch.exp(0.5 * r(h))
+    bm, cm = r(b, l, g, s).to(dtype), r(b, l, g, s).to(dtype)
+    xdt = (x * dt[..., None]).transpose(1, 2).contiguous()
+    da = (dt * a).transpose(1, 2).contiguous()
+    return (xdt, da, bm.transpose(1, 2).contiguous(),
+            cm.transpose(1, 2).contiguous())
+
+
+def ssd_worst_share(got, want) -> float:
+    """The largest share of K2's bar over the output.  f32: max |delta| <=
+    1e-4 max |plain| over the whole output (the two add the chunks in
+    different orders and y grows with L).  bf16: per (b, h, l) row over P,
+    |delta| <= 2**-6 the row's max |plain| + 1e-6, two ulps of one
+    rounding, as K1's bar."""
+    want_f = want.float()
+    diff = (got.float() - want_f).abs()
+    if want.dtype == torch.float32:
+        bar = 1e-4 * want_f.abs().max()
+    else:
+        bar = 2.0 ** -6 * want_f.abs().amax(dim=-1, keepdim=True) + 1e-6
+    return float((diff / bar).max())
+
+
+def check_ssd(case, dtype, seed) -> float:
+    """K2 against ssd_scan_plain under ``ssd_worst_share``'s bar."""
+    xdt, da, b, c = ssd_inputs(case, dtype, seed)
+    chunk = case[-1]
+    got = ssd_scan_fwd(xdt, da, b, c, chunk=chunk)
+    torch.cuda.synchronize()
+    want = ssd_scan_plain(xdt, da, b, c, chunk=chunk)
+    err = float((got.float() - want.float()).abs().max())
+    worst = ssd_worst_share(got, want)
+    log(f"  ssd {tuple(case)} {str(dtype)[6:]}: max |kernel - plain| = "
+        f"{err:.3e} ({worst:.3f} of the bar)")
+    if not worst <= 1.0:
+        raise AssertionError(f"ssd_scan disagrees with its plain version at "
+                             f"{case} {dtype}: {worst} of the bar")
+    return err
+
+
+def ssd_bound_ms(case, dtype) -> dict:
+    """Least time on the card, the larger of two.  Operations, over the
+    peak rate of the input type, for a chunk of n rows: c b^T over its
+    causal triangle, 2S n(n+1)/2 FLOP once per B/C group (the group's
+    heads share it); per head, the masked product with xdt, 2P n(n+1)/2,
+    and the inter-chunk output and the state update, 2 x 2nPS.  Bytes,
+    over the memory rate: xdt, da, b, c read once and y written once."""
+    b, l, h, p, g, s, q = case
+    tri = sum(n * (n + 1) for n in (min(q, l - i) for i in range(0, l, q)))
+    flops = b * (g * s * tri + h * (p * tri + 4 * p * s * l))
+    item = torch.finfo(dtype).bits // 8
+    nbytes = item * (2 * b * h * l * p + 2 * b * g * l * s) + 4 * b * h * l
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
 def sdpa(q, k, v):
     return F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                           enable_gqa=True)
@@ -236,6 +337,124 @@ def full_width_serve(cfg, device="cuda") -> dict:
     return {"launches": launches, "metrics": summary}
 
 
+def leaf_paths(tree, path="") -> list:
+    """The key paths of ``lm.tree_leaves``'s leaves, in its order."""
+    if isinstance(tree, dict):
+        return [q for k in tree for q in leaf_paths(tree[k], f"{path}/{k}")]
+    return [path]
+
+
+def loss_grads_gap(params, batch, cfg) -> dict:
+    """lm_loss and every gradient with the SSD scan through the kernel
+    against the plain path: the loss's |delta| / |loss|, and the worst
+    grad leaf's max |delta| / max |plain| with that leaf's path."""
+    def loss_and_grads(backend):
+        leaves = lm.tree_map(lambda p: p.detach().requires_grad_(True),
+                             params)
+        loss, _ = lm.lm_loss(leaves, batch, cfg, backend=backend)
+        return loss.detach(), torch.autograd.grad(loss,
+                                                  lm.tree_leaves(leaves))
+
+    loss_k, grads_k = loss_and_grads("kernel")
+    loss_r, grads_r = loss_and_grads("ref")
+    shares = [float((gk.float() - gr.float()).abs().max()
+                    / gr.float().abs().max().clamp_min(1e-30))
+              for gk, gr in zip(grads_k, grads_r)]
+    worst = int(np.argmax(shares))
+    return {"loss": float(loss_r),
+            "loss_rel": float((loss_k - loss_r).abs() / loss_r.abs()),
+            "grad_rel": shares[worst], "leaf": leaf_paths(params)[worst],
+            "leaves": len(shares)}
+
+
+def gap_passes(gap) -> bool:
+    return gap["loss_rel"] <= LOSS_BAR and gap["grad_rel"] <= GRAD_BAR
+
+
+def full_width_grads_check(cfg, device="cuda") -> None:
+    """Depth-2 mamba2-370m, batch 2 x 4096 tokens, under ``gap_passes``.
+    Both backends take the backward through ssd_chunked_ref; only the
+    forward scan differs, by bf16 roundings."""
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    params = lm.init_lm(0, cfg2, device=device)
+    batch = make_batch(DataConfig(task="lm_random", vocab=cfg.vocab,
+                                  seq=TRAIN_SEQ, batch=2), 0, device=device)
+    gap = loss_grads_gap(params, batch, cfg2)
+    log(f"  depth-2 loss {gap['loss']:.6f}: |kernel - plain| / |loss| = "
+        f"{gap['loss_rel']:.3e}; worst grad leaf {gap['leaf']} max |delta| "
+        f"/ max |plain| = {gap['grad_rel']:.3e} over {gap['leaves']} leaves")
+    if not gap_passes(gap):
+        raise AssertionError(f"depth-2 loss or grads disagree: {gap}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def full_width_train(cfg, device="cuda") -> dict:
+    """Depth-48 mamba2-370m: TRAIN_STEPS AdamW steps of the port's Trainer
+    at batch 8 x 4096 tokens on lm_shift batches."""
+    t0 = time.perf_counter()
+    params = lm.init_lm(0, cfg, device=device)
+    torch.cuda.synchronize()
+    log(f"  init {lm.param_counts(cfg)['total'] / 1e6:.1f}M params in "
+        f"{time.perf_counter() - t0:.1f} s")
+    dcfg = DataConfig(task="lm_shift", vocab=cfg.vocab, seq=TRAIN_SEQ,
+                      batch=TRAIN_BATCH)
+    trainer = Trainer(
+        loss_fn=lambda p, b: lm.lm_loss(p, b, cfg, backend="kernel"),
+        params=params,
+        opt_cfg=OptConfig(peak_lr=3e-4, warmup_steps=2,
+                          total_steps=TRAIN_STEPS),
+        cfg=TrainerConfig(total_steps=TRAIN_STEPS, log_every=1),
+        data_fn=lambda s: make_batch(dcfg, s, device=device), device=device)
+    steps = []
+    inner = trainer.step_fn
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(*args)
+        torch.cuda.synchronize()
+        steps.append({"seconds": time.perf_counter() - t,
+                      "loss": float(out[2]["loss"]),
+                      "grad_norm": float(out[2]["grad_norm"])})
+        return out
+
+    trainer.step_fn = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ssd_scan_fwd.launches = 0
+    flash_attention_fwd.launches = 0
+    out = trainer.run()
+    torch.cuda.synchronize()
+    launches = ssd_scan_fwd.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for i, st in enumerate(steps):
+        log(f"  step {i + 1}: loss {st['loss']:.6f}  grad norm "
+            f"{st['grad_norm']:.6f}  {st['seconds'] * 1e3:.2f} ms")
+    warm = sorted(st["seconds"] for st in steps[1:])
+    step_s = warm[len(warm) // 2]
+    summary = {"step_ms_first": steps[0]["seconds"] * 1e3,
+               "step_ms_median": step_s * 1e3,
+               "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+               "peak_memory_gb": peak_gb,
+               "losses": [st["loss"] for st in steps],
+               "grad_norms": [st["grad_norm"] for st in steps]}
+    log(f"  launches: ssd_scan_fwd {launches} over {TRAIN_STEPS} steps of "
+        f"{cfg.n_layers} layers (forward + checkpointed recompute); "
+        f"flash_attention_fwd {flash_attention_fwd.launches}")
+    log("  metrics " + json.dumps(summary, sort_keys=True))
+    if launches != 2 * cfg.n_layers * TRAIN_STEPS:
+        raise AssertionError(f"ssd_scan launched {launches} times, expected "
+                             f"2 x {cfg.n_layers} x {TRAIN_STEPS}")
+    if len(out["history"]) != TRAIN_STEPS or not all(
+            np.isfinite(st["loss"]) and np.isfinite(st["grad_norm"])
+            for st in steps):
+        raise AssertionError(f"non-finite training step: {steps}")
+    del params, trainer
+    torch.cuda.empty_cache()
+    return {"launches": launches, "metrics": summary}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -267,6 +486,13 @@ def main() -> None:
                         seed=50, q_offset=-40)
     slice_err = max(check_attention(prefill_case(s), torch.bfloat16,
                                     seed=100 + s) for s in PROMPT_LENS)
+    for i, case in enumerate(SSD_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            check_ssd(case, dtype, seed=200 + i)
+    ssd_err = check_ssd(SSD_SLICE, torch.bfloat16, seed=210)
+    check_ssd(SSD_RAGGED, torch.bfloat16, seed=211)
+    for case in (SSD_SLICE, SSD_RAGGED):
+        check_ssd(case, torch.float32, seed=212)
 
     log("[4] timing at the slice's shape, bf16")
     q, k, v = attn_inputs(SLICE, torch.bfloat16, seed=7)
@@ -280,6 +506,18 @@ def main() -> None:
         f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
         f"{bound['flops']:.3e} FLOP, {bound['bytes']:.3e} B)")
     del q, k, v
+    xdt, da, b, c = ssd_inputs(SSD_SLICE, torch.bfloat16, seed=8)
+    ssd_ms = time_ms(lambda: ssd_scan_fwd(xdt, da, b, c, chunk=128),
+                     iters=20)
+    ssd_plain_ms = time_ms(lambda: ssd_scan_plain(xdt, da, b, c, chunk=128),
+                           iters=5)
+    ssd_bound = ssd_bound_ms(SSD_SLICE, torch.bfloat16)
+    log(f"  ssd_scan kernel {ssd_ms:.4f} ms  plain {ssd_plain_ms:.4f} ms  "
+        f"library none  bound {ssd_bound['bound_ms']:.4f} ms "
+        f"({ssd_bound['bound_by']}: {ssd_bound['flops']:.3e} FLOP, "
+        f"{ssd_bound['bytes']:.3e} B)")
+    del xdt, da, b, c
+    torch.cuda.empty_cache()
 
     log("[5] qwen3-14b at full width")
     cfg = qwen3_14b.CONFIG
@@ -293,6 +531,18 @@ def main() -> None:
     if any(len(r.generated) != 8 for r in reqs):
         raise AssertionError("serve CLI requests did not finish")
 
+    log("[7] mamba2-370m at full width")
+    mcfg = mamba2_370m.CONFIG
+    full_width_grads_check(mcfg)
+    trained = full_width_train(mcfg)
+
+    log("[8] train CLI at SMOKE size")
+    from repro_torch.launch.train import main as train_main
+    hist = train_main(["--arch", "mamba2-370m", "--steps", "30"])["history"]
+    log(f"  loss {hist[0][1]:.4f} -> {hist[-1][1]:.4f}")
+    if not hist[-1][1] < hist[0][1]:
+        raise AssertionError(f"train CLI loss did not fall: {hist}")
+
     log(facts)
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
@@ -300,7 +550,14 @@ def main() -> None:
         "replaces": "src/repro/kernels/flash_attention.py:36",
         "launches": served["launches"], "max_abs_err": slice_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
-        "bound_by": bound["bound_by"], "library_ms": library_ms}]}))
+        "bound_by": bound["bound_by"], "library_ms": library_ms}, {
+        "name": "ssd_scan_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:35",
+        "launches": trained["launches"], "max_abs_err": ssd_err,
+        "ms": ssd_ms, "plain_ms": ssd_plain_ms,
+        "bound_ms": ssd_bound["bound_ms"], "bound_by": ssd_bound["bound_by"],
+        "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

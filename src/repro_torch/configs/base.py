@@ -35,7 +35,7 @@ class ArchSpec:
 
 _REGISTRY: Dict[str, ArchSpec] = {}
 
-_MODULES = ["qwen3_14b"]
+_MODULES = ["mamba2_370m", "qwen3_14b"]
 
 
 def register(spec: ArchSpec) -> ArchSpec:

@@ -4,7 +4,9 @@
 A CPU tensor, or ``backend="ref"``, goes to the kernel's plain PyTorch
 version; a CUDA tensor goes to the CUDA kernel, which raises on what it
 does not take.  Nothing falls back from the kernel to the plain version.
-The autograd ``Function`` comes with training.
+``ssd_scan`` is an autograd ``Function`` whose backward, as in JAX,
+recomputes through the chunked reference; flash attention has no
+backward yet, so asking the CUDA kernel for a gradient raises.
 """
 from __future__ import annotations
 
@@ -12,10 +14,18 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                  flash_attention_plain)
+from repro_torch.kernels.ssd_scan import ssd_scan_fwd, ssd_scan_plain
 
 BACKENDS = ("kernel", "ref")
+
+
+def _use_plain(t: torch.Tensor, backend: str) -> bool:
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+    return backend == "ref" or t.device.type == "cpu"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -29,13 +39,63 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``block_q``/``block_k`` keep the JAX signature; they size the TPU
     kernel's tiles, and the CUDA kernel picks its own.
     """
-    if backend not in BACKENDS:
-        raise ValueError(f"backend {backend!r} not in {BACKENDS}")
     if block_q < 1 or block_k < 1:
         raise ValueError(f"block sizes must be >= 1, got {block_q}, {block_k}")
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
               q_offset=q_offset)
-    if backend == "ref" or q.device.type == "cpu":
+    if _use_plain(q, backend):
         return flash_attention_plain(q, k, v, **kw)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "the flash-attention kernel has no backward yet; train attention "
+            "layers with backend='ref'")
     return flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
                                **kw)
+
+
+class _SSDScan(torch.autograd.Function):
+    """Forward as JAX's ``fwd_plain``: the kernel (or its plain version) in
+    the kernel layout; backward through ``ssd_chunked_ref`` on the saved
+    inputs, as JAX's custom VJP does."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, d_skip, chunk: int, plain: bool):
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, a, b, c, d_skip)
+        # kernel layout: (B, H, L, P) / (B, H, L) / (B, G, L, S)
+        xdt = (x * dt[..., None]).transpose(1, 2).contiguous()
+        da = (dt * a[None, None, :]).transpose(1, 2).contiguous()  # f32
+        bt = b.transpose(1, 2).contiguous()
+        ct = c.transpose(1, 2).contiguous()
+        scan = ssd_scan_plain if plain else ssd_scan_fwd
+        y = scan(xdt, da, bt, ct, chunk=chunk).transpose(1, 2)
+        if d_skip is not None:
+            y = y + d_skip[None, None, :, None] * x
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors,
+                                     ctx.needs_input_grad)]
+        with torch.enable_grad():
+            y = _ref.ssd_chunked_ref(*inputs[:5], d_skip=inputs[5],
+                                     chunk=ctx.chunk)
+        wrt = [t for t in inputs if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(y, wrt, g))
+        return tuple(next(grads) if t is not None and t.requires_grad
+                     else None for t in inputs) + (None, None)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor,
+             d_skip: Optional[torch.Tensor] = None, *, chunk: int = 128,
+             backend: str = "kernel") -> torch.Tensor:
+    """Mamba-2 SSD.  x: (B, L, H, P), dt: (B, L, H), a: (H,),
+    b/c: (B, L, G, S), d_skip: (H,).  Returns y: (B, L, H, P) in x's
+    dtype.  L need not be a multiple of ``chunk``: the last chunk is short
+    (the JAX wrapper's zero padding, which the kernel does by masking)."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    return _SSDScan.apply(x, dt, a, b, c, d_skip, chunk,
+                          _use_plain(x, backend))

@@ -1,4 +1,5 @@
-"""Plain PyTorch oracle for attention (counterpart of ``repro.kernels.ref``).
+"""Plain PyTorch oracles for attention and the Mamba-2 SSD scan
+(counterpart of ``repro.kernels.ref``).
 
 ``attention_ref`` has the JAX oracle's semantics: a fully masked row is a
 softmax over equal ``NEG_INF`` scores, i.e. a uniform average of V.  The
@@ -46,3 +47,110 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return o.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+            b: torch.Tensor, c: torch.Tensor, *,
+            d_skip: Optional[torch.Tensor] = None,
+            init_state: Optional[torch.Tensor] = None,
+            return_state: bool = False):
+    """Reference Mamba-2 SSD (state-space duality) recurrence: the exact
+    sequential scan the chunked kernel must reproduce.
+
+    x:  (B, L, H, P)   per-head inputs
+    dt: (B, L, H)      softplus-activated step sizes (> 0)
+    a:  (H,)           negative state decay rates (A = -exp(a_log))
+    b:  (B, L, G, S)   input->state projection (G groups, H % G == 0)
+    c:  (B, L, G, S)   state->output projection
+    d_skip: (H,)       optional skip connection weight
+    init_state: (B, H, P, S) carried state; zeros if None.
+
+    Recurrence per head h (group g = h // (H // G)):
+        st_t = exp(dt_t * a_h) * st_{t-1} + dt_t * b_t (outer) x_t
+        y_t  = c_t . st_t  (+ d_skip * x_t)
+    Returns y (B, L, H, P) in x's dtype [and the final f32 state
+    (B, H, P, S)].
+    """
+    bsz, l, h, p = x.shape
+    g, s = b.shape[2], b.shape[3]
+    if h % g:
+        raise ValueError(f"heads {h} not a multiple of groups {g}")
+    rep = h // g
+    xf = x.float()
+    dtf = dt.float()
+    bf = torch.repeat_interleave(b.float(), rep, dim=2)       # (B, L, H, S)
+    cf = torch.repeat_interleave(c.float(), rep, dim=2)
+    decay = torch.exp(dtf * a.float()[None, None, :])           # (B, L, H)
+    st = (torch.zeros((bsz, h, p, s), dtype=torch.float32, device=x.device)
+          if init_state is None else init_state.float())
+    ys = []
+    for t in range(l):
+        upd = torch.einsum("bhp,bhs->bhps", dtf[:, t, :, None] * xf[:, t],
+                           bf[:, t])
+        st = decay[:, t, :, None, None] * st + upd
+        ys.append(torch.einsum("bhps,bhs->bhp", st, cf[:, t]))
+    y = torch.stack(ys, dim=1)
+    if d_skip is not None:
+        y = y + d_skip.float()[None, None, :, None] * xf
+    y = y.to(x.dtype)
+    if return_state:
+        return y, st
+    return y
+
+
+def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                    b: torch.Tensor, c: torch.Tensor, *,
+                    d_skip: Optional[torch.Tensor] = None,
+                    chunk: int = 128) -> torch.Tensor:
+    """Vectorised chunked SSD: the kernel's math in straight-line PyTorch,
+    all chunks batched.  JAX carries the inter-chunk combine
+    ``(d1, s1), (d2, s2) -> (d1*d2, s2 + d2*s1)`` with
+    ``associative_scan``; torch has none, so it is a loop over chunks that
+    yields the state entering each chunk.  Differentiable: the SSD
+    autograd ``Function`` takes its backward through this function."""
+    bsz, l, h, p = x.shape
+    g, s = b.shape[2], b.shape[3]
+    rep = h // g
+    ck = min(chunk, l)
+    while l % ck:
+        ck //= 2
+    nc = l // ck
+
+    xf = x.float().reshape(bsz, nc, ck, h, p)
+    dtf = dt.float().reshape(bsz, nc, ck, h)
+    bf = torch.repeat_interleave(b.float(), rep, dim=2).reshape(
+        bsz, nc, ck, h, s)
+    cf = torch.repeat_interleave(c.float(), rep, dim=2).reshape(
+        bsz, nc, ck, h, s)
+    da = dtf * a.float()[None, None, None, :]                   # (B,nc,ck,H)
+    cum = torch.cumsum(da, dim=2)                                # within chunk
+    total = cum[:, :, -1]                                        # (B,nc,H)
+
+    xdt = xf * dtf[..., None]
+    # intra-chunk: (B,nc,H,ck,ck) masked decay attention
+    cb = torch.einsum("bnkhs,bnjhs->bnhkj", cf, bf)
+    cum_t = cum.permute(0, 1, 3, 2)                              # (B,nc,H,ck)
+    seg = cum_t[..., :, None] - cum_t[..., None, :]
+    mask = torch.tril(torch.ones((ck, ck), dtype=torch.bool,
+                                 device=x.device))
+    seg = torch.where(mask, seg, torch.full_like(seg, -1e30))  # before exp
+    y_intra = torch.einsum("bnhkj,bnjhp->bnkhp", cb * torch.exp(seg), xdt)
+
+    # chunk states: (B,nc,H,P,S)
+    w = torch.exp(total[:, :, None, :] - cum)[..., None] * xdt  # (B,nc,ck,H,P)
+    st = torch.einsum("bnkhp,bnkhs->bnhps", w, bf)
+    dec = torch.exp(total)                                       # (B,nc,H)
+    # state ENTERING chunk n: the combine folded left to right
+    run = torch.zeros_like(st[:, 0])
+    entering = []
+    for n in range(nc):
+        entering.append(run)
+        run = dec[:, n, :, None, None] * run + st[:, n]
+    st_in = torch.stack(entering, dim=1)
+    y_inter = torch.einsum("bnkhs,bnhps->bnkhp", cf, st_in) * \
+        torch.exp(cum)[..., None]
+
+    y = (y_intra + y_inter).reshape(bsz, l, h, p)
+    if d_skip is not None:
+        y = y + d_skip.float()[None, None, :, None] * x.float()
+    return y.to(x.dtype)

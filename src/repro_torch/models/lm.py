@@ -1,11 +1,13 @@
 """Decoder-only LM assembled from per-layer block specs (counterpart of
-``repro.models.lm``), serving path: init, prefill, decode, logits.
+``repro.models.lm``): init, the training forward and loss, and the serving
+path (prefill, decode, logits).
 
 Per-period layer parameters live under ``periods`` stacked on a leading
 ``n_periods`` dim, as in the JAX package, so a JAX parameter tree crosses
 over with no transpose (``repro_torch.bridge``).  The JAX ``lax.scan`` over
-periods is a Python loop here.  Attention and MLP layers are ported; SSM
-and MoE layers come with their families.
+periods is a Python loop here.  Attention, MLP and SSM layers are ported
+(SSM layers train; serving them comes with mamba2 serving); MoE layers
+come with their family.
 """
 from __future__ import annotations
 
@@ -13,10 +15,12 @@ import dataclasses
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 
 # ---------------------------------------------------------------------------
@@ -67,7 +71,7 @@ class LMConfig:
     dense_ff: Optional[int] = None        # arctic parallel-dense residual
     norm_topk: bool = True
     ep_pad: Optional[int] = None          # pad experts for EP divisibility
-    # ssm geometry (the SSM config type comes with the SSM family)
+    # ssm geometry (models.ssm.SSMConfig)
     ssm_cfg: Any = None
     # frontend stub (vlm): precomputed patch embeddings merged into sequence
     frontend_dim: Optional[int] = None
@@ -128,9 +132,24 @@ def tree_map(fn: Callable, *trees):
     return fn(*trees)
 
 
+def tree_leaves(tree) -> List[Any]:
+    """The leaves of nested dicts, in ``tree_map``'s order."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in tree_leaves(tree[k])]
+    return [tree]
+
+
 def _period(tree, i: int):
     """Period ``i`` of a stacked tree (views, no copies)."""
     return tree_map(lambda a: a[i], tree)
+
+
+def _unstack(tree, n: int) -> List[Any]:
+    """All ``n`` periods of a stacked tree, as views from one ``unbind``
+    per leaf: the backward stacks each leaf's period grads once, where
+    ``n`` separate selects would each add a zero-filled full-size grad."""
+    parts = tree_map(lambda a: a.unbind(0), tree)
+    return [tree_map(lambda t: t[i], parts) for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -149,13 +168,15 @@ def _apply_norm(cfg: LMConfig, p, x):
 
 
 def _init_layer(gen: torch.Generator, cfg: LMConfig, spec: LayerSpec):
-    if spec.mixer != "attn" or spec.ffn == "moe":
-        raise NotImplementedError(
-            f"{spec.mixer}/{spec.ffn} layers are not ported yet")
+    if spec.ffn == "moe":
+        raise NotImplementedError("moe layers are not ported yet")
     dev = gen.device
     p: Dict[str, Any] = {"ln1": _init_norm_kind(cfg, cfg.d_model, dev)}
-    p["attn"] = A.init_attention(gen, cfg.attn_cfg(spec.window),
-                                 dtype=cfg.dtype)
+    if spec.mixer == "attn":
+        p["attn"] = A.init_attention(gen, cfg.attn_cfg(spec.window),
+                                     dtype=cfg.dtype)
+    else:
+        p["ssm"] = S.init_ssm(gen, cfg.ssm_cfg, dtype=cfg.dtype)
     if cfg.post_norm:
         p["pn1"] = _init_norm_kind(cfg, cfg.d_model, dev)
     if spec.ffn != "none":
@@ -236,6 +257,78 @@ def param_counts(cfg: LMConfig) -> Dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
+# Training: forward and loss
+# ---------------------------------------------------------------------------
+
+def _apply_layer(p, x, cfg: LMConfig, spec: LayerSpec, backend: str):
+    h = _apply_norm(cfg, p["ln1"], x)
+    if spec.mixer == "attn":
+        h = A.attention_sp(p["attn"], h, cfg.attn_cfg(spec.window),
+                           backend=backend, causal=True)
+    else:
+        h = S.ssm_block(p["ssm"], h, cfg.ssm_cfg, backend=backend)
+    if cfg.post_norm:
+        h = _apply_norm(cfg, p["pn1"], h)
+    return _ffn_block(p, x + h, cfg, spec)
+
+
+def forward(params, tokens, cfg: LMConfig, *, backend: str = "kernel",
+            remat: bool = True):
+    """tokens: (B, S) -> final hidden states (B, S, C).  ``remat``
+    checkpoints each period and recomputes it in the backward (JAX's
+    ``remat_policy="full"``), so the backward runs every period's forward
+    once more.  The JAX forward's MoE load-balance aux comes with MoE."""
+    specs = cfg.period_specs()
+    x = L.embed(params["embed"], tokens, scale_by_sqrt_dim=cfg.embed_scale)
+
+    def period_body(x, pp):
+        for j, spec in enumerate(specs):
+            x = _apply_layer(pp[str(j)], x, cfg, spec, backend)
+        return x
+
+    for pp in _unstack(params["periods"], cfg.n_periods):
+        if remat:
+            x = checkpoint(period_body, x, pp, use_reentrant=False)
+        else:
+            x = period_body(x, pp)
+    return _apply_norm(cfg, params["final_norm"], x)
+
+
+def chunked_xent(x, table, labels, cfg: LMConfig, *, chunk: int = 512):
+    """Mean cross-entropy without materialising (B, S, V): a loop over S
+    chunks, each checkpointed so its logits are recomputed in the
+    backward.  Logits are a matmul in the model dtype, upcast to f32."""
+    b, s, _ = x.shape
+    chunk = min(chunk, max(s, 1))
+    while s % chunk:
+        chunk //= 2
+
+    def one(xc, lc):
+        logits = (xc @ table.t()).float()
+        logits = L.softcap_logits(logits, cfg.final_softcap)
+        lz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+        return torch.sum(lz - gold)
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, chunk):
+        total = total + checkpoint(one, x[:, i:i + chunk],
+                                   labels[:, i:i + chunk],
+                                   use_reentrant=False)
+    return total / (b * s)
+
+
+def lm_loss(params, batch, cfg: LMConfig, *, backend: str = "kernel",
+            remat: bool = True):
+    """batch {"tokens", "labels"}: (B, S) -> (loss, {"xent": loss})."""
+    x = forward(params, batch["tokens"], cfg, backend=backend, remat=remat)
+    table = (params["embed"]["table"] if cfg.tie_embeddings
+             else params["unembed"]["table"])
+    loss = chunked_xent(x, table, batch["labels"], cfg)
+    return loss, {"xent": loss}
+
+
+# ---------------------------------------------------------------------------
 # Serving: prefill + incremental decode
 # ---------------------------------------------------------------------------
 
@@ -313,6 +406,8 @@ def forward_prefill(params, tokens, cfg: LMConfig, *,
     """Full-sequence prefill: returns (last-position logits (B, 1, V),
     caches with pos = S).  Cache length == prompt length."""
     specs = cfg.period_specs()
+    if any(spec.mixer != "attn" for spec in specs):
+        raise NotImplementedError("serving SSM layers is not ported yet")
     b, s = tokens.shape
     x = L.embed(params["embed"], tokens, scale_by_sqrt_dim=cfg.embed_scale)
     kv_dtype = cfg.cache_dtype or cfg.dtype

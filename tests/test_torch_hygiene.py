@@ -26,7 +26,9 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(mods), bad)
 assert not bad, bad
-assert "repro_torch.serving.scheduler" in mods, mods
+for want in ("repro_torch.serving.scheduler", "repro_torch.train.trainer",
+             "repro_torch.kernels.ssd_scan"):
+    assert want in mods, (want, mods)
 """
 
 
@@ -60,3 +62,26 @@ def test_serve_cli_defaults_to_cuda(no_cuda):
     from repro_torch.launch.serve import main
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--arch", "qwen3-14b"])
+
+
+def test_training_entry_points_default_to_cuda(no_cuda):
+    from repro_torch.configs import mamba2_370m
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch.train import main
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = mamba2_370m.SMOKE
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_lm(0, cfg)
+    params = lm.init_lm(0, cfg, device="cpu")
+    kw = dict(loss_fn=None, params=params, opt_cfg=OptConfig(),
+              cfg=TrainerConfig(), data_fn=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(**kw)
+    assert Trainer(device="cpu", **kw).device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_batch(DataConfig(), 0)
+    assert make_batch(DataConfig(), 0, device="cpu")["tokens"].device.type \
+        == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--arch", "mamba2-370m"])

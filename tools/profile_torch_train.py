@@ -1,0 +1,147 @@
+#!/usr/bin/env python3
+"""Where the port's training step goes on one GPU: mamba2-370m at full
+width.
+
+    python3 tools/profile_torch_train.py [--depth 48] [--batch 8] [--seq 4096]
+
+Runs one warm-up step and then one AdamW step of ``make_train_step``
+(loss and grads through the SSD kernel, checkpointed periods, then the
+optimizer) under ``torch.profiler``, and prints the device time by kernel
+group (the SSD scan kernel, matmuls, the rest), the top kernels, the top
+operators by the device time of the kernels they launched themselves
+(forward ops as ``aten::*``, backward ops under the autograd node that ran
+them), and the device busy share (device kernel time over host wall time,
+both after a synchronize).  Then it times one layer's SSD scan at the
+same shape, forward (the kernel) and backward (the f32 chunked reference)
+apart, with CUDA events.  Random weights from seed 0 and lm_shift batches,
+as in ``chip_smoke.py``.
+"""
+import argparse
+import dataclasses
+import json
+import os
+import re
+import sys
+import time
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "..", "src"))
+
+import torch  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+from repro_torch.configs import mamba2_370m  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, make_batch  # noqa: E402
+from repro_torch.kernels.ops import ssd_scan  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.optim.adamw import OptConfig, init_opt_state  # noqa: E402
+from repro_torch.train.trainer import make_train_step  # noqa: E402
+
+GROUPS = [("ssd_scan", re.compile(r"ssd_scan")),
+          ("matmul", re.compile(r"gemm|xmma|nvjet|cutlass|sm90_|cublas",
+                                re.I))]
+
+
+def group_of(name: str) -> str:
+    for g, pat in GROUPS:
+        if pat.search(name):
+            return g
+    return "other"
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--depth", type=int, default=48)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=4096)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_train: CUDA is not available")
+    cfg = dataclasses.replace(mamba2_370m.CONFIG, n_layers=args.depth)
+    params = lm.init_lm(0, cfg, device="cuda")
+    ocfg = OptConfig(peak_lr=3e-4, warmup_steps=2, total_steps=10)
+    state = init_opt_state(params, ocfg)
+    step = make_train_step(lambda p, b: lm.lm_loss(p, b, cfg), ocfg)
+    dcfg = DataConfig(task="lm_shift", vocab=cfg.vocab, seq=args.seq,
+                      batch=args.batch)
+    params, state, _ = step(params, state, make_batch(dcfg, 0))   # warm up
+    batch = make_batch(dcfg, 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, counts, ops = {}, {}, {}
+    for ev in prof.key_averages():
+        dev_us = ev.self_device_time_total
+        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us / 1e3
+            counts[ev.key] = counts.get(ev.key, 0) + ev.count
+        elif dev_us > 0:
+            ops[ev.key] = ops.get(ev.key, 0.0) + dev_us / 1e3
+    groups = {}
+    for k, ms in kernels.items():
+        groups[group_of(k)] = groups.get(group_of(k), 0.0) + ms
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    top_ops = sorted(ops.items(), key=lambda kv: -kv[1])[:15]
+    print(json.dumps({
+        "region": f"train_step_d{args.depth}_b{args.batch}_s{args.seq}",
+        "loss": float(metrics["loss"]), "wall_ms": wall_ms,
+        "device_ms": busy, "device_busy_share": busy / wall_ms,
+        "groups_ms": groups, "kernel_launches": sum(counts.values()),
+        "top_kernels_ms": [[k[:80], ms, counts[k]] for k, ms in top],
+        "top_ops_self_device_ms": [[k[:80], ms] for k, ms in top_ops]}),
+        flush=True)
+    del params, state, batch
+    torch.cuda.empty_cache()
+    ssd_layer(cfg, args.batch, args.seq)
+
+
+def ssd_layer(cfg, batch: int, seq: int) -> None:
+    """One layer's SSD scan at the step's shape: the kernel forward, and
+    the backward through the f32 chunked reference, timed apart."""
+    sc = cfg.ssm_cfg
+    g = torch.Generator(device="cuda").manual_seed(0)
+    h, p, s = sc.n_heads, sc.head_dim, sc.d_state
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    x = r(batch, seq, h, p).to(cfg.dtype).requires_grad_(True)
+    dt = torch.nn.functional.softplus(r(batch, seq, h)).to(cfg.dtype)
+    dt.requires_grad_(True)
+    a = (-torch.exp(0.5 * r(h))).requires_grad_(True)
+    bm = r(batch, seq, sc.n_groups, s).to(cfg.dtype).requires_grad_(True)
+    cm = r(batch, seq, sc.n_groups, s).to(cfg.dtype).requires_grad_(True)
+    d = torch.ones(h, device="cuda", requires_grad=True)
+    cot = r(batch, seq, h, p).to(cfg.dtype)
+
+    def fwd():
+        return ssd_scan(x, dt, a, bm, cm, d, chunk=sc.chunk)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (x, dt, a, bm, cm, d), cot)
+
+    out = {}
+    for name, fn in (("forward_ms", fwd), ("forward_backward_ms", fwd_bwd)):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out[name] = start.elapsed_time(end) / 3
+        out[name.replace("_ms", "_peak_gb")] = (
+            torch.cuda.max_memory_allocated() / 1e9)
+    print(json.dumps({"region": f"ssd_scan_one_layer_b{batch}_s{seq}",
+                      **out}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
