@@ -10,16 +10,20 @@ Phases, in order; any failure raises and exits non-zero:
    ``nvcc`` per source, all started together);
 3. each kernel against its plain PyTorch version on the card: flash
    attention (K1) over its test cases and every shape the served trace
-   gives it; the SSD scan (K2) over its test cases, the training slice's
-   full-width shape and a ragged length at that width (bf16 and f32);
+   gives it, logging the route each case took (``sm90`` for bf16 at head
+   dims 64 and 128, ``cuda_cores`` otherwise); the SSD scan (K2) over its
+   test cases, the training slice's full-width shape and a ragged length
+   at that width (bf16 and f32);
 4. time each kernel, its plain version and, where one exists, one PyTorch
    library call that computes the same function (a yardstick the port
-   never calls);
+   never calls); K1 on both routes, its routed kernel and the library call
+   three times each in turns (medians);
 5. qwen3-14b at full width, random weights from a seeded generator:
    at depth 2, prefill logits through the kernel against the plain path
    at the longest prompt and at a ragged one;
    at depth 40, eight requests through ``ContinuousScheduler`` with every
-   launch counter set to 0 just before and read just after;
+   launch counter set to 0 just before and read just after; every K1
+   launch must take the ``sm90`` route;
 6. the serve CLI (``repro_torch.launch.serve``) at SMOKE size;
 7. mamba2-370m at full width, random weights from a seeded generator:
    at depth 2, ``lm_loss`` and every gradient through the kernel against
@@ -34,6 +38,7 @@ Phases, in order; any failure raises and exits non-zero:
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -49,7 +54,7 @@ from repro_torch.configs import mamba2_370m, qwen3_14b  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, make_batch  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_fwd, flash_attention_plain)
+    ROUTES, flash_attention_fwd, flash_attention_plain, reset_launches)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_scan_fwd, ssd_scan_plain)
 from repro_torch.models import lm  # noqa: E402
@@ -134,18 +139,33 @@ def attn_kw(case, q_offset=None):
                 q_offset=q_offset)
 
 
+def attn_worst_share(got, want, dtype) -> float:
+    """The largest share of K1's bar ``TOL[dtype]`` over the output: per
+    (b, h, row), |delta| <= rel * the row's max |plain| + abs."""
+    want_f = want.float()
+    diff = (got.float() - want_f).abs()
+    rel, atol = TOL[dtype]
+    bar = rel * want_f.abs().amax(dim=-1, keepdim=True) + atol
+    return float((diff / bar).max())
+
+
 def check_attention(case, dtype, seed, q_offset=None) -> float:
+    """K1 against flash_attention_plain under ``attn_worst_share``'s bar,
+    on the route ``ROUTES`` gives the case; the launch must take it."""
     q, k, v = attn_inputs(case, dtype, seed)
     kw = attn_kw(case, q_offset)
+    route = ROUTES[(dtype, case[5])]
+    before = flash_attention_fwd.route_launches[route]
     got = flash_attention_fwd(q, k, v, **kw)
     torch.cuda.synchronize()
-    want = flash_attention_plain(q, k, v, **kw).float()
-    diff = (got.float() - want).abs()
-    rel, atol = TOL[dtype]
-    bar = rel * want.abs().amax(dim=-1, keepdim=True) + atol
-    err, worst = float(diff.max()), float((diff / bar).max())
-    log(f"  {tuple(case)} {str(dtype)[6:]} q_offset={kw['q_offset']}: "
-        f"max |kernel - plain| = {err:.3e} ({worst:.3f} of the bar)")
+    if flash_attention_fwd.route_launches[route] != before + 1:
+        raise AssertionError(f"{case} {dtype} did not take route {route}")
+    want = flash_attention_plain(q, k, v, **kw)
+    err = float((got.float() - want.float()).abs().max())
+    worst = attn_worst_share(got, want, dtype)
+    log(f"  {tuple(case)} {str(dtype)[6:]} q_offset={kw['q_offset']} "
+        f"route={route}: max |kernel - plain| = {err:.3e} ({worst:.3f} of "
+        f"the bar)")
     if not worst <= 1.0:
         raise AssertionError(f"flash_attention disagrees with its plain "
                              f"version: {worst} of the bar {TOL[dtype]}")
@@ -258,6 +278,22 @@ def ssd_bound_ms(case, dtype) -> dict:
             "flops": flops, "bytes": nbytes}
 
 
+def ptxas_report(log_text: str) -> list:
+    """``-Xptxas -v``'s registers and spills (and any warning), one line
+    per kernel instantiation, named by its mangled symbol's tail."""
+    out, entry = [], "?"
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            entry = entry[entry.find("flash_fwd"):] if "flash_fwd" in entry \
+                else entry[-48:]
+        elif "registers" in line or "spill" in line or "arning" in line:
+            out.append(f"{entry.split('EEEv')[0]}: "
+                       f"{line.replace('ptxas info    :', '').strip()}")
+    return out
+
+
 def sdpa(q, k, v):
     return F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                           enable_gqa=True)
@@ -313,18 +349,22 @@ def full_width_serve(cfg, device="cuda") -> dict:
     sched = ContinuousScheduler(eng, max_batch=MAX_BATCH)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention_fwd.launches = 0
+    reset_launches()
     eng.serve(reqs, continuous=True, scheduler=sched)
     torch.cuda.synchronize()
     launches = flash_attention_fwd.launches
+    routes = dict(flash_attention_fwd.route_launches)
     summary = sched.metrics.summary()
     summary["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     prefills = summary["prefills"]
     log(f"  launches: flash_attention_fwd {launches} over {prefills} "
-        f"prefills of {cfg.n_layers} layers")
+        f"prefills of {cfg.n_layers} layers, by route {routes}")
     if launches != cfg.n_layers * prefills or prefills != N_REQUESTS:
         raise AssertionError(f"flash_attention launched {launches} times, "
                              f"expected {cfg.n_layers} x {N_REQUESTS}")
+    if routes["sm90"] != launches:
+        raise AssertionError(f"not every prefill launch took the sm90 "
+                             f"route: {routes}")
     for r in reqs:
         if r.result is None or len(r.generated) != NEW_TOKENS:
             raise AssertionError(f"request {r.request_id} did not finish "
@@ -423,7 +463,7 @@ def full_width_train(cfg, device="cuda") -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ssd_scan_fwd.launches = 0
-    flash_attention_fwd.launches = 0
+    reset_launches()
     out = trainer.run()
     torch.cuda.synchronize()
     launches = ssd_scan_fwd.launches
@@ -473,9 +513,8 @@ def main() -> None:
     log(f"  built {sorted(report) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, r in report.items():
-        for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for line in ptxas_report(r["log"]):
+            log(f"  {name}: {line}")
 
     log("[3] kernels against their plain versions")
     for i, case in enumerate(ATTN_CASES):
@@ -497,14 +536,27 @@ def main() -> None:
     log("[4] timing at the slice's shape, bf16")
     q, k, v = attn_inputs(SLICE, torch.bfloat16, seed=7)
     kw = attn_kw(SLICE)
-    ms = time_ms(lambda: flash_attention_fwd(q, k, v, **kw), iters=20)
+    route = ROUTES[(torch.bfloat16, SLICE[5])]
+    # the kernel and the library call in turns (k, l, l, k, k, l): medians
+    runs = {"kernel": [], "library": []}
+    for who in ("kernel", "library", "library", "kernel", "kernel",
+                "library"):
+        fn = ((lambda: flash_attention_fwd(q, k, v, **kw)) if who == "kernel"
+              else (lambda: sdpa(q, k, v)))
+        runs[who].append(time_ms(fn, iters=50))
+    ms, library_ms = (float(np.median(runs[w])) for w in ("kernel", "library"))
+    cuda_cores_ms = time_ms(lambda: flash_attention_fwd(
+        q, k, v, route="cuda_cores", **kw), iters=20)
     plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, **kw), iters=10)
-    library_ms = time_ms(lambda: sdpa(q, k, v), iters=50)
     bound = attention_bound_ms(SLICE, torch.bfloat16)
-    log(f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+    log(f"  kernel ({route}) runs {runs['kernel']}  library runs "
+        f"{runs['library']}")
+    log(f"  kernel ({route}) {ms:.4f} ms  cuda_cores kernel "
+        f"{cuda_cores_ms:.4f} ms  plain {plain_ms:.4f} ms  "
         f"scaled_dot_product_attention {library_ms:.4f} ms  "
         f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
-        f"{bound['flops']:.3e} FLOP, {bound['bytes']:.3e} B)")
+        f"{bound['flops']:.3e} FLOP, {bound['bytes']:.3e} B; the kernel "
+        f"at {bound['flops'] / ms / 1e9:.1f} TFLOP/s)")
     del q, k, v
     xdt, da, b, c = ssd_inputs(SSD_SLICE, torch.bfloat16, seed=8)
     ssd_ms = time_ms(lambda: ssd_scan_fwd(xdt, da, b, c, chunk=128),
@@ -546,11 +598,12 @@ def main() -> None:
     log(facts)
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:36",
         "launches": served["launches"], "max_abs_err": slice_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
-        "bound_by": bound["bound_by"], "library_ms": library_ms}, {
+        "bound_by": bound["bound_by"], "library_ms": library_ms,
+        "kernel_route": route, "cuda_cores_ms": cuda_cores_ms}, {
         "name": "ssd_scan_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:35",

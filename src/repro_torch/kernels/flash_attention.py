@@ -1,12 +1,17 @@
-"""Flash attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention forward: the CUDA kernels' wrapper and their plain version.
 
 Counterpart of ``repro.kernels.flash_attention`` (the Pallas TPU kernel
-``_flash_fwd_kernel``).  ``flash_attention_fwd`` launches
-``csrc/flash_attention.cu`` on CUDA tensors and counts its launches in
-``flash_attention_fwd.launches``; ``flash_attention_plain`` computes the
-same function in plain PyTorch with the kernel's semantics, including its
-one difference from ``ref.attention_ref``: a fully masked row outputs 0,
-not a uniform average of V.
+``_flash_fwd_kernel``).  Two CUDA kernels compute it, and ``ROUTES`` picks
+one by (dtype, head dim): ``"sm90"`` is ``csrc/flash_attention_sm90.cu``
+(bf16 on the tensor cores, wgmma fed by TMA) and ``"cuda_cores"`` is
+``csrc/flash_attention.cu`` (f32 FMAs; f32 stays there, since the tensor
+cores would compute in TF32 and miss its 1e-4 bar).  ``flash_attention_fwd``
+launches the routed kernel on CUDA tensors and counts its launches in
+``flash_attention_fwd.launches`` and, by route, in
+``flash_attention_fwd.route_launches``.  ``flash_attention_plain`` computes
+the same function in plain PyTorch with the kernels' semantics, including
+their one difference from ``ref.attention_ref``: a fully masked row outputs
+0, not a uniform average of V.
 """
 from __future__ import annotations
 
@@ -19,6 +24,13 @@ from repro_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 64, 128, 160, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SM90_HEAD_DIMS = (64, 128)
+# (dtype, head dim) -> the kernel that takes it
+ROUTES = {(dtype, d): ("sm90" if dtype == torch.bfloat16
+                       and d in SM90_HEAD_DIMS else "cuda_cores")
+          for dtype in _DTYPES for d in HEAD_DIMS}
+# route -> its source in csrc/, which also prefixes its C entry points
+_KERNELS = {"sm90": "flash_attention_sm90", "cuda_cores": "flash_attention"}
 
 
 def _mask(sq: int, skv: int, *, causal: bool, window: Optional[int],
@@ -87,27 +99,44 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("q, k and v must lie on one device")
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("flash_attention")
-    fn = lib.flash_attention_fwd
+def _entry(route: str):
+    """The routed kernel's launch function and error-string function."""
+    name = _KERNELS[route]
+    lib = build.load(name)
+    fn, err = getattr(lib, f"{name}_fwd"), getattr(lib, f"{name}_error_string")
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-    lib.flash_attention_error_string.restype = ctypes.c_char_p
-    return lib
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return fn, err
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = False, window: Optional[int] = None,
                         softcap: Optional[float] = None,
                         scale: Optional[float] = None,
-                        q_offset: int = 0) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream: q (B, Hq, Sq, D),
+                        q_offset: int = 0,
+                        route: Optional[str] = None) -> torch.Tensor:
+    """Launch a CUDA kernel on the current stream: q (B, Hq, Sq, D),
     k/v (B, Hkv, Skv, D), contiguous, float32 or bfloat16 on one card.
-    Raises on anything the kernel does not take, and if the launch fails."""
+    ``route`` defaults to ``ROUTES[(dtype, D)]``; naming one runs that
+    kernel instead (to time one design against the other).  Raises on
+    anything the kernel does not take, and if the launch fails."""
     _check(q, k, v)
+    table = ROUTES[(q.dtype, q.shape[-1])]
+    route = table if route is None else route
+    if route not in _KERNELS:
+        raise ValueError(f"route {route!r} not in {sorted(_KERNELS)}")
+    if route == "sm90":
+        if table != "sm90":
+            raise ValueError(f"the sm90 kernel takes bfloat16 at head dims "
+                             f"{SM90_HEAD_DIMS}, got {q.dtype}, "
+                             f"{q.shape[-1]}")
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} is not 16-byte aligned (TMA)")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and softcap <= 0:
@@ -117,20 +146,26 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    lib = _lib()
+    fn, error_string = _entry(route)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], b, hq, hkv, sq, skv, d,
-            d ** -0.5 if scale is None else scale, int(causal),
-            0 if window is None else window,
-            0.0 if softcap is None else softcap, q_offset, stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 _DTYPES[q.dtype], b, hq, hkv, sq, skv, d,
+                 d ** -0.5 if scale is None else scale, int(causal),
+                 0 if window is None else window,
+                 0.0 if softcap is None else softcap, q_offset, stream)
     if err != 0:
-        msg = lib.flash_attention_error_string(err).decode()
-        raise RuntimeError(f"flash_attention kernel launch failed: {msg}")
+        raise RuntimeError(f"flash_attention {route} kernel launch failed: "
+                           f"{error_string(err).decode()}")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.route_launches[route] += 1
     return out
 
 
-flash_attention_fwd.launches = 0
+def reset_launches() -> None:
+    """Set the launch count and every route's count to 0."""
+    flash_attention_fwd.launches = 0
+    flash_attention_fwd.route_launches = {r: 0 for r in _KERNELS}
+
+
+reset_launches()

@@ -3,7 +3,9 @@ JAX package: the same numpy inputs through ``repro.kernels.ops.
 flash_attention`` (the Pallas kernel, interpret mode on CPU) and
 ``repro_torch.kernels.ops.flash_attention`` (a CPU tensor takes the CUDA
 kernel's plain version).  Tolerances as in tests/test_kernels.py: f32 sums
-differ only in order (2e-5), bf16 outputs round once (2e-2)."""
+differ only in order (2e-5), bf16 outputs round once (2e-2).  Also the route
+table between the two CUDA kernels, their build names, and what
+chip_smoke.py's bf16 bar catches in the tensor-core kernel's arithmetic."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +14,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                  flash_attention_plain)
@@ -122,3 +125,142 @@ def test_build_names_libraries_by_source_hash(monkeypatch, tmp_path):
     monkeypatch.setattr(build.os.path, "isfile", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.nvcc()
+
+
+# ---------------------------------------------------------------------------
+# Routing between the two CUDA kernels, and what the bf16 bar discriminates
+# for the tensor-core design
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_route_table_sends_bf16_at_64_and_128_to_sm90(dtype, d):
+    want = ("sm90" if dtype == torch.bfloat16 and d in (64, 128)
+            else "cuda_cores")
+    assert fa.ROUTES[(dtype, d)] == want
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
+                                     (torch.bfloat16, 128),
+                                     (torch.float32, 128)])
+def test_kernel_wrapper_refuses_cpu_tensors_on_every_route(dtype, d):
+    """Either route launches its CUDA kernel or raises; neither computes on
+    the CPU, and a refused call counts no launch."""
+    _, (tq, tk, tv) = _both(_inputs(1, 2, 1, 8, 8, d), jnp.float32, dtype)
+    before = dict(fa.flash_attention_fwd.route_launches)
+    for route in (None, "sm90", "cuda_cores"):
+        with pytest.raises(ValueError, match="CUDA"):
+            flash_attention_fwd(tq, tk, tv, causal=True, route=route)
+    assert fa.flash_attention_fwd.route_launches == before
+
+
+def test_reset_launches_zeroes_the_total_and_every_route():
+    fa.flash_attention_fwd.launches = 3
+    fa.flash_attention_fwd.route_launches["sm90"] = 3
+    fa.reset_launches()
+    assert fa.flash_attention_fwd.launches == 0
+    assert fa.flash_attention_fwd.route_launches == {"sm90": 0,
+                                                     "cuda_cores": 0}
+
+
+def test_build_names_the_sm90_library_by_source_hash(monkeypatch, tmp_path):
+    from repro_torch.kernels import build
+    assert (build.CSRC / "flash_attention_sm90.cu").is_file()
+    path = build.lib_path("flash_attention_sm90")
+    assert path.name.startswith("libflash_attention_sm90-")
+    assert path.parent == build.BUILD_DIR and path.suffix == ".so"
+    assert path == build.lib_path("flash_attention_sm90")
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for f in build.CSRC.iterdir():
+        (src / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", src)
+    assert build.lib_path("flash_attention_sm90") == path
+    (src / "flash_attention_sm90.cu").write_text("// edited\n")
+    assert build.lib_path("flash_attention_sm90") != path
+
+
+def _sm90_emulation(q, k, v, *, causal=False, window=None, softcap=None,
+                    q_offset=0, bk=128, drop_tile=None, causal_shift=0):
+    """The sm90 kernel's arithmetic in plain PyTorch: bf16 inputs, online
+    softmax over BK-wide key tiles in f32, P rounded to bf16 before P V,
+    f32 accumulation, one division by l at the end, bf16 out.
+    ``drop_tile`` skips one key tile and ``causal_shift`` moves the causal
+    edge: both are faults the bar must catch."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, hkv, hq // hkv, sq, d)
+    kf, vf = k.float(), v.float()
+    qpos = (q_offset + torch.arange(sq))[:, None]
+    m = torch.full((b, hkv, hq // hkv, sq, 1), float("-inf"))
+    l = torch.zeros_like(m)
+    o = torch.zeros_like(qf)
+    for t, k0 in enumerate(range(0, skv, bk)):
+        if t == drop_tile:
+            continue
+        kt, vt = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kt) * d ** -0.5
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        kpos = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        vis = torch.ones(sq, kt.shape[2], dtype=torch.bool)
+        if causal:
+            vis &= kpos <= qpos + causal_shift
+        if window is not None:
+            vis &= kpos > qpos - window
+        s = s.masked_fill(~vis, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        m_use = torch.where(torch.isinf(m_new), torch.zeros_like(m_new),
+                            m_new)
+        alpha = torch.exp(m - m_use)
+        p = torch.exp(s - m_use)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + torch.einsum("bhgqk,bhkd->bhgqd",
+                                     p.bfloat16().float(), vt)
+        m = m_new
+    o = o / torch.where(l == 0, torch.ones_like(l), l)
+    return o.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def _bf16_case(case, seed):
+    b, hq, hkv, sq, skv, d, causal, window, softcap = case
+    _, (tq, tk, tv) = _both(_inputs(b, hq, hkv, sq, skv, d, seed),
+                            jnp.float32, torch.bfloat16)
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              q_offset=skv - sq if causal else 0)
+    return (tq, tk, tv), kw
+
+
+# qwen3-14b prefill layers at three of the served prompt lengths (the
+# longest, a ragged one, the shortest), narrowed from 40/8 heads to 2/1
+SERVED_NARROW = [(1, 2, 1, s, s, 128, True, None, None)
+                 for s in (2048, 1389, 512)]
+
+
+@pytest.mark.parametrize("case", SERVED_NARROW + list(ATTN_CASES))
+def test_chip_smoke_attention_bar_passes_the_sm90_arithmetic(case):
+    """Rounding P to bf16 before P V, the one rounding the sm90 kernel adds
+    to the plain version's, stays under half of chip_smoke's unchanged bf16
+    bar: the outputs differ by at most the one-ulp flip of their final
+    rounding, which reads just under 0.5 of the bar (two ulps of the row's
+    max), and never by a second ulp."""
+    import chip_smoke
+    (tq, tk, tv), kw = _bf16_case(case, seed=11)
+    want = flash_attention_plain(tq, tk, tv, **kw)
+    got = _sm90_emulation(tq, tk, tv, **kw)
+    assert chip_smoke.attn_worst_share(got, want, torch.bfloat16) < 0.5
+
+
+@pytest.mark.parametrize("fault", [dict(drop_tile=0), dict(drop_tile=7),
+                                   dict(causal_shift=-1),
+                                   dict(causal_shift=1)])
+def test_chip_smoke_attention_bar_catches_a_dropped_tile_or_shifted_mask(
+        fault):
+    """The same arithmetic with one key tile dropped, or the causal edge
+    one key off, exceeds the bar at the longest served shape by a clear
+    factor."""
+    import chip_smoke
+    (tq, tk, tv), kw = _bf16_case(SERVED_NARROW[0], seed=12)
+    want = flash_attention_plain(tq, tk, tv, **kw)
+    got = _sm90_emulation(tq, tk, tv, **kw, **fault)
+    assert chip_smoke.attn_worst_share(got, want, torch.bfloat16) > 10

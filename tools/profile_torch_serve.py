@@ -5,10 +5,11 @@
 
 Runs one prefill of ``--prompt-len`` tokens and ``--steps`` decode steps of
 a ``--batch``-slot pool under ``torch.profiler``, then prints the device
-time by kernel group (the flash-attention kernel, matmuls, the rest), the
-top kernels, and the device busy share of each region (device kernel time
-over host wall time, both after a synchronize).  Random weights from seed
-0, as in ``chip_smoke.py``.
+time by kernel group (the flash-attention kernels, matmuls, the rest), the
+top kernels, the device busy share of each region (device kernel time
+over host wall time, both after a synchronize), and the prefill's
+flash-attention launches by route (``sm90`` or ``cuda_cores``).  Random
+weights from seed 0, as in ``chip_smoke.py``.
 """
 import argparse
 import json
@@ -24,6 +25,8 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch.configs import qwen3_14b  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_fwd, reset_launches)
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.kv_pool import KVPool  # noqa: E402
@@ -83,7 +86,10 @@ def main(argv=None):
     prompt = torch.randint(0, cfg.vocab, (1, args.prompt_len), generator=g,
                            device="cuda")
     eng._prefill(prompt[:, :256])                       # warm up
+    reset_launches()
     region(f"prefill_{args.prompt_len}", lambda: eng._prefill(prompt))
+    print(json.dumps({"flash_attention_launches_by_route":
+                      flash_attention_fwd.route_launches}), flush=True)
     _, caches = eng._prefill(prompt)
     pool = KVPool(cfg, args.batch, max_len, device="cuda")
     for slot in range(args.batch):
