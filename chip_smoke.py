@@ -8,16 +8,19 @@ Phases, in order; any failure raises and exits non-zero:
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together);
-3. each kernel against its plain PyTorch version on the card: flash
-   attention (K1) over its test cases and every shape the served trace
-   gives it, logging the route each case took (``sm90`` for bf16 at head
-   dims 64 and 128, ``cuda_cores`` otherwise); the SSD scan (K2) over its
-   test cases, the training slice's full-width shape and a ragged length
-   at that width (bf16 and f32);
+3. each kernel against its plain PyTorch version on the card, logging
+   the route each case took: flash attention (K1) over its test cases and
+   every shape the served trace gives it (``sm90`` for bf16 at head dims
+   64 and 128, ``cuda_cores`` otherwise); the SSD scan (K2) over its test
+   cases, the training slice's full-width shape and a ragged length at
+   that width, one row, a part chunk and two B/C groups (``sm90`` for
+   bf16 at P 64, S 128, chunk 128, ``cuda_cores`` otherwise), and the
+   slice on ``cuda_cores`` in bf16 too;
 4. time each kernel, its plain version and, where one exists, one PyTorch
    library call that computes the same function (a yardstick the port
-   never calls); K1 on both routes, its routed kernel and the library call
-   three times each in turns (medians);
+   never calls); K1's routed kernel and the library call three times each
+   in turns (medians), and its ``cuda_cores`` kernel; K2 on ``sm90`` and
+   on ``cuda_cores`` three times each in turns (medians);
 5. qwen3-14b at full width, random weights from a seeded generator:
    at depth 2, prefill logits through the kernel against the plain path
    at the longest prompt and at a ragged one;
@@ -29,7 +32,8 @@ Phases, in order; any failure raises and exits non-zero:
    at depth 2, ``lm_loss`` and every gradient through the kernel against
    the plain path; at depth 48, six AdamW steps of the port's ``Trainer``
    at batch 8 x 4096 tokens, with the launch counters set to 0 just
-   before and read just after;
+   before and read just after; every K2 launch must take the ``sm90``
+   route;
 8. the train CLI (``repro_torch.launch.train``) at SMOKE size, where the
    loss must fall;
 9. a ``{"kernels": [...]}`` line, then the last line
@@ -56,6 +60,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     ROUTES, flash_attention_fwd, flash_attention_plain, reset_launches)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    reset_launches as reset_ssd_launches, route_for as ssd_route,
     ssd_scan_fwd, ssd_scan_plain)
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.optim.adamw import OptConfig  # noqa: E402
@@ -94,6 +99,9 @@ SSD_CASES = [
 # batch 8; and a ragged length at the same width
 SSD_SLICE = (8, 4096, 32, 64, 1, 128, 128)
 SSD_RAGGED = (8, 4000, 32, 64, 1, 128, 128)
+# more of the sm90 route in bf16: one row, a part chunk, two B/C groups
+SSD_SM90_EDGES = [(2, 1, 4, 64, 1, 128, 128), (2, 100, 4, 64, 1, 128, 128),
+                  (2, 1000, 4, 64, 2, 128, 128)]
 # mamba2 depth-2 loss and grads, kernel against plain: the loss's
 # |delta| / |loss| and every grad leaf's max |delta| / max |plain|
 LOSS_BAR, GRAD_BAR = 1e-4, 2e-2
@@ -242,17 +250,23 @@ def ssd_worst_share(got, want) -> float:
     return float((diff / bar).max())
 
 
-def check_ssd(case, dtype, seed) -> float:
-    """K2 against ssd_scan_plain under ``ssd_worst_share``'s bar."""
+def check_ssd(case, dtype, seed, route=None) -> float:
+    """K2 against ssd_scan_plain under ``ssd_worst_share``'s bar, on
+    ``route`` or, by default, the route ``ssd_route`` gives the case; the
+    launch must take it."""
     xdt, da, b, c = ssd_inputs(case, dtype, seed)
-    chunk = case[-1]
-    got = ssd_scan_fwd(xdt, da, b, c, chunk=chunk)
+    _, _, _, p, _, s, chunk = case
+    route = route or ssd_route(dtype, p, s, chunk)
+    before = ssd_scan_fwd.route_launches[route]
+    got = ssd_scan_fwd(xdt, da, b, c, chunk=chunk, route=route)
     torch.cuda.synchronize()
+    if ssd_scan_fwd.route_launches[route] != before + 1:
+        raise AssertionError(f"ssd {case} {dtype} did not take route {route}")
     want = ssd_scan_plain(xdt, da, b, c, chunk=chunk)
     err = float((got.float() - want.float()).abs().max())
     worst = ssd_worst_share(got, want)
-    log(f"  ssd {tuple(case)} {str(dtype)[6:]}: max |kernel - plain| = "
-        f"{err:.3e} ({worst:.3f} of the bar)")
+    log(f"  ssd {tuple(case)} {str(dtype)[6:]} route={route}: max |kernel "
+        f"- plain| = {err:.3e} ({worst:.3f} of the bar)")
     if not worst <= 1.0:
         raise AssertionError(f"ssd_scan disagrees with its plain version at "
                              f"{case} {dtype}: {worst} of the bar")
@@ -286,8 +300,8 @@ def ptxas_report(log_text: str) -> list:
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             entry = m.group(1)
-            entry = entry[entry.find("flash_fwd"):] if "flash_fwd" in entry \
-                else entry[-48:]
+            tags = [t for t in ("flash_fwd", "ssd_scan") if t in entry]
+            entry = entry[entry.rfind(tags[0]):] if tags else entry[-48:]
         elif "registers" in line or "spill" in line or "arning" in line:
             out.append(f"{entry.split('EEEv')[0]}: "
                        f"{line.replace('ptxas info    :', '').strip()}")
@@ -462,11 +476,12 @@ def full_width_train(cfg, device="cuda") -> dict:
     trainer.step_fn = timed
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ssd_scan_fwd.launches = 0
+    reset_ssd_launches()
     reset_launches()
     out = trainer.run()
     torch.cuda.synchronize()
     launches = ssd_scan_fwd.launches
+    routes = dict(ssd_scan_fwd.route_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for i, st in enumerate(steps):
         log(f"  step {i + 1}: loss {st['loss']:.6f}  grad norm "
@@ -480,12 +495,15 @@ def full_width_train(cfg, device="cuda") -> dict:
                "losses": [st["loss"] for st in steps],
                "grad_norms": [st["grad_norm"] for st in steps]}
     log(f"  launches: ssd_scan_fwd {launches} over {TRAIN_STEPS} steps of "
-        f"{cfg.n_layers} layers (forward + checkpointed recompute); "
-        f"flash_attention_fwd {flash_attention_fwd.launches}")
+        f"{cfg.n_layers} layers (forward + checkpointed recompute), by route "
+        f"{routes}; flash_attention_fwd {flash_attention_fwd.launches}")
     log("  metrics " + json.dumps(summary, sort_keys=True))
     if launches != 2 * cfg.n_layers * TRAIN_STEPS:
         raise AssertionError(f"ssd_scan launched {launches} times, expected "
                              f"2 x {cfg.n_layers} x {TRAIN_STEPS}")
+    if routes["sm90"] != launches:
+        raise AssertionError(f"not every training launch of ssd_scan took "
+                             f"the sm90 route: {routes}")
     if len(out["history"]) != TRAIN_STEPS or not all(
             np.isfinite(st["loss"]) and np.isfinite(st["grad_norm"])
             for st in steps):
@@ -530,6 +548,9 @@ def main() -> None:
             check_ssd(case, dtype, seed=200 + i)
     ssd_err = check_ssd(SSD_SLICE, torch.bfloat16, seed=210)
     check_ssd(SSD_RAGGED, torch.bfloat16, seed=211)
+    for i, case in enumerate(SSD_SM90_EDGES):
+        check_ssd(case, torch.bfloat16, seed=213 + i)
+    check_ssd(SSD_SLICE, torch.bfloat16, seed=210, route="cuda_cores")
     for case in (SSD_SLICE, SSD_RAGGED):
         check_ssd(case, torch.float32, seed=212)
 
@@ -559,15 +580,28 @@ def main() -> None:
         f"at {bound['flops'] / ms / 1e9:.1f} TFLOP/s)")
     del q, k, v
     xdt, da, b, c = ssd_inputs(SSD_SLICE, torch.bfloat16, seed=8)
-    ssd_ms = time_ms(lambda: ssd_scan_fwd(xdt, da, b, c, chunk=128),
-                     iters=20)
+    ssd_route_slice = ssd_route(torch.bfloat16, SSD_SLICE[3], *SSD_SLICE[5:])
+    # the routed kernel and the cuda_cores one in turns: medians
+    ssd_runs = {ssd_route_slice: [], "cuda_cores": []}
+    for who in (ssd_route_slice, "cuda_cores", "cuda_cores",
+                ssd_route_slice, ssd_route_slice, "cuda_cores"):
+        ssd_runs[who].append(time_ms(
+            lambda: ssd_scan_fwd(xdt, da, b, c, chunk=128, route=who),
+            iters=20 if who == "sm90" else 5))
+    ssd_ms, ssd_cuda_cores_ms = (float(np.median(ssd_runs[w]))
+                                 for w in (ssd_route_slice, "cuda_cores"))
     ssd_plain_ms = time_ms(lambda: ssd_scan_plain(xdt, da, b, c, chunk=128),
                            iters=5)
     ssd_bound = ssd_bound_ms(SSD_SLICE, torch.bfloat16)
-    log(f"  ssd_scan kernel {ssd_ms:.4f} ms  plain {ssd_plain_ms:.4f} ms  "
+    log(f"  ssd_scan kernel ({ssd_route_slice}) runs "
+        f"{ssd_runs[ssd_route_slice]}  cuda_cores runs "
+        f"{ssd_runs['cuda_cores']}")
+    log(f"  ssd_scan kernel ({ssd_route_slice}) {ssd_ms:.4f} ms  cuda_cores "
+        f"kernel {ssd_cuda_cores_ms:.4f} ms  plain {ssd_plain_ms:.4f} ms  "
         f"library none  bound {ssd_bound['bound_ms']:.4f} ms "
         f"({ssd_bound['bound_by']}: {ssd_bound['flops']:.3e} FLOP, "
-        f"{ssd_bound['bytes']:.3e} B)")
+        f"{ssd_bound['bytes']:.3e} B; the kernel at "
+        f"{ssd_bound['bytes'] / ssd_ms / 1e6:.1f} GB/s)")
     del xdt, da, b, c
     torch.cuda.empty_cache()
 
@@ -605,12 +639,13 @@ def main() -> None:
         "bound_by": bound["bound_by"], "library_ms": library_ms,
         "kernel_route": route, "cuda_cores_ms": cuda_cores_ms}, {
         "name": "ssd_scan_fwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan_sm90.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:35",
         "launches": trained["launches"], "max_abs_err": ssd_err,
         "ms": ssd_ms, "plain_ms": ssd_plain_ms,
         "bound_ms": ssd_bound["bound_ms"], "bound_by": ssd_bound["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None, "kernel_route": ssd_route_slice,
+        "cuda_cores_ms": ssd_cuda_cores_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

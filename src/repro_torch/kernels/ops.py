@@ -62,13 +62,14 @@ class _SSDScan(torch.autograd.Function):
     def forward(ctx, x, dt, a, b, c, d_skip, chunk: int, plain: bool):
         ctx.chunk = chunk
         ctx.save_for_backward(x, dt, a, b, c, d_skip)
-        # kernel layout: (B, H, L, P) / (B, H, L) / (B, G, L, S)
-        xdt = (x * dt[..., None]).transpose(1, 2).contiguous()
-        da = (dt * a[None, None, :]).transpose(1, 2).contiguous()  # f32
-        bt = b.transpose(1, 2).contiguous()
-        ct = c.transpose(1, 2).contiguous()
+        # kernel layout (B, H, L, P) / (B, H, L) / (B, G, L, S) as views of
+        # the model's (B, L, ...) tensors: the sm90 kernel reads them through
+        # their strides, the others copy what they need
+        xdt = (x * dt[..., None]).transpose(1, 2)
+        da = (dt * a[None, None, :]).transpose(1, 2)               # f32
         scan = ssd_scan_plain if plain else ssd_scan_fwd
-        y = scan(xdt, da, bt, ct, chunk=chunk).transpose(1, 2)
+        y = scan(xdt, da, b.transpose(1, 2), c.transpose(1, 2),
+                 chunk=chunk).transpose(1, 2)
         if d_skip is not None:
             y = y + d_skip[None, None, :, None] * x
         return y.to(x.dtype)

@@ -10,11 +10,13 @@ optimizer) under ``torch.profiler``, and prints the device time by kernel
 group (the SSD scan kernel, matmuls, the rest), the top kernels, the top
 operators by the device time of the kernels they launched themselves
 (forward ops as ``aten::*``, backward ops under the autograd node that ran
-them), and the device busy share (device kernel time over host wall time,
-both after a synchronize).  Then it times one layer's SSD scan at the
-same shape, forward (the kernel) and backward (the f32 chunked reference)
-apart, with CUDA events.  Random weights from seed 0 and lm_shift batches,
-as in ``chip_smoke.py``.
+them), the device busy share (device kernel time over host wall time,
+both after a synchronize) and the SSD kernel's launches by route.  Then it
+times one layer's SSD scan at the same shape, forward (the kernel) and
+backward (the f32 chunked reference) apart, with CUDA events, on x, b and c
+sliced from one (B, L, d_inner + 2 G S) tensor as ``models/ssm.py`` slices
+them from the conv output.  Random weights from seed 0 and lm_shift
+batches, as in ``chip_smoke.py``.
 """
 import argparse
 import dataclasses
@@ -33,6 +35,8 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from repro_torch.configs import mamba2_370m  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, make_batch  # noqa: E402
 from repro_torch.kernels.ops import ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    reset_launches, ssd_scan_fwd)
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.optim.adamw import OptConfig, init_opt_state  # noqa: E402
 from repro_torch.train.trainer import make_train_step  # noqa: E402
@@ -67,6 +71,7 @@ def main(argv=None):
     params, state, _ = step(params, state, make_batch(dcfg, 0))   # warm up
     batch = make_batch(dcfg, 1)
     torch.cuda.synchronize()
+    reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -92,6 +97,7 @@ def main(argv=None):
         "loss": float(metrics["loss"]), "wall_ms": wall_ms,
         "device_ms": busy, "device_busy_share": busy / wall_ms,
         "groups_ms": groups, "kernel_launches": sum(counts.values()),
+        "ssd_scan_launches_by_route": dict(ssd_scan_fwd.route_launches),
         "top_kernels_ms": [[k[:80], ms, counts[k]] for k, ms in top],
         "top_ops_self_device_ms": [[k[:80], ms] for k, ms in top_ops]}),
         flush=True)
@@ -105,24 +111,26 @@ def ssd_layer(cfg, batch: int, seq: int) -> None:
     the backward through the f32 chunked reference, timed apart."""
     sc = cfg.ssm_cfg
     g = torch.Generator(device="cuda").manual_seed(0)
-    h, p, s = sc.n_heads, sc.head_dim, sc.d_state
+    h, p, s, ng, di = (sc.n_heads, sc.head_dim, sc.d_state, sc.n_groups,
+                       sc.d_inner)
 
     def r(*shape):
         return torch.randn(shape, generator=g, device="cuda")
-    x = r(batch, seq, h, p).to(cfg.dtype).requires_grad_(True)
+    xbc = r(batch, seq, di + 2 * ng * s).to(cfg.dtype).requires_grad_(True)
     dt = torch.nn.functional.softplus(r(batch, seq, h)).to(cfg.dtype)
     dt.requires_grad_(True)
     a = (-torch.exp(0.5 * r(h))).requires_grad_(True)
-    bm = r(batch, seq, sc.n_groups, s).to(cfg.dtype).requires_grad_(True)
-    cm = r(batch, seq, sc.n_groups, s).to(cfg.dtype).requires_grad_(True)
     d = torch.ones(h, device="cuda", requires_grad=True)
     cot = r(batch, seq, h, p).to(cfg.dtype)
 
     def fwd():
+        x = xbc[..., :di].reshape(batch, seq, h, p)
+        bm = xbc[..., di:di + ng * s].reshape(batch, seq, ng, s)
+        cm = xbc[..., di + ng * s:].reshape(batch, seq, ng, s)
         return ssd_scan(x, dt, a, bm, cm, d, chunk=sc.chunk)
 
     def fwd_bwd():
-        torch.autograd.grad(fwd(), (x, dt, a, bm, cm, d), cot)
+        torch.autograd.grad(fwd(), (xbc, dt, a, d), cot)
 
     out = {}
     for name, fn in (("forward_ms", fwd), ("forward_backward_ms", fwd_bwd)):
