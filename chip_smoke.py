@@ -21,23 +21,46 @@ Phases, in order; any failure raises and exits non-zero:
    never calls); K1's routed kernel and the library call three times each
    in turns (medians), and its ``cuda_cores`` kernel; K2 on ``sm90`` and
    on ``cuda_cores`` three times each in turns (medians);
-5. qwen3-14b at full width, random weights from a seeded generator:
-   at depth 2, prefill logits through the kernel against the plain path
-   at the longest prompt and at a ragged one;
-   at depth 40, eight requests through ``ContinuousScheduler`` with every
-   launch counter set to 0 just before and read just after; every K1
-   launch must take the ``sm90`` route;
+5. qwen3-14b serving at full width, random weights from a seeded
+   generator: at depth 2, prefill logits through the kernel against the
+   plain path at the longest prompt and at a ragged one (bar 2e-2 of the
+   largest logit); at depth 40, eight requests (prompts 512-2048 tokens,
+   32 new tokens each, 4 slots, all arriving at 0) through
+   ``ContinuousScheduler`` with every launch counter set to 0 just before
+   and read just after; K1 must launch 40 x 8 = 320 times, every launch on
+   the ``sm90`` route;
 6. the serve CLI (``repro_torch.launch.serve``) at SMOKE size;
-7. mamba2-370m at full width, random weights from a seeded generator:
-   at depth 2, ``lm_loss`` and every gradient through the kernel against
-   the plain path; at depth 48, six AdamW steps of the port's ``Trainer``
-   at batch 8 x 4096 tokens, with the launch counters set to 0 just
-   before and read just after; every K2 launch must take the ``sm90``
-   route;
+7. mamba2-370m training at full width: at depth 2, ``lm_loss`` and every
+   gradient through the kernel against the plain path (bars 1e-4 of the
+   loss, 2e-2 of each leaf's max |plain|); at depth 48, six AdamW steps
+   of the port's ``Trainer`` at batch 8 x 4096 tokens, with the launch
+   counters set to 0 just before and read just after; K2 must launch
+   2 x 48 x 6 = 576 times (forward and checkpointed recompute), every
+   launch on the ``sm90`` route;
 8. the train CLI (``repro_torch.launch.train``) at SMOKE size, where the
    loss must fall;
-9. a ``{"kernels": [...]}`` line, then the last line
-   ``{"ok": true, "device": {...}}``.
+9. mamba2-370m serving at full width: at depth 2, prefill logits at the
+   longest prompt and then 8 greedy decode steps, kernel path against
+   plain (bar 2e-2 of the largest logit); one layer's prefill state
+   (``ssd_final_state``) against the sequential ``ssd_ref`` at the longest
+   prompt (bar 1e-4 of its max); at depth 48, the same eight-request trace
+   as phase 5; K2 must launch 48 x 8 = 384 times (one per layer per
+   prefill; decode runs in plain PyTorch), every launch on ``sm90``;
+10. qwen3-14b training at full width, cut to depth 4 of 40 (AdamW's f32
+    moments and master copy for all 14.8B parameters would exceed one
+    card): at depth 2, ``lm_loss`` and every gradient through the kernel
+    against the plain path at 1 x 4096 tokens (phase 7's bars); at depth
+    4, four AdamW steps of the ``Trainer`` at 1 x 4096 tokens; K1 must
+    launch 2 x 4 x 4 = 32 times (forward and checkpointed recompute; the
+    backward recomputes through ``attention_ref`` and launches none),
+    every launch on ``sm90``;
+11. the serve CLI with mamba2-370m and the train CLI with qwen3-14b at
+    SMOKE size, where the loss must fall;
+12. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
+    counts over the paths above (K1 320 + 32, K2 576 + 384), then the last
+    line ``{"ok": true, "device": {...}}``.
+
+Each phase's header logs the seconds since the start.
 """
 import dataclasses
 import json
@@ -59,6 +82,7 @@ from repro_torch.data.pipeline import DataConfig, make_batch  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     ROUTES, flash_attention_fwd, flash_attention_plain, reset_launches)
+from repro_torch.kernels.ref import ssd_final_state, ssd_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     reset_launches as reset_ssd_launches, route_for as ssd_route,
     ssd_scan_fwd, ssd_scan_plain)
@@ -106,9 +130,20 @@ SSD_SM90_EDGES = [(2, 1, 4, 64, 1, 128, 128), (2, 100, 4, 64, 1, 128, 128),
 # |delta| / |loss| and every grad leaf's max |delta| / max |plain|
 LOSS_BAR, GRAD_BAR = 1e-4, 2e-2
 
+# serving, depth 2, kernel against plain: logits within this share of the
+# largest logit, at prefill and at each of DECODE_CHECK_STEPS decode steps
+LOGIT_BAR, DECODE_CHECK_STEPS = 2e-2, 8
+# one mamba2-370m layer's prefill state, ssd_final_state against the
+# sequential ssd_ref: max |delta| / max |ssd_ref|, f32 sums in another
+# order over the prompt
+STATE_BAR = 1e-4
+
 N_REQUESTS, MAX_BATCH, NEW_TOKENS = 8, 4, 32
-# the training slice: train_4k's sequence at batch 8 (of its 256, one card)
+# the training slices: train_4k's sequence at batch 8 (of its 256, one
+# card) for mamba2-370m; at batch 1 and depth 4 of 40 for qwen3-14b, whose
+# f32 AdamW state at full depth (14.8B params x 12 B) exceeds one card
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 4096, 6
+QWEN_TRAIN_BATCH, QWEN_TRAIN_DEPTH, QWEN_TRAIN_STEPS = 1, 4, 4
 PROMPT_LENS = np.linspace(512, 2048, N_REQUESTS).astype(int).tolist()
 
 
@@ -313,31 +348,73 @@ def sdpa(q, k, v):
                                           enable_gqa=True)
 
 
-def full_width_prefill_check(cfg, lens, device="cuda") -> None:
-    """Depth-2 qwen3-14b: last-position prefill logits through the kernel
-    against the plain path, relative to the largest logit."""
+def logit_gap(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def full_width_prefill_check(cfg, lens, decode_steps=0,
+                             device="cuda") -> None:
+    """Depth-2 ``cfg``: last-position prefill logits through the kernel
+    against the plain path, relative to the largest logit; then
+    ``decode_steps`` greedy decode steps from each path's caches."""
     cfg2 = dataclasses.replace(cfg, n_layers=2)
     params = lm.init_lm(0, cfg2, device=device)
     g = torch.Generator(device=device).manual_seed(2)
     for s in lens:
         tok = torch.randint(0, cfg.vocab, (1, s), generator=g, device=device)
         with torch.no_grad():
-            got, _ = lm.forward_prefill(params, tok, cfg2, backend="kernel")
-            want, _ = lm.forward_prefill(params, tok, cfg2, backend="ref")
-        rel = float((got.float() - want.float()).abs().max()
-                    / want.float().abs().max())
+            got, c_got = lm.forward_prefill(params, tok, cfg2,
+                                            backend="kernel")
+            want, c_want = lm.forward_prefill(params, tok, cfg2,
+                                              backend="ref")
+            gaps = [logit_gap(got, want)]
+            for _ in range(decode_steps):
+                nxt = torch.argmax(want[:, -1], dim=-1)[:, None]
+                got, c_got = lm.forward_decode(params, nxt, c_got, cfg2)
+                want, c_want = lm.forward_decode(params, nxt, c_want, cfg2)
+                gaps.append(logit_gap(got, want))
         log(f"  depth-2 prefill logits at {s} tokens: max |kernel - plain| "
-            f"/ max |logit| = {rel:.3e}")
-        if not rel <= 2e-2:
-            raise AssertionError(f"depth-2 prefill logits disagree at {s} "
-                                 f"tokens: {rel}")
+            f"/ max |logit| = {gaps[0]:.3e}" + (
+                f"; then {decode_steps} decode steps, worst "
+                f"{max(gaps[1:]):.3e}" if decode_steps else ""))
+        if not max(gaps) <= LOGIT_BAR:
+            raise AssertionError(f"depth-2 prefill or decode logits disagree "
+                                 f"at {s} tokens: {gaps}")
     del params
     torch.cuda.empty_cache()
 
 
-def full_width_serve(cfg, device="cuda") -> dict:
-    """Depth-40 qwen3-14b behind ContinuousScheduler: 8 requests, prompts
-    spread over 512-2048 tokens, 32 new tokens each, all arriving at 0."""
+def ssd_state_check(cfg, device="cuda") -> float:
+    """One mamba2-370m layer's prefill state at the longest prompt:
+    ``ssd_final_state`` (the closed form the prefill takes) against the
+    sequential ``ssd_ref``, on bf16 inputs with the init's decay rates."""
+    sc = cfg.ssm_cfg
+    l, h = max(PROMPT_LENS), sc.n_heads
+    gen = torch.Generator(device=device).manual_seed(4)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    x = r(1, l, h, sc.head_dim).bfloat16()
+    dt = F.softplus(r(1, l, h)).bfloat16()
+    a = -torch.linspace(1.0, 16.0, h, device=device)
+    b, c = (r(1, l, sc.n_groups, sc.d_state).bfloat16() for _ in range(2))
+    got = ssd_final_state(x, dt, a, b, c)
+    _, want = ssd_ref(x, dt, a, b, c, return_state=True)
+    rel = float((got - want).abs().max() / want.abs().max())
+    log(f"  prefill state at {l} tokens, one layer (1, {h}, {sc.head_dim}, "
+        f"{sc.d_state}): max |closed form - ssd_ref| / max |ssd_ref| = "
+        f"{rel:.3e}")
+    if not rel <= STATE_BAR:
+        raise AssertionError(f"prefill state disagrees with ssd_ref: {rel}")
+    return rel
+
+
+def full_width_serve(cfg, kernel, device="cuda") -> dict:
+    """``cfg`` at full depth behind ContinuousScheduler: 8 requests, prompts
+    spread over 512-2048 tokens, 32 new tokens each, all arriving at 0.
+    ``kernel`` (K1's or K2's wrapper) must launch once per layer per
+    prefill, every launch on the ``sm90`` route."""
     t0 = time.perf_counter()
     params = lm.init_lm(0, cfg, device=device)
     torch.cuda.synchronize()
@@ -364,17 +441,20 @@ def full_width_serve(cfg, device="cuda") -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    reset_ssd_launches()
     eng.serve(reqs, continuous=True, scheduler=sched)
     torch.cuda.synchronize()
-    launches = flash_attention_fwd.launches
-    routes = dict(flash_attention_fwd.route_launches)
+    launches = kernel.launches
+    routes = dict(kernel.route_launches)
     summary = sched.metrics.summary()
     summary["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     prefills = summary["prefills"]
-    log(f"  launches: flash_attention_fwd {launches} over {prefills} "
-        f"prefills of {cfg.n_layers} layers, by route {routes}")
+    log(f"  launches: {kernel.__name__} {launches} over {prefills} "
+        f"prefills of {cfg.n_layers} layers, by route {routes}; "
+        f"flash_attention_fwd {flash_attention_fwd.launches}, ssd_scan_fwd "
+        f"{ssd_scan_fwd.launches} in all")
     if launches != cfg.n_layers * prefills or prefills != N_REQUESTS:
-        raise AssertionError(f"flash_attention launched {launches} times, "
+        raise AssertionError(f"{kernel.__name__} launched {launches} times, "
                              f"expected {cfg.n_layers} x {N_REQUESTS}")
     if routes["sm90"] != launches:
         raise AssertionError(f"not every prefill launch took the sm90 "
@@ -425,14 +505,16 @@ def gap_passes(gap) -> bool:
     return gap["loss_rel"] <= LOSS_BAR and gap["grad_rel"] <= GRAD_BAR
 
 
-def full_width_grads_check(cfg, device="cuda") -> None:
-    """Depth-2 mamba2-370m, batch 2 x 4096 tokens, under ``gap_passes``.
-    Both backends take the backward through ssd_chunked_ref; only the
-    forward scan differs, by bf16 roundings."""
+def full_width_grads_check(cfg, batch_size, device="cuda") -> None:
+    """Depth-2 ``cfg``, ``batch_size`` x 4096 tokens, under ``gap_passes``.
+    Both backends take the backward through the same plain reference
+    (``ssd_chunked_ref``, ``attention_ref``); only the forward kernel
+    differs, by bf16 roundings."""
     cfg2 = dataclasses.replace(cfg, n_layers=2)
     params = lm.init_lm(0, cfg2, device=device)
     batch = make_batch(DataConfig(task="lm_random", vocab=cfg.vocab,
-                                  seq=TRAIN_SEQ, batch=2), 0, device=device)
+                                  seq=TRAIN_SEQ, batch=batch_size), 0,
+                       device=device)
     gap = loss_grads_gap(params, batch, cfg2)
     log(f"  depth-2 loss {gap['loss']:.6f}: |kernel - plain| / |loss| = "
         f"{gap['loss_rel']:.3e}; worst grad leaf {gap['leaf']} max |delta| "
@@ -443,22 +525,25 @@ def full_width_grads_check(cfg, device="cuda") -> None:
     torch.cuda.empty_cache()
 
 
-def full_width_train(cfg, device="cuda") -> dict:
-    """Depth-48 mamba2-370m: TRAIN_STEPS AdamW steps of the port's Trainer
-    at batch 8 x 4096 tokens on lm_shift batches."""
+def full_width_train(cfg, kernel, batch_size, n_steps,
+                     device="cuda") -> dict:
+    """``cfg``: ``n_steps`` AdamW steps of the port's Trainer at
+    ``batch_size`` x 4096 tokens on lm_shift batches.  ``kernel`` (K1's or
+    K2's wrapper) must launch twice per layer per step (the forward and
+    the checkpointed recompute; the backward goes through a plain
+    reference), every launch on the ``sm90`` route."""
     t0 = time.perf_counter()
     params = lm.init_lm(0, cfg, device=device)
     torch.cuda.synchronize()
     log(f"  init {lm.param_counts(cfg)['total'] / 1e6:.1f}M params in "
         f"{time.perf_counter() - t0:.1f} s")
     dcfg = DataConfig(task="lm_shift", vocab=cfg.vocab, seq=TRAIN_SEQ,
-                      batch=TRAIN_BATCH)
+                      batch=batch_size)
     trainer = Trainer(
         loss_fn=lambda p, b: lm.lm_loss(p, b, cfg, backend="kernel"),
         params=params,
-        opt_cfg=OptConfig(peak_lr=3e-4, warmup_steps=2,
-                          total_steps=TRAIN_STEPS),
-        cfg=TrainerConfig(total_steps=TRAIN_STEPS, log_every=1),
+        opt_cfg=OptConfig(peak_lr=3e-4, warmup_steps=2, total_steps=n_steps),
+        cfg=TrainerConfig(total_steps=n_steps, log_every=1),
         data_fn=lambda s: make_batch(dcfg, s, device=device), device=device)
     steps = []
     inner = trainer.step_fn
@@ -480,8 +565,8 @@ def full_width_train(cfg, device="cuda") -> dict:
     reset_launches()
     out = trainer.run()
     torch.cuda.synchronize()
-    launches = ssd_scan_fwd.launches
-    routes = dict(ssd_scan_fwd.route_launches)
+    launches = kernel.launches
+    routes = dict(kernel.route_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for i, st in enumerate(steps):
         log(f"  step {i + 1}: loss {st['loss']:.6f}  grad norm "
@@ -490,27 +575,45 @@ def full_width_train(cfg, device="cuda") -> dict:
     step_s = warm[len(warm) // 2]
     summary = {"step_ms_first": steps[0]["seconds"] * 1e3,
                "step_ms_median": step_s * 1e3,
-               "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+               "tokens_per_s": batch_size * TRAIN_SEQ / step_s,
                "peak_memory_gb": peak_gb,
                "losses": [st["loss"] for st in steps],
                "grad_norms": [st["grad_norm"] for st in steps]}
-    log(f"  launches: ssd_scan_fwd {launches} over {TRAIN_STEPS} steps of "
+    log(f"  launches: {kernel.__name__} {launches} over {n_steps} steps of "
         f"{cfg.n_layers} layers (forward + checkpointed recompute), by route "
-        f"{routes}; flash_attention_fwd {flash_attention_fwd.launches}")
+        f"{routes}; flash_attention_fwd {flash_attention_fwd.launches}, "
+        f"ssd_scan_fwd {ssd_scan_fwd.launches} in all")
     log("  metrics " + json.dumps(summary, sort_keys=True))
-    if launches != 2 * cfg.n_layers * TRAIN_STEPS:
-        raise AssertionError(f"ssd_scan launched {launches} times, expected "
-                             f"2 x {cfg.n_layers} x {TRAIN_STEPS}")
+    if launches != 2 * cfg.n_layers * n_steps:
+        raise AssertionError(f"{kernel.__name__} launched {launches} times, "
+                             f"expected 2 x {cfg.n_layers} x {n_steps}")
     if routes["sm90"] != launches:
-        raise AssertionError(f"not every training launch of ssd_scan took "
-                             f"the sm90 route: {routes}")
-    if len(out["history"]) != TRAIN_STEPS or not all(
+        raise AssertionError(f"not every training launch of "
+                             f"{kernel.__name__} took the sm90 route: "
+                             f"{routes}")
+    if len(out["history"]) != n_steps or not all(
             np.isfinite(st["loss"]) and np.isfinite(st["grad_norm"])
             for st in steps):
         raise AssertionError(f"non-finite training step: {steps}")
     del params, trainer
     torch.cuda.empty_cache()
     return {"launches": launches, "metrics": summary}
+
+
+def train_cli(train_main, arch: str) -> None:
+    """The train CLI at SMOKE size for 30 steps; the loss must fall."""
+    hist = train_main(["--arch", arch, "--steps", "30"])["history"]
+    log(f"  {arch}: loss {hist[0][1]:.4f} -> {hist[-1][1]:.4f}")
+    if not hist[-1][1] < hist[0][1]:
+        raise AssertionError(f"train CLI loss did not fall for {arch}: "
+                             f"{hist}")
+
+
+T0 = time.perf_counter()
+
+
+def elapsed() -> str:
+    return f"t = {time.perf_counter() - T0:.1f} s"
 
 
 def main() -> None:
@@ -525,7 +628,7 @@ def main() -> None:
     facts = card_facts()
     log(facts)
 
-    log("[2] build")
+    log(f"[2] build ({elapsed()})")
     t0 = time.perf_counter()
     report = build.build()
     log(f"  built {sorted(report) or 'nothing (cached)'} in "
@@ -534,7 +637,7 @@ def main() -> None:
         for line in ptxas_report(r["log"]):
             log(f"  {name}: {line}")
 
-    log("[3] kernels against their plain versions")
+    log(f"[3] kernels against their plain versions ({elapsed()})")
     for i, case in enumerate(ATTN_CASES):
         for dtype in (torch.float32, torch.bfloat16):
             check_attention(case, dtype, seed=i)
@@ -554,7 +657,7 @@ def main() -> None:
     for case in (SSD_SLICE, SSD_RAGGED):
         check_ssd(case, torch.float32, seed=212)
 
-    log("[4] timing at the slice's shape, bf16")
+    log(f"[4] timing at the slice's shape, bf16 ({elapsed()})")
     q, k, v = attn_inputs(SLICE, torch.bfloat16, seed=7)
     kw = attn_kw(SLICE)
     route = ROUTES[(torch.bfloat16, SLICE[5])]
@@ -605,43 +708,64 @@ def main() -> None:
     del xdt, da, b, c
     torch.cuda.empty_cache()
 
-    log("[5] qwen3-14b at full width")
+    log(f"[5] qwen3-14b serving at full width ({elapsed()})")
     cfg = qwen3_14b.CONFIG
     full_width_prefill_check(cfg, (max(PROMPT_LENS), PROMPT_LENS[1]))
-    served = full_width_serve(cfg)
+    served = full_width_serve(cfg, flash_attention_fwd)
 
-    log("[6] serve CLI at SMOKE size")
+    log(f"[6] serve CLI at SMOKE size ({elapsed()})")
     from repro_torch.launch.serve import main as serve_main
     reqs = serve_main(["--arch", "qwen3-14b", "--continuous", "--batch", "4",
                        "--prompt-len", "16", "--new-tokens", "8"])
     if any(len(r.generated) != 8 for r in reqs):
         raise AssertionError("serve CLI requests did not finish")
 
-    log("[7] mamba2-370m at full width")
+    log(f"[7] mamba2-370m training at full width ({elapsed()})")
     mcfg = mamba2_370m.CONFIG
-    full_width_grads_check(mcfg)
-    trained = full_width_train(mcfg)
+    full_width_grads_check(mcfg, batch_size=2)
+    trained = full_width_train(mcfg, ssd_scan_fwd, TRAIN_BATCH, TRAIN_STEPS)
 
-    log("[8] train CLI at SMOKE size")
+    log(f"[8] train CLI at SMOKE size ({elapsed()})")
     from repro_torch.launch.train import main as train_main
-    hist = train_main(["--arch", "mamba2-370m", "--steps", "30"])["history"]
-    log(f"  loss {hist[0][1]:.4f} -> {hist[-1][1]:.4f}")
-    if not hist[-1][1] < hist[0][1]:
-        raise AssertionError(f"train CLI loss did not fall: {hist}")
+    train_cli(train_main, "mamba2-370m")
+
+    log(f"[9] mamba2-370m serving at full width ({elapsed()})")
+    full_width_prefill_check(mcfg, (max(PROMPT_LENS),),
+                             decode_steps=DECODE_CHECK_STEPS)
+    ssd_state_check(mcfg)
+    m_served = full_width_serve(mcfg, ssd_scan_fwd)
+
+    log(f"[10] qwen3-14b training at full width, depth {QWEN_TRAIN_DEPTH} "
+        f"({elapsed()})")
+    full_width_grads_check(cfg, batch_size=QWEN_TRAIN_BATCH)
+    q_trained = full_width_train(
+        dataclasses.replace(cfg, n_layers=QWEN_TRAIN_DEPTH),
+        flash_attention_fwd, QWEN_TRAIN_BATCH, QWEN_TRAIN_STEPS)
+
+    log(f"[11] serve CLI (mamba2-370m) and train CLI (qwen3-14b) at SMOKE "
+        f"size ({elapsed()})")
+    reqs = serve_main(["--arch", "mamba2-370m", "--continuous", "--batch",
+                       "4", "--prompt-len", "16", "--new-tokens", "8"])
+    if any(len(r.generated) != 8 for r in reqs):
+        raise AssertionError("serve CLI requests did not finish")
+    train_cli(train_main, "qwen3-14b")
+    log(f"  done ({elapsed()})")
 
     log(facts)
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:36",
-        "launches": served["launches"], "max_abs_err": slice_err,
+        "launches": served["launches"] + q_trained["launches"],
+        "max_abs_err": slice_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"], "library_ms": library_ms,
         "kernel_route": route, "cuda_cores_ms": cuda_cores_ms}, {
         "name": "ssd_scan_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan_sm90.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:35",
-        "launches": trained["launches"], "max_abs_err": ssd_err,
+        "launches": trained["launches"] + m_served["launches"],
+        "max_abs_err": ssd_err,
         "ms": ssd_ms, "plain_ms": ssd_plain_ms,
         "bound_ms": ssd_bound["bound_ms"], "bound_by": ssd_bound["bound_by"],
         "library_ms": None, "kernel_route": ssd_route_slice,

@@ -4,9 +4,10 @@
 A CPU tensor, or ``backend="ref"``, goes to the kernel's plain PyTorch
 version; a CUDA tensor goes to the CUDA kernel, which raises on what it
 does not take.  Nothing falls back from the kernel to the plain version.
-``ssd_scan`` is an autograd ``Function`` whose backward, as in JAX,
-recomputes through the chunked reference; flash attention has no
-backward yet, so asking the CUDA kernel for a gradient raises.
+Both ops are autograd ``Function``s whose backward, as JAX's custom VJPs
+do, recomputes through a plain reference on the saved inputs:
+``flash_attention`` through ``ref.attention_ref``, ``ssd_scan`` through
+``ref.ssd_chunked_ref``.  Neither has a backward kernel.
 """
 from __future__ import annotations
 
@@ -43,14 +44,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"block sizes must be >= 1, got {block_q}, {block_k}")
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
               q_offset=q_offset)
-    if _use_plain(q, backend):
-        return flash_attention_plain(q, k, v, **kw)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "the flash-attention kernel has no backward yet; train attention "
-            "layers with backend='ref'")
-    return flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
-                               **kw)
+    return _FlashAttention.apply(q, k, v, kw, _use_plain(q, backend))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward as JAX's ``fwd_plain``: the kernel (or its plain version);
+    backward through ``attention_ref`` on the saved q, k, v with the same
+    mask, softcap, scale and offset, as JAX's custom VJP does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw: dict, plain: bool):
+        ctx.kw = kw
+        ctx.save_for_backward(q, k, v)
+        if plain:
+            return flash_attention_plain(q, k, v, **kw)
+        return flash_attention_fwd(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors,
+                                     ctx.needs_input_grad)]
+        with torch.enable_grad():
+            o = _ref.attention_ref(*inputs, **ctx.kw)
+        wrt = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(o, wrt, g))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in inputs) + (None, None)
 
 
 class _SSDScan(torch.autograd.Function):

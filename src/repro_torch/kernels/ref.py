@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -2.3819763e38   # close to bf16 min, matches the JAX package
 
@@ -96,6 +97,41 @@ def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if return_state:
         return y, st
     return y
+
+
+def ssd_final_state(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                    b: torch.Tensor, c: torch.Tensor, *,
+                    init_state: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """The state ``ssd_ref(..., return_state=True)`` ends with, in closed
+    form: one weighted contraction over L instead of L sequential steps,
+
+        state[b,h,p,s] = sum_t exp(cum_L - cum_t) dt_t x_t[p] b_t[s]
+                         + exp(cum_L) init_state[b,h,p,s],
+
+    with cum_t the running sum of dt a.  The decay after t is summed from
+    the end (a suffix sum), so a late term's small exponent is not the
+    difference of two large running sums.  Every factor exp(.) <= 1.
+    ``c`` is unused (the state does not depend on it); it keeps
+    ``ssd_ref``'s signature.  Returns (B, H, P, S) float32.
+    """
+    del c
+    bsz, l, h, p = x.shape
+    g, s = b.shape[2], b.shape[3]
+    if h % g:
+        raise ValueError(f"heads {h} not a multiple of groups {g}")
+    # (B, H, L), so the scan runs along the innermost dim: along L of a
+    # (B, L, H) tensor it is an outer-dim scan, many times slower on a GPU
+    da = (dt.float() * a.float()[None, None, :]).transpose(1, 2).contiguous()
+    after = da.flip(-1).cumsum(-1).flip(-1)                     # incl. t
+    w = torch.exp(F.pad(after[..., 1:], (0, 1))).transpose(1, 2) * dt.float()
+    xw = (x.float() * w[..., None]).reshape(bsz, l, g, h // g, p)
+    st = torch.einsum("blgrp,blgs->bgrps", xw, b.float()).reshape(
+        bsz, h, p, s)
+    if init_state is not None:
+        decay = torch.exp(after[..., 0])[:, :, None, None]       # exp(cum_L)
+        st = st + decay * init_state.float()
+    return st
 
 
 def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

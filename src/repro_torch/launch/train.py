@@ -2,10 +2,11 @@
 
 Trains the architecture's SMOKE config (``--full``: the published config)
 from random weights drawn from a seed, on the ``lm_shift`` task, through
-the port's ``Trainer`` with AdamW, on one device.  The SSD scan runs as
-the CUDA kernel on the card (``backend="kernel"``; the JAX CLI uses "ref"
-because it runs on a CPU); with ``--device cpu`` the kernels' plain
-versions stand in.  ``--grad-accum N`` splits each batch of ``--batch``
+the port's ``Trainer`` with AdamW, on one device.  Flash attention and
+the SSD scan run as the CUDA kernels on the card (``backend="kernel"``;
+the JAX CLI uses "ref" because it runs on a CPU), each with its backward
+recomputed through a plain reference; with ``--device cpu`` the kernels'
+plain versions stand in.  ``--grad-accum N`` splits each batch of ``--batch``
 sequences into N microbatches.
 
 ``--device`` defaults to ``cuda``.  The JAX CLI's checkpoint, elastic,

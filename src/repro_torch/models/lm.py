@@ -132,6 +132,15 @@ def tree_map(fn: Callable, *trees):
     return fn(*trees)
 
 
+def tree_map_with_path(fn: Callable, tree, path: tuple = ()):
+    """``fn(path, leaf)`` leafwise, ``path`` the tuple of keys to the
+    leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    return fn(path, tree)
+
+
 def tree_leaves(tree) -> List[Any]:
     """The leaves of nested dicts, in ``tree_map``'s order."""
     if isinstance(tree, dict):
@@ -335,19 +344,26 @@ def lm_loss(params, batch, cfg: LMConfig, *, backend: str = "kernel",
 def init_caches(cfg: LMConfig, batch: int, max_len: int, *, dtype=None,
                 per_slot_pos: bool = False, device="cuda"):
     """Zero caches, stacked per period.  Attention layers carry {k, v} of
-    (n_periods, B, Hkv, max_len, Dh).  ``pos`` is the write position: one
-    shared scalar for a static batch, or a (B,) vector with
-    ``per_slot_pos`` (continuous batching)."""
+    (n_periods, B, Hkv, max_len, Dh); SSM layers carry {conv, state} of
+    (n_periods, B, d_conv - 1, d_xbc) in the model dtype and (n_periods,
+    B, H, P, S) in float32.  ``pos`` is the write position: one shared
+    scalar for a static batch, or a (B,) vector with ``per_slot_pos``
+    (continuous batching)."""
     dev = resolve_device(device)
     kv_dtype = dtype or cfg.cache_dtype or cfg.dtype
+    ssm_dtype = dtype or cfg.dtype
     specs = cfg.period_specs()
     shape = (cfg.n_periods, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
 
     def one_layer(spec: LayerSpec):
-        if spec.mixer != "attn":
-            raise NotImplementedError("SSM caches are not ported yet")
-        return {"kv": {"k": torch.zeros(shape, dtype=kv_dtype, device=dev),
-                       "v": torch.zeros(shape, dtype=kv_dtype, device=dev)}}
+        if spec.mixer == "attn":
+            return {"kv": {
+                "k": torch.zeros(shape, dtype=kv_dtype, device=dev),
+                "v": torch.zeros(shape, dtype=kv_dtype, device=dev)}}
+        one = S.init_ssm_cache(batch, cfg.ssm_cfg, dtype=ssm_dtype,
+                               device=dev)
+        return {"ssm": tree_map(
+            lambda a: a.new_zeros((cfg.n_periods,) + tuple(a.shape)), one)}
 
     pos = torch.zeros((batch,) if per_slot_pos else (), dtype=torch.long,
                       device=dev)
@@ -374,13 +390,16 @@ def _decode_layer(p, x, pc, cfg: LMConfig, spec: LayerSpec, pos):
     """One layer of incremental decode; x: (B, S, C).  Writes the layer's
     cache ``pc`` in place and returns (x, pc)."""
     h = _apply_norm(cfg, p["ln1"], x)
-    cache = {"k": pc["kv"]["k"], "v": pc["kv"]["v"], "pos": pos}
-    h, new_kv = A.attention(p["attn"], h, cfg.attn_cfg(spec.window),
-                            causal=True, cache=cache)
+    if spec.mixer == "attn":
+        cache = {"k": pc["kv"]["k"], "v": pc["kv"]["v"], "pos": pos}
+        h, _ = A.attention(p["attn"], h, cfg.attn_cfg(spec.window),
+                           causal=True, cache=cache)
+    else:
+        h, new = S.ssm_decode_step(p["ssm"], h, cfg.ssm_cfg, pc["ssm"])
+        tree_map(lambda dst, src: dst.copy_(src), pc["ssm"], new)
     if cfg.post_norm:
         h = _apply_norm(cfg, p["pn1"], h)
-    x = _ffn_block(p, x + h, cfg, spec)
-    return x, {"kv": {"k": new_kv["k"], "v": new_kv["v"]}}
+    return _ffn_block(p, x + h, cfg, spec), pc
 
 
 def forward_decode(params, tokens, caches, cfg: LMConfig):
@@ -404,32 +423,36 @@ def forward_decode(params, tokens, caches, cfg: LMConfig):
 def forward_prefill(params, tokens, cfg: LMConfig, *,
                     backend: str = "kernel"):
     """Full-sequence prefill: returns (last-position logits (B, 1, V),
-    caches with pos = S).  Cache length == prompt length."""
+    caches with pos = S).  KV cache length == prompt length; SSM layers
+    leave their {conv, state} decode cache (``ssm_block(return_cache)``)."""
     specs = cfg.period_specs()
-    if any(spec.mixer != "attn" for spec in specs):
-        raise NotImplementedError("serving SSM layers is not ported yet")
-    b, s = tokens.shape
-    x = L.embed(params["embed"], tokens, scale_by_sqrt_dim=cfg.embed_scale)
     kv_dtype = cfg.cache_dtype or cfg.dtype
-    shape = (cfg.n_periods, b, cfg.n_kv_heads, s, cfg.head_dim)
-    periods = {str(j): {"kv": {
-        "k": torch.empty(shape, dtype=kv_dtype, device=x.device),
-        "v": torch.empty(shape, dtype=kv_dtype, device=x.device)}}
-        for j in range(len(specs))}
+    x = L.embed(params["embed"], tokens, scale_by_sqrt_dim=cfg.embed_scale)
+    periods = [{} for _ in specs]
     for i in range(cfg.n_periods):
         pp = _period(params["periods"], i)
         for j, spec in enumerate(specs):
             p = pp[str(j)]
             h = _apply_norm(cfg, p["ln1"], x)
-            h, (ck, cv) = A.attention_sp(
-                p["attn"], h, cfg.attn_cfg(spec.window), backend=backend,
-                causal=True, return_kv=True)
-            periods[str(j)]["kv"]["k"][i].copy_(ck)
-            periods[str(j)]["kv"]["v"][i].copy_(cv)
+            if spec.mixer == "attn":
+                h, (ck, cv) = A.attention_sp(
+                    p["attn"], h, cfg.attn_cfg(spec.window), backend=backend,
+                    causal=True, return_kv=True)
+                pc = {"kv": {"k": ck.to(kv_dtype), "v": cv.to(kv_dtype)}}
+            else:
+                h, ssm_cache = S.ssm_block(p["ssm"], h, cfg.ssm_cfg,
+                                           backend=backend, return_cache=True)
+                pc = {"ssm": ssm_cache}
+            if not periods[j]:      # stacked leaves, allocated at period 0
+                periods[j] = tree_map(
+                    lambda a: a.new_empty((cfg.n_periods,) + tuple(a.shape)),
+                    pc)
+            tree_map(lambda dst, src: dst[i].copy_(src), periods[j], pc)
             if cfg.post_norm:
                 h = _apply_norm(cfg, p["pn1"], h)
             x = _ffn_block(p, x + h, cfg, spec)
     x = _apply_norm(cfg, params["final_norm"], x)
     logits = logits_fn(params, x[:, -1:], cfg)
-    return logits, {"pos": torch.tensor(s, dtype=torch.long, device=x.device),
-                    "periods": periods}
+    return logits, {"pos": torch.tensor(tokens.shape[1], dtype=torch.long,
+                                        device=x.device),
+                    "periods": {str(j): pc for j, pc in enumerate(periods)}}

@@ -8,11 +8,11 @@ are handled by masking outside the decode step.  ``serve(...,
 continuous=True)`` delegates to ``serving.scheduler.ContinuousScheduler``;
 the static loop stays as the reference path and the parity oracle for it.
 
-Prefill runs the flash-attention kernel whenever the engine's tensors are
-on the card (the kernel's plain version on the CPU); decode attends in
-plain PyTorch, as
-the JAX package's decode does in jnp.  Meshes, ``replan`` and paged
-serving come with the planner.
+Prefill runs the flash-attention kernel (attention layers) and the SSD
+scan kernel (SSM layers) whenever the engine's tensors are on the card
+(the kernels' plain versions on the CPU); decode attends and advances the
+SSM state in plain PyTorch, as the JAX package's decode does in jnp.
+Meshes, ``replan`` and paged serving come with the planner.
 """
 from __future__ import annotations
 
@@ -26,6 +26,16 @@ import torch.nn.functional as F
 from repro_torch.device import resolve_device
 from repro_torch.models import lm as LM
 from repro_torch.serving.metrics import RequestMetrics
+
+
+KV_SEQ_DIM = 3          # KV leaves are (periods, B, Hkv, S, Dh)
+
+
+def is_kv_leaf(path, leaf) -> bool:
+    """Whether a cache leaf at key path ``path`` is a stacked KV tensor
+    (the rule of JAX's ``parallel.partition.is_kv_leaf``); SSM ``conv``
+    and ``state`` leaves are not."""
+    return ("k" in path or "v" in path) and leaf.ndim == KV_SEQ_DIM + 2
 
 
 @dataclasses.dataclass
@@ -73,11 +83,14 @@ class ServingEngine:
     def _prefill(self, tokens):
         logits, caches = LM.forward_prefill(self.params, tokens, self.cfg)
         pad = self.max_len - tokens.shape[1]
-        # widen the caches' sequence dim (leaves are (periods, B, Hkv, S,
-        # Dh)) to max_len for subsequent decode appends
-        periods = LM.tree_map(
-            lambda a: F.pad(a, (0, 0, 0, pad)) if pad > 0 else a,
-            caches["periods"])
+
+        # widen the KV leaves' sequence dim to max_len for subsequent
+        # decode appends; SSM leaves have no sequence dim
+        def widen(path, a):
+            if pad > 0 and is_kv_leaf(path, a):
+                return F.pad(a, (0, 0, 0, pad))
+            return a
+        periods = LM.tree_map_with_path(widen, caches["periods"])
         return logits, {"pos": caches["pos"], "periods": periods}
 
     @torch.no_grad()

@@ -2,8 +2,10 @@
 ``repro.serving.kv_pool``).
 
 The pool is the decode cache (``models.lm.init_caches``) re-read as
-``max_batch`` independent slots: leaf layout ``(periods, slots, Hkv,
-max_len, Dh)``.  ``alloc``/``free`` are host-side bookkeeping; ``insert``
+``max_batch`` independent slots: every leaf is ``(periods, slots, ...)``,
+KV ``(periods, slots, Hkv, max_len, Dh)`` and SSM ``conv``/``state``
+``(periods, slots, d_conv - 1, d_xbc)``/``(periods, slots, H, P, S)``.
+``alloc``/``free`` are host-side bookkeeping; ``insert``
 copies one prefilled request into its slot row in place.  Shapes never
 change: the pool is allocated once at ``(max_batch, max_len)``, and
 ``pos`` is a per-slot ``(max_batch,)`` vector, so each slot appends and

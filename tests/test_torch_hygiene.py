@@ -85,3 +85,34 @@ def test_training_entry_points_default_to_cuda(no_cuda):
         == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--arch", "mamba2-370m"])
+
+
+def test_flash_attention_kernel_path_takes_gradients(monkeypatch):
+    """The kernel route of ``ops.flash_attention`` no longer raises when a
+    gradient is asked for: the kernel runs the forward once (a plain
+    stand-in here, as the CPU has no kernel) and the backward recomputes
+    through ``attention_ref`` without launching it again."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    calls = []
+
+    def stand_in(q, k, v, **kw):
+        calls.append(all(t.is_contiguous() for t in (q, k, v)))
+        return flash_attention_plain(q, k, v, **kw)
+
+    monkeypatch.setattr(ops, "_use_plain", lambda t, backend: False)
+    monkeypatch.setattr(ops, "flash_attention_fwd", stand_in)
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=gen).requires_grad_(True)
+               for shape in ((1, 4, 12, 16), (1, 2, 12, 16), (1, 2, 12, 16)))
+    kw = dict(causal=True, window=5, softcap=20.0, scale=0.3)
+    strided = q.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not strided.is_contiguous()
+    out = ops.flash_attention(strided, k, v, **kw)
+    got = torch.autograd.grad(out.square().sum(), (q, k, v))
+    assert calls == [True]
+    want = torch.autograd.grad(ref.attention_ref(q, k, v, **kw).square()
+                               .sum(), (q, k, v))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)

@@ -5,7 +5,10 @@ flash_attention`` (the Pallas kernel, interpret mode on CPU) and
 kernel's plain version).  Tolerances as in tests/test_kernels.py: f32 sums
 differ only in order (2e-5), bf16 outputs round once (2e-2).  Also the route
 table between the two CUDA kernels, their build names, and what
-chip_smoke.py's bf16 bar catches in the tensor-core kernel's arithmetic."""
+chip_smoke.py's bf16 bar catches in the tensor-core kernel's arithmetic.
+Gradients: the port's autograd ``Function`` against JAX's custom VJP, both
+recomputing through their ``attention_ref`` (f32, 1e-5)."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -72,6 +75,35 @@ def test_fully_masked_rows_output_zero(dt):
     assert not _np(got)[:, :, :4].any()
     avg = _np(tref.attention_ref(tq, tk, tv, **kw))[:, :, :4]
     assert np.abs(avg).max() > 0.01
+
+
+# GQA causal, MQA + window, softcap over cross lengths, decode-like Sq = 1
+# at q_offset 299, everything on
+GRAD_CASES = [ATTN_CASES[i] for i in (1, 2, 3, 5, 6)]
+
+
+@pytest.mark.parametrize("case", GRAD_CASES)
+def test_flash_attention_grads_match_jax(case):
+    """dq, dk, dv of ``ops.flash_attention`` (the plain forward on CPU
+    tensors, the backward through ``attention_ref``) against JAX's
+    ``custom_vjp`` (the Pallas forward in interpret mode, the backward
+    through its ``attention_ref``), for one random cotangent."""
+    b, hq, hkv, sq, skv, d, causal, window, softcap = case
+    arrays = _inputs(b, hq, hkv, sq, skv, d, seed=4)
+    cot = np.random.RandomState(5).standard_normal(
+        (b, hq, sq, d)).astype(np.float32)
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              q_offset=skv - sq if causal else 0)
+    jin, tin = _both(arrays, jnp.float32, torch.float32)
+    want = jax.grad(lambda *a: jnp.sum(jops.flash_attention(*a, **kw) * cot),
+                    argnums=(0, 1, 2))(*jin)
+    tin = [t.requires_grad_(True) for t in tin]
+    got = torch.autograd.grad(tops.flash_attention(*tin, **kw), tin,
+                              torch.from_numpy(cot))
+    for name, g, w in zip("qkv", got, want):
+        assert tuple(g.shape) == w.shape, name
+        err = np.abs(_np(g) - _np(w)).max() / np.abs(_np(w)).max()
+        assert err < 1e-5, (name, err)
 
 
 @pytest.mark.parametrize("case", ATTN_CASES[2:4])   # window, softcap

@@ -1,7 +1,8 @@
 """The port's training path against the JAX package at mamba2-370m's SMOKE
 size (float32, 4 layers, d_model 64, chunk 16): ``forward``, ``lm_loss``
 and every gradient (JAX through the Pallas kernel, interpret mode), one
-AdamW step, and 5 ``Trainer`` steps on the JAX pipeline's batches.  JAX
+AdamW step, and 5 ``Trainer`` steps on the JAX pipeline's batches; and
+qwen3-14b's SMOKE loss and gradients through flash attention's autograd.  JAX
 weights cross over through ``bridge.params_from_numpy``; batches cross
 as numpy, since ``torch.Generator`` cannot replay ``jax.random``.
 Tolerance 1e-4 relative: the same math summed in another order."""
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from repro.configs import mamba2_370m as jconf
+from repro.configs import qwen3_14b as jqconf
 from repro.data.pipeline import DataConfig as JDataConfig
 from repro.data.pipeline import make_batch as jmake_batch
 from repro.models import lm as JLM
@@ -23,6 +25,7 @@ from repro.train.trainer import TrainerConfig as JTrainerConfig
 from repro.train.trainer import make_train_step as jmake_train_step
 from repro_torch import bridge
 from repro_torch.configs import mamba2_370m as tconf
+from repro_torch.configs import qwen3_14b as tqconf
 from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
 from repro_torch.models import lm as TLM
@@ -302,13 +305,76 @@ def test_trainer_rejects_what_is_not_ported():
         Trainer(cfg=TrainerConfig(grad_compress=True), **kw)
 
 
-def test_serving_ssm_layers_raises():
-    """Training is ported for SSM layers; serving them is not yet."""
-    tp = TLM.init_lm(0, TCFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="SSM"):
-        TLM.forward_prefill(tp, torch.zeros((1, 8), dtype=torch.long), TCFG)
-    with pytest.raises(NotImplementedError, match="SSM"):
-        TLM.init_caches(TCFG, 1, 8, device="cpu")
+# ---------------------------------------------------------------------------
+# qwen3-14b: attention layers train through flash attention's autograd
+# ---------------------------------------------------------------------------
+
+QJCFG, QTCFG = jqconf.SMOKE, tqconf.SMOKE
+
+
+@pytest.fixture(scope="module")
+def qwen_jparams():
+    return JLM.init_lm(jax.random.PRNGKey(1), QJCFG)
+
+
+def test_qwen3_lm_loss_and_grads_match_jax(qwen_jparams):
+    """lm_loss and every grad leaf of qwen3 SMOKE (2 layers, GQA 8/2,
+    qk-norm, untied embeddings): JAX through the Pallas forward (interpret
+    mode) and its custom VJP, the port through ``_FlashAttention``."""
+    b = {k: v for k, v in zip(("tokens", "labels"), (
+        np.random.RandomState(7).randint(0, QJCFG.vocab, (2, 40)),
+        np.random.RandomState(8).randint(0, QJCFG.vocab, (2, 40))))}
+    jb = {k: jnp.asarray(v) for k, v in b.items()}
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p: JLM.lm_loss(p, jb, QJCFG, backend="pallas")[0]))(
+        qwen_jparams)
+    tp = TLM.tree_map(lambda a: a.requires_grad_(True), _cross(qwen_jparams))
+    loss, _ = TLM.lm_loss(tp, {k: torch.from_numpy(v) for k, v in b.items()},
+                          QTCFG)
+    loss.backward()
+    assert abs(loss.item() - float(jloss)) / abs(float(jloss)) < REL
+    n = 0
+    for path, t, j in _pairs(tp, jgrads):
+        assert _rel(t.grad, j) < REL, path
+        n += 1
+    assert n == len(jax.tree_util.tree_leaves(jgrads)) > 10
+
+
+def test_qwen3_checkpointed_step_launches_the_kernel_twice_a_layer(
+        monkeypatch):
+    """With a stand-in for the flash-attention kernel on the kernel route,
+    one loss and backward launches it twice per attention layer (the
+    forward and the checkpointed recompute) and the backward through
+    ``attention_ref`` not at all: chip_smoke's 2 x layers x steps count."""
+    from repro_torch.kernels import ops as tops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    calls = []
+
+    def stand_in(*a, **kw):
+        calls.append(1)
+        return flash_attention_plain(*a, **kw)
+
+    monkeypatch.setattr(tops, "_use_plain", lambda t, backend: False)
+    monkeypatch.setattr(tops, "flash_attention_fwd", stand_in)
+    tp = TLM.tree_map(lambda a: a.requires_grad_(True),
+                      TLM.init_lm(0, QTCFG, device="cpu"))
+    b = make_batch(DataConfig(task="lm_shift", vocab=QTCFG.vocab, seq=24,
+                              batch=2), 0, device="cpu")
+    loss, _ = TLM.lm_loss(tp, b, QTCFG)
+    assert len(calls) == QTCFG.n_layers
+    loss.backward()
+    assert len(calls) == 2 * QTCFG.n_layers
+    assert all(p.grad is not None for p in TLM.tree_leaves(tp))
+
+
+def test_train_cli_trains_qwen3_on_cpu():
+    from repro_torch.launch.train import main
+    out = main(["--arch", "qwen3-14b", "--steps", "20", "--batch", "4",
+                "--seq", "32", "--grad-accum", "2", "--device", "cpu"])
+    hist = out["history"]
+    assert out["final_step"] == 20 and len(hist) == 10
+    assert all(np.isfinite(l) for _, l in hist)
+    assert hist[-1][1] < hist[0][1]
 
 
 def test_train_cli_on_cpu(capsys):

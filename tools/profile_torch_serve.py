@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Where the port's serving time goes on one GPU: qwen3-14b at full width.
+"""Where the port's serving time goes on one GPU, at full width.
 
-    python3 tools/profile_torch_serve.py [--depth 40] [--prompt-len 2048]
+    python3 tools/profile_torch_serve.py [--arch qwen3-14b] [--depth N]
+        [--prompt-len 2048]
 
-Runs one prefill of ``--prompt-len`` tokens and ``--steps`` decode steps of
-a ``--batch``-slot pool under ``torch.profiler``, then prints the device
-time by kernel group (the flash-attention kernels, matmuls, the rest), the
+Serves ``--arch`` (qwen3-14b or mamba2-370m; ``--depth`` defaults to the
+config's own) and runs one prefill of ``--prompt-len`` tokens and
+``--steps`` decode steps of a ``--batch``-slot pool under
+``torch.profiler``, then prints the device time by kernel group (the
+flash-attention kernels, the SSD scan kernels, matmuls, the rest), the
 top kernels, the device busy share of each region (device kernel time
 over host wall time, both after a synchronize), and the prefill's
-flash-attention launches by route (``sm90`` or ``cuda_cores``).  Random
+launches of each kernel by route (``sm90`` or ``cuda_cores``).  Random
 weights from seed 0, as in ``chip_smoke.py``.
 """
 import argparse
@@ -24,7 +27,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from repro_torch.configs import qwen3_14b  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.kernels import ssd_scan  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_fwd, reset_launches)
 from repro_torch.models import lm  # noqa: E402
@@ -32,6 +36,7 @@ from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.kv_pool import KVPool  # noqa: E402
 
 GROUPS = [("flash_attention", re.compile(r"flash_fwd")),
+          ("ssd_scan", re.compile(r"ssd_scan")),
           ("matmul", re.compile(r"gemm|xmma|nvjet|cutlass|sm90_|cublas",
                                 re.I))]
 
@@ -70,7 +75,10 @@ def region(name, fn):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--depth", type=int, default=40)
+    ap.add_argument("--arch", default="qwen3-14b",
+                    choices=("qwen3-14b", "mamba2-370m"))
+    ap.add_argument("--depth", type=int, default=None,
+                    help="layers (default: the config's)")
     ap.add_argument("--prompt-len", type=int, default=2048)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--steps", type=int, default=8)
@@ -78,7 +86,8 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_serve: CUDA is not available")
     import dataclasses
-    cfg = dataclasses.replace(qwen3_14b.CONFIG, n_layers=args.depth)
+    cfg = configs.get(args.arch).config
+    cfg = dataclasses.replace(cfg, n_layers=args.depth or cfg.n_layers)
     params = lm.init_lm(0, cfg, device="cuda")
     max_len = args.prompt_len + args.steps + 1
     eng = ServingEngine(params, cfg, max_len=max_len)
@@ -87,9 +96,12 @@ def main(argv=None):
                            device="cuda")
     eng._prefill(prompt[:, :256])                       # warm up
     reset_launches()
+    ssd_scan.reset_launches()
     region(f"prefill_{args.prompt_len}", lambda: eng._prefill(prompt))
     print(json.dumps({"flash_attention_launches_by_route":
-                      flash_attention_fwd.route_launches}), flush=True)
+                      flash_attention_fwd.route_launches,
+                      "ssd_scan_launches_by_route":
+                      ssd_scan.ssd_scan_fwd.route_launches}), flush=True)
     _, caches = eng._prefill(prompt)
     pool = KVPool(cfg, args.batch, max_len, device="cuda")
     for slot in range(args.batch):

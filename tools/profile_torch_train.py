@@ -1,22 +1,25 @@
 #!/usr/bin/env python3
-"""Where the port's training step goes on one GPU: mamba2-370m at full
-width.
+"""Where the port's training step goes on one GPU, at full width.
 
-    python3 tools/profile_torch_train.py [--depth 48] [--batch 8] [--seq 4096]
+    python3 tools/profile_torch_train.py [--arch mamba2-370m] [--depth N]
+        [--batch 8] [--seq 4096]
 
-Runs one warm-up step and then one AdamW step of ``make_train_step``
-(loss and grads through the SSD kernel, checkpointed periods, then the
-optimizer) under ``torch.profiler``, and prints the device time by kernel
-group (the SSD scan kernel, matmuls, the rest), the top kernels, the top
-operators by the device time of the kernels they launched themselves
-(forward ops as ``aten::*``, backward ops under the autograd node that ran
-them), the device busy share (device kernel time over host wall time,
-both after a synchronize) and the SSD kernel's launches by route.  Then it
-times one layer's SSD scan at the same shape, forward (the kernel) and
-backward (the f32 chunked reference) apart, with CUDA events, on x, b and c
-sliced from one (B, L, d_inner + 2 G S) tensor as ``models/ssm.py`` slices
-them from the conv output.  Random weights from seed 0 and lm_shift
-batches, as in ``chip_smoke.py``.
+Trains ``--arch`` (mamba2-370m, or qwen3-14b with e.g. ``--depth 4
+--batch 1``; ``--depth`` defaults to the config's own).  Runs one warm-up
+step and then one AdamW step of ``make_train_step`` (loss and grads
+through the kernels, checkpointed periods, then the optimizer) under
+``torch.profiler``, and prints the device time by kernel group (the SSD
+scan kernel, the flash-attention kernel, matmuls, the rest), the top
+kernels, the top operators by the device time of the kernels they
+launched themselves (forward ops as ``aten::*``, backward ops under the
+autograd node that ran them), the device busy share (device kernel time
+over host wall time, both after a synchronize) and each kernel's launches
+by route.  For a model with SSM layers it then times one layer's SSD scan
+at the same shape, forward (the kernel) and backward (the f32 chunked
+reference) apart, with CUDA events, on x, b and c sliced from one (B, L,
+d_inner + 2 G S) tensor as ``models/ssm.py`` slices them from the conv
+output.  Random weights from seed 0 and lm_shift batches, as in
+``chip_smoke.py``.
 """
 import argparse
 import dataclasses
@@ -32,7 +35,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from repro_torch.configs import mamba2_370m  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, make_batch  # noqa: E402
 from repro_torch.kernels.ops import ssd_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
@@ -42,6 +46,7 @@ from repro_torch.optim.adamw import OptConfig, init_opt_state  # noqa: E402
 from repro_torch.train.trainer import make_train_step  # noqa: E402
 
 GROUPS = [("ssd_scan", re.compile(r"ssd_scan")),
+          ("flash_attention", re.compile(r"flash_fwd")),
           ("matmul", re.compile(r"gemm|xmma|nvjet|cutlass|sm90_|cublas",
                                 re.I))]
 
@@ -55,13 +60,17 @@ def group_of(name: str) -> str:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--depth", type=int, default=48)
+    ap.add_argument("--arch", default="mamba2-370m",
+                    choices=("mamba2-370m", "qwen3-14b"))
+    ap.add_argument("--depth", type=int, default=None,
+                    help="layers (default: the config's)")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=4096)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_train: CUDA is not available")
-    cfg = dataclasses.replace(mamba2_370m.CONFIG, n_layers=args.depth)
+    cfg = configs.get(args.arch).config
+    cfg = dataclasses.replace(cfg, n_layers=args.depth or cfg.n_layers)
     params = lm.init_lm(0, cfg, device="cuda")
     ocfg = OptConfig(peak_lr=3e-4, warmup_steps=2, total_steps=10)
     state = init_opt_state(params, ocfg)
@@ -72,6 +81,7 @@ def main(argv=None):
     batch = make_batch(dcfg, 1)
     torch.cuda.synchronize()
     reset_launches()
+    fa.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -93,17 +103,21 @@ def main(argv=None):
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     top_ops = sorted(ops.items(), key=lambda kv: -kv[1])[:15]
     print(json.dumps({
-        "region": f"train_step_d{args.depth}_b{args.batch}_s{args.seq}",
+        "region": f"train_step_{args.arch}_d{cfg.n_layers}_b{args.batch}_"
+                  f"s{args.seq}",
         "loss": float(metrics["loss"]), "wall_ms": wall_ms,
         "device_ms": busy, "device_busy_share": busy / wall_ms,
         "groups_ms": groups, "kernel_launches": sum(counts.values()),
         "ssd_scan_launches_by_route": dict(ssd_scan_fwd.route_launches),
+        "flash_attention_launches_by_route":
+            dict(fa.flash_attention_fwd.route_launches),
         "top_kernels_ms": [[k[:80], ms, counts[k]] for k, ms in top],
         "top_ops_self_device_ms": [[k[:80], ms] for k, ms in top_ops]}),
         flush=True)
     del params, state, batch
     torch.cuda.empty_cache()
-    ssd_layer(cfg, args.batch, args.seq)
+    if cfg.ssm_cfg is not None:
+        ssd_layer(cfg, args.batch, args.seq)
 
 
 def ssd_layer(cfg, batch: int, seq: int) -> None:
