@@ -15,12 +15,16 @@ Phases, in order; any failure raises and exits non-zero:
    cases, the training slice's full-width shape and a ragged length at
    that width, one row, a part chunk and two B/C groups (``sm90`` for
    bf16 at P 64, S 128, chunk 128, ``cuda_cores`` otherwise), and the
-   slice on ``cuda_cores`` in bf16 too;
+   slice on ``cuda_cores`` in bf16 too; and K1 at head dim 72, non-causal,
+   in f32 and bf16, at the 2D DiT's shapes (``cuda_cores``): spatial (a
+   few folded frames, 16 heads, 4096 patches), temporal (4096 folded
+   patches, 16 heads, the frames) and a ragged length;
 4. time each kernel, its plain version and, where one exists, one PyTorch
    library call that computes the same function (a yardstick the port
    never calls); K1's routed kernel and the library call three times each
    in turns (medians), and its ``cuda_cores`` kernel; K2 on ``sm90`` and
-   on ``cuda_cores`` three times each in turns (medians);
+   on ``cuda_cores`` three times each in turns (medians); K1 at the DiT's
+   spatial shape against ``scaled_dot_product_attention`` in turns;
 5. qwen3-14b serving at full width, random weights from a seeded
    generator: at depth 2, prefill logits through the kernel against the
    plain path at the longest prompt and at a ragged one (bar 2e-2 of the
@@ -56,14 +60,24 @@ Phases, in order; any failure raises and exits non-zero:
     every launch on ``sm90``;
 11. the serve CLI with mamba2-370m and the train CLI with qwen3-14b at
     SMOKE size, where the loss must fall;
-12. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
-    counts over the paths above (K1 320 + 32, K2 576 + 384), then the last
-    line ``{"ok": true, "device": {...}}``.
+12. transformer2d-720m (the paper's 2D video DiT) training at full width,
+    every block's modulation drawn from seeded normals (adaLN-zero's init
+    makes every block the identity, with attention and MLP gradients of
+    exactly 0): at depth 2, ``t2d_loss`` and every gradient through the
+    kernel against the plain path at 1 x 4 frames x 4096 patches (phase
+    7's bars); at depth 28, four AdamW steps of the ``Trainer`` at 1 x 16
+    frames x 4096 patches, every group of 2 pairs checkpointed; K1 must
+    launch 2 x 28 x 4 = 224 times, every launch on ``cuda_cores`` at head
+    dim 72; then the train CLI with the DiT at SMOKE size;
+13. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
+    counts over the paths above (K1 320 + 32 + 224, K2 576 + 384), then
+    the last line ``{"ok": true, "device": {...}}``.
 
 Each phase's header logs the seconds since the start.
 """
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -77,7 +91,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import mamba2_370m, qwen3_14b  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    mamba2_370m, qwen3_14b, transformer2d_720m)
 from repro_torch.data.pipeline import DataConfig, make_batch  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -87,6 +102,7 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
     reset_launches as reset_ssd_launches, route_for as ssd_route,
     ssd_scan_fwd, ssd_scan_plain)
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import transformer2d as t2d  # noqa: E402
 from repro_torch.optim.adamw import OptConfig  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 from repro_torch.serving.scheduler import ContinuousScheduler  # noqa: E402
@@ -145,6 +161,11 @@ N_REQUESTS, MAX_BATCH, NEW_TOKENS = 8, 4, 32
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 4096, 6
 QWEN_TRAIN_BATCH, QWEN_TRAIN_DEPTH, QWEN_TRAIN_STEPS = 1, 4, 4
 PROMPT_LENS = np.linspace(512, 2048, N_REQUESTS).astype(int).tolist()
+# the DiT training slice: video_0.5m's 4096 patches a frame at batch 1 (of
+# its 32) and 16 frames (of its 128), cut to fit one card (PERF.md §4);
+# every group of 2 block pairs checkpointed; the depth-2 check at 4 frames
+DIT_BATCH, DIT_FRAMES, DIT_PATCHES, DIT_STEPS = 1, 16, 4096, 4
+DIT_REMAT_GROUP, DIT_CHECK_FRAMES = 2, 4
 
 
 def prefill_case(s: int):
@@ -154,6 +175,20 @@ def prefill_case(s: int):
 
 # the serving slice: the longest prompt's prefill layer, 2048 tokens
 SLICE = prefill_case(max(PROMPT_LENS))
+# K1 at the DiT's head dim 72 (1152 / 16), non-causal: a spatial layer's
+# attention over 2 folded frames, a temporal layer's over the 4096 folded
+# patches of DIT_FRAMES frames, and a ragged length
+DIT_HEADS, DIT_DH = 16, 72
+DIT_ATTN_CASES = [
+    (2, DIT_HEADS, DIT_HEADS, DIT_PATCHES, DIT_PATCHES, DIT_DH, False, None,
+     None),
+    (DIT_PATCHES, DIT_HEADS, DIT_HEADS, DIT_FRAMES, DIT_FRAMES, DIT_DH, False,
+     None, None),
+    (1, 3, 3, 100, 100, DIT_DH, False, None, None)]
+# K1's timing shape on the DiT path: 4 of a spatial layer's folded frames
+# (the kernel's time grows with their count)
+DIT_SLICE = (4, DIT_HEADS, DIT_HEADS, DIT_PATCHES, DIT_PATCHES, DIT_DH,
+             False, None, None)
 
 
 def log(*a):
@@ -343,8 +378,8 @@ def ptxas_report(log_text: str) -> list:
     return out
 
 
-def sdpa(q, k, v):
-    return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+def sdpa(q, k, v, causal=True):
+    return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                           enable_gqa=True)
 
 
@@ -478,14 +513,14 @@ def leaf_paths(tree, path="") -> list:
     return [path]
 
 
-def loss_grads_gap(params, batch, cfg) -> dict:
-    """lm_loss and every gradient with the SSD scan through the kernel
-    against the plain path: the loss's |delta| / |loss|, and the worst
-    grad leaf's max |delta| / max |plain| with that leaf's path."""
+def loss_grads_gap(params, batch, cfg, loss_fn=lm.lm_loss) -> dict:
+    """``loss_fn`` (``lm_loss`` or ``t2d_loss``) and every gradient with the
+    kernels against the plain path: the loss's |delta| / |loss|, and the
+    worst grad leaf's max |delta| / max |plain| with that leaf's path."""
     def loss_and_grads(backend):
         leaves = lm.tree_map(lambda p: p.detach().requires_grad_(True),
                              params)
-        loss, _ = lm.lm_loss(leaves, batch, cfg, backend=backend)
+        loss, _ = loss_fn(leaves, batch, cfg, backend=backend)
         return loss.detach(), torch.autograd.grad(loss,
                                                   lm.tree_leaves(leaves))
 
@@ -528,23 +563,40 @@ def full_width_grads_check(cfg, batch_size, device="cuda") -> None:
 def full_width_train(cfg, kernel, batch_size, n_steps,
                      device="cuda") -> dict:
     """``cfg``: ``n_steps`` AdamW steps of the port's Trainer at
-    ``batch_size`` x 4096 tokens on lm_shift batches.  ``kernel`` (K1's or
-    K2's wrapper) must launch twice per layer per step (the forward and
-    the checkpointed recompute; the backward goes through a plain
-    reference), every launch on the ``sm90`` route."""
-    t0 = time.perf_counter()
-    params = lm.init_lm(0, cfg, device=device)
-    torch.cuda.synchronize()
-    log(f"  init {lm.param_counts(cfg)['total'] / 1e6:.1f}M params in "
-        f"{time.perf_counter() - t0:.1f} s")
+    ``batch_size`` x 4096 tokens on lm_shift batches, under
+    ``run_trainer``'s checks with every launch on the ``sm90`` route."""
     dcfg = DataConfig(task="lm_shift", vocab=cfg.vocab, seq=TRAIN_SEQ,
                       batch=batch_size)
+    return run_trainer(
+        lambda: lm.init_lm(0, cfg, device=device),
+        lambda p, b: lm.lm_loss(p, b, cfg, backend="kernel"),
+        lambda s: make_batch(dcfg, s, device=device), kernel,
+        tokens=batch_size * TRAIN_SEQ, n_steps=n_steps,
+        n_layers=cfg.n_layers, route="sm90", device=device)
+
+
+def run_trainer(init, loss_fn, data_fn, kernel, *, tokens, n_steps,
+                n_layers, route, device="cuda") -> dict:
+    """``n_steps`` AdamW steps of the port's Trainer from ``init()``'s
+    params, with every launch counter set to 0 just before and read just
+    after.  ``kernel`` (K1's or K2's wrapper) must launch twice per layer
+    per step (the forward and the checkpointed recompute; the backward
+    goes through a plain reference), every launch on ``route``; every loss
+    and grad norm must be finite.  Logs each step, the median step time of
+    the steps after the first, ``tokens`` per step over it, and the peak
+    device memory."""
+    t0 = time.perf_counter()
+    params = init()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in lm.tree_leaves(params))
+    log(f"  init {n_params / 1e6:.1f}M params in "
+        f"{time.perf_counter() - t0:.1f} s")
     trainer = Trainer(
-        loss_fn=lambda p, b: lm.lm_loss(p, b, cfg, backend="kernel"),
-        params=params,
+        loss_fn=loss_fn, params=params,
         opt_cfg=OptConfig(peak_lr=3e-4, warmup_steps=2, total_steps=n_steps),
         cfg=TrainerConfig(total_steps=n_steps, log_every=1),
-        data_fn=lambda s: make_batch(dcfg, s, device=device), device=device)
+        data_fn=data_fn, device=device)
+    del params
     steps = []
     inner = trainer.step_fn
 
@@ -557,7 +609,6 @@ def full_width_train(cfg, kernel, batch_size, n_steps,
                       "loss": float(out[2]["loss"]),
                       "grad_norm": float(out[2]["grad_norm"])})
         return out
-
     trainer.step_fn = timed
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -575,29 +626,101 @@ def full_width_train(cfg, kernel, batch_size, n_steps,
     step_s = warm[len(warm) // 2]
     summary = {"step_ms_first": steps[0]["seconds"] * 1e3,
                "step_ms_median": step_s * 1e3,
-               "tokens_per_s": batch_size * TRAIN_SEQ / step_s,
+               "tokens_per_s": tokens / step_s,
                "peak_memory_gb": peak_gb,
                "losses": [st["loss"] for st in steps],
                "grad_norms": [st["grad_norm"] for st in steps]}
     log(f"  launches: {kernel.__name__} {launches} over {n_steps} steps of "
-        f"{cfg.n_layers} layers (forward + checkpointed recompute), by route "
-        f"{routes}; flash_attention_fwd {flash_attention_fwd.launches}, "
+        f"{n_layers} layers (forward + checkpointed recompute), by route "
+        f"{routes}; flash_attention_fwd {flash_attention_fwd.launches} "
+        f"(by head dim {nonzero(flash_attention_fwd.head_dim_launches)}), "
         f"ssd_scan_fwd {ssd_scan_fwd.launches} in all")
     log("  metrics " + json.dumps(summary, sort_keys=True))
-    if launches != 2 * cfg.n_layers * n_steps:
+    if launches != 2 * n_layers * n_steps:
         raise AssertionError(f"{kernel.__name__} launched {launches} times, "
-                             f"expected 2 x {cfg.n_layers} x {n_steps}")
-    if routes["sm90"] != launches:
+                             f"expected 2 x {n_layers} x {n_steps}")
+    if routes[route] != launches:
         raise AssertionError(f"not every training launch of "
-                             f"{kernel.__name__} took the sm90 route: "
+                             f"{kernel.__name__} took the {route} route: "
                              f"{routes}")
     if len(out["history"]) != n_steps or not all(
             np.isfinite(st["loss"]) and np.isfinite(st["grad_norm"])
             for st in steps):
         raise AssertionError(f"non-finite training step: {steps}")
-    del params, trainer
+    del trainer
     torch.cuda.empty_cache()
     return {"launches": launches, "metrics": summary}
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: n for k, n in counts.items() if n}
+
+
+def perturb_modulation(params, seed: int):
+    """Draw every block's modulation projection from seeded normals (w at
+    0.5 / sqrt(d), b at 0.1), in place.  adaLN-zero's init leaves it at 0,
+    which makes each block the identity and every attention and MLP
+    gradient exactly 0: a kernel-against-plain check there compares
+    zeros."""
+    for i, kind in enumerate(("spatial", "temporal")):
+        proj = params["layers"][kind]["mod"]["proj"]
+        g = torch.Generator(device=proj["w"].device).manual_seed(seed + i)
+        d = proj["w"].shape[-2]
+        for name, scale in (("w", 0.5 / math.sqrt(d)), ("b", 0.1)):
+            t = proj[name]
+            t.copy_(torch.randn(t.shape, generator=g, device=t.device)
+                    * scale)
+    return params
+
+
+def dit_batch(cfg, frames: int, step: int, device="cuda") -> dict:
+    """A video batch at DIT_BATCH x ``frames`` x DIT_PATCHES, x and target
+    in the model dtype."""
+    dcfg = DataConfig(task="video", batch=DIT_BATCH, temporal=frames,
+                      spatial=DIT_PATCHES, in_dim=cfg.in_dim)
+    return t2d.model_dtype_batch(make_batch(dcfg, step, device=device), cfg)
+
+
+def dit_grads_check(cfg, device="cuda") -> dict:
+    """Depth-2 (one pair) ``cfg`` at DIT_CHECK_FRAMES frames, modulation
+    perturbed: ``t2d_loss`` and every grad through K1 against the plain
+    path, under ``gap_passes``."""
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    params = perturb_modulation(t2d.init_t2d(0, cfg2, device=device), 5)
+    gap = loss_grads_gap(params, dit_batch(cfg, DIT_CHECK_FRAMES, 0, device),
+                         cfg2, loss_fn=t2d.t2d_loss)
+    log(f"  depth-2 loss {gap['loss']:.6f} at {DIT_BATCH} x "
+        f"{DIT_CHECK_FRAMES} x {DIT_PATCHES}: |kernel - plain| / |loss| = "
+        f"{gap['loss_rel']:.3e}; worst grad leaf {gap['leaf']} max |delta| "
+        f"/ max |plain| = {gap['grad_rel']:.3e} over {gap['leaves']} leaves")
+    if not gap_passes(gap):
+        raise AssertionError(f"depth-2 DiT loss or grads disagree: {gap}")
+    del params
+    torch.cuda.empty_cache()
+    return gap
+
+
+def dit_train(cfg, device="cuda") -> dict:
+    """``cfg`` at full depth: DIT_STEPS AdamW steps at DIT_BATCH x
+    DIT_FRAMES x DIT_PATCHES, modulation perturbed, remat group
+    DIT_REMAT_GROUP; every K1 launch on ``cuda_cores`` at head dim 72."""
+    route = ROUTES[(cfg.dtype, cfg.dh)]
+    if route != "cuda_cores" or cfg.dh != DIT_DH:
+        raise AssertionError(f"the DiT's K1 route is {route} at {cfg.dh}")
+    log(f"  remat_group {DIT_REMAT_GROUP} ({cfg.n_layers // 2} pairs, "
+        f"{cfg.n_layers // 2 // DIT_REMAT_GROUP} checkpointed groups)")
+    trained = run_trainer(
+        lambda: perturb_modulation(t2d.init_t2d(0, cfg, device=device), 6),
+        lambda p, b: t2d.t2d_loss(p, b, cfg, backend="kernel",
+                                  remat_group=DIT_REMAT_GROUP),
+        lambda s: dit_batch(cfg, DIT_FRAMES, s, device), flash_attention_fwd,
+        tokens=DIT_BATCH * DIT_FRAMES * DIT_PATCHES, n_steps=DIT_STEPS,
+        n_layers=cfg.n_layers, route="cuda_cores", device=device)
+    dims = nonzero(flash_attention_fwd.head_dim_launches)
+    if dims != {DIT_DH: trained["launches"]}:
+        raise AssertionError(f"K1 launches by head dim {dims}, expected "
+                             f"all at {DIT_DH}")
+    return trained
 
 
 def train_cli(train_main, arch: str) -> None:
@@ -607,6 +730,37 @@ def train_cli(train_main, arch: str) -> None:
     if not hist[-1][1] < hist[0][1]:
         raise AssertionError(f"train CLI loss did not fall for {arch}: "
                              f"{hist}")
+
+
+def time_dit_attention() -> dict:
+    """K1 at DIT_SLICE in bf16 (the ``cuda_cores`` route at head dim 72)
+    and ``scaled_dot_product_attention`` three times each in turns
+    (medians), the plain version once, and the bound."""
+    q, k, v = attn_inputs(DIT_SLICE, torch.bfloat16, seed=9)
+    kw = attn_kw(DIT_SLICE)
+    route = ROUTES[(torch.bfloat16, DIT_DH)]
+    runs = {"kernel": [], "library": []}
+    for who in ("kernel", "library", "library", "kernel", "kernel",
+                "library"):
+        fn = ((lambda: flash_attention_fwd(q, k, v, **kw)) if who == "kernel"
+              else (lambda: sdpa(q, k, v, causal=False)))
+        runs[who].append(time_ms(fn, iters=5 if who == "kernel" else 20,
+                                 warmup=1))
+    ms, library_ms = (float(np.median(runs[w])) for w in ("kernel", "library"))
+    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, **kw), iters=3,
+                       warmup=1)
+    bound = attention_bound_ms(DIT_SLICE, torch.bfloat16)
+    log(f"  DiT spatial {DIT_SLICE[:6]} non-causal: kernel ({route}) runs "
+        f"{runs['kernel']}  library runs {runs['library']}")
+    log(f"  DiT spatial: kernel ({route}) {ms:.4f} ms  plain {plain_ms:.4f} "
+        f"ms  scaled_dot_product_attention {library_ms:.4f} ms  bound "
+        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
+        f"{bound['flops']:.3e} FLOP, {bound['bytes']:.3e} B; the kernel at "
+        f"{bound['flops'] / ms / 1e9:.1f} TFLOP/s)")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"route": route, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, **bound}
 
 
 T0 = time.perf_counter()
@@ -656,6 +810,11 @@ def main() -> None:
     check_ssd(SSD_SLICE, torch.bfloat16, seed=210, route="cuda_cores")
     for case in (SSD_SLICE, SSD_RAGGED):
         check_ssd(case, torch.float32, seed=212)
+    for i, case in enumerate(DIT_ATTN_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            err = check_attention(case, dtype, seed=300 + i)
+            if i == 0 and dtype == torch.bfloat16:
+                dit_err = err
 
     log(f"[4] timing at the slice's shape, bf16 ({elapsed()})")
     q, k, v = attn_inputs(SLICE, torch.bfloat16, seed=7)
@@ -707,6 +866,7 @@ def main() -> None:
         f"{ssd_bound['bytes'] / ssd_ms / 1e6:.1f} GB/s)")
     del xdt, da, b, c
     torch.cuda.empty_cache()
+    dit = time_dit_attention()
 
     log(f"[5] qwen3-14b serving at full width ({elapsed()})")
     cfg = qwen3_14b.CONFIG
@@ -749,6 +909,12 @@ def main() -> None:
     if any(len(r.generated) != 8 for r in reqs):
         raise AssertionError("serve CLI requests did not finish")
     train_cli(train_main, "qwen3-14b")
+
+    log(f"[12] transformer2d-720m training at full width ({elapsed()})")
+    dcfg = transformer2d_720m.CONFIG
+    dit_grads_check(dcfg)
+    dit_trained = dit_train(dcfg)
+    train_cli(train_main, "transformer2d-720m")
     log(f"  done ({elapsed()})")
 
     log(facts)
@@ -756,11 +922,18 @@ def main() -> None:
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:36",
-        "launches": served["launches"] + q_trained["launches"],
+        "launches": (served["launches"] + q_trained["launches"]
+                     + dit_trained["launches"]),
         "max_abs_err": slice_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"], "library_ms": library_ms,
-        "kernel_route": route, "cuda_cores_ms": cuda_cores_ms}, {
+        "kernel_route": route, "cuda_cores_ms": cuda_cores_ms,
+        "dit": {"shape": list(DIT_SLICE[:6]), "route": dit["route"],
+                "launches": dit_trained["launches"],
+                "max_abs_err": dit_err, "ms": dit["ms"],
+                "plain_ms": dit["plain_ms"], "bound_ms": dit["bound_ms"],
+                "bound_by": dit["bound_by"],
+                "library_ms": dit["library_ms"]}}, {
         "name": "ssd_scan_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan_sm90.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:35",

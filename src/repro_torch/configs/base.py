@@ -17,6 +17,15 @@ SHAPES: Dict[str, Dict[str, Any]] = {
     "long_500k":   {"seq": 524_288, "batch": 1,   "step": "decode"},
 }
 
+# The paper's own 2D-transformer shapes (temporal x spatial, per A.3.2):
+# spatial fixed at 4096, temporal scaling 128 -> 1024.
+T2D_SHAPES: Dict[str, Dict[str, Any]] = {
+    "video_0.5m": {"temporal": 128,  "spatial": 4096, "batch": 32, "step": "train"},
+    "video_1m":   {"temporal": 256,  "spatial": 4096, "batch": 16, "step": "train"},
+    "video_2m":   {"temporal": 512,  "spatial": 4096, "batch": 16, "step": "train"},
+    "video_4m":   {"temporal": 1024, "spatial": 4096, "batch": 16, "step": "train"},
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
@@ -30,12 +39,14 @@ class ArchSpec:
     notes: str = ""
 
     def shapes(self) -> Dict[str, Dict[str, Any]]:
-        return {k: v for k, v in SHAPES.items() if k not in self.skip_shapes}
+        table = T2D_SHAPES if self.family == "t2d" else SHAPES
+        return {k: v for k, v in table.items() if k not in self.skip_shapes}
 
 
 _REGISTRY: Dict[str, ArchSpec] = {}
 
-_MODULES = ["mamba2_370m", "qwen3_14b"]
+_MODULES = ["mamba2_370m", "qwen3_14b", "transformer2d_720m",
+            "transformer2d_3b"]
 
 
 def register(spec: ArchSpec) -> ArchSpec:

@@ -26,7 +26,9 @@
 // rows 4ty..4ty+3 and score columns tx + 8j, so a row's 8 owners are
 // neighbouring lanes of one warp and the row max and sum reduce with three
 // shuffles.  The ragged edges (Sq, Skv not multiples of 64) are masked
-// here; the wrapper pads nothing.
+// here; the wrapper pads nothing.  Each head dim is one instantiation
+// (dispatch below); D must be a multiple of TX, and 72 is the 2D DiT's
+// (transformer2d-720m, 1152 / 16 heads), which no tensor-core route takes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -229,6 +231,7 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
     FA_CASE(16)
     FA_CASE(32)
     FA_CASE(64)
+    FA_CASE(72)
     FA_CASE(128)
     FA_CASE(160)
     FA_CASE(256)

@@ -7,11 +7,12 @@ one by (dtype, head dim): ``"sm90"`` is ``csrc/flash_attention_sm90.cu``
 ``csrc/flash_attention.cu`` (f32 FMAs; f32 stays there, since the tensor
 cores would compute in TF32 and miss its 1e-4 bar).  ``flash_attention_fwd``
 launches the routed kernel on CUDA tensors and counts its launches in
-``flash_attention_fwd.launches`` and, by route, in
-``flash_attention_fwd.route_launches``.  ``flash_attention_plain`` computes
-the same function in plain PyTorch with the kernels' semantics, including
-their one difference from ``ref.attention_ref``: a fully masked row outputs
-0, not a uniform average of V.
+``flash_attention_fwd.launches``, by route in
+``flash_attention_fwd.route_launches`` and by head dim in
+``flash_attention_fwd.head_dim_launches``.  ``flash_attention_plain``
+computes the same function in plain PyTorch with the kernels' semantics,
+including their one difference from ``ref.attention_ref``: a fully masked
+row outputs 0, not a uniform average of V.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (16, 32, 64, 128, 160, 256)
+HEAD_DIMS = (16, 32, 64, 72, 128, 160, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SM90_HEAD_DIMS = (64, 128)
 # (dtype, head dim) -> the kernel that takes it
@@ -159,13 +160,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"{error_string(err).decode()}")
     flash_attention_fwd.launches += 1
     flash_attention_fwd.route_launches[route] += 1
+    flash_attention_fwd.head_dim_launches[d] += 1
     return out
 
 
 def reset_launches() -> None:
-    """Set the launch count and every route's count to 0."""
+    """Set the launch count and every route's and head dim's count to 0."""
     flash_attention_fwd.launches = 0
     flash_attention_fwd.route_launches = {r: 0 for r in _KERNELS}
+    flash_attention_fwd.head_dim_launches = {d: 0 for d in HEAD_DIMS}
 
 
 reset_launches()

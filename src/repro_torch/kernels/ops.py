@@ -21,6 +21,10 @@ from repro_torch.kernels.flash_attention import (flash_attention_fwd,
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd, ssd_scan_plain
 
 BACKENDS = ("kernel", "ref")
+# the most bytes of f32 scores one slice of flash attention's backward
+# recompute may hold: (batch slice, Hq, Sq, Skv) x 4 B; autograd keeps a few
+# such tensors live at once
+BACKWARD_SCORE_BYTES = 2 << 30
 
 
 def _use_plain(t: torch.Tensor, backend: str) -> bool:
@@ -50,7 +54,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 class _FlashAttention(torch.autograd.Function):
     """Forward as JAX's ``fwd_plain``: the kernel (or its plain version);
     backward through ``attention_ref`` on the saved q, k, v with the same
-    mask, softcap, scale and offset, as JAX's custom VJP does."""
+    mask, softcap, scale and offset, as JAX's custom VJP does.  Sequences
+    do not interact, so the backward recomputes over slices of the batch
+    dim, each holding at most ``BACKWARD_SCORE_BYTES`` of scores (at least
+    one sequence), and concatenates the grads: the same values as one
+    recompute of the whole batch."""
 
     @staticmethod
     def forward(ctx, q, k, v, kw: dict, plain: bool):
@@ -63,15 +71,26 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors,
-                                     ctx.needs_input_grad)]
-        with torch.enable_grad():
-            o = _ref.attention_ref(*inputs, **ctx.kw)
-        wrt = [t for t in inputs if t.requires_grad]
-        grads = iter(torch.autograd.grad(o, wrt, g))
-        return tuple(next(grads) if t.requires_grad else None
-                     for t in inputs) + (None, None)
+        q, k, v = ctx.saved_tensors
+        b, hq, sq, _ = q.shape
+        per_seq = 4 * hq * sq * k.shape[2]
+        step = max(1, BACKWARD_SCORE_BYTES // max(per_seq, 1))
+        need = ctx.needs_input_grad[:3]
+        parts = []
+        for i in range(0, b, step):
+            inputs = [t[i:i + step].detach().requires_grad_(n)
+                      for t, n in zip((q, k, v), need)]
+            with torch.enable_grad():
+                o = _ref.attention_ref(*inputs, **ctx.kw)
+            parts.append(torch.autograd.grad(
+                o, [t for t in inputs if t.requires_grad], g[i:i + step]))
+        grads = iter(zip(*parts))        # each needed grad's slices
+        out = []
+        for n in need:
+            gs = next(grads) if n else None
+            out.append(gs if gs is None else
+                       gs[0] if len(gs) == 1 else torch.cat(gs))
+        return tuple(out) + (None, None)
 
 
 class _SSDScan(torch.autograd.Function):

@@ -1,8 +1,10 @@
 """Training CLI: ``python -m repro_torch.launch.train --arch <id>``.
 
 Trains the architecture's SMOKE config (``--full``: the published config)
-from random weights drawn from a seed, on the ``lm_shift`` task, through
-the port's ``Trainer`` with AdamW, on one device.  Flash attention and
+from random weights drawn from a seed, through the port's ``Trainer`` with
+AdamW, on one device: the LM family on the ``lm_shift`` task, the 2D DiT
+(t2d family) on ``video`` batches of 8 frames of ``--seq // 8`` patches
+(16 when that is 0), as the JAX CLI does.  Flash attention and
 the SSD scan run as the CUDA kernels on the card (``backend="kernel"``;
 the JAX CLI uses "ref" because it runs on a CPU), each with its backward
 recomputed through a plain reference; with ``--device cpu`` the kernels'
@@ -47,29 +49,42 @@ def main(argv=None):
     from repro_torch import configs
     from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.device import resolve_device
+    from repro_torch.models import transformer2d as t2d
     from repro_torch.models.lm import init_lm, lm_loss
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     spec = configs.get(args.arch)
-    if spec.family != "lm":
-        raise SystemExit(f"the train CLI covers the LM family, "
-                         f"{args.arch} is {spec.family}")
     cfg = spec.config if args.full else spec.smoke
     device = resolve_device(args.device)
-    params = init_lm(0, cfg, device=device)
-    dcfg = DataConfig(task="lm_shift", vocab=cfg.vocab, seq=args.seq,
-                      batch=args.batch)
+    if spec.family == "t2d":
+        params = t2d.init_t2d(0, cfg, device=device)
+        dcfg = DataConfig(task="video", batch=args.batch, temporal=8,
+                          spatial=args.seq // 8 or 16, in_dim=cfg.in_dim)
+
+        def loss_fn(p, b):
+            return t2d.t2d_loss(p, b, cfg, backend="kernel")
+
+        def make(step):
+            return t2d.model_dtype_batch(make_batch(dcfg, step,
+                                                    device=device), cfg)
+    else:
+        params = init_lm(0, cfg, device=device)
+        dcfg = DataConfig(task="lm_shift", vocab=cfg.vocab, seq=args.seq,
+                          batch=args.batch)
+
+        def loss_fn(p, b):
+            return lm_loss(p, b, cfg, backend="kernel")
+
+        def make(step):
+            return make_batch(dcfg, step, device=device)
 
     def data_fn(step):
-        batch = make_batch(dcfg, step, device=device)
+        batch = make(step)
         if args.grad_accum > 1:
-            batch = {k: v.reshape(args.grad_accum, -1, args.seq)
+            batch = {k: v.reshape(args.grad_accum, -1, *v.shape[1:])
                      for k, v in batch.items()}
         return batch
-
-    def loss_fn(p, b):
-        return lm_loss(p, b, cfg, backend="kernel")
 
     trainer = Trainer(
         loss_fn=loss_fn, params=params,

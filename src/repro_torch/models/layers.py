@@ -162,3 +162,48 @@ def softcap_logits(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return logits
     return cap * torch.tanh(logits / cap)
+
+
+# ---------------------------------------------------------------------------
+# Patch embedding (transformer2d frontend)
+# ---------------------------------------------------------------------------
+
+def init_patch_embed(gen: torch.Generator, in_channels: int, d_model: int, *,
+                     dtype=torch.float32):
+    """Projects precomputed per-patch features to d_model; the modality
+    frontend itself (the VAE) is a stub, as in the JAX package."""
+    return {"proj": init_linear(gen, in_channels, d_model, bias=True,
+                                dtype=dtype)}
+
+
+def patch_embed(p, x):
+    return linear(p["proj"], x)
+
+
+# ---------------------------------------------------------------------------
+# DiT timestep modulation (transformer2d)
+# ---------------------------------------------------------------------------
+
+def init_modulation(gen: torch.Generator, d_model: int, *,
+                    dtype=torch.float32):
+    """adaLN-zero: the projection starts at 0, so every block starts as the
+    identity."""
+    return {"proj": init_linear(gen, d_model, 6 * d_model, bias=True,
+                                dtype=dtype, scale=0.0)}
+
+
+def modulation(p, t_emb):
+    """t_emb: (B, C) -> 6 x (B, 1, C) shift/scale/gate triples (attn,
+    mlp)."""
+    m = linear(p["proj"], F.silu(t_emb))
+    return torch.chunk(m[:, None, :], 6, dim=-1)
+
+
+def timestep_embedding(t: torch.Tensor, d_model: int, *,
+                       max_period: float = 10000.0) -> torch.Tensor:
+    """t: (B,) -> (B, d_model) float32, cos then sin."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(max_period) * torch.arange(
+        half, dtype=torch.float32, device=t.device) / half)
+    ang = t.float()[:, None] * freqs[None]
+    return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)

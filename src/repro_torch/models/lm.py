@@ -153,7 +153,7 @@ def _period(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
-def _unstack(tree, n: int) -> List[Any]:
+def unstack(tree, n: int) -> List[Any]:
     """All ``n`` periods of a stacked tree, as views from one ``unbind``
     per leaf: the backward stacks each leaf's period grads once, where
     ``n`` separate selects would each add a zero-filled full-size grad."""
@@ -295,7 +295,7 @@ def forward(params, tokens, cfg: LMConfig, *, backend: str = "kernel",
             x = _apply_layer(pp[str(j)], x, cfg, spec, backend)
         return x
 
-    for pp in _unstack(params["periods"], cfg.n_periods):
+    for pp in unstack(params["periods"], cfg.n_periods):
         if remat:
             x = checkpoint(period_body, x, pp, use_reentrant=False)
         else:

@@ -27,7 +27,8 @@ bad = sorted(m for m in sys.modules
 print(len(mods), bad)
 assert not bad, bad
 for want in ("repro_torch.serving.scheduler", "repro_torch.train.trainer",
-             "repro_torch.kernels.ssd_scan"):
+             "repro_torch.kernels.ssd_scan",
+             "repro_torch.models.transformer2d"):
     assert want in mods, (want, mods)
 """
 

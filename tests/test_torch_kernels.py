@@ -296,3 +296,55 @@ def test_chip_smoke_attention_bar_catches_a_dropped_tile_or_shifted_mask(
     want = flash_attention_plain(tq, tk, tv, **kw)
     got = _sm90_emulation(tq, tk, tv, **kw, **fault)
     assert chip_smoke.attn_worst_share(got, want, torch.bfloat16) > 10
+
+
+@pytest.mark.parametrize("budget,slices", [(1, 5), (2 * 4 * 24 * 24 * 4, 3)])
+def test_backward_recompute_over_batch_slices_matches_one_slice(
+        monkeypatch, budget, slices):
+    """With ``BACKWARD_SCORE_BYTES`` patched small, the backward recomputes
+    through ``attention_ref`` over several slices of the batch dim (one
+    sequence each, or two of the 5), and the grads equal those of one
+    recompute of the whole batch."""
+    b, hq, hkv, s, d = 5, 4, 2, 24, 16
+    arrays = _inputs(b, hq, hkv, s, s, d, seed=8)
+    cot = torch.from_numpy(np.random.RandomState(9).standard_normal(
+        (b, hq, s, d)).astype(np.float32))
+    kw = dict(causal=True, window=9, softcap=20.0)
+
+    def grads():
+        tin = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+        return torch.autograd.grad(tops.flash_attention(*tin, **kw), tin, cot)
+
+    whole = grads()
+    calls = []
+    ref_fn = tops._ref.attention_ref
+
+    def counted(*a, **k):
+        calls.append(a[0].shape[0])
+        return ref_fn(*a, **k)
+
+    monkeypatch.setattr(tops._ref, "attention_ref", counted)
+    monkeypatch.setattr(tops, "BACKWARD_SCORE_BYTES", budget)
+    sliced = grads()
+    assert len(calls) == slices and sum(calls) == b
+    for g, w in zip(sliced, whole):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+
+
+def test_backward_recompute_is_one_slice_at_batch_one(monkeypatch):
+    """qwen3-14b training's shape (batch 1, 40 heads, 4096 tokens: 2.7 GB of
+    scores, over the budget) still recomputes in one slice: a slice holds
+    at least one sequence."""
+    calls = []
+
+    def stand_in(q, k, v, **kw):
+        calls.append(q.shape[0])
+        return q * 1.0
+
+    monkeypatch.setattr(tops._ref, "attention_ref", stand_in)
+    assert 4 * 40 * 4096 * 4096 > tops.BACKWARD_SCORE_BYTES
+    q = torch.zeros((1, 40, 4096, 1), requires_grad=True)
+    kv = torch.zeros((1, 8, 4096, 1))
+    out = tops._FlashAttention.apply(q, kv, kv, {}, True)
+    out.sum().backward()
+    assert calls == [1]
