@@ -69,11 +69,29 @@ Phases, in order; any failure raises and exits non-zero:
     frames x 4096 patches, every group of 2 pairs checkpointed; K1 must
     launch 2 x 28 x 4 = 224 times, every launch on ``cuda_cores`` at head
     dim 72; then the train CLI with the DiT at SMOKE size;
-13. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
-    counts over the paths above (K1 320 + 32 + 224, K2 576 + 384), then
-    the last line ``{"ok": true, "device": {...}}``.
+13. transformer2d-720m under DSP on a ``("data", "model")`` process mesh:
+    (a) at world size 1 over NCCL, phase 12's four steps again (same
+    init, batches and Trainer) with the mesh: the losses must equal phase
+    12's within 1e-4 relative, every rank's ``torch.distributed`` calls
+    are counted (``core.dsp``) with the counters set to 0 just before and
+    read just after, and must be exactly the planned all-to-alls (28 a
+    forward from the executor's accounting, times forward, checkpointed
+    recompute and backward: 3 x 28 x 4 = 336) and one all-reduce a step;
+    K1 must launch 224 times, all ``cuda_cores`` at head dim 72; one
+    switch of the (1, 16, 4096, 1152) stream is timed with its parts;
+    (b) 4 processes sharing the card over gloo (NCCL refuses two ranks on
+    one GPU) on a (1, 4) mesh, each this script again with
+    ``--dsp-rank``: every rank's depth-2 loss and grads at 1 x 16 x 4096
+    against (a)'s path at depth 2 (phase 7's bars), the gathered depth-28
+    forward against (a)'s within 2e-2 of its largest |value|, and per rank
+    exactly the planned all-to-alls and K1 launches.  gloo takes the
+    card's tensors itself; a collective it refused would fail the run;
+14. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
+    counts over the paths above (K1 320 + 32 + 224 + 224, K2 576 + 384),
+    then the last line ``{"ok": true, "device": {...}}``.
 
-Each phase's header logs the seconds since the start.
+Each phase's header logs the seconds since the start, and every time
+logged carries the card's name and power limit.
 """
 import dataclasses
 import json
@@ -82,6 +100,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -89,10 +108,14 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import (  # noqa: E402
     mamba2_370m, qwen3_14b, transformer2d_720m)
+from repro_torch.core import dsp  # noqa: E402
+from repro_torch.core.layout import from_mesh  # noqa: E402
+from repro_torch.core.schedule import ScheduleExecutor  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, make_batch  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -101,12 +124,14 @@ from repro_torch.kernels.ref import ssd_final_state, ssd_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     reset_launches as reset_ssd_launches, route_for as ssd_route,
     ssd_scan_fwd, ssd_scan_plain)
+from repro_torch.launch.mesh import BACKEND_OF, make_mesh  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import transformer2d as t2d  # noqa: E402
 from repro_torch.optim.adamw import OptConfig  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 from repro_torch.serving.scheduler import ContinuousScheduler  # noqa: E402
-from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
+from repro_torch.train.trainer import (  # noqa: E402
+    Trainer, TrainerConfig, allreduce_grads)
 
 # published H100 SXM peaks (NVIDIA data sheet, dense)
 PEAK_BF16_FLOPS = 989e12
@@ -166,6 +191,13 @@ PROMPT_LENS = np.linspace(512, 2048, N_REQUESTS).astype(int).tolist()
 # every group of 2 block pairs checkpointed; the depth-2 check at 4 frames
 DIT_BATCH, DIT_FRAMES, DIT_PATCHES, DIT_STEPS = 1, 16, 4096, 4
 DIT_REMAT_GROUP, DIT_CHECK_FRAMES = 2, 4
+# the DSP phase: phase 12's training at world size 1 over NCCL, whose
+# losses must equal phase 12's (the switch only moves bytes there); then
+# DSP_RANKS processes sharing the card over gloo on a (1, DSP_RANKS) mesh:
+# depth-2 loss and grads against the world-1 path (phase 7's bars), and
+# the depth-28 forward against world 1 within DSP_OUT_BAR of its largest
+# |value| (bf16 activations, summed in another order)
+DSP_RANKS, DSP_LOSS_BAR, DSP_OUT_BAR = 4, 1e-4, 2e-2
 
 
 def prefill_case(s: int):
@@ -191,8 +223,17 @@ DIT_SLICE = (4, DIT_HEADS, DIT_HEADS, DIT_PATCHES, DIT_PATCHES, DIT_DH,
              False, None, None)
 
 
+# the card's name and power limit (phase 1), logged beside every time
+CARD = "card not read yet"
+
+
 def log(*a):
     print(*a, flush=True)
+
+
+def log_t(*a):
+    """``log`` with the card's name and power limit after the line."""
+    log(*a, f"[{CARD}]")
 
 
 def card_facts() -> str:
@@ -453,8 +494,8 @@ def full_width_serve(cfg, kernel, device="cuda") -> dict:
     t0 = time.perf_counter()
     params = lm.init_lm(0, cfg, device=device)
     torch.cuda.synchronize()
-    log(f"  init {lm.param_counts(cfg)['total'] / 1e9:.2f}B params in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log_t(f"  init {lm.param_counts(cfg)['total'] / 1e9:.2f}B params in "
+          f"{time.perf_counter() - t0:.1f} s")
     eng = ServingEngine(params, cfg, max_len=max(PROMPT_LENS) + NEW_TOKENS,
                         device=device)
     bad = torch.zeros((), dtype=torch.long, device=device)
@@ -500,7 +541,7 @@ def full_width_serve(cfg, kernel, device="cuda") -> dict:
                                  f"with {NEW_TOKENS} tokens")
     if int(bad):
         raise AssertionError(f"{int(bad)} non-finite logits")
-    log("  metrics " + json.dumps(summary, sort_keys=True))
+    log_t("  metrics " + json.dumps(summary, sort_keys=True))
     del params, eng, sched
     torch.cuda.empty_cache()
     return {"launches": launches, "metrics": summary}
@@ -576,7 +617,7 @@ def full_width_train(cfg, kernel, batch_size, n_steps,
 
 
 def run_trainer(init, loss_fn, data_fn, kernel, *, tokens, n_steps,
-                n_layers, route, device="cuda") -> dict:
+                n_layers, route, device="cuda", mesh=None) -> dict:
     """``n_steps`` AdamW steps of the port's Trainer from ``init()``'s
     params, with every launch counter set to 0 just before and read just
     after.  ``kernel`` (K1's or K2's wrapper) must launch twice per layer
@@ -584,18 +625,19 @@ def run_trainer(init, loss_fn, data_fn, kernel, *, tokens, n_steps,
     goes through a plain reference), every launch on ``route``; every loss
     and grad norm must be finite.  Logs each step, the median step time of
     the steps after the first, ``tokens`` per step over it, and the peak
-    device memory."""
+    device memory.  With ``mesh`` the Trainer runs on it, and the
+    ``torch.distributed`` calls of the run are returned by kind."""
     t0 = time.perf_counter()
     params = init()
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in lm.tree_leaves(params))
-    log(f"  init {n_params / 1e6:.1f}M params in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log_t(f"  init {n_params / 1e6:.1f}M params in "
+          f"{time.perf_counter() - t0:.1f} s")
     trainer = Trainer(
         loss_fn=loss_fn, params=params,
         opt_cfg=OptConfig(peak_lr=3e-4, warmup_steps=2, total_steps=n_steps),
         cfg=TrainerConfig(total_steps=n_steps, log_every=1),
-        data_fn=data_fn, device=device)
+        data_fn=data_fn, device=device, mesh=mesh)
     del params
     steps = []
     inner = trainer.step_fn
@@ -614,14 +656,16 @@ def run_trainer(init, loss_fn, data_fn, kernel, *, tokens, n_steps,
     torch.cuda.reset_peak_memory_stats()
     reset_ssd_launches()
     reset_launches()
+    dsp.reset_calls()
     out = trainer.run()
     torch.cuda.synchronize()
+    collectives = dict(dsp.calls)
     launches = kernel.launches
     routes = dict(kernel.route_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for i, st in enumerate(steps):
-        log(f"  step {i + 1}: loss {st['loss']:.6f}  grad norm "
-            f"{st['grad_norm']:.6f}  {st['seconds'] * 1e3:.2f} ms")
+        log_t(f"  step {i + 1}: loss {st['loss']:.6f}  grad norm "
+              f"{st['grad_norm']:.6f}  {st['seconds'] * 1e3:.2f} ms")
     warm = sorted(st["seconds"] for st in steps[1:])
     step_s = warm[len(warm) // 2]
     summary = {"step_ms_first": steps[0]["seconds"] * 1e3,
@@ -635,7 +679,7 @@ def run_trainer(init, loss_fn, data_fn, kernel, *, tokens, n_steps,
         f"{routes}; flash_attention_fwd {flash_attention_fwd.launches} "
         f"(by head dim {nonzero(flash_attention_fwd.head_dim_launches)}), "
         f"ssd_scan_fwd {ssd_scan_fwd.launches} in all")
-    log("  metrics " + json.dumps(summary, sort_keys=True))
+    log_t("  metrics " + json.dumps(summary, sort_keys=True))
     if launches != 2 * n_layers * n_steps:
         raise AssertionError(f"{kernel.__name__} launched {launches} times, "
                              f"expected 2 x {n_layers} x {n_steps}")
@@ -649,7 +693,8 @@ def run_trainer(init, loss_fn, data_fn, kernel, *, tokens, n_steps,
         raise AssertionError(f"non-finite training step: {steps}")
     del trainer
     torch.cuda.empty_cache()
-    return {"launches": launches, "metrics": summary}
+    return {"launches": launches, "metrics": summary,
+            "collectives": collectives}
 
 
 def nonzero(counts: dict) -> dict:
@@ -723,6 +768,270 @@ def dit_train(cfg, device="cuda") -> dict:
     return trained
 
 
+def planned_a2a(cfg, n: int, *, passes: int, backward: bool) -> int:
+    """All-to-alls a rank issues for ``passes`` forward passes of ``cfg``
+    at DIT_BATCH x DIT_FRAMES x DIT_PATCHES over ``n`` model ranks, and one
+    backward when ``backward``, from the explicit executor's accounting of
+    the planned schedule."""
+    ps = t2d.dsp_schedule(cfg, n, t_len=DIT_FRAMES, s_len=DIT_PATCHES,
+                          batch=DIT_BATCH)
+    ex = ScheduleExecutor(ps, backend="explicit")
+    n_pairs = cfg.n_layers // 2
+    fwd = ex.expected_collectives(n_pairs).get("all-to-all", 0)
+    bwd = ex.expected_bwd_collectives(n_pairs).get("all-to-all", 0)
+    return passes * fwd + (bwd if backward else 0)
+
+
+def dsp_grads(cfg, mesh, device="cuda"):
+    """Depth-2 (one pair) ``cfg`` at DIT_BATCH x DIT_FRAMES x DIT_PATCHES,
+    modulation perturbed as phase 12's check: this rank's
+    ``t2d_loss(mesh=mesh)`` and its grads, summed over the world in one
+    all-reduce.  Returns (loss, [f32 grad leaves])."""
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    params = perturb_modulation(t2d.init_t2d(0, cfg2, device=device), 5)
+    batch = t2d.shard_video_batch(dit_batch(cfg, DIT_FRAMES, 0, device), mesh)
+    leaves = lm.tree_map(lambda p: p.requires_grad_(True), params)
+    loss, _ = t2d.t2d_loss(leaves, batch, cfg2, backend="kernel", mesh=mesh)
+    grads = iter(torch.autograd.grad(loss, lm.tree_leaves(leaves)))
+    loss, grads = allreduce_grads(loss.detach(), lm.tree_map(
+        lambda p: next(grads), leaves))
+    return loss, lm.tree_leaves(grads)
+
+
+def dsp_forward(cfg, mesh, device="cuda"):
+    """``make_spmd_forward(mode="dsp")`` at full depth over phase 12's
+    first batch, taken whole by every rank; returns the rank's shard."""
+    params = perturb_modulation(t2d.init_t2d(0, cfg, device=device), 6)
+    batch = dit_batch(cfg, DIT_FRAMES, 0, device)
+    fwd = t2d.make_spmd_forward(cfg, mesh, mode="dsp", backend="kernel")
+    with torch.no_grad():
+        return fwd(params, batch["x"], batch["t"])
+
+
+def time_switch(mesh, shape, device="cuda") -> dict:
+    """One planned switch (T -> S) of the DiT's residual stream at
+    ``shape`` on ``mesh``'s model group, and its parts: the all-to-all
+    alone on a buffer of the same bytes, and the permute-copies a
+    ``DSP_RANKS``-way switch of the same stream adds per rank (its T
+    shard's S chunks moved to the front, the received chunks merged into
+    T).  CUDA events, medians of 3 runs of 10."""
+    g = torch.Generator(device=device).manual_seed(11)
+    x = torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+    flat = x.reshape(-1)
+    out = torch.empty_like(flat)
+    b, t, s, c = shape
+    n, t_loc = DSP_RANKS, t // DSP_RANKS
+    part = x[:, :t_loc]
+    group = mesh.get_group("model")
+
+    def permute():
+        send = part.reshape(b, t_loc, n, s // n, c).movedim(2, 0).contiguous()
+        return send.movedim(0, 1).reshape(b, t, s // n, c)
+
+    fns = {"switch": lambda: dsp.dynamic_switch(x, 1, 2, group),
+           "all_to_all": lambda: dist.all_to_all_single(
+               out, flat, group=group),
+           "permute_copies": permute}
+    ms = {k: float(np.median([time_ms(f, iters=10, warmup=2)
+                              for _ in range(3)])) for k, f in fns.items()}
+    nbytes = x.numel() * x.element_size()
+    log_t(f"  one switch of {tuple(shape)} bf16 ({nbytes / 1e6:.1f} MB) at "
+          f"world size {dist.get_world_size()}: {ms['switch']:.4f} ms; the "
+          f"all-to-all alone {ms['all_to_all']:.4f} ms "
+          f"({2 * nbytes / ms['all_to_all'] / 1e6:.1f} GB/s read + "
+          f"written); the permute-copies of a {DSP_RANKS}-way switch's "
+          f"{tuple(part.shape)} shard {ms['permute_copies']:.4f} ms")
+    return {"bytes": nbytes, **{f"{k}_ms": v for k, v in ms.items()}}
+
+
+def dsp_world_of_one(cfg, phase12: dict, work: str, device="cuda") -> dict:
+    """(a) Phase 12's training at world size 1 on a (1, 1) mesh over NCCL:
+    the same init, batches and steps through the Trainer with the mesh.
+    Every planned switch is issued (an NCCL all-to-all of one rank); the
+    losses must equal phase 12's within DSP_LOSS_BAR relative, the
+    all-to-alls must be exactly what the executor plans (forward,
+    checkpointed recompute and backward each step), the grads take one
+    all-reduce a step, and K1 launches as in phase 12.  Then the references
+    of (b): the depth-2 loss and grads and the depth-28 forward on this
+    path, written to ``work``."""
+    backend = BACKEND_OF[torch.device(device).type]
+    dist.init_process_group(backend, store=dist.FileStore(
+        os.path.join(work, "store1"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), torch.device(device).type)
+        planned = DIT_STEPS * planned_a2a(cfg, 1, passes=2, backward=True)
+        log(f"  mesh (1, 1) over {backend}; planned all-to-alls: "
+            f"{DIT_STEPS} steps x (2 forward passes + 1 backward) x "
+            f"{planned // DIT_STEPS // 3} = {planned}")
+        trained = run_trainer(
+            lambda: perturb_modulation(t2d.init_t2d(0, cfg, device=device),
+                                       6),
+            lambda p, b: t2d.t2d_loss(p, b, cfg, backend="kernel",
+                                      remat_group=DIT_REMAT_GROUP, mesh=mesh),
+            lambda st: t2d.shard_video_batch(
+                dit_batch(cfg, DIT_FRAMES, st, device), mesh),
+            flash_attention_fwd, tokens=DIT_BATCH * DIT_FRAMES * DIT_PATCHES,
+            n_steps=DIT_STEPS, n_layers=cfg.n_layers, route="cuda_cores",
+            device=device, mesh=mesh)
+        dims = nonzero(flash_attention_fwd.head_dim_launches)
+        if dims != {cfg.dh: trained["launches"]}:
+            raise AssertionError(f"K1 launches by head dim {dims}")
+        calls = trained["collectives"]
+        log(f"  torch.distributed calls: {calls}")
+        if calls != {"all-to-all": planned, "all-reduce": DIT_STEPS}:
+            raise AssertionError(f"collectives {calls}, planned "
+                                 f"{planned} all-to-alls and {DIT_STEPS} "
+                                 f"all-reduces")
+        losses = trained["metrics"]["losses"]
+        ref = phase12["metrics"]["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+        log_t(f"  losses {losses} against phase 12's {ref}: worst "
+              f"|delta| / |loss| = {rel:.3e}; step (median) "
+              f"{trained['metrics']['step_ms_median']:.2f} ms against "
+              f"phase 12's {phase12['metrics']['step_ms_median']:.2f} ms")
+        if not rel <= DSP_LOSS_BAR:
+            raise AssertionError(f"world-1 DSP losses {losses} differ from "
+                                 f"phase 12's {ref}")
+        switch = time_switch(mesh, (DIT_BATCH, DIT_FRAMES, DIT_PATCHES,
+                                   cfg.d_model), device)
+        loss, grads = dsp_grads(cfg, mesh, device)
+        torch.save({"loss": loss.cpu(), "grads": [g.cpu() for g in grads]},
+                   os.path.join(work, "ref_grads.pt"))
+        del grads
+        torch.save(dsp_forward(cfg, mesh, device).cpu(),
+                   os.path.join(work, "ref_out.pt"))
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return {**trained, "planned_a2a": planned, "switch": switch}
+
+
+def dsp_rank_main(rank: int, world: int, work: str) -> None:
+    """One of (b)'s ranks, started by ``dsp_four_ranks`` as ``chip_smoke.py
+    --dsp-rank <rank> <world> <dir>``: gloo over the card's CUDA tensors on
+    a (1, world) mesh.  Checks its depth-2 loss and grads against (a)'s,
+    writes its depth-28 forward shard, and writes what it counted to
+    ``<dir>/rank<rank>.json``."""
+    job = json.load(open(os.path.join(work, "job.json")))
+    device = job["device"]
+    cfg = dataclasses.replace(
+        transformer2d_720m.CONFIG, **job["cfg"],
+        dtype=getattr(torch, job["dtype"].split(".")[-1]))
+    full_f32()
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(work, "store4"), world), rank=rank, world_size=world)
+    try:
+        mesh = make_mesh((1, world), ("data", "model"),
+                         torch.device(device).type, backend="gloo")
+        res = {"coord": from_mesh(mesh).sp_index}
+        ref = torch.load(os.path.join(work, "ref_grads.pt"))
+        for name, run in (("grads", lambda: dsp_grads(cfg, mesh, device)),
+                          ("forward", lambda: dsp_forward(cfg, mesh, device))):
+            reset_launches()
+            dsp.reset_calls()
+            t0 = time.perf_counter()
+            got = run()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            res[name] = {"seconds": time.perf_counter() - t0,
+                         "calls": dict(dsp.calls),
+                         "k1": flash_attention_fwd.launches,
+                         "k1_routes": nonzero(
+                             flash_attention_fwd.route_launches)}
+            if name == "grads":
+                loss, grads = got
+                shares = [float((g.cpu() - w).abs().max()
+                                / w.abs().max().clamp_min(1e-30))
+                          for g, w in zip(grads, ref["grads"])]
+                res[name].update(
+                    loss=float(loss), loss_rel=float(
+                        (loss.cpu() - ref["loss"]).abs() / ref["loss"].abs()),
+                    grad_rel=max(shares), leaves=len(shares))
+                del grads
+            else:
+                torch.save(got.cpu(), os.path.join(work, f"out{rank}.pt"))
+                res[name]["shape"] = list(got.shape)
+        json.dump(res, open(os.path.join(work, f"rank{rank}.json"), "w"))
+    finally:
+        dist.destroy_process_group()
+
+
+def dsp_four_ranks(cfg, work: str, device="cuda") -> dict:
+    """(b) DSP_RANKS processes sharing the card over gloo on a (1,
+    DSP_RANKS) mesh (a 4-rank NCCL group cannot be built on one card).
+    Checks layouts and values, not speed: every rank's depth-2 loss and
+    grads against (a)'s within phase 7's bars; the gathered depth-28
+    forward against (a)'s within DSP_OUT_BAR of its largest |value|; per
+    rank exactly the planned all-to-alls and K1 launches, all
+    ``cuda_cores``."""
+    with open(os.path.join(work, "job.json"), "w") as f:
+        json.dump({"device": device, "dtype": str(cfg.dtype),
+                   "cfg": {"n_layers": cfg.n_layers,
+                           "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                           "d_ff": cfg.d_ff, "in_dim": cfg.in_dim}}, f)
+    t0 = time.perf_counter()
+    # each rank is this script again, as started (sys.argv[0])
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(sys.argv[0]),
+                               "--dsp-rank", str(r), str(DSP_RANKS), work])
+             for r in range(DSP_RANKS)]
+    try:
+        rcs = [p.wait(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log_t(f"  {DSP_RANKS} ranks exited {rcs} after "
+          f"{time.perf_counter() - t0:.1f} s")
+    if any(rcs):
+        raise AssertionError(f"a DSP rank failed: exit codes {rcs}")
+    ranks = [json.load(open(os.path.join(work, f"rank{r}.json")))
+             for r in range(DSP_RANKS)]
+    # depth 2: the forward, its checkpointed recompute and the backward;
+    # K1 in each block's forward and recompute
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    want = {"grads": ({"all-to-all": planned_a2a(cfg2, DSP_RANKS, passes=2,
+                                                 backward=True),
+                       "all-reduce": 1}, 2 * cfg2.n_layers),
+            "forward": ({"all-to-all": planned_a2a(cfg, DSP_RANKS, passes=1,
+                                                   backward=False)},
+                        cfg.n_layers)}
+    log(f"  planned per rank: {want}")
+    for r, res in enumerate(ranks):
+        g, f = res["grads"], res["forward"]
+        log_t(f"  rank {r} (gloo on {device} tensors): depth-2 loss "
+              f"{g['loss']:.6f}, |delta| / |loss| against world 1 "
+              f"{g['loss_rel']:.3e}, worst grad leaf {g['grad_rel']:.3e} "
+              f"over {g['leaves']} leaves, in {g['seconds']:.1f} s, calls "
+              f"{g['calls']}, K1 {g['k1']} {g['k1_routes']}; depth-"
+              f"{cfg.n_layers} forward {f['shape']} in {f['seconds']:.1f} s, "
+              f"calls {f['calls']}, K1 {f['k1']} {f['k1_routes']}")
+        if not (g["loss_rel"] <= LOSS_BAR and g["grad_rel"] <= GRAD_BAR):
+            raise AssertionError(f"rank {r}'s depth-2 loss or grads "
+                                 f"disagree with world 1: {g}")
+        for name, (calls, k1) in want.items():
+            if (res[name]["calls"] != calls or res[name]["k1"] != k1
+                    or res[name]["k1_routes"] != {"cuda_cores": k1}):
+                raise AssertionError(f"rank {r} {name}: {res[name]}, "
+                                     f"planned {calls} and {k1} K1 "
+                                     f"launches")
+    order = sorted(range(DSP_RANKS), key=lambda r: ranks[r]["coord"])
+    got = torch.cat([torch.load(os.path.join(work, f"out{r}.pt"))
+                     for r in order], dim=1).float()
+    want = torch.load(os.path.join(work, "ref_out.pt")).float()
+    rel = float((got - want).abs().max() / want.abs().max())
+    log(f"  depth-{cfg.n_layers} forward, {DSP_RANKS} ranks gathered "
+        f"{tuple(got.shape)} against world 1: max |delta| / max |world 1| "
+        f"= {rel:.3e}")
+    if not (got.shape == want.shape and torch.isfinite(got).all()
+            and rel <= DSP_OUT_BAR):
+        raise AssertionError(f"the {DSP_RANKS}-rank forward disagrees with "
+                             f"world 1: {rel}")
+    return {"ranks": ranks, "out_rel": rel}
+
+
 def train_cli(train_main, arch: str) -> None:
     """The train CLI at SMOKE size for 30 steps; the loss must fall."""
     hist = train_main(["--arch", arch, "--steps", "30"])["history"]
@@ -750,13 +1059,13 @@ def time_dit_attention() -> dict:
     plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, **kw), iters=3,
                        warmup=1)
     bound = attention_bound_ms(DIT_SLICE, torch.bfloat16)
-    log(f"  DiT spatial {DIT_SLICE[:6]} non-causal: kernel ({route}) runs "
-        f"{runs['kernel']}  library runs {runs['library']}")
-    log(f"  DiT spatial: kernel ({route}) {ms:.4f} ms  plain {plain_ms:.4f} "
-        f"ms  scaled_dot_product_attention {library_ms:.4f} ms  bound "
-        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
-        f"{bound['flops']:.3e} FLOP, {bound['bytes']:.3e} B; the kernel at "
-        f"{bound['flops'] / ms / 1e9:.1f} TFLOP/s)")
+    log_t(f"  DiT spatial {DIT_SLICE[:6]} non-causal: kernel ({route}) runs "
+          f"{runs['kernel']}  library runs {runs['library']}")
+    log_t(f"  DiT spatial: kernel ({route}) {ms:.4f} ms  plain {plain_ms:.4f} "
+          f"ms  scaled_dot_product_attention {library_ms:.4f} ms  bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
+          f"{bound['flops']:.3e} FLOP, {bound['bytes']:.3e} B; the kernel at "
+          f"{bound['flops'] / ms / 1e9:.1f} TFLOP/s)")
     del q, k, v
     torch.cuda.empty_cache()
     return {"route": route, "ms": ms, "plain_ms": plain_ms,
@@ -766,27 +1075,34 @@ def time_dit_attention() -> dict:
 T0 = time.perf_counter()
 
 
+def full_f32() -> None:
+    """No TF32: float32 products in full precision, as the plain versions
+    and the references are held to."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
 def elapsed() -> str:
-    return f"t = {time.perf_counter() - T0:.1f} s"
+    return f"t = {time.perf_counter() - T0:.1f} s, {CARD}"
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    full_f32()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     log("[1] device")
-    facts = card_facts()
+    global CARD
+    facts = CARD = card_facts()
     log(facts)
 
     log(f"[2] build ({elapsed()})")
     t0 = time.perf_counter()
     report = build.build()
-    log(f"  built {sorted(report) or 'nothing (cached)'} in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log_t(f"  built {sorted(report) or 'nothing (cached)'} in "
+          f"{time.perf_counter() - t0:.1f} s")
     for name, r in report.items():
         for line in ptxas_report(r["log"]):
             log(f"  {name}: {line}")
@@ -832,14 +1148,14 @@ def main() -> None:
         q, k, v, route="cuda_cores", **kw), iters=20)
     plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, **kw), iters=10)
     bound = attention_bound_ms(SLICE, torch.bfloat16)
-    log(f"  kernel ({route}) runs {runs['kernel']}  library runs "
-        f"{runs['library']}")
-    log(f"  kernel ({route}) {ms:.4f} ms  cuda_cores kernel "
-        f"{cuda_cores_ms:.4f} ms  plain {plain_ms:.4f} ms  "
-        f"scaled_dot_product_attention {library_ms:.4f} ms  "
-        f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
-        f"{bound['flops']:.3e} FLOP, {bound['bytes']:.3e} B; the kernel "
-        f"at {bound['flops'] / ms / 1e9:.1f} TFLOP/s)")
+    log_t(f"  kernel ({route}) runs {runs['kernel']}  library runs "
+          f"{runs['library']}")
+    log_t(f"  kernel ({route}) {ms:.4f} ms  cuda_cores kernel "
+          f"{cuda_cores_ms:.4f} ms  plain {plain_ms:.4f} ms  "
+          f"scaled_dot_product_attention {library_ms:.4f} ms  "
+          f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
+          f"{bound['flops']:.3e} FLOP, {bound['bytes']:.3e} B; the kernel "
+          f"at {bound['flops'] / ms / 1e9:.1f} TFLOP/s)")
     del q, k, v
     xdt, da, b, c = ssd_inputs(SSD_SLICE, torch.bfloat16, seed=8)
     ssd_route_slice = ssd_route(torch.bfloat16, SSD_SLICE[3], *SSD_SLICE[5:])
@@ -855,15 +1171,15 @@ def main() -> None:
     ssd_plain_ms = time_ms(lambda: ssd_scan_plain(xdt, da, b, c, chunk=128),
                            iters=5)
     ssd_bound = ssd_bound_ms(SSD_SLICE, torch.bfloat16)
-    log(f"  ssd_scan kernel ({ssd_route_slice}) runs "
-        f"{ssd_runs[ssd_route_slice]}  cuda_cores runs "
-        f"{ssd_runs['cuda_cores']}")
-    log(f"  ssd_scan kernel ({ssd_route_slice}) {ssd_ms:.4f} ms  cuda_cores "
-        f"kernel {ssd_cuda_cores_ms:.4f} ms  plain {ssd_plain_ms:.4f} ms  "
-        f"library none  bound {ssd_bound['bound_ms']:.4f} ms "
-        f"({ssd_bound['bound_by']}: {ssd_bound['flops']:.3e} FLOP, "
-        f"{ssd_bound['bytes']:.3e} B; the kernel at "
-        f"{ssd_bound['bytes'] / ssd_ms / 1e6:.1f} GB/s)")
+    log_t(f"  ssd_scan kernel ({ssd_route_slice}) runs "
+          f"{ssd_runs[ssd_route_slice]}  cuda_cores runs "
+          f"{ssd_runs['cuda_cores']}")
+    log_t(f"  ssd_scan kernel ({ssd_route_slice}) {ssd_ms:.4f} ms  cuda_cores "
+          f"kernel {ssd_cuda_cores_ms:.4f} ms  plain {ssd_plain_ms:.4f} ms  "
+          f"library none  bound {ssd_bound['bound_ms']:.4f} ms "
+          f"({ssd_bound['bound_by']}: {ssd_bound['flops']:.3e} FLOP, "
+          f"{ssd_bound['bytes']:.3e} B; the kernel at "
+          f"{ssd_bound['bytes'] / ssd_ms / 1e6:.1f} GB/s)")
     del xdt, da, b, c
     torch.cuda.empty_cache()
     dit = time_dit_attention()
@@ -915,6 +1231,14 @@ def main() -> None:
     dit_grads_check(dcfg)
     dit_trained = dit_train(dcfg)
     train_cli(train_main, "transformer2d-720m")
+
+    log(f"[13] transformer2d-720m under DSP ({elapsed()})")
+    with tempfile.TemporaryDirectory() as work:
+        log("  (a) world size 1 over NCCL, full width and depth")
+        dsp_trained = dsp_world_of_one(dcfg, dit_trained, work)
+        log(f"  (b) {DSP_RANKS} ranks on the card over gloo "
+            f"({elapsed()})")
+        dsp_four_ranks(dcfg, work)
     log(f"  done ({elapsed()})")
 
     log(facts)
@@ -923,13 +1247,14 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:36",
         "launches": (served["launches"] + q_trained["launches"]
-                     + dit_trained["launches"]),
+                     + dit_trained["launches"] + dsp_trained["launches"]),
         "max_abs_err": slice_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"], "library_ms": library_ms,
         "kernel_route": route, "cuda_cores_ms": cuda_cores_ms,
         "dit": {"shape": list(DIT_SLICE[:6]), "route": dit["route"],
                 "launches": dit_trained["launches"],
+                "dsp_launches": dsp_trained["launches"],
                 "max_abs_err": dit_err, "ms": dit["ms"],
                 "plain_ms": dit["plain_ms"], "bound_ms": dit["bound_ms"],
                 "bound_by": dit["bound_by"],
@@ -949,4 +1274,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dsp-rank"]:
+        dsp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        main()

@@ -11,12 +11,27 @@ recomputed through a plain reference; with ``--device cpu`` the kernels'
 plain versions stand in.  ``--grad-accum N`` splits each batch of ``--batch``
 sequences into N microbatches.
 
+``--mesh dp,mp`` trains the t2d family under DSP on a ``("data",
+"model")`` process mesh, one rank per process under ``torchrun`` (NCCL on
+the card, gloo with ``--device cpu``):
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch transformer2d-720m --mesh 1,4
+
+Every rank draws the same global batch and trains on its shard (batch
+over ``data``, frames over ``model``) with the joint plan of
+``dsp_schedule`` through ``t2d_loss(mesh=...)``; the ``Trainer`` sums the
+grads over the world.  The plan is priced in bytes (``topology=None``):
+the JAX CLI prices it on its TPU link constants, which the port does not
+carry.
+
 ``--device`` defaults to ``cuda``.  The JAX CLI's checkpoint, elastic,
-mesh and compression flags are not ported yet and exit with a message.
+device-count and compression flags, and ``--mesh`` for the LM family, are
+not ported yet and exit with a message.
 """
 import argparse
 
-NOT_PORTED = ("ckpt_dir", "replan", "devices", "mesh")
+NOT_PORTED = ("ckpt_dir", "replan", "devices")
 NOT_PORTED_SWITCHES = ("resume", "grad_compress")
 
 
@@ -32,6 +47,9 @@ def main(argv=None):
                     help="use the full published config")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (cpu for tests)")
+    ap.add_argument("--mesh", default=None,
+                    help="dp,mp: DSP over a (data, model) process mesh "
+                         "(t2d family, under torchrun)")
     for flag in NOT_PORTED:
         ap.add_argument("--" + flag.replace("_", "-"), default=None,
                         help="not yet ported")
@@ -56,18 +74,34 @@ def main(argv=None):
 
     spec = configs.get(args.arch)
     cfg = spec.config if args.full else spec.smoke
+    if args.mesh is not None and spec.family != "t2d":
+        raise SystemExit(f"--mesh for the {spec.family} family: not yet "
+                         f"ported")
     device = resolve_device(args.device)
+    mesh = None
     if spec.family == "t2d":
+        spatial = args.seq // 8 or 16
+        psched = None
+        if args.mesh is not None:
+            from repro_torch.launch.mesh import make_mesh
+            dp, mp = (int(a) for a in args.mesh.split(","))
+            mesh = make_mesh((dp, mp), ("data", "model"), device.type)
+            psched = t2d.dsp_schedule(cfg, mp, t_len=8, s_len=spatial,
+                                      batch=args.batch, topology=None,
+                                      joint=True)
         params = t2d.init_t2d(0, cfg, device=device)
         dcfg = DataConfig(task="video", batch=args.batch, temporal=8,
-                          spatial=args.seq // 8 or 16, in_dim=cfg.in_dim)
+                          spatial=spatial, in_dim=cfg.in_dim)
 
         def loss_fn(p, b):
-            return t2d.t2d_loss(p, b, cfg, backend="kernel")
+            return t2d.t2d_loss(p, b, cfg, backend="kernel", mesh=mesh,
+                                schedule=psched)
 
         def make(step):
-            return t2d.model_dtype_batch(make_batch(dcfg, step,
-                                                    device=device), cfg)
+            batch = t2d.model_dtype_batch(make_batch(dcfg, step,
+                                                     device=device), cfg)
+            return batch if mesh is None else t2d.shard_video_batch(batch,
+                                                                    mesh)
     else:
         params = init_lm(0, cfg, device=device)
         dcfg = DataConfig(task="lm_shift", vocab=cfg.vocab, seq=args.seq,
@@ -93,7 +127,7 @@ def main(argv=None):
                           total_steps=args.steps),
         cfg=TrainerConfig(total_steps=args.steps, grad_accum=args.grad_accum,
                           log_every=max(args.steps // 10, 1)),
-        data_fn=data_fn, device=device)
+        data_fn=data_fn, device=device, mesh=mesh)
     out = trainer.run()
     print("history:", out["history"])
     print("stragglers:", out["stragglers"])

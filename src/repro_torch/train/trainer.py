@@ -1,13 +1,17 @@
-"""Training loop on one device (counterpart of ``repro.train.trainer``).
+"""Training loop (counterpart of ``repro.train.trainer``).
 
 ``make_train_step`` builds the (params, opt_state, batch) -> ... update:
 loss and grads through ``torch.autograd``, optional gradient accumulation
-over a leading microbatch dim, then AdamW.  ``Trainer`` owns the host
-loop: deterministic data from a step-indexed ``data_fn``, a step-time EMA
-watchdog that flags stragglers, and the loss history.
+over a leading microbatch dim, then AdamW.  With a mesh, each rank's loss
+and grads are its shard's share of the global mean's (``t2d_loss`` with
+``mesh=``), and one all-reduce of one flattened f32 bucket sums them over
+the whole world before clipping and AdamW, so ``clip_by_global_norm`` sees
+the global gradient and the logged loss is the global one.  ``Trainer``
+owns the host loop: deterministic data from a step-indexed ``data_fn``, a
+step-time EMA watchdog that flags stragglers, and the loss history.
 
-Checkpointing, elastic ``replan``, meshes, gradient compression and the
-retry loop come with their slices.  A CUDA fault leaves the context
+Checkpointing, elastic ``replan``, gradient compression and the retry
+loop come with their slices.  A CUDA fault leaves the context
 unusable, so a failed step raises rather than retrying.
 """
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from repro_torch.core import dsp
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import tree_leaves, tree_map
 from repro_torch.optim.adamw import OptConfig, apply_adamw, init_opt_state
@@ -35,13 +40,27 @@ class TrainerConfig:
     grad_compress: bool = False        # int8 EF compression: not yet ported
 
 
+def allreduce_grads(loss: torch.Tensor, grads):
+    """Sum the loss and every gradient over the whole world in one
+    all-reduce of one flattened f32 bucket; returns (loss, grads) with the
+    grads as f32 views of the bucket."""
+    leaves = tree_leaves(grads)
+    bucket = torch.cat([g.reshape(-1).float() for g in leaves]
+                       + [loss.reshape(1).float()])
+    dsp.all_reduce(bucket)
+    parts = iter(bucket.split([g.numel() for g in leaves] + [1]))
+    grads = tree_map(lambda g: next(parts).view(g.shape), grads)
+    return next(parts)[0], grads
+
+
 def make_train_step(loss_fn: Callable, opt_cfg: OptConfig, *,
-                    grad_accum: int = 1):
+                    grad_accum: int = 1, mesh=None):
     """loss_fn(params, batch) -> (scalar, metrics dict).
 
     With grad_accum > 1, ``batch`` leaves carry a leading (grad_accum,
     micro...) dim; gradients are summed in f32 over the microbatches, one
-    after another, and averaged.
+    after another, and averaged.  With ``mesh``, the loss and the grads are
+    then summed over the world (``allreduce_grads``).
     """
 
     def grads_of(params, batch):
@@ -70,6 +89,8 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptConfig, *,
             metrics: Dict[str, Any] = {}
         else:
             loss, metrics, grads = grads_of(params, batch)
+        if mesh is not None:
+            loss, grads = allreduce_grads(loss, grads)
         params, opt_state, om = apply_adamw(params, grads, opt_state, opt_cfg)
         return params, opt_state, {"loss": loss, **metrics, **om}
 
@@ -78,11 +99,13 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptConfig, *,
 
 class Trainer:
     """The host loop on ``device`` (default the card; raises when CUDA is
-    missing unless given ``device="cpu"``).  ``params`` must lie there."""
+    missing unless given ``device="cpu"``).  ``params`` must lie there.
+    With ``mesh``, ``data_fn`` gives the rank's shard and ``loss_fn`` its
+    share of the global loss (``make_train_step``)."""
 
     def __init__(self, *, loss_fn, params, opt_cfg: OptConfig,
                  cfg: TrainerConfig, data_fn: Callable[[int], Any],
-                 ckpt_dir: Optional[str] = None, device="cuda"):
+                 ckpt_dir: Optional[str] = None, device="cuda", mesh=None):
         if ckpt_dir is not None:
             raise NotImplementedError("checkpointing: not yet ported")
         if cfg.grad_compress:
@@ -98,7 +121,7 @@ class Trainer:
         self.opt_cfg = opt_cfg
         self.opt_state = init_opt_state(params, opt_cfg)
         self.step_fn = make_train_step(loss_fn, opt_cfg,
-                                       grad_accum=cfg.grad_accum)
+                                       grad_accum=cfg.grad_accum, mesh=mesh)
         self.straggler_events = []
         self.metrics_history = []
 

@@ -28,7 +28,9 @@ print(len(mods), bad)
 assert not bad, bad
 for want in ("repro_torch.serving.scheduler", "repro_torch.train.trainer",
              "repro_torch.kernels.ssd_scan",
-             "repro_torch.models.transformer2d"):
+             "repro_torch.models.transformer2d", "repro_torch.core.plan",
+             "repro_torch.core.schedule", "repro_torch.core.dsp",
+             "repro_torch.launch.mesh"):
     assert want in mods, (want, mods)
 """
 
@@ -86,6 +88,18 @@ def test_training_entry_points_default_to_cuda(no_cuda):
         == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--arch", "mamba2-370m"])
+
+
+def test_cuda_mesh_needs_cuda(no_cuda):
+    """``make_mesh`` and ``submesh`` on ``cuda`` raise without CUDA, before
+    any process group is asked for."""
+    from repro_torch.launch.mesh import make_mesh, submesh
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh((1, 4), ("data", "model"), "cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh((1, 1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        submesh(4)
 
 
 def test_flash_attention_kernel_path_takes_gradients(monkeypatch):

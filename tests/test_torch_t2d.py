@@ -327,11 +327,24 @@ def test_config_tree_and_count_match_jax(arch):
     dict(mesh=object()), dict(mode="ulysses"), dict(topology=object()),
     dict(joint=True), dict(schedule=object()), dict(overlap="ring")])
 def test_forward_raises_for_the_mesh_path(kw):
+    """What the mesh path does not port raises (modes other than dsp,
+    overlap), as does a mesh that is not one; without a mesh, the plan's
+    arguments act on nothing, as in JAX (``tests/test_torch_dsp.py`` runs
+    the mesh path)."""
     cfg = tc720.SMOKE
     params = TT.init_t2d(0, cfg, device="cpu")
-    x = torch.zeros((1, 2, 3, cfg.in_dim))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TT.forward(params, x, None, cfg, **kw)
+    x = torch.randn((1, 2, 3, cfg.in_dim), generator=torch.Generator()
+                    .manual_seed(0))
+    if "mesh" in kw:
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            TT.forward(params, x, None, cfg, **kw)
+    elif "mode" in kw or "overlap" in kw:
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            TT.forward(params, x, None, cfg, **kw)
+    else:
+        torch.testing.assert_close(TT.forward(params, x, None, cfg, **kw),
+                                   TT.forward(params, x, None, cfg),
+                                   rtol=0, atol=0)
 
 
 # ---------------------------------------------------------------------------
