@@ -86,8 +86,25 @@ Phases, in order; any failure raises and exits non-zero:
     forward against (a)'s within 2e-2 of its largest |value|, and per rank
     exactly the planned all-to-alls and K1 launches.  gloo takes the
     card's tensors itself; a collective it refused would fail the run;
-14. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
-    counts over the paths above (K1 320 + 32 + 224 + 224, K2 576 + 384),
+14. transformer2d-720m under the paper's embedded-SP baselines and DSP's
+    overlapped switch (``SP_MODES``: ``ulysses``, ``ulysses_fused``,
+    ``ring``, ``megatron``, ``hybrid`` on the ``("sp_out", "sp_in")``
+    grid, and ``dsp`` with ``overlap="chunked"``): (a) at world size 1
+    over NCCL, for each mode the depth-2 loss and grads at 1 x 4 x 4096
+    against plan ``none``'s plain path (phase 7's bars), the depth-28
+    forward at 1 x 16 x 4096 against plan ``none``'s within 2e-2 of its
+    largest |value|, and 2 Trainer steps at depth 28 (step 2's time logged
+    beside phase 12's); (b) 4 processes sharing the card over gloo, each
+    this script with ``--sp-rank``, every mode's depth-2 loss and grads
+    and gathered depth-28 forward against (a)'s.  Around every run the
+    counters are set to 0 just before and read just after: each rank's
+    collectives, their bytes (``core.dsp.volume``) and K1's launches must
+    be exactly the contract's (``sp_contract``; PERF.md §6), every K1
+    launch on ``cuda_cores`` at head dim 72; (b) logs Table 3's bytes per
+    rank at n = 4;
+15. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
+    counts over the paths above (K1 320 + 32 + 224 + 224 + phase 14's
+    training runs, 112 per mode, 56 for ring and hybrid; K2 576 + 384),
     then the last line ``{"ok": true, "device": {...}}``.
 
 Each phase's header logs the seconds since the start, and every time
@@ -124,7 +141,8 @@ from repro_torch.kernels.ref import ssd_final_state, ssd_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     reset_launches as reset_ssd_launches, route_for as ssd_route,
     ssd_scan_fwd, ssd_scan_plain)
-from repro_torch.launch.mesh import BACKEND_OF, make_mesh  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    BACKEND_OF, make_mesh, make_sp2d_mesh)
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import transformer2d as t2d  # noqa: E402
 from repro_torch.optim.adamw import OptConfig  # noqa: E402
@@ -198,6 +216,14 @@ DIT_REMAT_GROUP, DIT_CHECK_FRAMES = 2, 4
 # the depth-28 forward against world 1 within DSP_OUT_BAR of its largest
 # |value| (bf16 activations, summed in another order)
 DSP_RANKS, DSP_LOSS_BAR, DSP_OUT_BAR = 4, 1e-4, 2e-2
+# the baselines phase: the paper's embedded-SP modes and DSP's overlapped
+# switch, each at world size 1 over NCCL (depth-2 grads against plan
+# none's plain path at phase 7's bars, the depth-28 forward against plan
+# none's within DSP_OUT_BAR, SP_TRAIN_STEPS Trainer steps at depth 28), then
+# over DSP_RANKS processes sharing the card over gloo against world 1
+SP_MODES = (("ulysses", None), ("ulysses_fused", None), ("ring", None),
+            ("megatron", None), ("hybrid", None), ("dsp", "chunked"))
+SP_TRAIN_STEPS = 2
 
 
 def prefill_case(s: int):
@@ -617,16 +643,21 @@ def full_width_train(cfg, kernel, batch_size, n_steps,
 
 
 def run_trainer(init, loss_fn, data_fn, kernel, *, tokens, n_steps,
-                n_layers, route, device="cuda", mesh=None) -> dict:
+                n_layers, route, device="cuda", mesh=None,
+                launches_per_step=None) -> dict:
     """``n_steps`` AdamW steps of the port's Trainer from ``init()``'s
     params, with every launch counter set to 0 just before and read just
-    after.  ``kernel`` (K1's or K2's wrapper) must launch twice per layer
-    per step (the forward and the checkpointed recompute; the backward
-    goes through a plain reference), every launch on ``route``; every loss
-    and grad norm must be finite.  Logs each step, the median step time of
-    the steps after the first, ``tokens`` per step over it, and the peak
-    device memory.  With ``mesh`` the Trainer runs on it, and the
-    ``torch.distributed`` calls of the run are returned by kind."""
+    after.  ``kernel`` (K1's or K2's wrapper) must launch
+    ``launches_per_step`` times a step (by default twice per layer: the
+    forward and the checkpointed recompute; the backward goes through a
+    plain reference), every launch on ``route``; every loss and grad norm
+    must be finite.  Logs each step, the median step time of the steps
+    after the first, ``tokens`` per step over it, and the peak device
+    memory.  With ``mesh`` the Trainer runs on it, and the
+    ``torch.distributed`` calls of the run and their bytes are returned by
+    kind."""
+    if launches_per_step is None:
+        launches_per_step = 2 * n_layers
     t0 = time.perf_counter()
     params = init()
     torch.cuda.synchronize()
@@ -659,7 +690,7 @@ def run_trainer(init, loss_fn, data_fn, kernel, *, tokens, n_steps,
     dsp.reset_calls()
     out = trainer.run()
     torch.cuda.synchronize()
-    collectives = dict(dsp.calls)
+    collectives, volume = dict(dsp.calls), dict(dsp.volume)
     launches = kernel.launches
     routes = dict(kernel.route_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -670,6 +701,7 @@ def run_trainer(init, loss_fn, data_fn, kernel, *, tokens, n_steps,
     step_s = warm[len(warm) // 2]
     summary = {"step_ms_first": steps[0]["seconds"] * 1e3,
                "step_ms_median": step_s * 1e3,
+               "step_ms_range": [warm[0] * 1e3, warm[-1] * 1e3],
                "tokens_per_s": tokens / step_s,
                "peak_memory_gb": peak_gb,
                "losses": [st["loss"] for st in steps],
@@ -680,9 +712,9 @@ def run_trainer(init, loss_fn, data_fn, kernel, *, tokens, n_steps,
         f"(by head dim {nonzero(flash_attention_fwd.head_dim_launches)}), "
         f"ssd_scan_fwd {ssd_scan_fwd.launches} in all")
     log_t("  metrics " + json.dumps(summary, sort_keys=True))
-    if launches != 2 * n_layers * n_steps:
+    if launches != launches_per_step * n_steps:
         raise AssertionError(f"{kernel.__name__} launched {launches} times, "
-                             f"expected 2 x {n_layers} x {n_steps}")
+                             f"expected {launches_per_step} x {n_steps}")
     if routes[route] != launches:
         raise AssertionError(f"not every training launch of "
                              f"{kernel.__name__} took the {route} route: "
@@ -694,7 +726,7 @@ def run_trainer(init, loss_fn, data_fn, kernel, *, tokens, n_steps,
     del trainer
     torch.cuda.empty_cache()
     return {"launches": launches, "metrics": summary,
-            "collectives": collectives}
+            "collectives": collectives, "volume": volume}
 
 
 def nonzero(counts: dict) -> dict:
@@ -1032,6 +1064,404 @@ def dsp_four_ranks(cfg, work: str, device="cuda") -> dict:
     return {"ranks": ranks, "out_rel": rel}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the embedded-SP baselines and DSP's overlapped switch
+# ---------------------------------------------------------------------------
+
+def sp_label(mode: str, overlap) -> str:
+    return mode if overlap is None else f"{mode}+{overlap}"
+
+
+def sp_meshes(world: int, device: str, backend=None) -> dict:
+    """The meshes of phase 14 over ``world`` ranks: ``("data", "model")``
+    of (1, world) and, for ``hybrid``, the SP grid ``make_sp2d_mesh`` of
+    (2, world / 2), (1, 1) at one rank."""
+    outer = 2 if world > 1 else 1
+    return {"1d": make_mesh((1, world), ("data", "model"), device,
+                            backend=backend),
+            "2d": make_sp2d_mesh(outer, world // outer, device_type=device,
+                                 backend=backend)}
+
+
+def sp_mesh_of(meshes: dict, mode: str):
+    return meshes["2d" if mode == "hybrid" else "1d"]
+
+
+def sp_contract(cfg, mode: str, overlap, n: int, outer: int, frames: int):
+    """The contract table of PERF.md §6: a rank's {kind: (calls, bytes)} in
+    one forward of ``cfg`` at DIT_BATCH x ``frames`` x DIT_PATCHES over
+    ``n`` SP ranks (``outer`` of them across ``sp_out`` for hybrid), the
+    same in its backward (each collective's transpose; a ring's last hop
+    carries blocks nothing reads, so its backward has n - 1 hops a
+    stream), and K1's launches a forward.  Bytes as ``core.dsp.volume``
+    counts them; M is the residual stream, kv = 2M the K + V of one
+    attention (MHA, heads x head dim = d)."""
+    p = cfg.n_layers // 2
+    item = cfg.dtype.itemsize
+    m = DIT_BATCH * frames * DIT_PATCHES * cfg.d_model * item
+    kv = 2 * DIT_BATCH * frames * DIT_PATCHES * cfg.kvh * cfg.dh * item
+    a2a, perm = "all-to-all", "collective-permute"
+    if overlap is not None:
+        fwd = {perm: (2 * (n - 1) * p, 2 * m // n * (n - 1) // n * p)}
+        bwd = fwd
+    elif mode == "dsp":
+        fwd = bwd = {a2a: (2 * p, 2 * m // n * p)}
+    elif mode in ("ulysses", "ulysses_fused"):
+        k = 4 if mode == "ulysses" else 2
+        fwd = bwd = {a2a: (k * p, (2 * m + kv) // n * p)}
+    elif mode == "ring":
+        fwd = {perm: (2 * n * p, kv * p)}
+        bwd = {perm: (2 * (n - 1) * p, kv * (n - 1) // n * p)}
+    elif mode == "megatron":
+        fwd = bwd = {"all-gather": (4 * p, 4 * m * p),
+                     "reduce-scatter": (4 * p, 4 * m * p)}
+    else:
+        inner = (4 * p, (2 * m + kv) // n * p)
+        fwd = {a2a: inner, perm: (2 * outer * p, kv * outer // n * p)}
+        bwd = {a2a: inner, perm: (2 * (outer - 1) * p,
+                                  kv * (outer - 1) // n * p)}
+    k1 = p if mode in ("ring", "hybrid") else 2 * p
+    return fwd, bwd, k1
+
+
+def sp_expected(cfg, mode: str, overlap, n: int, outer: int, frames: int, *,
+                passes: int, backward: bool, bucket: int = 0):
+    """A rank's {kind: [calls, bytes]} and K1 launches over ``passes``
+    forward passes (the forward and the checkpointed recompute), the
+    backward when ``backward``, and with ``bucket`` one all-reduce of that
+    many f32 gradients (2 x its bytes)."""
+    fwd, bwd, k1 = sp_contract(cfg, mode, overlap, n, outer, frames)
+    out = {}
+    for rows, times in ((fwd, passes), (bwd, int(backward))):
+        for kind, (c, b) in rows.items():
+            got = out.setdefault(kind, [0, 0])
+            got[0] += c * times
+            got[1] += b * times
+    if bucket:
+        out["all-reduce"] = [1, 2 * 4 * bucket]
+    return {k: v for k, v in out.items() if v[0]}, k1 * passes
+
+
+def reset_counts() -> None:
+    reset_launches()
+    dsp.reset_calls()
+
+
+def read_counts() -> dict:
+    """The run's {kind: [calls, bytes]} and K1's launches by route and by
+    head dim, read after a synchronise."""
+    torch.cuda.synchronize()
+    return {"calls": {k: [dsp.calls.get(k, 0), dsp.volume.get(k, 0)]
+                      for k in sorted(set(dsp.calls) | set(dsp.volume))},
+            "k1": flash_attention_fwd.launches,
+            "k1_routes": nonzero(flash_attention_fwd.route_launches),
+            "k1_dims": {str(d): n for d, n in nonzero(
+                flash_attention_fwd.head_dim_launches).items()}}
+
+
+def check_counts(what: str, got: dict, calls: dict, k1: int) -> None:
+    """``got`` (``read_counts``) must be exactly ``calls`` and ``k1``
+    launches, all on ``cuda_cores`` at the DiT's head dim."""
+    if (got["calls"] != calls or got["k1"] != k1
+            or got["k1_routes"] != ({"cuda_cores": k1} if k1 else {})
+            or got["k1_dims"] != ({str(DIT_DH): k1} if k1 else {})):
+        raise AssertionError(f"{what}: counted {got}, the contract says "
+                             f"{calls} and {k1} K1 launches on cuda_cores "
+                             f"at head dim {DIT_DH}")
+
+
+def sp_grads(cfg2, params2, batch, mesh, mode: str, overlap):
+    """This rank's ``t2d_loss(mesh=..., mode=..., overlap=...)`` on its
+    shard of ``batch`` and its grads, summed over the world in one
+    all-reduce.  Returns (loss, [f32 grad leaves])."""
+    local = t2d.shard_video_batch(batch, mesh)
+    leaves = lm.tree_map(lambda p: p.detach().requires_grad_(True), params2)
+    loss, _ = t2d.t2d_loss(leaves, local, cfg2, backend="kernel", mesh=mesh,
+                           mode=mode, overlap=overlap)
+    grads = iter(torch.autograd.grad(loss, lm.tree_leaves(leaves)))
+    loss, grads = allreduce_grads(loss.detach(), lm.tree_map(
+        lambda p: next(grads), leaves))
+    return loss, lm.tree_leaves(grads)
+
+
+def grads_gap(loss, grads, ref_loss, ref_grads) -> dict:
+    """|loss - ref| / |ref|, and the worst leaf's max |delta| / max |ref|,
+    on the device of ``grads``."""
+    shares = []
+    for g, w in zip(grads, ref_grads):
+        w = w.to(g.device).float()
+        shares.append(float((g.float() - w).abs().max()
+                            / w.abs().max().clamp_min(1e-30)))
+    ref_loss = ref_loss.float().to(loss.device)
+    return {"loss": float(loss), "loss_rel": float(
+                (loss.float() - ref_loss).abs() / ref_loss.abs()),
+            "grad_rel": max(shares), "leaves": len(shares)}
+
+
+def sp_world_of_one(cfg, phase12: dict, work: str, device="cuda") -> dict:
+    """(a) Each mode of SP_MODES at world size 1 over NCCL (``hybrid`` on a
+    (1, 1) SP grid): the depth-2 ``t2d_loss`` and every grad at
+    DIT_CHECK_FRAMES frames against plan ``none``'s plain path (phase 7's
+    bars); the depth-28 forward at DIT_FRAMES frames against plan
+    ``none``'s within DSP_OUT_BAR of its largest |value|; SP_TRAIN_STEPS
+    Trainer steps at depth 28.  Around each, the counters set to 0 just
+    before and read just after: the collectives and bytes and K1's
+    launches must be the contract's at n = 1.  Writes (b)'s references to
+    ``work``."""
+    backend = BACKEND_OF[torch.device(device).type]
+    dist.init_process_group(backend, store=dist.FileStore(
+        os.path.join(work, "store14a"), 1), rank=0, world_size=1)
+    try:
+        meshes = sp_meshes(1, torch.device(device).type)
+        cfg2 = dataclasses.replace(cfg, n_layers=2)
+        params2 = perturb_modulation(t2d.init_t2d(0, cfg2, device=device), 5)
+        batch2 = dit_batch(cfg, DIT_CHECK_FRAMES, 0, device)
+        leaves = lm.tree_map(lambda p: p.detach().requires_grad_(True),
+                             params2)
+        ref_loss, _ = t2d.t2d_loss(leaves, batch2, cfg2, backend="ref")
+        ref_grads = torch.autograd.grad(ref_loss, lm.tree_leaves(leaves))
+        ref_loss = ref_loss.detach()
+        del leaves
+        bucket2 = sum(p.numel() for p in lm.tree_leaves(params2)) + 1
+        params = perturb_modulation(t2d.init_t2d(0, cfg, device=device), 6)
+        bucket = sum(p.numel() for p in lm.tree_leaves(params)) + 1
+        batch = dit_batch(cfg, DIT_FRAMES, 0, device)
+        with torch.no_grad():
+            ref_out = t2d.forward(params, batch["x"], batch["t"], cfg,
+                                  backend="kernel").float()
+        torch.cuda.empty_cache()
+        results = {}
+        for mode, overlap in SP_MODES:
+            label = sp_label(mode, overlap)
+            mesh = sp_mesh_of(meshes, mode)
+            log(f"  {label} on {tuple(mesh.mesh_dim_names)} "
+                f"{tuple(mesh.shape)} ({elapsed()})")
+            res = {}
+            reset_counts()
+            loss, grads = sp_grads(cfg2, params2, batch2, mesh, mode, overlap)
+            got = read_counts()
+            gap = grads_gap(loss, grads, ref_loss, ref_grads)
+            log(f"    depth-2 loss {gap['loss']:.6f} at {DIT_BATCH} x "
+                f"{DIT_CHECK_FRAMES} x {DIT_PATCHES} against plan none's "
+                f"plain path: |delta| / |loss| {gap['loss_rel']:.3e}, worst "
+                f"grad leaf {gap['grad_rel']:.3e} of its max over "
+                f"{gap['leaves']} leaves; counted {got}")
+            if not (gap["loss_rel"] <= LOSS_BAR and gap["grad_rel"]
+                    <= GRAD_BAR):
+                raise AssertionError(f"{label}: depth-2 loss or grads "
+                                     f"disagree with plan none: {gap}")
+            check_counts(f"{label} depth 2", got, *sp_expected(
+                cfg2, mode, overlap, 1, 1, DIT_CHECK_FRAMES, passes=2,
+                backward=True, bucket=bucket2))
+            torch.save({"loss": loss.cpu(), "grads": [g.cpu() for g in grads]},
+                       os.path.join(work, f"{label}.grads.pt"))
+            del grads
+            reset_counts()
+            with torch.no_grad():
+                out = t2d.make_spmd_forward(cfg, mesh, mode=mode,
+                                            overlap=overlap, backend="kernel")(
+                    params, batch["x"], batch["t"])
+            got = read_counts()
+            rel = float((out.float() - ref_out).abs().max()
+                        / ref_out.abs().max())
+            log(f"    depth-{cfg.n_layers} forward {tuple(out.shape)} against "
+                f"plan none's: max |delta| / max |none| = {rel:.3e}; counted "
+                f"{got}")
+            if not (torch.isfinite(out).all() and rel <= DSP_OUT_BAR):
+                raise AssertionError(f"{label}: depth-{cfg.n_layers} forward "
+                                     f"disagrees with plan none: {rel}")
+            check_counts(f"{label} depth {cfg.n_layers}", got, *sp_expected(
+                cfg, mode, overlap, 1, 1, DIT_FRAMES, passes=1,
+                backward=False))
+            torch.save(out.cpu(), os.path.join(work, f"{label}.out.pt"))
+            del out
+            torch.cuda.empty_cache()
+            per_step, k1_step = sp_expected(
+                cfg, mode, overlap, 1, 1, DIT_FRAMES, passes=2, backward=True,
+                bucket=bucket)
+            trained = run_trainer(
+                lambda: perturb_modulation(
+                    t2d.init_t2d(0, cfg, device=device), 6),
+                lambda p, b, mesh=mesh, mode=mode, overlap=overlap:
+                    t2d.t2d_loss(p, b, cfg, backend="kernel",
+                                 remat_group=DIT_REMAT_GROUP, mesh=mesh,
+                                 mode=mode, overlap=overlap),
+                lambda st, mesh=mesh: t2d.shard_video_batch(
+                    dit_batch(cfg, DIT_FRAMES, st, device), mesh),
+                flash_attention_fwd,
+                tokens=DIT_BATCH * DIT_FRAMES * DIT_PATCHES,
+                n_steps=SP_TRAIN_STEPS, n_layers=cfg.n_layers,
+                route="cuda_cores", device=device, mesh=mesh,
+                launches_per_step=k1_step)
+            got = {"calls": {k: [trained["collectives"].get(k, 0),
+                                 trained["volume"].get(k, 0)]
+                             for k in sorted(set(trained["collectives"])
+                                             | set(trained["volume"]))},
+                   "k1": trained["launches"], "k1_routes": nonzero(
+                       flash_attention_fwd.route_launches),
+                   "k1_dims": {str(d): n for d, n in nonzero(
+                       flash_attention_fwd.head_dim_launches).items()}}
+            want = {k: [c * SP_TRAIN_STEPS, b * SP_TRAIN_STEPS]
+                    for k, (c, b) in per_step.items()}
+            check_counts(f"{label} training", got, want,
+                         k1_step * SP_TRAIN_STEPS)
+            step_ms = trained["metrics"]["step_ms_median"]
+            ref_ms = phase12["metrics"]["step_ms_median"]
+            lo, hi = phase12["metrics"]["step_ms_range"]
+            log_t(f"    {label}: step 2 of {SP_TRAIN_STEPS} {step_ms:.2f} ms "
+                  f"against plan none's {ref_ms:.2f} ms (phase 12, median of "
+                  f"steps 2-{DIT_STEPS}, spread {lo:.2f}-{hi:.2f} ms; one "
+                  f"step here, so a gap inside that spread ranks nothing): "
+                  f"{100 * (step_ms / ref_ms - 1):+.2f}%; counted {got}")
+            res.update(gap=gap, out_rel=rel, step_ms=step_ms,
+                       launches=trained["launches"],
+                       peak_memory_gb=trained["metrics"]["peak_memory_gb"])
+            results[label] = res
+        del params, params2, ref_grads, ref_out
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return {"modes": results, "bucket2": bucket2}
+
+
+def sp_rank_main(rank: int, world: int, work: str) -> None:
+    """One of (b)'s ranks, started by ``sp_four_ranks`` as ``chip_smoke.py
+    --sp-rank <rank> <world> <dir>``: gloo over the card's CUDA tensors.
+    For each mode of SP_MODES, its depth-2 loss and grads against (a)'s,
+    its depth-28 forward shard written to ``<dir>``, and what it counted
+    around each, to ``<dir>/sp_rank<rank>.json``."""
+    job = json.load(open(os.path.join(work, "job14.json")))
+    device = job["device"]
+    cfg = dataclasses.replace(
+        transformer2d_720m.CONFIG, **job["cfg"],
+        dtype=getattr(torch, job["dtype"].split(".")[-1]))
+    full_f32()
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(work, "store14b"), world), rank=rank, world_size=world)
+    try:
+        meshes = sp_meshes(world, torch.device(device).type, backend="gloo")
+        cfg2 = dataclasses.replace(cfg, n_layers=2)
+        params2 = perturb_modulation(t2d.init_t2d(0, cfg2, device=device), 5)
+        batch2 = dit_batch(cfg, DIT_CHECK_FRAMES, 0, device)
+        params = perturb_modulation(t2d.init_t2d(0, cfg, device=device), 6)
+        batch = dit_batch(cfg, DIT_FRAMES, 0, device)
+        results = {}
+        for mode, overlap in SP_MODES:
+            label = sp_label(mode, overlap)
+            mesh = sp_mesh_of(meshes, mode)
+            ref = torch.load(os.path.join(work, f"{label}.grads.pt"))
+            res = {"coord": from_mesh(mesh).sp_index}
+            reset_counts()
+            t0 = time.perf_counter()
+            loss, grads = sp_grads(cfg2, params2, batch2, mesh, mode, overlap)
+            res["grads"] = {**read_counts(), **grads_gap(
+                loss, grads, ref["loss"], ref["grads"]),
+                "seconds": time.perf_counter() - t0}
+            del grads, ref
+            reset_counts()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                out = t2d.make_spmd_forward(cfg, mesh, mode=mode,
+                                            overlap=overlap, backend="kernel")(
+                    params, batch["x"], batch["t"])
+            res["forward"] = {**read_counts(), "shape": list(out.shape),
+                              "seconds": time.perf_counter() - t0}
+            torch.save(out.cpu(), os.path.join(work, f"{label}.out{rank}.pt"))
+            del out
+            results[label] = res
+        json.dump(results, open(os.path.join(work, f"sp_rank{rank}.json"),
+                                "w"))
+    finally:
+        dist.destroy_process_group()
+
+
+def sp_four_ranks(cfg, bucket2: int, work: str, device="cuda") -> dict:
+    """(b) DSP_RANKS processes sharing the card over gloo, each mode on a
+    (1, DSP_RANKS) mesh (``hybrid`` on the (2, DSP_RANKS / 2) SP grid).
+    Checks layouts and values, not speed: every rank's depth-2 loss and
+    grads against (a)'s within phase 7's bars; the gathered depth-28
+    forward against (a)'s within DSP_OUT_BAR of its largest |value|; per
+    rank exactly the contract's collectives, bytes and K1 launches.  Logs
+    each mode's bytes per rank beside ``per_device_bytes``: Table 3 at n =
+    DSP_RANKS.  ``bucket2`` is the depth-2 model's gradient count, plus
+    one for the loss, that the grads' all-reduce sums."""
+    with open(os.path.join(work, "job14.json"), "w") as f:
+        json.dump({"device": device, "dtype": str(cfg.dtype),
+                   "cfg": {"n_layers": cfg.n_layers,
+                           "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                           "d_ff": cfg.d_ff, "in_dim": cfg.in_dim}}, f)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--sp-rank", str(r), str(DSP_RANKS), work])
+             for r in range(DSP_RANKS)]
+    try:
+        rcs = [p.wait(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log_t(f"  {DSP_RANKS} ranks exited {rcs} after "
+          f"{time.perf_counter() - t0:.1f} s")
+    if any(rcs):
+        raise AssertionError(f"an SP rank failed: exit codes {rcs}")
+    ranks = [json.load(open(os.path.join(work, f"sp_rank{r}.json")))
+             for r in range(DSP_RANKS)]
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    n, p = DSP_RANKS, cfg.n_layers // 2
+    m = DIT_BATCH * DIT_FRAMES * DIT_PATCHES * cfg.d_model * cfg.dtype.itemsize
+    table = {}
+    for mode, overlap in SP_MODES:
+        label = sp_label(mode, overlap)
+        outer = 2 if mode == "hybrid" else 1
+        want_g = sp_expected(cfg2, mode, overlap, n, outer, DIT_CHECK_FRAMES,
+                             passes=2, backward=True, bucket=bucket2)
+        want_f = sp_expected(cfg, mode, overlap, n, outer, DIT_FRAMES,
+                             passes=1, backward=False)
+        for r, rank in enumerate(ranks):
+            g, f = rank[label]["grads"], rank[label]["forward"]
+            log_t(f"  {label} rank {r} (gloo on {device} tensors): depth-2 "
+                  f"|delta loss| / |loss| against world 1 {g['loss_rel']:.3e},"
+                  f" worst grad leaf {g['grad_rel']:.3e} in "
+                  f"{g['seconds']:.1f} s, counted {g['calls']} K1 {g['k1']};"
+                  f" depth-{cfg.n_layers} forward {f['shape']} in "
+                  f"{f['seconds']:.1f} s, counted {f['calls']} K1 {f['k1']}")
+            if not (g["loss_rel"] <= LOSS_BAR and g["grad_rel"] <= GRAD_BAR):
+                raise AssertionError(f"{label} rank {r}: depth-2 loss or "
+                                     f"grads disagree with world 1: {g}")
+            check_counts(f"{label} rank {r} depth 2", g, *want_g)
+            check_counts(f"{label} rank {r} depth {cfg.n_layers}", f,
+                         *want_f)
+        order = sorted(range(n), key=lambda r: ranks[r][label]["coord"])
+        got = torch.cat([torch.load(os.path.join(work, f"{label}.out{r}.pt"))
+                         for r in order], dim=1).float()
+        want = torch.load(os.path.join(work, f"{label}.out.pt")).float()
+        rel = float((got - want).abs().max() / want.abs().max())
+        strategy = "ulysses" if mode == "ulysses_fused" else mode
+        stages = 2 * p if mode == "megatron" else p
+        analytic = stages * dsp.per_device_bytes(strategy, m, n, outer=outer)
+        if overlap is not None:
+            analytic = analytic * (n - 1) / n
+        moved = sum(b for _, b in ranks[0][label]["forward"]["calls"].values())
+        table[label] = {"bytes": moved, "analytic": analytic, "out_rel": rel}
+        log(f"  {label}: depth-{cfg.n_layers} forward, {n} ranks gathered "
+            f"{tuple(got.shape)} against world 1: max |delta| / max |world "
+            f"1| = {rel:.3e}; bytes per rank {moved} against "
+            f"per_device_bytes {analytic:.0f} ({moved / analytic:.2f})")
+        if not (got.shape == want.shape and torch.isfinite(got).all()
+                and rel <= DSP_OUT_BAR):
+            raise AssertionError(f"{label}: the {n}-rank forward disagrees "
+                                 f"with world 1: {rel}")
+        if moved != analytic:
+            raise AssertionError(f"{label}: {moved} bytes per rank, "
+                                 f"per_device_bytes says {analytic}")
+    log(f"  Table 3 at n = {n}, bytes per rank of one depth-{cfg.n_layers} "
+        f"forward: " + json.dumps({k: v["bytes"] for k, v in table.items()}))
+    return table
+
+
 def train_cli(train_main, arch: str) -> None:
     """The train CLI at SMOKE size for 30 steps; the loss must fall."""
     hist = train_main(["--arch", arch, "--steps", "30"])["history"]
@@ -1241,13 +1671,24 @@ def main() -> None:
         dsp_four_ranks(dcfg, work)
     log(f"  done ({elapsed()})")
 
+    log(f"[14] transformer2d-720m under the embedded-SP baselines and the "
+        f"overlapped switch ({elapsed()})")
+    with tempfile.TemporaryDirectory() as work:
+        log("  (a) world size 1 over NCCL, full width")
+        sp = sp_world_of_one(dcfg, dit_trained, work)
+        log(f"  (b) {DSP_RANKS} ranks on the card over gloo ({elapsed()})")
+        sp_four_ranks(dcfg, sp["bucket2"], work)
+    sp_launches = sum(r["launches"] for r in sp["modes"].values())
+    log(f"  done ({elapsed()})")
+
     log(facts)
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:36",
         "launches": (served["launches"] + q_trained["launches"]
-                     + dit_trained["launches"] + dsp_trained["launches"]),
+                     + dit_trained["launches"] + dsp_trained["launches"]
+                     + sp_launches),
         "max_abs_err": slice_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"], "library_ms": library_ms,
@@ -1255,6 +1696,8 @@ def main() -> None:
         "dit": {"shape": list(DIT_SLICE[:6]), "route": dit["route"],
                 "launches": dit_trained["launches"],
                 "dsp_launches": dsp_trained["launches"],
+                "sp_launches": {k: r["launches"]
+                                for k, r in sp["modes"].items()},
                 "max_abs_err": dit_err, "ms": dit["ms"],
                 "plain_ms": dit["plain_ms"], "bound_ms": dit["bound_ms"],
                 "bound_by": dit["bound_by"],
@@ -1276,5 +1719,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dsp-rank"]:
         dsp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:2] == ["--sp-rank"]:
+        sp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     else:
         main()

@@ -12,38 +12,62 @@ directly, mirroring the paper's four-function API one-to-one:
 * ``split`` — a local slice (no communication);
 * ``dsp_shard_batch`` — the paper's ``dsp_dataloader``.
 
+Beside them, the collectives the embedded-SP baselines and the overlapped
+switch are built from: ``reduce_scatter`` (Megatron-SP's block exit) and
+``ppermute`` (``jax.lax.ppermute``: ring hops and the overlapped switch's
+per-shard hops).
+
 Each is differentiable, with JAX's transpose as its backward: a switch's
-is the reverse switch (one all-to-all), a gather's a reduce-scatter, a
-split's a zero pad.  JAX's compiler path (``switch_constraint`` and
-friends) has no PyTorch counterpart (``core.schedule``).
+is the reverse switch (one all-to-all), a gather's a reduce-scatter (and a
+reduce-scatter's a gather), a permute's the inverse permute, a split's a
+zero pad.  JAX's compiler path (``switch_constraint`` and friends) has no
+PyTorch counterpart (``core.schedule``).
 
 Every ``torch.distributed`` call the port issues goes through this module
 and adds one to ``calls[kind]`` (kinds as XLA's HLO names them:
-"all-to-all", "all-gather", "reduce-scatter", "all-reduce"), so tests and
-``chip_smoke.py`` pin the collective contract by reading it, as they read
-the kernels' launch counters.  A collective is issued whatever the group
+"all-to-all", "all-gather", "reduce-scatter", "all-reduce",
+"collective-permute") and its bytes to ``volume[kind]``, so tests and
+``chip_smoke.py`` pin the collective contract by reading them, as they
+read the kernels' launch counters.  The bytes follow the convention of
+JAX's ``analysis.roofline.parse_collectives``, so the port's sit beside
+JAX's measured ones: an all-to-all, all-gather or permute counts its
+result's bytes, a reduce-scatter its result's times the group size, an
+all-reduce twice its result's.  A collective is issued whatever the group
 size: at one rank it is still one call.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 # kind -> number of torch.distributed calls issued since ``reset_calls``
 calls: Dict[str, int] = {}
+# kind -> bytes those calls moved per rank (``parse_collectives``' rule)
+volume: Dict[str, int] = {}
 
 
 def reset_calls() -> None:
     calls.clear()
+    volume.clear()
 
 
-def _issue(kind: str, fn, *tensors: torch.Tensor, group) -> None:
-    """Count one collective of ``kind`` and issue ``fn(*tensors)`` over
-    ``group``."""
+def _issue(kind: str, fn, *tensors: torch.Tensor, group,
+           result: Optional[torch.Tensor] = None, **kw):
+    """Count one collective of ``kind`` with the bytes of its ``result``
+    (the first tensor, fn's output, unless given), and issue
+    ``fn(*tensors, **kw)`` over ``group``; returns ``fn``'s value (a work
+    handle when ``async_op``)."""
+    result = tensors[0] if result is None else result
+    nbytes = result.numel() * result.element_size()
+    if kind == "all-reduce":
+        nbytes *= 2
+    elif kind == "reduce-scatter":
+        nbytes *= _group_size(group)
     calls[kind] = calls.get(kind, 0) + 1
-    fn(*tensors, group=group)
+    volume[kind] = volume.get(kind, 0) + nbytes
+    return fn(*tensors, group=group, **kw)
 
 
 def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
@@ -103,16 +127,20 @@ def dynamic_switch(x: torch.Tensor, cur_shard: int, tgt_shard: int,
     return _Switch.apply(x, cur_shard, tgt_shard, group)
 
 
+def shard(x: torch.Tensor, dim: int, n: int, index: int) -> torch.Tensor:
+    """Slice ``index`` of ``n`` equal slices of ``x`` along ``dim`` (a view;
+    the backward pads the gradient with zeros)."""
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} (size {x.shape[dim]}) not divisible "
+                         f"by {n}")
+    size = x.shape[dim] // n
+    return x.narrow(dim, index * size, size)
+
+
 def split(x: torch.Tensor, tgt_shard: int, group) -> torch.Tensor:
     """s_hat -> s_i: slice the rank's shard out of a replicated sequence.
     Zero communication; the backward pads the gradient with zeros."""
-    n = _group_size(group)
-    if x.shape[tgt_shard] % n:
-        raise ValueError(
-            f"split: dim {tgt_shard} (size {x.shape[tgt_shard]}) not "
-            f"divisible by {n}")
-    size = x.shape[tgt_shard] // n
-    return x.narrow(tgt_shard, dist.get_rank(group) * size, size)
+    return shard(x, tgt_shard, _group_size(group), dist.get_rank(group))
 
 
 def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -151,6 +179,97 @@ def gather(x: torch.Tensor, cur_shard: int, group) -> torch.Tensor:
     ops).  The backward reduce-scatters the gradient: the sum of every
     rank's cotangent, sliced back to this rank's shard."""
     return _Gather.apply(x, cur_shard, group)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.args = (dim, group)
+        return _reduce_scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group = ctx.args
+        return _all_gather(g, dim, group), None, None
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Sum ``x`` over ``group`` and keep this rank's slice of dim ``dim``
+    (``jax.lax.psum_scatter(..., tiled=True)``): one reduce-scatter, the
+    transpose of ``gather``; its backward all-gathers the gradient."""
+    n = _group_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} (size {x.shape[dim]}) "
+                         f"not divisible by {n}")
+    return _ReduceScatter.apply(x, dim, group)
+
+
+# ---------------------------------------------------------------------------
+# Permutes (``jax.lax.ppermute``): ring hops and the overlapped switch
+# ---------------------------------------------------------------------------
+
+Perm = Sequence[Tuple[int, int]]
+
+
+def _peers(perm: Perm, rank: int) -> Tuple[int, int]:
+    """(the rank this one sends to, the rank it receives from) under
+    ``perm``'s (source, destination) pairs, which must move every rank's
+    block (the rings and shifts this port issues)."""
+    dst = [d for s, d in perm if s == rank]
+    src = [s for s, d in perm if d == rank]
+    if len(dst) != 1 or len(src) != 1:
+        raise ValueError(f"perm {list(perm)} is not a permutation of the "
+                         f"group: rank {rank} sends to {dst}, receives "
+                         f"from {src}")
+    return dst[0], src[0]
+
+
+def start_permute(x: torch.Tensor, perm: Perm, group):
+    """Issue one permute of ``x`` over ``group`` without waiting: returns
+    ``(work, recv)``, ``recv`` valid once ``work.wait()`` returned.  One
+    ``all_to_all_single`` whose split sizes are nonzero only for the
+    destination and the source: gloo's pair transport refuses a
+    ``batch_isend_irecv`` to itself, which a ring of one rank needs."""
+    n = _group_size(group)
+    dst, src = _peers(perm, dist.get_rank(group))
+    recv = torch.empty_like(x, memory_format=torch.contiguous_format)
+    work = _issue("collective-permute", dist.all_to_all_single,
+                  recv.reshape(-1), x.contiguous().reshape(-1), group=group,
+                  result=recv,
+                  output_split_sizes=[x.numel() * (j == src)
+                                      for j in range(n)],
+                  input_split_sizes=[x.numel() * (j == dst)
+                                     for j in range(n)],
+                  async_op=True)
+    return work, recv
+
+
+def _inverse(perm: Perm) -> List[Tuple[int, int]]:
+    return [(d, s) for s, d in perm]
+
+
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, perm, group):
+        ctx.args = (perm, group)
+        work, recv = start_permute(x, perm, group)
+        work.wait()
+        return recv
+
+    @staticmethod
+    def backward(ctx, g):
+        perm, group = ctx.args
+        work, recv = start_permute(g, _inverse(perm), group)
+        work.wait()
+        return recv, None, None
+
+
+def ppermute(x: torch.Tensor, perm: Perm, group) -> torch.Tensor:
+    """Send ``x`` along ``perm``'s (source, destination) rank pairs over
+    ``group`` (``jax.lax.ppermute``, for permutations of the whole group):
+    one collective-permute, whose result bytes are ``x``'s.  The backward
+    is the inverse permute."""
+    return _Permute.apply(x, tuple(tuple(p) for p in perm), group)
 
 
 def dsp_shard_batch(batch, tgt_shard: int, group):
@@ -238,7 +357,8 @@ def per_device_bytes(strategy: str, global_bytes: float, n: int, *,
 
 
 __all__ = [
-    "calls", "reset_calls", "all_reduce",
-    "dynamic_switch", "split", "gather", "dsp_shard_batch",
+    "calls", "volume", "reset_calls", "all_reduce",
+    "dynamic_switch", "shard", "split", "gather", "reduce_scatter", "ppermute",
+    "start_permute", "dsp_shard_batch",
     "comm_volume_bytes", "per_device_bytes",
 ]

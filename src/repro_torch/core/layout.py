@@ -8,8 +8,9 @@ only legal transitions between layouts.  JAX's ``pspec``/``sharding`` serve
 its compiler path, which PyTorch lacks, and are not ported.
 
 ``ParallelContext`` names the dims of a ``torch.distributed`` ``DeviceMesh``
-by role: the ``model`` dim carries the sequence-parallel switches, the
-other dims (``data``) split the batch.
+by role: the SP dims carry the sequence shard (``model``, or the 2D SP
+grid ``("sp_out", "sp_in")`` of ``launch.mesh.make_sp2d_mesh``), the other
+dims (``data``) split the batch.
 """
 from __future__ import annotations
 
@@ -57,10 +58,12 @@ class SeqLayout:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelContext:
-    """The mesh's dims by role, and this rank's place on them."""
+    """The mesh's dims by role, and this rank's place on them.
+    ``sp_axes`` are the dims the sequence is sharded over, the first
+    major: ``("model",)``, or ``("sp_out", "sp_in")`` on a 2D SP grid."""
 
     mesh: DeviceMesh
-    sp_axis: str = "model"
+    sp_axes: Tuple[str, ...] = ("model",)
     dp_axes: Tuple[str, ...] = ("data",)
 
     def size(self, axis: str) -> int:
@@ -70,16 +73,33 @@ class ParallelContext:
         """This rank's coordinate on mesh dim ``axis``."""
         return self.mesh.get_local_rank(axis)
 
+    def group(self, axis: str):
+        """The process group of mesh dim ``axis``."""
+        return self.mesh.get_group(axis)
+
+    def _flat(self, axes: Tuple[str, ...]) -> Tuple[int, int]:
+        """(size, this rank's index) of ``axes`` flattened, the first
+        major."""
+        size, idx = 1, 0
+        for a in axes:
+            size, idx = size * self.size(a), idx * self.size(a) + self.index(a)
+        return size, idx
+
+    @property
+    def sp_axis(self) -> str:
+        """The one SP dim; a 2D SP grid has none (name a dim of it)."""
+        if len(self.sp_axes) != 1:
+            raise ValueError(f"the mesh shards the sequence over "
+                             f"{self.sp_axes}, not over one dim")
+        return self.sp_axes[0]
+
     @property
     def sp_size(self) -> int:
-        return self.size(self.sp_axis)
+        return self._flat(self.sp_axes)[0]
 
     @property
     def dp_size(self) -> int:
-        size = 1
-        for a in self.dp_axes:
-            size *= self.size(a)
-        return size
+        return self._flat(self.dp_axes)[0]
 
     @property
     def world_size(self) -> int:
@@ -87,31 +107,37 @@ class ParallelContext:
 
     @property
     def sp_index(self) -> int:
-        return self.index(self.sp_axis)
+        """This rank's place in the sequence: its slice of the SP dims
+        flattened, the first major (JAX's ``sp_out * p_in + sp_in``)."""
+        return self._flat(self.sp_axes)[1]
 
     @property
     def dp_index(self) -> int:
         """This rank's place among the data-parallel replicas (the DP dims
         flattened, the first major)."""
-        idx = 0
-        for a in self.dp_axes:
-            idx = idx * self.size(a) + self.index(a)
-        return idx
+        return self._flat(self.dp_axes)[1]
 
     @property
     def sp_group(self):
         """The process group of the ``model`` dim: the switches' group."""
-        return self.mesh.get_group(self.sp_axis)
+        return self.group(self.sp_axis)
 
 
-def from_mesh(mesh: DeviceMesh, sp_axis: str = "model") -> ParallelContext:
-    """The context of ``mesh``: ``sp_axis`` switches, the other dims split
-    the batch."""
+SP2D_AXES = ("sp_out", "sp_in")
+
+
+def from_mesh(mesh: DeviceMesh) -> ParallelContext:
+    """The context of ``mesh``: ``("sp_out", "sp_in")`` shard the sequence
+    on a mesh that has both, else ``model``; the other dims split the
+    batch."""
     if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"mesh must be a DeviceMesh, got "
                         f"{type(mesh).__name__}")
-    dp = tuple(a for a in mesh.mesh_dim_names if a != sp_axis)
-    return ParallelContext(mesh=mesh, sp_axis=sp_axis, dp_axes=dp)
+    names = tuple(mesh.mesh_dim_names)
+    sp_axes = (SP2D_AXES if all(a in names for a in SP2D_AXES)
+               else ("model",))
+    dp = tuple(a for a in names if a not in sp_axes)
+    return ParallelContext(mesh=mesh, sp_axes=sp_axes, dp_axes=dp)
 
 
 def divisible(global_dim: int, n: int) -> bool:

@@ -211,14 +211,14 @@ def _transition_cost(src: Optional[int], tgt: Optional[int],
     return transition_seconds(src, tgt, global_bytes, topology)
 
 
-# executor overlap modes accepted by the ``overlap=`` planner arguments
-# (kept in sync with core.overlap.OVERLAP_MODES without importing jax here)
-_OVERLAP_MODES = (None, "chunked", "double_buffer")
+# executor overlap modes (None = synchronous one-shot all-to-all), which
+# the ``overlap=`` planner arguments take (``core.overlap`` runs them)
+OVERLAP_MODES = (None, "chunked", "double_buffer")
 
 
 def _check_overlap(overlap: Optional[str]) -> None:
-    if overlap not in _OVERLAP_MODES:
-        raise ValueError(f"overlap {overlap!r} not in {_OVERLAP_MODES}")
+    if overlap not in OVERLAP_MODES:
+        raise ValueError(f"overlap {overlap!r} not in {OVERLAP_MODES}")
 
 
 def _hide_seconds(stages: Sequence[Stage], t: int,

@@ -22,8 +22,11 @@ whole.  The executor has two of its three backends:
 
 JAX's ``backend="auto"`` lowers each transition as a sharding constraint
 through XLA's SPMD partitioner; PyTorch has no such partitioner, so it
-raises here.  Overlapped switches (``overlap=``, ``core/overlap.py``) and
-the 2D executor (``ScheduleExecutor2D``, for ``forward2d``) are not ported
+raises here.  With ``overlap`` ("chunked" | "double_buffer", given or
+carried by the schedule) the explicit backend runs each switch whose
+consuming stage has a compute estimate as ``core.overlap
+.overlapped_switch``: n - 1 per-shard permutes instead of one all-to-all.
+The 2D executor (``ScheduleExecutor2D``, for ``forward2d``) is not ported
 yet.
 
 Scanned models execute a *periodic* schedule (``Schedule.periodic``: the
@@ -37,6 +40,7 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 from repro_torch.core import dsp
+from repro_torch.core.overlap import OVERLAP_MODES, overlapped_switch
 
 from repro_torch.core.plan import (JointCost, JointPlan, Stage, StrategyPlan,
                              joint_cost_bytes, joint_cost_seconds, make_plan,
@@ -569,6 +573,14 @@ class ScheduleExecutor:
     indices, no ``wrap``).  ``ctx`` (a ``core.layout.ParallelContext``)
     names the process group the switches run over, its ``model`` dim; the
     accounting (``expected_*``) reads none.
+
+    ``overlap`` (explicit backend only; inherited from ``Schedule.overlap``
+    when not given): every switch whose consuming stage carries a
+    ``compute_seconds`` estimate runs as ``core.overlap
+    .overlapped_switch``, n - 1 per-shard permutes instead of one
+    all-to-all (the same values and fewer bytes; eagerly they run in
+    series and hide behind nothing, see ``core.overlap``).  The accounting
+    (``expected_*``) counts the synchronous all-to-alls, as JAX's does.
     """
 
     def __init__(self, psched: Optional[Union[PeriodicSchedule,
@@ -583,27 +595,46 @@ class ScheduleExecutor:
             raise ValueError(backend)
         if backend != "null" and psched is None:
             raise ValueError(f"{backend} backend needs a schedule")
+        if overlap not in OVERLAP_MODES:
+            raise ValueError(f"overlap {overlap!r}")
+        if overlap is not None and backend != "explicit":
+            raise ValueError("overlap executes on the explicit backend only")
         sched = psched.schedule if psched is not None else None
-        if overlap is not None or (sched is not None
-                                   and sched.overlap is not None):
-            raise NotImplementedError(
-                "overlap: not yet ported (needs core/overlap.py)")
         if sched is not None and not sched.mirrored:
             raise ValueError(
                 "explicit backend executes the mirrored backward only: "
                 "local shapes pin each cotangent to its primal's layout")
+        # an explicit overlap argument wins; otherwise the explicit backend
+        # inherits the mode the planner attached to the schedule
+        if overlap is None and sched is not None:
+            overlap = sched.overlap
         self.psched = psched
         self.backend = backend
         self.ctx = ctx
+        self.overlap = overlap
         self.unrolled = isinstance(psched, UnrolledSchedule)
 
     @classmethod
     def null(cls) -> "ScheduleExecutor":
         return cls(None, backend="null")
 
-    def apply(self, x, tr: Transition):
+    def _overlap_for(self, tr: Transition,
+                     consumer: Optional[int]) -> Optional[str]:
+        """Overlap mode for one applied transition: the executor's mode when
+        the transition is a switch whose consuming stage (``consumer``, an
+        index into ``Schedule.stages``) carries a ``compute_seconds``
+        estimate — the same per-boundary selection the planner priced."""
+        if self.overlap is None or tr.kind != "switch" or consumer is None:
+            return None
+        if not self.psched.schedule.stages[consumer].compute_seconds:
+            return None
+        return self.overlap
+
+    def apply(self, x, tr: Transition, consumer: Optional[int] = None):
         """Apply one boundary transition: the paper's primitive over the
-        context's ``model`` group."""
+        context's ``model`` group.  ``consumer`` is the stage whose kernels
+        consume the result; it selects the overlap mode of a switch (None,
+        as at the exit, runs it synchronously)."""
         if self.backend == "null" or tr.kind == "keep":
             return x
         if self.ctx is None:
@@ -611,6 +642,9 @@ class ScheduleExecutor:
                              "to apply a transition")
         group = self.ctx.sp_group
         if tr.kind == "switch":
+            mode = self._overlap_for(tr, consumer)
+            if mode is not None:
+                return overlapped_switch(x, tr.src, tr.tgt, group, mode=mode)
             return dsp.dynamic_switch(x, tr.src, tr.tgt, group)
         if tr.kind == "split":
             return dsp.split(x, tr.tgt, group)
@@ -621,14 +655,14 @@ class ScheduleExecutor:
     def enter(self, x):
         if self.backend == "null":
             return x
-        return self.apply(x, self.psched.enter())
+        return self.apply(x, self.psched.enter(), consumer=0)
 
     def boundary(self, x, i: int):
         """Transition into stage ``i`` — in-period index for a periodic
         schedule, absolute index for an unrolled one."""
         if self.backend == "null":
             return x
-        return self.apply(x, self.psched.boundary(i))
+        return self.apply(x, self.psched.boundary(i), consumer=i)
 
     def wrap(self, x):
         if self.backend == "null":
@@ -636,7 +670,8 @@ class ScheduleExecutor:
         if self.unrolled:
             raise ValueError("unrolled schedules have no wrap-around; "
                              "iterate boundary(t) over absolute indices")
-        return self.apply(x, self.psched.wrap())
+        # the wrap feeds the next period's first stage
+        return self.apply(x, self.psched.wrap(), consumer=0)
 
     def exit(self, x):
         if self.backend == "null":

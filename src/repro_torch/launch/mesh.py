@@ -9,6 +9,9 @@ picks one by itself.  When no default process group exists, the first
 mesh initialises one from the environment ``torchrun`` sets (``env://``);
 a caller outside ``torchrun`` calls ``init_process_group`` first.
 
+``make_sp2d_mesh`` factors the SP dim into a 2D process grid
+``("sp_out", "sp_in")`` for the USP hybrid (``core.ulysses.usp_attention``).
+
 The JAX package's TPU meshes and their topologies are not ported; the
 H100's fabric enters the planner through ``Topology.from_profile``.
 """
@@ -61,3 +64,19 @@ def submesh(n_devices: int, data: int = 1, axis_names=("data", "model"),
     _world(device_type, backend)
     ranks = torch.arange(n_devices).reshape(data, n_devices // data)
     return DeviceMesh(device_type, ranks, mesh_dim_names=tuple(axis_names))
+
+
+def make_sp2d_mesh(outer: int, inner: int, dp: int = 1,
+                   dp_axis: str = "data", device_type: str = "cuda", *,
+                   backend: Optional[str] = None) -> DeviceMesh:
+    """A mesh whose SP dim is factored into a 2D process grid ``(sp_out =
+    outer, sp_in = inner)``, ``sp_out`` major, so that each ``sp_out``
+    slice holds a contiguous block of the sequence (one host's group of
+    cards in JAX's ICI x DCN reading).  A hybrid stage rings K/V over
+    ``sp_out`` while it all-to-alls inside ``sp_in``.  ``dp > 1``
+    prepends a data dim."""
+    if dp > 1:
+        return make_mesh((dp, outer, inner), (dp_axis, "sp_out", "sp_in"),
+                         device_type, backend=backend)
+    return make_mesh((outer, inner), ("sp_out", "sp_in"), device_type,
+                     backend=backend)

@@ -30,6 +30,7 @@ device-count and compression flags, and ``--mesh`` for the LM family, are
 not ported yet and exit with a message.
 """
 import argparse
+import sys
 
 NOT_PORTED = ("ckpt_dir", "replan", "devices")
 NOT_PORTED_SWITCHES = ("resume", "grad_compress")
@@ -129,11 +130,14 @@ def main(argv=None):
                           log_every=max(args.steps // 10, 1)),
         data_fn=data_fn, device=device, mesh=mesh)
     out = trainer.run()
-    print("history:", out["history"])
-    print("stragglers:", out["stragglers"])
     first = out["history"][0][1] if out["history"] else float("nan")
     last = out["history"][-1][1] if out["history"] else float("nan")
-    print(f"loss {first:.4f} -> {last:.4f}")
+    # one write: the ranks under torchrun share the stream, and a write of
+    # under PIPE_BUF bytes is not interleaved with another rank's
+    sys.stdout.write(f"history: {out['history']}\n"
+                     f"stragglers: {out['stragglers']}\n"
+                     f"loss {first:.4f} -> {last:.4f}\n")
+    sys.stdout.flush()
     return out
 
 

@@ -19,12 +19,22 @@ model declares its stages (``stages``), the planner solves where the
 shard sits at each (``dsp_schedule``), and the explicit
 ``core.schedule.ScheduleExecutor`` issues the switches: one all-to-all
 T -> S before each temporal block and one S -> T after it, 2 per layer
-pair.  This module never issues a switch itself.  ``forward`` and
-``t2d_loss`` take the rank's local shard; ``make_spmd_forward`` takes the
-global batch on every rank, as the paper's ``dsp_dataloader`` does.  The
-embedded-SP baselines (``ulysses``, ``ring``, ``megatron``, ``hybrid``),
-overlapped switches and the 2D layouts (``forward2d``) are not ported
-yet.
+pair (with ``overlap``, each switch as n - 1 per-shard permutes).  This
+module never issues a switch itself.
+
+The embedded-SP baselines the paper compares DSP with (Table 3) keep T
+sharded throughout and communicate inside the blocks (``MODES``):
+``ulysses`` all-to-alls q/k/v/o of each temporal attention between seq
+and heads (``ulysses_fused`` stacks q/k/v into one), ``ring`` streams
+K/V around the ranks, ``megatron`` all-gathers T into each block and
+reduce-scatters its tensor-parallel output, and ``hybrid`` (USP, on the
+``("sp_out", "sp_in")`` grid of ``launch.mesh.make_sp2d_mesh``)
+all-to-alls inside ``sp_in`` and rings across ``sp_out``.
+
+``forward`` and ``t2d_loss`` take the rank's local shard;
+``make_spmd_forward`` takes the global batch on every rank, as the
+paper's ``dsp_dataloader`` does.  The 2D layouts (``forward2d``) are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -34,13 +44,17 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
-from repro_torch.core import dsp
-from repro_torch.core.layout import from_mesh
+from repro_torch.analysis.roofline import attach_compute_seconds
+from repro_torch.core import dsp, megatron_sp, ring, ulysses
+from repro_torch.core.layout import SP2D_AXES, from_mesh
+from repro_torch.core.overlap import OVERLAP_MODES
 from repro_torch.core.plan import Stage
 from repro_torch.core.schedule import (ScheduleExecutor, UnrolledSchedule,
-                                       plan_joint_schedule, plan_schedule)
+                                       plan_joint_schedule, plan_schedule,
+                                       plan_strategy_schedule)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.models import layers as L
@@ -186,15 +200,45 @@ def dsp_schedule(cfg: T2DConfig, n: int, *, t_len: Optional[int] = None,
     it).  Both dims stay candidates regardless of divisibility: with only
     two sequence dims and each stage forbidding one, excluding either
     leaves some stage infeasible; ``dynamic_switch`` rejects non-divisible
-    extents.  ``overlap`` is not ported yet (it needs ``core/overlap.py``
-    and the roofline's per-stage compute estimates)."""
-    if overlap is not None:
-        raise NotImplementedError(f"overlap {overlap!r}: not yet ported")
+    extents.
+
+    ``overlap`` ("chunked" | "double_buffer") attaches per-stage compute
+    estimates (``analysis.roofline.attach_compute_seconds``), has the
+    solver price switches at their exposed seconds (on ``topology``), and
+    stamps the mode on the schedule, so the explicit executor decomposes
+    each planned switch into per-shard permutes."""
     st = stages(cfg, t_len=t_len, s_len=s_len, batch=batch,
                 grad_dtype_bytes=grad_dtype_bytes)
+    if overlap is not None:
+        st = attach_compute_seconds(
+            st, cfg, topology if topology is not None else max(n, 1))
     solve = plan_joint_schedule if joint else plan_schedule
     sched = solve(st, [1, 2], n=max(n, 1), initial=initial, final=initial,
-                  topology=topology)
+                  topology=topology, overlap=overlap)
+    return _execution_view(sched)
+
+
+def strategy_schedule(cfg: T2DConfig, n: int, *, t_len: Optional[int] = None,
+                      s_len: Optional[int] = None, batch: Optional[int] = None,
+                      initial: int = 1, topology=None,
+                      overlap: Optional[str] = None):
+    """Solve the unified (stage, dim, strategy) plan for this model
+    (``core.schedule.plan_strategy_schedule``): on a uniform or absent
+    topology it is ``dsp_schedule``'s plan (all "dsp"); on a tiered fabric
+    stages may come back with embedded strategies.  The periodic view when
+    the plan repeats with the 2-stage layer period, else the unrolled
+    one."""
+    st = stages(cfg, t_len=t_len, s_len=s_len, batch=batch)
+    if overlap is not None:
+        st = attach_compute_seconds(
+            st, cfg, topology if topology is not None else max(n, 1))
+    sched = plan_strategy_schedule(st, [1, 2], n=max(n, 1), initial=initial,
+                                   final=initial, topology=topology,
+                                   overlap=overlap)
+    return _execution_view(sched)
+
+
+def _execution_view(sched):
     try:
         return sched.periodic(2)
     except ValueError:
@@ -254,15 +298,16 @@ def _modulate(h, shift, scale):
 
 
 def t2d_block(p, x, cfg: T2DConfig, *, axis: int, t_emb=None,
-              backend: str = "kernel"):
+              attn_impl=None, backend: str = "kernel"):
     """One transformer block computing attention along ``axis`` (1 = T,
     2 = S) of x: (B, T, S, C).  The other sequence dim folds into the batch
-    as the minor factor of (B * other).  JAX's ``attn_impl``,
-    ``fold_hook`` and ``stage_hook`` serve its compiler path and the
-    embedded-SP baselines, which are not ported."""
+    as the minor factor of (B * other).  ``attn_impl(q, k, v)`` on
+    (B', L, H, D) replaces K1 (the embedded-SP baselines' temporal
+    attention).  JAX's ``fold_hook`` and ``stage_hook`` serve its compiler
+    path, which PyTorch lacks."""
     if axis not in (1, 2):
         raise ValueError(f"axis must be 1 (T) or 2 (S), got {axis}")
-    attn_impl = _default_attn(backend)
+    attn_impl = attn_impl or _default_attn(backend)
     b, t, s, c = x.shape
     h_heads, dh = cfg.n_heads, cfg.dh
     mod = _mod6(p, t_emb, cfg)
@@ -303,9 +348,161 @@ def t2d_block(p, x, cfg: T2DConfig, *, axis: int, t_emb=None,
     return x + h
 
 
+def _megatron_block(p, x, cfg: T2DConfig, *, axis: int, ctx, t_emb=None,
+                    backend: str = "kernel"):
+    """Megatron-SP layout: x arrives sharded along T (dim 1) over the
+    ``model`` group.  All-gather the sequence, compute attention and MLP
+    with the rank's slice of the heads and of the hidden dim (tensor
+    parallel: q/k/v and the MLP's up projection sliced by column, the
+    output projections by row), reduce-scatter the partial outputs back:
+    4 collectives, 4M per block (8M per layer pair).  Like JAX's, it reads
+    only the weights (the DiT's linears have no bias), and it serves the
+    ``gelu`` MLP only (``_check_mode``)."""
+    group, n, idx = ctx.sp_group, ctx.sp_size, ctx.sp_index
+    b, _, s, _ = x.shape
+    h_loc, dh = cfg.n_heads // n, cfg.dh
+    mod = _mod6(p, t_emb, cfg)
+
+    def bmod(m):
+        return m[:, :, None, :].to(x.dtype)
+
+    def cols(w):       # column-parallel slice of (d_in, d_out)
+        size = w.shape[1] // n
+        return w.narrow(1, idx * size, size)
+
+    def rows(w):
+        size = w.shape[0] // n
+        return w.narrow(0, idx * size, size)
+
+    # ---- attention: AG -> TP attention -> RS
+    h = L.rms_norm(p["ln1"], x)
+    if mod is not None:
+        h = _modulate(h, bmod(mod[0]), bmod(mod[1]))
+    hg = megatron_sp.allgather_seq(h, 1, group)
+    t = hg.shape[1]
+
+    def fold(y):
+        if axis == 1:
+            return y.transpose(1, 2).reshape(b * s, t, -1)
+        return y.reshape(b * t, s, -1)
+
+    def unfold(y):
+        if axis == 1:
+            return y.reshape(b, s, t, -1).transpose(1, 2)
+        return y.reshape(b, t, s, -1)
+
+    hf = fold(hg)
+    l = hf.shape[1]
+    q = (hf @ cols(p["wq"]["w"])).reshape(-1, l, h_loc, dh)
+    k = (hf @ cols(p["wk"]["w"])).reshape(-1, l, h_loc, dh)
+    v = (hf @ cols(p["wv"]["w"])).reshape(-1, l, h_loc, dh)
+    o = _default_attn(backend)(q, k, v).reshape(-1, l, h_loc * dh)
+    o = megatron_sp.reduce_scatter_seq(unfold(o @ rows(p["wo"]["w"])), 1,
+                                       group)
+    if mod is not None:
+        o = o * bmod(mod[2])
+    x = x + o
+
+    # ---- MLP: AG -> TP MLP -> RS
+    h = L.rms_norm(p["ln2"], x)
+    if mod is not None:
+        h = _modulate(h, bmod(mod[3]), bmod(mod[4]))
+    hg = megatron_sp.allgather_seq(h, 1, group)
+    hh = F.gelu(hg @ cols(p["mlp"]["wi"]["w"]), approximate="tanh")
+    hh = megatron_sp.reduce_scatter_seq(hh @ rows(p["mlp"]["wo"]["w"]), 1,
+                                        group)
+    if mod is not None:
+        hh = hh * bmod(mod[5])
+    return x + hh
+
+
 # ---------------------------------------------------------------------------
-# Full forward: one device, or the rank's shard on a DSP mesh
+# Full forward: one device, or the rank's shard on a mesh under a mode
 # ---------------------------------------------------------------------------
+
+# the paper's DSP and the embedded-SP baselines it compares with (Table 3)
+MODES = ("dsp", "ulysses", "ulysses_fused", "ring", "megatron", "hybrid")
+
+
+def _check_mode(cfg: T2DConfig, mesh, mode: str, overlap: Optional[str]):
+    """The mesh's context, once ``mode`` and ``overlap`` are known to run
+    ``cfg`` on ``mesh``; raises ValueError where they cannot (JAX's checks
+    in ``make_spmd_forward``, and the port's own: ``overlap`` only with
+    ``dsp``, ``megatron`` only with the ``gelu`` MLP, whose activation
+    JAX's block hard-codes)."""
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} not in {MODES}")
+    if overlap not in OVERLAP_MODES:
+        raise ValueError(f"overlap {overlap!r} not in {OVERLAP_MODES}")
+    if overlap is not None and mode != "dsp":
+        raise ValueError(f"overlap decomposes DSP's planned switches; mode "
+                         f"{mode!r} has none")
+    if mode == "megatron" and cfg.kvh != cfg.n_heads:
+        raise ValueError("megatron mode TP-slices wq/wk/wv uniformly and "
+                         "assumes MHA (n_kv_heads == n_heads)")
+    if mode == "megatron" and cfg.mlp_kind != "gelu":
+        raise ValueError(f"megatron mode runs the gelu MLP only, not "
+                         f"{cfg.mlp_kind!r}")
+    if mode == "ulysses_fused" and cfg.kvh != cfg.n_heads:
+        raise ValueError("ulysses_fused stacks q/k/v and needs equal "
+                         "shapes (MHA); use mode='ulysses' for GQA")
+    ctx = from_mesh(mesh)
+    names = tuple(mesh.mesh_dim_names)
+    if mode == "hybrid":
+        missing = [a for a in SP2D_AXES if a not in names]
+        if missing:
+            raise ValueError(
+                f"hybrid mode needs a 2D SP mesh with dims {SP2D_AXES} "
+                f"(launch.mesh.make_sp2d_mesh); missing {missing}")
+        p_in = ctx.size("sp_in")
+        if cfg.n_heads % p_in or cfg.kvh % p_in:
+            raise ValueError(
+                f"hybrid mode all-to-alls heads over sp_in: n_heads "
+                f"{cfg.n_heads} and kv_heads {cfg.kvh} must divide by "
+                f"sp_in={p_in}")
+        return ctx
+    if "model" not in names:
+        raise ValueError(f"mode {mode!r} shards T over a 'model' mesh dim; "
+                         f"the mesh has {names}")
+    n = ctx.sp_size
+    if mode == "megatron" and cfg.n_heads % n:
+        raise ValueError(f"megatron mode slices {cfg.n_heads} heads over "
+                         f"{n} ranks")
+    if mode == "ulysses" and cfg.kvh != cfg.n_heads and cfg.kvh % n:
+        raise ValueError(
+            f"ulysses mode all-to-alls K/V heads over the SP dim: kv_heads "
+            f"{cfg.kvh} must divide by n={n} (or use MHA)")
+    return ctx
+
+
+def _mode_block(cfg: T2DConfig, mode: str, ctx, backend: str):
+    """``block(p, x, axis=, t_emb=)`` running one block of an embedded-SP
+    ``mode`` on the rank's T shard: the spatial blocks attend locally
+    through K1, the temporal ones through the mode's distributed
+    attention (megatron wraps both)."""
+    if mode == "megatron":
+        return functools.partial(_megatron_block, cfg=cfg, ctx=ctx,
+                                 backend=backend)
+    if mode in ("ulysses", "ulysses_fused"):
+        ua = (ulysses.ulysses_attention if mode == "ulysses"
+              else ulysses.ulysses_attention_fused)
+        inner = _default_attn(backend)
+
+        def temporal(q, k, v):
+            return ua(q, k, v, inner, ctx.sp_group)
+    elif mode == "ring":
+        def temporal(q, k, v):
+            return ring.ring_attention(q, k, v, ctx.sp_group, causal=False)
+    else:
+        def temporal(q, k, v):
+            return ulysses.usp_attention(q, k, v, ctx.group("sp_in"),
+                                         ctx.group("sp_out"), causal=False)
+
+    def block(p, x, *, axis, t_emb):
+        return t2d_block(p, x, cfg, axis=axis, t_emb=t_emb, backend=backend,
+                         attn_impl=temporal if axis == 1 else None)
+    return block
+
 
 def forward(params, x, t, cfg: T2DConfig, *, mesh=None, mode: str = "dsp",
             backend: str = "kernel", remat: bool = True, remat_group: int = 2,
@@ -315,31 +512,43 @@ def forward(params, x, t, cfg: T2DConfig, *, mesh=None, mode: str = "dsp",
     (B, T, S, C_in).  Pairs of blocks (spatial, then temporal) in order;
     with ``remat`` each group of ``remat_group`` pairs (1 when the pair
     count is not a multiple, or the plan is not periodic) is checkpointed
-    and recomputed whole in the backward, its switches included, JAX's
+    and recomputed whole in the backward, its collectives included, JAX's
     hierarchical remat.
 
-    With ``mesh`` (a ``DeviceMesh`` with dims ``("data", "model")``), x
-    and t are this rank's shard: its
-    batch slice, and on x its slice of T over ``model``.  The planned
-    schedule (``dsp_schedule``, or ``schedule``) runs through the explicit
-    executor, and the output is the rank's shard in the same layout.
-    ``topology``, ``joint`` and ``schedule`` act only with a mesh, as in
-    JAX.  Modes other than "dsp" and ``overlap`` are not ported yet."""
-    if mode != "dsp":
-        raise NotImplementedError(f"transformer2d mode {mode!r}: not yet "
-                                  f"ported (only dsp runs)")
-    if overlap is not None:
-        raise NotImplementedError(f"overlap {overlap!r}: not yet ported")
+    With ``mesh`` (a ``DeviceMesh``: ``("data", "model")``, or the
+    ``("sp_out", "sp_in")`` grid for ``hybrid``), x and t are this rank's
+    shard: its batch slice, and on x its slice of T over the SP dims; the
+    output is the rank's shard in the same layout.  ``mode`` (``MODES``)
+    says how the ranks share the blocks: ``dsp`` runs the planned schedule
+    (``dsp_schedule``, or ``schedule``) through the explicit executor,
+    with ``overlap`` its switches as per-shard permutes; the baselines run
+    their own collectives inside the blocks.  ``topology``, ``joint`` and
+    ``schedule`` act only with a mesh and ``dsp``, as in JAX.  Without a
+    mesh there are no ranks to share the work, so ``mode`` must be
+    ``dsp`` and ``overlap`` None."""
     ex = ScheduleExecutor.null()
     psched = None
-    if mesh is not None:
-        ctx = from_mesh(mesh)
+
+    def block(p, xc, *, axis, t_emb):
+        return t2d_block(p, xc, cfg, axis=axis, t_emb=t_emb, backend=backend)
+
+    if mesh is None:
+        if mode != "dsp" or overlap is not None:
+            raise ValueError(f"mode {mode!r} and overlap {overlap!r} share "
+                             f"the work over a mesh: pass mesh=")
+    else:
+        ctx = _check_mode(cfg, mesh, mode, overlap)
         n, t_loc = ctx.sp_size, x.shape[1]
         t_offset = t_offset + ctx.sp_index * t_loc
-        psched = schedule if schedule is not None else dsp_schedule(
-            cfg, n, t_len=t_loc * n, s_len=x.shape[2],
-            batch=x.shape[0] * ctx.dp_size, topology=topology, joint=joint)
-        ex = ScheduleExecutor(psched, backend="explicit", ctx=ctx)
+        if mode == "dsp":
+            psched = schedule if schedule is not None else dsp_schedule(
+                cfg, n, t_len=t_loc * n, s_len=x.shape[2],
+                batch=x.shape[0] * ctx.dp_size, topology=topology,
+                joint=joint, overlap=overlap)
+            ex = ScheduleExecutor(psched, backend="explicit", ctx=ctx,
+                                  overlap=overlap)
+        else:
+            block = _mode_block(cfg, mode, ctx, backend)
     unrolled = isinstance(psched, UnrolledSchedule)
 
     x = L.patch_embed(params["embed"], x)
@@ -357,12 +566,10 @@ def forward(params, x, t, cfg: T2DConfig, *, mesh=None, mode: str = "dsp",
                          and not unrolled) else 1)
 
     def pair_body(xc, te, i, lp):
-        xc = t2d_block(lp["spatial"], xc, cfg, axis=2, t_emb=te,
-                       backend=backend)
+        xc = block(lp["spatial"], xc, axis=2, t_emb=te)
         # planned boundary: dynamic switch T -> S (one all-to-all)
         xc = ex.boundary(xc, 2 * i + 1 if unrolled else 1)
-        xc = t2d_block(lp["temporal"], xc, cfg, axis=1, t_emb=te,
-                       backend=backend)
+        xc = block(lp["temporal"], xc, axis=1, t_emb=te)
         if not unrolled:
             return ex.wrap(xc)        # planned wrap-around: switch S -> T
         if 2 * i + 2 < psched.n_stages:
@@ -378,7 +585,7 @@ def forward(params, x, t, cfg: T2DConfig, *, mesh=None, mode: str = "dsp",
         body = functools.partial(group_body, i)
         group = pairs[i:i + g]
         if remat:
-            # no early stop: the recompute reissues every switch of the
+            # no early stop: the recompute reissues every collective of the
             # group, the last one too, on every rank alike
             with set_checkpoint_early_stop(False):
                 x = checkpoint(body, x, t_emb, *group, use_reentrant=False)
@@ -412,17 +619,16 @@ def t2d_loss(params, batch: Dict[str, torch.Tensor], cfg: T2DConfig, *,
 
 def shard_video_batch(batch: Dict[str, torch.Tensor], mesh):
     """The rank's shard of a global video batch held whole by every rank
-    (the paper's ``dsp_dataloader``): the batch dim sliced over ``data``,
-    and x and target sliced along T over ``model``."""
+    (the paper's ``dsp_dataloader``): the batch dim sliced over the data
+    dims, and x and target sliced along T over the SP dims (``sp_out``
+    major on a 2D SP grid)."""
     ctx = from_mesh(mesh)
     out = {}
     for k, v in batch.items():
-        if v.shape[0] % ctx.dp_size:
-            raise ValueError(f"batch {v.shape[0]} not divisible by the "
-                             f"{ctx.dp_size} data-parallel ranks")
-        b_loc = v.shape[0] // ctx.dp_size
-        v = v.narrow(0, ctx.dp_index * b_loc, b_loc)
-        out[k] = v if v.dim() == 1 else dsp.split(v, 1, ctx.sp_group)
+        v = dsp.shard(v, 0, ctx.dp_size, ctx.dp_index)
+        if v.dim() > 1:
+            v = dsp.shard(v, 1, ctx.sp_size, ctx.sp_index)
+        out[k] = v
     return out
 
 
@@ -431,22 +637,22 @@ def make_spmd_forward(cfg: T2DConfig, mesh, *, mode: str = "dsp",
                       overlap: Optional[str] = None):
     """``fwd(params, x, t)`` where x: (B, T, S, C_in) and t: (B,) are the
     global batch, the same on every rank; returns the rank's shard of the
-    output, (B / data, T / model, S, C_in).  Batch over ``data``, T over
-    ``model`` on entry, positions offset by the rank's T slice, and the
-    planned switches through the explicit executor (``forward`` with the
-    mesh).  Only ``mode="dsp"`` is ported; the baselines and ``overlap``
-    raise."""
-    if mode != "dsp":
-        raise NotImplementedError(f"transformer2d mode {mode!r}: not yet "
-                                  f"ported (only dsp runs)")
-    if overlap is not None:
-        raise NotImplementedError(f"overlap {overlap!r}: not yet ported")
-    from_mesh(mesh)                   # a DeviceMesh, or raise now
+    output, (B / data, T / SP, S, C_in).  Batch over the data dims, T over
+    the SP dims on entry, positions offset by the rank's T slice, and the
+    blocks shared under ``mode`` (``forward`` with the mesh): ``dsp`` (the
+    planned switches, with ``overlap`` as per-shard permutes),
+    ``ulysses``, ``ulysses_fused``, ``ring``, ``megatron``, or ``hybrid``
+    (USP) on a ``make_sp2d_mesh`` grid.  Per-rank collectives and bytes
+    follow paper Table 3 (``core.dsp.calls`` and ``volume``).  Raises
+    ValueError where the mode cannot run ``cfg`` on ``mesh``, as JAX's
+    does."""
+    _check_mode(cfg, mesh, mode, overlap)
 
     def fwd(params, x, t):
         batch = {"x": x} if t is None else {"x": x, "t": t}
         local = shard_video_batch(batch, mesh)
         return forward(params, local["x"], local.get("t"), cfg, mesh=mesh,
-                       backend=backend, remat=remat)
+                       mode=mode, backend=backend, remat=remat,
+                       overlap=overlap)
 
     return fwd

@@ -337,14 +337,58 @@ def test_world_of_one_still_switches(world_of_one):
     assert dsp.calls == {"all-to-all": 2}
 
 
-def test_non_dsp_modes_raise():
-    cfg = TT.T2DConfig(name="t", n_layers=2, d_model=64, n_heads=4,
-                       d_ff=128, in_dim=16, dtype=torch.float32)
-    for mode in ("ulysses", "ulysses_fused", "ring", "megatron", "hybrid"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            TT.make_spmd_forward(cfg, object(), mode=mode)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TT.make_spmd_forward(cfg, object(), overlap="chunked")
+def _gqa(**kw):
+    return TT.T2DConfig(name="t", n_layers=2, d_model=64, n_heads=4,
+                        d_ff=128, in_dim=16, dtype=torch.float32, **kw)
+
+
+# name -> (config, mode, overlap, mesh: "1d" (data, model), "2d" the SP
+# grid (sp_out, sp_in), or "none"), each of which must raise ValueError
+MODE_REFUSALS = {
+    "unknown_mode": (_gqa(), "tensor", None, "1d"),
+    "unknown_overlap": (_gqa(), "dsp", "eager", "1d"),
+    "overlap_outside_dsp": (_gqa(), "ring", "chunked", "1d"),
+    "megatron_gqa": (_gqa(n_kv_heads=2), "megatron", None, "1d"),
+    "megatron_relu_mlp": (_gqa(mlp_kind="relu"), "megatron", None, "1d"),
+    "ulysses_fused_gqa": (_gqa(n_kv_heads=2), "ulysses_fused", None, "1d"),
+    "hybrid_without_2d_mesh": (_gqa(), "hybrid", None, "1d"),
+    "dsp_without_model_dim": (_gqa(), "dsp", None, "2d"),
+    "mode_without_mesh": (_gqa(), "ulysses", None, "none"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MODE_REFUSALS))
+def test_mode_checks_raise(world_of_one, case):
+    """Each mode runs only where it can: ``make_spmd_forward`` (and
+    ``forward`` without a mesh) raise ValueError for an unknown mode or
+    overlap, overlap outside ``dsp``, GQA under ``megatron`` and
+    ``ulysses_fused``, ``megatron`` with an MLP other than ``gelu``,
+    ``hybrid`` without the 2D SP grid and the other modes without a
+    ``model`` dim."""
+    from repro_torch.launch.mesh import make_sp2d_mesh
+    cfg, mode, overlap, kind = MODE_REFUSALS[case]
+    if kind == "none":
+        x = torch.zeros(1, 2, 2, 16)
+        with pytest.raises(ValueError, match="pass mesh="):
+            TT.forward({}, x, None, cfg, mode=mode, overlap=overlap)
+        return
+    mesh = (world_of_one.mesh if kind == "1d"
+            else make_sp2d_mesh(1, 1, device_type="cpu"))
+    with pytest.raises(ValueError):
+        TT.make_spmd_forward(cfg, mesh, mode=mode, overlap=overlap)
+
+
+def test_auto_backend_raises():
+    """JAX's ``backend="auto"`` (sharding constraints through XLA's SPMD
+    partitioner) has no PyTorch counterpart; the explicit executor takes
+    ``overlap`` and the null one refuses it."""
+    ps = TT.dsp_schedule(_gqa(), 4, t_len=8, s_len=16, batch=2)
+    with pytest.raises(NotImplementedError, match="auto"):
+        TS.ScheduleExecutor(ps, backend="auto")
+    assert TS.ScheduleExecutor(ps, backend="explicit",
+                               overlap="chunked").overlap == "chunked"
+    with pytest.raises(ValueError, match="explicit backend only"):
+        TS.ScheduleExecutor(None, backend="null", overlap="chunked")
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,10 @@ for want in ("repro_torch.serving.scheduler", "repro_torch.train.trainer",
              "repro_torch.kernels.ssd_scan",
              "repro_torch.models.transformer2d", "repro_torch.core.plan",
              "repro_torch.core.schedule", "repro_torch.core.dsp",
-             "repro_torch.launch.mesh"):
+             "repro_torch.launch.mesh", "repro_torch.core.overlap",
+             "repro_torch.core.ring", "repro_torch.core.ulysses",
+             "repro_torch.core.megatron_sp",
+             "repro_torch.analysis.roofline"):
     assert want in mods, (want, mods)
 """
 

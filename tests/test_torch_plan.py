@@ -345,16 +345,15 @@ def test_cli_plan_matches_jax(which, mesh_shape):
 
 
 def test_executor_refuses_what_has_no_counterpart():
-    """``backend="auto"`` has no PyTorch counterpart; overlap is not
-    ported; the explicit backend runs the mirrored backward only, as in
-    JAX."""
+    """``backend="auto"`` has no PyTorch counterpart; the explicit backend
+    takes ``overlap`` (given, or carried by the schedule) and runs the
+    mirrored backward only, as in JAX."""
     ps = TT.dsp_schedule(_dit_cfgs("smoke")[1], 4, t_len=8, s_len=16,
                          batch=2)
     with pytest.raises(NotImplementedError, match="no PyTorch counterpart"):
         TS.ScheduleExecutor(ps, backend="auto", ctx=object())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TS.ScheduleExecutor(ps, backend="explicit", ctx=object(),
-                            overlap="chunked")
+    assert TS.ScheduleExecutor(ps, backend="explicit", ctx=object(),
+                               overlap="chunked").overlap == "chunked"
     with pytest.raises(ValueError, match="needs a ParallelContext"):
         TS.ScheduleExecutor(ps, backend="explicit").wrap(object())
     swapped = TS.Schedule(ps.schedule.stages, ps.schedule.dims, initial=1,
@@ -363,9 +362,10 @@ def test_executor_refuses_what_has_no_counterpart():
     with pytest.raises(ValueError, match="mirrored backward only"):
         TS.ScheduleExecutor(swapped.unrolled(), backend="explicit",
                             ctx=object())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TT.dsp_schedule(_dit_cfgs("smoke")[1], 4, t_len=8, s_len=16,
-                        batch=2, overlap="chunked")
+    carried = TT.dsp_schedule(_dit_cfgs("smoke")[1], 4, t_len=8, s_len=16,
+                              batch=2, overlap="chunked")
+    assert TS.ScheduleExecutor(carried, backend="explicit",
+                               ctx=object()).overlap == "chunked"
     null = TS.ScheduleExecutor.null()
     x = object()
     assert null.enter(x) is x and null.boundary(x, 1) is x

@@ -327,10 +327,10 @@ def test_config_tree_and_count_match_jax(arch):
     dict(mesh=object()), dict(mode="ulysses"), dict(topology=object()),
     dict(joint=True), dict(schedule=object()), dict(overlap="ring")])
 def test_forward_raises_for_the_mesh_path(kw):
-    """What the mesh path does not port raises (modes other than dsp,
-    overlap), as does a mesh that is not one; without a mesh, the plan's
-    arguments act on nothing, as in JAX (``tests/test_torch_dsp.py`` runs
-    the mesh path)."""
+    """A mesh that is not one raises; without a mesh, a mode other than
+    dsp or an overlap raises (they share the work over ranks), and the
+    plan's arguments act on nothing, as in JAX (``tests/test_torch_dsp.py``
+    and ``tests/test_torch_sp_baselines.py`` run the mesh path)."""
     cfg = tc720.SMOKE
     params = TT.init_t2d(0, cfg, device="cpu")
     x = torch.randn((1, 2, 3, cfg.in_dim), generator=torch.Generator()
@@ -339,7 +339,7 @@ def test_forward_raises_for_the_mesh_path(kw):
         with pytest.raises(TypeError, match="DeviceMesh"):
             TT.forward(params, x, None, cfg, **kw)
     elif "mode" in kw or "overlap" in kw:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+        with pytest.raises(ValueError, match="pass mesh="):
             TT.forward(params, x, None, cfg, **kw)
     else:
         torch.testing.assert_close(TT.forward(params, x, None, cfg, **kw),
