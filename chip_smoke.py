@@ -11,20 +11,22 @@ Phases, in order; any failure raises and exits non-zero:
 3. each kernel against its plain PyTorch version on the card, logging
    the route each case took: flash attention (K1) over its test cases and
    every shape the served trace gives it (``sm90`` for bf16 at head dims
-   64 and 128, ``cuda_cores`` otherwise); the SSD scan (K2) over its test
+   64, 72 and 128, ``cuda_cores`` otherwise); the SSD scan (K2) over its test
    cases, the training slice's full-width shape and a ragged length at
    that width, one row, a part chunk and two B/C groups (``sm90`` for
    bf16 at P 64, S 128, chunk 128, ``cuda_cores`` otherwise), and the
    slice on ``cuda_cores`` in bf16 too; and K1 at head dim 72, non-causal,
-   in f32 and bf16, at the 2D DiT's shapes (``cuda_cores``): spatial (a
-   few folded frames, 16 heads, 4096 patches), temporal (4096 folded
-   patches, 16 heads, the frames) and a ragged length;
+   at the 2D DiT's shapes, bf16 on ``sm90`` and f32 on ``cuda_cores``:
+   spatial (a few folded frames, 16 heads, 4096 patches), temporal (4096
+   folded patches, 16 heads, the frames) and a ragged length;
 4. time each kernel, its plain version and, where one exists, one PyTorch
    library call that computes the same function (a yardstick the port
    never calls); K1's routed kernel and the library call three times each
    in turns (medians), and its ``cuda_cores`` kernel; K2 on ``sm90`` and
    on ``cuda_cores`` three times each in turns (medians); K1 at the DiT's
-   spatial shape against ``scaled_dot_product_attention`` in turns;
+   spatial shape and at one temporal layer's, on ``sm90`` and on
+   ``cuda_cores``, against ``scaled_dot_product_attention``, three times
+   each in turns (medians);
 5. qwen3-14b serving at full width, random weights from a seeded
    generator: at depth 2, prefill logits through the kernel against the
    plain path at the longest prompt and at a ragged one (bar 2e-2 of the
@@ -67,8 +69,8 @@ Phases, in order; any failure raises and exits non-zero:
     kernel against the plain path at 1 x 4 frames x 4096 patches (phase
     7's bars); at depth 28, four AdamW steps of the ``Trainer`` at 1 x 16
     frames x 4096 patches, every group of 2 pairs checkpointed; K1 must
-    launch 2 x 28 x 4 = 224 times, every launch on ``cuda_cores`` at head
-    dim 72; then the train CLI with the DiT at SMOKE size;
+    launch 2 x 28 x 4 = 224 times, every launch on ``sm90`` (``DIT_ROUTE``)
+    at head dim 72; then the train CLI with the DiT at SMOKE size;
 13. transformer2d-720m under DSP on a ``("data", "model")`` process mesh:
     (a) at world size 1 over NCCL, phase 12's four steps again (same
     init, batches and Trainer) with the mesh: the losses must equal phase
@@ -77,7 +79,7 @@ Phases, in order; any failure raises and exits non-zero:
     read just after, and must be exactly the planned all-to-alls (28 a
     forward from the executor's accounting, times forward, checkpointed
     recompute and backward: 3 x 28 x 4 = 336) and one all-reduce a step;
-    K1 must launch 224 times, all ``cuda_cores`` at head dim 72; one
+    K1 must launch 224 times, all ``sm90`` at head dim 72; one
     switch of the (1, 16, 4096, 1152) stream is timed with its parts;
     (b) 4 processes sharing the card over gloo (NCCL refuses two ranks on
     one GPU) on a (1, 4) mesh, each this script again with
@@ -100,12 +102,14 @@ Phases, in order; any failure raises and exits non-zero:
     counters are set to 0 just before and read just after: each rank's
     collectives, their bytes (``core.dsp.volume``) and K1's launches must
     be exactly the contract's (``sp_contract``; PERF.md §6), every K1
-    launch on ``cuda_cores`` at head dim 72; (b) logs Table 3's bytes per
+    launch on ``sm90`` at head dim 72; (b) logs Table 3's bytes per
     rank at n = 4;
 15. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
     counts over the paths above (K1 320 + 32 + 224 + 224 + phase 14's
-    training runs, 112 per mode, 56 for ring and hybrid; K2 576 + 384),
-    then the last line ``{"ok": true, "device": {...}}``.
+    training runs, 112 per mode, 56 for ring and hybrid; K2 576 + 384)
+    and whose ``launches_by_route`` split that sum by the route each
+    launch took (every one ``sm90``), then the last line ``{"ok": true,
+    "device": {...}}``.
 
 Each phase's header logs the seconds since the start, and every time
 logged carries the card's name and power limit.
@@ -237,16 +241,19 @@ SLICE = prefill_case(max(PROMPT_LENS))
 # attention over 2 folded frames, a temporal layer's over the 4096 folded
 # patches of DIT_FRAMES frames, and a ragged length
 DIT_HEADS, DIT_DH = 16, 72
+DIT_TEMPORAL = (DIT_PATCHES, DIT_HEADS, DIT_HEADS, DIT_FRAMES, DIT_FRAMES,
+                DIT_DH, False, None, None)
 DIT_ATTN_CASES = [
     (2, DIT_HEADS, DIT_HEADS, DIT_PATCHES, DIT_PATCHES, DIT_DH, False, None,
      None),
-    (DIT_PATCHES, DIT_HEADS, DIT_HEADS, DIT_FRAMES, DIT_FRAMES, DIT_DH, False,
-     None, None),
+    DIT_TEMPORAL,
     (1, 3, 3, 100, 100, DIT_DH, False, None, None)]
 # K1's timing shape on the DiT path: 4 of a spatial layer's folded frames
 # (the kernel's time grows with their count)
 DIT_SLICE = (4, DIT_HEADS, DIT_HEADS, DIT_PATCHES, DIT_PATCHES, DIT_DH,
              False, None, None)
+# the route every K1 launch of the DiT (bf16 at head dim 72) must take
+DIT_ROUTE = "sm90"
 
 
 # the card's name and power limit (phase 1), logged beside every time
@@ -570,7 +577,8 @@ def full_width_serve(cfg, kernel, device="cuda") -> dict:
     log_t("  metrics " + json.dumps(summary, sort_keys=True))
     del params, eng, sched
     torch.cuda.empty_cache()
-    return {"launches": launches, "metrics": summary}
+    return {"launches": launches, "routes": nonzero(routes),
+            "metrics": summary}
 
 
 def leaf_paths(tree, path="") -> list:
@@ -725,12 +733,21 @@ def run_trainer(init, loss_fn, data_fn, kernel, *, tokens, n_steps,
         raise AssertionError(f"non-finite training step: {steps}")
     del trainer
     torch.cuda.empty_cache()
-    return {"launches": launches, "metrics": summary,
-            "collectives": collectives, "volume": volume}
+    return {"launches": launches, "routes": nonzero(routes),
+            "metrics": summary, "collectives": collectives, "volume": volume}
 
 
 def nonzero(counts: dict) -> dict:
     return {k: n for k, n in counts.items() if n}
+
+
+def by_route(runs) -> dict:
+    """The launches of ``runs`` (each with its ``routes``) summed by route."""
+    total = {}
+    for run in runs:
+        for route, n in run["routes"].items():
+            total[route] = total.get(route, 0) + n
+    return total
 
 
 def perturb_modulation(params, seed: int):
@@ -780,10 +797,11 @@ def dit_grads_check(cfg, device="cuda") -> dict:
 def dit_train(cfg, device="cuda") -> dict:
     """``cfg`` at full depth: DIT_STEPS AdamW steps at DIT_BATCH x
     DIT_FRAMES x DIT_PATCHES, modulation perturbed, remat group
-    DIT_REMAT_GROUP; every K1 launch on ``cuda_cores`` at head dim 72."""
+    DIT_REMAT_GROUP; every K1 launch on DIT_ROUTE at head dim 72."""
     route = ROUTES[(cfg.dtype, cfg.dh)]
-    if route != "cuda_cores" or cfg.dh != DIT_DH:
-        raise AssertionError(f"the DiT's K1 route is {route} at {cfg.dh}")
+    if route != DIT_ROUTE or cfg.dh != DIT_DH:
+        raise AssertionError(f"the DiT's K1 route is {route} at {cfg.dh}, "
+                             f"expected {DIT_ROUTE} at {DIT_DH}")
     log(f"  remat_group {DIT_REMAT_GROUP} ({cfg.n_layers // 2} pairs, "
         f"{cfg.n_layers // 2 // DIT_REMAT_GROUP} checkpointed groups)")
     trained = run_trainer(
@@ -792,7 +810,7 @@ def dit_train(cfg, device="cuda") -> dict:
                                   remat_group=DIT_REMAT_GROUP),
         lambda s: dit_batch(cfg, DIT_FRAMES, s, device), flash_attention_fwd,
         tokens=DIT_BATCH * DIT_FRAMES * DIT_PATCHES, n_steps=DIT_STEPS,
-        n_layers=cfg.n_layers, route="cuda_cores", device=device)
+        n_layers=cfg.n_layers, route=DIT_ROUTE, device=device)
     dims = nonzero(flash_attention_fwd.head_dim_launches)
     if dims != {DIT_DH: trained["launches"]}:
         raise AssertionError(f"K1 launches by head dim {dims}, expected "
@@ -903,7 +921,7 @@ def dsp_world_of_one(cfg, phase12: dict, work: str, device="cuda") -> dict:
             lambda st: t2d.shard_video_batch(
                 dit_batch(cfg, DIT_FRAMES, st, device), mesh),
             flash_attention_fwd, tokens=DIT_BATCH * DIT_FRAMES * DIT_PATCHES,
-            n_steps=DIT_STEPS, n_layers=cfg.n_layers, route="cuda_cores",
+            n_steps=DIT_STEPS, n_layers=cfg.n_layers, route=DIT_ROUTE,
             device=device, mesh=mesh)
         dims = nonzero(flash_attention_fwd.head_dim_launches)
         if dims != {cfg.dh: trained["launches"]}:
@@ -997,7 +1015,7 @@ def dsp_four_ranks(cfg, work: str, device="cuda") -> dict:
     grads against (a)'s within phase 7's bars; the gathered depth-28
     forward against (a)'s within DSP_OUT_BAR of its largest |value|; per
     rank exactly the planned all-to-alls and K1 launches, all
-    ``cuda_cores``."""
+    DIT_ROUTE."""
     with open(os.path.join(work, "job.json"), "w") as f:
         json.dump({"device": device, "dtype": str(cfg.dtype),
                    "cfg": {"n_layers": cfg.n_layers,
@@ -1045,7 +1063,7 @@ def dsp_four_ranks(cfg, work: str, device="cuda") -> dict:
                                  f"disagree with world 1: {g}")
         for name, (calls, k1) in want.items():
             if (res[name]["calls"] != calls or res[name]["k1"] != k1
-                    or res[name]["k1_routes"] != {"cuda_cores": k1}):
+                    or res[name]["k1_routes"] != {DIT_ROUTE: k1}):
                 raise AssertionError(f"rank {r} {name}: {res[name]}, "
                                      f"planned {calls} and {k1} K1 "
                                      f"launches")
@@ -1161,12 +1179,12 @@ def read_counts() -> dict:
 
 def check_counts(what: str, got: dict, calls: dict, k1: int) -> None:
     """``got`` (``read_counts``) must be exactly ``calls`` and ``k1``
-    launches, all on ``cuda_cores`` at the DiT's head dim."""
+    launches, all on DIT_ROUTE at the DiT's head dim."""
     if (got["calls"] != calls or got["k1"] != k1
-            or got["k1_routes"] != ({"cuda_cores": k1} if k1 else {})
+            or got["k1_routes"] != ({DIT_ROUTE: k1} if k1 else {})
             or got["k1_dims"] != ({str(DIT_DH): k1} if k1 else {})):
         raise AssertionError(f"{what}: counted {got}, the contract says "
-                             f"{calls} and {k1} K1 launches on cuda_cores "
+                             f"{calls} and {k1} K1 launches on {DIT_ROUTE} "
                              f"at head dim {DIT_DH}")
 
 
@@ -1291,7 +1309,7 @@ def sp_world_of_one(cfg, phase12: dict, work: str, device="cuda") -> dict:
                 flash_attention_fwd,
                 tokens=DIT_BATCH * DIT_FRAMES * DIT_PATCHES,
                 n_steps=SP_TRAIN_STEPS, n_layers=cfg.n_layers,
-                route="cuda_cores", device=device, mesh=mesh,
+                route=DIT_ROUTE, device=device, mesh=mesh,
                 launches_per_step=k1_step)
             got = {"calls": {k: [trained["collectives"].get(k, 0),
                                  trained["volume"].get(k, 0)]
@@ -1315,6 +1333,7 @@ def sp_world_of_one(cfg, phase12: dict, work: str, device="cuda") -> dict:
                   f"{100 * (step_ms / ref_ms - 1):+.2f}%; counted {got}")
             res.update(gap=gap, out_rel=rel, step_ms=step_ms,
                        launches=trained["launches"],
+                       routes=trained["routes"],
                        peak_memory_gb=trained["metrics"]["peak_memory_gb"])
             results[label] = res
         del params, params2, ref_grads, ref_out
@@ -1471,35 +1490,47 @@ def train_cli(train_main, arch: str) -> None:
                              f"{hist}")
 
 
-def time_dit_attention() -> dict:
-    """K1 at DIT_SLICE in bf16 (the ``cuda_cores`` route at head dim 72)
-    and ``scaled_dot_product_attention`` three times each in turns
-    (medians), the plain version once, and the bound."""
-    q, k, v = attn_inputs(DIT_SLICE, torch.bfloat16, seed=9)
-    kw = attn_kw(DIT_SLICE)
-    route = ROUTES[(torch.bfloat16, DIT_DH)]
-    runs = {"kernel": [], "library": []}
-    for who in ("kernel", "library", "library", "kernel", "kernel",
-                "library"):
-        fn = ((lambda: flash_attention_fwd(q, k, v, **kw)) if who == "kernel"
-              else (lambda: sdpa(q, k, v, causal=False)))
-        runs[who].append(time_ms(fn, iters=5 if who == "kernel" else 20,
-                                 warmup=1))
-    ms, library_ms = (float(np.median(runs[w])) for w in ("kernel", "library"))
+def time_dit_attention(shape) -> dict:
+    """K1 at a DiT ``shape`` in bf16 on its route (DIT_ROUTE) and on
+    ``cuda_cores``, and ``scaled_dot_product_attention``, three times each
+    in turns (medians); the plain version once, and the bound."""
+    q, k, v = attn_inputs(shape, torch.bfloat16, seed=9)
+    kw = attn_kw(shape)
+    route = ROUTES[(torch.bfloat16, shape[5])]
+    if route != DIT_ROUTE:
+        raise AssertionError(f"K1 at {shape[:6]} takes {route}, expected "
+                             f"{DIT_ROUTE}")
+    fns = {route: lambda: flash_attention_fwd(q, k, v, **kw),
+           "cuda_cores": lambda: flash_attention_fwd(
+               q, k, v, route="cuda_cores", **kw),
+           "library": lambda: sdpa(q, k, v, causal=False)}
+    runs = {who: [] for who in fns}
+    for order in ((route, "cuda_cores", "library"),
+                  ("library", "cuda_cores", route),
+                  (route, "library", "cuda_cores")):
+        for who in order:
+            runs[who].append(time_ms(
+                fns[who], iters=5 if who == "cuda_cores" else 20, warmup=1))
+    ms, cuda_cores_ms, library_ms = (float(np.median(runs[w])) for w in fns)
     plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, **kw), iters=3,
                        warmup=1)
-    bound = attention_bound_ms(DIT_SLICE, torch.bfloat16)
-    log_t(f"  DiT spatial {DIT_SLICE[:6]} non-causal: kernel ({route}) runs "
-          f"{runs['kernel']}  library runs {runs['library']}")
-    log_t(f"  DiT spatial: kernel ({route}) {ms:.4f} ms  plain {plain_ms:.4f} "
-          f"ms  scaled_dot_product_attention {library_ms:.4f} ms  bound "
+    bound = attention_bound_ms(shape, torch.bfloat16)
+    log_t(f"  DiT {shape[:6]} non-causal: kernel ({route}) runs "
+          f"{runs[route]}  cuda_cores runs {runs['cuda_cores']}  library "
+          f"runs {runs['library']}")
+    log_t(f"  DiT {shape[:6]}: kernel ({route}) {ms:.4f} ms  cuda_cores "
+          f"kernel {cuda_cores_ms:.4f} ms  plain {plain_ms:.4f} ms  "
+          f"scaled_dot_product_attention {library_ms:.4f} ms  bound "
           f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
           f"{bound['flops']:.3e} FLOP, {bound['bytes']:.3e} B; the kernel at "
-          f"{bound['flops'] / ms / 1e9:.1f} TFLOP/s)")
+          f"{bound['flops'] / ms / 1e9:.1f} TFLOP/s, "
+          f"{100 * bound['bound_ms'] / ms:.1f}% of the bound)")
     del q, k, v
     torch.cuda.empty_cache()
-    return {"route": route, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, **bound}
+    return {"shape": list(shape[:6]), "route": route, "ms": ms,
+            "cuda_cores_ms": cuda_cores_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"]}
 
 
 T0 = time.perf_counter()
@@ -1612,7 +1643,8 @@ def main() -> None:
           f"{ssd_bound['bytes'] / ssd_ms / 1e6:.1f} GB/s)")
     del xdt, da, b, c
     torch.cuda.empty_cache()
-    dit = time_dit_attention()
+    dit = time_dit_attention(DIT_SLICE)
+    dit_temporal = time_dit_attention(DIT_TEMPORAL)
 
     log(f"[5] qwen3-14b serving at full width ({elapsed()})")
     cfg = qwen3_14b.CONFIG
@@ -1679,6 +1711,8 @@ def main() -> None:
         log(f"  (b) {DSP_RANKS} ranks on the card over gloo ({elapsed()})")
         sp_four_ranks(dcfg, sp["bucket2"], work)
     sp_launches = sum(r["launches"] for r in sp["modes"].values())
+    dit_runs = [dit_trained, dsp_trained, *sp["modes"].values()]
+    k1_routes = by_route([served, q_trained] + dit_runs)
     log(f"  done ({elapsed()})")
 
     log(facts)
@@ -1689,23 +1723,22 @@ def main() -> None:
         "launches": (served["launches"] + q_trained["launches"]
                      + dit_trained["launches"] + dsp_trained["launches"]
                      + sp_launches),
+        "launches_by_route": k1_routes,
         "max_abs_err": slice_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"], "library_ms": library_ms,
         "kernel_route": route, "cuda_cores_ms": cuda_cores_ms,
-        "dit": {"shape": list(DIT_SLICE[:6]), "route": dit["route"],
-                "launches": dit_trained["launches"],
+        "dit": {**dit, "launches": dit_trained["launches"],
                 "dsp_launches": dsp_trained["launches"],
                 "sp_launches": {k: r["launches"]
                                 for k, r in sp["modes"].items()},
-                "max_abs_err": dit_err, "ms": dit["ms"],
-                "plain_ms": dit["plain_ms"], "bound_ms": dit["bound_ms"],
-                "bound_by": dit["bound_by"],
-                "library_ms": dit["library_ms"]}}, {
+                "launches_by_route": by_route(dit_runs),
+                "max_abs_err": dit_err, "temporal": dit_temporal}}, {
         "name": "ssd_scan_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan_sm90.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:35",
         "launches": trained["launches"] + m_served["launches"],
+        "launches_by_route": by_route([trained, m_served]),
         "max_abs_err": ssd_err,
         "ms": ssd_ms, "plain_ms": ssd_plain_ms,
         "bound_ms": ssd_bound["bound_ms"], "bound_by": ssd_bound["bound_by"],

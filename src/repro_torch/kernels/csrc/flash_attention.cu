@@ -27,8 +27,9 @@
 // neighbouring lanes of one warp and the row max and sum reduce with three
 // shuffles.  The ragged edges (Sq, Skv not multiples of 64) are masked
 // here; the wrapper pads nothing.  Each head dim is one instantiation
-// (dispatch below); D must be a multiple of TX, and 72 is the 2D DiT's
-// (transformer2d-720m, 1152 / 16 heads), which no tensor-core route takes.
+// (dispatch below); D must be a multiple of TX.  72 is the 2D DiT's
+// (transformer2d-720m, 1152 / 16 heads): in bf16 it takes the tensor-core
+// route (flash_attention_sm90.cu), in f32 this kernel.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>

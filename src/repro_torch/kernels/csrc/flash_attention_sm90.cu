@@ -4,15 +4,16 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py
 // (_flash_fwd_kernel, driven by flash_attention_fwd and reached through
-// repro/kernels/ops.py:flash_attention) for bf16 inputs at head dims 64 and
-// 128; kernels/flash_attention.py routes every other (dtype, head dim) to
-// flash_attention.cu.  Same function: blocked online-softmax attention with
-// GQA (query head h reads KV head h / (Hq / Hkv)), causal masking, a sliding
-// window (pos - window, pos], tanh soft-capping before the mask, a static
-// q_offset, and a fully masked row that outputs 0.  Max, sum and the output
-// accumulator stay in f32; P is rounded to bf16 for the P V product (the
-// tensor cores take bf16 operands), which the bf16 bar of chip_smoke.py
-// absorbs (tests/test_torch_kernels.py pins that on the CPU).
+// repro/kernels/ops.py:flash_attention) for bf16 inputs at head dims 64, 72
+// (the 2D DiT's) and 128; kernels/flash_attention.py routes every other
+// (dtype, head dim) to flash_attention.cu.  Same function: blocked
+// online-softmax attention with GQA (query head h reads KV head h / (Hq /
+// Hkv)), causal masking, a sliding window (pos - window, pos], tanh
+// soft-capping before the mask, a static q_offset, and a fully masked row
+// that outputs 0.  Max, sum and the output accumulator stay in f32; P is
+// rounded to bf16 for the P V product (the tensor cores take bf16
+// operands), which the bf16 bar of chip_smoke.py absorbs
+// (tests/test_torch_kernels.py pins that on the CPU).
 //
 // Bound on an H100 SXM at the serving slice's shape, q (1,40,2048,128),
 // k/v (1,8,2048,128), causal: 4 * 128 * 40 * 2048 * 2049 / 2 = 4.30e10 FLOP,
@@ -57,10 +58,13 @@
 // - Ping-pong across warpgroups.  The two take turns to issue their
 //   products (two named barriers), so one warpgroup's softmax runs while
 //   the other's products hold the tensor cores.
-// - Block order.  The grid walks the q tiles from the last to the first,
-//   all heads of a tile together: under causal masking the heaviest tiles
+// - Block order.  Under causal masking the grid walks the q tiles from the
+//   last to the first, all heads of a tile together: the heaviest tiles
 //   start first, so the tail of the grid is short at B = 1, and neighbouring
 //   CTAs (the Hq / Hkv heads of one KV head) read the same K/V through L2.
+//   Without it every tile weighs the same, and the grid walks one head's q
+//   tiles together, so the CTAs on the card share a few heads' K/V in L2
+//   (the DiT's 64 folded heads of 1.2 MB of K/V each would not all fit).
 //
 // Tiles, shared memory and registers.  D = 128: Q 32 KB + 2 stages x (K 32 KB
 // + V 32 KB) = 160 KB, one CTA per SM; a consumer thread holds S (64 f32),
@@ -68,9 +72,20 @@
 // D = 64: 80 KB, O 32 f32.  A larger D costs per thread D / 2 f32
 // registers of O and per stage 2 x BK x D x 2 bytes: D = 256 would hold O
 // in 128 registers beside S and P (96 more), past the 240, and need 64 KB
-// per K or V tile, so it would take BK = 64, one stage and no overlap;
-// D = 160 is not a multiple of the 64-column swizzle panel.  Those head
-// dims stay on flash_attention.cu.
+// per K or V tile, so it would take BK = 64, one stage and no overlap.
+// Those head dims stay on flash_attention.cu, and so does D = 160.
+//
+// D = 72, not a multiple of the 64-column panel, splits the head dim three
+// ways.  The true 72 sets the tensor maps' dims and row stride (144 B, a
+// multiple of 16, as TMA needs), the stored columns and the scale (the
+// wrapper's 72^-0.5).  Shared memory holds ceil(72 / 64) = 2 panels of a
+// tile, the D = 128 layout (160 KB): TMA zero-fills the second box past
+// column 72, and the mbarriers' transaction counts are whole boxes, which
+// include the fill.  Q K^T runs ceil(72 / 16) = 5 wgmma K steps, the fifth
+// at offset 0 of panel 1, over 80 columns: the 8 zero columns add nothing.
+// P V is one m64n72k16 a K step, N = 72 reaching 8 columns into panel 1
+// through the same LBO as D = 128, so O is 36 f32 and its padded columns
+// are never formed.
 //
 // Not yet: reading q/k/v in the model's (B, S, H, D) layout through
 // strides, which would drop the caller's layout copies.
@@ -93,8 +108,11 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct Smem {
-  static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;
+  // a tile's panels: D rounded up to whole panels, which TMA fills (with
+  // zeros past D)
+  static constexpr int PANELS = (D + PANEL - 1) / PANEL;
+  static constexpr int Q_BYTES = BQ * PANELS * PANEL * 2;
+  static constexpr int KV_BYTES = BK * PANELS * PANEL * 2;
   static constexpr int K_OFF = Q_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
   static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
@@ -297,6 +315,29 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs_m64n72k16(float (&d)[36],
+    const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35"
+      "}, {%36, %37, %38, %39}, %40, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ bool visible(int kpos, int pos, const Params& p) {
   return kpos < p.skv && (!p.causal || kpos <= pos) &&
          (p.window <= 0 || kpos > pos - p.window);
@@ -380,9 +421,12 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   auto k_empty = [&](int s) { return bars + 8 * (1 + 2 * STAGES + s); };
   auto v_empty = [&](int s) { return bars + 8 * (1 + 3 * STAGES + s); };
 
-  // heaviest q tiles first, all heads of one tile side by side
-  const int mblock = p.n_mblocks - 1 - static_cast<int>(blockIdx.x) / p.n_bh;
-  const int bh = static_cast<int>(blockIdx.x) % p.n_bh;   // b * hq + h
+  // causal: heaviest q tiles first, all heads of one tile side by side;
+  // otherwise every q tile of one head side by side
+  const int idx = static_cast<int>(blockIdx.x);
+  const int mblock = p.causal ? p.n_mblocks - 1 - idx / p.n_bh
+                              : idx % p.n_mblocks;
+  const int bh = p.causal ? idx % p.n_bh : idx / p.n_mblocks;   // b * hq + h
   const int bh_kv = (bh / p.hq) * p.hkv + (bh % p.hq) / (p.hq / p.hkv);
   const int row0 = mblock * BQ;
 
@@ -412,7 +456,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x == CONSUMERS) {
       mbar_expect_tx(bar_q, L::Q_BYTES);
 #pragma unroll
-      for (int c = 0; c < D / PANEL; ++c)
+      for (int c = 0; c < L::PANELS; ++c)
         tma_load(q_s + c * BQ * 128, &tq, bar_q, c * PANEL, row0, bh);
       int it = 0;
       for (int k0 = kv_lo; k0 < kv_hi; k0 += BK, ++it) {
@@ -421,12 +465,12 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_wait(k_empty(s), free_parity);
         mbar_expect_tx(k_full(s), L::KV_BYTES);
 #pragma unroll
-        for (int c = 0; c < D / PANEL; ++c)
+        for (int c = 0; c < L::PANELS; ++c)
           tma_load(k_s(s) + c * BK * 128, &tk, k_full(s), c * PANEL, k0, bh_kv);
         mbar_wait(v_empty(s), free_parity);
         mbar_expect_tx(v_full(s), L::KV_BYTES);
 #pragma unroll
-        for (int c = 0; c < D / PANEL; ++c)
+        for (int c = 0; c < L::PANELS; ++c)
           tma_load(v_s(s) + c * BK * 128, &tv, v_full(s), c * PANEL, k0, bh_kv);
       }
     }
@@ -456,7 +500,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_wait(k_full(s), (it / STAGES) & 1);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < (D + 15) / 16; ++kk) {   // depth padded to 16s
         const uint32_t off = (kk % 4) * 32;   // 16 columns of a panel
         wgmma_ss_m64n128k16(
             sacc, desc_sw128(q_wg + (kk / 4) * BQ * 128 + off, 16),
@@ -475,6 +519,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         const uint64_t dv = desc_sw128(v_s(s) + kk * 16 * 128, BK * 128);
         if constexpr (D == 128)
           wgmma_rs_m64n128k16(o, pa + 4 * kk, dv);
+        else if constexpr (D == 72)
+          wgmma_rs_m64n72k16(o, pa + 4 * kk, dv);
         else
           wgmma_rs_m64n64k16(o, pa + 4 * kk, dv);
       }
@@ -663,8 +709,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 
 extern "C" {
 
-// dtype must be 1 (bfloat16) and d 64 or 128.  window <= 0 means no window
-// and softcap <= 0 no soft-cap.  Returns 0, a cudaError_t, or one of the
+// dtype must be 1 (bfloat16) and d 64, 72 or 128.  window <= 0 means no
+// window and softcap <= 0 no soft-cap.  Returns 0, a cudaError_t, or one of the
 // negative codes above.
 int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
                              void* o, int dtype, int b, int hq, int hkv,
@@ -675,6 +721,9 @@ int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
   if (dtype != 1) return cudaErrorInvalidValue;
   if (d == 64)
     return launch<64>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window,
+                      softcap, q_offset, st);
+  if (d == 72)
+    return launch<72>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window,
                       softcap, q_offset, st);
   if (d == 128)
     return launch<128>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window,

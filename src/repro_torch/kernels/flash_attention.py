@@ -3,9 +3,11 @@
 Counterpart of ``repro.kernels.flash_attention`` (the Pallas TPU kernel
 ``_flash_fwd_kernel``).  Two CUDA kernels compute it, and ``ROUTES`` picks
 one by (dtype, head dim): ``"sm90"`` is ``csrc/flash_attention_sm90.cu``
-(bf16 on the tensor cores, wgmma fed by TMA) and ``"cuda_cores"`` is
-``csrc/flash_attention.cu`` (f32 FMAs; f32 stays there, since the tensor
-cores would compute in TF32 and miss its 1e-4 bar).  ``flash_attention_fwd``
+(bf16 on the tensor cores, wgmma fed by TMA) for bf16 at head dims 64, 72
+(the 2D DiT's, its product depth padded to 80 inside the kernel) and 128,
+and ``"cuda_cores"`` is ``csrc/flash_attention.cu`` (f32 FMAs) for the
+rest: f32 stays there, since the tensor cores would compute in TF32 and
+miss its 1e-4 bar.  ``flash_attention_fwd``
 launches the routed kernel on CUDA tensors and counts its launches in
 ``flash_attention_fwd.launches``, by route in
 ``flash_attention_fwd.route_launches`` and by head dim in
@@ -25,7 +27,7 @@ from repro_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 64, 72, 128, 160, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-SM90_HEAD_DIMS = (64, 128)
+SM90_HEAD_DIMS = (64, 72, 128)
 # (dtype, head dim) -> the kernel that takes it
 ROUTES = {(dtype, d): ("sm90" if dtype == torch.bfloat16
                        and d in SM90_HEAD_DIMS else "cuda_cores")

@@ -167,14 +167,17 @@ def test_build_names_libraries_by_source_hash(monkeypatch, tmp_path):
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_route_table_sends_bf16_at_64_and_128_to_sm90(dtype, d):
-    want = ("sm90" if dtype == torch.bfloat16 and d in (64, 128)
+    """bf16 at head dims 64, 72 (the 2D DiT's) and 128 takes the tensor
+    cores; f32 and every other head dim the CUDA cores."""
+    want = ("sm90" if dtype == torch.bfloat16 and d in (64, 72, 128)
             else "cuda_cores")
     assert fa.ROUTES[(dtype, d)] == want
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
                                      (torch.bfloat16, 128),
-                                     (torch.float32, 128)])
+                                     (torch.float32, 128),
+                                     (torch.bfloat16, 72)])
 def test_kernel_wrapper_refuses_cpu_tensors_on_every_route(dtype, d):
     """Either route launches its CUDA kernel or raises; neither computes on
     the CPU, and a refused call counts no launch."""
@@ -213,16 +216,27 @@ def test_build_names_the_sm90_library_by_source_hash(monkeypatch, tmp_path):
 
 
 def _sm90_emulation(q, k, v, *, causal=False, window=None, softcap=None,
-                    q_offset=0, bk=128, drop_tile=None, causal_shift=0):
-    """The sm90 kernel's arithmetic in plain PyTorch: bf16 inputs, online
-    softmax over BK-wide key tiles in f32, P rounded to bf16 before P V,
-    f32 accumulation, one division by l at the end, bf16 out.
-    ``drop_tile`` skips one key tile and ``causal_shift`` moves the causal
-    edge: both are faults the bar must catch."""
+                    q_offset=0, bk=128, drop_tile=None, causal_shift=0,
+                    qk_cols=None, pv_cols=None, scale_d=None):
+    """The sm90 kernel's arithmetic in plain PyTorch: q, k and v
+    zero-padded from D to wgmma's K step (16: 72 -> 80) with the scale
+    from the true D, online softmax over BK-wide key tiles in f32, P
+    rounded to the input dtype (bf16) before P V, f32 accumulation, one
+    division by l at the end, O cut back to D, out in the input dtype.
+    Faults the bar must catch: ``drop_tile`` skips one key tile,
+    ``causal_shift`` moves the causal edge, ``qk_cols`` runs Q K^T over
+    only that many columns, ``pv_cols`` forms only that many columns of
+    O, ``scale_d`` takes the scale from another head dim."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    qf = q.float().reshape(b, hkv, hq // hkv, sq, d)
-    kf, vf = k.float(), v.float()
+    dp = -(-d // 16) * 16
+    pad = [torch.nn.functional.pad(t.float(), (0, dp - d)) for t in (q, k, v)]
+    qf = pad[0].reshape(b, hkv, hq // hkv, sq, dp)
+    kf, vf = pad[1], pad[2]
+    if qk_cols is not None:
+        kf = torch.cat([kf[..., :qk_cols],
+                        torch.zeros_like(kf[..., qk_cols:])], dim=-1)
+    scale = (d if scale_d is None else scale_d) ** -0.5
     qpos = (q_offset + torch.arange(sq))[:, None]
     m = torch.full((b, hkv, hq // hkv, sq, 1), float("-inf"))
     l = torch.zeros_like(m)
@@ -231,7 +245,7 @@ def _sm90_emulation(q, k, v, *, causal=False, window=None, softcap=None,
         if t == drop_tile:
             continue
         kt, vt = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
-        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kt) * d ** -0.5
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kt) * scale
         if softcap is not None:
             s = softcap * torch.tanh(s / softcap)
         kpos = torch.arange(k0, k0 + kt.shape[2])[None, :]
@@ -248,10 +262,12 @@ def _sm90_emulation(q, k, v, *, causal=False, window=None, softcap=None,
         p = torch.exp(s - m_use)
         l = l * alpha + p.sum(-1, keepdim=True)
         o = o * alpha + torch.einsum("bhgqk,bhkd->bhgqd",
-                                     p.bfloat16().float(), vt)
+                                     p.to(q.dtype).float(), vt)
         m = m_new
     o = o / torch.where(l == 0, torch.ones_like(l), l)
-    return o.reshape(b, hq, sq, d).to(q.dtype)
+    if pv_cols is not None:
+        o[..., pv_cols:] = 0
+    return o[..., :d].reshape(b, hq, sq, d).to(q.dtype)
 
 
 def _bf16_case(case, seed):
@@ -267,15 +283,22 @@ def _bf16_case(case, seed):
 # longest, a ragged one, the shortest), narrowed from 40/8 heads to 2/1
 SERVED_NARROW = [(1, 2, 1, s, s, 128, True, None, None)
                  for s in (2048, 1389, 512)]
+# the 2D DiT's K1 shapes at head dim 72, non-causal, narrowed from 16 heads
+# to 2: spatial (a folded frame, 4096 patches), temporal (folded patches,
+# 16 frames) and chip_smoke's ragged case
+DIT_NARROW = [(1, 2, 2, 4096, 4096, 72, False, None, None),
+              (256, 2, 2, 16, 16, 72, False, None, None),
+              (1, 3, 3, 100, 100, 72, False, None, None)]
 
 
-@pytest.mark.parametrize("case", SERVED_NARROW + list(ATTN_CASES))
+@pytest.mark.parametrize("case", SERVED_NARROW + list(ATTN_CASES)
+                         + DIT_NARROW)
 def test_chip_smoke_attention_bar_passes_the_sm90_arithmetic(case):
     """Rounding P to bf16 before P V, the one rounding the sm90 kernel adds
     to the plain version's, stays under half of chip_smoke's unchanged bf16
     bar: the outputs differ by at most the one-ulp flip of their final
     rounding, which reads just under 0.5 of the bar (two ulps of the row's
-    max), and never by a second ulp."""
+    max), and never by a second ulp.  Padding D = 72 to 80 adds zeros."""
     import chip_smoke
     (tq, tk, tv), kw = _bf16_case(case, seed=11)
     want = flash_attention_plain(tq, tk, tv, **kw)
@@ -283,19 +306,44 @@ def test_chip_smoke_attention_bar_passes_the_sm90_arithmetic(case):
     assert chip_smoke.attn_worst_share(got, want, torch.bfloat16) < 0.5
 
 
-@pytest.mark.parametrize("fault", [dict(drop_tile=0), dict(drop_tile=7),
-                                   dict(causal_shift=-1),
-                                   dict(causal_shift=1)])
+# faults at the longest served shape, then (with a head dim) at the DiT's
+# spatial one: Q K^T over D / 16 = 4 K steps (64 columns), P V at n64, and
+# the scale from the padded 80
+FAULTS = [dict(drop_tile=0), dict(drop_tile=7), dict(causal_shift=-1),
+          dict(causal_shift=1), dict(qk_cols=64), dict(pv_cols=64),
+          dict(scale_d=80)]
+
+
+@pytest.mark.parametrize("fault", FAULTS)
 def test_chip_smoke_attention_bar_catches_a_dropped_tile_or_shifted_mask(
         fault):
     """The same arithmetic with one key tile dropped, or the causal edge
     one key off, exceeds the bar at the longest served shape by a clear
-    factor."""
+    factor; so does the D = 72 arithmetic at the DiT's spatial shape with
+    Q K^T cut to 64 columns, O to 64 columns, or the scale from 80."""
     import chip_smoke
-    (tq, tk, tv), kw = _bf16_case(SERVED_NARROW[0], seed=12)
+    head_dim = {"qk_cols", "pv_cols", "scale_d"} & set(fault)
+    case = DIT_NARROW[0] if head_dim else SERVED_NARROW[0]
+    (tq, tk, tv), kw = _bf16_case(case, seed=12)
     want = flash_attention_plain(tq, tk, tv, **kw)
     got = _sm90_emulation(tq, tk, tv, **kw, **fault)
     assert chip_smoke.attn_worst_share(got, want, torch.bfloat16) > 10
+
+
+@pytest.mark.parametrize("case", DIT_NARROW)
+def test_sm90_padded_arithmetic_matches_pallas_in_f32(case):
+    """The sm90 kernel's arithmetic at D = 72 (zero-padded to 80, scale
+    from 72, O cut back), in f32 and so before any bf16 rounding, against
+    JAX's Pallas kernel in interpret mode: the sums differ only in order
+    (1e-5)."""
+    b, hq, hkv, sq, skv, d, causal, window, softcap = case
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(b, hq, hkv, sq, skv, d, 13),
+                                        jnp.float32, torch.float32)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=0)
+    want = jops.flash_attention(jq, jk, jv, **kw)
+    got = _sm90_emulation(tq, tk, tv, **kw)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("budget,slices", [(1, 5), (2 * 4 * 24 * 24 * 4, 3)])
