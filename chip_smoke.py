@@ -104,12 +104,29 @@ Phases, in order; any failure raises and exits non-zero:
     be exactly the contract's (``sp_contract``; PERF.md §6), every K1
     launch on ``sm90`` at head dim 72; (b) logs Table 3's bytes per
     rank at n = 4;
-15. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
+15. transformer2d-720m on dim pairs: ``forward2d`` over the ``("sp_out",
+    "sp_in")`` grid, each boundary planned by ``dsp2d_schedule`` and run
+    by the explicit ``ScheduleExecutor2D``: (a) at world size 1 over NCCL
+    on the (1, 1) grid, the depth-2 forward at 1 x 4 x 4096 and the
+    depth-28 one at 1 x 16 x 4096 against plan ``none``'s ``forward``
+    within 2e-2 of its largest |value|, with the counters set to 0 just
+    before and read just after each: the all-to-alls must be exactly the
+    executor's ``expected_carry_collectives`` (30 at depth 28) and K1 must
+    launch once a block (28), all ``sm90`` at head dim 72; then the
+    depth-28 forward and plan ``none``'s timed three times each in turns
+    (medians); (b) 4 processes sharing the card over gloo, each this
+    script with ``--l2d-rank``, at grids (2, 2), (1, 4) and (4, 1): the
+    gathered depth-28 forward against (a)'s within 2e-2, per rank exactly
+    the planned all-to-alls and 28 K1 launches, all ``sm90``, and each
+    rank's bytes beside ``Schedule2D.per_device_bytes``; then (2, 2) at
+    1 x 2 x 4096, where the plan's spatial core shards heads (K1 at 8
+    heads), against plan ``none``'s ``forward`` at world size 1;
+16. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
     counts over the paths above (K1 320 + 32 + 224 + 224 + phase 14's
-    training runs, 112 per mode, 56 for ring and hybrid; K2 576 + 384)
-    and whose ``launches_by_route`` split that sum by the route each
-    launch took (every one ``sm90``), then the last line ``{"ok": true,
-    "device": {...}}``.
+    training runs, 112 per mode, 56 for ring and hybrid, + phase 15 (a)'s
+    28; K2 576 + 384) and whose ``launches_by_route`` split that sum by
+    the route each launch took (every one ``sm90``), then the last line
+    ``{"ok": true, "device": {...}}``.
 
 Each phase's header logs the seconds since the start, and every time
 logged carries the card's name and power limit.
@@ -136,7 +153,8 @@ from repro_torch.configs import (  # noqa: E402
     mamba2_370m, qwen3_14b, transformer2d_720m)
 from repro_torch.core import dsp  # noqa: E402
 from repro_torch.core.layout import from_mesh  # noqa: E402
-from repro_torch.core.schedule import ScheduleExecutor  # noqa: E402
+from repro_torch.core.schedule import (  # noqa: E402
+    ScheduleExecutor, ScheduleExecutor2D)
 from repro_torch.data.pipeline import DataConfig, make_batch  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -228,6 +246,18 @@ DSP_RANKS, DSP_LOSS_BAR, DSP_OUT_BAR = 4, 1e-4, 2e-2
 SP_MODES = (("ulysses", None), ("ulysses_fused", None), ("ring", None),
             ("megatron", None), ("hybrid", None), ("dsp", "chunked"))
 SP_TRAIN_STEPS = 2
+# the dim-pair phase: forward2d at world size 1 over NCCL on the (1, 1) grid
+# against plan none's forward (depth 2 at DIT_CHECK_FRAMES frames, depth 28
+# at DIT_FRAMES), within DSP_OUT_BAR of its largest |value|; then
+# DSP_RANKS processes sharing the card over gloo at each (grid, frames) of
+# L2D_CASES against world 1; forwards timed in L2D_TURNS (plan none's
+# beside).  At L2D_HEAD_FRAMES frames T cannot go diagonal over the (2, 2)
+# grid, so the plan's spatial core shards heads over sp_in: the stacked
+# q/k/v and the attention output take the switches, and K1 runs 8 heads
+L2D_HEAD_FRAMES = 2
+L2D_CASES = (((2, 2), DIT_FRAMES), ((1, 4), DIT_FRAMES), ((4, 1), DIT_FRAMES),
+             ((2, 2), L2D_HEAD_FRAMES))
+L2D_TURNS = ("2d", "none", "none", "2d", "2d", "none")
 
 
 def prefill_case(s: int):
@@ -1481,6 +1511,240 @@ def sp_four_ranks(cfg, bucket2: int, work: str, device="cuda") -> dict:
     return table
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the DiT on dim pairs (forward2d over the ("sp_out", "sp_in") grid)
+# ---------------------------------------------------------------------------
+
+def l2d_plan(cfg, grid, frames: int) -> dict:
+    """The 2D plan of ``cfg`` at DIT_BATCH x ``frames`` x DIT_PATCHES on
+    ``grid``: its layouts, the all-to-alls a rank issues in one forward
+    (the executor's ``expected_carry_collectives``) and the planned bytes
+    per rank (``Schedule2D.per_device_bytes``)."""
+    ps = t2d.dsp2d_schedule(cfg, grid, t_len=frames, s_len=DIT_PATCHES,
+                            batch=DIT_BATCH)
+    calls = ScheduleExecutor2D(ps, backend="null") \
+        .expected_carry_collectives(cfg.n_layers // 2)
+    return {"layouts": [list(lo) for lo in ps.layouts], "calls": calls,
+            "planned_bytes": ps.schedule.per_device_bytes()}
+
+
+def check_l2d_counts(what: str, got: dict, plan: dict, k1: int) -> None:
+    """``got`` (``read_counts``) must hold exactly the plan's collectives
+    (the calls; their bytes are logged) and ``k1`` K1 launches, all on
+    DIT_ROUTE at the DiT's head dim."""
+    calls = {k: c for k, (c, _) in got["calls"].items()}
+    if (calls != plan["calls"] or got["k1"] != k1
+            or got["k1_routes"] != {DIT_ROUTE: k1}
+            or got["k1_dims"] != {str(DIT_DH): k1}):
+        raise AssertionError(f"{what}: counted {got}, the plan says "
+                             f"{plan['calls']} and {k1} K1 launches on "
+                             f"{DIT_ROUTE} at head dim {DIT_DH}")
+
+
+def l2d_forward(cfg, params, batch, mesh):
+    """``make_spmd_forward2d`` on ``batch`` (whole on every rank), no
+    grad: the rank's shard at the plan's final layout."""
+    with torch.no_grad():
+        return t2d.make_spmd_forward2d(cfg, mesh, backend="kernel")(
+            params, batch["x"], batch["t"])
+
+
+def l2d_label(grid, frames: int) -> str:
+    return f"{grid[0]}x{grid[1]}@{frames}"
+
+
+def l2d_ref_file(frames: int) -> str:
+    return f"l2d_out.{frames}.pt"
+
+
+def l2d_world_of_one(cfg, work: str, device="cuda") -> dict:
+    """(a) ``forward2d`` at world size 1 over NCCL on the (1, 1) grid:
+    at depth 2 (DIT_CHECK_FRAMES frames) and at depth 28 (DIT_FRAMES)
+    against plan ``none``'s ``forward`` within DSP_OUT_BAR of its largest
+    |value|; around each the counters set to 0 just before and read just
+    after, which must hold exactly the planned all-to-alls and one K1
+    launch a block, all on DIT_ROUTE.  Then the depth-28 forward and plan
+    ``none``'s timed in L2D_TURNS (medians).  Writes (b)'s references to
+    ``work``: the depth-28 output, and plan ``none``'s depth-28 forward at
+    L2D_HEAD_FRAMES frames."""
+    backend = BACKEND_OF[torch.device(device).type]
+    dist.init_process_group(backend, store=dist.FileStore(
+        os.path.join(work, "store15a"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_sp2d_mesh(1, 1, device_type=torch.device(device).type)
+        runs = {}
+        for depth, frames in ((2, DIT_CHECK_FRAMES),
+                              (cfg.n_layers, DIT_FRAMES)):
+            dcfg = dataclasses.replace(cfg, n_layers=depth)
+            params = perturb_modulation(t2d.init_t2d(0, dcfg, device=device),
+                                        6)
+            batch = dit_batch(cfg, frames, 0, device)
+            with torch.no_grad():
+                ref = t2d.forward(params, batch["x"], batch["t"], dcfg,
+                                  backend="kernel").float()
+            plan = l2d_plan(dcfg, (1, 1), frames)
+            reset_counts()
+            out = l2d_forward(dcfg, params, batch, mesh)
+            got = read_counts()
+            rel = float((out.float() - ref).abs().max() / ref.abs().max())
+            log(f"  depth {depth} at {DIT_BATCH} x {frames} x {DIT_PATCHES}, "
+                f"plan {plan['layouts']}: forward2d {tuple(out.shape)} "
+                f"against plan none's forward: max |delta| / max |none| = "
+                f"{rel:.3e}; counted {got}; bytes per rank "
+                f"{sum(b for _, b in got['calls'].values())} against "
+                f"per_device_bytes {plan['planned_bytes']:.0f}")
+            if not (out.shape == ref.shape and torch.isfinite(out).all()
+                    and rel <= DSP_OUT_BAR):
+                raise AssertionError(f"depth-{depth} forward2d disagrees "
+                                     f"with plan none: {rel}")
+            check_l2d_counts(f"forward2d depth {depth}", got, plan, depth)
+            runs[depth] = {"out_rel": rel, "calls": got["calls"],
+                           "launches": got["k1"], "routes": got["k1_routes"]}
+        torch.save(out.cpu(), os.path.join(work, l2d_ref_file(DIT_FRAMES)))
+        del out, ref
+        heads = dit_batch(cfg, L2D_HEAD_FRAMES, 0, device)
+        with torch.no_grad():
+            torch.save(t2d.forward(params, heads["x"], heads["t"], cfg,
+                                   backend="kernel").cpu(),
+                       os.path.join(work, l2d_ref_file(L2D_HEAD_FRAMES)))
+        fns = {"2d": lambda: l2d_forward(cfg, params, batch, mesh),
+               "none": lambda: t2d.forward(params, batch["x"], batch["t"],
+                                           cfg, backend="kernel")}
+        turns = {k: [] for k in fns}
+        with torch.no_grad():
+            for who in L2D_TURNS:
+                turns[who].append(time_ms(fns[who], iters=1, warmup=0))
+        ms = {k: float(np.median(v)) for k, v in turns.items()}
+        log_t(f"  depth-{cfg.n_layers} forward at {DIT_BATCH} x {DIT_FRAMES} "
+              f"x {DIT_PATCHES}, in turns: forward2d (1, 1) runs "
+              f"{turns['2d']}, median {ms['2d']:.2f} ms; plan none runs "
+              f"{turns['none']}, median {ms['none']:.2f} ms "
+              f"({100 * (ms['2d'] / ms['none'] - 1):+.2f}%)")
+        del params
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    top = runs[cfg.n_layers]
+    return {"depths": runs, "ms": ms, "turns": turns,
+            "launches": top["launches"], "routes": top["routes"]}
+
+
+def l2d_rank_main(rank: int, world: int, work: str) -> None:
+    """One of (b)'s ranks, started by ``l2d_four_ranks`` as ``chip_smoke.py
+    --l2d-rank <rank> <world> <dir>``: gloo over the card's CUDA tensors.
+    At each (grid, frames) of L2D_CASES, the depth-28 ``forward2d`` shard
+    written to ``<dir>`` and what it counted around it, to
+    ``<dir>/l2d_rank<r>.json``."""
+    job = json.load(open(os.path.join(work, "job15.json")))
+    device = job["device"]
+    cfg = dataclasses.replace(
+        transformer2d_720m.CONFIG, **job["cfg"],
+        dtype=getattr(torch, job["dtype"].split(".")[-1]))
+    full_f32()
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(work, "store15b"), world), rank=rank, world_size=world)
+    try:
+        params = perturb_modulation(t2d.init_t2d(0, cfg, device=device), 6)
+        results = {}
+        for grid, frames in L2D_CASES:
+            batch = dit_batch(cfg, frames, 0, device)
+            mesh = make_sp2d_mesh(*grid, device_type=torch.device(device).type,
+                                  backend="gloo")
+            ctx = from_mesh(mesh)
+            reset_counts()
+            t0 = time.perf_counter()
+            out = l2d_forward(cfg, params, batch, mesh)
+            got = read_counts()
+            label = l2d_label(grid, frames)
+            results[label] = {**got, "shape": list(out.shape),
+                              "seconds": time.perf_counter() - t0,
+                              "coord": [ctx.index("sp_out"),
+                                        ctx.index("sp_in")]}
+            torch.save(out.cpu(), os.path.join(work, f"l2d.{label}.{rank}.pt"))
+            del out
+        json.dump(results, open(os.path.join(work, f"l2d_rank{rank}.json"),
+                                "w"))
+    finally:
+        dist.destroy_process_group()
+
+
+def l2d_four_ranks(cfg, work: str, device="cuda") -> dict:
+    """(b) DSP_RANKS processes sharing the card over gloo, at each (grid,
+    frames) of L2D_CASES: the gathered depth-28 forward2d against (a)'s
+    reference at those frames within DSP_OUT_BAR of its largest |value|;
+    per rank exactly the planned all-to-alls and one K1 launch a block,
+    all on DIT_ROUTE; each rank's bytes (``core.dsp.volume``) logged
+    beside ``per_device_bytes``.  The case at L2D_HEAD_FRAMES fails unless
+    its plan shards heads in a core."""
+    with open(os.path.join(work, "job15.json"), "w") as f:
+        json.dump({"device": device, "dtype": str(cfg.dtype),
+                   "cfg": {"n_layers": cfg.n_layers,
+                           "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                           "d_ff": cfg.d_ff, "in_dim": cfg.in_dim}}, f)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--l2d-rank", str(r), str(DSP_RANKS), work])
+             for r in range(DSP_RANKS)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log_t(f"  {DSP_RANKS} ranks exited {rcs} after "
+          f"{time.perf_counter() - t0:.1f} s")
+    if any(rcs):
+        raise AssertionError(f"a dim-pair rank failed: exit codes {rcs}")
+    ranks = [json.load(open(os.path.join(work, f"l2d_rank{r}.json")))
+             for r in range(DSP_RANKS)]
+    table = {}
+    for grid, frames in L2D_CASES:
+        label = l2d_label(grid, frames)
+        want = torch.load(os.path.join(work, l2d_ref_file(frames))).float()
+        plan = l2d_plan(cfg, grid, frames)
+        by_head = [lo for lo in plan["layouts"] if 3 in lo]
+        log(f"  grid {grid} at {DIT_BATCH} x {frames} x {DIT_PATCHES}: plan "
+            f"{plan['layouts']} (head-sharded cores {by_head}), per rank "
+            f"{plan['calls']}, per_device_bytes {plan['planned_bytes']:.0f}")
+        if frames == L2D_HEAD_FRAMES and not by_head:
+            raise AssertionError(f"grid {grid} at {frames} frames: the plan "
+                                 f"{plan['layouts']} shards no heads")
+        shards = [[None] * grid[1] for _ in range(grid[0])]
+        for r, rank in enumerate(ranks):
+            res = rank[label]
+            moved = sum(b for _, b in res["calls"].values())
+            log_t(f"    rank {r} at {tuple(res['coord'])} (gloo on {device} "
+                  f"tensors): forward2d {res['shape']} in "
+                  f"{res['seconds']:.1f} s, counted {res['calls']}, K1 "
+                  f"{res['k1']} {res['k1_routes']}; bytes {moved} against "
+                  f"per_device_bytes {plan['planned_bytes']:.0f} "
+                  f"({moved / plan['planned_bytes']:.4f})")
+            check_l2d_counts(f"{label} rank {r}", res, plan, cfg.n_layers)
+            a, b = res["coord"]
+            shards[a][b] = torch.load(os.path.join(work,
+                                                   f"l2d.{label}.{r}.pt"))
+        # the final layout (1, 2): T over sp_out, S over sp_in
+        got = torch.cat([torch.cat(row, dim=2) for row in shards],
+                        dim=1).float()
+        rel = float((got - want).abs().max() / want.abs().max())
+        log(f"  grid {grid} at {frames} frames: depth-{cfg.n_layers} "
+            f"forward2d, {DSP_RANKS} ranks gathered {tuple(got.shape)} "
+            f"against world 1: max "
+            f"|delta| / max |world 1| = {rel:.3e}")
+        if not (got.shape == want.shape and torch.isfinite(got).all()
+                and rel <= DSP_OUT_BAR):
+            raise AssertionError(f"{label}: the {DSP_RANKS}-rank "
+                                 f"forward2d disagrees with world 1: {rel}")
+        table[label] = {"out_rel": rel, "bytes": [
+            sum(b for _, b in rank[label]["calls"].values())
+            for rank in ranks], "planned_bytes": plan["planned_bytes"],
+            "k1": [rank[label]["k1"] for rank in ranks]}
+    return table
+
+
 def train_cli(train_main, arch: str) -> None:
     """The train CLI at SMOKE size for 30 steps; the loss must fall."""
     hist = train_main(["--arch", arch, "--steps", "30"])["history"]
@@ -1711,7 +1975,17 @@ def main() -> None:
         log(f"  (b) {DSP_RANKS} ranks on the card over gloo ({elapsed()})")
         sp_four_ranks(dcfg, sp["bucket2"], work)
     sp_launches = sum(r["launches"] for r in sp["modes"].values())
-    dit_runs = [dit_trained, dsp_trained, *sp["modes"].values()]
+    log(f"  done ({elapsed()})")
+
+    log(f"[15] transformer2d-720m on dim pairs, forward2d over the "
+        f"(sp_out, sp_in) grid ({elapsed()})")
+    with tempfile.TemporaryDirectory() as work:
+        log("  (a) world size 1 over NCCL, grid (1, 1), full width")
+        l2d = l2d_world_of_one(dcfg, work)
+        log(f"  (b) {DSP_RANKS} ranks on the card over gloo at grids "
+            f"{[g for g, _ in L2D_CASES]} ({elapsed()})")
+        l2d_ranks = l2d_four_ranks(dcfg, work)
+    dit_runs = [dit_trained, dsp_trained, *sp["modes"].values(), l2d]
     k1_routes = by_route([served, q_trained] + dit_runs)
     log(f"  done ({elapsed()})")
 
@@ -1722,7 +1996,7 @@ def main() -> None:
         "replaces": "src/repro/kernels/flash_attention.py:36",
         "launches": (served["launches"] + q_trained["launches"]
                      + dit_trained["launches"] + dsp_trained["launches"]
-                     + sp_launches),
+                     + sp_launches + l2d["launches"]),
         "launches_by_route": k1_routes,
         "max_abs_err": slice_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
@@ -1732,6 +2006,9 @@ def main() -> None:
                 "dsp_launches": dsp_trained["launches"],
                 "sp_launches": {k: r["launches"]
                                 for k, r in sp["modes"].items()},
+                "l2d_launches": l2d["launches"],
+                "l2d_rank_launches": {k: v["k1"]
+                                      for k, v in l2d_ranks.items()},
                 "launches_by_route": by_route(dit_runs),
                 "max_abs_err": dit_err, "temporal": dit_temporal}}, {
         "name": "ssd_scan_fwd", "route": "cuda",
@@ -1754,5 +2031,7 @@ if __name__ == "__main__":
         dsp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif sys.argv[1:2] == ["--sp-rank"]:
         sp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:2] == ["--l2d-rank"]:
+        l2d_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     else:
         main()

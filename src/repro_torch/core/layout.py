@@ -10,13 +10,19 @@ its compiler path, which PyTorch lacks, and are not ported.
 ``ParallelContext`` names the dims of a ``torch.distributed`` ``DeviceMesh``
 by role: the SP dims carry the sequence shard (``model``, or the 2D SP
 grid ``("sp_out", "sp_in")`` of ``launch.mesh.make_sp2d_mesh``), the other
-dims (``data``) split the batch.
+dims (``data``) split the batch.  On the 2D grid a dim pair ``(a, b)``
+shards tensor dim ``a`` over ``sp_out`` and ``b`` over ``sp_in``; a
+diagonal ``(d, d)`` shards ``d`` over both, its chunks numbered with one
+of the two axes major (``pair_index``).  Joint changes of a diagonal run
+over ``flat_group``, the grid flattened into one process group.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+import weakref
+from typing import Dict, Optional, Sequence, Tuple
 
+import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 # Sentinel for the unsharded status (paper's  s_hat ).
@@ -121,6 +127,67 @@ class ParallelContext:
     def sp_group(self):
         """The process group of the ``model`` dim: the switches' group."""
         return self.group(self.sp_axis)
+
+    # -- the 2D SP grid --------------------------------------------------------
+    def pair_index(self, pair, dim: int,
+                   order: Tuple[int, int] = (0, 1)) -> Tuple[int, int]:
+        """(shard count, this rank's shard) of tensor dim ``dim`` under the
+        2D layout ``pair``: component k on ``dim`` shards it over
+        ``sp_axes[k]``; on a diagonal both do, ``sp_axes[order[0]]``
+        major.  (1, 0) when no component is on ``dim``."""
+        pair = pair or (None, None)
+        size, idx = 1, 0
+        for k in order:
+            if pair[k] == dim:
+                n = self.size(self.sp_axes[k])
+                size, idx = size * n, idx * n + self.index(self.sp_axes[k])
+        return size, idx
+
+    def flat_group(self):
+        """The process group over the SP dims flattened: the group of a
+        joint change of a diagonal.  One group per mesh, made at the first
+        call, which every rank of the world makes at the same point."""
+        return _flat_group(self.mesh, self.sp_axes)
+
+    def flat_chunks(self, order: Tuple[int, int] = (0, 1)) -> Tuple[int, ...]:
+        """For each rank of ``flat_group``, in group-rank order, the chunk
+        of a diagonal it holds when the SP dims flatten with
+        ``sp_axes[order[0]]`` major (``pair_index``'s numbering): the
+        group flattened in either order.  The group's own order is the
+        mesh's (ranks sorted), ``sp_out`` major on ``make_sp2d_mesh``."""
+        names = list(self.mesh.mesh_dim_names)
+        out = []
+        for r in dist.get_process_group_ranks(self.flat_group()):
+            coord = (self.mesh.mesh == r).nonzero()[0].tolist()
+            idx = 0
+            for k in order:
+                a = self.sp_axes[k]
+                idx = idx * self.size(a) + coord[names.index(a)]
+            out.append(idx)
+        return tuple(out)
+
+
+# (id of a mesh, its SP dims) -> the group over them flattened
+_FLAT_GROUPS: Dict[Tuple[int, Tuple[str, ...]], object] = {}
+
+
+def _flat_group(mesh: DeviceMesh, axes: Tuple[str, ...]):
+    """One process group per slice of ``mesh`` along ``axes`` (every rank
+    makes all of them, in the same order); returns this rank's, kept
+    while ``mesh`` lives."""
+    key = (id(mesh), axes)
+    if key not in _FLAT_GROUPS:
+        names = list(mesh.mesh_dim_names)
+        rest = [i for i, a in enumerate(names) if a not in axes]
+        ranks = mesh.mesh.permute(rest + [names.index(a) for a in axes])
+        size = 1
+        for a in axes:
+            size *= mesh.shape[names.index(a)]
+        group, _ = dist.new_subgroups_by_enumeration(
+            ranks.reshape(-1, size).tolist())
+        _FLAT_GROUPS[key] = group
+        weakref.finalize(mesh, _FLAT_GROUPS.pop, key, None)
+    return _FLAT_GROUPS[key]
 
 
 SP2D_AXES = ("sp_out", "sp_in")

@@ -26,8 +26,10 @@ raises here.  With ``overlap`` ("chunked" | "double_buffer", given or
 carried by the schedule) the explicit backend runs each switch whose
 consuming stage has a compute estimate as ``core.overlap
 .overlapped_switch``: n - 1 per-shard permutes instead of one all-to-all.
-The 2D executor (``ScheduleExecutor2D``, for ``forward2d``) is not ported
-yet.
+The 2D executor, ``ScheduleExecutor2D``, runs ``forward2d``'s dim-pair
+layouts on the ``("sp_out", "sp_in")`` grid the same way: one primitive
+over the group of each grid axis a boundary changes, one over the grid
+flattened for a joint change of a diagonal, nothing on unchanged axes.
 
 Scanned models execute a *periodic* schedule (``Schedule.periodic``: the
 per-period boundaries plus the wrap-around back to the period's first
@@ -39,12 +41,16 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
+import torch
+
 from repro_torch.core import dsp
+from repro_torch.core.layout import SP2D_AXES
 from repro_torch.core.overlap import OVERLAP_MODES, overlapped_switch
 
 from repro_torch.core.plan import (JointCost, JointPlan, Stage, StrategyPlan,
                              joint_cost_bytes, joint_cost_seconds, make_plan,
-                             pair_transition_kinds, plan_cost_bytes,
+                             pair_placement_equal, pair_transition_kinds,
+                             plan_cost_bytes,
                              plan_cost_seconds, plan_joint, plan_strategy_dp,
                              plan_switches_2d, plan2d_cost_bytes,
                              plan2d_cost_seconds, strategy_plan_cost,
@@ -910,10 +916,347 @@ def plan2d_schedule(stages: Sequence[Stage], seq_dims: Sequence[int], *,
                       initial=initial, final=final, topology=topology)
 
 
+Order = Tuple[int, int]
+
+
+def _reorder(x: torch.Tensor, dim: int, perm: Sequence[int]) -> torch.Tensor:
+    """Chunk c of ``x``'s dim ``dim`` (``len(perm)`` equal chunks) becomes
+    chunk ``perm[c]``'s: a local copy (differentiable), none when ``perm``
+    is the identity."""
+    if list(perm) == list(range(len(perm))):
+        return x
+    index = torch.tensor(perm, device=x.device)
+    return x.unflatten(dim, (len(perm), -1)).index_select(
+        dim, index).flatten(dim, dim + 1)
+
+
+def _inverse_perm(perm: Sequence[int]) -> List[int]:
+    inv = [0] * len(perm)
+    for q, c in enumerate(perm):
+        inv[c] = q
+    return inv
+
+
+class ScheduleExecutor2D:
+    """Applies a 2D schedule's transitions to each rank's local tensors.
+
+    JAX's executor constrains each boundary to a per-axis ``NamedSharding``
+    and XLA's SPMD partitioner lowers it (``backend="auto"``); PyTorch has
+    no partitioner, so ``auto`` raises here and the explicit backend issues
+    the collectives itself, exactly the ones ``expected_collectives`` and
+    ``expected_carry_collectives`` count:
+
+    * a boundary that changes one grid axis k runs ONE ``core.dsp``
+      primitive (``dynamic_switch``, ``split`` or ``gather``) over axis
+      k's group; one that changes both runs one per axis, in the order
+      that keeps each step inside its axis' groups;
+    * a joint (diagonal-to-diagonal) change runs ONE primitive over
+      ``ParallelContext.flat_group``, the grid flattened;
+    * unchanged axes issue nothing.
+
+    Local chunks follow JAX's shardings: component k of a pair shards its
+    tensor dim over ``sp_axes[k]``; a diagonal ``(d, d)`` shards d over
+    both, ``_stage_order``'s first axis major.  A single-axis all-to-all
+    splits the rank's chunk further (into a diagonal, the unchanged axis
+    stays major) or merges the chunks of its axis' group (out of a
+    diagonal, which needs the unchanged axis major), so each single-axis
+    step checks that order and raises ValueError where the boundary would
+    need traffic across the other axis' groups.  A joint all-to-all takes
+    the source and target orders as it finds them: the flattened group
+    numbers its ranks in mesh order (``sp_out`` major), and a diagonal
+    numbered ``sp_in`` major has its chunks permuted locally on the way in
+    or out (``flat_chunks``).  Only grids with both axes above 1 have an
+    order to keep.
+
+    ``dims`` maps stage-view dims (B, T, S, C) to the dims of the tensor
+    at hand (the stacked q/k/v, the attention output); no component may
+    land on ``batch_dim``.  ``anchor`` and ``fold_anchor`` are identities
+    on local tensors, kept so model code reads like JAX's.  Each primitive
+    is an autograd ``Function``, so the backward runs the transposes in
+    reverse; no 2D backward schedule is planned.  ``backend="null"`` is
+    the identity."""
+
+    def __init__(self, psched: Optional[PeriodicSchedule2D], *,
+                 backend: str, ctx=None):
+        if backend == "auto":
+            raise NotImplementedError(
+                "backend='auto' has no PyTorch counterpart: JAX lowers each "
+                "2D boundary as a per-axis sharding constraint through "
+                "XLA's SPMD partitioner, which PyTorch lacks; use "
+                "backend='explicit'")
+        if backend not in ("explicit", "null"):
+            raise ValueError(backend)
+        if backend != "null" and psched is None:
+            raise ValueError(f"{backend} backend needs a schedule")
+        if backend == "explicit":
+            if ctx is None or tuple(ctx.sp_axes) != SP2D_AXES:
+                raise ValueError("the explicit backend needs the "
+                                 "ParallelContext of a mesh with dims "
+                                 f"{SP2D_AXES}")
+            grid = (ctx.size("sp_out"), ctx.size("sp_in"))
+            if grid != tuple(psched.schedule.grid):
+                raise ValueError(f"the schedule was planned for grid "
+                                 f"{psched.schedule.grid}, the mesh is "
+                                 f"{grid}")
+        self.psched = psched
+        self.backend = backend
+        self.ctx = ctx
+        # per-stage diagonal component order (major axis first), as JAX's
+        self._orders = (tuple(self._stage_order(i)
+                              for i in range(psched.period))
+                        if psched is not None else ())
+
+    @classmethod
+    def null(cls) -> "ScheduleExecutor2D":
+        return cls(None, backend="null")
+
+    def _stage_order(self, i: int) -> Order:
+        """Component order for stage ``i``'s DIAGONAL layout: which grid
+        axis is MAJOR in the joint sharding of the dim.
+
+        A single-axis all-to-all into a diagonal splits the rank's chunk
+        further, so the UNCHANGED axis ends up major; one out of a diagonal
+        merges the chunks of the changed axis' group, which needs the
+        unchanged axis major.  A joint all-to-all takes any order
+        (``apply``).  So the run of stages holding this diagonal (around
+        the period) takes the order its single-axis entry gives (JAX's
+        rule, which looks at the predecessor only), else the one its
+        single-axis exit needs, else grid order (outer major).  Where JAX's
+        rule fixes an order this is the same; where it leaves one free
+        (a joint entry, or the same diagonal again, which JAX numbers
+        outer-major and XLA renumbers with a permute the plan does not
+        count) the run keeps one order throughout."""
+        lays = [lo or (None, None) for lo in self.psched.layouts]
+        lo, p = lays[i], len(lays)
+        if lo[0] is None or lo[0] != lo[1] or all(x == lo for x in lays):
+            return (0, 1)
+        start, end = i, i
+        while lays[(start - 1) % p] == lo:
+            start -= 1
+        while lays[(end + 1) % p] == lo:
+            end += 1
+        for nb in (lays[(start - 1) % p], lays[(end + 1) % p]):
+            keep = [k for k in (0, 1) if nb[k] == lo[k]]
+            if len(keep) == 1:
+                return (keep[0], 1 - keep[0])
+        return (0, 1)
+
+    # -- execution -------------------------------------------------------------
+    @property
+    def _ordered(self) -> bool:
+        """True when a diagonal's order places data: both axes above 1."""
+        grid = self.psched.schedule.grid
+        return grid[0] > 1 and grid[1] > 1
+
+    def same_placement(self, i: int, j: int) -> bool:
+        """True when in-period stages ``i`` and ``j`` give a tensor the same
+        local chunks: the same pair on the axes above 1 and, on a diagonal,
+        the same order where the grid has one."""
+        a, b = self.psched.layouts[i], self.psched.layouts[j]
+        if not pair_placement_equal(a, b, self.psched.schedule.grid):
+            return False
+        return (not self._ordered or a is None or a[0] != a[1]
+                or self._orders[i] == self._orders[j])
+
+    def _axis_step(self, src, src_order: Order, k: int, tgt_k):
+        """The single-axis step that sets component ``k`` of ``src`` to
+        ``tgt_k``: (kind, source dim, target dim, the result's order), or
+        None when it would need traffic across the other axis' groups."""
+        a, c = src[k], src[1 - k]
+        keep_major = (1 - k, k)
+        if self._ordered and a is not None and a == c \
+                and src_order != keep_major:
+            return None           # merging a diagonal's minor factor
+        order = keep_major if tgt_k is not None and tgt_k == c else (0, 1)
+        return transition_kind(a, tgt_k), a, tgt_k, order
+
+    def _steps(self, tr: PairTransition, src_order: Order, tgt_order: Order):
+        """The primitives ``tr`` runs, from a source numbered ``src_order``
+        into a target numbered ``tgt_order``."""
+        src, tgt = tr.src, tr.tgt
+        if tr.joint:
+            kind = tr.axis_kinds[0]
+            if kind == "keep" and src[0] is not None and self._ordered \
+                    and src_order != tgt_order:
+                raise ValueError(
+                    f"{src} numbered {src_order} -> {tgt_order}: a keep that "
+                    f"renumbers a diagonal needs a permute the plan does "
+                    f"not count")
+            return [("joint", kind, src[0], tgt[0])]
+        changed = [k for k in (0, 1) if src[k] != tgt[k]]
+        for seq in ([changed] if len(changed) < 2 else ([0, 1], [1, 0])):
+            steps, cur, order = [], tuple(src), src_order
+            for k in seq:
+                step = self._axis_step(cur, order, k, tgt[k])
+                if step is None:
+                    break
+                kind, a, b, order = step
+                steps.append(("axis", kind, a, b, k))
+                cur = tuple(tgt[j] if j == k else cur[j] for j in (0, 1))
+            else:
+                diagonal = tgt[0] is not None and tgt[0] == tgt[1]
+                if not (diagonal and self._ordered and order != tgt_order):
+                    return steps
+        raise ValueError(
+            f"{src} numbered {src_order} -> {tgt} numbered {tgt_order} needs "
+            f"traffic across both grid axes' groups, which the plan does "
+            f"not count")
+
+    def apply(self, x, tr: PairTransition, *, order: Order = (0, 1),
+              src_order: Order = (0, 1), dims=None, batch_dim=None):
+        """Apply one 2D boundary transition to the local ``x``: ``order``
+        numbers the target's diagonal (JAX's argument), ``src_order`` the
+        source's; ``dims`` maps stage-view dims to ``x``'s."""
+        if self.backend == "null":
+            return x
+
+        def td(d):
+            t = dims[d] if dims is not None else d
+            if t == batch_dim:
+                raise ValueError(f"stage dim {d} lands on the batch dim "
+                                 f"{batch_dim}")
+            return t
+
+        ctx = self.ctx
+        for step in self._steps(tr, src_order, order):
+            if step[0] == "axis":
+                _, kind, a, b, k = step
+                group = ctx.group(SP2D_AXES[k])
+                if kind == "switch":
+                    x = dsp.dynamic_switch(x, td(a), td(b), group)
+                elif kind == "split":
+                    x = dsp.split(x, td(b), group)
+                elif kind == "gather":
+                    x = dsp.gather(x, td(a), group)
+                continue
+            _, kind, a, b = step
+            group = ctx.flat_group()
+            if kind == "switch":
+                # group rank q receives chunk flat_chunks(order)[q] of dim
+                # b, and sends back its chunk flat_chunks(src_order)[q] of
+                # dim a, which lands at position q
+                x = _reorder(x, td(b), ctx.flat_chunks(order))
+                x = dsp.dynamic_switch(x, td(a), td(b), group)
+                x = _reorder(x, td(a), _inverse_perm(
+                    ctx.flat_chunks(src_order)))
+            elif kind == "split":
+                n, idx = ctx.pair_index(tr.tgt, b, order)
+                x = dsp.shard(x, td(b), n, idx)
+            elif kind == "gather":
+                x = _reorder(dsp.gather(x, td(a), group), td(a),
+                             _inverse_perm(ctx.flat_chunks(src_order)))
+        return x
+
+    # -- schedule-view conveniences ------------------------------------------
+    def enter(self, x, **kw):
+        if self.backend == "null":
+            return x
+        return self.apply(x, self.psched.enter(), order=self._orders[0],
+                          **kw)
+
+    def boundary(self, x, i: int, **kw):
+        if self.backend == "null":
+            return x
+        return self.apply(x, self.psched.boundary(i), order=self._orders[i],
+                          src_order=self._orders[i - 1], **kw)
+
+    def wrap(self, x, **kw):
+        if self.backend == "null":
+            return x
+        return self.apply(x, self.psched.wrap(), order=self._orders[0],
+                          src_order=self._orders[-1], **kw)
+
+    def exit(self, x, **kw):
+        if self.backend == "null":
+            return x
+        return self.apply(x, self.psched.exit(), src_order=self._orders[0],
+                          **kw)
+
+    def carry_enter(self, x, **kw):
+        """The entry of a forward that carries the LAST in-period layout
+        (``forward2d``): ``initial`` -> ``layouts[-1]``, the first
+        transition ``expected_carry_collectives`` counts."""
+        if self.backend == "null":
+            return x
+        return self.apply(x, classify2(self.psched.schedule.initial,
+                                       self.psched.layouts[-1]),
+                          order=self._orders[-1], **kw)
+
+    def carry_exit(self, x, **kw):
+        """The exit of such a forward: ``layouts[-1]`` -> ``final`` (a keep
+        when ``final`` is None), the last transition it counts."""
+        if self.backend == "null":
+            return x
+        final = self.psched.schedule.final
+        last = self.psched.layouts[-1]
+        return self.apply(x, classify2(last, final if final is not None
+                                       else last),
+                          src_order=self._orders[-1], **kw)
+
+    def anchor(self, x, i: int, **kw):
+        """JAX re-asserts stage ``i``'s layout on an intra-stage tensor;
+        a local tensor already holds it."""
+        return x
+
+    def fold_anchor(self, x, i: int, *, dims, merge_dim: int = 0):
+        """JAX anchors a stage-folded view; the fold of a local tensor is a
+        local reshape."""
+        return x
+
+    # -- accounting ----------------------------------------------------------
+    def expected_collectives(self, n_periods: int = 1) -> Dict[str, int]:
+        """Collective counts of the full forward execution: entry + body x
+        ``n_periods`` + exit, each boundary contributing one sub-axis
+        collective per changed axis (one full-group primitive when
+        joint)."""
+        if self.psched is None:
+            return {}
+        counts: Dict[str, int] = {}
+
+        def add(tr: PairTransition):
+            for c, k in tr.collective_counts().items():
+                counts[c] = counts.get(c, 0) + k
+
+        add(self.psched.enter())
+        for _ in range(n_periods):
+            for i in range(1, self.psched.period):
+                add(self.psched.boundary(i))
+            add(self.psched.wrap())
+        add(self.psched.exit())
+        return counts
+
+    def expected_carry_collectives(self, n_periods: int = 1) -> Dict[str, int]:
+        """Collective counts when the carry holds the LAST in-period
+        stage's layout and the transition into stage 0 executes inside the
+        body (``models.transformer2d.forward2d``: the attention-core
+        layouts live strictly inside the block, so the first in-period
+        boundary lands on the stacked qkv as the wrap): entry
+        initial -> layouts[-1], then per period wrap + boundaries 1..p-1,
+        then exit layouts[-1] -> final."""
+        if self.psched is None:
+            return {}
+        counts: Dict[str, int] = {}
+
+        def add(tr: PairTransition):
+            for c, k in tr.collective_counts().items():
+                counts[c] = counts.get(c, 0) + k
+
+        sched = self.psched.schedule
+        add(classify2(sched.initial, self.psched.layouts[-1]))
+        for _ in range(n_periods):
+            add(self.psched.wrap())
+            for i in range(1, self.psched.period):
+                add(self.psched.boundary(i))
+        final = sched.final
+        if final is not None:
+            add(classify2(self.psched.layouts[-1], final))
+        return counts
+
+
 __all__ = [
     "Transition", "classify", "Schedule", "PeriodicSchedule",
     "UnrolledSchedule", "plan_schedule", "plan_joint_schedule",
     "plan_strategy_schedule", "ScheduleExecutor", "COLLECTIVE_OF",
     "PairTransition", "classify2", "Schedule2D", "PeriodicSchedule2D",
-    "plan2d_schedule",
+    "plan2d_schedule", "ScheduleExecutor2D",
 ]

@@ -31,10 +31,18 @@ reduce-scatters its tensor-parallel output, and ``hybrid`` (USP, on the
 ``("sp_out", "sp_in")`` grid of ``launch.mesh.make_sp2d_mesh``)
 all-to-alls inside ``sp_in`` and rings across ``sp_out``.
 
-``forward`` and ``t2d_loss`` take the rank's local shard;
-``make_spmd_forward`` takes the global batch on every rank, as the
-paper's ``dsp_dataloader`` does.  The 2D layouts (``forward2d``) are not
-ported yet.
+The 2D layouts (``forward2d``, JAX's TSP fold) run on the ``("sp_out",
+"sp_in")`` grid: a layout is a dim PAIR, component k sharding one tensor
+dim over grid axis k, so the planner (``stages2d``, ``dsp2d_schedule``)
+can put the sequence on one axis and the heads on the other, and each
+boundary pays one all-to-all over just the axis it changes.  The explicit
+``core.schedule.ScheduleExecutor2D`` issues them.  ``topology=None``
+plans in bytes; JAX's ICI/DCN presets (``sp2d_topology``,
+``mesh_topology``) describe TPU links and are not ported.
+
+``forward``, ``forward2d`` and ``t2d_loss`` take the rank's local shard;
+``make_spmd_forward`` and ``make_spmd_forward2d`` take the global batch on
+every rank, as the paper's ``dsp_dataloader`` does.
 """
 from __future__ import annotations
 
@@ -51,8 +59,10 @@ from repro_torch.analysis.roofline import attach_compute_seconds
 from repro_torch.core import dsp, megatron_sp, ring, ulysses
 from repro_torch.core.layout import SP2D_AXES, from_mesh
 from repro_torch.core.overlap import OVERLAP_MODES
-from repro_torch.core.plan import Stage
-from repro_torch.core.schedule import (ScheduleExecutor, UnrolledSchedule,
+from repro_torch.core.plan import (Stage, _as_pair, pair_placement_equal,
+                                   plan_switches_2d)
+from repro_torch.core.schedule import (Schedule2D, ScheduleExecutor,
+                                       ScheduleExecutor2D, UnrolledSchedule,
                                        plan_joint_schedule, plan_schedule,
                                        plan_strategy_schedule)
 from repro_torch.device import resolve_device
@@ -243,6 +253,65 @@ def _execution_view(sched):
         return sched.periodic(2)
     except ValueError:
         return sched.unrolled()
+
+
+# ---------------------------------------------------------------------------
+# 2D (TSP-fold) stage declaration + planned schedule: layouts are dim PAIRS
+# on an ("sp_out", "sp_in") mesh (launch.mesh.make_sp2d_mesh)
+# ---------------------------------------------------------------------------
+
+# stage-view (B, T, S, C) dim -> tensor dim of the execution tensors the
+# planned boundaries act on (ScheduleExecutor2D ``dims`` maps):
+_QKV_DIMS = {1: 2, 2: 3, 3: 4}     # stacked qkv (3, B, T, S, H, dh): the
+                                   # stage view's C lands on the HEAD axis
+_O_DIMS = {1: 1, 2: 2, 3: 3}       # attention out (B, T, S, H, dh)
+# the dataloader's pair layout: T over sp_out, S over sp_in
+INITIAL2D = (1, 2)
+
+
+def stages2d(cfg: T2DConfig, *, t_len: Optional[int] = None,
+             s_len: Optional[int] = None, batch: Optional[int] = None):
+    """Declare the FOUR stages per layer pair the 2D planner consumes:
+    each attention core split out from its projection/norm/MLP region.  A
+    core is head-independent, so C (dim 3) is a legal shard BY HEAD for it
+    (``Stage.extents`` gives dim 3 the unit ``n_heads``); the regions
+    around it compute along C (``compute_dims={3}``), so every collective
+    lands on a planned boundary."""
+    shape = ext = None
+    if None not in (t_len, s_len, batch):
+        shape = (batch, t_len, s_len, cfg.d_model)
+        ext = (batch, t_len, s_len, cfg.n_heads)
+    db = cfg.dtype.itemsize
+    out = []
+    for i in range(cfg.n_layers // 2):
+        out.append(Stage(frozenset({2}), f"layer{i}.sp_attn", shape, db,
+                         extents=ext))
+        out.append(Stage(frozenset({3}), f"layer{i}.sp_mlp", shape, db,
+                         extents=ext))
+        out.append(Stage(frozenset({1}), f"layer{i}.t_attn", shape, db,
+                         extents=ext))
+        out.append(Stage(frozenset({3}), f"layer{i}.t_mlp", shape, db,
+                         extents=ext))
+    return out
+
+
+def dsp2d_schedule(cfg: T2DConfig, grid, *, t_len: Optional[int] = None,
+                   s_len: Optional[int] = None, batch: Optional[int] = None,
+                   initial=INITIAL2D, topology=None):
+    """Solve the 2D switching plan (enter and exit at ``initial``, T over
+    sp_out and S over sp_in by default) and return the period-4
+    ``PeriodicSchedule2D``.  One period is solved with entry = exit = the
+    carried layout and tiled, which is the steady state (every stage holds
+    the same activation shape).  On a degenerate ``(n, 1)``/``(1, n)``
+    grid the planner delegates to the 1D DP."""
+    st = stages2d(cfg, t_len=t_len, s_len=s_len, batch=batch)
+    body = plan_switches_2d(st[:4], [1, 2, 3], grid=tuple(grid),
+                            initial=initial, final=initial,
+                            topology=topology)
+    sched = Schedule2D(tuple(st), tuple(body) * (len(st) // 4),
+                       grid=tuple(grid), initial=initial, final=initial,
+                       topology=topology)
+    return sched.periodic(4)
 
 
 # ---------------------------------------------------------------------------
@@ -594,6 +663,213 @@ def forward(params, x, t, cfg: T2DConfig, *, mesh=None, mode: str = "dsp",
     x = ex.exit(x)                    # planned final layout (loss/head on T)
     x = L.rms_norm(params["final_norm"], x)
     return L.linear(params["head"], x)
+
+
+def _check_2d(cfg: T2DConfig, mesh):
+    """The mesh's context, once ``cfg`` and ``mesh`` can run ``forward2d``
+    (JAX's checks and messages)."""
+    if cfg.kvh != cfg.n_heads:
+        raise ValueError("forward2d stacks q/k/v for the fused planned "
+                         "switch and needs MHA (n_kv_heads == n_heads)")
+    ctx = from_mesh(mesh)
+    missing = [a for a in SP2D_AXES if a not in mesh.mesh_dim_names]
+    if missing:
+        raise ValueError(
+            f"forward2d needs the 2D SP mesh of launch.mesh.make_sp2d_mesh "
+            f"(axes ('sp_out', 'sp_in')); missing {missing}")
+    return ctx
+
+
+def forward2d(params, x, t, cfg: T2DConfig, *, mesh, backend: str = "kernel",
+              remat: bool = True, schedule=None):
+    """The 2D-layout forward on an ``("sp_out", "sp_in")`` mesh.
+
+    x: (B, T, S, C_in) and t: (B,), this rank's shard at the plan's
+    ``initial`` pair layout (``shard_video_batch2d``; T over sp_out and S
+    over sp_in for (1, 2)) -> the rank's shard at ``final``.  The planned
+    ``Schedule2D`` (``dsp2d_schedule``, or ``schedule``) drives every
+    boundary through the explicit ``ScheduleExecutor2D``, which issues
+    exactly ``expected_carry_collectives``.  The residual is carried at
+    the last in-period layout and the attention-core layouts live inside
+    each block.  A core that shards C (by head) takes its switch in on the
+    stacked (3, B, T, S, H, dh) q/k/v of one fused projection (so MHA is
+    required) and its switch out on the attention output before ``wo``,
+    as JAX's does; the residual skips it, so the plan must hold it alike
+    after both blocks.  A core that keeps C whole takes both switches on
+    the stream itself, before the block's norm and after its attention
+    residual add, which moves the residual with it: JAX switches q/k/v
+    there too and leaves the residual to XLA, whose reshards its
+    accounting does not count (PERF.md §6).  K1 runs every core, on the
+    heads the layout leaves the rank.  With ``remat`` each layer pair is
+    checkpointed, its collectives included.  Gradients flow through the
+    switches' transposes; no 2D backward is planned."""
+    ctx = _check_2d(cfg, mesh)
+    grid = (ctx.size("sp_out"), ctx.size("sp_in"))
+    initial = (schedule.schedule.initial if schedule is not None
+               else INITIAL2D)
+    nt, it = ctx.pair_index(_as_pair(initial), 1)
+    ns, is_ = ctx.pair_index(_as_pair(initial), 2)
+    psched = schedule if schedule is not None else dsp2d_schedule(
+        cfg, grid, t_len=x.shape[1] * nt, s_len=x.shape[2] * ns,
+        batch=x.shape[0] * ctx.dp_size)
+    ex = ScheduleExecutor2D(psched, backend="explicit", ctx=ctx)
+    lay = psched.layouts
+    if not pair_placement_equal(lay[-1], initial, grid):
+        raise ValueError(
+            f"forward2d carries the residual at the last in-period layout "
+            f"and enters at the schedule's initial; the plan ends its "
+            f"period at {lay[-1]} but enters at {initial} — "
+            f"pass initial equal to the steady-state mlp layout")
+    # a core that shards C (by head) takes its switches on the stacked
+    # q/k/v and on the attention output, and the residual skips it
+    heads = tuple(3 in lay[i] for i in (0, 2))
+    if any(heads) and not ex.same_placement(1, 3):
+        raise ValueError(
+            f"a head-sharded core leaves the residual unswitched, but the "
+            f"plan holds it at {lay[1]} after the spatial block and at "
+            f"{lay[3]} after the temporal one")
+
+    x = L.patch_embed(params["embed"], x)
+    x = add_pos_embed(x, cfg, it * x.shape[1], is_ * x.shape[2])
+    x = ex.carry_enter(x)               # initial -> the carried layout
+    t_emb = None
+    if cfg.modulate and t is not None:
+        t_emb = L.linear(params["t_proj"],
+                         L.timestep_embedding(t, cfg.d_model).to(x.dtype))
+    attn = _default_attn(backend)
+
+    def half_block(p, xc, te, *, axis, core):
+        # one block, from the carried layout to stage core + 1's.  The
+        # switch into the core (the wrap for the spatial one, boundary 2
+        # for the temporal) and the one out of it act on the stacked q/k/v
+        # and the attention output when the core shards C, else on the
+        # stream itself, which then carries the residual along
+        def enter(y, **kw):
+            return (ex.wrap(y, **kw) if core == 0
+                    else ex.boundary(y, core, **kw))
+
+        by_head = heads[core // 2]
+        if not by_head:
+            xc = enter(xc)
+        b, t_, s_, _ = xc.shape
+        hh, dh = cfg.n_heads, cfg.dh
+        mod = _mod6(p, te, cfg)
+
+        def bmod(m):
+            return m[:, :, None, :].to(xc.dtype)
+
+        h = L.rms_norm(p["ln1"], xc)
+        if mod is not None:
+            h = _modulate(h, bmod(mod[0]), bmod(mod[1]))
+        # ONE fused projection, so one switch moves q, k and v
+        wqkv = torch.cat([p["wq"]["w"], p["wk"]["w"], p["wv"]["w"]], dim=1)
+        qkv = h @ wqkv
+        if "b" in p["wq"]:
+            qkv = qkv + torch.cat([p["wq"]["b"], p["wk"]["b"], p["wv"]["b"]])
+        qkv = qkv.reshape(b, t_, s_, 3, hh, dh).permute(3, 0, 1, 2, 4, 5)
+        if by_head:
+            qkv = enter(qkv, dims=_QKV_DIMS, batch_dim=1)
+        q, k, v = qkv.unbind(0)
+        # fold the other sequence dim into the attention batch, its factor
+        # major (JAX's order), at the core's local shape
+        _, tc, sc, hc, _ = q.shape
+        if axis == 1:      # temporal: attend over T, batch (S, B)
+            fold_dims = {2: 0, 1: 1, 3: 2}
+
+            def fold(y):
+                y = y.permute(2, 0, 1, 3, 4).reshape(sc * b, tc, hc, dh)
+                return ex.fold_anchor(y, core, dims=fold_dims)
+
+            def unfold(y):
+                return y.reshape(sc, b, tc, hc, dh).permute(1, 2, 0, 3, 4)
+        else:              # spatial: attend over S, batch (T, B)
+            fold_dims = {1: 0, 2: 1, 3: 2}
+
+            def fold(y):
+                y = y.permute(1, 0, 2, 3, 4).reshape(tc * b, sc, hc, dh)
+                return ex.fold_anchor(y, core, dims=fold_dims)
+
+            def unfold(y):
+                return y.reshape(tc, b, sc, hc, dh).permute(1, 0, 2, 3, 4)
+        o = unfold(attn(fold(q), fold(k), fold(v)))
+        if by_head:
+            o = ex.boundary(o, core + 1, dims=_O_DIMS)
+        o = L.linear(p["wo"], o.flatten(3))
+        if mod is not None:
+            o = o * bmod(mod[2])
+        xc = xc + o
+        if not by_head:
+            xc = ex.boundary(xc, core + 1)
+        xc = ex.anchor(xc, core + 1)
+        h = L.rms_norm(p["ln2"], xc)
+        if mod is not None:
+            h = _modulate(h, bmod(mod[3]), bmod(mod[4]))
+        h = L.mlp(p["mlp"], h, cfg.mlp_kind)
+        if mod is not None:
+            h = h * bmod(mod[5])
+        return ex.anchor(xc + h, core + 1)
+
+    def pair_body(xc, te, lp):
+        xc = half_block(lp["spatial"], xc, te, axis=2, core=0)
+        return half_block(lp["temporal"], xc, te, axis=1, core=2)
+
+    layers = params["layers"]
+    for lp in unstack(layers, tree_leaves(layers)[0].shape[0]):
+        if remat:
+            # no early stop: the recompute reissues every collective of the
+            # pair on every rank alike
+            with set_checkpoint_early_stop(False):
+                x = checkpoint(pair_body, x, t_emb, lp, use_reentrant=False)
+        else:
+            x = pair_body(x, t_emb, lp)
+    x = ex.carry_exit(x)                # the carried layout -> final
+    x = L.rms_norm(params["final_norm"], x)
+    return L.linear(params["head"], x)
+
+
+def shard_video_batch2d(batch: Dict[str, torch.Tensor], mesh):
+    """The rank's shard of a global video batch held whole by every rank,
+    at ``forward2d``'s entry layout (1, 2): the batch dim sliced over the
+    data dims, T over sp_out and S over sp_in, on every tensor that has
+    them."""
+    ctx = from_mesh(mesh)
+    out = {}
+    for k, v in batch.items():
+        v = dsp.shard(v, 0, ctx.dp_size, ctx.dp_index)
+        for ax, d in zip(SP2D_AXES, INITIAL2D):
+            if d < v.dim():
+                v = dsp.shard(v, d, ctx.size(ax), ctx.index(ax))
+        out[k] = v
+    return out
+
+
+def gather_video2d(y: torch.Tensor, mesh) -> torch.Tensor:
+    """The inverse of ``shard_video_batch2d`` over the SP dims: T and S
+    whole (the batch stays sliced over the data dims), by one all-gather
+    per grid axis."""
+    ctx = from_mesh(mesh)
+    for ax, d in zip(SP2D_AXES, INITIAL2D):
+        y = dsp.gather(y, d, ctx.group(ax))
+    return y
+
+
+def make_spmd_forward2d(cfg: T2DConfig, mesh, *, backend: str = "kernel"):
+    """``fwd(params, x, t)`` where x: (B, T, S, C_in) and t: (B,) are the
+    global batch, the same on every rank; returns the rank's shard of the
+    output at the plan's final pair layout, which is its initial (1, 2)
+    (``gather_video2d`` makes it whole).  Batch over the data dims, T over
+    sp_out and S over sp_in on entry, positions offset by the rank's grid
+    coordinates, then ``forward2d`` without remat.  Raises ValueError
+    where ``forward2d`` cannot run ``cfg`` on ``mesh``, as JAX's does."""
+    _check_2d(cfg, mesh)
+
+    def fwd(params, x, t):
+        batch = {"x": x} if t is None else {"x": x, "t": t}
+        local = shard_video_batch2d(batch, mesh)
+        return forward2d(params, local["x"], local.get("t"), cfg, mesh=mesh,
+                         backend=backend, remat=False)
+
+    return fwd
 
 
 def model_dtype_batch(batch: Dict[str, torch.Tensor], cfg: T2DConfig):

@@ -32,9 +32,12 @@ for want in ("repro_torch.serving.scheduler", "repro_torch.train.trainer",
              "repro_torch.core.schedule", "repro_torch.core.dsp",
              "repro_torch.launch.mesh", "repro_torch.core.overlap",
              "repro_torch.core.ring", "repro_torch.core.ulysses",
-             "repro_torch.core.megatron_sp",
+             "repro_torch.core.megatron_sp", "repro_torch.core.layout",
              "repro_torch.analysis.roofline"):
     assert want in mods, (want, mods)
+from repro_torch.core.schedule import ScheduleExecutor2D
+from repro_torch.models.transformer2d import (
+    dsp2d_schedule, forward2d, make_spmd_forward2d, stages2d)
 """
 
 
@@ -43,6 +46,30 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                PYTHONPATH=os.pathsep.join([os.path.join(ROOT, "src"), ROOT]))
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+_IMPORT_WORKER = r"""
+import runpy, sys
+runpy.run_path(sys.argv[1], run_name="gloo_worker")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+"""
+
+
+@pytest.mark.parametrize("worker", ["_torch_dsp_worker.py",
+                                    "_torch_sp_worker.py",
+                                    "_torch_l2d_worker.py"])
+def test_gloo_workers_import_no_jax_and_no_repro(worker):
+    """The port's side of each multi-process check (a gloo rank) loads, with
+    the helpers it shares with its JAX side, nothing of JAX or of the JAX
+    package: the JAX side runs in its own subprocess."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    path = os.path.join(ROOT, "tests", worker)
+    out = subprocess.run([sys.executable, "-c", _IMPORT_WORKER, path],
+                         cwd=os.path.join(ROOT, "tests"), env=env,
+                         capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
 
 
