@@ -18,7 +18,10 @@ Phases, in order; any failure raises and exits non-zero:
    slice on ``cuda_cores`` in bf16 too; and K1 at head dim 72, non-causal,
    at the 2D DiT's shapes, bf16 on ``sm90`` and f32 on ``cuda_cores``:
    spatial (a few folded frames, 16 heads, 4096 patches), temporal (4096
-   folded patches, 16 heads, the frames) and a ragged length;
+   folded patches, 16 heads, the frames) and a ragged length; and both at
+   the shapes a rank of phase 16 (b) gives them, bf16 on ``sm90``: K1 on
+   qwen3-14b's 10 q and 2 K/V heads over 4096 tokens, K2 on mamba2-370m's
+   8 heads (``LM_RANK_ATTN``, ``LM_RANK_SSD``);
 4. time each kernel, its plain version and, where one exists, one PyTorch
    library call that computes the same function (a yardstick the port
    never calls); K1's routed kernel and the library call three times each
@@ -121,12 +124,31 @@ Phases, in order; any failure raises and exits non-zero:
     rank's bytes beside ``Schedule2D.per_device_bytes``; then (2, 2) at
     1 x 2 x 4096, where the plan's spatial core shards heads (K1 at 8
     heads), against plan ``none``'s ``forward`` at world size 1;
-16. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
+16. qwen3-14b and mamba2-370m under DSP: the ``Sharder``'s hooks
+    (``parallel.partition``, plan ``dsp`` with zero and shard_vocab off)
+    on a ``("data", "model")`` process mesh, the joint planned schedule,
+    ``lm_loss(sharder=)`` on each rank's shard: (a) at world size 1 over
+    NCCL, phase 10's four steps (depth 4) and phase 7's first two (depth
+    48) again through the Trainer with the mesh: the losses must equal
+    theirs within 1e-4 relative, the calls and bytes must be exactly the
+    hooks' contract (``lm.collective_contract`` through ``lm.remat_step``:
+    at one rank every switch and gather is issued, the conv's halo is not)
+    and one all-reduce a step, K1 must launch 2 x 4 x 4 = 32 times and K2
+    2 x 48 x 2 = 192, all ``sm90``; each step time is logged beside the
+    plan-none phase's; (b) 4 processes sharing the card over gloo on a
+    (1, 4) mesh, each this script with ``--lm-rank``: qwen3-14b at depth
+    2 and mamba2-370m at depth 4, full width, 1 x 4096 tokens, one loss
+    and its grads summed over the ranks against (a)'s path at the same
+    depth (phase 7's bars), and per rank exactly the contract's calls and
+    bytes, K1 on 10 of 40 q and 2 of 8 K/V heads and K2 on 8 of 32 heads,
+    twice a layer, all ``sm90``;
+17. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
     counts over the paths above (K1 320 + 32 + 224 + 224 + phase 14's
     training runs, 112 per mode, 56 for ring and hybrid, + phase 15 (a)'s
-    28; K2 576 + 384) and whose ``launches_by_route`` split that sum by
-    the route each launch took (every one ``sm90``), then the last line
-    ``{"ok": true, "device": {...}}``.
+    28 + phase 16 (a)'s 32; K2 576 + 384 + phase 16 (a)'s 192) and whose
+    ``launches_by_route`` split that sum by the route each launch took
+    (every one ``sm90``), then the last line ``{"ok": true, "device":
+    {...}}``.
 
 Each phase's header logs the seconds since the start, and every time
 logged carries the card's name and power limit.
@@ -168,6 +190,8 @@ from repro_torch.launch.mesh import (  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import transformer2d as t2d  # noqa: E402
 from repro_torch.optim.adamw import OptConfig  # noqa: E402
+from repro_torch.parallel.partition import (  # noqa: E402
+    ParallelPlan, make_sharder)
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 from repro_torch.serving.scheduler import ContinuousScheduler  # noqa: E402
 from repro_torch.train.trainer import (  # noqa: E402
@@ -258,6 +282,27 @@ L2D_HEAD_FRAMES = 2
 L2D_CASES = (((2, 2), DIT_FRAMES), ((1, 4), DIT_FRAMES), ((4, 1), DIT_FRAMES),
              ((2, 2), L2D_HEAD_FRAMES))
 L2D_TURNS = ("2d", "none", "none", "2d", "2d", "none")
+LM_PLAN = ParallelPlan(mode="dsp", zero=False, shard_vocab=False)
+# the LM phase: phase 10's and phase 7's training at world size 1 over NCCL
+# under DSP (LM_PLAN: the specs' plan with zero and shard_vocab off), whose
+# losses must equal theirs within DSP_LOSS_BAR (the switches only move
+# bytes there), mamba2-370m for LM_MAMBA_STEPS of phase 7's steps; then
+# DSP_RANKS processes sharing the card over gloo on a (1, DSP_RANKS) mesh:
+# one loss and its grads of each LM at LM_RANK_DEPTHS, 1 x TRAIN_SEQ
+# tokens, against the world-1 path at the same depth (phase 7's bars)
+LM_MAMBA_STEPS = 2
+LM_RANK_DEPTHS = (("qwen3-14b", 2), ("mamba2-370m", 4))
+# the kernels at the shapes one of those ranks gives them (the heads split
+# DSP_RANKS ways by the switch, the whole sequence), held against their
+# plain versions in phase 3: K1 on qwen3-14b's 10 q and 2 K/V heads, K2 on
+# mamba2-370m's 8 heads of its one B/C group
+_Q, _M = qwen3_14b.CONFIG, mamba2_370m.CONFIG.ssm_cfg
+LM_RANK_ATTN = (1, _Q.n_heads // DSP_RANKS, _Q.n_kv_heads // DSP_RANKS,
+                TRAIN_SEQ, TRAIN_SEQ, _Q.head_dim, True, None, None)
+LM_RANK_SSD = (1, TRAIN_SEQ, _M.n_heads // DSP_RANKS, _M.head_dim,
+               _M.n_groups, _M.d_state, _M.chunk)
+# grads summed over the gloo ranks in f32 pieces of this many elements
+LM_REDUCE_PIECE = 1 << 26
 
 
 def prefill_case(s: int):
@@ -1745,6 +1790,253 @@ def l2d_four_ranks(cfg, work: str, device="cuda") -> dict:
     return table
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the LM family under DSP (the Sharder's hooks on a process mesh)
+# ---------------------------------------------------------------------------
+
+def lm_config(name: str, depth=None):
+    cfg = {"qwen3-14b": qwen3_14b.CONFIG,
+           "mamba2-370m": mamba2_370m.CONFIG}[name]
+    return cfg if depth is None else dataclasses.replace(cfg, n_layers=depth)
+
+
+def lm_sharder(cfg, mesh, batch: int):
+    """LM_PLAN on ``mesh`` with the joint planned schedule of ``cfg`` at
+    ``batch`` x TRAIN_SEQ tokens."""
+    n = from_mesh(mesh).sp_size
+    return make_sharder(mesh, LM_PLAN, schedule=lm.dsp_schedule(
+        cfg, n, seq=TRAIN_SEQ, batch=batch, joint=True))
+
+
+def lm_contract(cfg, n: int, batch: int) -> dict:
+    """{kind: [calls, bytes]} of one loss and its grads with remat per
+    rank of a (1, ``n``) mesh at ``batch`` x TRAIN_SEQ tokens:
+    ``lm.remat_step`` of ``lm.collective_contract``."""
+    step = lm.remat_step(lm.collective_contract(cfg, n, batch,
+                                                TRAIN_SEQ // n))
+    return {k: [step["calls"][k], step["bytes"][k]]
+            for k in sorted(step["calls"])}
+
+
+def lm_batch(cfg, batch: int, step: int, device="cuda") -> dict:
+    return make_batch(DataConfig(task="lm_shift", vocab=cfg.vocab,
+                                 seq=TRAIN_SEQ, batch=batch), step,
+                      device=device)
+
+
+def lm_grads(cfg, sharder, device="cuda"):
+    """Depth-cut ``cfg``'s ``lm_loss(sharder=)`` on this rank's shard of
+    the first 1 x TRAIN_SEQ batch and its grads (this rank's share of the
+    global ones), K1 and K2 through their kernels.  Returns (loss, grads,
+    their leaf paths)."""
+    params = lm.init_lm(0, cfg, device=device)
+    leaves = lm.tree_map(lambda p: p.requires_grad_(True), params)
+    batch = lm.shard_lm_batch(lm_batch(cfg, 1, 0, device), sharder)
+    loss, _ = lm.lm_loss(leaves, batch, cfg, sharder=sharder,
+                         backend="kernel")
+    grads = torch.autograd.grad(loss, lm.tree_leaves(leaves))
+    return loss.detach(), list(grads), leaf_paths(params)
+
+
+def lm_world_of_one(refs: dict, work: str, device="cuda") -> dict:
+    """(a) At world size 1 on a (1, 1) mesh over NCCL: phase 10's training
+    (qwen3-14b at depth QWEN_TRAIN_DEPTH, QWEN_TRAIN_STEPS steps at 1 x
+    TRAIN_SEQ) and phase 7's first LM_MAMBA_STEPS steps (mamba2-370m at
+    depth 48, TRAIN_BATCH x TRAIN_SEQ), each with the sharder of LM_PLAN
+    and the joint planned schedule through the Trainer with the mesh.
+    Every hook's switch and gather is issued (a collective of one rank);
+    the losses must equal the plan-none phase's within DSP_LOSS_BAR, the
+    calls and bytes must be exactly ``lm_contract`` each step plus one
+    all-reduce, and K1 (K2) must launch as in phase 10 (7), all on
+    ``sm90``.  Then the references of (b): the depth-cut loss and grads of
+    LM_RANK_DEPTHS on this path, written to ``work``."""
+    backend = BACKEND_OF[torch.device(device).type]
+    dist.init_process_group(backend, store=dist.FileStore(
+        os.path.join(work, "store16a"), 1), rank=0, world_size=1)
+    out = {}
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), torch.device(device).type)
+        runs = (("qwen3-14b", QWEN_TRAIN_DEPTH, QWEN_TRAIN_BATCH,
+                 QWEN_TRAIN_STEPS, flash_attention_fwd),
+                ("mamba2-370m", None, TRAIN_BATCH, LM_MAMBA_STEPS,
+                 ssd_scan_fwd))
+        for name, depth, batch, steps, kernel in runs:
+            cfg = lm_config(name, depth)
+            sharder = lm_sharder(cfg, mesh, batch)
+            step = lm_contract(cfg, 1, batch)
+            want = {k: [c * steps, b * steps] for k, (c, b) in step.items()}
+            log(f"  {name} depth {cfg.n_layers}, {batch} x {TRAIN_SEQ}, "
+                f"{steps} steps; per step the contract {step} and one "
+                f"all-reduce")
+            trained = run_trainer(
+                lambda: lm.init_lm(0, cfg, device=device),
+                lambda p, b: lm.lm_loss(p, b, cfg, sharder=sharder,
+                                        backend="kernel"),
+                lambda st: lm.shard_lm_batch(lm_batch(cfg, batch, st,
+                                                      device), sharder),
+                kernel, tokens=batch * TRAIN_SEQ, n_steps=steps,
+                n_layers=cfg.n_layers, route="sm90", device=device,
+                mesh=mesh)
+            got = {k: [trained["collectives"][k], trained["volume"][k]]
+                   for k in sorted(trained["collectives"])}
+            reduced = got.pop("all-reduce", [0, 0])
+            log(f"  torch.distributed calls [count, bytes]: {got}, "
+                f"all-reduce {reduced}")
+            if got != want or reduced[0] != steps:
+                raise AssertionError(f"{name}: collectives {got} and "
+                                     f"all-reduce {reduced}, the contract "
+                                     f"says {want} and {steps}")
+            ref = refs[name]["metrics"]
+            losses = trained["metrics"]["losses"]
+            rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(losses, ref["losses"]))
+            log_t(f"  losses {losses} against plan none's "
+                  f"{ref['losses'][:steps]}: worst |delta| / |loss| = "
+                  f"{rel:.3e}; step (median) "
+                  f"{trained['metrics']['step_ms_median']:.2f} ms against "
+                  f"plan none's {ref['step_ms_median']:.2f} ms")
+            if not rel <= DSP_LOSS_BAR:
+                raise AssertionError(f"{name}: world-1 DSP losses {losses} "
+                                     f"differ from plan none's")
+            out[name] = trained
+        for name, depth in LM_RANK_DEPTHS:
+            cfg = lm_config(name, depth)
+            loss, grads, _ = lm_grads(cfg, lm_sharder(cfg, mesh, 1), device)
+            torch.save({"loss": loss.cpu(), "grads": [g.cpu() for g in grads]},
+                       os.path.join(work, f"lm_ref.{name}.pt"))
+            del grads
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def lm_rank_main(rank: int, world: int, work: str) -> None:
+    """One of (b)'s ranks, started by ``lm_four_ranks`` as ``chip_smoke.py
+    --lm-rank <rank> <world> <dir>``: gloo over the card's CUDA tensors on
+    a (1, world) mesh.  For each of LM_RANK_DEPTHS: its loss and grads
+    with what it counted around them, then the loss and each grad leaf
+    summed over the ranks (f32 pieces, not counted) and, on rank 0, held
+    against (a)'s reference leaf by leaf; written to
+    ``<dir>/lm_rank<r>.json``."""
+    device = json.load(open(os.path.join(work, "job16.json")))["device"]
+    full_f32()
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(work, "store16b"), world), rank=rank, world_size=world)
+    try:
+        mesh = make_mesh((1, world), ("data", "model"),
+                         torch.device(device).type, backend="gloo")
+        res = {"coord": from_mesh(mesh).sp_index}
+        for name, depth in LM_RANK_DEPTHS:
+            cfg = lm_config(name, depth)
+            sharder = lm_sharder(cfg, mesh, 1)
+            reset_counts()
+            reset_ssd_launches()
+            t0 = time.perf_counter()
+            loss, grads, paths = lm_grads(cfg, sharder, device)
+            got = read_counts()
+            got.update(
+                seconds=time.perf_counter() - t0,
+                k1_heads={f"{q}/{kv}": n for (q, kv), n in
+                          flash_attention_fwd.heads_launches.items()},
+                k2=ssd_scan_fwd.launches,
+                k2_routes=nonzero(ssd_scan_fwd.route_launches),
+                k2_heads={str(h): n for h, n in
+                          ssd_scan_fwd.heads_launches.items()})
+            dist.all_reduce(loss)
+            ref = (torch.load(os.path.join(work, f"lm_ref.{name}.pt"),
+                              mmap=True) if rank == 0 else None)
+            shares = []
+            for i, g in enumerate(grads):
+                total = g.float().reshape(-1)
+                for piece in total.split(LM_REDUCE_PIECE):
+                    dist.all_reduce(piece)
+                if rank == 0:
+                    w = ref["grads"][i].to(device).float().reshape(-1)
+                    shares.append(float((total - w).abs().max()
+                                        / w.abs().max().clamp_min(1e-30)))
+                grads[i] = None
+                del total
+            if rank == 0:
+                worst = int(np.argmax(shares))
+                got.update(loss=float(loss), loss_rel=float(
+                    (loss.cpu() - ref["loss"]).abs() / ref["loss"].abs()),
+                    grad_rel=shares[worst], leaves=len(shares),
+                    leaf=paths[worst])
+            res[name] = got
+            del grads, ref
+            torch.cuda.empty_cache()
+        json.dump(res, open(os.path.join(work, f"lm_rank{rank}.json"), "w"))
+    finally:
+        dist.destroy_process_group()
+
+
+def lm_four_ranks(work: str, device="cuda") -> dict:
+    """(b) DSP_RANKS processes sharing the card over gloo on a (1,
+    DSP_RANKS) mesh, each LM of LM_RANK_DEPTHS at full width, 1 x
+    TRAIN_SEQ tokens: the loss and every grad leaf summed over the ranks
+    against (a)'s within phase 7's bars; per rank exactly the contract's
+    calls and bytes (``lm_contract``), and K1 (K2) launched twice a layer
+    (forward and recompute) on the rank's heads (qwen3-14b: 10 of 40 q
+    and 2 of 8 K/V heads; mamba2-370m: 8 of 32), all on ``sm90``."""
+    with open(os.path.join(work, "job16.json"), "w") as f:
+        json.dump({"device": device}, f)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--lm-rank", str(r), str(DSP_RANKS), work])
+             for r in range(DSP_RANKS)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log_t(f"  {DSP_RANKS} ranks exited {rcs} after "
+          f"{time.perf_counter() - t0:.1f} s")
+    if any(rcs):
+        raise AssertionError(f"an LM rank failed: exit codes {rcs}")
+    ranks = [json.load(open(os.path.join(work, f"lm_rank{r}.json")))
+             for r in range(DSP_RANKS)]
+    n = DSP_RANKS
+    for name, depth in LM_RANK_DEPTHS:
+        cfg = lm_config(name, depth)
+        want = lm_contract(cfg, n, 1)
+        if name == "qwen3-14b":
+            heads = {"k1": 2 * depth, "k1_heads": {
+                f"{cfg.n_heads // n}/{cfg.n_kv_heads // n}": 2 * depth},
+                "k2": 0, "k2_heads": {}}
+        else:
+            heads = {"k1": 0, "k1_heads": {}, "k2": 2 * depth, "k2_heads": {
+                str(cfg.ssm_cfg.n_heads // n): 2 * depth}}
+        g = ranks[0][name]
+        log_t(f"  {name} depth {depth}: loss {g['loss']:.6f} summed over "
+              f"{DSP_RANKS} ranks, |delta| / |loss| against world 1 "
+              f"{g['loss_rel']:.3e}, worst grad leaf {g['leaf']} "
+              f"{g['grad_rel']:.3e} over {g['leaves']} leaves")
+        if not (g["loss_rel"] <= LOSS_BAR and g["grad_rel"] <= GRAD_BAR):
+            raise AssertionError(f"{name}: the {DSP_RANKS}-rank loss or "
+                                 f"grads disagree with world 1: {g}")
+        log(f"  {name}: per rank the contract {want}, {heads}")
+        for r, res in enumerate(ranks):
+            got = res[name]
+            log_t(f"  rank {r} (sequence chunk {res['coord']}): "
+                  f"{got['seconds']:.1f} s, calls {got['calls']}, K1 "
+                  f"{got['k1_heads']} {got['k1_routes']}, K2 "
+                  f"{got['k2_heads']} {got['k2_routes']}")
+            routes_ok = (got["k1_routes"] == ({"sm90": heads["k1"]}
+                                              if heads["k1"] else {})
+                         and got["k2_routes"] == ({"sm90": heads["k2"]}
+                                                  if heads["k2"] else {}))
+            if (got["calls"] != want or not routes_ok
+                    or any(got[k] != v for k, v in heads.items())):
+                raise AssertionError(f"rank {r} {name}: {got}, the contract "
+                                     f"says {want} and {heads}")
+    return {"ranks": ranks}
+
+
 def train_cli(train_main, arch: str) -> None:
     """The train CLI at SMOKE size for 30 steps; the loss must fall."""
     hist = train_main(["--arch", arch, "--steps", "30"])["history"]
@@ -1856,6 +2148,8 @@ def main() -> None:
             err = check_attention(case, dtype, seed=300 + i)
             if i == 0 and dtype == torch.bfloat16:
                 dit_err = err
+    check_attention(LM_RANK_ATTN, torch.bfloat16, seed=400)
+    check_ssd(LM_RANK_SSD, torch.bfloat16, seed=401)
 
     log(f"[4] timing at the slice's shape, bf16 ({elapsed()})")
     q, k, v = attn_inputs(SLICE, torch.bfloat16, seed=7)
@@ -1986,7 +2280,18 @@ def main() -> None:
             f"{[g for g, _ in L2D_CASES]} ({elapsed()})")
         l2d_ranks = l2d_four_ranks(dcfg, work)
     dit_runs = [dit_trained, dsp_trained, *sp["modes"].values(), l2d]
-    k1_routes = by_route([served, q_trained] + dit_runs)
+    log(f"  done ({elapsed()})")
+
+    log(f"[16] qwen3-14b and mamba2-370m under DSP, the Sharder's hooks on "
+        f"a (data, model) mesh ({elapsed()})")
+    with tempfile.TemporaryDirectory() as work:
+        log("  (a) world size 1 over NCCL, full width")
+        lm_dsp = lm_world_of_one({"qwen3-14b": q_trained,
+                                  "mamba2-370m": trained}, work)
+        log(f"  (b) {DSP_RANKS} ranks on the card over gloo ({elapsed()})")
+        lm_ranks = lm_four_ranks(work)
+    q_dsp, m_dsp = lm_dsp["qwen3-14b"], lm_dsp["mamba2-370m"]
+    k1_routes = by_route([served, q_trained, q_dsp] + dit_runs)
     log(f"  done ({elapsed()})")
 
     log(facts)
@@ -1996,8 +2301,11 @@ def main() -> None:
         "replaces": "src/repro/kernels/flash_attention.py:36",
         "launches": (served["launches"] + q_trained["launches"]
                      + dit_trained["launches"] + dsp_trained["launches"]
-                     + sp_launches + l2d["launches"]),
+                     + sp_launches + l2d["launches"] + q_dsp["launches"]),
         "launches_by_route": k1_routes,
+        "lm_dsp_launches": q_dsp["launches"],
+        "lm_dsp_rank_launches": [r["qwen3-14b"]["k1_heads"]
+                                 for r in lm_ranks["ranks"]],
         "max_abs_err": slice_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"], "library_ms": library_ms,
@@ -2014,8 +2322,12 @@ def main() -> None:
         "name": "ssd_scan_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan_sm90.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:35",
-        "launches": trained["launches"] + m_served["launches"],
-        "launches_by_route": by_route([trained, m_served]),
+        "launches": (trained["launches"] + m_served["launches"]
+                     + m_dsp["launches"]),
+        "launches_by_route": by_route([trained, m_served, m_dsp]),
+        "lm_dsp_launches": m_dsp["launches"],
+        "lm_dsp_rank_launches": [r["mamba2-370m"]["k2_heads"]
+                                 for r in lm_ranks["ranks"]],
         "max_abs_err": ssd_err,
         "ms": ssd_ms, "plain_ms": ssd_plain_ms,
         "bound_ms": ssd_bound["bound_ms"], "bound_by": ssd_bound["bound_by"],
@@ -2033,5 +2345,7 @@ if __name__ == "__main__":
         sp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif sys.argv[1:2] == ["--l2d-rank"]:
         l2d_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:2] == ["--lm-rank"]:
+        lm_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     else:
         main()

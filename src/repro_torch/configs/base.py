@@ -1,13 +1,15 @@
 """Architecture registry (counterpart of ``repro.configs.base``).
 
-Each spec carries the full published config and a reduced same-family
-SMOKE config.  Architectures register here as their families are ported;
-the parallel plan the JAX spec carries comes with the planner.
+Each spec carries the full published config, a reduced same-family
+SMOKE config and the parallel plan of the JAX spec.  Architectures
+register here as their families are ported.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, FrozenSet
+
+from repro_torch.parallel.partition import ParallelPlan
 
 # The four assigned LM shapes (seq_len, global_batch) and their entry points.
 SHAPES: Dict[str, Dict[str, Any]] = {
@@ -33,6 +35,7 @@ class ArchSpec:
     family: str                      # "lm" | "encdec" | "t2d"
     config: Any
     smoke: Any
+    plan: ParallelPlan
     skip_shapes: FrozenSet[str] = frozenset()
     skip_reason: str = ""
     source: str = ""

@@ -9,6 +9,7 @@ import torch
 from repro_torch.configs.base import ArchSpec, register
 from repro_torch.models.lm import LMConfig
 from repro_torch.models.ssm import SSMConfig
+from repro_torch.parallel.partition import ParallelPlan
 
 CONFIG = LMConfig(
     name="mamba2-370m",
@@ -31,5 +32,6 @@ SMOKE = LMConfig(
 SPEC = register(ArchSpec(
     name="mamba2-370m", family="lm",
     config=CONFIG, smoke=SMOKE,
+    plan=ParallelPlan(mode="dsp", zero=True),
     source="arXiv:2405.21060; unverified",
 ))

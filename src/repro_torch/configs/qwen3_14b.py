@@ -7,6 +7,7 @@ import torch
 
 from repro_torch.configs.base import ArchSpec, register
 from repro_torch.models.lm import LMConfig
+from repro_torch.parallel.partition import ParallelPlan
 
 CONFIG = LMConfig(
     name="qwen3-14b",
@@ -26,6 +27,7 @@ SMOKE = LMConfig(
 SPEC = register(ArchSpec(
     name="qwen3-14b", family="lm",
     config=CONFIG, smoke=SMOKE,
+    plan=ParallelPlan(mode="dsp", zero=True),
     skip_shapes=frozenset({"long_500k"}),
     skip_reason="pure full attention",
     source="hf:Qwen/Qwen3-8B; hf",

@@ -7,6 +7,7 @@ import torch
 
 from repro_torch.configs.base import ArchSpec, register
 from repro_torch.models.transformer2d import T2DConfig
+from repro_torch.parallel.partition import ParallelPlan
 
 CONFIG = T2DConfig(
     name="transformer2d-3b",
@@ -23,5 +24,6 @@ SMOKE = T2DConfig(
 SPEC = register(ArchSpec(
     name="transformer2d-3b", family="t2d",
     config=CONFIG, smoke=SMOKE,
+    plan=ParallelPlan(mode="dsp", zero=True, shard_vocab=False),
     source="paper Table 4 (OpenSora variant)",
 ))

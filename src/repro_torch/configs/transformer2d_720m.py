@@ -9,6 +9,7 @@ import torch
 
 from repro_torch.configs.base import ArchSpec, register
 from repro_torch.models.transformer2d import T2DConfig
+from repro_torch.parallel.partition import ParallelPlan
 
 CONFIG = T2DConfig(
     name="transformer2d-720m",
@@ -25,5 +26,6 @@ SMOKE = T2DConfig(
 SPEC = register(ArchSpec(
     name="transformer2d-720m", family="t2d",
     config=CONFIG, smoke=SMOKE,
+    plan=ParallelPlan(mode="dsp", zero=True, shard_vocab=False),
     source="paper Table 4 (OpenSora variant)",
 ))

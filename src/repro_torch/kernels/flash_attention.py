@@ -10,8 +10,9 @@ rest: f32 stays there, since the tensor cores would compute in TF32 and
 miss its 1e-4 bar.  ``flash_attention_fwd``
 launches the routed kernel on CUDA tensors and counts its launches in
 ``flash_attention_fwd.launches``, by route in
-``flash_attention_fwd.route_launches`` and by head dim in
-``flash_attention_fwd.head_dim_launches``.  ``flash_attention_plain``
+``flash_attention_fwd.route_launches``, by head dim in
+``flash_attention_fwd.head_dim_launches`` and by (q heads, K/V heads) in
+``flash_attention_fwd.heads_launches``.  ``flash_attention_plain``
 computes the same function in plain PyTorch with the kernels' semantics,
 including their one difference from ``ref.attention_ref``: a fully masked
 row outputs 0, not a uniform average of V.
@@ -163,14 +164,18 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     flash_attention_fwd.launches += 1
     flash_attention_fwd.route_launches[route] += 1
     flash_attention_fwd.head_dim_launches[d] += 1
+    heads = flash_attention_fwd.heads_launches
+    heads[(hq, hkv)] = heads.get((hq, hkv), 0) + 1
     return out
 
 
 def reset_launches() -> None:
-    """Set the launch count and every route's and head dim's count to 0."""
+    """Set the launch count and every route's, head dim's and head
+    count's count to 0."""
     flash_attention_fwd.launches = 0
     flash_attention_fwd.route_launches = {r: 0 for r in _KERNELS}
     flash_attention_fwd.head_dim_launches = {d: 0 for d in HEAD_DIMS}
+    flash_attention_fwd.heads_launches = {}
 
 
 reset_launches()

@@ -6,8 +6,9 @@ by (dtype, P, S, chunk): ``"sm90"`` is ``csrc/ssd_scan_sm90.cu`` (bf16 on
 the tensor cores, wgmma fed by TMA) for bf16 at P = 64, S = 128 and chunk
 128, any G; ``"cuda_cores"`` is ``csrc/ssd_scan.cu`` (f32 FMAs) for every
 other case, f32 included.  ``ssd_scan_fwd`` launches the routed kernel on
-CUDA tensors and counts its launches in ``ssd_scan_fwd.launches`` and, by
-route, in ``ssd_scan_fwd.route_launches``; ``ssd_scan_plain`` computes the
+CUDA tensors and counts its launches in ``ssd_scan_fwd.launches``, by
+route in ``ssd_scan_fwd.route_launches`` and by head count in
+``ssd_scan_fwd.heads_launches``; ``ssd_scan_plain`` computes the
 same function in plain PyTorch, chunk by chunk in the kernels' order.
 
 Layouts (``kernels.ops.ssd_scan`` forms them from the model layout):
@@ -211,13 +212,16 @@ def ssd_scan_fwd(xdt: torch.Tensor, da: torch.Tensor, b: torch.Tensor,
                            f"{error_string(err).decode()}")
     ssd_scan_fwd.launches += 1
     ssd_scan_fwd.route_launches[route] += 1
+    ssd_scan_fwd.heads_launches[h] = ssd_scan_fwd.heads_launches.get(h, 0) + 1
     return y
 
 
 def reset_launches() -> None:
-    """Set the launch count and every route's count to 0."""
+    """Set the launch count and every route's and head count's count to
+    0."""
     ssd_scan_fwd.launches = 0
     ssd_scan_fwd.route_launches = {r: 0 for r in _KERNELS}
+    ssd_scan_fwd.heads_launches = {}
 
 
 reset_launches()

@@ -11,25 +11,28 @@ recomputed through a plain reference; with ``--device cpu`` the kernels'
 plain versions stand in.  ``--grad-accum N`` splits each batch of ``--batch``
 sequences into N microbatches.
 
-``--mesh dp,mp`` trains the t2d family under DSP on a ``("data",
-"model")`` process mesh, one rank per process under ``torchrun`` (NCCL on
-the card, gloo with ``--device cpu``):
+``--mesh dp,mp`` trains under DSP on a ``("data", "model")`` process
+mesh, one rank per process under ``torchrun`` (NCCL on the card, gloo
+with ``--device cpu``):
 
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
         --arch transformer2d-720m --mesh 1,4
 
 Every rank draws the same global batch and trains on its shard (batch
-over ``data``, frames over ``model``) with the joint plan of
-``dsp_schedule`` through ``t2d_loss(mesh=...)``; the ``Trainer`` sums the
-grads over the world.  The plan is priced in bytes (``topology=None``):
-the JAX CLI prices it on its TPU link constants, which the port does not
-carry.
+over ``data``; frames, or an LM's tokens, over ``model``) with the joint
+plan of the family's ``dsp_schedule``: through ``t2d_loss(mesh=...)``, or
+``lm_loss(sharder=...)`` with the spec's plan run with ``zero`` and
+``shard_vocab`` off (parameters whole on every rank; the summary prints
+the plan run).  The ``Trainer`` sums the grads over the world.  The plan
+is priced in bytes (``topology=None``): the JAX CLI prices it on its TPU
+link constants, which the port does not carry.
 
 ``--device`` defaults to ``cuda``.  The JAX CLI's checkpoint, elastic,
-device-count and compression flags, and ``--mesh`` for the LM family, are
-not ported yet and exit with a message.
+device-count and compression flags are not ported yet and exit with a
+message.
 """
 import argparse
+import dataclasses
 import sys
 
 NOT_PORTED = ("ckpt_dir", "replan", "devices")
@@ -50,7 +53,7 @@ def main(argv=None):
                     help="torch device to train on (cpu for tests)")
     ap.add_argument("--mesh", default=None,
                     help="dp,mp: DSP over a (data, model) process mesh "
-                         "(t2d family, under torchrun)")
+                         "(under torchrun)")
     for flag in NOT_PORTED:
         ap.add_argument("--" + flag.replace("_", "-"), default=None,
                         help="not yet ported")
@@ -69,24 +72,28 @@ def main(argv=None):
     from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.device import resolve_device
     from repro_torch.models import transformer2d as t2d
-    from repro_torch.models.lm import init_lm, lm_loss
+    from repro_torch.models.lm import init_lm, lm_loss, shard_lm_batch
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     spec = configs.get(args.arch)
     cfg = spec.config if args.full else spec.smoke
-    if args.mesh is not None and spec.family != "t2d":
-        raise SystemExit(f"--mesh for the {spec.family} family: not yet "
-                         f"ported")
     device = resolve_device(args.device)
     mesh = None
+    ran = "none (one rank)"
+    if args.mesh is not None:
+        from repro_torch.launch.mesh import make_mesh
+        dp, mp = (int(a) for a in args.mesh.split(","))
+        mesh = make_mesh((dp, mp), ("data", "model"), device.type)
+        # the parameter layouts (ZeRO, the vocab ring) are not ported: run
+        # the spec's plan with them off, and say so in the summary
+        plan = dataclasses.replace(spec.plan, zero=False, shard_vocab=False)
+        ran = (f"{plan} (the spec's {spec.plan} with zero and shard_vocab "
+               f"off)")
     if spec.family == "t2d":
         spatial = args.seq // 8 or 16
         psched = None
-        if args.mesh is not None:
-            from repro_torch.launch.mesh import make_mesh
-            dp, mp = (int(a) for a in args.mesh.split(","))
-            mesh = make_mesh((dp, mp), ("data", "model"), device.type)
+        if mesh is not None:
             psched = t2d.dsp_schedule(cfg, mp, t_len=8, s_len=spatial,
                                       batch=args.batch, topology=None,
                                       joint=True)
@@ -104,15 +111,23 @@ def main(argv=None):
             return batch if mesh is None else t2d.shard_video_batch(batch,
                                                                     mesh)
     else:
+        sharder = None
+        if mesh is not None:
+            from repro_torch.models.lm import dsp_schedule
+            from repro_torch.parallel.partition import make_sharder
+            sharder = make_sharder(mesh, plan, schedule=dsp_schedule(
+                cfg, mp, seq=args.seq, batch=args.batch, joint=True))
         params = init_lm(0, cfg, device=device)
         dcfg = DataConfig(task="lm_shift", vocab=cfg.vocab, seq=args.seq,
                           batch=args.batch)
 
         def loss_fn(p, b):
-            return lm_loss(p, b, cfg, backend="kernel")
+            return lm_loss(p, b, cfg, sharder=sharder, backend="kernel")
 
         def make(step):
-            return make_batch(dcfg, step, device=device)
+            batch = make_batch(dcfg, step, device=device)
+            return batch if sharder is None else shard_lm_batch(batch,
+                                                                sharder)
 
     def data_fn(step):
         batch = make(step)
@@ -136,6 +151,7 @@ def main(argv=None):
     # under PIPE_BUF bytes is not interleaved with another rank's
     sys.stdout.write(f"history: {out['history']}\n"
                      f"stragglers: {out['stragglers']}\n"
+                     f"plan {ran}\n"
                      f"loss {first:.4f} -> {last:.4f}\n")
     sys.stdout.flush()
     return out

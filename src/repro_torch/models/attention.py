@@ -5,6 +5,8 @@ Tensors are (B, S, C) at the block boundary; the kernel path uses
 (B, H, S, D).  Prefill goes through ``kernels.ops.flash_attention`` (the
 CUDA kernel on the card); decode attends over the cache with plain
 PyTorch (``_ref_decode``), as the JAX package does with jnp.
+``attention_sp`` with a ``parallel.partition.Sharder`` on a mesh runs the
+DSP-1D attention of a sequence-sharded rank (the LM's training path).
 
 Decode writes the new K/V into the cache tensors IN PLACE (the JAX package
 returns updated copies): at full width a copy of every layer's cache per
@@ -159,30 +161,112 @@ def _ref_decode(q, k, v, cfg: AttnConfig, pos, causal: bool):
     return o.reshape(b, h, sq, d).to(q.dtype)
 
 
-def attention_sp(p, x, cfg: AttnConfig, *, backend: str = "kernel",
+def attention_sp(p, x, cfg: AttnConfig, *, sharder=None,
+                 backend: str = "kernel", fused_switch: bool = True,
                  causal: bool = True,
                  x_kv: Optional[torch.Tensor] = None,
                  positions: Optional[torch.Tensor] = None,
                  return_kv: bool = False):
-    """The single-device body of the JAX package's DSP attention: project,
-    qk-norm, RoPE, then flash attention over the full sequence.  The
-    sequence-parallel switches come with the planner.  x: (B, S, C) ->
-    (B, S, C), plus the decode-cache K/V (B, Hkv, S, D) with ``return_kv``."""
+    """Attention under DSP-1D sequence parallelism: enter sequence-sharded,
+    dynamic-switch to head-sharded for the attention core, switch back.
+    x: (B, S, C) -> (B, S, C): on a mesh (``sharder``, a
+    ``parallel.partition.Sharder``) the rank's sequence shard, whose q and
+    k are rotated at their global positions.
+
+    ``fused_switch`` stacks q/k/v into ONE all-to-all (K/V only, beside q's
+    own, under GQA); unfused issues three (the Ulysses schedule).  When the
+    K/V heads undershoot the SP size they are repeated up to it first.
+    When the q heads do not divide the SP size, q stays sequence-sharded
+    and K/V are gathered whole (the ``kv_gather`` layout).  The output
+    switches back before ``wo``, whose contraction needs every head (JAX's
+    hook sits after ``wo``, where XLA moves it to).  ``return_kv`` (one
+    device) also returns the decode-cache K/V (B, Hkv, S, D)."""
     b, s, _ = x.shape
-    h, dh = cfg.n_heads, cfg.head_dim
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = _project(p, x, x if x_kv is None else x_kv, cfg)
+    on_mesh = sharder is not None and sharder.ctx is not None
+    if on_mesh and (x_kv is not None or return_kv):
+        raise NotImplementedError(
+            "cross-attention and the decode cache under a mesh come with "
+            "sharded serving (ROADMAP queue 1 item 5)")
     if cfg.rope and x_kv is None:
-        pos = (positions if positions is not None
-               else torch.arange(s, device=x.device))
-        q = L.apply_rope(q, pos, theta=cfg.rope_theta)
-        k = L.apply_rope(k, pos, theta=cfg.rope_theta)
-    q = q.transpose(1, 2).contiguous()
-    k = k.transpose(1, 2).contiguous()
-    v = v.transpose(1, 2).contiguous()
-    o = flash_attention(q, k, v, causal=causal and x_kv is None,
-                        window=cfg.window, softcap=cfg.softcap,
-                        scale=cfg.scale, backend=backend)
-    o = L.linear(p["wo"], o.transpose(1, 2).reshape(b, s, h * dh))
-    if return_kv:
-        return o, (k, v)
-    return o
+        if positions is None:
+            positions = torch.arange(s, device=x.device)
+            if on_mesh:
+                positions = positions + sharder.seq_offset(s)
+        q = L.apply_rope(q, positions, theta=cfg.rope_theta)
+        k = L.apply_rope(k, positions, theta=cfg.rope_theta)
+    is_causal = causal and x_kv is None
+    if not on_mesh:
+        q = q.transpose(1, 2).contiguous()
+        k = k.transpose(1, 2).contiguous()
+        v = v.transpose(1, 2).contiguous()
+        o = flash_attention(q, k, v, causal=is_causal, window=cfg.window,
+                            softcap=cfg.softcap, scale=cfg.scale,
+                            backend=backend)
+        o = L.linear(p["wo"], o.transpose(1, 2).reshape(b, s, h * dh))
+        if return_kv:
+            return o, (k, v)
+        return o
+
+    sp = sharder.sp_size
+    head_switch = sharder.wants_head_switch(h)
+    if head_switch and hkv < sp:
+        rep = (sp + hkv - 1) // hkv              # repeat K/V heads up to SP
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+        hkv *= rep
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))      # (B, H, S, D)
+    if not head_switch:
+        q = sharder.q_seq(q)
+        kv = sharder.kv_gathered(torch.stack([k, v]))      # ONE all-gather
+        o = chunked_attention(q, kv[0], kv[1], cfg, sharder=sharder,
+                              layout="kv_gather", causal=is_causal,
+                              backend=backend)
+        src = "resid"
+    else:
+        if fused_switch and h == hkv:
+            qkv = sharder.heads_stacked(torch.stack([q, k, v]))   # ONE a2a
+            q, k, v = qkv[0], qkv[1], qkv[2]
+        elif fused_switch:
+            q = sharder.heads_enter(q)
+            kv = sharder.heads_stacked(torch.stack([k, v]))
+            k, v = kv[0], kv[1]
+        else:                                    # Ulysses-style: 3 separate
+            q = sharder.heads_enter(q)
+            k = sharder.heads_enter(k)
+            v = sharder.heads_enter(v)
+        o = sharder.heads(chunked_attention(q, k, v, cfg, sharder=sharder,
+                                            layout="heads",
+                                            causal=is_causal,
+                                            backend=backend))
+        src = "mixer"
+    o = o.transpose(1, 2)
+    o = sharder.mixer_exit3(o.reshape(b, o.shape[1], -1), src=src)
+    return L.linear(p["wo"], o)
+
+
+def chunked_attention(q, k, v, cfg: AttnConfig, *, sharder, layout: str,
+                      causal: bool, backend: str = "kernel"):
+    """The rank's attention core on a mesh, through
+    ``kernels.ops.flash_attention`` (K1 on the card), which streams K/V
+    itself: JAX's query-chunked scan (``_local_chunked_attn``) keeps XLA's
+    score buffer small, which the kernel never materialises.
+
+    layout:
+      "heads"     q/k/v (B, H|Hkv, S, D) holding the rank's heads after the
+                  switch, the whole sequence: q_offset 0.
+      "kv_gather" q (B, H, S/n, D), the rank's queries, against K/V
+                  gathered whole: q_offset = the shard's first position
+                  (a Python int, so K1 takes it, where JAX's traced offset
+                  sends the body to its reference).
+    """
+    if layout == "heads":
+        q_offset = 0
+    elif layout == "kv_gather":
+        q_offset = sharder.seq_offset(q.shape[2])
+    else:
+        raise ValueError(layout)
+    return flash_attention(q, k, v, causal=causal, window=cfg.window,
+                           softcap=cfg.softcap, scale=cfg.scale,
+                           q_offset=q_offset, backend=backend)

@@ -5,9 +5,19 @@ path (prefill, decode, logits).
 Per-period layer parameters live under ``periods`` stacked on a leading
 ``n_periods`` dim, as in the JAX package, so a JAX parameter tree crosses
 over with no transpose (``repro_torch.bridge``).  The JAX ``lax.scan`` over
-periods is a Python loop here.  Attention, MLP and SSM layers are ported
-(SSM layers train; serving them comes with mamba2 serving); MoE layers
-come with their family.
+periods is a Python loop here.  Attention, MLP and SSM layers are ported;
+MoE layers come with their family.
+
+Training runs under DSP through a ``parallel.partition.Sharder``
+(``forward``/``lm_loss(sharder=...)``): the model calls the sharder's
+hooks at its stage boundaries, and WHICH dim each stage shards comes from
+the planned switching schedule (``stages``/``dsp_schedule`` ->
+``core.plan`` solver), attached to the sharder at the top of each forward.
+On a ``("data", "model")`` mesh the rank holds its batch slice and its
+sequence shard (``shard_lm_batch``); the residual stream stays
+sequence-sharded, each attention core and SSD scan runs on the rank's
+heads after one switch and switches back (``collective_contract`` counts
+what a forward issues).  Serving runs on one device.
 """
 from __future__ import annotations
 
@@ -15,12 +25,17 @@ import dataclasses
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
+from repro_torch.core import dsp
+from repro_torch.core.plan import Stage
+from repro_torch.core.schedule import (Schedule, plan_joint_schedule,
+                                       plan_schedule)
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
+from repro_torch.parallel.partition import Sharder, null_sharder
 
 
 # ---------------------------------------------------------------------------
@@ -162,6 +177,89 @@ def unstack(tree, n: int) -> List[Any]:
 
 
 # ---------------------------------------------------------------------------
+# DSP stage declaration + planned switching schedule
+# ---------------------------------------------------------------------------
+
+def stages(cfg: LMConfig, *, seq: Optional[int] = None,
+           batch: Optional[int] = None) -> List[Stage]:
+    """Declare the model's stage sequence on the logical (B, S, H·Dh) view
+    for the switching planner: channel-wise stages (projections, norms,
+    FFN) compute along dim 2, the mixer cores (attention softmax / SSD
+    scan) along dim 1 — DSP-1D, where the "second sequence dim" is the
+    head or channel axis.  With extents given, stages carry global shapes
+    so the planner prices transitions in bytes; the gradients crossing the
+    boundaries backward are priced at the activation dtype (JAX's
+    ``grad_dtype_bytes``, which no caller sets, is not ported)."""
+    specs = cfg.period_specs()
+    shape = (batch, seq, cfg.d_model) if None not in (seq, batch) else None
+    db = cfg.dtype.itemsize
+    out: List[Stage] = []
+    for layer in range(cfg.n_layers):
+        spec = specs[layer % len(specs)]
+        out.append(Stage(frozenset({2}), f"L{layer}.proj", shape, db))
+        out.append(Stage(frozenset({1}), f"L{layer}.{spec.mixer}", shape, db))
+        if spec.ffn != "none":
+            out.append(Stage(frozenset({2}), f"L{layer}.{spec.ffn}", shape,
+                             db))
+    return out
+
+
+def stage_period(cfg: LMConfig) -> int:
+    """Stages per layer period."""
+    return sum(2 if s.ffn == "none" else 3 for s in cfg.period_specs())
+
+
+def dsp_schedule(cfg: LMConfig, n: int, *, seq: Optional[int] = None,
+                 batch: Optional[int] = None, joint: bool = False,
+                 bwd_dims=None) -> Schedule:
+    """Solve the switching plan (enter sequence-sharded from the dataloader
+    split, return to it for the loss) and validate it is periodic with the
+    layer period.  The plan is priced in bytes: JAX's ``topology`` comes
+    with the port's link constants.  ``joint=True`` plans the backward too
+    (``core.plan.plan_joint``), falling back to the mirrored plan when the
+    joint one is not periodic.
+    ``bwd_dims`` forces a backward plan (one period or every stage), as
+    JAX's parity tests do; the hooks run the mirrored backward only, so
+    ``make_sharder`` refuses a forced non-mirrored one.  JAX's ``overlap``
+    comes with ROADMAP queue 1 item 2."""
+    st = stages(cfg, seq=seq, batch=batch)
+    period = stage_period(cfg)
+    kw = dict(n=max(n, 1), initial=1, final=1)
+    if joint:
+        sched = plan_joint_schedule(st, (1, 2), **kw)
+        try:
+            sched.periodic(period)
+        except ValueError:
+            sched = plan_joint_schedule(st, (1, 2), require_mirrored=True,
+                                        **kw)
+    else:
+        sched = plan_schedule(st, (1, 2), **kw)
+    if bwd_dims is not None:
+        bwd_dims = tuple(bwd_dims)
+        if len(bwd_dims) == period:
+            bwd_dims = bwd_dims * (len(st) // period)
+        if len(bwd_dims) != len(st):
+            raise ValueError(
+                f"bwd_dims must cover one period ({period} stages) or the "
+                f"full plan ({len(st)} stages); got {len(bwd_dims)}")
+        sched = dataclasses.replace(sched, bwd_dims=bwd_dims)
+    sched.periodic(period)     # a steady state on both legs
+    return sched
+
+
+def _with_planned_schedule(sharder: Sharder, cfg: LMConfig, seq: int,
+                           batch: int) -> Sharder:
+    """Attach the planned schedule when running DSP on a mesh and none was
+    given: the plan, not the model, decides the stage layouts, priced in
+    bytes.  ``seq`` and ``batch`` are global."""
+    if (sharder.ctx is None or sharder.plan.mode != "dsp"
+            or sharder.schedule is not None):
+        return sharder
+    return sharder.with_schedule(
+        dsp_schedule(cfg, sharder.sp_size, seq=seq, batch=batch))
+
+
+# ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
@@ -269,45 +367,81 @@ def param_counts(cfg: LMConfig) -> Dict[str, int]:
 # Training: forward and loss
 # ---------------------------------------------------------------------------
 
-def _apply_layer(p, x, cfg: LMConfig, spec: LayerSpec, backend: str):
+def _apply_layer(p, x, cfg: LMConfig, spec: LayerSpec, sharder: Sharder,
+                 backend: str, fused_switch: bool):
     h = _apply_norm(cfg, p["ln1"], x)
     if spec.mixer == "attn":
         h = A.attention_sp(p["attn"], h, cfg.attn_cfg(spec.window),
-                           backend=backend, causal=True)
+                           sharder=sharder, backend=backend,
+                           fused_switch=fused_switch, causal=True)
     else:
-        h = S.ssm_block(p["ssm"], h, cfg.ssm_cfg, backend=backend)
+        # ssm_block switches back itself: the mixer exit is a keep here
+        h = sharder.mixer_exit3(
+            S.ssm_block(p["ssm"], h, cfg.ssm_cfg, backend=backend,
+                        sharder=sharder), src="resid")
     if cfg.post_norm:
         h = _apply_norm(cfg, p["pn1"], h)
-    return _ffn_block(p, x + h, cfg, spec)
+    x = _ffn_block(p, x + h, cfg, spec, sharder)
+    # layer exit: a resid-stage boundary either way (after the FFN, or
+    # after the mixer's switch back in an ffn-less layer)
+    return sharder.act3(x)
 
 
-def forward(params, tokens, cfg: LMConfig, *, backend: str = "kernel",
-            remat: bool = True):
-    """tokens: (B, S) -> final hidden states (B, S, C).  ``remat``
-    checkpoints each period and recomputes it in the backward (JAX's
-    ``remat_policy="full"``), so the backward runs every period's forward
-    once more.  The JAX forward's MoE load-balance aux comes with MoE."""
+def sharded_embed(params, tokens, cfg: LMConfig, sharder: Sharder):
+    """The embedding of the rank's tokens, in their layout (the sequence
+    shard on a mesh): a local lookup in the whole table.  JAX's
+    ``shard_vocab`` ring, a table sharded over the model axis, comes with
+    the parameter layouts (``make_sharder`` refuses it on a mesh)."""
+    return L.embed(params["embed"], tokens, scale_by_sqrt_dim=cfg.embed_scale)
+
+
+def forward(params, tokens, cfg: LMConfig, *, sharder: Optional[Sharder] = None,
+            backend: str = "kernel", remat: bool = True,
+            fused_switch: bool = True):
+    """tokens: (B, S) -> final hidden states (B, S, C).  With ``sharder`` on
+    a mesh both are the rank's shard (``shard_lm_batch``): its batch slice
+    and sequence chunk.  ``remat`` checkpoints each period and recomputes
+    it in the backward (JAX's ``remat_policy="full"``), its collectives
+    included, so the backward runs every period's forward once more.
+    ``fused_switch`` is ``attention_sp``'s.  The JAX forward's MoE
+    load-balance aux comes with MoE."""
+    sharder = sharder or null_sharder()
+    sharder = _with_planned_schedule(
+        sharder, cfg, seq=tokens.shape[1] * sharder.seq_shards,
+        batch=tokens.shape[0] * sharder.dp_size)
     specs = cfg.period_specs()
-    x = L.embed(params["embed"], tokens, scale_by_sqrt_dim=cfg.embed_scale)
+    x = sharder.enter3(sharded_embed(params, tokens, cfg, sharder))
 
     def period_body(x, pp):
+        x = sharder.wrap3(x)
         for j, spec in enumerate(specs):
-            x = _apply_layer(pp[str(j)], x, cfg, spec, backend)
+            x = _apply_layer(pp[str(j)], x, cfg, spec, sharder, backend,
+                             fused_switch)
         return x
 
     for pp in unstack(params["periods"], cfg.n_periods):
         if remat:
-            x = checkpoint(period_body, x, pp, use_reentrant=False)
+            # no early stop: the recompute reissues every collective of the
+            # period, the last one too, on every rank alike
+            with set_checkpoint_early_stop(False):
+                x = checkpoint(period_body, x, pp, use_reentrant=False)
         else:
             x = period_body(x, pp)
     return _apply_norm(cfg, params["final_norm"], x)
 
 
-def chunked_xent(x, table, labels, cfg: LMConfig, *, chunk: int = 512):
+def chunked_xent(x, table, labels, cfg: LMConfig, *, chunk: int = 512,
+                 sharder: Optional[Sharder] = None):
     """Mean cross-entropy without materialising (B, S, V): a loop over S
     chunks, each checkpointed so its logits are recomputed in the
-    backward.  Logits are a matmul in the model dtype, upcast to f32."""
+    backward.  Logits are a matmul in the model dtype, upcast to f32.  On
+    a mesh x and labels are the rank's shard: it sums its own tokens and
+    divides by the GLOBAL token count, so the sum over ranks is the mean."""
     b, s, _ = x.shape
+    n_tok = b * s
+    if sharder is not None:
+        x, labels = sharder.xent_chunks(x), sharder.xent_chunks(labels)
+        n_tok *= sharder.dp_size * sharder.seq_shards
     chunk = min(chunk, max(s, 1))
     while s % chunk:
         chunk //= 2
@@ -324,17 +458,112 @@ def chunked_xent(x, table, labels, cfg: LMConfig, *, chunk: int = 512):
         total = total + checkpoint(one, x[:, i:i + chunk],
                                    labels[:, i:i + chunk],
                                    use_reentrant=False)
-    return total / (b * s)
+    return total / n_tok
 
 
-def lm_loss(params, batch, cfg: LMConfig, *, backend: str = "kernel",
-            remat: bool = True):
-    """batch {"tokens", "labels"}: (B, S) -> (loss, {"xent": loss})."""
-    x = forward(params, batch["tokens"], cfg, backend=backend, remat=remat)
+def lm_loss(params, batch, cfg: LMConfig, *, sharder: Optional[Sharder] = None,
+            backend: str = "kernel", remat: bool = True,
+            fused_switch: bool = True):
+    """batch {"tokens", "labels"}: (B, S) -> (loss, {"xent": loss}).  With
+    ``sharder`` on a mesh the batch is the rank's shard and the loss its
+    share of the global mean: summed over the world (the trainer's
+    all-reduce) it is the mean."""
+    x = forward(params, batch["tokens"], cfg, sharder=sharder,
+                backend=backend, remat=remat, fused_switch=fused_switch)
     table = (params["embed"]["table"] if cfg.tie_embeddings
              else params["unembed"]["table"])
-    loss = chunked_xent(x, table, batch["labels"], cfg)
+    loss = chunked_xent(x, table, batch["labels"], cfg, sharder=sharder)
     return loss, {"xent": loss}
+
+
+def shard_lm_batch(batch: Dict[str, torch.Tensor], sharder: Sharder):
+    """The rank's shard of a global (B, S) batch, as every rank of the
+    mesh draws the same one: its slice of the batch over the data dims,
+    then its sequence chunk over ``model`` (``dsp.dsp_shard_batch``, the
+    paper's dataloader split)."""
+    ctx = sharder.ctx
+    local = {k: dsp.shard(v, 0, ctx.dp_size, ctx.dp_index)
+             for k, v in batch.items()}
+    return dsp.dsp_shard_batch(local, 1, ctx.sp_group)
+
+
+def collective_contract(cfg: LMConfig, n: int, batch: int, seq: int, *,
+                        fused_switch: bool = True
+                        ) -> Dict[str, Dict[str, int]]:
+    """The ``torch.distributed`` calls one forward issues per rank of a
+    mesh with ``n`` ranks on ``model``, by kind, and their bytes
+    (``core.dsp.volume``'s rule), for a local batch of ``batch`` x ``seq``
+    tokens (the rank's shard), under DSP's planned layouts (resid on the
+    sequence, mixer on heads/channels: what ``make_sharder`` runs):
+
+      attention, head switch, h == hkv (after the K/V repeat): 1
+        all-to-all in (stacked q/k/v) and 1 out;
+      attention, head switch, GQA, fused: 2 in (q, stacked k/v) and 1 out;
+      attention, head switch, unfused: 3 in and 1 out;
+      attention, kv_gather (heads do not divide n): 1 all-gather;
+      SSM: 1 permute (the conv's halo; none at n = 1), 2 all-gathers (B,
+        C), 2 all-to-alls in (x, dt) and 1 out;
+      embedding, norms, MLP and the loss: none.
+
+    A training step with ``remat`` issues ``remat_step`` of it, and the
+    trainer adds one all-reduce."""
+    calls: Dict[str, int] = {}
+    nbytes: Dict[str, int] = {}
+    s = seq * n                                   # the whole sequence
+    a_bytes = cfg.dtype.itemsize
+
+    def add(kind, elems, width=a_bytes):
+        calls[kind] = calls.get(kind, 0) + 1
+        nbytes[kind] = nbytes.get(kind, 0) + elems * width
+
+    for layer in range(cfg.n_layers):
+        spec = cfg.period_specs()[layer % len(cfg.period_specs())]
+        if spec.mixer == "attn":
+            h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+            if h % n:                             # kv_gather
+                add("all-gather", 2 * batch * hkv * s * dh)
+                continue
+            if hkv < n:
+                hkv *= (n + hkv - 1) // hkv
+            per_head = batch * s * dh // n         # one head's shard
+            if fused_switch and h == hkv:
+                add("all-to-all", 3 * h * per_head)
+            elif fused_switch:
+                add("all-to-all", h * per_head)
+                add("all-to-all", 2 * hkv * per_head)
+            else:
+                add("all-to-all", h * per_head)
+                add("all-to-all", hkv * per_head)
+                add("all-to-all", hkv * per_head)
+            add("all-to-all", h * per_head)
+        else:
+            sc = cfg.ssm_cfg
+            d_xbc = sc.d_inner + 2 * sc.n_groups * sc.d_state
+            if n > 1:
+                add("collective-permute", batch * (sc.d_conv - 1) * d_xbc)
+            add("all-to-all", batch * s * sc.d_inner // n)
+            add("all-gather", batch * s * sc.n_groups * sc.d_state)
+            add("all-gather", batch * s * sc.n_groups * sc.d_state)
+            add("all-to-all", batch * s * sc.n_heads // n, width=4)
+            add("all-to-all", batch * s * sc.d_inner // n)
+    return {"calls": calls, "bytes": nbytes}
+
+
+def remat_step(contract: Dict[str, Dict[str, int]]
+               ) -> Dict[str, Dict[str, int]]:
+    """One forward's ``collective_contract`` -> the calls and bytes of a
+    training step's loss and grads with ``remat``: the forward's twice
+    (forward, recompute) and each one's transpose once, a switch's and a
+    permute's one more of their kind, a gather's a reduce-scatter of the
+    same bytes.  The trainer's all-reduce is not in it."""
+    out = {}
+    for part, fwd in contract.items():
+        step = {k: 3 * v for k, v in fwd.items() if k != "all-gather"}
+        if "all-gather" in fwd:
+            step["all-gather"] = 2 * fwd["all-gather"]
+            step["reduce-scatter"] = fwd["all-gather"]
+        out[part] = step
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -377,10 +606,13 @@ def logits_fn(params, x, cfg: LMConfig):
     return L.softcap_logits(x @ table.t(), cfg.final_softcap)
 
 
-def _ffn_block(p, x, cfg: LMConfig, spec: LayerSpec):
+def _ffn_block(p, x, cfg: LMConfig, spec: LayerSpec,
+               sharder: Optional[Sharder] = None):
     if spec.ffn == "none":
         return x
     h = L.mlp(p["mlp"], _apply_norm(cfg, p["ln2"], x), cfg.mlp_kind)
+    if sharder is not None:
+        h = sharder.act3(h)
     if cfg.post_norm:
         h = _apply_norm(cfg, p["pn2"], h)
     return x + h

@@ -3,8 +3,14 @@
 Structure per block: in_proj -> (z | x | B | C | dt); short causal
 depthwise conv over (x|B|C); the SSD scan (``kernels.ops.ssd_scan``: the
 CUDA kernel on the card, its plain version on the CPU); gated RMSNorm;
-out_proj.  One device, so the JAX block's DSP switches around the scan
-(plan ``none``) are no-ops and are left out.
+out_proj.
+
+DSP (``sharder``, a ``parallel.partition.Sharder`` on a mesh): the block
+is entered sequence-sharded; the scan computes along L and is
+independent across heads, so its operands switch to head-sharded (one
+all-to-all each for x and dt), the B/C groups are gathered whole, and
+the output switches back.  The causal conv needs the previous rank's last
+``d_conv - 1`` inputs, which one permute brings (``Sharder.seq_halo``).
 
 Serving: ``ssm_block(return_cache=True)`` (prefill) also returns the
 decode cache {conv, state}; ``ssm_decode_step`` advances it by one token
@@ -22,6 +28,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import ssd_scan
 from repro_torch.kernels.ref import ssd_final_state
 from repro_torch.models import layers as L
+from repro_torch.parallel.partition import null_sharder
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,40 +78,79 @@ def _split_proj(cfg: SSMConfig, zxbcdt):
     return z, xbc, dt
 
 
-def _causal_conv(cfg: SSMConfig, p, xbc):
-    """Depthwise causal conv along L.  xbc: (B, L, D_xbc)."""
+def _causal_conv(cfg: SSMConfig, p, xbc, left=None):
+    """Depthwise causal conv along L.  xbc: (B, L, D_xbc); ``left`` holds
+    the ``d_conv - 1`` inputs before xbc's first (zeros when None)."""
     w = p["conv_w"].to(xbc.dtype)                        # (K, D)
     k = cfg.d_conv
-    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    pad = (F.pad(xbc, (0, 0, k - 1, 0)) if left is None
+           else torch.cat([left.to(xbc.dtype), xbc], dim=1))
     out = sum(pad[:, i:i + xbc.shape[1], :] * w[i] for i in range(k))
     return F.silu(out + p["conv_b"].to(xbc.dtype))
 
 
-def ssm_block(p, x, cfg: SSMConfig, *, backend: str = "kernel",
-              return_cache: bool = False):
-    """x: (B, L, d_model) -> (B, L, d_model) [, cache].
+def _local_groups(bmat, cmat, h: int, h0: int, hl: int):
+    """The B/C groups (B, L, G, S) of heads ``[h0, h0 + hl)``, laid out so
+    that local head j reads its global head's group, as the scan maps
+    heads to groups (j // (heads / groups)): a slice of whole groups when
+    the heads hold whole groups, the one group when they lie inside one,
+    else one group per head."""
+    hpg = h // bmat.shape[2]                 # heads per group
+    if hl % hpg == 0 and h0 % hpg == 0:
+        sl = slice(h0 // hpg, (h0 + hl) // hpg)
+    elif hpg % hl == 0:
+        sl = slice(h0 // hpg, h0 // hpg + 1)
+    else:
+        idx = torch.arange(h0, h0 + hl, device=bmat.device) // hpg
+        return bmat[:, :, idx], cmat[:, :, idx]
+    return bmat[:, :, sl], cmat[:, :, sl]
 
-    ``return_cache`` (prefill) also returns {"conv", "state"} for decode.
-    JAX takes y and the state from the sequential ``ssd_ref`` there, since
-    its kernel does not emit the state; here y stays on ``ops.ssd_scan``
-    (the kernel on the card) and the state comes from ``ssd_final_state``,
-    the same function as one contraction.  ``conv`` holds the last
-    ``d_conv - 1`` conv inputs, zeros on the left of a shorter prompt: what
-    decoding the prompt token by token from a zero cache leaves."""
-    b, l, _ = x.shape
+
+def ssm_block(p, x, cfg: SSMConfig, *, backend: str = "kernel",
+              sharder=None, return_cache: bool = False):
+    """x: (B, L, d_model) -> (B, L, d_model) [, cache]; on a mesh the
+    rank's sequence shard.
+
+    Under DSP the scan runs on the rank's H/n heads: ``a_log`` and
+    ``d_skip`` are sliced to them (``dt_bias`` is added before the switch,
+    on every head), and K2 sees their groups (``_local_groups``).
+
+    ``return_cache`` (prefill, one device) also returns {"conv", "state"}
+    for decode.  JAX takes y and the state from the sequential ``ssd_ref``
+    there, since its kernel does not emit the state; here y stays on
+    ``ops.ssd_scan`` (the kernel on the card) and the state comes from
+    ``ssd_final_state``, the same function as one contraction.  ``conv``
+    holds the last ``d_conv - 1`` conv inputs, zeros on the left of a
+    shorter prompt: what decoding the prompt token by token from a zero
+    cache leaves."""
+    b = x.shape[0]
     di, g, s, h, ph = (cfg.d_inner, cfg.n_groups, cfg.d_state, cfg.n_heads,
                        cfg.head_dim)
+    sharder = sharder or null_sharder()
+    if return_cache and sharder.ctx is not None:
+        raise NotImplementedError("the decode cache under a mesh comes with "
+                                  "sharded serving (ROADMAP queue 1 item 5)")
     zxbcdt = L.linear(p["in_proj"], x)
     z, xbc_raw, dt = _split_proj(cfg, zxbcdt)
-    xbc = _causal_conv(cfg, p, xbc_raw)
-    xs = xbc[..., :di].reshape(b, l, h, ph)
-    bmat = xbc[..., di:di + g * s].reshape(b, l, g, s)
-    cmat = xbc[..., di + g * s:].reshape(b, l, g, s)
-    dt = F.softplus(dt.float() + p["dt_bias"]).to(xs.dtype)
-    a = -torch.exp(p["a_log"])
-    y = ssd_scan(xs, dt, a, bmat, cmat, p["d_skip"], chunk=cfg.chunk,
-                 backend=backend)
-    y = y.reshape(b, l, di) * F.silu(z)
+    xbc = _causal_conv(cfg, p, xbc_raw,
+                       sharder.seq_halo(xbc_raw, cfg.d_conv - 1))
+    # planned DSP switch: seq-shard -> channel-shard (one all-to-all)
+    xs = sharder.mixer3(xbc[..., :di], src="resid")
+    bmat = sharder.replicated(xbc[..., di:di + g * s])    # whole groups
+    cmat = sharder.replicated(xbc[..., di + g * s:])
+    dt = sharder.mixer3(F.softplus(dt.float() + p["dt_bias"]), src="resid")
+    l = xs.shape[1]
+    h0, hl = sharder.mixer_slice(h)
+    xs = xs.reshape(b, l, hl, ph)
+    dt = dt.to(xs.dtype)
+    bl, cl = _local_groups(bmat.reshape(b, l, g, s), cmat.reshape(b, l, g, s),
+                           h, h0, hl)
+    a = -torch.exp(p["a_log"][h0:h0 + hl])
+    y = ssd_scan(xs, dt, a, bl, cl, p["d_skip"][h0:h0 + hl],
+                 chunk=cfg.chunk, backend=backend)
+    y = sharder.mixer3(y.reshape(b, l, hl * ph), src="mixer")
+    # planned DSP switch back: channel-shard -> seq-shard
+    y = sharder.scan_out3(y) * F.silu(z)
     y = L.rms_norm(p["norm"], y)
     out = L.linear(p["out_proj"], y)
     if not return_cache:
@@ -112,7 +158,7 @@ def ssm_block(p, x, cfg: SSMConfig, *, backend: str = "kernel",
     k = cfg.d_conv - 1
     conv = F.pad(xbc_raw, (0, 0, max(k - l, 0), 0))[:, -k:]
     return out, {"conv": conv,
-                 "state": ssd_final_state(xs, dt, a, bmat, cmat)}
+                 "state": ssd_final_state(xs, dt, a, bl, cl)}
 
 
 # ---------------------------------------------------------------------------

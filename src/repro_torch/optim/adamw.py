@@ -61,38 +61,53 @@ def global_norm(tree) -> torch.Tensor:
                           for g in tree_leaves(tree)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """Returns (grads scaled to norm <= max_norm, in f32; the norm), with
-    no host sync: the scale stays on the device."""
+def clip_scale(grads, max_norm: float):
+    """(the factor that scales ``grads`` to a global norm <= max_norm, the
+    norm), with no host sync: both stay on the device."""
     norm = global_norm(grads)
-    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    return tree_map(lambda g: g.float() * scale, grads), norm
+    return torch.clamp(max_norm / (norm + 1e-9), max=1.0), norm
+
+
+# elements of one leaf the update takes at a time: its f32 temporaries stay
+# a few pieces in size however large the leaf (a 151936 x 5120 table holds
+# 778 M elements)
+UPDATE_PIECE = 1 << 26
 
 
 @torch.no_grad()
 def apply_adamw(params, grads, state, cfg: OptConfig):
-    """One AdamW step, in place.  Returns (params, state, metrics)."""
+    """One AdamW step, in place.  Returns (params, state, metrics).  The
+    clip scale multiplies each f32 grad as the update reaches it, and each
+    leaf is updated in pieces of ``UPDATE_PIECE`` elements, so no f32 copy
+    of a whole leaf or of the tree is held: the same elementwise
+    arithmetic, in less memory."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
     gnorm = torch.zeros(())
+    scale = None
     if cfg.grad_clip is not None:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+        scale, gnorm = clip_scale(grads, cfg.grad_clip)
     b1c = 1.0 - cfg.b1 ** step
     b2c = 1.0 - cfg.b2 ** step
     ref = state.get("master", params)
-    for p, r, g, m, v in zip(tree_leaves(params), tree_leaves(ref),
-                             tree_leaves(grads), tree_leaves(state["m"]),
-                             tree_leaves(state["v"])):
-        g = g.float()
-        mf = cfg.b1 * m.float() + (1 - cfg.b1) * g
-        vf = cfg.b2 * v.float() + (1 - cfg.b2) * torch.square(g)
-        m.copy_(mf)
-        v.copy_(vf)
-        pf = r.float()
-        pf = pf - lr * (m.float() / b1c / (torch.sqrt(v.float() / b2c)
-                                           + cfg.eps) + cfg.weight_decay * pf)
-        r.copy_(pf)
-        if r is not p:
-            p.copy_(pf)
+    for leaf in zip(tree_leaves(params), tree_leaves(ref),
+                    tree_leaves(grads), tree_leaves(state["m"]),
+                    tree_leaves(state["v"])):
+        master = leaf[1] is not leaf[0]
+        flat = [t.view(-1) if i != 2 else t.reshape(-1)
+                for i, t in enumerate(leaf)]
+        for p, r, g, m, v in zip(*(t.split(UPDATE_PIECE) for t in flat)):
+            g = g.float() if scale is None else g.float() * scale
+            mf = cfg.b1 * m.float() + (1 - cfg.b1) * g
+            vf = cfg.b2 * v.float() + (1 - cfg.b2) * torch.square(g)
+            m.copy_(mf)
+            v.copy_(vf)
+            pf = r.float()
+            pf = pf - lr * (m.float() / b1c / (torch.sqrt(v.float() / b2c)
+                                               + cfg.eps)
+                            + cfg.weight_decay * pf)
+            r.copy_(pf)
+            if master:
+                p.copy_(pf)
     state["step"] = step
     return params, state, {"lr": lr, "grad_norm": gnorm}

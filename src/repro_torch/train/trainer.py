@@ -5,8 +5,8 @@ loss and grads through ``torch.autograd``, optional gradient accumulation
 over a leading microbatch dim, then AdamW.  With a mesh, each rank's loss
 and grads are its shard's share of the global mean's (``t2d_loss`` with
 ``mesh=``), and one all-reduce of one flattened f32 bucket sums them over
-the whole world before clipping and AdamW, so ``clip_by_global_norm`` sees
-the global gradient and the logged loss is the global one.  ``Trainer``
+the whole world before clipping and AdamW, so the clip (``clip_scale``)
+sees the global gradient and the logged loss is the global one.  ``Trainer``
 owns the host loop: deterministic data from a step-indexed ``data_fn``, a
 step-time EMA watchdog that flags stragglers, and the loss history.
 
@@ -42,13 +42,16 @@ class TrainerConfig:
 
 def allreduce_grads(loss: torch.Tensor, grads):
     """Sum the loss and every gradient over the whole world in one
-    all-reduce of one flattened f32 bucket; returns (loss, grads) with the
-    grads as f32 views of the bucket."""
-    leaves = tree_leaves(grads)
-    bucket = torch.cat([g.reshape(-1).float() for g in leaves]
-                       + [loss.reshape(1).float()])
+    all-reduce of one flattened f32 bucket, each grad copied into its
+    slice (no f32 copy of the tree beside it); returns (loss, grads) with
+    the grads as f32 views of the bucket."""
+    leaves = tree_leaves(grads) + [loss.reshape(1)]
+    sizes = [g.numel() for g in leaves]
+    bucket = torch.empty(sum(sizes), dtype=torch.float32, device=loss.device)
+    for part, g in zip(bucket.split(sizes), leaves):
+        part.copy_(g.reshape(-1))
     dsp.all_reduce(bucket)
-    parts = iter(bucket.split([g.numel() for g in leaves] + [1]))
+    parts = iter(bucket.split(sizes))
     grads = tree_map(lambda g: next(parts).view(g.shape), grads)
     return next(parts)[0], grads
 

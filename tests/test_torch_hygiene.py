@@ -33,7 +33,8 @@ for want in ("repro_torch.serving.scheduler", "repro_torch.train.trainer",
              "repro_torch.launch.mesh", "repro_torch.core.overlap",
              "repro_torch.core.ring", "repro_torch.core.ulysses",
              "repro_torch.core.megatron_sp", "repro_torch.core.layout",
-             "repro_torch.analysis.roofline"):
+             "repro_torch.analysis.roofline",
+             "repro_torch.parallel.partition"):
     assert want in mods, (want, mods)
 from repro_torch.core.schedule import ScheduleExecutor2D
 from repro_torch.models.transformer2d import (
@@ -60,7 +61,8 @@ assert not bad, bad
 
 @pytest.mark.parametrize("worker", ["_torch_dsp_worker.py",
                                     "_torch_sp_worker.py",
-                                    "_torch_l2d_worker.py"])
+                                    "_torch_l2d_worker.py",
+                                    "_torch_lmdsp_worker.py"])
 def test_gloo_workers_import_no_jax_and_no_repro(worker):
     """The port's side of each multi-process check (a gloo rank) loads, with
     the helpers it shares with its JAX side, nothing of JAX or of the JAX

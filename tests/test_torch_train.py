@@ -390,7 +390,7 @@ def test_train_cli_on_cpu(capsys):
 
 @pytest.mark.parametrize("flag", [["--ckpt-dir", "x"], ["--resume"],
                                   ["--replan", "2"], ["--devices", "4"],
-                                  ["--mesh", "2,2"], ["--grad-compress"]])
+                                  ["--grad-compress"]])
 def test_train_cli_unported_flags_exit(flag):
     from repro_torch.launch.train import main
     with pytest.raises(SystemExit, match="not yet ported"):
