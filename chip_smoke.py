@@ -21,7 +21,9 @@ Phases, in order; any failure raises and exits non-zero:
    folded patches, 16 heads, the frames) and a ragged length; and both at
    the shapes a rank of phase 16 (b) gives them, bf16 on ``sm90``: K1 on
    qwen3-14b's 10 q and 2 K/V heads over 4096 tokens, K2 on mamba2-370m's
-   8 heads (``LM_RANK_ATTN``, ``LM_RANK_SSD``);
+   8 heads (``LM_RANK_ATTN``, ``LM_RANK_SSD``); and at the shapes a rank
+   of phase 17 (b)'s (2, 2) mesh gives them: K1 on 20 q and 4 K/V heads,
+   K2 on 16 heads (``LM_ZERO_ATTN``, ``LM_ZERO_SSD``);
 4. time each kernel, its plain version and, where one exists, one PyTorch
    library call that computes the same function (a yardstick the port
    never calls); K1's routed kernel and the library call three times each
@@ -142,13 +144,34 @@ Phases, in order; any failure raises and exits non-zero:
     depth (phase 7's bars), and per rank exactly the contract's calls and
     bytes, K1 on 10 of 40 q and 2 of 8 K/V heads and K2 on 8 of 32 heads,
     twice a layer, all ``sm90``;
-17. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
+17. qwen3-14b and mamba2-370m under their specs' own plans
+    (``ParallelPlan(mode="dsp", zero=True, shard_vocab=True)``): the
+    parameters laid out by ``param_pspecs`` and cut to each rank's slices
+    (``shard_params``; ZeRO-3 over ``("data", "model")`` flattened, the
+    embedding tables over ``model``), gathered where the model reads them,
+    the embedding through the vocab ring, AdamW's state made from the
+    slices: (a) at world size 1 over NCCL, phase 16 (a)'s runs again: the
+    losses must equal phase 16 (a)'s within 1e-4 relative, the calls and
+    bytes must be exactly the hooks' contract plus ``lm.param_contract``
+    each step (``zero_contract``), K1 must launch 32 times and K2 192, all
+    ``sm90``; step time and peak memory logged beside phase 16 (a)'s; (b)
+    4 processes sharing the card over gloo, each this script with
+    ``--zero-rank``: qwen3-14b at depth 2 and mamba2-370m at depth 4 on a
+    (2, 2) mesh at 2 x 4096 tokens, qwen3-14b at depth 2 on (1, 4) at 1 x
+    4096 (the ring over 4): one loss and its grads gathered from the
+    slices against (a)'s path at the same depth and batch (phase 7's
+    bars), the clip's norm within 1e-3; per rank exactly the contract's
+    calls and bytes, K1 and K2 twice a layer at the rank's head counts,
+    all ``sm90``; one Trainer step on qwen3 at (1, 4) and mamba2 at (2,
+    2) with the contract's calls and a grad norm within 1e-3 of world 1's;
+    each rank's peak memory logged;
+18. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
     counts over the paths above (K1 320 + 32 + 224 + 224 + phase 14's
     training runs, 112 per mode, 56 for ring and hybrid, + phase 15 (a)'s
-    28 + phase 16 (a)'s 32; K2 576 + 384 + phase 16 (a)'s 192) and whose
-    ``launches_by_route`` split that sum by the route each launch took
-    (every one ``sm90``), then the last line ``{"ok": true, "device":
-    {...}}``.
+    28 + phase 16 (a)'s 32 + phase 17 (a)'s 32; K2 576 + 384 + phase 16
+    (a)'s 192 + phase 17 (a)'s 192) and whose ``launches_by_route`` split
+    that sum by the route each launch took (every one ``sm90``), then the
+    last line ``{"ok": true, "device": {...}}``.
 
 Each phase's header logs the seconds since the start, and every time
 logged carries the card's name and power limit.
@@ -191,11 +214,12 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import transformer2d as t2d  # noqa: E402
 from repro_torch.optim.adamw import OptConfig  # noqa: E402
 from repro_torch.parallel.partition import (  # noqa: E402
-    ParallelPlan, make_sharder)
+    ParallelPlan, gather_params, make_sharder, mesh_sizes, param_pspecs,
+    shard_params)
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 from repro_torch.serving.scheduler import ContinuousScheduler  # noqa: E402
 from repro_torch.train.trainer import (  # noqa: E402
-    Trainer, TrainerConfig, allreduce_grads)
+    Trainer, TrainerConfig, allreduce_grads, slices_norm)
 
 # published H100 SXM peaks (NVIDIA data sheet, dense)
 PEAK_BF16_FLOPS = 989e12
@@ -303,6 +327,25 @@ LM_RANK_SSD = (1, TRAIN_SEQ, _M.n_heads // DSP_RANKS, _M.head_dim,
                _M.n_groups, _M.d_state, _M.chunk)
 # grads summed over the gloo ranks in f32 pieces of this many elements
 LM_REDUCE_PIECE = 1 << 26
+# the ZeRO phase: the LM family under its specs' own plans (ZeRO-3 over
+# ("data", "model"), the vocab ring): phase 16 (a)'s training again at
+# world size 1 over NCCL, whose losses must equal phase 16 (a)'s within
+# DSP_LOSS_BAR; then DSP_RANKS processes sharing the card over gloo, each
+# case (LM, depth, (data, model) mesh, global batch of that many x
+# TRAIN_SEQ) one loss and its grads gathered from the slices against
+# world 1's at the same depth and batch (phase 7's bars), and on the cases
+# of ZERO_TRAIN one Trainer step, whose grad norm must be within
+# ZERO_NORM_BAR of world 1's
+ZERO_CASES = (("qwen3-14b", 2, (2, 2), 2), ("mamba2-370m", 4, (2, 2), 2),
+              ("qwen3-14b", 2, (1, 4), 1))
+ZERO_TRAIN = ("qwen3-14b/1x4", "mamba2-370m/2x2")
+ZERO_NORM_BAR = 1e-3
+# the kernels at the shapes a rank of the (2, 2) cases gives them: K1 on
+# qwen3-14b's 20 q and 4 K/V heads, K2 on mamba2-370m's 16 heads
+LM_ZERO_ATTN = (1, _Q.n_heads // 2, _Q.n_kv_heads // 2, TRAIN_SEQ, TRAIN_SEQ,
+                _Q.head_dim, True, None, None)
+LM_ZERO_SSD = (1, TRAIN_SEQ, _M.n_heads // 2, _M.head_dim, _M.n_groups,
+               _M.d_state, _M.chunk)
 
 
 def prefill_case(s: int):
@@ -727,7 +770,7 @@ def full_width_train(cfg, kernel, batch_size, n_steps,
 
 def run_trainer(init, loss_fn, data_fn, kernel, *, tokens, n_steps,
                 n_layers, route, device="cuda", mesh=None,
-                launches_per_step=None) -> dict:
+                launches_per_step=None, sharder=None) -> dict:
     """``n_steps`` AdamW steps of the port's Trainer from ``init()``'s
     params, with every launch counter set to 0 just before and read just
     after.  ``kernel`` (K1's or K2's wrapper) must launch
@@ -736,9 +779,10 @@ def run_trainer(init, loss_fn, data_fn, kernel, *, tokens, n_steps,
     plain reference), every launch on ``route``; every loss and grad norm
     must be finite.  Logs each step, the median step time of the steps
     after the first, ``tokens`` per step over it, and the peak device
-    memory.  With ``mesh`` the Trainer runs on it, and the
-    ``torch.distributed`` calls of the run and their bytes are returned by
-    kind."""
+    memory.  With ``mesh``, or the ``sharder`` of ``loss_fn`` on one (its
+    ``param_specs`` the layout of ``init()``'s slices), the Trainer runs
+    on it, and the ``torch.distributed`` calls of the run and their bytes
+    are returned by kind."""
     if launches_per_step is None:
         launches_per_step = 2 * n_layers
     t0 = time.perf_counter()
@@ -751,7 +795,7 @@ def run_trainer(init, loss_fn, data_fn, kernel, *, tokens, n_steps,
         loss_fn=loss_fn, params=params,
         opt_cfg=OptConfig(peak_lr=3e-4, warmup_steps=2, total_steps=n_steps),
         cfg=TrainerConfig(total_steps=n_steps, log_every=1),
-        data_fn=data_fn, device=device, mesh=mesh)
+        data_fn=data_fn, device=device, mesh=mesh, sharder=sharder)
     del params
     steps = []
     inner = trainer.step_fn
@@ -2037,6 +2081,358 @@ def lm_four_ranks(work: str, device="cuda") -> dict:
     return {"ranks": ranks}
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the LM family under its specs' own plans (ZeRO-3, the vocab ring)
+# ---------------------------------------------------------------------------
+
+def zero_layout(name: str, cfg, mesh, batch: int, device="cuda") -> dict:
+    """``cfg``'s parameters from seed 0 under the spec's own plan on
+    ``mesh``: the whole tree laid out by ``param_pspecs`` and cut to this
+    rank's slices (``shard_params``), the sharder of the joint planned
+    schedule at ``batch`` x TRAIN_SEQ tokens, and the step's contract
+    (``zero_contract``)."""
+    plan = {"qwen3-14b": qwen3_14b.SPEC.plan,
+            "mamba2-370m": mamba2_370m.SPEC.plan}[name]
+    ctx = from_mesh(mesh)
+    sizes = mesh_sizes(ctx)
+    params = lm.init_lm(0, cfg, device=device)
+    specs = param_pspecs(params, plan, axis_sizes=sizes)
+    contract = zero_contract(cfg, (ctx.dp_size, ctx.sp_size), batch,
+                             lm.param_contract(cfg, params, plan, sizes))
+    sharder = make_sharder(mesh, plan, schedule=lm.dsp_schedule(
+        cfg, ctx.sp_size, seq=TRAIN_SEQ, batch=batch, joint=True),
+        param_specs=specs)
+    return {"params": shard_params(params, specs, ctx), "specs": specs,
+            "sharder": sharder, "plan": plan, "contract": contract}
+
+
+def zero_contract(cfg, shape, batch: int, layout: dict) -> dict:
+    """{kind: [calls, bytes]} per rank of one loss, its grads, their sums
+    and the clip's norm with remat on a ``shape`` (data, model) mesh at a
+    global ``batch`` x TRAIN_SEQ tokens: the hooks' (``lm.remat_step`` of
+    ``lm.collective_contract``) plus the layouts' (``lm.param_contract``:
+    the gathers, the ring, the trainer's all-reduces)."""
+    dp, mp = shape
+    hooks = lm.remat_step(lm.collective_contract(cfg, mp, batch // dp,
+                                                 TRAIN_SEQ // mp))
+    return {k: [hooks["calls"].get(k, 0) + layout["calls"].get(k, 0),
+                hooks["bytes"].get(k, 0) + layout["bytes"].get(k, 0)]
+            for k in sorted(set(hooks["calls"]) | set(layout["calls"]))}
+
+
+def zero_grads(cfg, lay: dict, batch_size: int, device="cuda"):
+    """``lm_loss(sharder=)`` on this rank's shard of the first ``batch_size``
+    x TRAIN_SEQ batch with this rank's slices, its grads summed by
+    ``allreduce_grads`` (each over the dims its leaf is not split over)
+    and the clip's norm (``slices_norm``), K1 and K2
+    through their kernels.  Returns (loss, norm, grads)."""
+    sharder, specs = lay["sharder"], lay["specs"]
+    ctx = sharder.ctx
+    leaves = lm.tree_map(lambda p: p.detach().requires_grad_(True),
+                         lay["params"])
+    batch = lm.shard_lm_batch(lm_batch(cfg, batch_size, 0, device), sharder)
+    loss, _ = lm.lm_loss(leaves, batch, cfg, sharder=sharder,
+                         backend="kernel")
+    grads = iter(torch.autograd.grad(loss, lm.tree_leaves(leaves)))
+    loss, grads = allreduce_grads(loss.detach(), lm.tree_map(
+        lambda p: next(grads), leaves), specs, ctx)
+    norm = slices_norm(grads, specs, ctx)
+    return loss, norm, grads
+
+
+def zero_label(name: str, shape) -> str:
+    return f"{name}/{shape[0]}x{shape[1]}"
+
+
+def zero_world_of_one(phase16: dict, work: str, device="cuda") -> dict:
+    """(a) At world size 1 on a (1, 1) mesh over NCCL, phase 16 (a)'s runs
+    again under the specs' own plans: qwen3-14b at depth QWEN_TRAIN_DEPTH
+    for QWEN_TRAIN_STEPS steps at 1 x TRAIN_SEQ, mamba2-370m at depth 48
+    for LM_MAMBA_STEPS steps at TRAIN_BATCH x TRAIN_SEQ, the parameters
+    and AdamW's state in the layout (at one rank each slice is the whole
+    leaf, each gather a copy).  The losses must equal phase 16 (a)'s
+    within DSP_LOSS_BAR, the calls and bytes must be exactly
+    ``zero_contract`` each step, and K1 (K2) must launch as in phase 16
+    (a), all on ``sm90``; step time and peak memory are logged beside
+    phase 16 (a)'s.  Then the references of (b): each case of ZERO_CASES
+    at world size 1 (loss, grads in the parameters' dtype, norm), written
+    to ``work``."""
+    backend = BACKEND_OF[torch.device(device).type]
+    dist.init_process_group(backend, store=dist.FileStore(
+        os.path.join(work, "store17a"), 1), rank=0, world_size=1)
+    out = {}
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), torch.device(device).type)
+        runs = (("qwen3-14b", QWEN_TRAIN_DEPTH, QWEN_TRAIN_BATCH,
+                 QWEN_TRAIN_STEPS, flash_attention_fwd),
+                ("mamba2-370m", None, TRAIN_BATCH, LM_MAMBA_STEPS,
+                 ssd_scan_fwd))
+        for name, depth, batch, steps, kernel in runs:
+            cfg = lm_config(name, depth)
+            lay = zero_layout(name, cfg, mesh, batch, device)
+            want = {k: [c * steps, b * steps]
+                    for k, (c, b) in lay["contract"].items()}
+            log(f"  {name} depth {cfg.n_layers}, {batch} x {TRAIN_SEQ}, "
+                f"{steps} steps, plan {lay['plan']}; per step the contract "
+                f"{lay['contract']}")
+            sharder = lay["sharder"]
+            trained = run_trainer(
+                lambda: lay.pop("params"),
+                lambda p, b: lm.lm_loss(p, b, cfg, sharder=sharder,
+                                        backend="kernel"),
+                lambda st: lm.shard_lm_batch(lm_batch(cfg, batch, st,
+                                                      device), sharder),
+                kernel, tokens=batch * TRAIN_SEQ, n_steps=steps,
+                n_layers=cfg.n_layers, route="sm90", device=device,
+                sharder=sharder)
+            got = {k: [trained["collectives"][k], trained["volume"][k]]
+                   for k in sorted(trained["collectives"])}
+            log(f"  torch.distributed calls [count, bytes]: {got}")
+            if got != want:
+                raise AssertionError(f"{name}: collectives {got}, the "
+                                     f"contract says {want}")
+            ref = phase16[name]["metrics"]
+            met = trained["metrics"]
+            rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(met["losses"], ref["losses"]))
+            log_t(f"  losses {met['losses']} against phase 16 (a)'s "
+                  f"{ref['losses']}: worst |delta| / |loss| = {rel:.3e}; "
+                  f"step (median) {met['step_ms_median']:.2f} ms against "
+                  f"{ref['step_ms_median']:.2f} ms; peak "
+                  f"{met['peak_memory_gb']:.2f} GB against "
+                  f"{ref['peak_memory_gb']:.2f} GB")
+            if not rel <= DSP_LOSS_BAR:
+                raise AssertionError(f"{name}: losses {met['losses']} "
+                                     f"differ from phase 16 (a)'s")
+            out[name] = trained
+            del lay
+            torch.cuda.empty_cache()
+        for name, depth, shape, batch in ZERO_CASES:
+            cfg = lm_config(name, depth)
+            lay = zero_layout(name, cfg, mesh, batch, device)
+            dtypes = [p.dtype for p in lm.tree_leaves(lay["params"])]
+            loss, norm, grads = zero_grads(cfg, lay, batch, device)
+            torch.save({"loss": loss.cpu(), "norm": norm.cpu(),
+                        "grads": [g.to(t).cpu() for g, t in
+                                  zip(lm.tree_leaves(grads), dtypes)]},
+                       os.path.join(work, f"zero_ref.{name}.{batch}.pt"))
+            log_t(f"  reference {zero_label(name, shape)}: depth {depth}, "
+                  f"{batch} x {TRAIN_SEQ}, loss {float(loss):.6f}, grad "
+                  f"norm {float(norm):.6f}")
+            del lay, grads
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def zero_rank_main(rank: int, world: int, work: str) -> None:
+    """One of (b)'s ranks, started by ``zero_four_ranks`` as ``chip_smoke.py
+    --zero-rank <rank> <world> <dir>``: gloo over the card's CUDA tensors.
+    For each case of ZERO_CASES, on its (data, model) mesh: the spec's
+    layout, one ``zero_grads`` with what it counted and its peak memory,
+    then each grad leaf gathered whole (``gather_params``, not counted)
+    and, on rank 0, held against (a)'s reference leaf by leaf; on the
+    cases of ZERO_TRAIN one Trainer step, counted, with its grad norm.
+    Written to ``<dir>/zero_rank<r>.json``."""
+    device = json.load(open(os.path.join(work, "job17.json")))["device"]
+    full_f32()
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(work, "store17b"), world), rank=rank, world_size=world)
+    try:
+        res = {}
+        for name, depth, shape, batch in ZERO_CASES:
+            label = zero_label(name, shape)
+            mesh = make_mesh(shape, ("data", "model"),
+                             torch.device(device).type, backend="gloo")
+            cfg = lm_config(name, depth)
+            lay = zero_layout(name, cfg, mesh, batch, device)
+            ctx = lay["sharder"].ctx
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            reset_ssd_launches()
+            t0 = time.perf_counter()
+            loss, norm, grads = zero_grads(cfg, lay, batch, device)
+            got = read_counts()
+            got.update(
+                seconds=time.perf_counter() - t0,
+                coord=[ctx.dp_index, ctx.sp_index],
+                contract=lay["contract"],
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                k1_heads={f"{q}/{kv}": n for (q, kv), n in
+                          flash_attention_fwd.heads_launches.items()},
+                k2=ssd_scan_fwd.launches,
+                k2_routes=nonzero(ssd_scan_fwd.route_launches),
+                k2_heads={str(h): n for h, n in
+                          ssd_scan_fwd.heads_launches.items()})
+            ref = (torch.load(os.path.join(work, f"zero_ref.{name}.{batch}"
+                                           f".pt"), mmap=True)
+                   if rank == 0 else None)
+            shares = []
+            # gathered and compared in host memory: a whole table's f32
+            # grad on each of the 4 ranks would not fit beside their state
+            leaves = [g.cpu() for g in lm.tree_leaves(grads)]
+            del grads
+            torch.cuda.empty_cache()
+            for i, spec in enumerate(lm.tree_leaves(lay["specs"])):
+                with torch.no_grad():
+                    whole = gather_params({"g": leaves[i]}, {"g": spec},
+                                          ctx)["g"]
+                leaves[i] = None
+                if rank == 0:
+                    w = ref["grads"][i]
+                    gap = top = 0.0
+                    for a, b in zip(whole.reshape(-1).split(LM_REDUCE_PIECE),
+                                    w.reshape(-1).split(LM_REDUCE_PIECE)):
+                        gap = max(gap, float((a.float() - b.float()).abs()
+                                             .max()))
+                        top = max(top, float(b.float().abs().max()))
+                    shares.append(gap / max(top, 1e-30))
+                del whole
+            if rank == 0:
+                worst = int(np.argmax(shares))
+                got.update(loss=float(loss), loss_rel=float(
+                    (loss.cpu() - ref["loss"]).abs() / ref["loss"].abs()),
+                    norm=float(norm), ref_norm=float(ref["norm"]),
+                    norm_rel=float(
+                        (norm.cpu() - ref["norm"]).abs() / ref["norm"]),
+                    grad_rel=shares[worst], leaves=len(shares),
+                    leaf=leaf_paths(lay["specs"])[worst])
+            del leaves, ref
+            torch.cuda.empty_cache()
+            if label in ZERO_TRAIN:
+                got["train"] = zero_train_step(cfg, lay, batch, device)
+            res[label] = got
+            del lay
+            torch.cuda.empty_cache()
+        json.dump(res, open(os.path.join(work, f"zero_rank{rank}.json"),
+                            "w"))
+    finally:
+        dist.destroy_process_group()
+
+
+def zero_train_step(cfg, lay: dict, batch: int, device="cuda") -> dict:
+    """One Trainer step with this rank's slices (AdamW's state made from
+    them) on the first batch: its loss and grad norm, the calls it made
+    and the peak memory."""
+    sharder = lay["sharder"]
+    trainer = Trainer(
+        loss_fn=lambda p, b: lm.lm_loss(p, b, cfg, sharder=sharder,
+                                        backend="kernel"),
+        params=lay.pop("params"),
+        opt_cfg=OptConfig(peak_lr=3e-4, warmup_steps=2, total_steps=1),
+        cfg=TrainerConfig(total_steps=1, log_every=1),
+        data_fn=lambda st: lm.shard_lm_batch(lm_batch(cfg, batch, st,
+                                                      device), sharder),
+        device=device, sharder=sharder)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dsp.reset_calls()
+    t0 = time.perf_counter()
+    _, _, metrics = trainer.step_fn(trainer.params, trainer.opt_state,
+                                    trainer.data_fn(0))
+    torch.cuda.synchronize()
+    out = {"loss": float(metrics["loss"]),
+           "grad_norm": float(metrics["grad_norm"]),
+           "seconds": time.perf_counter() - t0,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "calls": {k: [dsp.calls.get(k, 0), dsp.volume.get(k, 0)]
+                     for k in sorted(set(dsp.calls) | set(dsp.volume))}}
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero_four_ranks(work: str, device="cuda") -> dict:
+    """(b) DSP_RANKS processes sharing the card over gloo, each case of
+    ZERO_CASES at full width: the loss and every grad leaf gathered from
+    the slices against (a)'s reference within phase 7's bars, the clip's
+    norm within ZERO_NORM_BAR; per rank exactly the contract's calls and
+    bytes, K1 (K2) launched twice a layer on the rank's heads (qwen3-14b
+    at (2, 2) on 20 of 40 q and 4 of 8 K/V heads, at (1, 4) on 10 and 2;
+    mamba2-370m at (2, 2) on 16 of 32), all on ``sm90``; on ZERO_TRAIN's
+    cases one Trainer step with the contract's calls and a grad norm
+    within ZERO_NORM_BAR of world 1's; each rank's peak memory logged."""
+    with open(os.path.join(work, "job17.json"), "w") as f:
+        json.dump({"device": device}, f)
+    t0 = time.perf_counter()
+    # 4 caching allocators share the card: expandable segments let each
+    # give back what it frees
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--zero-rank", str(r), str(DSP_RANKS), work],
+                              env=env)
+             for r in range(DSP_RANKS)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log_t(f"  {DSP_RANKS} ranks exited {rcs} after "
+          f"{time.perf_counter() - t0:.1f} s")
+    if any(rcs):
+        raise AssertionError(f"a ZeRO rank failed: exit codes {rcs}")
+    ranks = [json.load(open(os.path.join(work, f"zero_rank{r}.json")))
+             for r in range(DSP_RANKS)]
+    for name, depth, shape, batch in ZERO_CASES:
+        label = zero_label(name, shape)
+        cfg = lm_config(name, depth)
+        mp = shape[1]
+        if name == "qwen3-14b":
+            heads = {"k1": 2 * depth, "k1_heads": {
+                f"{cfg.n_heads // mp}/{cfg.n_kv_heads // mp}": 2 * depth},
+                "k2": 0, "k2_heads": {}}
+        else:
+            heads = {"k1": 0, "k1_heads": {}, "k2": 2 * depth, "k2_heads": {
+                str(cfg.ssm_cfg.n_heads // mp): 2 * depth}}
+        g = ranks[0][label]
+        log_t(f"  {label} depth {depth}, {batch} x {TRAIN_SEQ}: loss "
+              f"{g['loss']:.6f}, |delta| / |loss| against world 1 "
+              f"{g['loss_rel']:.3e}, grad norm {g['norm']:.6f} "
+              f"({g['norm_rel']:.3e}), worst grad leaf {g['leaf']} "
+              f"{g['grad_rel']:.3e} over {g['leaves']} leaves")
+        if not (g["loss_rel"] <= LOSS_BAR and g["grad_rel"] <= GRAD_BAR
+                and g["norm_rel"] <= ZERO_NORM_BAR):
+            raise AssertionError(f"{label}: the {DSP_RANKS}-rank loss, "
+                                 f"grads or norm disagree with world 1: {g}")
+        log(f"  {label}: per rank the contract {g['contract']}, {heads}")
+        for r, res in enumerate(ranks):
+            got = res[label]
+            log_t(f"  rank {r} (data {got['coord'][0]}, model "
+                  f"{got['coord'][1]}): {got['seconds']:.1f} s, peak "
+                  f"{got['peak_gb']:.2f} GB, calls {got['calls']}, K1 "
+                  f"{got['k1_heads']} {got['k1_routes']}, K2 "
+                  f"{got['k2_heads']} {got['k2_routes']}")
+            routes_ok = (got["k1_routes"] == ({"sm90": heads["k1"]}
+                                              if heads["k1"] else {})
+                         and got["k2_routes"] == ({"sm90": heads["k2"]}
+                                                  if heads["k2"] else {}))
+            if (got["calls"] != got["contract"] or not routes_ok
+                    or any(got[k] != v for k, v in heads.items())):
+                raise AssertionError(f"rank {r} {label}: {got}, the "
+                                     f"contract says {got['contract']} and "
+                                     f"{heads}")
+            if label in ZERO_TRAIN:
+                tr = got["train"]
+                rel = abs(tr["grad_norm"] - g["ref_norm"]) / g["ref_norm"]
+                log_t(f"  rank {r} Trainer step: loss {tr['loss']:.6f}, "
+                      f"grad norm {tr['grad_norm']:.6f} against world 1's "
+                      f"{g['ref_norm']:.6f} ({rel:.3e}), "
+                      f"{tr['seconds']:.1f} s, peak {tr['peak_gb']:.2f} GB, "
+                      f"calls {tr['calls']}")
+                if tr["calls"] != got["contract"] or not rel <= ZERO_NORM_BAR:
+                    raise AssertionError(f"rank {r} {label} Trainer step: "
+                                         f"{tr}, the contract says "
+                                         f"{got['contract']}, world 1's "
+                                         f"norm {g['ref_norm']}")
+    return {"ranks": ranks}
+
+
 def train_cli(train_main, arch: str) -> None:
     """The train CLI at SMOKE size for 30 steps; the loss must fall."""
     hist = train_main(["--arch", arch, "--steps", "30"])["history"]
@@ -2150,6 +2546,8 @@ def main() -> None:
                 dit_err = err
     check_attention(LM_RANK_ATTN, torch.bfloat16, seed=400)
     check_ssd(LM_RANK_SSD, torch.bfloat16, seed=401)
+    check_attention(LM_ZERO_ATTN, torch.bfloat16, seed=402)
+    check_ssd(LM_ZERO_SSD, torch.bfloat16, seed=403)
 
     log(f"[4] timing at the slice's shape, bf16 ({elapsed()})")
     q, k, v = attn_inputs(SLICE, torch.bfloat16, seed=7)
@@ -2291,7 +2689,17 @@ def main() -> None:
         log(f"  (b) {DSP_RANKS} ranks on the card over gloo ({elapsed()})")
         lm_ranks = lm_four_ranks(work)
     q_dsp, m_dsp = lm_dsp["qwen3-14b"], lm_dsp["mamba2-370m"]
-    k1_routes = by_route([served, q_trained, q_dsp] + dit_runs)
+    log(f"  done ({elapsed()})")
+
+    log(f"[17] qwen3-14b and mamba2-370m under their specs' own plans, "
+        f"ZeRO-3 over (data, model) and the vocab ring ({elapsed()})")
+    with tempfile.TemporaryDirectory() as work:
+        log("  (a) world size 1 over NCCL, full width")
+        lm_zero = zero_world_of_one(lm_dsp, work)
+        log(f"  (b) {DSP_RANKS} ranks on the card over gloo ({elapsed()})")
+        zero_ranks = zero_four_ranks(work)
+    q_zero, m_zero = lm_zero["qwen3-14b"], lm_zero["mamba2-370m"]
+    k1_routes = by_route([served, q_trained, q_dsp, q_zero] + dit_runs)
     log(f"  done ({elapsed()})")
 
     log(facts)
@@ -2301,11 +2709,16 @@ def main() -> None:
         "replaces": "src/repro/kernels/flash_attention.py:36",
         "launches": (served["launches"] + q_trained["launches"]
                      + dit_trained["launches"] + dsp_trained["launches"]
-                     + sp_launches + l2d["launches"] + q_dsp["launches"]),
+                     + sp_launches + l2d["launches"] + q_dsp["launches"]
+                     + q_zero["launches"]),
         "launches_by_route": k1_routes,
         "lm_dsp_launches": q_dsp["launches"],
         "lm_dsp_rank_launches": [r["qwen3-14b"]["k1_heads"]
                                  for r in lm_ranks["ranks"]],
+        "lm_zero_launches": q_zero["launches"],
+        "lm_zero_rank_launches": {
+            label: [r[label]["k1_heads"] for r in zero_ranks["ranks"]]
+            for label in ("qwen3-14b/2x2", "qwen3-14b/1x4")},
         "max_abs_err": slice_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"], "library_ms": library_ms,
@@ -2323,11 +2736,14 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/ssd_scan_sm90.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:35",
         "launches": (trained["launches"] + m_served["launches"]
-                     + m_dsp["launches"]),
-        "launches_by_route": by_route([trained, m_served, m_dsp]),
+                     + m_dsp["launches"] + m_zero["launches"]),
+        "launches_by_route": by_route([trained, m_served, m_dsp, m_zero]),
         "lm_dsp_launches": m_dsp["launches"],
         "lm_dsp_rank_launches": [r["mamba2-370m"]["k2_heads"]
                                  for r in lm_ranks["ranks"]],
+        "lm_zero_launches": m_zero["launches"],
+        "lm_zero_rank_launches": [r["mamba2-370m/2x2"]["k2_heads"]
+                                  for r in zero_ranks["ranks"]],
         "max_abs_err": ssd_err,
         "ms": ssd_ms, "plain_ms": ssd_plain_ms,
         "bound_ms": ssd_bound["bound_ms"], "bound_by": ssd_bound["bound_by"],
@@ -2347,5 +2763,7 @@ if __name__ == "__main__":
         l2d_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif sys.argv[1:2] == ["--lm-rank"]:
         lm_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:2] == ["--zero-rank"]:
+        zero_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     else:
         main()

@@ -15,7 +15,9 @@ directly, mirroring the paper's four-function API one-to-one:
 Beside them, the collectives the embedded-SP baselines and the overlapped
 switch are built from: ``reduce_scatter`` (Megatron-SP's block exit) and
 ``ppermute`` (``jax.lax.ppermute``: ring hops and the overlapped switch's
-per-shard hops).
+per-shard hops); and ``gather_param``, ``gather`` of a parameter shard
+(ZeRO, ``parallel.partition.gather_params``), whose gradient is
+reduce-scattered in float32.
 
 Each is differentiable, with JAX's transpose as its backward: a switch's
 is the reverse switch (one all-to-all), a gather's a reduce-scatter (and a
@@ -179,6 +181,23 @@ def gather(x: torch.Tensor, cur_shard: int, group) -> torch.Tensor:
     ops).  The backward reduce-scatters the gradient: the sum of every
     rank's cotangent, sliced back to this rank's shard."""
     return _Gather.apply(x, cur_shard, group)
+
+
+class _GatherParam(_Gather):
+    @staticmethod
+    def backward(ctx, g):
+        cur, group = ctx.args
+        return (_reduce_scatter(g.float(), cur, group).to(g.dtype), None,
+                None)
+
+
+def gather_param(x: torch.Tensor, cur_shard: int, group) -> torch.Tensor:
+    """A parameter shard -> the whole parameter: ``gather``'s one
+    all-gather along ``cur_shard`` in rank order, in ``x``'s dtype.  The
+    backward reduce-scatters the gradient summed in float32 (one rounding
+    to ``x``'s dtype after the sum, not one per rank; the bytes are the
+    float32 ones) and returns this rank's slice in ``x``'s dtype."""
+    return _GatherParam.apply(x, cur_shard, group)
 
 
 class _ReduceScatter(torch.autograd.Function):
@@ -358,7 +377,8 @@ def per_device_bytes(strategy: str, global_bytes: float, n: int, *,
 
 __all__ = [
     "calls", "volume", "reset_calls", "all_reduce",
-    "dynamic_switch", "shard", "split", "gather", "reduce_scatter", "ppermute",
+    "dynamic_switch", "shard", "split", "gather", "gather_param",
+    "reduce_scatter", "ppermute",
     "start_permute", "dsp_shard_batch",
     "comm_volume_bytes", "per_device_bytes",
 ]

@@ -149,6 +149,27 @@ class ParallelContext:
         call, which every rank of the world makes at the same point."""
         return _flat_group(self.mesh, self.sp_axes)
 
+    def axes_index(self, axes: Tuple[str, ...]) -> Tuple[int, int]:
+        """(size, this rank's index) of mesh dims ``axes`` flattened, the
+        first major (a ``PartitionSpec`` entry's numbering)."""
+        return self._flat(axes)
+
+    def axes_group(self, axes: Tuple[str, ...]):
+        """The process group over mesh dims ``axes`` flattened, the first
+        major: one dim's own group, or one made as ``flat_group``'s.  Its
+        ranks must stand in that order, so that an all-gather over it
+        concatenates the shards as ``axes_index`` numbers them."""
+        if len(axes) == 1:
+            return self.group(axes[0])
+        group = _flat_group(self.mesh, tuple(axes))
+        if dist.get_rank(group) != self._flat(axes)[1]:
+            raise ValueError(
+                f"the group over {axes} orders this rank "
+                f"{dist.get_rank(group)}th, its place on the mesh flattened "
+                f"is {self._flat(axes)[1]}: the mesh's ranks must rise "
+                f"along {axes}")
+        return group
+
     def flat_chunks(self, order: Tuple[int, int] = (0, 1)) -> Tuple[int, ...]:
         """For each rank of ``flat_group``, in group-rank order, the chunk
         of a diagonal it holds when the SP dims flatten with

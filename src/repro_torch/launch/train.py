@@ -20,12 +20,16 @@ with ``--device cpu``):
 
 Every rank draws the same global batch and trains on its shard (batch
 over ``data``; frames, or an LM's tokens, over ``model``) with the joint
-plan of the family's ``dsp_schedule``: through ``t2d_loss(mesh=...)``, or
-``lm_loss(sharder=...)`` with the spec's plan run with ``zero`` and
-``shard_vocab`` off (parameters whole on every rank; the summary prints
-the plan run).  The ``Trainer`` sums the grads over the world.  The plan
-is priced in bytes (``topology=None``): the JAX CLI prices it on its TPU
-link constants, which the port does not carry.
+plan of the family's ``dsp_schedule``.  The LM family runs
+``lm_loss(sharder=...)`` under its spec's own plan: ZeRO-3 splits each
+weight over ``("data", "model")`` and ``shard_vocab`` the embedding
+tables over ``model`` (``param_pspecs``, ``shard_params``; the vocab
+ring), and the ``Trainer`` sums each grad over the dims its leaf is not
+split over.  The 2D DiT runs ``t2d_loss(mesh=...)`` with its spec's plan
+with ``zero`` off: its parameters stay whole on every rank, and the
+``Trainer`` sums the grads over the world.  The summary prints the plan
+run.  The plan is priced in bytes (``topology=None``): the JAX CLI prices
+it on its TPU link constants, which the port does not carry.
 
 ``--device`` defaults to ``cuda``.  The JAX CLI's checkpoint, elastic,
 device-count and compression flags are not ported yet and exit with a
@@ -85,12 +89,13 @@ def main(argv=None):
         from repro_torch.launch.mesh import make_mesh
         dp, mp = (int(a) for a in args.mesh.split(","))
         mesh = make_mesh((dp, mp), ("data", "model"), device.type)
-        # the parameter layouts (ZeRO, the vocab ring) are not ported: run
-        # the spec's plan with them off, and say so in the summary
-        plan = dataclasses.replace(spec.plan, zero=False, shard_vocab=False)
-        ran = (f"{plan} (the spec's {spec.plan} with zero and shard_vocab "
-               f"off)")
+        ran = f"{spec.plan}"
+    sharder = None
     if spec.family == "t2d":
+        if mesh is not None:
+            ran = (f"{dataclasses.replace(spec.plan, zero=False)} (the "
+                   f"spec's {spec.plan} with zero off: the DiT's "
+                   f"parameters stay whole on every rank)")
         spatial = args.seq // 8 or 16
         psched = None
         if mesh is not None:
@@ -111,13 +116,19 @@ def main(argv=None):
             return batch if mesh is None else t2d.shard_video_batch(batch,
                                                                     mesh)
     else:
-        sharder = None
-        if mesh is not None:
-            from repro_torch.models.lm import dsp_schedule
-            from repro_torch.parallel.partition import make_sharder
-            sharder = make_sharder(mesh, plan, schedule=dsp_schedule(
-                cfg, mp, seq=args.seq, batch=args.batch, joint=True))
         params = init_lm(0, cfg, device=device)
+        if mesh is not None:
+            from repro_torch.core.layout import from_mesh
+            from repro_torch.models.lm import dsp_schedule
+            from repro_torch.parallel.partition import (
+                make_sharder, mesh_sizes, param_pspecs, shard_params)
+            ctx = from_mesh(mesh)
+            param_specs = param_pspecs(params, spec.plan,
+                                       axis_sizes=mesh_sizes(ctx))
+            params = shard_params(params, param_specs, ctx)
+            sharder = make_sharder(mesh, spec.plan, schedule=dsp_schedule(
+                cfg, mp, seq=args.seq, batch=args.batch, joint=True),
+                param_specs=param_specs)
         dcfg = DataConfig(task="lm_shift", vocab=cfg.vocab, seq=args.seq,
                           batch=args.batch)
 
@@ -143,7 +154,8 @@ def main(argv=None):
                           total_steps=args.steps),
         cfg=TrainerConfig(total_steps=args.steps, grad_accum=args.grad_accum,
                           log_every=max(args.steps // 10, 1)),
-        data_fn=data_fn, device=device, mesh=mesh)
+        data_fn=data_fn, device=device,
+        mesh=mesh if sharder is None else None, sharder=sharder)
     out = trainer.run()
     first = out["history"][0][1] if out["history"] else float("nan")
     last = out["history"][-1][1] if out["history"] else float("nan")

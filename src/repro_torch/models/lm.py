@@ -17,17 +17,24 @@ On a ``("data", "model")`` mesh the rank holds its batch slice and its
 sequence shard (``shard_lm_batch``); the residual stream stays
 sequence-sharded, each attention core and SSD scan runs on the rank's
 heads after one switch and switches back (``collective_contract`` counts
-what a forward issues).  Serving runs on one device.
+what a forward issues).  Under the specs' own plans the parameters are
+the rank's slices (``parallel.partition.shard_params``: ZeRO-3 over
+``("data", "model")``, the embedding tables over ``model``), gathered
+whole where the model reads them (``Sharder.whole``), the embedding
+through JAX's vocab ring (``sharded_embed``; ``param_contract`` counts
+what the layouts add to a step).  Serving runs on one device.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.core import dsp
+from repro_torch.core.overlap import ring_stream
 from repro_torch.core.plan import Stage
 from repro_torch.core.schedule import (Schedule, plan_joint_schedule,
                                        plan_schedule)
@@ -35,7 +42,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
-from repro_torch.parallel.partition import Sharder, null_sharder
+from repro_torch.parallel.partition import (
+    ParallelPlan, Sharder, entry_axes, null_sharder, param_pspecs,
+    reduce_axes, tree_map_with_path)
 
 
 # ---------------------------------------------------------------------------
@@ -145,15 +154,6 @@ def tree_map(fn: Callable, *trees):
     if isinstance(trees[0], dict):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
     return fn(*trees)
-
-
-def tree_map_with_path(fn: Callable, tree, path: tuple = ()):
-    """``fn(path, leaf)`` leafwise, ``path`` the tuple of keys to the
-    leaf."""
-    if isinstance(tree, dict):
-        return {k: tree_map_with_path(fn, v, path + (k,))
-                for k, v in tree.items()}
-    return fn(path, tree)
 
 
 def tree_leaves(tree) -> List[Any]:
@@ -389,10 +389,42 @@ def _apply_layer(p, x, cfg: LMConfig, spec: LayerSpec, sharder: Sharder,
 
 def sharded_embed(params, tokens, cfg: LMConfig, sharder: Sharder):
     """The embedding of the rank's tokens, in their layout (the sequence
-    shard on a mesh): a local lookup in the whole table.  JAX's
-    ``shard_vocab`` ring, a table sharded over the model axis, comes with
-    the parameter layouts (``make_sharder`` refuses it on a mesh)."""
-    return L.embed(params["embed"], tokens, scale_by_sqrt_dim=cfg.embed_scale)
+    shard on a mesh), with JAX's vocab-parallel table RING under
+    ``shard_vocab``: the table is split over ``model`` by vocab row and
+    the tokens are split over the same ranks by sequence, so each rank
+    adds, for each table chunk it holds in turn, the lookup of its tokens
+    that fall in that chunk's rows (the rest masked), while the chunks go
+    round the ``model`` group (``core.overlap.ring_stream``: n permutes of
+    the rank's chunk, whose backward carries each chunk's gradient home).
+    Communication is the table's bytes, whatever the sequence length, and
+    no reduction.  Falls back, as JAX does, to a lookup in the table
+    gathered whole (``Sharder.whole``) without a mesh, at one model rank,
+    when the ranks do not divide the vocab, or with ``shard_vocab``
+    off."""
+    n = sharder.sp_size
+    if (sharder.ctx is None or n == 1 or cfg.vocab % n
+            or not sharder.plan.shard_vocab):
+        return L.embed(sharder.whole(params["embed"], "embed"), tokens,
+                       scale_by_sqrt_dim=cfg.embed_scale)
+    table = params["embed"]["table"]
+    chunk, d = table.shape
+    if chunk * n != cfg.vocab:
+        raise ValueError(f"the ring needs the table split over 'model' "
+                         f"(param_pspecs under shard_vocab): this rank "
+                         f"holds {chunk} of {cfg.vocab} rows at {n} ranks")
+
+    def fold(_, src, blocks, acc):
+        # ``src`` owns the held chunk: look up the tokens in its rows
+        rel = tokens - src * chunk
+        ok = (rel >= 0) & (rel < chunk)
+        e = blocks[0][rel.clamp(0, chunk - 1)]
+        return acc + torch.where(ok[..., None], e, 0)
+
+    x = ring_stream((table,), table.new_zeros(tokens.shape + (d,)), fold,
+                    sharder.ctx.sp_group)
+    if cfg.embed_scale:
+        x = x * math.sqrt(d)
+    return x.to(table.dtype)
 
 
 def forward(params, tokens, cfg: LMConfig, *, sharder: Optional[Sharder] = None,
@@ -400,11 +432,16 @@ def forward(params, tokens, cfg: LMConfig, *, sharder: Optional[Sharder] = None,
             fused_switch: bool = True):
     """tokens: (B, S) -> final hidden states (B, S, C).  With ``sharder`` on
     a mesh both are the rank's shard (``shard_lm_batch``): its batch slice
-    and sequence chunk.  ``remat`` checkpoints each period and recomputes
-    it in the backward (JAX's ``remat_policy="full"``), its collectives
-    included, so the backward runs every period's forward once more.
-    ``fused_switch`` is ``attention_sp``'s.  The JAX forward's MoE
-    load-balance aux comes with MoE."""
+    and sequence chunk, and ``params`` are laid out as the sharder's
+    ``param_specs`` say (``parallel.partition.shard_params``).  Each
+    period's split leaves are gathered at the top of its body, inside the
+    checkpoint, so that no gathered weight lives from the forward to the
+    backward: the recompute gathers them again.  ``remat`` checkpoints
+    each period and recomputes it in the backward (JAX's
+    ``remat_policy="full"``), its collectives included, so the backward
+    runs every period's forward once more.  ``fused_switch`` is
+    ``attention_sp``'s.  The JAX forward's MoE load-balance aux comes with
+    MoE."""
     sharder = sharder or null_sharder()
     sharder = _with_planned_schedule(
         sharder, cfg, seq=tokens.shape[1] * sharder.seq_shards,
@@ -413,6 +450,7 @@ def forward(params, tokens, cfg: LMConfig, *, sharder: Optional[Sharder] = None,
     x = sharder.enter3(sharded_embed(params, tokens, cfg, sharder))
 
     def period_body(x, pp):
+        pp = sharder.whole(pp, "periods")
         x = sharder.wrap3(x)
         for j, spec in enumerate(specs):
             x = _apply_layer(pp[str(j)], x, cfg, spec, sharder, backend,
@@ -427,7 +465,8 @@ def forward(params, tokens, cfg: LMConfig, *, sharder: Optional[Sharder] = None,
                 x = checkpoint(period_body, x, pp, use_reentrant=False)
         else:
             x = period_body(x, pp)
-    return _apply_norm(cfg, params["final_norm"], x)
+    return _apply_norm(cfg, sharder.whole(params["final_norm"], "final_norm"),
+                       x)
 
 
 def chunked_xent(x, table, labels, cfg: LMConfig, *, chunk: int = 512,
@@ -467,11 +506,14 @@ def lm_loss(params, batch, cfg: LMConfig, *, sharder: Optional[Sharder] = None,
     """batch {"tokens", "labels"}: (B, S) -> (loss, {"xent": loss}).  With
     ``sharder`` on a mesh the batch is the rank's shard and the loss its
     share of the global mean: summed over the world (the trainer's
-    all-reduce) it is the mean."""
+    all-reduce) it is the mean.  The unembedding table (the embedding's
+    when tied) is gathered whole once, outside the loss's per-chunk
+    checkpoints."""
     x = forward(params, batch["tokens"], cfg, sharder=sharder,
                 backend=backend, remat=remat, fused_switch=fused_switch)
-    table = (params["embed"]["table"] if cfg.tie_embeddings
-             else params["unembed"]["table"])
+    key = "embed" if cfg.tie_embeddings else "unembed"
+    # gathered once, outside the chunks' checkpoints
+    table = (sharder or null_sharder()).whole(params[key], key)["table"]
     loss = chunked_xent(x, table, batch["labels"], cfg, sharder=sharder)
     return loss, {"xent": loss}
 
@@ -564,6 +606,83 @@ def remat_step(contract: Dict[str, Dict[str, int]]
             step["reduce-scatter"] = fwd["all-gather"]
         out[part] = step
     return out
+
+
+def param_contract(cfg: LMConfig, params, plan: ParallelPlan,
+                   sizes: Dict[str, int]) -> Dict[str, Dict[str, int]]:
+    """The ``torch.distributed`` calls and bytes, by kind (``core.dsp``'s
+    rule), that the parameter layouts of ``plan`` add per rank to one
+    training step with ``remat`` on a mesh of ``sizes`` (``mesh_sizes``),
+    beside ``remat_step`` of ``collective_contract``.  Derived from
+    ``param_pspecs`` of ``params``, the GLOBAL tree (meta tensors will
+    do), each read as ``forward`` and ``lm_loss`` read it:
+
+      each period leaf a spec splits: per period, 2 all-gathers of the
+        whole leaf (the forward's and the recompute's) and 1 reduce-scatter
+        of its float32 gradient;
+      the embedding table on the ring (``sharded_embed``): n permutes of
+        the rank's chunk forward and n - 1 backward (the last hop's chunk
+        is read by nobody);
+      any other leaf a spec splits, at each read outside the checkpoints
+        (the table off the ring; the tied table, the unembedding table and
+        the final norm in the loss): 1 all-gather and 1 reduce-scatter;
+      the trainer: one all-reduce of one float32 bucket per set of
+        ``reduce_axes`` of the leaves, the loss in the world's
+        (``allreduce_grads``), and one of the clip's scalar
+        (``train.trainer.slices_norm``).
+
+    An entry naming only dims of size 1 is still issued (at one rank each
+    is a copy)."""
+    specs = param_pspecs(params, plan, axis_sizes=sizes)
+    calls: Dict[str, int] = {}
+    nbytes: Dict[str, int] = {}
+
+    def add(kind, size, times=1):
+        calls[kind] = calls.get(kind, 0) + times
+        nbytes[kind] = nbytes.get(kind, 0) + size * times
+
+    def split(entry):
+        return math.prod(sizes[a] for a in entry_axes(entry, sizes))
+
+    def gathers(shape, spec, itemsize, all_gathers, reduce_scatters):
+        shape = [d // split(e) for d, e in zip(shape, spec)]
+        for dim, entry in enumerate(spec):
+            if entry_axes(entry, sizes):
+                shape[dim] *= split(entry)
+                numel = math.prod(shape)
+                add("all-gather", numel * itemsize, all_gathers)
+                add("reduce-scatter", numel * 4, reduce_scatters)
+
+    n = sizes.get("model", 1)
+    ring = n > 1 and cfg.vocab % n == 0 and plan.shard_vocab
+    reads = {("embed", "table"): (0 if ring else 1) + cfg.tie_embeddings,
+             ("unembed", "table"): 1, ("final_norm", "scale"): 1,
+             ("final_norm", "bias"): 1}
+    buckets: Dict[tuple, int] = {}
+    world = tuple(sizes)
+
+    def count(path, p, spec):
+        if path[0] == "periods":
+            gathers(tuple(p.shape[1:]), spec[1:], p.element_size(),
+                    2 * p.shape[0], p.shape[0])
+        else:
+            gathers(tuple(p.shape), spec, p.element_size(), reads[path],
+                    reads[path])
+        key = reduce_axes(spec, world)
+        if key:
+            buckets[key] = buckets.get(key, 0) + p.numel() // math.prod(
+                split(e) for e in spec)
+
+    tree_map_with_path(count, params, specs)
+    if ring:
+        chunk = params["embed"]["table"]
+        add("collective-permute", chunk.numel() // n * chunk.element_size(),
+            2 * n - 1)
+    buckets[world] = buckets.get(world, 0) + 1          # the loss
+    for elems in buckets.values():
+        add("all-reduce", 2 * 4 * elems)
+    add("all-reduce", 2 * 4)                            # the clip's norm
+    return {"calls": calls, "bytes": nbytes}
 
 
 # ---------------------------------------------------------------------------

@@ -61,10 +61,13 @@ def global_norm(tree) -> torch.Tensor:
                           for g in tree_leaves(tree)))
 
 
-def clip_scale(grads, max_norm: float):
+def clip_scale(grads, max_norm: float, norm=None):
     """(the factor that scales ``grads`` to a global norm <= max_norm, the
-    norm), with no host sync: both stay on the device."""
-    norm = global_norm(grads)
+    norm), with no host sync: both stay on the device.  ``norm`` is the
+    gradient's where ``grads`` are this rank's slices of it (default:
+    ``global_norm(grads)``)."""
+    if norm is None:
+        norm = global_norm(grads)
     return torch.clamp(max_norm / (norm + 1e-9), max=1.0), norm
 
 
@@ -75,18 +78,21 @@ UPDATE_PIECE = 1 << 26
 
 
 @torch.no_grad()
-def apply_adamw(params, grads, state, cfg: OptConfig):
+def apply_adamw(params, grads, state, cfg: OptConfig, *, norm=None):
     """One AdamW step, in place.  Returns (params, state, metrics).  The
     clip scale multiplies each f32 grad as the update reaches it, and each
     leaf is updated in pieces of ``UPDATE_PIECE`` elements, so no f32 copy
     of a whole leaf or of the tree is held: the same elementwise
-    arithmetic, in less memory."""
+    arithmetic, in less memory.  The update is elementwise, so slices of
+    the parameters, their grads and their state update as whole leaves
+    do; ``norm`` is then the whole gradient's, for the clip
+    (``clip_scale``)."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
     gnorm = torch.zeros(())
     scale = None
     if cfg.grad_clip is not None:
-        scale, gnorm = clip_scale(grads, cfg.grad_clip)
+        scale, gnorm = clip_scale(grads, cfg.grad_clip, norm)
     b1c = 1.0 - cfg.b1 ** step
     b2c = 1.0 - cfg.b2 ** step
     ref = state.get("master", params)

@@ -25,14 +25,23 @@ Without a context every hook is the identity.
 ``seq_halo`` has no JAX hook: XLA adds the causal conv's halo itself, and
 here it is one permute of the previous rank's last rows.
 
-On a mesh this slice runs ``ParallelPlan(mode="dsp", zero=False,
-shard_vocab=False)``: parameters stay whole on every rank and the trainer
-sums their grads over the world.  ``make_sharder`` raises
+Parameters are laid out by JAX's rules: ``param_pspecs`` gives each leaf
+a spec, one entry per dim (an axis name, a tuple of names flattened with
+the first major, or None).  Under ``zero`` (DSP mode) a weight is split
+over ``("data", "model")`` flattened, data-major, as JAX's
+``P(("data", "model"))`` is; under ``shard_vocab`` the embedding tables
+are split over ``model`` by vocab row.  ``shard_params`` keeps each rank's
+slice, ``gather_params`` (differentiable: one all-gather forward, one
+float32 reduce-scatter backward) gives the model whole leaves where it
+reads them, ``unshard_params`` gathers for checks, and ``param_copies``
+and ``reduce_axes`` tell the trainer how many ranks hold each leaf and
+over which dims its grad is still to be summed.  ``make_sharder`` raises
 ``NotImplementedError`` for what it does not run yet, naming the ROADMAP
-item (queue 1) that brings it.  JAX's parameter and cache specs
-(``param_pspecs``, ``cache_pspecs``) and its decode and MoE hooks come
-with those items; its ``ffn_hidden``, which no JAX model calls, has no
-counterpart.
+item (queue 1) that brings it: ``tp`` (whose rules ``param_pspecs``
+carries) and ``ep``.  JAX's cache specs (``cache_pspecs``), its decode
+and MoE hooks, its inference ``tp_flat`` rules and its
+``stacked_prefixes`` option (enc-dec) come with those items; its
+``ffn_hidden``, which no JAX model calls, has no counterpart.
 """
 from __future__ import annotations
 
@@ -64,9 +73,233 @@ _VIEWS: Dict[str, Dict[int, int]] = {"bsc": {1: 1, 2: 2},
                                      "kbhsd": {1: 3, 2: 2}}
 
 
+# ---------------------------------------------------------------------------
+# Parameter specs (JAX's ``param_pspecs`` rules, as tuples)
+# ---------------------------------------------------------------------------
+
+# one spec entry per tensor dim: a mesh axis name, a tuple of names (the
+# axes flattened, the first major), or None (the dim whole)
+Spec = Tuple[Any, ...]
+
+
+def tree_map_with_path(fn, *trees, path: Tuple[str, ...] = ()):
+    """``fn(path, *leaves)`` leafwise over nested dicts of the same
+    structure (``path`` the keys to the leaf)."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map_with_path(fn, *(t[k] for t in trees),
+                                      path=path + (k,))
+                for k in trees[0]}
+    return fn(path, *trees)
+
+
+def _path_str(path) -> str:
+    return "/".join(str(k) for k in path)
+
+
+def _axes_size(entry, axis_sizes: dict) -> int:
+    if entry is None:
+        return 1
+    if isinstance(entry, tuple):
+        n = 1
+        for a in entry:
+            n *= axis_sizes.get(a, 1)
+        return n
+    return axis_sizes.get(entry, 1)
+
+
+def _guard(spec, shape, axis_sizes: dict) -> Spec:
+    """Drop (not pad) any entry whose dim its axes do not divide: the leaf
+    stays whole along it (mamba2's 50280-row table at 16, the conv's 4
+    taps), as JAX's jit shardings require."""
+    out = []
+    for dim, entry in zip(shape, tuple(spec) + (None,) * len(shape)):
+        if entry is not None and dim % _axes_size(entry, axis_sizes):
+            entry = None
+        out.append(entry)
+    return tuple(out)
+
+
+def _leaf_spec(path: str, shape, plan: ParallelPlan, fsdp,
+               axis_sizes: dict) -> Spec:
+    """Base spec of an *unstacked* leaf of ``shape`` (None: not an array);
+    stacking prepends None.  ``fsdp`` is the ZeRO entry: "data" in TP mode
+    (the model axis already holds the TP shard) or ("data", "model") in
+    DSP mode (weights are not model-sharded, so ZeRO flattens both axes:
+    full-pod ZeRO-3)."""
+    if path.endswith("meta") or shape is None:
+        return ()
+    nd = len(shape)
+    tp = plan.mode == "tp"
+
+    def g(*entries):
+        return _guard(entries, shape, axis_sizes)
+
+    # embeddings: vocab over model ONLY (sharding d over data would make
+    # every xent chunk re-gather the table)
+    if "table" in path:
+        if plan.shard_vocab:
+            return g("model", None)
+        return g(fsdp, None)
+
+    # MoE stacked experts (E, d, f) / (E, f, d)
+    if nd == 3 and any(path.endswith(s) for s in ("wi", "wg", "wo")):
+        if plan.ep and tp and not plan.zero:
+            return (g("model", None, "data") if not path.endswith("wo")
+                    else g("model", "data", None))
+        if plan.ep:
+            return g("model", "data" if plan.zero else None, None)
+        if tp:
+            return (g(None, "data" if plan.zero else None, "model")
+                    if not path.endswith("wo")
+                    else g(None, "model", "data" if plan.zero else None))
+        return g(None, fsdp, None)
+
+    # SSM params: never model-sharded in training (DSP switches the
+    # activations), ZeRO on whichever dim divides; TP channel-shards the
+    # projections
+    if "/ssm/" in path or path.startswith("ssm/"):
+        if tp and path.endswith("in_proj/w"):
+            return g(fsdp, "model")
+        if tp and path.endswith("out_proj/w"):
+            return g("model", fsdp)
+        if nd >= 2:
+            first = g(fsdp, *([None] * (nd - 1)))
+            if first[:1] != (None,):
+                return first
+            return g(None, fsdp, *([None] * (nd - 2)))
+        return (None,)
+
+    # dense projections
+    col = any(f"{n}/w" in path for n in ("wq", "wk", "wv", "wi", "wg"))
+    row = "wo/w" in path or path.endswith("out_proj/w")
+    if nd == 2 and (col or row) and tp:
+        return (g("model", "data" if plan.zero else None) if row
+                else g("data" if plan.zero else None, "model"))
+    if nd == 2:
+        first = g(fsdp, None)
+        if first[:1] != (None,):
+            return first
+        return g(None, fsdp)
+    if nd == 1:
+        if tp and col and path.endswith("/b"):
+            return g("model")
+        return (None,)
+    return (None,) * nd
+
+
+# subtrees whose leaves carry a leading period (scan) dim
+STACKED = ("layers", "periods")
+
+
+def param_pspecs(params, plan: ParallelPlan, *,
+                 axis_sizes: Optional[dict] = None):
+    """The spec tree of ``params`` (nested dicts; leaves with a ``shape``,
+    meta tensors included, at their GLOBAL shapes), by JAX's rules
+    (``repro.parallel.partition.param_pspecs``).  Leaves under a
+    ``STACKED`` subtree carry a leading period dim; their base spec gets
+    a None prepended.  ``axis_sizes`` ({"data": 16, "model":
+    16}, the default: the production pod) drives the divisibility guard."""
+    axis_sizes = axis_sizes or {"data": 16, "model": 16}
+    if not plan.zero:
+        fsdp = None
+    elif plan.mode == "tp":
+        fsdp = "data"
+    else:
+        fsdp = ("data", "model")     # ZeRO over the full pod in DSP mode
+
+    def rule(path, leaf):
+        s = _path_str(path)
+        shape = tuple(leaf.shape) if hasattr(leaf, "shape") else None
+        if any(s.startswith(p + "/") or f"/{p}/" in s
+               for p in STACKED):
+            return (None,) + _leaf_spec(s, shape[1:], plan, fsdp, axis_sizes)
+        return _leaf_spec(s, shape, plan, fsdp, axis_sizes)
+
+    return tree_map_with_path(rule, params)
+
+
+# ---------------------------------------------------------------------------
+# The parameter store: each rank's slices, gathered where they are read
+# ---------------------------------------------------------------------------
+
+def mesh_sizes(ctx: ParallelContext) -> Dict[str, int]:
+    """{dim name: size} of ``ctx``'s mesh: ``param_pspecs``'
+    ``axis_sizes``."""
+    return {a: ctx.size(a) for a in ctx.mesh.mesh_dim_names}
+
+
+def entry_axes(entry, names) -> Tuple[str, ...]:
+    """The dims among ``names`` (a mesh's) that a spec entry names: a dim
+    the mesh lacks has size 1, as in ``_axes_size``."""
+    axes = () if entry is None else (
+        entry if isinstance(entry, tuple) else (entry,))
+    return tuple(a for a in axes if a in names)
+
+
+def shard_params(params, specs, ctx: ParallelContext):
+    """Each rank's slice of each leaf of ``params`` (whole, every rank
+    alike) per its spec: along each dim an entry names, chunk
+    ``ctx.axes_index`` of that many.  A slice that is not the whole leaf
+    is copied, so that the whole tree can be freed."""
+    def one(_, p, spec):
+        out = p
+        for dim, entry in enumerate(spec):
+            axes = entry_axes(entry, ctx.mesh.mesh_dim_names)
+            if axes:
+                n, idx = ctx.axes_index(axes)
+                out = dsp.shard(out, dim, n, idx)
+        if out.numel() == p.numel():
+            return p
+        return out.clone(memory_format=torch.contiguous_format)
+    return tree_map_with_path(one, params, specs)
+
+
+def gather_params(params, specs, ctx: ParallelContext):
+    """The whole leaves of a subtree of shards: along each dim its spec
+    names, one all-gather over that entry's group (``ctx.axes_group``;
+    issued at one rank too), whose backward reduce-scatters the gradient
+    summed in float32 (``core.dsp.gather_param``).  Leaves whose spec
+    names no mesh dim come back as they are."""
+    def one(_, p, spec):
+        for dim, entry in enumerate(spec):
+            axes = entry_axes(entry, ctx.mesh.mesh_dim_names)
+            if axes:
+                p = dsp.gather_param(p, dim, ctx.axes_group(axes))
+        return p
+    return tree_map_with_path(one, params, specs)
+
+
+@torch.no_grad()
+def unshard_params(params, specs, ctx: ParallelContext):
+    """``gather_params`` without autograd: the whole tree from every
+    rank's shards (counted by ``core.dsp`` like any call), for checks."""
+    return gather_params(params, specs, ctx)
+
+
+def reduce_axes(spec: Spec, names) -> Tuple[str, ...]:
+    """The dims among ``names`` (a mesh's, in its order) a leaf of
+    ``spec`` is NOT split over: its gradient, partial on each rank, is
+    still to be summed over them (a ZeRO leaf's reduce-scatter already
+    summed over the dims it names)."""
+    used = {a for e in spec for a in entry_axes(e, names)}
+    return tuple(a for a in names if a not in used)
+
+
+def param_copies(specs, ctx: ParallelContext):
+    """For each leaf, how many ranks hold a copy of each of its slices:
+    the product of the sizes of ``reduce_axes``."""
+    def one(_, spec):
+        n = 1
+        for a in reduce_axes(spec, ctx.mesh.mesh_dim_names):
+            n *= ctx.size(a)
+        return n
+    return tree_map_with_path(one, specs)
+
+
 @dataclasses.dataclass(frozen=True)
 class Sharder:
-    """Semantic activation-layout hooks over ``ctx``'s ``model`` group.
+    """Semantic activation-layout hooks over ``ctx``'s ``model`` group,
+    and the parameters' layout (``param_specs``, read by ``whole``).
     ``ctx=None`` (one device) makes every hook the identity.
 
     ``schedule`` is the planned switching schedule on the (B, S, H·Dh)
@@ -78,6 +311,9 @@ class Sharder:
     schedule: Optional[Any] = None
     resid_dim: Optional[int] = None
     mixer_dim: Optional[int] = None
+    # ``param_pspecs`` of the global parameter tree: how the tree the
+    # model is given is split (None: every leaf whole)
+    param_specs: Optional[Dict[str, Any]] = None
 
     def with_schedule(self, schedule) -> "Sharder":
         _check_schedule(schedule, on_mesh=self.ctx is not None)
@@ -127,6 +363,21 @@ class Sharder:
         count divides the SP size (``attention_sp`` gathers K/V
         otherwise)."""
         return self.mixer_dim == 2 and n_heads % self.sp_size == 0
+
+    def whole(self, tree, *path: str):
+        """``tree``, the parameters' subtree at ``path``, with every leaf
+        its spec splits gathered whole (``gather_params``), where the
+        model reads it; ``tree`` itself without a mesh or specs.  Under
+        ``periods`` ``tree`` is one period: the specs drop their leading
+        (period) entry."""
+        if self.ctx is None or self.param_specs is None:
+            return tree
+        specs = self.param_specs
+        for k in path:
+            specs = specs[k]
+        if path[:1] == ("periods",):
+            specs = tree_map_with_path(lambda _, s: s[1:], specs)
+        return gather_params(tree, specs, self.ctx)
 
     # -- the one transition ----------------------------------------------------
     def _class(self, name: str) -> Optional[int]:
@@ -294,17 +545,21 @@ def _stage_dims(plan: ParallelPlan,
     return None, None
 
 
-def make_sharder(mesh, plan: ParallelPlan, schedule=None) -> Sharder:
+def make_sharder(mesh, plan: ParallelPlan, schedule=None, *,
+                 param_specs=None) -> Sharder:
     """The hooks for ``plan`` on ``mesh`` (a ``DeviceMesh`` with a
     ``model`` dim, the others splitting the batch), or the identity hooks
     when ``mesh`` is None.  ``schedule`` (``models.lm.dsp_schedule``) gives
     the stage layouts; without one, forwards plan their own from the
-    batch's shape, priced in bytes.
+    batch's shape, priced in bytes.  ``param_specs`` is
+    ``param_pspecs(params, plan, axis_sizes=mesh_sizes(ctx))`` of the
+    global tree, the layout of the parameters the model is given
+    (``shard_params``); on a mesh a plan with ``zero`` or ``shard_vocab``
+    needs it.
 
-    On a mesh only plan mode ``dsp`` with ``zero``, ``shard_vocab`` and
-    ``ep`` off runs, under a mirrored all-"dsp" schedule with no
-    ``overlap``; the rest raises ``NotImplementedError`` naming the
-    ROADMAP item that brings it."""
+    On a mesh plan mode ``dsp`` runs, ``ep`` off, under a mirrored
+    all-"dsp" schedule with no ``overlap``; the rest raises
+    ``NotImplementedError`` naming the ROADMAP item that brings it."""
     if plan.mode not in MODES:
         raise ValueError(f"plan mode {plan.mode!r} not in {MODES}")
     ctx = None
@@ -318,14 +573,9 @@ def make_sharder(mesh, plan: ParallelPlan, schedule=None) -> Sharder:
             raise ValueError("plan mode 'none' shares no work over the "
                              "model dim: pass mesh=None")
         refused = {
-            "mode='tp'": (plan.mode == "tp", "the parameter layouts of "
-                          "ROADMAP queue 1 item 3's remainder: tp's column- "
-                          "and row-parallel weights"),
-            "zero=True": (plan.zero, "the parameter layouts of ROADMAP "
-                          "queue 1 item 3's remainder: ZeRO over data"),
-            "shard_vocab=True": (plan.shard_vocab, "the parameter layouts "
-                                 "of ROADMAP queue 1 item 3's remainder: "
-                                 "sharded_embed's vocab ring"),
+            "mode='tp'": (plan.mode == "tp", "tp's column- and "
+                          "row-parallel execution, ROADMAP queue 1 item 7 "
+                          "(param_pspecs carries its rules)"),
             "ep=True": (plan.ep, "MoE with ep, ROADMAP queue 1 item 7"),
         }
         for what, (hit, item) in refused.items():
@@ -333,10 +583,16 @@ def make_sharder(mesh, plan: ParallelPlan, schedule=None) -> Sharder:
                 raise NotImplementedError(
                     f"ParallelPlan {what} on a mesh is not ported yet: "
                     f"{item}")
+        if (plan.zero or plan.shard_vocab) and param_specs is None:
+            raise ValueError(
+                "a plan with zero or shard_vocab on a mesh splits the "
+                "parameters: pass param_specs=param_pspecs(params, plan, "
+                "axis_sizes=mesh_sizes(ctx)) of the global tree")
     _check_schedule(schedule, on_mesh=ctx is not None)
     resid, mixer = _stage_dims(plan, schedule)
     return Sharder(ctx=ctx, plan=plan, schedule=schedule, resid_dim=resid,
-                   mixer_dim=mixer)
+                   mixer_dim=mixer,
+                   param_specs=param_specs if ctx is not None else None)
 
 
 def null_sharder() -> Sharder:
@@ -344,4 +600,7 @@ def null_sharder() -> Sharder:
     return make_sharder(None, ParallelPlan(mode="none"))
 
 
-__all__ = ["ParallelPlan", "Sharder", "make_sharder", "null_sharder"]
+__all__ = ["ParallelPlan", "Sharder", "make_sharder", "null_sharder",
+           "param_pspecs", "mesh_sizes", "shard_params", "gather_params",
+           "unshard_params", "entry_axes", "reduce_axes", "param_copies",
+           "tree_map_with_path"]

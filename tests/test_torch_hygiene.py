@@ -62,7 +62,8 @@ assert not bad, bad
 @pytest.mark.parametrize("worker", ["_torch_dsp_worker.py",
                                     "_torch_sp_worker.py",
                                     "_torch_l2d_worker.py",
-                                    "_torch_lmdsp_worker.py"])
+                                    "_torch_lmdsp_worker.py",
+                                    "_torch_zero_worker.py"])
 def test_gloo_workers_import_no_jax_and_no_repro(worker):
     """The port's side of each multi-process check (a gloo rank) loads, with
     the helpers it shares with its JAX side, nothing of JAX or of the JAX

@@ -19,6 +19,7 @@ scenarios).  Per-rank calls and bytes are exact: the hooks' contract
 JAX's compiled counts at one scenario stand beside it in
 ``JAX_COMPILED``."""
 import dataclasses
+import math
 import os
 import subprocess
 import sys
@@ -41,7 +42,8 @@ from repro_torch.configs import qwen3_14b as TQC
 from repro_torch.core import dsp
 from repro_torch.models import lm as TL
 from repro_torch.models import ssm as TSSM
-from repro_torch.parallel.partition import ParallelPlan, make_sharder
+from repro_torch.parallel.partition import (ParallelPlan, make_sharder,
+                                            param_pspecs)
 
 HERE = os.path.dirname(__file__)
 SRC = os.path.join(HERE, "..", "src")
@@ -366,9 +368,9 @@ def _refusals():
         "tp": (ParallelPlan(mode="tp", zero=False, shard_vocab=False), None,
                NotImplementedError),
         "zero": (ParallelPlan(mode="dsp", shard_vocab=False), None,
-                 NotImplementedError),
+                 ValueError),
         "shard_vocab": (ParallelPlan(mode="dsp", zero=False), None,
-                        NotImplementedError),
+                        ValueError),
         "ep": (dataclasses.replace(ok, ep=True), None, NotImplementedError),
         "strategies": (ok, dataclasses.replace(
             joint, strategies=("dsp", "ulysses", "dsp") * cfg.n_layers),
@@ -388,15 +390,25 @@ def _refusals():
 
 @pytest.mark.parametrize("case", sorted(_refusals()))
 def test_make_sharder_refuses(world_of_one, case):
-    """On a mesh ``make_sharder`` runs plan ``dsp`` with zero, shard_vocab
-    and ep off under a mirrored all-"dsp" schedule without overlap that
-    enters and leaves on the sequence; everything else raises, what is
-    not ported yet as ``NotImplementedError`` naming its ROADMAP item."""
+    """On a mesh ``make_sharder`` runs plan ``dsp`` with ep off under a
+    mirrored all-"dsp" schedule without overlap that enters and leaves on
+    the sequence; everything else raises, what is not ported yet
+    (``tp``'s execution, ``ep``) as ``NotImplementedError`` naming its
+    ROADMAP item.  A plan with ``zero`` or ``shard_vocab`` splits the
+    parameters: it is refused without their layout and runs with it
+    (``param_specs``, ``param_pspecs`` of the global tree)."""
     plan, schedule, exc = _refusals()[case]
     with pytest.raises(exc) as info:
         make_sharder(world_of_one, plan, schedule=schedule)
     if exc is NotImplementedError:
         assert "ROADMAP" in str(info.value)
+    if case in ("zero", "shard_vocab"):
+        cfg = configs(TL, TSSM, torch.float32)["mha"]
+        specs = param_pspecs(TL.init_lm(0, cfg, device="cpu"), plan,
+                             axis_sizes={"data": 1, "model": 1})
+        sharder = make_sharder(world_of_one, plan, schedule=schedule,
+                               param_specs=specs)
+        assert sharder.param_specs is specs and sharder.plan == plan
 
 
 def test_partial_permutes():
@@ -414,26 +426,40 @@ def test_partial_permutes():
 # The train CLI under torchrun
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["qwen3-14b", "mamba2-370m"])
-def test_train_cli_with_mesh_under_torchrun(arch):
-    """``torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch
-    <lm> --mesh 1,2 --device cpu --steps 3`` at SMOKE size: every rank
-    prints the plan it ran (the spec's with zero and shard_vocab off) and
-    the same global loss, which falls."""
+# case -> (arch, --mesh)
+CLI_CASES = {"qwen3-14b": ("qwen3-14b", "1,2"),
+             "mamba2-370m": ("mamba2-370m", "1,2"),
+             "qwen3-14b/2x2": ("qwen3-14b", "2,2"),
+             "mamba2-370m/2x2": ("mamba2-370m", "2,2")}
+
+
+@pytest.mark.parametrize("case", list(CLI_CASES))
+def test_train_cli_with_mesh_under_torchrun(case):
+    """``torchrun --nproc-per-node <dp * mp> -m repro_torch.launch.train
+    --arch <lm> --mesh dp,mp --device cpu --steps 3`` at SMOKE size: every
+    rank prints the plan it ran (the spec's own, ZeRO-3 and the vocab
+    ring) and the same global loss, which falls and equals one rank's
+    without a mesh to the 4 digits printed."""
+    arch, mesh = CLI_CASES[case]
+    world = math.prod(int(a) for a in mesh.split(","))
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
                + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
-         "--arch", arch, "--mesh", "1,2", "--device", "cpu", "--steps", "3"],
+         "--nproc-per-node", str(world), "-m", "repro_torch.launch.train",
+         "--arch", arch, "--mesh", mesh, "--device", "cpu", "--steps", "3"],
         env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     plans = [l for l in proc.stdout.splitlines() if l.startswith("plan ")]
-    assert len(plans) == 2 and len(set(plans)) == 1, proc.stdout
-    assert plans[0].startswith(
-        "plan ParallelPlan(mode='dsp', ep=False, zero=False, "
-        "shard_vocab=False)"), plans[0]
+    assert len(plans) == world and len(set(plans)) == 1, proc.stdout
+    assert plans[0] == (
+        "plan ParallelPlan(mode='dsp', ep=False, zero=True, "
+        "shard_vocab=True)"), plans[0]
     lines = [l for l in proc.stdout.splitlines() if l.startswith("loss ")]
-    assert len(lines) == 2 and len(set(lines)) == 1, proc.stdout
+    assert len(lines) == world and len(set(lines)) == 1, proc.stdout
     first, last = (float(v) for v in lines[0].split()[1::2])
     assert last < first, lines[0]
+    from repro_torch.launch.train import main as train_main
+    hist = train_main(["--arch", arch, "--device", "cpu", "--steps", "3"])
+    assert lines[0] == (f"loss {hist['history'][0][1]:.4f} -> "
+                        f"{hist['history'][-1][1]:.4f}"), lines[0]
