@@ -23,7 +23,8 @@ Phases, in order; any failure raises and exits non-zero:
    qwen3-14b's 10 q and 2 K/V heads over 4096 tokens, K2 on mamba2-370m's
    8 heads (``LM_RANK_ATTN``, ``LM_RANK_SSD``); and at the shapes a rank
    of phase 17 (b)'s (2, 2) mesh gives them: K1 on 20 q and 4 K/V heads,
-   K2 on 16 heads (``LM_ZERO_ATTN``, ``LM_ZERO_SSD``);
+   K2 on 16 heads (``LM_ZERO_ATTN``, ``LM_ZERO_SSD``); and K2 at phase
+   18's shapes, 2 sequences on 32, 8 and 16 heads (``CKPT_SSD``);
 4. time each kernel, its plain version and, where one exists, one PyTorch
    library call that computes the same function (a yardstick the port
    never calls); K1's routed kernel and the library call three times each
@@ -158,29 +159,53 @@ Phases, in order; any failure raises and exits non-zero:
     4 processes sharing the card over gloo, each this script with
     ``--zero-rank``: qwen3-14b at depth 2 and mamba2-370m at depth 4 on a
     (2, 2) mesh at 2 x 4096 tokens, qwen3-14b at depth 2 on (1, 4) at 1 x
-    4096 (the ring over 4): one loss and its grads gathered from the
-    slices against (a)'s path at the same depth and batch (phase 7's
-    bars), the clip's norm within 1e-3; per rank exactly the contract's
-    calls and bytes, K1 and K2 twice a layer at the rank's head counts,
-    all ``sm90``; one Trainer step on qwen3 at (1, 4) and mamba2 at (2,
-    2) with the contract's calls and a grad norm within 1e-3 of world 1's;
-    each rank's peak memory logged;
-18. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
+    4096 (the ring over 4): one loss, and each rank's grad slices against
+    the same slices of (a)'s path at the same depth and batch (phase 7's
+    bars, each leaf's worst over the ranks), the clip's norm within 1e-3;
+    per rank exactly the contract's calls and bytes, K1 and K2 twice a
+    layer at the rank's head counts, all ``sm90``; one Trainer step on
+    qwen3 at (1, 4) and mamba2 at (2, 2) with the contract's calls and a
+    grad norm within 1e-3 of world 1's; each rank's peak device memory,
+    peak resident host memory and pinned host blocks logged;
+18. mamba2-370m checkpoints (``train.checkpoint``), resume, int8
+    error-feedback compression (``optim.compress``) and ``replan``, under
+    its spec's own plan with ``grad_compress`` on: (a) at world size 1
+    over NCCL, full width and depth at 2 x 4096, 4 steps uninterrupted
+    (and 4 without compression, their step times side by side), then 2
+    steps with an async checkpoint at step 2, a fresh ``Trainer`` whose
+    ``try_resume`` must restore the saved state bit for bit (params,
+    moments, master copy, step, residuals) and steps 3 and 4, whose losses
+    must be within 1e-5 relative of the uninterrupted run's (the gap
+    printed); K2 must launch 2 x 48 a step, all ``sm90``, in every run;
+    the checkpoint's bytes and the seconds of snapshot, write, publish
+    and restore are logged; (b) 4 processes sharing the card over gloo,
+    each this script with ``--ckpt-rank``, at depth 4: one step at (2,
+    2), saved; restored at (1, 4) in the same processes and at world size
+    1 in this one, each gathered bit-equal to the saved global tree; step
+    2 at (1, 4) and, after ``replan(2)`` (ranks 2 and 3 leave), step 3 on
+    the survivors, within phase 7's loss bar of the (2, 2) run's; (c) the
+    train CLI with ``--ckpt-dir``, then ``--resume``, then the serve CLI
+    from the same checkpoint, at SMOKE size;
+19. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
     counts over the paths above (K1 320 + 32 + 224 + 224 + phase 14's
     training runs, 112 per mode, 56 for ring and hybrid, + phase 15 (a)'s
     28 + phase 16 (a)'s 32 + phase 17 (a)'s 32; K2 576 + 384 + phase 16
-    (a)'s 192 + phase 17 (a)'s 192) and whose ``launches_by_route`` split
-    that sum by the route each launch took (every one ``sm90``), then the
-    last line ``{"ok": true, "device": {...}}``.
+    (a)'s 192 + phase 17 (a)'s 192 + phase 18 (a)'s 2 x 48 x 12 = 1152)
+    and whose ``launches_by_route`` split that sum by the route each
+    launch took (every one ``sm90``), then the last line ``{"ok": true,
+    "device": {...}}``.
 
-Each phase's header logs the seconds since the start, and every time
-logged carries the card's name and power limit.
+Each phase's header logs the seconds since the start and the host's
+memory since the previous header (the peaks of the process tree's
+resident memory, of the machine's used memory and of its tmpfs), and
+every time logged carries the card's name and power limit.
 """
 import dataclasses
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -214,12 +239,12 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import transformer2d as t2d  # noqa: E402
 from repro_torch.optim.adamw import OptConfig  # noqa: E402
 from repro_torch.parallel.partition import (  # noqa: E402
-    ParallelPlan, gather_params, make_sharder, mesh_sizes, param_pspecs,
-    shard_params)
+    ParallelPlan, make_sharder, mesh_sizes, param_pspecs, shard_params,
+    slice_index, unshard_params)
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 from repro_torch.serving.scheduler import ContinuousScheduler  # noqa: E402
 from repro_torch.train.trainer import (  # noqa: E402
-    Trainer, TrainerConfig, allreduce_grads, slices_norm)
+    ElasticSpec, Trainer, TrainerConfig, allreduce_grads, slices_norm)
 
 # published H100 SXM peaks (NVIDIA data sheet, dense)
 PEAK_BF16_FLOPS = 989e12
@@ -332,7 +357,7 @@ LM_REDUCE_PIECE = 1 << 26
 # world size 1 over NCCL, whose losses must equal phase 16 (a)'s within
 # DSP_LOSS_BAR; then DSP_RANKS processes sharing the card over gloo, each
 # case (LM, depth, (data, model) mesh, global batch of that many x
-# TRAIN_SEQ) one loss and its grads gathered from the slices against
+# TRAIN_SEQ) one loss and its grad slices against the same slices of
 # world 1's at the same depth and batch (phase 7's bars), and on the cases
 # of ZERO_TRAIN one Trainer step, whose grad norm must be within
 # ZERO_NORM_BAR of world 1's
@@ -340,12 +365,25 @@ ZERO_CASES = (("qwen3-14b", 2, (2, 2), 2), ("mamba2-370m", 4, (2, 2), 2),
               ("qwen3-14b", 2, (1, 4), 1))
 ZERO_TRAIN = ("qwen3-14b/1x4", "mamba2-370m/2x2")
 ZERO_NORM_BAR = 1e-3
+# the checkpoint phase: mamba2-370m under its spec's plan with grad_compress
+# at CKPT_BATCH x TRAIN_SEQ, CKPT_STEPS steps uninterrupted against a run
+# checkpointed at CKPT_RESUME and resumed by a fresh Trainer (losses within
+# CKPT_LOSS_BAR relative; bit-equal expected); then DSP_RANKS processes
+# sharing the card over gloo at depth CKPT_RANK_DEPTH: save at (2, 2),
+# restore at (1, 4) and at world size 1, replan(2)
+CKPT_BATCH, CKPT_STEPS, CKPT_RESUME, CKPT_LOSS_BAR = 2, 4, 2, 1e-5
+CKPT_RANK_DEPTH = 4
 # the kernels at the shapes a rank of the (2, 2) cases gives them: K1 on
 # qwen3-14b's 20 q and 4 K/V heads, K2 on mamba2-370m's 16 heads
 LM_ZERO_ATTN = (1, _Q.n_heads // 2, _Q.n_kv_heads // 2, TRAIN_SEQ, TRAIN_SEQ,
                 _Q.head_dim, True, None, None)
 LM_ZERO_SSD = (1, TRAIN_SEQ, _M.n_heads // 2, _M.head_dim, _M.n_groups,
                _M.d_state, _M.chunk)
+# K2 at the shapes the checkpoint phase gives it: CKPT_BATCH sequences on
+# all 32 heads (world 1), on 8 (a rank at (1, 4)) and on 16 (a rank at
+# (1, 2) after replan(2))
+CKPT_SSD = tuple((CKPT_BATCH, TRAIN_SEQ, _M.n_heads // n, _M.head_dim,
+                  _M.n_groups, _M.d_state, _M.chunk) for n in (1, 4, 2))
 
 
 def prefill_case(s: int):
@@ -2231,10 +2269,11 @@ def zero_rank_main(rank: int, world: int, work: str) -> None:
     --zero-rank <rank> <world> <dir>``: gloo over the card's CUDA tensors.
     For each case of ZERO_CASES, on its (data, model) mesh: the spec's
     layout, one ``zero_grads`` with what it counted and its peak memory,
-    then each grad leaf gathered whole (``gather_params``, not counted)
-    and, on rank 0, held against (a)'s reference leaf by leaf; on the
-    cases of ZERO_TRAIN one Trainer step, counted, with its grad norm.
-    Written to ``<dir>/zero_rank<r>.json``."""
+    then each grad slice held against the same slice of (a)'s reference
+    (``slice_gap``), each leaf's gap the largest over the ranks; on the
+    cases of ZERO_TRAIN one Trainer step, counted, with its grad norm;
+    the host's peak resident memory after each.  Written to
+    ``<dir>/zero_rank<r>.json``."""
     device = json.load(open(os.path.join(work, "job17.json")))["device"]
     full_f32()
     if device == "cuda":
@@ -2268,30 +2307,26 @@ def zero_rank_main(rank: int, world: int, work: str) -> None:
                 k2_routes=nonzero(ssd_scan_fwd.route_launches),
                 k2_heads={str(h): n for h, n in
                           ssd_scan_fwd.heads_launches.items()})
-            ref = (torch.load(os.path.join(work, f"zero_ref.{name}.{batch}"
-                                           f".pt"), mmap=True)
-                   if rank == 0 else None)
-            shares = []
-            # gathered and compared in host memory: a whole table's f32
-            # grad on each of the 4 ranks would not fit beside their state
-            leaves = [g.cpu() for g in lm.tree_leaves(grads)]
+            got["host_gib"] = {"grads": host_state()}
+            # each rank holds its own slices against the same slices of the
+            # reference (memory-mapped, its pages shared by the ranks), and
+            # each leaf's largest gap and value are the ranks' maxima: no
+            # rank holds a whole leaf.  That, and the pinned blocks gloo
+            # kept (~9.4 GiB a rank a qwen3 case) given back after each
+            # case, keeps the 4 ranks well inside the host's 96 GiB, which
+            # whole leaves and every case's blocks together outgrew
+            ref = torch.load(os.path.join(work, f"zero_ref.{name}.{batch}"
+                                          f".pt"), mmap=True)
+            gaps = torch.tensor([slice_gap(g, w[tuple(
+                slice(a, b) for a, b in slice_index(w.shape, spec, ctx))])
+                for g, w, spec in zip(lm.tree_leaves(grads), ref["grads"],
+                                      lm.tree_leaves(lay["specs"]))],
+                dtype=torch.float64)
+            dist.all_reduce(gaps, op=dist.ReduceOp.MAX)
+            shares = (gaps[:, 0] / gaps[:, 1].clamp_min(1e-30)).tolist()
+            got["host_gib"]["check"] = host_state()
+            host_empty_cache()
             del grads
-            torch.cuda.empty_cache()
-            for i, spec in enumerate(lm.tree_leaves(lay["specs"])):
-                with torch.no_grad():
-                    whole = gather_params({"g": leaves[i]}, {"g": spec},
-                                          ctx)["g"]
-                leaves[i] = None
-                if rank == 0:
-                    w = ref["grads"][i]
-                    gap = top = 0.0
-                    for a, b in zip(whole.reshape(-1).split(LM_REDUCE_PIECE),
-                                    w.reshape(-1).split(LM_REDUCE_PIECE)):
-                        gap = max(gap, float((a.float() - b.float()).abs()
-                                             .max()))
-                        top = max(top, float(b.float().abs().max()))
-                    shares.append(gap / max(top, 1e-30))
-                del whole
             if rank == 0:
                 worst = int(np.argmax(shares))
                 got.update(loss=float(loss), loss_rel=float(
@@ -2301,10 +2336,12 @@ def zero_rank_main(rank: int, world: int, work: str) -> None:
                         (norm.cpu() - ref["norm"]).abs() / ref["norm"]),
                     grad_rel=shares[worst], leaves=len(shares),
                     leaf=leaf_paths(lay["specs"])[worst])
-            del leaves, ref
+            del ref
             torch.cuda.empty_cache()
             if label in ZERO_TRAIN:
                 got["train"] = zero_train_step(cfg, lay, batch, device)
+                got["host_gib"]["train"] = host_state()
+                host_empty_cache()
             res[label] = got
             del lay
             torch.cuda.empty_cache()
@@ -2312,6 +2349,44 @@ def zero_rank_main(rank: int, world: int, work: str) -> None:
                             "w"))
     finally:
         dist.destroy_process_group()
+
+
+def host_peak_gib() -> float:
+    """This process's peak resident host memory so far, GiB."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def host_state() -> dict:
+    """GiB of host memory: this process's peak resident so far, and the
+    pinned blocks the caching host allocator holds (gloo stages each
+    collective of a CUDA tensor through one, and keeps it)."""
+    stats = getattr(torch.cuda, "host_memory_stats", dict)()
+    return {"peak_rss": round(host_peak_gib(), 2), "pinned": round(
+        stats.get("allocated_bytes.current", 0) / 2**30, 2)}
+
+
+def host_empty_cache() -> None:
+    """Give the cached pinned host blocks back (torch >= 2.6 has the
+    call), so that one case's blocks do not stay beside the next's."""
+    fn = getattr(torch._C, "_host_emptyCache", None)
+    if fn is not None:
+        fn()
+
+
+def slice_gap(got: torch.Tensor, want: torch.Tensor) -> list:
+    """[max |got - want|, max |want|] of one slice (``got`` on its device,
+    ``want`` a view of the memory-mapped reference), compared in pieces of
+    about LM_REDUCE_PIECE elements along dim 0."""
+    got, want = got.reshape((-1,) + tuple(got.shape[1:])), \
+        want.reshape((-1,) + tuple(want.shape[1:]))
+    rows = max(1, LM_REDUCE_PIECE // max(1, got[0].numel()))
+    gap = top = 0.0
+    for a, b in zip(got.split(rows), want.split(rows)):
+        b = b.to(a.device).float()
+        gap = max(gap, float((a.float() - b).abs().max()))
+        top = max(top, float(b.abs().max()))
+    return [gap, top]
 
 
 def zero_train_step(cfg, lay: dict, batch: int, device="cuda") -> dict:
@@ -2348,14 +2423,16 @@ def zero_train_step(cfg, lay: dict, batch: int, device="cuda") -> dict:
 
 def zero_four_ranks(work: str, device="cuda") -> dict:
     """(b) DSP_RANKS processes sharing the card over gloo, each case of
-    ZERO_CASES at full width: the loss and every grad leaf gathered from
-    the slices against (a)'s reference within phase 7's bars, the clip's
+    ZERO_CASES at full width: the loss and every grad leaf (each rank's
+    slices against the same slices of (a)'s reference, the worst over the
+    ranks) within phase 7's bars, the clip's
     norm within ZERO_NORM_BAR; per rank exactly the contract's calls and
     bytes, K1 (K2) launched twice a layer on the rank's heads (qwen3-14b
     at (2, 2) on 20 of 40 q and 4 of 8 K/V heads, at (1, 4) on 10 and 2;
     mamba2-370m at (2, 2) on 16 of 32), all on ``sm90``; on ZERO_TRAIN's
     cases one Trainer step with the contract's calls and a grad norm
-    within ZERO_NORM_BAR of world 1's; each rank's peak memory logged."""
+    within ZERO_NORM_BAR of world 1's; each rank's peak device memory
+    and its host memory after each stage logged."""
     with open(os.path.join(work, "job17.json"), "w") as f:
         json.dump({"device": device}, f)
     t0 = time.perf_counter()
@@ -2407,7 +2484,8 @@ def zero_four_ranks(work: str, device="cuda") -> dict:
                   f"{got['coord'][1]}): {got['seconds']:.1f} s, peak "
                   f"{got['peak_gb']:.2f} GB, calls {got['calls']}, K1 "
                   f"{got['k1_heads']} {got['k1_routes']}, K2 "
-                  f"{got['k2_heads']} {got['k2_routes']}")
+                  f"{got['k2_heads']} {got['k2_routes']}; host GiB "
+                  f"{got['host_gib']}")
             routes_ok = (got["k1_routes"] == ({"sm90": heads["k1"]}
                                               if heads["k1"] else {})
                          and got["k2_routes"] == ({"sm90": heads["k2"]}
@@ -2431,6 +2509,385 @@ def zero_four_ranks(work: str, device="cuda") -> dict:
                                          f"{got['contract']}, world 1's "
                                          f"norm {g['ref_norm']}")
     return {"ranks": ranks}
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: checkpoints that reshard on load, resume, compression, replan
+# ---------------------------------------------------------------------------
+
+def state_bits(tree) -> list:
+    """The leaves of a training state (tensors and the step count) as
+    comparable values: a copy of each tensor's bytes on its device (AdamW
+    updates the live leaves in place), each int itself."""
+    out = []
+    for t in lm.tree_leaves(tree):
+        if isinstance(t, int):
+            out.append(t)
+        else:
+            out.append(t.detach().reshape(-1).view(torch.uint8).clone())
+    return out
+
+
+def same_bits(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        (x == y) if isinstance(x, int) or isinstance(y, int)
+        else (x.shape == y.shape and bool(torch.equal(x, y.to(x.device))))
+        for x, y in zip(a, b))
+
+
+def ckpt_trainer(cfg, lay: dict, *, steps: int, ckpt_dir=None,
+                 ckpt_every: int = 0, compress: bool = True,
+                 device="cuda") -> Trainer:
+    """The Trainer of phase 18 on ``lay`` (``zero_layout``): the global
+    CKPT_BATCH x TRAIN_SEQ batches, each rank's shard cut by the loss (as
+    ``ElasticSpec.make_loss`` must, for ``replan``), K2 through its
+    kernel."""
+    def make_loss(mesh, sharder, schedule):
+        return lambda p, b: lm.lm_loss(p, lm.shard_lm_batch(b, sharder), cfg,
+                                       sharder=sharder, backend="kernel")
+
+    def solve_schedule(sp):
+        return lm.dsp_schedule(cfg, sp, seq=TRAIN_SEQ, batch=CKPT_BATCH,
+                               joint=True)
+    sharder = lay["sharder"]
+    return Trainer(
+        loss_fn=make_loss(None, sharder, None), params=lay.pop("params"),
+        opt_cfg=OptConfig(peak_lr=3e-4, warmup_steps=2,
+                          total_steps=CKPT_STEPS),
+        cfg=TrainerConfig(total_steps=steps, log_every=1,
+                          ckpt_every=ckpt_every, grad_compress=compress),
+        data_fn=lambda st: lm_batch(cfg, CKPT_BATCH, st, device),
+        ckpt_dir=ckpt_dir, device=device, sharder=sharder,
+        elastic=ElasticSpec(make_loss=make_loss,
+                            solve_schedule=solve_schedule, plan=lay["plan"]))
+
+
+def timed_run(trainer: Trainer) -> dict:
+    """``trainer.run()`` with K2's counters set to 0 just before and read
+    just after, each step timed (synchronised) with its loss."""
+    steps = []
+    inner = trainer.step_fn
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(*args)
+        torch.cuda.synchronize()
+        steps.append({"seconds": time.perf_counter() - t,
+                      "loss": float(out[-1]["loss"])})
+        return out
+    trainer.step_fn = timed
+    reset_ssd_launches()
+    t0 = time.perf_counter()
+    trainer.run()
+    torch.cuda.synchronize()
+    trainer.step_fn = inner
+    return {"steps": steps, "seconds": time.perf_counter() - t0,
+            "launches": ssd_scan_fwd.launches,
+            "routes": nonzero(ssd_scan_fwd.route_launches)}
+
+
+def check_k2(what: str, run: dict, depth: int) -> None:
+    want = 2 * depth * len(run["steps"])
+    log(f"  {what}: K2 {run['launches']} launches by route {run['routes']} "
+        f"(2 x {depth} x {len(run['steps'])} = {want})")
+    if run["launches"] != want or run["routes"] != {"sm90": want}:
+        raise AssertionError(f"{what}: K2 launched {run['routes']}, "
+                             f"expected {want} on sm90")
+
+
+def ckpt_world_of_one(work: str, device="cuda") -> dict:
+    """(a) At world size 1 on a (1, 1) mesh over NCCL, mamba2-370m at full
+    width and depth under its spec's own plan (``zero_layout``), at
+    CKPT_BATCH x TRAIN_SEQ with ``grad_compress``: CKPT_STEPS steps
+    uninterrupted; then the same run checkpointed async at step
+    CKPT_RESUME, a fresh Trainer that ``try_resume``s (its state bit-equal
+    to the one saved: params, moments, master copy, step, residuals) and
+    runs the rest, its losses within CKPT_LOSS_BAR relative of the
+    uninterrupted run's (the gap printed); K2 exactly 2 x 48 a step on
+    ``sm90`` in every run; the checkpoint's bytes and seconds (snapshot,
+    write, publish, restore) logged; and one uncompressed run's steps
+    beside the compressed run's."""
+    dist.init_process_group(BACKEND_OF[torch.device(device).type],
+                            store=dist.FileStore(os.path.join(
+                                work, "store18a"), 1), rank=0, world_size=1)
+    out = {}
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), torch.device(device).type)
+        cfg = lm_config("mamba2-370m")
+        runs = {}
+        for name, compress in (("compressed", True), ("plain", False)):
+            trainer = ckpt_trainer(cfg, zero_layout(
+                "mamba2-370m", cfg, mesh, CKPT_BATCH, device),
+                steps=CKPT_STEPS, compress=compress, device=device)
+            runs[name] = timed_run(trainer)
+            check_k2(f"{name} run", runs[name], cfg.n_layers)
+            del trainer
+            torch.cuda.empty_cache()
+        whole = runs["compressed"]
+        med = {k: float(np.median([st["seconds"] for st in r["steps"][1:]]))
+               for k, r in runs.items()}
+        for name, r in runs.items():
+            log_t(f"  {name}: step ms {[st['seconds'] * 1e3 for st in r['steps']]}"
+                  f" (median of steps 2-{CKPT_STEPS} {med[name] * 1e3:.2f}); "
+                  f"losses {[st['loss'] for st in r['steps']]}")
+        log_t(f"  compression: {(med['compressed'] - med['plain']) * 1e3:+.2f}"
+              f" ms a step ({med['compressed'] / med['plain'] - 1:+.2%})")
+        ckdir = tempfile.mkdtemp(prefix="ckpt18.", dir=work)
+        first = ckpt_trainer(cfg, zero_layout("mamba2-370m", cfg, mesh,
+                                              CKPT_BATCH, device),
+                             steps=CKPT_RESUME, ckpt_dir=ckdir,
+                             ckpt_every=CKPT_RESUME, device=device)
+        need = sum(t.numel() * t.element_size()
+                   for t in lm.tree_leaves(first._state())
+                   if not isinstance(t, int))
+        free = shutil.disk_usage(ckdir).free
+        log(f"  checkpoint dir {ckdir}: {free / 1e9:.1f} GB free, the state "
+            f"holds {need / 1e9:.2f} GB")
+        if free < 1.5 * need:
+            raise AssertionError(f"the filesystem of {ckdir} lacks room for "
+                                 f"a {need / 1e9:.2f} GB checkpoint: "
+                                 f"{free / 1e9:.1f} GB free")
+        part1 = timed_run(first)
+        check_k2("run to the checkpoint", part1, cfg.n_layers)
+        save = dict(first.ckpt.last_save)
+        on_disk = sum(os.path.getsize(os.path.join(r, f))
+                      for r, _, fs in os.walk(ckdir) for f in fs)
+        log_t(f"  async save at step {CKPT_RESUME}: {save['bytes']} B of "
+              f"shards, {on_disk} B on disk; snapshot "
+              f"{save['snapshot_s']:.3f} s (device to host, the caller's "
+              f"thread), write {save['write_s']:.3f} s, publish "
+              f"{save['publish_s']:.3f} s ({save['bytes'] / 1e9 / save['write_s']:.2f}"
+              f" GB/s written)")
+        saved = state_bits(first._state())
+        del first
+        torch.cuda.empty_cache()
+        second = ckpt_trainer(cfg, zero_layout("mamba2-370m", cfg, mesh,
+                                               CKPT_BATCH, device),
+                              steps=CKPT_STEPS, ckpt_dir=ckdir,
+                              device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        second.try_resume()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        equal = same_bits(state_bits(second._state()), saved)
+        log_t(f"  try_resume: step {second.start_step} in {restore_s:.3f} s "
+              f"({save['bytes'] / 1e9 / restore_s:.2f} GB/s); restored "
+              f"state bit-equal to the saved one: {equal}")
+        if not (equal and second.start_step == CKPT_RESUME):
+            raise AssertionError("the restored state differs from the saved "
+                                 "one")
+        del saved
+        # the resumed run's own end checkpoint would double the disk the
+        # phase needs; the save path was timed above
+        second.ckpt = None
+        part2 = timed_run(second)
+        check_k2("resumed run", part2, cfg.n_layers)
+        got = [s["loss"] for s in part1["steps"] + part2["steps"]]
+        want = [s["loss"] for s in whole["steps"]]
+        gap = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        log_t(f"  resumed losses {got} against uninterrupted {want}: worst "
+              f"|delta| / |loss| = {gap:.3e} (bit-equal: {got == want})")
+        if len(got) != len(want) or not gap <= CKPT_LOSS_BAR:
+            raise AssertionError(f"resumed losses {got} differ from the "
+                                 f"uninterrupted {want}")
+        del second
+        shutil.rmtree(ckdir)
+        torch.cuda.empty_cache()
+        out = {"launches": sum(r["launches"] for r in
+                               (whole, runs["plain"], part1, part2)),
+               "routes": by_route([whole, runs["plain"], part1, part2]),
+               "save": save, "restore_s": restore_s, "gap": gap}
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def ckpt_rank_main(rank: int, world: int, work: str) -> None:
+    """One of (b)'s ranks, started by ``ckpt_four_ranks`` as
+    ``chip_smoke.py --ckpt-rank <rank> <world> <dir>``: gloo over the
+    card's tensors.  mamba2-370m at depth CKPT_RANK_DEPTH under its spec's
+    plan with ``grad_compress``: one Trainer step at (2, 2), saved into
+    ``<dir>/ck``; the saved state gathered whole (rank 0 writes it to
+    ``<dir>/saved18.pt``); two more steps at (2, 2), whose losses are the
+    reference; then a fresh Trainer at (1, 4) that resumes (gathered
+    state bit-equal to the saved one), takes step 2, ``replan(2)``s (ranks
+    2 and 3 leave) and takes step 3 on the survivors.  Written to
+    ``<dir>/ckpt_rank<r>.json``."""
+    device = json.load(open(os.path.join(work, "job18.json")))["device"]
+    full_f32()
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(work, "store18b"), world), rank=rank, world_size=world)
+    try:
+        cfg = lm_config("mamba2-370m", CKPT_RANK_DEPTH)
+        res = {}
+        ckdir = os.path.join(work, "ck")
+
+        def layout(shape):
+            mesh = make_mesh(shape, ("data", "model"),
+                             torch.device(device).type, backend="gloo")
+            return zero_layout("mamba2-370m", cfg, mesh, CKPT_BATCH, device)
+        t0 = time.perf_counter()
+        first = ckpt_trainer(cfg, layout((2, 2)), steps=1, ckpt_dir=ckdir,
+                             ckpt_every=1, device=device)
+        run = timed_run(first)
+        res["save"] = first.ckpt.last_save
+        with torch.no_grad():
+            saved = unshard_params(first._state(), first._state_specs(),
+                                   first.ctx)
+        if rank == 0:
+            torch.save(lm.tree_map(lambda t: t if isinstance(t, int)
+                                   else t.cpu(), saved),
+                       os.path.join(work, "saved18.pt"))
+        saved = state_bits(saved)
+        first.ckpt = None
+        first.cfg = dataclasses.replace(first.cfg, total_steps=3)
+        ref = timed_run(first)
+        res["ref_losses"] = [s["loss"] for s in run["steps"] + ref["steps"]]
+        del first
+        torch.cuda.empty_cache()
+        second = ckpt_trainer(cfg, layout((1, 4)), steps=2, ckpt_dir=ckdir,
+                              device=device)
+        t1 = time.perf_counter()
+        second.try_resume()
+        torch.cuda.synchronize()
+        res["restore_s"] = time.perf_counter() - t1
+        with torch.no_grad():
+            got = unshard_params(second._state(), second._state_specs(),
+                                 second.ctx)
+        res["restored_equal"] = same_bits(state_bits(got), saved)
+        res["start_step"] = second.start_step
+        del got, saved
+        step2 = timed_run(second)
+        # replan's own peak: the old slices, the new ones and one whole
+        # leaf at a time
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t2 = time.perf_counter()
+        second.replan(2)
+        torch.cuda.synchronize()
+        res["replan"] = {"s": time.perf_counter() - t2,
+                         "before_gb": before / 1e9,
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                         "after_gb": torch.cuda.memory_allocated() / 1e9}
+        res["active"] = second.active
+        res["mesh"] = (None if second.mesh is None
+                       else list(second.mesh.shape))
+        second.cfg = dataclasses.replace(second.cfg, total_steps=3)
+        step3 = timed_run(second)
+        res["losses"] = [s["loss"] for s in step2["steps"] + step3["steps"]]
+        res["k2"] = {"launches": run["launches"] + ref["launches"]
+                     + step2["launches"] + step3["launches"]}
+        res["seconds"] = time.perf_counter() - t0
+        res["peak_gb"] = max(peak, torch.cuda.max_memory_allocated()) / 1e9
+        res["host_gib"] = host_peak_gib()
+        json.dump(res, open(os.path.join(work, f"ckpt_rank{rank}.json"),
+                            "w"))
+    finally:
+        dist.destroy_process_group()
+
+
+def ckpt_four_ranks(work: str, device="cuda") -> dict:
+    """(b) DSP_RANKS processes sharing the card over gloo
+    (``ckpt_rank_main``): the state saved at (2, 2) restores bit-equal at
+    (1, 4) on the ranks and at world size 1 here (gathered against the
+    saved global tree); step 2's loss at (1, 4) and step 3's on the
+    survivors of ``replan(2)``, a (1, 2) mesh, within phase 7's LOSS_BAR
+    of the (2, 2) run's."""
+    with open(os.path.join(work, "job18.json"), "w") as f:
+        json.dump({"device": device}, f)
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--ckpt-rank", str(r), str(DSP_RANKS), work],
+                              env=env)
+             for r in range(DSP_RANKS)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log_t(f"  {DSP_RANKS} ranks exited {rcs} after "
+          f"{time.perf_counter() - t0:.1f} s")
+    if any(rcs):
+        raise AssertionError(f"a checkpoint rank failed: exit codes {rcs}")
+    ranks = [json.load(open(os.path.join(work, f"ckpt_rank{r}.json")))
+             for r in range(DSP_RANKS)]
+    ref = ranks[0]["ref_losses"]
+    for r, res in enumerate(ranks):
+        got = res["losses"]
+        gaps = [abs(a - b) / abs(b) for a, b in zip(got, ref[1:])]
+        log_t(f"  rank {r}: saved {res['save']['bytes']} B in "
+              f"{res['save']['write_s']:.3f} s (+ snapshot "
+              f"{res['save']['snapshot_s']:.3f} s, publish "
+              f"{res['save']['publish_s']:.3f} s); restored at (1, 4) "
+              f"step {res['start_step']} in {res['restore_s']:.3f} s, "
+              f"bit-equal {res['restored_equal']}; losses {got} against "
+              f"(2, 2)'s {ref[1:]}: gaps {[f'{g:.2e}' for g in gaps]}; after "
+              f"replan(2) active {res['active']} on {res['mesh']} in "
+              f"{res['replan']['s']:.3f} s (GB held before "
+              f"{res['replan']['before_gb']:.3f}, peak "
+              f"{res['replan']['peak_gb']:.3f}, after "
+              f"{res['replan']['after_gb']:.3f}); K2 "
+              f"{res['k2']['launches']}; {res['seconds']:.1f} s, peak "
+              f"{res['peak_gb']:.2f} GB, host peak resident "
+              f"{res['host_gib']:.2f} GiB")
+        want_len = 2 if r < 2 else 1
+        if not (res["restored_equal"] and res["start_step"] == 1
+                and len(got) == want_len and all(g <= LOSS_BAR for g in gaps)
+                and res["active"] == (r < 2)
+                and (r >= 2 or res["mesh"] == [1, 2])):
+            raise AssertionError(f"rank {r}: {res}")
+    # world size 1: the 4 ranks' checkpoint restored whole in this process
+    from repro_torch.train.checkpoint import CheckpointManager
+    saved = torch.load(os.path.join(work, "saved18.pt"))
+    template = lm.tree_map(lambda t: t if isinstance(t, int) else
+                           torch.empty(t.shape, dtype=t.dtype, device="meta"),
+                           saved)
+    t1 = time.perf_counter()
+    step, got = CheckpointManager(os.path.join(work, "ck")).restore(
+        template, 1, device=device)
+    torch.cuda.synchronize()
+    equal = same_bits(state_bits(got), state_bits(saved))
+    log_t(f"  world 1: step {step} restored whole in "
+          f"{time.perf_counter() - t1:.3f} s, bit-equal to the saved global "
+          f"tree: {equal}")
+    if not equal:
+        raise AssertionError("the world-1 restore differs from the saved "
+                             "global tree")
+    return {"ranks": ranks}
+
+
+def ckpt_clis(work: str, train_main, serve_main) -> None:
+    """(c) The CLIs at SMOKE size on one checkpoint directory: train with
+    ``--ckpt-dir --grad-compress``, train on with ``--resume``, serve from
+    the checkpoint (which must print ``restored step N``)."""
+    import contextlib
+    import io
+    d = os.path.join(work, "cli")
+    base = ["--arch", "mamba2-370m", "--ckpt-dir", d, "--grad-compress"]
+    first = train_main(base + ["--steps", "8"])
+    second = train_main(base + ["--steps", "16", "--resume"])
+    log(f"  train: {first['history']}; resumed: {second['history']}")
+    if (first["final_step"] != 8 or second["final_step"] != 16
+            or second["history"][0][0] <= 8):
+        raise AssertionError(f"train CLI resume: {first} {second}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = serve_main(["--arch", "mamba2-370m", "--ckpt-dir", d,
+                          "--batch", "2", "--prompt-len", "16",
+                          "--new-tokens", "8"])
+    text = buf.getvalue()
+    log(f"  serve: {text.splitlines()[0]}; generated {out.shape}")
+    if "restored step 16" not in text or tuple(out.shape) != (2, 8):
+        raise AssertionError(f"serve CLI from the checkpoint: {text}")
 
 
 def train_cli(train_main, arch: str) -> None:
@@ -2488,6 +2945,103 @@ def time_dit_attention(shape) -> dict:
 T0 = time.perf_counter()
 
 
+def _meminfo() -> dict:
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, value = line.split(":", 1)
+            out[key] = int(value.split()[0]) * 1024
+    return out
+
+
+def _tree_rss() -> int:
+    """Resident bytes summed over this process and its descendants (the
+    ranks and compilers it starts)."""
+    parent, rss = {}, {}
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        parent[int(pid)] = int(fields[1])
+        rss[int(pid)] = int(fields[21]) * os.sysconf("SC_PAGE_SIZE")
+    mine, total = {os.getpid()}, 0
+    for pid in sorted(parent):
+        p, seen = pid, set()
+        while p in parent and p not in mine and p not in seen and p > 1:
+            seen.add(p)
+            p = parent[p]
+        if p in mine:
+            mine |= seen
+    for pid in mine:
+        total += rss.get(pid, 0)
+    return total
+
+
+class HostMemory:
+    """The host's memory, sampled every 0.25 s on a thread: the resident
+    bytes of this process tree, the machine's used memory (MemTotal less
+    MemAvailable, which counts files in tmpfs) and its Shmem (tmpfs).
+    ``take()`` gives the peaks since the last ``take()`` and starts anew;
+    every phase header prints them, so a phase that holds too much of the
+    host shows in the log."""
+
+    def __init__(self):
+        import threading
+        self.lock = threading.Lock()
+        self.peak = {}
+        self.base = _meminfo()
+        threading.Thread(target=self._run, daemon=True).start()
+
+    def _sample(self) -> dict:
+        m = _meminfo()
+        return {"tree": _tree_rss(),
+                "used": m["MemTotal"] - m["MemAvailable"],
+                "shmem": m.get("Shmem", 0)}
+
+    def _run(self) -> None:
+        while True:
+            try:
+                s = self._sample()
+            except (OSError, ValueError, KeyError, IndexError):
+                return
+            with self.lock:
+                for k, v in s.items():
+                    self.peak[k] = max(self.peak.get(k, 0), v)
+            time.sleep(0.25)
+
+    def take(self) -> str:
+        now = self._sample()
+        with self.lock:
+            peak, self.peak = self.peak, dict(now)
+        peak = {k: max(v, peak.get(k, 0)) for k, v in now.items()}
+        return (f"host peak: tree RSS {peak['tree'] / 2**30:.1f} GiB, "
+                f"machine used {peak['used'] / 2**30:.1f} of "
+                f"{self.base['MemTotal'] / 2**30:.1f} GiB (now "
+                f"{now['used'] / 2**30:.1f}), shmem "
+                f"{peak['shmem'] / 2**30:.1f} GiB")
+
+
+HOST = None
+
+
+def fs_type(path: str) -> str:
+    """The type of the filesystem that holds ``path`` (its longest mount
+    point in /proc/mounts), e.g. ``tmpfs``, whose files live in memory."""
+    path = os.path.realpath(path)
+    best, kind = "", "unknown"
+    with open("/proc/mounts") as f:
+        for line in f:
+            _, mnt, typ = line.split()[:3]
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) \
+                    and len(mnt) > len(best):
+                best, kind = mnt, typ
+    return kind
+
+
 def full_f32() -> None:
     """No TF32: float32 products in full precision, as the plain versions
     and the references are held to."""
@@ -2497,7 +3051,8 @@ def full_f32() -> None:
 
 
 def elapsed() -> str:
-    return f"t = {time.perf_counter() - T0:.1f} s, {CARD}"
+    host = "" if HOST is None else f"; since the last header {HOST.take()}"
+    return f"t = {time.perf_counter() - T0:.1f} s, {CARD}{host}"
 
 
 def main() -> None:
@@ -2507,9 +3062,13 @@ def main() -> None:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     log("[1] device")
-    global CARD
+    global CARD, HOST
     facts = CARD = card_facts()
     log(facts)
+    HOST = HostMemory()
+    tmp = tempfile.gettempdir()
+    log(f"  temp dir {tmp} on {fs_type(tmp)}, "
+        f"{shutil.disk_usage(tmp).free / 2**30:.1f} GiB free")
 
     log(f"[2] build ({elapsed()})")
     t0 = time.perf_counter()
@@ -2548,6 +3107,8 @@ def main() -> None:
     check_ssd(LM_RANK_SSD, torch.bfloat16, seed=401)
     check_attention(LM_ZERO_ATTN, torch.bfloat16, seed=402)
     check_ssd(LM_ZERO_SSD, torch.bfloat16, seed=403)
+    for i, case in enumerate(CKPT_SSD):
+        check_ssd(case, torch.bfloat16, seed=404 + i)
 
     log(f"[4] timing at the slice's shape, bf16 ({elapsed()})")
     q, k, v = attn_inputs(SLICE, torch.bfloat16, seed=7)
@@ -2702,6 +3263,19 @@ def main() -> None:
     k1_routes = by_route([served, q_trained, q_dsp, q_zero] + dit_runs)
     log(f"  done ({elapsed()})")
 
+    log(f"[18] mamba2-370m checkpoints: save, resume, compression, "
+        f"resharding and replan ({elapsed()})")
+    t18 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        log("  (a) world size 1 over NCCL, full width and depth")
+        m_ckpt = ckpt_world_of_one(work)
+        log(f"  (b) {DSP_RANKS} ranks on the card over gloo ({elapsed()})")
+        ckpt_ranks = ckpt_four_ranks(work)
+        log(f"  (c) the CLIs at SMOKE size ({elapsed()})")
+        ckpt_clis(work, train_main, serve_main)
+    log_t(f"  done: phase 18 took {time.perf_counter() - t18:.1f} s "
+          f"({elapsed()})")
+
     log(facts)
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
@@ -2736,14 +3310,19 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/ssd_scan_sm90.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:35",
         "launches": (trained["launches"] + m_served["launches"]
-                     + m_dsp["launches"] + m_zero["launches"]),
-        "launches_by_route": by_route([trained, m_served, m_dsp, m_zero]),
+                     + m_dsp["launches"] + m_zero["launches"]
+                     + m_ckpt["launches"]),
+        "launches_by_route": by_route([trained, m_served, m_dsp, m_zero,
+                                       m_ckpt]),
         "lm_dsp_launches": m_dsp["launches"],
         "lm_dsp_rank_launches": [r["mamba2-370m"]["k2_heads"]
                                  for r in lm_ranks["ranks"]],
         "lm_zero_launches": m_zero["launches"],
         "lm_zero_rank_launches": [r["mamba2-370m/2x2"]["k2_heads"]
                                   for r in zero_ranks["ranks"]],
+        "ckpt_launches": m_ckpt["launches"],
+        "ckpt_rank_launches": [r["k2"]["launches"]
+                               for r in ckpt_ranks["ranks"]],
         "max_abs_err": ssd_err,
         "ms": ssd_ms, "plain_ms": ssd_plain_ms,
         "bound_ms": ssd_bound["bound_ms"], "bound_by": ssd_bound["bound_by"],
@@ -2765,5 +3344,7 @@ if __name__ == "__main__":
         lm_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif sys.argv[1:2] == ["--zero-rank"]:
         zero_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:2] == ["--ckpt-rank"]:
+        ckpt_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     else:
         main()

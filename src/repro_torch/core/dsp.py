@@ -72,9 +72,11 @@ def _issue(kind: str, fn, *tensors: torch.Tensor, group,
     return fn(*tensors, group=group, **kw)
 
 
-def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Sum ``t`` over ``group`` (the whole world when None), in place."""
-    _issue("all-reduce", dist.all_reduce, t, group=group)
+def all_reduce(t: torch.Tensor, group=None,
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Reduce ``t`` by ``op`` (a sum by default) over ``group`` (the whole
+    world when None), in place."""
+    _issue("all-reduce", dist.all_reduce, t, group=group, op=op)
     return t
 
 

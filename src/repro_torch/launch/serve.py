@@ -11,13 +11,16 @@ seed, as the JAX package's CLI does, and serves it on one device:
   throughput, slot occupancy) printed and optionally written to
   ``--metrics PATH``.
 
-``--device`` defaults to ``cuda``.  The JAX CLI's sharded, elastic,
-paged and checkpoint flags are not ported yet and exit with a message.
+``--ckpt-dir DIR`` serves the parameters of the latest checkpoint in DIR
+(``train.checkpoint``, either package's; the train CLI's ``--ckpt-dir``
+writes one) in place of the random ones.  ``--device`` defaults to
+``cuda``.  The JAX CLI's sharded, elastic and paged flags are not ported
+yet and exit with a message.
 """
 import argparse
 import json
 
-NOT_PORTED = ("devices", "mode", "topology", "replan", "paged", "ckpt_dir")
+NOT_PORTED = ("devices", "mode", "topology", "replan", "paged")
 
 
 def main(argv=None):
@@ -40,6 +43,9 @@ def main(argv=None):
                     help="write the engine metrics JSON here")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (cpu for tests)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the parameters of this directory's latest "
+                    "checkpoint")
     for flag in NOT_PORTED:
         ap.add_argument("--" + flag.replace("_", "-"), default=None,
                         help="not yet ported")
@@ -63,6 +69,12 @@ def main(argv=None):
     cfg = spec.smoke
     device = resolve_device(args.device)
     params = init_lm(0, cfg, device=device)
+    if args.ckpt_dir:
+        from repro_torch.train.checkpoint import CheckpointManager
+        step, tree = CheckpointManager(args.ckpt_dir).restore(
+            {"params": params})
+        params = tree["params"]
+        print(f"restored step {step}")
     eng = ServingEngine(params, cfg, max_len=args.prompt_len + args.new_tokens,
                         device=device)
     gen = torch.Generator(device=device).manual_seed(1)

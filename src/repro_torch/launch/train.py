@@ -31,16 +31,28 @@ with ``zero`` off: its parameters stay whole on every rank, and the
 run.  The plan is priced in bytes (``topology=None``): the JAX CLI prices
 it on its TPU link constants, which the port does not carry.
 
-``--device`` defaults to ``cuda``.  The JAX CLI's checkpoint, elastic,
-device-count and compression flags are not ported yet and exit with a
-message.
+``--ckpt-dir`` checkpoints every ``--steps // 4`` steps and at the end
+(each rank its slices), ``--resume`` continues from the latest
+checkpoint, resharded onto this run's mesh, and ``--replan N`` then
+resizes the LM family's run onto the first N ranks (re-solving the plan;
+the ranks past N leave with no steps):
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch qwen3-14b --mesh 2,2 --ckpt-dir ck --steps 40
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch qwen3-14b --mesh 2,2 --ckpt-dir ck --steps 80 --resume \
+        --replan 2
+
+``--grad-compress`` runs the summed grads through error-feedback int8
+compression.  ``--device`` defaults to ``cuda``.  The JAX CLI's
+``--devices`` (simulated host devices) has no counterpart: ``torchrun
+--nproc-per-node`` starts the ranks.
 """
 import argparse
 import dataclasses
 import sys
 
-NOT_PORTED = ("ckpt_dir", "replan", "devices")
-NOT_PORTED_SWITCHES = ("resume", "grad_compress")
+NOT_PORTED = ("devices",)
 
 
 def main(argv=None):
@@ -58,16 +70,19 @@ def main(argv=None):
     ap.add_argument("--mesh", default=None,
                     help="dp,mp: DSP over a (data, model) process mesh "
                          "(under torchrun)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--replan", type=int, default=0,
+                    help="elastic resize onto the first N ranks after "
+                         "resume (the LM family)")
+    ap.add_argument("--grad-compress", action="store_true")
     for flag in NOT_PORTED:
         ap.add_argument("--" + flag.replace("_", "-"), default=None,
                         help="not yet ported")
-    for flag in NOT_PORTED_SWITCHES:
-        ap.add_argument("--" + flag.replace("_", "-"), action="store_true",
-                        help="not yet ported")
     args = ap.parse_args(argv)
-    for flag in NOT_PORTED + NOT_PORTED_SWITCHES:
-        if getattr(args, flag) not in (None, False):
-            raise SystemExit(f"--{flag.replace('_', '-')}: not yet ported")
+    if args.devices is not None:
+        raise SystemExit("--devices: not yet ported; torchrun "
+                         "--nproc-per-node N starts the port's N ranks")
     if args.grad_accum < 1 or args.batch % args.grad_accum:
         raise SystemExit(f"--batch {args.batch} does not split into "
                          f"--grad-accum {args.grad_accum} microbatches")
@@ -78,7 +93,7 @@ def main(argv=None):
     from repro_torch.models import transformer2d as t2d
     from repro_torch.models.lm import init_lm, lm_loss, shard_lm_batch
     from repro_torch.optim.adamw import OptConfig
-    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.train.trainer import ElasticSpec, Trainer, TrainerConfig
 
     spec = configs.get(args.arch)
     cfg = spec.config if args.full else spec.smoke
@@ -90,7 +105,7 @@ def main(argv=None):
         dp, mp = (int(a) for a in args.mesh.split(","))
         mesh = make_mesh((dp, mp), ("data", "model"), device.type)
         ran = f"{spec.plan}"
-    sharder = None
+    sharder = elastic = None
     if spec.family == "t2d":
         if mesh is not None:
             ran = (f"{dataclasses.replace(spec.plan, zero=False)} (the "
@@ -116,29 +131,39 @@ def main(argv=None):
             return batch if mesh is None else t2d.shard_video_batch(batch,
                                                                     mesh)
     else:
+        from repro_torch.models.lm import dsp_schedule
         params = init_lm(0, cfg, device=device)
+
+        def solve_schedule(sp):
+            return dsp_schedule(cfg, sp, seq=args.seq, batch=args.batch,
+                                joint=True)
+
+        # the loss cuts the rank's shard of the global batch, so that
+        # --replan rebuilds it for the resized mesh
+        def make_loss(m, sh, sched):
+            if sh is None:
+                return lambda p, b: lm_loss(p, b, cfg, backend="kernel")
+            return lambda p, b: lm_loss(p, shard_lm_batch(b, sh), cfg,
+                                        sharder=sh, backend="kernel")
+        elastic = ElasticSpec(make_loss=make_loss,
+                              solve_schedule=solve_schedule, plan=spec.plan)
         if mesh is not None:
             from repro_torch.core.layout import from_mesh
-            from repro_torch.models.lm import dsp_schedule
             from repro_torch.parallel.partition import (
                 make_sharder, mesh_sizes, param_pspecs, shard_params)
             ctx = from_mesh(mesh)
             param_specs = param_pspecs(params, spec.plan,
                                        axis_sizes=mesh_sizes(ctx))
             params = shard_params(params, param_specs, ctx)
-            sharder = make_sharder(mesh, spec.plan, schedule=dsp_schedule(
-                cfg, mp, seq=args.seq, batch=args.batch, joint=True),
-                param_specs=param_specs)
+            sharder = make_sharder(mesh, spec.plan,
+                                   schedule=solve_schedule(mp),
+                                   param_specs=param_specs)
         dcfg = DataConfig(task="lm_shift", vocab=cfg.vocab, seq=args.seq,
                           batch=args.batch)
-
-        def loss_fn(p, b):
-            return lm_loss(p, b, cfg, sharder=sharder, backend="kernel")
+        loss_fn = make_loss(mesh, sharder, None)
 
         def make(step):
-            batch = make_batch(dcfg, step, device=device)
-            return batch if sharder is None else shard_lm_batch(batch,
-                                                                sharder)
+            return make_batch(dcfg, step, device=device)
 
     def data_fn(step):
         batch = make(step)
@@ -153,9 +178,16 @@ def main(argv=None):
                           warmup_steps=max(args.steps // 10, 1),
                           total_steps=args.steps),
         cfg=TrainerConfig(total_steps=args.steps, grad_accum=args.grad_accum,
-                          log_every=max(args.steps // 10, 1)),
-        data_fn=data_fn, device=device,
-        mesh=mesh if sharder is None else None, sharder=sharder)
+                          log_every=max(args.steps // 10, 1),
+                          ckpt_every=max(args.steps // 4, 1) if args.ckpt_dir
+                          else 0, grad_compress=args.grad_compress),
+        data_fn=data_fn, ckpt_dir=args.ckpt_dir, device=device,
+        mesh=mesh if sharder is None else None, sharder=sharder,
+        elastic=elastic)
+    if args.resume:
+        trainer.try_resume()
+    if args.replan:
+        trainer.replan(args.replan)
     out = trainer.run()
     first = out["history"][0][1] if out["history"] else float("nan")
     last = out["history"][-1][1] if out["history"] else float("nan")

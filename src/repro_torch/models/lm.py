@@ -522,8 +522,10 @@ def shard_lm_batch(batch: Dict[str, torch.Tensor], sharder: Sharder):
     """The rank's shard of a global (B, S) batch, as every rank of the
     mesh draws the same one: its slice of the batch over the data dims,
     then its sequence chunk over ``model`` (``dsp.dsp_shard_batch``, the
-    paper's dataloader split)."""
+    paper's dataloader split); the batch itself without a mesh."""
     ctx = sharder.ctx
+    if ctx is None:
+        return batch
     local = {k: dsp.shard(v, 0, ctx.dp_size, ctx.dp_index)
              for k, v in batch.items()}
     return dsp.dsp_shard_batch(local, 1, ctx.sp_group)

@@ -236,18 +236,54 @@ def entry_axes(entry, names) -> Tuple[str, ...]:
     return tuple(a for a in axes if a in names)
 
 
+def split_axes(spec: Spec, names) -> Tuple[str, ...]:
+    """The dims among ``names`` (a mesh's, in its order) a leaf of
+    ``spec`` is split over."""
+    used = {a for e in (spec or ()) for a in entry_axes(e, names)}
+    return tuple(a for a in names if a in used)
+
+
+def _cuts(spec: Spec, ctx: Optional[ParallelContext], ndim: int):
+    """Per dim, (n, i): ``spec`` on ``ctx``'s mesh cuts the dim into n
+    equal slices and this rank holds slice i (chunk ``ctx.axes_index`` of
+    the axes the dim's entry names); (1, 0) throughout without a mesh."""
+    if ctx is None:
+        return [(1, 0)] * ndim
+    entries = tuple(spec or ()) + (None,) * ndim
+    out = []
+    for d in range(ndim):
+        axes = entry_axes(entries[d], ctx.mesh.mesh_dim_names)
+        out.append(ctx.axes_index(axes) if axes else (1, 0))
+    return out
+
+
+def global_shape(shape, spec: Spec, ctx: Optional[ParallelContext]):
+    """The whole leaf's shape, from this rank's slice's ``shape`` cut by
+    ``spec`` on ``ctx``."""
+    return tuple(int(s) * n for s, (n, _) in
+                 zip(shape, _cuts(spec, ctx, len(shape))))
+
+
+def slice_index(gshape, spec: Spec, ctx: Optional[ParallelContext]):
+    """This rank's (start, stop) per dim of a leaf of global ``gshape``
+    cut by ``spec`` on ``ctx``: the slice ``shard_params`` keeps."""
+    index = []
+    for d, (size, (n, i)) in enumerate(zip(gshape, _cuts(spec, ctx,
+                                                         len(gshape)))):
+        if size % n:
+            raise ValueError(f"dim {d} of {tuple(gshape)} does not split "
+                             f"{n} ways")
+        index.append((i * size // n, (i + 1) * size // n))
+    return tuple(index)
+
+
 def shard_params(params, specs, ctx: ParallelContext):
     """Each rank's slice of each leaf of ``params`` (whole, every rank
-    alike) per its spec: along each dim an entry names, chunk
-    ``ctx.axes_index`` of that many.  A slice that is not the whole leaf
-    is copied, so that the whole tree can be freed."""
+    alike) per its spec (``slice_index``).  A slice that is not the whole
+    leaf is copied, so that the whole tree can be freed."""
     def one(_, p, spec):
-        out = p
-        for dim, entry in enumerate(spec):
-            axes = entry_axes(entry, ctx.mesh.mesh_dim_names)
-            if axes:
-                n, idx = ctx.axes_index(axes)
-                out = dsp.shard(out, dim, n, idx)
+        out = p[tuple(slice(a, b) for a, b in slice_index(p.shape, spec,
+                                                          ctx))]
         if out.numel() == p.numel():
             return p
         return out.clone(memory_format=torch.contiguous_format)
@@ -271,8 +307,10 @@ def gather_params(params, specs, ctx: ParallelContext):
 
 @torch.no_grad()
 def unshard_params(params, specs, ctx: ParallelContext):
-    """``gather_params`` without autograd: the whole tree from every
-    rank's shards (counted by ``core.dsp`` like any call), for checks."""
+    """``gather_params`` without autograd: the whole tree (or one leaf)
+    from every rank's shards (counted by ``core.dsp`` like any call), for
+    checks and for ``Trainer.replan``, which gathers one leaf at a
+    time."""
     return gather_params(params, specs, ctx)
 
 
@@ -602,5 +640,6 @@ def null_sharder() -> Sharder:
 
 __all__ = ["ParallelPlan", "Sharder", "make_sharder", "null_sharder",
            "param_pspecs", "mesh_sizes", "shard_params", "gather_params",
-           "unshard_params", "entry_axes", "reduce_axes", "param_copies",
+           "unshard_params", "entry_axes", "split_axes", "reduce_axes",
+           "global_shape", "slice_index", "param_copies",
            "tree_map_with_path"]

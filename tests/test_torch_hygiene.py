@@ -34,7 +34,8 @@ for want in ("repro_torch.serving.scheduler", "repro_torch.train.trainer",
              "repro_torch.core.ring", "repro_torch.core.ulysses",
              "repro_torch.core.megatron_sp", "repro_torch.core.layout",
              "repro_torch.analysis.roofline",
-             "repro_torch.parallel.partition"):
+             "repro_torch.parallel.partition",
+             "repro_torch.train.checkpoint", "repro_torch.optim.compress"):
     assert want in mods, (want, mods)
 from repro_torch.core.schedule import ScheduleExecutor2D
 from repro_torch.models.transformer2d import (
@@ -63,7 +64,8 @@ assert not bad, bad
                                     "_torch_sp_worker.py",
                                     "_torch_l2d_worker.py",
                                     "_torch_lmdsp_worker.py",
-                                    "_torch_zero_worker.py"])
+                                    "_torch_zero_worker.py",
+                                    "_torch_ckpt_worker.py"])
 def test_gloo_workers_import_no_jax_and_no_repro(worker):
     """The port's side of each multi-process check (a gloo rank) loads, with
     the helpers it shares with its JAX side, nothing of JAX or of the JAX
@@ -164,3 +166,22 @@ def test_flash_attention_kernel_path_takes_gradients(monkeypatch):
                                .sum(), (q, k, v))
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+
+
+def test_cli_flags_of_the_checkpoint_slice_are_ported(tmp_path):
+    """The train CLI's ``--ckpt-dir``, ``--resume``, ``--grad-compress``
+    and ``--replan`` and the serve CLI's ``--ckpt-dir`` no longer exit
+    "not yet ported"; ``--devices`` still does, naming ``torchrun
+    --nproc-per-node``."""
+    from repro_torch.launch import serve, train
+    base = ["--arch", "mamba2-370m", "--device", "cpu", "--steps", "0"]
+    for flags in (["--ckpt-dir", str(tmp_path)], ["--resume"],
+                  ["--grad-compress"], ["--replan", "1"]):
+        assert train.main(base + flags)["final_step"] == 0
+    assert serve.main(["--arch", "mamba2-370m", "--device", "cpu",
+                       "--batch", "1", "--prompt-len", "4",
+                       "--new-tokens", "2", "--ckpt-dir",
+                       str(tmp_path)]).shape == (1, 2)
+    with pytest.raises(SystemExit, match="not yet ported; torchrun "
+                       "--nproc-per-node"):
+        train.main(base + ["--devices", "4"])

@@ -113,7 +113,7 @@ def test_compact_keeps_decoding_right(engines, prompts):
     assert [r.generated for r in reqs[1:]] == want[1:]
 
 
-def test_serve_cli_continuous_equals_static(capsys):
+def test_serve_cli_continuous_equals_static(capsys, tmp_path):
     from repro_torch.launch.serve import main
     args = ["--arch", "qwen3-14b", "--device", "cpu", "--batch", "3",
             "--prompt-len", "6", "--new-tokens", "4"]
@@ -121,6 +121,8 @@ def test_serve_cli_continuous_equals_static(capsys):
     reqs = main(args + ["--continuous", "--max-batch", "2"])
     assert [r.generated for r in reqs] == static.tolist()
     assert '"tokens_generated": 12' in capsys.readouterr().out
-    for flag in ("--paged", "--ckpt-dir"):
-        with pytest.raises(SystemExit, match="not yet ported"):
-            main(args + [flag, "x"])
+    with pytest.raises(SystemExit, match="not yet ported"):
+        main(args + ["--paged", "x"])
+    # --ckpt-dir is ported: a directory with no checkpoint raises
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
+        main(args + ["--ckpt-dir", str(tmp_path)])

@@ -295,14 +295,26 @@ def test_make_batch(task):
         make_batch(dataclasses.replace(cfg, task="encdec"), 0, device="cpu")
 
 
-def test_trainer_rejects_what_is_not_ported():
+def test_trainer_rejects_what_is_not_ported(tmp_path):
+    """Checkpoints and compression are ported; JAX's retry loop is not: a
+    step that fails raises at once, with no retry and no checkpoint
+    written for it, and ``replan`` without an ``ElasticSpec`` raises."""
     tp = TLM.init_lm(0, TCFG, device="cpu")
-    kw = dict(loss_fn=None, params=tp, opt_cfg=TO.OptConfig(),
-              data_fn=None, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Trainer(cfg=TrainerConfig(), ckpt_dir="/nonexistent", **kw)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Trainer(cfg=TrainerConfig(grad_compress=True), **kw)
+    calls = []
+
+    def failing(p, b):
+        calls.append(1)
+        raise RuntimeError("device fault")
+    tr = Trainer(loss_fn=failing, params=tp, opt_cfg=TO.OptConfig(),
+                 cfg=TrainerConfig(total_steps=2, grad_compress=True),
+                 data_fn=lambda s: _batch(s), ckpt_dir=str(tmp_path),
+                 device="cpu")
+    assert not hasattr(TrainerConfig(), "max_retries")
+    with pytest.raises(RuntimeError, match="device fault"):
+        tr.run()
+    assert calls == [1] and tr.ckpt.all_steps() == []
+    with pytest.raises(ValueError, match="ElasticSpec"):
+        tr.replan(1)
 
 
 # ---------------------------------------------------------------------------
@@ -391,7 +403,20 @@ def test_train_cli_on_cpu(capsys):
 @pytest.mark.parametrize("flag", [["--ckpt-dir", "x"], ["--resume"],
                                   ["--replan", "2"], ["--devices", "4"],
                                   ["--grad-compress"]])
-def test_train_cli_unported_flags_exit(flag):
+def test_train_cli_unported_flags_exit(flag, tmp_path):
+    """Of the JAX CLI's flags only ``--devices`` is left unported, and it
+    names ``torchrun``; the others run 2 steps at one rank (``--replan``
+    past the world of one raises)."""
     from repro_torch.launch.train import main
-    with pytest.raises(SystemExit, match="not yet ported"):
-        main(["--arch", "mamba2-370m", "--device", "cpu"] + flag)
+    args = ["--arch", "mamba2-370m", "--device", "cpu", "--steps", "2",
+            "--batch", "2", "--seq", "16", "--ckpt-dir", str(tmp_path)]
+    flag = [str(tmp_path) if a == "x" else a for a in flag]
+    if flag[0] == "--devices":
+        with pytest.raises(SystemExit, match="not yet ported; torchrun "
+                           "--nproc-per-node"):
+            main(args + flag)
+    elif flag[0] == "--replan":
+        with pytest.raises(ValueError, match="exceeds"):
+            main(args + flag)
+    else:
+        assert main(args + flag)["final_step"] == 2
