@@ -24,7 +24,11 @@ Phases, in order; any failure raises and exits non-zero:
    8 heads (``LM_RANK_ATTN``, ``LM_RANK_SSD``); and at the shapes a rank
    of phase 17 (b)'s (2, 2) mesh gives them: K1 on 20 q and 4 K/V heads,
    K2 on 16 heads (``LM_ZERO_ATTN``, ``LM_ZERO_SSD``); and K2 at phase
-   18's shapes, 2 sequences on 32, 8 and 16 heads (``CKPT_SSD``);
+   18's shapes, 2 sequences on 32, 8 and 16 heads (``CKPT_SSD``); and
+   both at the shapes a rank of phase 19 (b) gives them, each prompt
+   padded to a whole share a rank: K1 on 10 q and 2 K/V heads (4 ranks)
+   and on 20 and 4 (2 ranks), K2 on 8 heads (``SERVE_RANK_ATTN``,
+   ``SERVE_RANK_SSD``);
 4. time each kernel, its plain version and, where one exists, one PyTorch
    library call that computes the same function (a yardstick the port
    never calls); K1's routed kernel and the library call three times each
@@ -99,12 +103,14 @@ Phases, in order; any failure raises and exits non-zero:
     ``ring``, ``megatron``, ``hybrid`` on the ``("sp_out", "sp_in")``
     grid, and ``dsp`` with ``overlap="chunked"``): (a) at world size 1
     over NCCL, for each mode the depth-2 loss and grads at 1 x 4 x 4096
-    against plan ``none``'s plain path (phase 7's bars), the depth-28
-    forward at 1 x 16 x 4096 against plan ``none``'s within 2e-2 of its
-    largest |value|, and 2 Trainer steps at depth 28 (step 2's time logged
-    beside phase 12's); (b) 4 processes sharing the card over gloo, each
-    this script with ``--sp-rank``, every mode's depth-2 loss and grads
-    and gathered depth-28 forward against (a)'s.  Around every run the
+    against plan ``none``'s plain path (phase 7's bars), the depth-4
+    (SP_DEPTH) forward at 1 x 16 x 4096 against plan ``none``'s within
+    2e-2 of its largest |value|, and 2 Trainer steps at depth 4 (step 2's
+    time logged); (b) 4 processes sharing the card over gloo, each this
+    script with ``--sp-rank``, every mode's depth-2 loss and grads and
+    gathered depth-4 forward against (a)'s.  Each mode's step at depth 28
+    sat inside plan none's spread (PERF.md §5), and the checks, counts and
+    bars hold at any depth.  Around every run the
     counters are set to 0 just before and read just after: each rank's
     collectives, their bytes (``core.dsp.volume``) and K1's launches must
     be exactly the contract's (``sp_contract``; PERF.md §6), every K1
@@ -186,14 +192,37 @@ Phases, in order; any failure raises and exits non-zero:
     the survivors, within phase 7's loss bar of the (2, 2) run's; (c) the
     train CLI with ``--ckpt-dir``, then ``--resume``, then the serve CLI
     from the same checkpoint, at SMOKE size;
-19. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
+19. qwen3-14b and mamba2-370m served sharded (``ServingEngine(mesh=,
+    plan=)``: the KV cache sequence-sharded over ``model``, the SSM state
+    head-sharded): (a) at world size 1 over NCCL, phases 5's and 9's
+    trace at full width and depth under SERVE_PLAN (the serve CLI's
+    default, ZeRO and the vocab split on), with the counters set to 0
+    just before and read just after: the tokens must equal theirs, K1
+    (K2) launch 320 (384) times on ``sm90``, and the calls and bytes must
+    be exactly ``lm.serve_contract``'s; (b) 4 processes sharing the card
+    over gloo, each this script with ``--serve-rank``, qwen3-14b at depth
+    4 and mamba2-370m at full depth on a (1, 4) mesh: the teacher-forced
+    logits (SERVE_FORCED requests, SERVE_FORCED_STEPS decode steps on the
+    one-rank reference's tokens) under SERVE_PLAN within LOGIT_BAR of the
+    reference's, at each forced check's depth and dtype (mamba2: full
+    depth in f32, depth 4 in bf16); the trace through the scheduler under SERVE_RANK_PLAN
+    with the pool asserted on the mesh after every step, every request
+    finished, per rank each segment's calls and bytes exactly the
+    contract's and K1 (K2) once a layer a prefill on the rank's heads,
+    all ``sm90``; on qwen3 ``replan(2)`` at decode step 3 with the moved
+    pool bit-equal and the survivors' forced logits within the bar; (c)
+    the serve CLI under ``torchrun --nproc-per-node 4 ... --mode dsp
+    --backend gloo``: continuous over a Poisson trace with world 1's
+    tokens, static ``--replan 2`` with identical output;
+20. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
     counts over the paths above (K1 320 + 32 + 224 + 224 + phase 14's
-    training runs, 112 per mode, 56 for ring and hybrid, + phase 15 (a)'s
-    28 + phase 16 (a)'s 32 + phase 17 (a)'s 32; K2 576 + 384 + phase 16
-    (a)'s 192 + phase 17 (a)'s 192 + phase 18 (a)'s 2 x 48 x 12 = 1152)
-    and whose ``launches_by_route`` split that sum by the route each
-    launch took (every one ``sm90``), then the last line ``{"ok": true,
-    "device": {...}}``.
+    training runs, 16 per mode, 8 for ring and hybrid, + phase 15 (a)'s
+    28 + phase 16 (a)'s 32 + phase 17 (a)'s 32 + phase 19 (a)'s 320; K2
+    576 + 384 + phase 16 (a)'s 192 + phase 17 (a)'s 192 + phase 18 (a)'s
+    2 x 48 x 12 = 1152 + phase 19 (a)'s 384) and whose
+    ``launches_by_route`` split that sum by the route each launch took
+    (every one ``sm90``), with phase 19 (b)'s per rank beside, then the
+    last line ``{"ok": true, "device": {...}}``.
 
 Each phase's header logs the seconds since the start and the host's
 memory since the previous header (the peaks of the process tree's
@@ -201,6 +230,7 @@ resident memory, of the machine's used memory and of its tmpfs), and
 every time logged carries the card's name and power limit.
 """
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -242,6 +272,7 @@ from repro_torch.parallel.partition import (  # noqa: E402
     ParallelPlan, make_sharder, mesh_sizes, param_pspecs, shard_params,
     slice_index, unshard_params)
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
+from repro_torch.serving.kv_pool import KVPool  # noqa: E402
 from repro_torch.serving.scheduler import ContinuousScheduler  # noqa: E402
 from repro_torch.train.trainer import (  # noqa: E402
     ElasticSpec, Trainer, TrainerConfig, allreduce_grads, slices_norm)
@@ -313,8 +344,8 @@ DIT_REMAT_GROUP, DIT_CHECK_FRAMES = 2, 4
 DSP_RANKS, DSP_LOSS_BAR, DSP_OUT_BAR = 4, 1e-4, 2e-2
 # the baselines phase: the paper's embedded-SP modes and DSP's overlapped
 # switch, each at world size 1 over NCCL (depth-2 grads against plan
-# none's plain path at phase 7's bars, the depth-28 forward against plan
-# none's within DSP_OUT_BAR, SP_TRAIN_STEPS Trainer steps at depth 28), then
+# none's plain path at phase 7's bars, the SP_DEPTH forward against plan
+# none's within DSP_OUT_BAR, SP_TRAIN_STEPS Trainer steps at SP_DEPTH), then
 # over DSP_RANKS processes sharing the card over gloo against world 1
 SP_MODES = (("ulysses", None), ("ulysses_fused", None), ("ring", None),
             ("megatron", None), ("hybrid", None), ("dsp", "chunked"))
@@ -384,6 +415,58 @@ LM_ZERO_SSD = (1, TRAIN_SEQ, _M.n_heads // 2, _M.head_dim, _M.n_groups,
 # (1, 2) after replan(2))
 CKPT_SSD = tuple((CKPT_BATCH, TRAIN_SEQ, _M.n_heads // n, _M.head_dim,
                   _M.n_groups, _M.d_state, _M.chunk) for n in (1, 4, 2))
+
+
+# the sharded-serving phase: phases 5's and 9's trace under SERVE_PLAN (the
+# CLI's default plan: ZeRO and the vocab split on), at world size 1 over
+# NCCL against their tokens; then DSP_RANKS processes sharing the card over
+# gloo, each case (LM, depth: None for full, whether to replan) against a
+# one-rank reference at the same depth: the logits of SERVE_FORCED_STEPS
+# decode steps fed the reference's tokens within LOGIT_BAR, and on the
+# replan case replan(SERVE_REPLAN_TO) at decode step SERVE_REPLAN_STEP.
+# qwen3-14b's 40 layers whole on 4 ranks would need ~118 GB: depth 4
+# On the 4 ranks the CLI's plan holds the teacher-forced check: the
+# SERVE_FORCED requests (the shortest and the longest prompt) and
+# SERVE_FORCED_STEPS decode steps.  The trace itself runs under
+# SERVE_RANK_PLAN, the same without ZeRO: ZeRO gathers every weight a
+# decode step, 2.64 GB a rank at qwen3's depth 4, which gloo moves through
+# the host at ~0.9 GB/s on one H100 80GB HBM3 at 700 W (2.89 s a step,
+# 205 s the trace; mamba2's ~200 gathers a step, 1.64 s)
+SERVE_PLAN = ParallelPlan(mode="dsp")
+SERVE_RANK_PLAN = ParallelPlan(mode="dsp", zero=False)
+# (LM, depth: None for full, whether to replan, the forced checks: each a
+# depth and a dtype).  mamba2-370m's 48 layers amplify any change of
+# arithmetic: in bf16 on one H100 K2's kernel and its plain version already
+# drift 0.17-0.40 of the largest logit apart over the forced steps
+# (``serve_refs`` logs it, and the gap layer by layer), in f32 the 4 ranks
+# stay within 7.6e-4 of one card; so its full-depth forced check runs in
+# f32 (K2 on ``cuda_cores``), and a depth-4 one in bf16 holds K2's
+# ``sm90`` route; the trace runs in bf16 (on ``sm90``)
+SERVE_RANK_CASES = (("qwen3-14b", 4, True, ((4, torch.bfloat16),)),
+                    ("mamba2-370m", None, False,
+                     ((None, torch.float32), (4, torch.bfloat16))))
+SERVE_FORCED, SERVE_FORCED_STEPS = (0, N_REQUESTS - 1), 4
+SERVE_REPLAN_STEP, SERVE_REPLAN_TO = 3, 2
+# the kernels at the shapes a rank of (b) gives them, held against their
+# plain versions in phase 3: each prompt of the trace padded on the right
+# to a whole share a rank (``lm.prefill_shard_len``), K1 on qwen3-14b's
+# heads over DSP_RANKS ranks and over SERVE_REPLAN_TO (after the replan),
+# K2 on mamba2-370m's heads over DSP_RANKS
+SERVE_RANK_ATTN = tuple(
+    (1, _Q.n_heads // n, _Q.n_kv_heads // n, s, s, _Q.head_dim, True, None,
+     None)
+    for n in (DSP_RANKS, SERVE_REPLAN_TO)
+    for s in sorted({n * lm.prefill_shard_len(qwen3_14b.CONFIG, t, n)
+                     for t in PROMPT_LENS}))
+SERVE_RANK_SSD = tuple(
+    (1, s, _M.n_heads // DSP_RANKS, _M.head_dim, _M.n_groups, _M.d_state,
+     _M.chunk)
+    for s in sorted({DSP_RANKS * lm.prefill_shard_len(
+        mamba2_370m.CONFIG, t, DSP_RANKS) for t in PROMPT_LENS}))
+# the baselines phase's DiT depth: its six modes at world size 1 each sat
+# inside plan none's spread at depth 28 (PERF.md §6); 2 block pairs keep
+# every check, count and bar at a seventh of the time
+SP_DEPTH = 4
 
 
 def prefill_case(s: int):
@@ -675,18 +758,91 @@ def ssd_state_check(cfg, device="cuda") -> float:
     return rel
 
 
-def full_width_serve(cfg, kernel, device="cuda") -> dict:
+def trace_requests(cfg, device="cuda") -> list:
+    """The served trace: N_REQUESTS prompts of PROMPT_LENS tokens from a
+    seeded generator, NEW_TOKENS new tokens each, all arriving at 0."""
+    g = torch.Generator(device=device).manual_seed(3)
+    return [Request(prompt=torch.randint(0, cfg.vocab, (n,), generator=g,
+                                         device=device),
+                    max_new_tokens=NEW_TOKENS, request_id=i)
+            for i, n in enumerate(PROMPT_LENS)]
+
+
+def meta_tree(params):
+    """``params`` as meta tensors: the global tree ``serve_contract``
+    reads."""
+    return lm.tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype,
+                                             device="meta"), params)
+
+
+class StepLog:
+    """Wraps an engine's steps and logs what each ran on, (SP degree,
+    batch, prompt length) a prefill and (SP degree, rows) a decode step,
+    for ``expected``: the sum of ``lm.serve_contract`` over them and the
+    scheduler's loop turns, as {kind: [calls, bytes]}."""
+
+    def __init__(self, eng):
+        self.prefills, self.decodes, self.every_prefill = [], [], []
+        pre, dec = eng._prefill, eng._decode
+
+        def prefill(tokens):
+            self.prefills.append((eng.sp_degree, *tuple(tokens.shape)))
+            self.every_prefill.append(self.prefills[-1])
+            return pre(tokens)
+
+        def decode(token, caches):
+            self.decodes.append((eng.sp_degree, token.shape[0]))
+            return dec(token, caches)
+        eng._prefill, eng._decode = prefill, decode
+
+    def expected(self, cfg, template, plan, ticks: int) -> dict:
+        parts = [lm.serve_contract(cfg, n, template, plan, prefill=(b, s))
+                 for n, b, s in self.prefills]
+        parts += [lm.serve_contract(cfg, n, template, plan, decode=r)
+                  for n, r in self.decodes]
+        parts.append(lm.serve_contract(cfg, 1, template, plan, ticks=ticks))
+        self.prefills, self.decodes = [], []
+        return add_contracts(*parts)
+
+
+def add_contracts(*parts) -> dict:
+    """{kind: [calls, bytes]} summed over ``serve_contract`` results."""
+    out = {}
+    for c in parts:
+        for k, n in c["calls"].items():
+            have = out.setdefault(k, [0, 0])
+            have[0] += n
+            have[1] += c["bytes"][k]
+    return out
+
+
+def counted() -> dict:
+    """{kind: [calls, bytes]} since the last ``dsp.reset_calls``, then
+    reset."""
+    out = {k: [dsp.calls.get(k, 0), dsp.volume.get(k, 0)]
+           for k in sorted(set(dsp.calls) | set(dsp.volume))}
+    dsp.reset_calls()
+    return out
+
+
+def full_width_serve(cfg, kernel, device="cuda", mesh=None,
+                     plan=None) -> dict:
     """``cfg`` at full depth behind ContinuousScheduler: 8 requests, prompts
     spread over 512-2048 tokens, 32 new tokens each, all arriving at 0.
     ``kernel`` (K1's or K2's wrapper) must launch once per layer per
-    prefill, every launch on the ``sm90`` route."""
+    prefill, every launch on the ``sm90`` route.  With ``mesh`` (and
+    ``plan``) the engine serves sharded, and the calls and bytes counted
+    must be exactly ``lm.serve_contract``'s."""
     t0 = time.perf_counter()
     params = lm.init_lm(0, cfg, device=device)
     torch.cuda.synchronize()
     log_t(f"  init {lm.param_counts(cfg)['total'] / 1e9:.2f}B params in "
           f"{time.perf_counter() - t0:.1f} s")
+    template = meta_tree(params)
     eng = ServingEngine(params, cfg, max_len=max(PROMPT_LENS) + NEW_TOKENS,
-                        device=device)
+                        device=device, mesh=mesh, plan=plan)
+    del params
+    steps = StepLog(eng)
     bad = torch.zeros((), dtype=torch.long, device=device)
 
     def watch(step):
@@ -697,18 +853,16 @@ def full_width_serve(cfg, kernel, device="cuda") -> dict:
         return inner
 
     eng._prefill, eng._decode = watch(eng._prefill), watch(eng._decode)
-    g = torch.Generator(device=device).manual_seed(3)
-    reqs = [Request(prompt=torch.randint(0, cfg.vocab, (n,), generator=g,
-                                         device=device),
-                    max_new_tokens=NEW_TOKENS, request_id=i)
-            for i, n in enumerate(PROMPT_LENS)]
+    reqs = trace_requests(cfg, device)
     sched = ContinuousScheduler(eng, max_batch=MAX_BATCH)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     reset_ssd_launches()
+    dsp.reset_calls()
     eng.serve(reqs, continuous=True, scheduler=sched)
     torch.cuda.synchronize()
+    calls = counted()
     launches = kernel.launches
     routes = dict(kernel.route_launches)
     summary = sched.metrics.summary()
@@ -730,11 +884,26 @@ def full_width_serve(cfg, kernel, device="cuda") -> dict:
                                  f"with {NEW_TOKENS} tokens")
     if int(bad):
         raise AssertionError(f"{int(bad)} non-finite logits")
+    if mesh is not None:
+        want = steps.expected(cfg, template, eng.plan, sched.ticks)
+        log(f"  torch.distributed calls [count, bytes] {calls}; "
+            f"serve_contract over {prefills} prefills, "
+            f"{summary['decode_steps']} decode steps and {sched.ticks} loop "
+            f"turns {want}")
+        if calls != want:
+            raise AssertionError(f"calls {calls}, the contract says {want}")
     log_t("  metrics " + json.dumps(summary, sort_keys=True))
-    del params, eng, sched
-    torch.cuda.empty_cache()
+    del eng, sched, steps
+    free_device()
     return {"launches": launches, "routes": nonzero(routes),
-            "metrics": summary}
+            "metrics": summary, "tokens": [r.generated for r in reqs]}
+
+
+def free_device() -> None:
+    """Give the card back what a dropped engine held: its wrapped steps
+    refer to it in a cycle, which only the collector frees."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def leaf_paths(tree, path="") -> list:
@@ -1373,13 +1542,13 @@ def grads_gap(loss, grads, ref_loss, ref_grads) -> dict:
             "grad_rel": max(shares), "leaves": len(shares)}
 
 
-def sp_world_of_one(cfg, phase12: dict, work: str, device="cuda") -> dict:
+def sp_world_of_one(cfg, work: str, device="cuda") -> dict:
     """(a) Each mode of SP_MODES at world size 1 over NCCL (``hybrid`` on a
     (1, 1) SP grid): the depth-2 ``t2d_loss`` and every grad at
     DIT_CHECK_FRAMES frames against plan ``none``'s plain path (phase 7's
-    bars); the depth-28 forward at DIT_FRAMES frames against plan
-    ``none``'s within DSP_OUT_BAR of its largest |value|; SP_TRAIN_STEPS
-    Trainer steps at depth 28.  Around each, the counters set to 0 just
+    bars); the forward at ``cfg``'s depth (SP_DEPTH) and DIT_FRAMES
+    frames against plan ``none``'s within DSP_OUT_BAR of its largest
+    |value|; SP_TRAIN_STEPS Trainer steps at that depth.  Around each, the counters set to 0 just
     before and read just after: the collectives and bytes and K1's
     launches must be the contract's at n = 1.  Writes (b)'s references to
     ``work``."""
@@ -1481,13 +1650,9 @@ def sp_world_of_one(cfg, phase12: dict, work: str, device="cuda") -> dict:
             check_counts(f"{label} training", got, want,
                          k1_step * SP_TRAIN_STEPS)
             step_ms = trained["metrics"]["step_ms_median"]
-            ref_ms = phase12["metrics"]["step_ms_median"]
-            lo, hi = phase12["metrics"]["step_ms_range"]
-            log_t(f"    {label}: step 2 of {SP_TRAIN_STEPS} {step_ms:.2f} ms "
-                  f"against plan none's {ref_ms:.2f} ms (phase 12, median of "
-                  f"steps 2-{DIT_STEPS}, spread {lo:.2f}-{hi:.2f} ms; one "
-                  f"step here, so a gap inside that spread ranks nothing): "
-                  f"{100 * (step_ms / ref_ms - 1):+.2f}%; counted {got}")
+            log_t(f"    {label}: step 2 of {SP_TRAIN_STEPS} at depth "
+                  f"{cfg.n_layers} {step_ms:.2f} ms (one step: ranks "
+                  f"nothing); counted {got}")
             res.update(gap=gap, out_rel=rel, step_ms=step_ms,
                        launches=trained["launches"],
                        routes=trained["routes"],
@@ -1504,7 +1669,7 @@ def sp_rank_main(rank: int, world: int, work: str) -> None:
     """One of (b)'s ranks, started by ``sp_four_ranks`` as ``chip_smoke.py
     --sp-rank <rank> <world> <dir>``: gloo over the card's CUDA tensors.
     For each mode of SP_MODES, its depth-2 loss and grads against (a)'s,
-    its depth-28 forward shard written to ``<dir>``, and what it counted
+    its SP_DEPTH forward shard written to ``<dir>``, and what it counted
     around each, to ``<dir>/sp_rank<rank>.json``."""
     job = json.load(open(os.path.join(work, "job14.json")))
     device = job["device"]
@@ -1557,7 +1722,7 @@ def sp_four_ranks(cfg, bucket2: int, work: str, device="cuda") -> dict:
     """(b) DSP_RANKS processes sharing the card over gloo, each mode on a
     (1, DSP_RANKS) mesh (``hybrid`` on the (2, DSP_RANKS / 2) SP grid).
     Checks layouts and values, not speed: every rank's depth-2 loss and
-    grads against (a)'s within phase 7's bars; the gathered depth-28
+    grads against (a)'s within phase 7's bars; the gathered SP_DEPTH
     forward against (a)'s within DSP_OUT_BAR of its largest |value|; per
     rank exactly the contract's collectives, bytes and K1 launches.  Logs
     each mode's bytes per rank beside ``per_device_bytes``: Table 3 at n =
@@ -2899,6 +3064,519 @@ def train_cli(train_main, arch: str) -> None:
                              f"{hist}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the LM family served sharded, the KV sequence-sharded
+# ---------------------------------------------------------------------------
+
+def serve_world_of_one(served: dict, work: str, device="cuda") -> dict:
+    """(a) At world size 1 on a (1, 1) mesh over NCCL, SERVE_PLAN: phases
+    5's and 9's trace again through ``full_width_serve`` with the mesh
+    (every collective a device copy): the tokens must equal theirs, K1
+    (K2) launch 320 (384) times on ``sm90``, the calls and bytes exactly
+    ``serve_contract``'s; TTFT and TPOT logged beside theirs."""
+    backend = BACKEND_OF[torch.device(device).type]
+    dist.init_process_group(backend, store=dist.FileStore(
+        os.path.join(work, "store19a"), 1), rank=0, world_size=1)
+    out = {}
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), torch.device(device).type)
+        for name, kernel in (("qwen3-14b", flash_attention_fwd),
+                             ("mamba2-370m", ssd_scan_fwd)):
+            log(f"  {name}, full depth, {SERVE_PLAN}")
+            res = full_width_serve(lm_config(name), kernel, device, mesh=mesh,
+                                   plan=SERVE_PLAN)
+            ref = served[name]
+            same = res["tokens"] == ref["tokens"]
+            m, r = res["metrics"], ref["metrics"]
+            log_t(f"  tokens equal to plan none's phase: {same}; TTFT p50 "
+                  f"{m['ttft_p50_s']:.4f} s against {r['ttft_p50_s']:.4f}, "
+                  f"TPOT p50 {m['tpot_p50_s'] * 1e3:.2f} ms against "
+                  f"{r['tpot_p50_s'] * 1e3:.2f} (no order claimed: TPOT "
+                  f"moves up to 2x between calls)")
+            if not same:
+                raise AssertionError(f"{name}: world-1 sharded tokens differ "
+                                     f"from plan none's")
+            out[name] = res
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def serve_max_len() -> int:
+    """The trace's longest prompt and new tokens, in whole blocks of the
+    sequence-sharded cache over DSP_RANKS ranks (2080 = 4 x 520)."""
+    need = max(PROMPT_LENS) + NEW_TOKENS
+    return need + (-need) % DSP_RANKS
+
+
+def serve_case(name: str) -> tuple:
+    return {c[0]: c for c in SERVE_RANK_CASES}[name]
+
+
+def serve_cfg(name: str):
+    """A case of SERVE_RANK_CASES at its served depth."""
+    return lm_config(name, serve_case(name)[1])
+
+
+def forced_cfgs(name: str) -> list:
+    """(label, cfg) of each teacher-forced check of a case of
+    SERVE_RANK_CASES, at its depth and dtype."""
+    out = []
+    for depth, dtype in serve_case(name)[3]:
+        cfg = dataclasses.replace(lm_config(name, depth), dtype=dtype)
+        out.append((f"depth {cfg.n_layers} {str(dtype)[6:]}", cfg))
+    return out
+
+
+def kernel_drift(cfg, reqs, device="cuda") -> float:
+    """One card, ``cfg``: the forced steps' logits with the kernels (K1,
+    K2) against their plain versions, the worst row relative to its
+    largest logit: how far two arithmetic paths of the model drift apart
+    on their own."""
+    params = lm.init_lm(0, cfg, device=device)
+    worst = 0.0
+    with torch.no_grad():
+        for r in reqs:
+            tok = r.prompt[None]
+            a, ca = lm.forward_prefill(params, tok, cfg, backend="kernel")
+            b, cb = lm.forward_prefill(params, tok, cfg, backend="ref")
+            worst = max(worst, logit_gap(a, b))
+            for _ in range(SERVE_FORCED_STEPS):
+                nxt = torch.argmax(a[:, -1], dim=-1)[:, None]
+                a, ca = lm.forward_decode(params, nxt, ca, cfg)
+                b, cb = lm.forward_decode(params, nxt, cb, cfg)
+                worst = max(worst, logit_gap(a, b))
+    del params
+    free_device()
+    return worst
+
+
+@torch.no_grad()
+def layer_drift(cfg, prompt, device="cuda") -> dict:
+    """One card, ``cfg`` in bf16, one prompt's prefill walked a layer at a
+    time.  Per layer, the gap max |a - b| / max |b| over the hidden states
+    (1, S, d) of: ``local``, the layer through the kernels against through
+    their plain versions, both on the plain path's input; ``carried``, the
+    kernel path against the plain path, each from the embedding;
+    ``nudged``, the plain path from the embedding raised by one bf16 ulp
+    against the plain path.  Local gaps at one rounding and a carried gap
+    that grows as the nudged one does show rounding amplified by depth,
+    not a fault of the kernel."""
+    params = lm.init_lm(0, cfg, device=device)
+    sh = make_sharder(None, ParallelPlan(mode="none"))
+    x = lm.sharded_embed(params, prompt[None], cfg, sh)
+    xk, xr = x, x
+    xn = (x.contiguous().view(torch.int16) + 1).view(x.dtype)
+    out = {"local": [], "carried": [], "nudged": []}
+    for pp in lm.unstack(params["periods"], cfg.n_periods):
+        for j, spec in enumerate(cfg.period_specs()):
+            def layer(h, backend):
+                return lm._apply_layer(pp[str(j)], h, cfg, spec, sh, backend,
+                                       True)
+            yr = layer(xr, "ref")
+            out["local"].append(logit_gap(layer(xr, "kernel"), yr))
+            xk, xr, xn = layer(xk, "kernel"), yr, layer(xn, "ref")
+            out["carried"].append(logit_gap(xk, xr))
+            out["nudged"].append(logit_gap(xn, xr))
+    del params, x, xk, xr, xn
+    free_device()
+    return out
+
+
+@torch.no_grad()
+def forced_logits(eng, reqs, tokens, device="cuda") -> torch.Tensor:
+    """Teacher forcing: each request prefilled into its own slot of a pool
+    of ``len(reqs)`` slots on the engine's mesh, then SERVE_FORCED_STEPS
+    decode steps fed ``tokens`` (the reference's own, the first one
+    generated at index 0).  Returns the logits (requests, 1 +
+    SERVE_FORCED_STEPS, V or this rank's vocab chunk) in float32."""
+    pool = KVPool(eng.cfg, len(reqs), eng.max_len, mesh=eng.mesh,
+                  plan=eng.plan, device=device)
+    rows = []
+    for i, r in enumerate(reqs):
+        logits, caches = eng._prefill(r.prompt[None])
+        eng.next_tokens(logits)         # as the scheduler reads each step
+        rows.append([logits[0, -1].float()])
+        pool.insert(i, caches, len(r.prompt))
+    fed = torch.tensor([t[:SERVE_FORCED_STEPS] for t in tokens],
+                       device=device)
+    for t in range(SERVE_FORCED_STEPS):
+        logits, pool.caches = eng._decode(fed[:, t:t + 1], pool.caches)
+        eng.next_tokens(logits)
+        for i in range(len(reqs)):
+            rows[i].append(logits[i, -1].float())
+    return torch.stack([torch.stack(r) for r in rows])
+
+
+def serve_refs(work: str, device="cuda") -> None:
+    """(b)'s references on one rank, plan none: the trace's tokens through
+    the scheduler at each case's served depth, and the teacher-forced
+    logits on them at each of its forced checks' depth and dtype, written
+    to ``work``.  Logs how far the kernels drift from their plain versions
+    at the served depth: over the forced logits (``kernel_drift``) and
+    layer by layer over a prefill (``layer_drift``)."""
+    for name, *_ in SERVE_RANK_CASES:
+        cfg = serve_cfg(name)
+        eng = ServingEngine(lm.init_lm(0, cfg, device=device), cfg,
+                            max_len=serve_max_len(), device=device)
+        reqs = trace_requests(cfg, device)
+        eng.serve(reqs, continuous=True, max_batch=MAX_BATCH)
+        tokens = [r.generated for r in reqs]
+        del eng
+        free_device()
+        forced = [reqs[i] for i in SERVE_FORCED]
+        log_t(f"  {name}: one card in {cfg.dtype}, the forced steps' "
+              f"logits, kernels against plain versions: worst row "
+              f"{kernel_drift(cfg, forced, device):.3e}")
+        gaps = layer_drift(cfg, forced[-1].prompt, device)
+        log_t(f"  {name}: the {len(forced[-1].prompt)}-token prefill layer "
+              f"by layer, hidden states' max |delta| / max |plain|: the "
+              f"worst local (one layer, kernels against plain on the same "
+              f"input) {max(gaps['local']):.3e}; carried (kernel path "
+              f"against plain path) at the last layer "
+              f"{gaps['carried'][-1]:.3e}, nudged (plain path from an "
+              f"embedding one bf16 ulp up) {gaps['nudged'][-1]:.3e}")
+        for what, row in gaps.items():
+            log(f"    {what}: " + " ".join(f"{g:.1e}" for g in row))
+        logits = {}
+        for label, fcfg in forced_cfgs(name):
+            eng = ServingEngine(lm.init_lm(0, fcfg, device=device), fcfg,
+                                max_len=serve_max_len(), device=device)
+            logits[label] = forced_logits(
+                eng, forced, [tokens[i] for i in SERVE_FORCED], device).cpu()
+            del eng
+            free_device()
+        torch.save({"tokens": tokens, "logits": logits},
+                   os.path.join(work, f"serve_ref.{name}.pt"))
+
+
+def forced_gap(got: torch.Tensor, want: torch.Tensor, sharder) -> float:
+    """The worst logits row of ``got`` (this rank's vocab chunk when the
+    logits are vocab-sharded) against the same rows of ``want`` (the whole
+    reference): max |got - want| / max |want| per row, each the maximum
+    over the ranks (one MAX all-reduce, not counted)."""
+    v = got.shape[-1]
+    first = sharder.sp_index * v if v != want.shape[-1] else 0
+    want = want[..., first:first + v].to(got.device)
+    parts = torch.stack([(got - want).abs().amax(-1), want.abs().amax(-1)])
+    if sharder.ctx is not None:
+        dist.all_reduce(parts, op=dist.ReduceOp.MAX,
+                        group=sharder.ctx.sp_group)
+    return float((parts[0] / parts[1]).max())
+
+
+def heads_expected(cfg, log_prefills) -> dict:
+    """{heads: launches} of K1 (attention layers: "q/kv") or K2 (SSM
+    layers: "h") over the logged prefills, once a layer at each's SP
+    degree."""
+    out = {}
+    for n, _, _ in log_prefills:
+        if cfg.ssm_cfg is not None:
+            key = str(cfg.ssm_cfg.n_heads // n)
+        else:
+            # K/V heads fewer than the ranks are repeated up to them
+            kv = cfg.n_kv_heads * (-(-n // cfg.n_kv_heads)
+                                   if cfg.n_kv_heads < n else 1)
+            key = f"{cfg.n_heads // n}/{kv // n}"
+        out[key] = out.get(key, 0) + cfg.n_layers
+    return out
+
+
+def serve_rank_main(rank: int, world: int, work: str) -> None:
+    """One of (b)'s ranks, started by ``serve_four_ranks`` as
+    ``chip_smoke.py --serve-rank <rank> <world> <dir>``: gloo over the
+    card's CUDA tensors on a (1, world) mesh.  For each case of
+    SERVE_RANK_CASES: under SERVE_PLAN the teacher-forced logits against
+    the reference's at each of its forced checks' depth and dtype,
+    counted; under SERVE_RANK_PLAN the trace through the
+    scheduler with the pool asserted on the mesh after every step, the
+    calls and bytes of each segment and K1/K2's launches by heads; on the
+    replan case ``replan(SERVE_REPLAN_TO)`` at decode step
+    SERVE_REPLAN_STEP, the pool gathered before and after (bit for bit),
+    its seconds and memory, and the teacher-forced logits again on the
+    survivors.  Written to ``<dir>/serve_rank<r>.json``."""
+    device = json.load(open(os.path.join(work, "job19.json")))["device"]
+    full_f32()
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(work, "store19b"), world), rank=rank, world_size=world)
+    res = {}
+    try:
+        for name, _, replan, _ in SERVE_RANK_CASES:
+            cfg = serve_cfg(name)
+            # the check after the replan runs the served engine
+            served_label = [label for label, fcfg in forced_cfgs(name)
+                            if fcfg == cfg]
+            if replan and not served_label:
+                raise ValueError(f"{name}: no forced check at the served "
+                                 f"depth and dtype for after the replan")
+            ref = torch.load(os.path.join(work, f"serve_ref.{name}.pt"))
+            got = res[name] = {"host_gib": {}, "forced": {}}
+            mesh = make_mesh((1, world), ("data", "model"), device,
+                             backend="gloo")
+            reqs = trace_requests(cfg, device)
+            forced = [reqs[i] for i in SERVE_FORCED]
+            forced_tokens = [ref["tokens"][i] for i in SERVE_FORCED]
+            segments, seen = {}, {}
+            # the CLI's plan: the teacher-forced checks, counted
+            for label, fcfg in forced_cfgs(name):
+                params = lm.init_lm(0, fcfg, device=device)
+                eng = ServingEngine(params, fcfg, max_len=serve_max_len(),
+                                    mesh=mesh, plan=SERVE_PLAN,
+                                    device=device)
+                steps = StepLog(eng)
+                dsp.reset_calls()
+                got["forced"][label] = forced_gap(forced_logits(
+                    eng, forced, forced_tokens, device),
+                    ref["logits"][label], eng.sharder)
+                segments[f"forced {label}"] = [counted(), steps.expected(
+                    fcfg, meta_tree(params), SERVE_PLAN, 0)]
+                del eng, steps, params
+                free_device()
+                got["host_gib"][f"forced {label}"] = host_state()
+                host_empty_cache()
+            # the trace, without ZeRO
+            params = lm.init_lm(0, cfg, device=device)
+            template = meta_tree(params)
+            eng = ServingEngine(params, cfg, max_len=serve_max_len(),
+                                mesh=mesh, plan=SERVE_RANK_PLAN,
+                                device=device)
+            del params
+            free_device()
+            steps = StepLog(eng)
+            sched = ContinuousScheduler(eng, max_batch=MAX_BATCH)
+
+            def on_step(s, k):
+                s.pool.assert_on_mesh()
+                if not (replan and k == SERVE_REPLAN_STEP):
+                    return
+                segments["before"] = [counted(), steps.expected(
+                    cfg, template, SERVE_RANK_PLAN, s.ticks)]
+                seen["ticks"] = s.ticks
+                before = flatten_pool(s.pool)
+                torch.cuda.synchronize()
+                mem0 = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                dsp.reset_calls()
+                t0 = time.perf_counter()
+                s.replan(SERVE_REPLAN_TO)
+                torch.cuda.synchronize()
+                seen["replan_seconds"] = time.perf_counter() - t0
+                segments["migrate"] = [counted(), add_contracts(
+                    lm.serve_contract(cfg, world, template, SERVE_RANK_PLAN,
+                                      migrate=(MAX_BATCH, s.engine.max_len,
+                                               SERVE_REPLAN_TO)))]
+                seen["memory_gb"] = [mem0 / 1e9,
+                                     torch.cuda.max_memory_allocated() / 1e9,
+                                     torch.cuda.memory_allocated() / 1e9]
+                if s.engine.active:
+                    after = flatten_pool(s.pool)
+                    seen["moved_equal"] = all(torch.equal(before[p], after[p])
+                                              for p in before)
+                del before
+                dsp.reset_calls()
+
+            torch.cuda.synchronize()
+            reset_launches()
+            reset_ssd_launches()
+            dsp.reset_calls()
+            t0 = time.perf_counter()
+            sched.run(reqs, on_step=on_step)
+            torch.cuda.synchronize()
+            got["seconds"] = time.perf_counter() - t0
+            got["active"] = eng.active
+            got.update({k: v for k, v in seen.items() if k != "ticks"})
+            k1_heads = heads_expected(cfg, steps.every_prefill)
+            if eng.active:
+                segments["after"] = [counted(), steps.expected(
+                    cfg, template, SERVE_RANK_PLAN,
+                    sched.ticks - seen.get("ticks", 0))]
+                got["finished"] = all(
+                    r.result is not None and len(r.generated) == NEW_TOKENS
+                    for r in reqs)
+                got["token_share"] = float(np.mean([
+                    a == b for r, t in zip(reqs, ref["tokens"])
+                    for a, b in zip(r.generated, t)]))
+                got["metrics"] = sched.metrics.summary()
+            got["segments"] = segments
+            kernel = ssd_scan_fwd if cfg.ssm_cfg is not None \
+                else flash_attention_fwd
+            got["heads"] = {("/".join(map(str, k)) if isinstance(k, tuple)
+                             else str(k)): n
+                            for k, n in kernel.heads_launches.items()}
+            got["heads_expected"] = k1_heads
+            got["routes"] = nonzero(kernel.route_launches)
+            got["launches"] = kernel.launches
+            if replan and eng.active:
+                dsp.reset_calls()
+                got["forced_after"] = forced_gap(forced_logits(
+                    eng, forced, forced_tokens, device),
+                    ref["logits"][served_label[0]], eng.sharder)
+                segments["forced after"] = [counted(), steps.expected(
+                    cfg, template, SERVE_RANK_PLAN, 0)]
+            got["host_gib"]["served"] = host_state()
+            del eng, sched, ref, steps
+            free_device()
+            host_empty_cache()
+            dist.barrier()
+        json.dump(res, open(os.path.join(work, f"serve_rank{rank}.json"),
+                            "w"))
+    finally:
+        dist.destroy_process_group()
+
+
+def flatten_pool(pool) -> dict:
+    """The pool's KV and SSM leaves gathered whole on its mesh (not
+    counted: the caller resets the counters after)."""
+    from repro_torch.parallel.partition import cache_pspecs
+    whole = unshard_params(pool.caches, cache_pspecs(pool.caches, pool.plan),
+                           pool.ctx)
+    return {"/".join(p): t.clone() for p, t in
+            zip(leaf_paths_of(whole), lm.tree_leaves(whole))}
+
+
+def leaf_paths_of(tree, path=()) -> list:
+    if isinstance(tree, dict):
+        return [q for k in tree for q in leaf_paths_of(tree[k], path + (k,))]
+    return [path]
+
+
+def serve_four_ranks(work: str, device="cuda") -> dict:
+    """(b) DSP_RANKS processes sharing the card over gloo, each case of
+    SERVE_RANK_CASES at full width: the teacher-forced logits within
+    LOGIT_BAR of the one-rank reference's, every request finished, the
+    calls and bytes of each segment exactly ``serve_contract``'s, K1 (K2)
+    once a layer a prefill on each rank's heads, all ``sm90``; on the
+    replan case the moved pool bit-equal and the survivors' forced logits
+    within the bar.  The share of tokens equal to the reference's is
+    logged, not gated."""
+    with open(os.path.join(work, "job19.json"), "w") as f:
+        json.dump({"device": device}, f)
+    t0 = time.perf_counter()
+    serve_refs(work, device)
+    free_device()
+    log_t(f"  references at one rank in {time.perf_counter() - t0:.1f} s, "
+          f"this process holding {torch.cuda.memory_reserved() / 1e9:.2f} "
+          f"GB of the card ({elapsed()})")
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--serve-rank", str(r), str(DSP_RANKS), work],
+                              env=env)
+             for r in range(DSP_RANKS)]
+    try:
+        rcs = [p.wait(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log_t(f"  {DSP_RANKS} ranks exited {rcs} after "
+          f"{time.perf_counter() - t0:.1f} s")
+    if any(rcs):
+        raise AssertionError(f"a serving rank failed: exit codes {rcs}")
+    ranks = [json.load(open(os.path.join(work, f"serve_rank{r}.json")))
+             for r in range(DSP_RANKS)]
+    for name, _, replan, _ in SERVE_RANK_CASES:
+        cfg = serve_cfg(name)
+        log(f"  {name} depth {cfg.n_layers}: forced logits at "
+            f"{[label for label, _ in forced_cfgs(name)]} under "
+            f"{SERVE_PLAN}, the trace under {SERVE_RANK_PLAN}"
+            + (f", replan({SERVE_REPLAN_TO}) at decode step "
+               f"{SERVE_REPLAN_STEP}" if replan else ""))
+        # the decode step's embedding per rank: the port's masked lookup
+        # and one all-reduce of the (slots, 1, d) rows, where JAX's
+        # sharded_embed rings the whole table (n permutes of a chunk)
+        log(f"  decode embedding bytes a rank a step at {MAX_BATCH} slots: "
+            f"all-reduce {2 * MAX_BATCH * cfg.d_model * cfg.dtype.itemsize}"
+            f", JAX's table ring {cfg.vocab * cfg.d_model * cfg.dtype.itemsize}")
+        for r, res in enumerate(ranks):
+            got = res[name]
+            log_t(f"  rank {r}: forced logits' worst row {got['forced']}"
+                  f" (after the replan {got.get('forced_after')}); served "
+                  f"{got['seconds']:.1f} s, still serving {got['active']}, "
+                  f"share of tokens equal to the reference's "
+                  f"{got.get('token_share')}; launches by heads "
+                  f"{got['heads']} (expected {got['heads_expected']}), "
+                  f"{got['routes']}; host GiB {got['host_gib']}")
+            if "replan_seconds" in got:
+                log_t(f"  rank {r}: replan({SERVE_REPLAN_TO}) "
+                      f"{got['replan_seconds']:.3f} s, device memory GB "
+                      f"before / peak / after {got['memory_gb']}, moved "
+                      f"pool bit-equal {got.get('moved_equal')}")
+            if got["active"]:
+                log_t(f"  rank {r} metrics " + json.dumps(got["metrics"],
+                                                         sort_keys=True))
+            for seg, (calls, want) in got["segments"].items():
+                log(f"  rank {r} {seg}: calls {calls}; contract {want}")
+                if calls != want:
+                    raise AssertionError(f"rank {r} {name} {seg}: calls "
+                                         f"{calls}, the contract says {want}")
+            bars = list(got["forced"].values()) + (
+                [got["forced_after"]] if "forced_after" in got else [])
+            if not max(bars) <= LOGIT_BAR:
+                raise AssertionError(f"rank {r} {name}: forced logits "
+                                     f"{bars} past {LOGIT_BAR}")
+            if (got["heads"] != got["heads_expected"]
+                    or got["routes"] != {"sm90": got["launches"]}):
+                raise AssertionError(f"rank {r} {name}: launches "
+                                     f"{got['heads']} {got['routes']}, "
+                                     f"expected {got['heads_expected']} "
+                                     f"on sm90")
+            if got["active"] and not got["finished"]:
+                raise AssertionError(f"rank {r} {name}: not every request "
+                                     f"finished")
+            if replan and got["active"] and not got["moved_equal"]:
+                raise AssertionError(f"rank {r} {name}: the moved pool "
+                                     f"differs from the one before")
+    return {"ranks": ranks}
+
+
+def serve_cli_ranks(serve_main, work: str) -> None:
+    """(c) The serve CLI at SMOKE size under ``torchrun --nproc-per-node``
+    DSP_RANKS on the card, gloo over its tensors (``--backend gloo``:
+    NCCL takes one rank a card), ``--mode dsp``: continuous over a Poisson
+    trace (``--arrival 0.01``), whose tokens must be world 1's, and static
+    with ``--replan 2``, which must print ``replan output identical:
+    True``."""
+    import contextlib
+    import io
+    base = ["--arch", "qwen3-14b", "--batch", "4", "--prompt-len", "16",
+            "--new-tokens", "8"]
+    cont = ["--continuous", "--arrival", "0.01"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        want = [r.generated for r in serve_main(base + cont)]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    for flags in (cont, ["--replan", "2"]):
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(DSP_RANKS), "-m",
+               "repro_torch.launch.serve", *base, "--mode", "dsp",
+               "--backend", "gloo", *flags]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, cwd=work, env=env, capture_output=True,
+                             text=True, timeout=300)
+        text = out.stdout
+        log_t(f"  {' '.join(flags)}: exit {out.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s; "
+              f"{text.splitlines()[0] if text else out.stderr[-2000:]}")
+        if out.returncode:
+            raise AssertionError(f"serve CLI under torchrun {flags}: "
+                                 f"{out.stdout[-2000:]}{out.stderr[-3000:]}")
+        if flags is cont:
+            got = [json.loads(m) for m in re.findall(r"s: (\[[^\]]*\])",
+                                                     text)]
+            log(f"  tokens equal to world 1's: {got == want}")
+            if got != want or "KV pool sequence-sharded over 4-way" \
+                    not in text:
+                raise AssertionError(f"serve CLI continuous on "
+                                     f"{DSP_RANKS} ranks: {text[-2000:]}")
+        elif "replan output identical: True" not in text:
+            raise AssertionError(f"serve CLI --replan 2: {text[-2000:]}")
+        else:
+            log("  replan output identical: True")
+
+
 def time_dit_attention(shape) -> dict:
     """K1 at a DiT ``shape`` in bf16 on its route (DIT_ROUTE) and on
     ``cuda_cores``, and ``scaled_dot_product_attention``, three times each
@@ -3109,6 +3787,10 @@ def main() -> None:
     check_ssd(LM_ZERO_SSD, torch.bfloat16, seed=403)
     for i, case in enumerate(CKPT_SSD):
         check_ssd(case, torch.bfloat16, seed=404 + i)
+    for i, case in enumerate(SERVE_RANK_ATTN):
+        check_attention(case, torch.bfloat16, seed=410 + i)
+    for i, case in enumerate(SERVE_RANK_SSD):
+        check_ssd(case, torch.bfloat16, seed=430 + i)
 
     log(f"[4] timing at the slice's shape, bf16 ({elapsed()})")
     q, k, v = attn_inputs(SLICE, torch.bfloat16, seed=7)
@@ -3222,11 +3904,12 @@ def main() -> None:
 
     log(f"[14] transformer2d-720m under the embedded-SP baselines and the "
         f"overlapped switch ({elapsed()})")
+    spcfg = dataclasses.replace(dcfg, n_layers=SP_DEPTH)
     with tempfile.TemporaryDirectory() as work:
-        log("  (a) world size 1 over NCCL, full width")
-        sp = sp_world_of_one(dcfg, dit_trained, work)
+        log(f"  (a) world size 1 over NCCL, full width, depth {SP_DEPTH}")
+        sp = sp_world_of_one(spcfg, work)
         log(f"  (b) {DSP_RANKS} ranks on the card over gloo ({elapsed()})")
-        sp_four_ranks(dcfg, sp["bucket2"], work)
+        sp_four_ranks(spcfg, sp["bucket2"], work)
     sp_launches = sum(r["launches"] for r in sp["modes"].values())
     log(f"  done ({elapsed()})")
 
@@ -3260,7 +3943,6 @@ def main() -> None:
         log(f"  (b) {DSP_RANKS} ranks on the card over gloo ({elapsed()})")
         zero_ranks = zero_four_ranks(work)
     q_zero, m_zero = lm_zero["qwen3-14b"], lm_zero["mamba2-370m"]
-    k1_routes = by_route([served, q_trained, q_dsp, q_zero] + dit_runs)
     log(f"  done ({elapsed()})")
 
     log(f"[18] mamba2-370m checkpoints: save, resume, compression, "
@@ -3276,6 +3958,22 @@ def main() -> None:
     log_t(f"  done: phase 18 took {time.perf_counter() - t18:.1f} s "
           f"({elapsed()})")
 
+    log(f"[19] qwen3-14b and mamba2-370m served sharded: the KV cache "
+        f"sequence-sharded, the SSM state head-sharded ({elapsed()})")
+    t19 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        log("  (a) world size 1 over NCCL, full width and depth")
+        sv = serve_world_of_one({"qwen3-14b": served,
+                                 "mamba2-370m": m_served}, work)
+        log(f"  (b) {DSP_RANKS} ranks on the card over gloo ({elapsed()})")
+        serve_ranks = serve_four_ranks(work)
+        log(f"  (c) the serve CLI under torchrun at SMOKE size "
+            f"({elapsed()})")
+        serve_cli_ranks(serve_main, work)
+    q_sv, m_sv = sv["qwen3-14b"], sv["mamba2-370m"]
+    log_t(f"  done: phase 19 took {time.perf_counter() - t19:.1f} s "
+          f"({elapsed()})")
+
     log(facts)
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
@@ -3284,11 +3982,15 @@ def main() -> None:
         "launches": (served["launches"] + q_trained["launches"]
                      + dit_trained["launches"] + dsp_trained["launches"]
                      + sp_launches + l2d["launches"] + q_dsp["launches"]
-                     + q_zero["launches"]),
-        "launches_by_route": k1_routes,
+                     + q_zero["launches"] + q_sv["launches"]),
+        "launches_by_route": by_route([served, q_trained, q_dsp, q_zero,
+                                       q_sv] + dit_runs),
         "lm_dsp_launches": q_dsp["launches"],
         "lm_dsp_rank_launches": [r["qwen3-14b"]["k1_heads"]
                                  for r in lm_ranks["ranks"]],
+        "serve_sharded_launches": q_sv["launches"],
+        "serve_sharded_rank_launches": [
+            r["qwen3-14b"]["heads"] for r in serve_ranks["ranks"]],
         "lm_zero_launches": q_zero["launches"],
         "lm_zero_rank_launches": {
             label: [r[label]["k1_heads"] for r in zero_ranks["ranks"]]
@@ -3311,9 +4013,12 @@ def main() -> None:
         "replaces": "src/repro/kernels/ssd_scan.py:35",
         "launches": (trained["launches"] + m_served["launches"]
                      + m_dsp["launches"] + m_zero["launches"]
-                     + m_ckpt["launches"]),
+                     + m_ckpt["launches"] + m_sv["launches"]),
         "launches_by_route": by_route([trained, m_served, m_dsp, m_zero,
-                                       m_ckpt]),
+                                       m_ckpt, m_sv]),
+        "serve_sharded_launches": m_sv["launches"],
+        "serve_sharded_rank_launches": [
+            r["mamba2-370m"]["heads"] for r in serve_ranks["ranks"]],
         "lm_dsp_launches": m_dsp["launches"],
         "lm_dsp_rank_launches": [r["mamba2-370m"]["k2_heads"]
                                  for r in lm_ranks["ranks"]],
@@ -3346,5 +4051,7 @@ if __name__ == "__main__":
         zero_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif sys.argv[1:2] == ["--ckpt-rank"]:
         ckpt_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:2] == ["--serve-rank"]:
+        serve_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     else:
         main()

@@ -28,7 +28,8 @@ PyTorch counterpart (``core.schedule``).
 Every ``torch.distributed`` call the port issues goes through this module
 and adds one to ``calls[kind]`` (kinds as XLA's HLO names them:
 "all-to-all", "all-gather", "reduce-scatter", "all-reduce",
-"collective-permute") and its bytes to ``volume[kind]``, so tests and
+"collective-permute", and "broadcast", which JAX's single controller never
+needs) and its bytes to ``volume[kind]``, so tests and
 ``chip_smoke.py`` pin the collective contract by reading them, as they
 read the kernels' launch counters.  The bytes follow the convention of
 JAX's ``analysis.roofline.parse_collectives``, so the port's sit beside
@@ -77,6 +78,14 @@ def all_reduce(t: torch.Tensor, group=None,
     """Reduce ``t`` by ``op`` (a sum by default) over ``group`` (the whole
     world when None), in place."""
     _issue("all-reduce", dist.all_reduce, t, group=group, op=op)
+    return t
+
+
+def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
+    """``t`` of group rank ``src`` on every rank of ``group``, in place:
+    one call, counted as "broadcast" with ``t``'s bytes."""
+    _issue("broadcast", dist.broadcast, t, group=group,
+           src=dist.get_global_rank(group, src))
     return t
 
 
@@ -378,7 +387,7 @@ def per_device_bytes(strategy: str, global_bytes: float, n: int, *,
 
 
 __all__ = [
-    "calls", "volume", "reset_calls", "all_reduce",
+    "calls", "volume", "reset_calls", "all_reduce", "broadcast",
     "dynamic_switch", "shard", "split", "gather", "gather_param",
     "reduce_scatter", "ppermute",
     "start_permute", "dsp_shard_batch",

@@ -12,12 +12,15 @@ a caller outside ``torchrun`` calls ``init_process_group`` first.
 ``make_sp2d_mesh`` factors the SP dim into a 2D process grid
 ``("sp_out", "sp_in")`` for the USP hybrid (``core.ulysses.usp_attention``).
 
-The JAX package's TPU meshes and their topologies are not ported; the
-H100's fabric enters the planner through ``Topology.from_profile``.
+``elastic_submesh`` is the elastic resize's survivor mesh, shared by
+``Trainer.replan`` and ``ServingEngine.replan``.  ``resolve_topology``
+prices a plan on ``uniform`` links (the byte model) or on a measured
+fabric (``profile:<path>``, ``Topology.from_profile``); the JAX package's
+TPU link presets are not ported (ROADMAP, standing notes).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -80,3 +83,74 @@ def make_sp2d_mesh(outer: int, inner: int, dp: int = 1,
                          device_type, backend=backend)
     return make_mesh((outer, inner), ("sp_out", "sp_in"), device_type,
                      backend=backend)
+
+
+def elastic_submesh(n_devices: int, *, data: int, held: int, active: bool,
+                    device_type: str,
+                    regrow: str) -> Tuple[Optional[DeviceMesh], bool]:
+    """The survivor mesh of an elastic resize onto the first ``n_devices``
+    ranks of the world, and whether this rank leaves it: ``submesh`` with
+    ``data`` kept where it divides ``n_devices`` (else 1), its
+    ``("data", "model")`` group made now by every rank, as ``new_group``
+    requires; None at one device (the caller drops its mesh).  ``held``
+    is how many ranks hold state now, ``active`` whether this one does:
+    growing onto ranks that left raises ``NotImplementedError`` naming
+    ``regrow``, what to do instead.  Every rank of the world calls it."""
+    from repro_torch.core.layout import _flat_group
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if n_devices > world:
+        raise ValueError(f"replan({n_devices}) exceeds the {world} "
+                         f"available devices")
+    if not active or n_devices > held:
+        raise NotImplementedError(
+            f"replan({n_devices}) onto ranks that hold no state (the mesh "
+            f"holds {held}): {regrow}")
+    leaving = (dist.get_rank() if dist.is_initialized() else 0) >= n_devices
+    if n_devices == 1:
+        return None, leaving
+    mesh = submesh(n_devices, data if n_devices % data == 0 else 1,
+                   device_type=device_type, backend=dist.get_backend())
+    _flat_group(mesh, tuple(mesh.mesh_dim_names))
+    return mesh, leaving
+
+
+TOPOLOGY_PRESETS = ("uniform",)
+# the JAX package's TPU link presets, which the port does not carry
+TPU_PRESETS = ("ici", "torus", "ici_dcn")
+
+
+def resolve_topology(kind: str, sp: int):
+    """The ``Topology`` of an SP group of ``sp`` ranks that prices a plan:
+    ``uniform`` (``Topology.uniform``: each transition costs its bytes) or
+    ``profile:<path>``, a JSON file of ``[[global_bytes, seconds], ...]``
+    all-gather samples fitted by ``Topology.from_profile``.  JAX's TPU
+    presets raise ``ValueError`` naming the ROADMAP's standing note."""
+    from repro_torch.core.topology import Topology
+    if kind.startswith("profile:"):
+        import json
+        with open(kind[len("profile:"):]) as f:
+            samples = [tuple(s) for s in json.load(f)]
+        return Topology.from_profile(sp, samples)
+    if kind == "uniform":
+        return Topology.uniform(sp)
+    if kind in TPU_PRESETS:
+        raise ValueError(
+            f"topology {kind!r} is a TPU link preset the port does not "
+            f"carry (ROADMAP queue 1, standing notes): use uniform or "
+            f"profile:<path> (Topology.from_profile over timed NCCL "
+            f"all-gathers)")
+    raise ValueError(f"unknown topology kind {kind!r} (want uniform or "
+                     f"profile:<path>)")
+
+
+def topology_meta(topo) -> dict:
+    """The fabric facts a metrics JSON records for a ``Topology``: the
+    per-link model the planner priced on."""
+    if topo is None:
+        return {"topology": None}
+    return {
+        "topology": [{"name": a.name, "size": a.size,
+                      "bandwidth_gbps": a.bandwidth / 1e9,
+                      "latency_s": a.latency} for a in topo.axes],
+        "bottleneck_bandwidth_gbps": topo.bottleneck_bandwidth / 1e9,
+    }

@@ -1,26 +1,51 @@
 """Serving CLI: ``python -m repro_torch.launch.serve --arch <id>``.
 
 Initialises the architecture's SMOKE config with random weights from a
-seed, as the JAX package's CLI does, and serves it on one device:
+seed, as the JAX package's CLI does, and serves it through the plan-aware
+``ServingEngine``:
 
 * default — the static batch reference path (one lockstep ``generate``);
+  ``--replan M`` then resizes the engine onto the first M ranks and serves
+  the same prompts again, printing whether the output is identical;
 * ``--continuous`` — the continuous-batching scheduler: ``--max-batch``
   recycled slots, a Poisson arrival trace (``--arrival`` = mean
   inter-arrival seconds; 0 = all at once), per-token streaming
   (``--stream``), and a metrics JSON (TTFT/TPOT/queue-wait percentiles,
-  throughput, slot occupancy) printed and optionally written to
-  ``--metrics PATH``.
+  throughput, slot occupancy, the priced fabric) printed and optionally
+  written to ``--metrics PATH``.
 
-``--ckpt-dir DIR`` serves the parameters of the latest checkpoint in DIR
-(``train.checkpoint``, either package's; the train CLI's ``--ckpt-dir``
-writes one) in place of the random ones.  ``--device`` defaults to
-``cuda``.  The JAX CLI's sharded, elastic and paged flags are not ported
-yet and exit with a message.
+Under ``torchrun`` with ``--mode dsp`` (the default) the ranks serve
+sharded on a ``(--data, world / --data)`` process mesh (NCCL on the
+card, gloo on the CPU; ``--backend gloo`` lets several ranks share one
+card): the KV caches sequence-sharded over ``model``, asserted on the
+mesh, the plan priced on ``--topology`` (``uniform``, the byte model, or
+``profile:<path>``, ``Topology.from_profile`` of timed all-gathers):
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve \\
+        --arch qwen3-14b --continuous --arrival 0.01
+
+Rank 0 prints the summary in one write.  ``--ckpt-dir DIR`` serves the
+parameters of the latest checkpoint in DIR (``train.checkpoint``, either
+package's), restored onto the engine's layout.  ``--device`` defaults to
+``cuda``.  ``--mode tp``, the JAX CLI's TPU topology presets and
+``--hosts``, ``--devices`` (``torchrun --nproc-per-node`` starts the
+ranks) and ``--paged`` (ROADMAP queue 1 item 6) exit with a message.
 """
 import argparse
 import json
+import os
+import sys
 
-NOT_PORTED = ("devices", "mode", "topology", "replan", "paged")
+
+def topology_facts(topo, schedule) -> dict:
+    """The fabric facts the metrics JSON records: the per-link model
+    (``launch.mesh.topology_meta``) and what the planner priced on it."""
+    from repro_torch.launch.mesh import topology_meta
+    out = topology_meta(topo)
+    if topo is not None and schedule is not None:
+        out["planned_switches"] = schedule.n_switches()
+        out["planned_seconds_per_step"] = schedule.per_device_seconds()
+    return out
 
 
 def main(argv=None):
@@ -30,6 +55,18 @@ def main(argv=None):
                     help="request count (static: one batch)")
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--mode", default="dsp", choices=["dsp", "tp", "none"],
+                    help="the model dim's role when serving sharded")
+    ap.add_argument("--topology", default="uniform",
+                    help="link model of the SP dim: uniform or "
+                    "profile:<path> (measured all-gather samples)")
+    ap.add_argument("--data", type=int, default=1,
+                    help="data-parallel dim size (model = world / data)")
+    ap.add_argument("--replan", type=int, default=0,
+                    help="after serving, resize onto this many ranks and "
+                    "serve again (static mode)")
+    ap.add_argument("--backend", default=None, choices=["gloo", "nccl"],
+                    help="process-group backend (default: the device's)")
     ap.add_argument("--continuous", action="store_true",
                     help="serve through the continuous-batching scheduler")
     ap.add_argument("--max-batch", type=int, default=4,
@@ -46,20 +83,37 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None,
                     help="serve the parameters of this directory's latest "
                     "checkpoint")
-    for flag in NOT_PORTED:
-        ap.add_argument("--" + flag.replace("_", "-"), default=None,
-                        help="not yet ported")
+    ap.add_argument("--hosts", type=int, default=None,
+                    help="not ported (the JAX CLI's ici_dcn host count)")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="not ported: torchrun --nproc-per-node")
+    ap.add_argument("--paged", action="store_true",
+                    help="not ported yet (ROADMAP queue 1 item 6)")
     args = ap.parse_args(argv)
-    for flag in NOT_PORTED:
-        if getattr(args, flag) is not None:
-            raise SystemExit(f"--{flag.replace('_', '-')}: not yet ported")
+    if args.devices is not None:
+        raise SystemExit("--devices: not yet ported; torchrun "
+                         "--nproc-per-node N starts the port's N ranks")
+    if args.paged:
+        raise SystemExit("--paged: not yet ported; paged serving comes "
+                         "with ROADMAP queue 1 item 6")
+    if args.hosts is not None:
+        raise SystemExit("--hosts: not yet ported; it sizes the JAX "
+                         "package's TPU preset ici_dcn (ROADMAP queue 1, "
+                         "standing notes)")
+    if args.mode == "tp":
+        raise SystemExit("--mode tp: not yet ported; tp's column- and "
+                         "row-parallel execution comes with ROADMAP queue "
+                         "1 item 7")
 
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from repro_torch import configs
     from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import make_mesh, resolve_topology
     from repro_torch.models.lm import init_lm
+    from repro_torch.parallel.partition import ParallelPlan
     from repro_torch.serving.engine import Request, ServingEngine
 
     spec = configs.get(args.arch)
@@ -68,18 +122,58 @@ def main(argv=None):
                          f"{args.arch} is {spec.family}")
     cfg = spec.smoke
     device = resolve_device(args.device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    mesh = topo = None
+    plan = ParallelPlan(mode="none")
+    if args.mode != "none" and world > 1:
+        if world % args.data:
+            raise SystemExit(f"{world} ranks not divisible by --data "
+                             f"{args.data}")
+        if device.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0"))
+                                  % torch.cuda.device_count())
+        mesh = make_mesh((args.data, world // args.data), ("data", "model"),
+                         device.type, backend=args.backend)
+        try:
+            topo = resolve_topology(args.topology, world // args.data)
+        except ValueError as e:
+            raise SystemExit(f"--topology: {e}")
+        plan = ParallelPlan(mode=args.mode)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    lines = []
     params = init_lm(0, cfg, device=device)
+    max_len = args.prompt_len + args.new_tokens
+    sp = world // args.data if mesh is not None else 1
+    max_len += (-max_len) % sp          # the sequence-sharded cache's blocks
+    eng = ServingEngine(params, cfg, max_len=max_len, mesh=mesh, plan=plan,
+                        topology=topo, device=device)
     if args.ckpt_dir:
         from repro_torch.train.checkpoint import CheckpointManager
         step, tree = CheckpointManager(args.ckpt_dir).restore(
-            {"params": params})
-        params = tree["params"]
-        print(f"restored step {step}")
-    eng = ServingEngine(params, cfg, max_len=args.prompt_len + args.new_tokens,
-                        device=device)
+            {"params": params}, specs=(
+                None if eng.sharder.param_specs is None
+                else {"params": eng.sharder.param_specs}),
+            ctx=eng.sharder.ctx, device=device)
+        eng.params = tree["params"]
+        lines.append(f"restored step {step}")
+    del params
+    if mesh is not None:
+        lines.append(f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}; "
+                     f"plan {plan}; planned switches "
+                     f"{eng.schedule.n_switches()}")
     gen = torch.Generator(device=device).manual_seed(1)
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                             generator=gen, device=device)
+    facts = {"n_devices": world if mesh is not None else 1,
+             "mode": plan.mode, "device": str(device),
+             **topology_facts(topo, eng.schedule)}
+
+    def emit():
+        # rank 0 alone, in one write: the ranks under torchrun share the
+        # stream, and a write of under PIPE_BUF bytes is not interleaved
+        if rank == 0:
+            sys.stdout.write("".join(line + "\n" for line in lines))
+            sys.stdout.flush()
 
     if args.continuous:
         from repro_torch.serving.scheduler import ContinuousScheduler
@@ -93,25 +187,45 @@ def main(argv=None):
         stream = None
         if args.stream:
             def stream(req, tok):
-                print(f"req{req.request_id} += {tok}", flush=True)
+                if rank == 0:
+                    print(f"req{req.request_id} += {tok}", flush=True)
         sched = ContinuousScheduler(eng, max_batch=args.max_batch)
         sched.run(reqs, stream=stream)
-        sched.metrics.extra.update({"n_devices": 1, "mode": "none",
-                                    "device": str(device)})
-        print(sched.metrics.to_json(args.metrics))
-        for r in reqs:
-            print(f"req{r.request_id} [{r.result.finish_reason}] "
-                  f"ttft={r.result.metrics.ttft:.3f}s: {r.generated}")
+        if mesh is not None:
+            sched.pool.assert_on_mesh()
+            lines.append(f"KV pool sequence-sharded over "
+                         f"{eng.sp_degree}-way model dim: OK")
+        sched.metrics.extra.update(facts)
+        lines.append(sched.metrics.to_json(args.metrics if rank == 0
+                                           else None))
+        lines.extend(f"req{r.request_id} [{r.result.finish_reason}] "
+                     f"ttft={r.result.metrics.ttft:.3f}s: {r.generated}"
+                     for r in reqs)
+        emit()
         return reqs
 
-    out = eng.generate(prompts, max_new_tokens=args.new_tokens)
-    for i in range(args.batch):
-        print(f"serve[{device}] req{i}: prompt={prompts[i].tolist()[:8]}... "
-              f"generated={out[i].tolist()}")
-    if args.metrics:
+    def run(tag):
+        out = eng.generate(prompts, max_new_tokens=args.new_tokens,
+                           check_sharding=True)
+        if eng.mesh is not None:
+            lines.append(f"{tag}: KV caches sequence-sharded over "
+                         f"{eng.sp_degree}-way model dim: OK")
+        lines.extend(f"{tag} req{i}: prompt={prompts[i].tolist()[:8]}... "
+                     f"generated={out[i].tolist()}"
+                     for i in range(args.batch))
+        return out
+
+    out = run(f"serve[{device}, {facts['n_devices']} rank(s)]")
+    if args.metrics and rank == 0:
         with open(args.metrics, "w") as f:
-            json.dump({"mode": "none", "n_devices": 1,
-                       "device": str(device)}, f, indent=2)
+            json.dump(facts, f, indent=2)
+    if args.replan:
+        eng.replan(args.replan)
+        if eng.active:
+            out2 = run(f"replan[{args.replan} rank(s)]")
+            lines.append(f"replan output identical: "
+                         f"{bool(torch.equal(out, out2))}")
+    emit()
     return out
 
 

@@ -6,7 +6,11 @@ Tensors are (B, S, C) at the block boundary; the kernel path uses
 CUDA kernel on the card); decode attends over the cache with plain
 PyTorch (``_ref_decode``), as the JAX package does with jnp.
 ``attention_sp`` with a ``parallel.partition.Sharder`` on a mesh runs the
-DSP-1D attention of a sequence-sharded rank (the LM's training path).
+DSP-1D attention of a sequence-sharded rank (the LM's training path and
+its sharded prefill).  Sharded decode (``attention(cache=, sharder=)``)
+keeps the KV cache sequence-sharded over ``model``: each rank writes the
+step's K/V where its block holds the position, attends its block and
+merges its softmax partial with the others' (``_sharded_decode``).
 
 Decode writes the new K/V into the cache tensors IN PLACE (the JAX package
 returns updated copies): at full width a copy of every layer's cache per
@@ -20,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import dsp
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models import layers as L
@@ -79,12 +84,19 @@ def _project(p, x, src, cfg: AttnConfig):
 def attention(p, x, cfg: AttnConfig, *, causal: bool = True,
               positions: Optional[torch.Tensor] = None,
               x_kv: Optional[torch.Tensor] = None,
-              cache: Optional[dict] = None, backend: str = "kernel"):
+              cache: Optional[dict] = None, sharder=None,
+              backend: str = "kernel"):
     """x: (B, S, C).  ``x_kv`` switches to cross-attention.  With ``cache``
     given, runs incremental decoding: writes K/V at cache['pos'] (a scalar,
     or a (B,) vector of per-slot positions) and attends to the prefix;
     returns (out, new_cache), else just out.  ``backend`` picks the
-    flash-attention path of the no-cache branch; decode is always plain."""
+    flash-attention path of the no-cache branch; decode is always plain.
+
+    With ``sharder`` serving sharded (``Sharder.serves_sharded``) the
+    cache tensors are this rank's block of the sequence (``kv_block``), x
+    is whole on every rank, and one step (S = 1) writes its K/V on the
+    rank whose block holds the position and attends through
+    ``_sharded_decode``."""
     b, s, _ = x.shape
     h, dh = cfg.n_heads, cfg.head_dim
     q, k, v = _project(p, x, x if x_kv is None else x_kv, cfg)
@@ -101,24 +113,31 @@ def attention(p, x, cfg: AttnConfig, *, causal: bool = True,
     if cache is not None:
         pos = cache["pos"]
         ck, cv = cache["k"], cache["v"]
-        steps = torch.arange(s, device=x.device)
-        # the write start clamps so the update fits, as jax's
-        # dynamic_update_slice does: idle pool slots keep stepping past
-        # max_len on garbage that the next insert overwrites
-        start = pos.long().clamp(max=ck.shape[2] - s)
-        if pos.dim() == 1:
-            # per-slot write positions (continuous-batching slot pool):
-            # each row appends at its own sequence offset
-            rows = torch.arange(b, device=x.device)[:, None]
-            cols = start[:, None] + steps
-            ck[rows, :, cols] = k.to(ck.dtype)        # k is (B, S, Hkv, D)
-            cv[rows, :, cols] = v.to(cv.dtype)
+        sharded = sharder is not None and sharder.serves_sharded
+        if sharded:
+            q, k, v = (sharder.decode_heads(t) for t in (q, k, v))
+            _sharded_write(ck, cv, k, v, pos, sharder)
+            o = _sharded_decode(q.transpose(1, 2), ck, cv, cfg, pos, causal,
+                                sharder)
         else:
-            idx = start + steps
-            ck.index_copy_(2, idx, k.transpose(1, 2).to(ck.dtype))
-            cv.index_copy_(2, idx, v.transpose(1, 2).to(cv.dtype))
+            steps = torch.arange(s, device=x.device)
+            # the write start clamps so the update fits, as jax's
+            # dynamic_update_slice does: idle pool slots keep stepping past
+            # max_len on garbage that the next insert overwrites
+            start = pos.long().clamp(max=ck.shape[2] - s)
+            if pos.dim() == 1:
+                # per-slot write positions (continuous-batching slot pool):
+                # each row appends at its own sequence offset
+                rows = torch.arange(b, device=x.device)[:, None]
+                cols = start[:, None] + steps
+                ck[rows, :, cols] = k.to(ck.dtype)    # k is (B, S, Hkv, D)
+                cv[rows, :, cols] = v.to(cv.dtype)
+            else:
+                idx = start + steps
+                ck.index_copy_(2, idx, k.transpose(1, 2).to(ck.dtype))
+                cv.index_copy_(2, idx, v.transpose(1, 2).to(cv.dtype))
+            o = _ref_decode(q.transpose(1, 2), ck, cv, cfg, pos, causal)
         new_cache = {"k": ck, "v": cv, "pos": pos + s}
-        o = _ref_decode(q.transpose(1, 2), ck, cv, cfg, pos, causal)
         o = o.transpose(1, 2).reshape(b, s, h * dh)
         return L.linear(p["wo"], o), new_cache
 
@@ -130,13 +149,46 @@ def attention(p, x, cfg: AttnConfig, *, causal: bool = True,
     return L.linear(p["wo"], o)
 
 
-def _ref_decode(q, k, v, cfg: AttnConfig, pos, causal: bool):
-    """Decode attention with a position offset held in a tensor: mask by
-    absolute positions (cols <= pos + i, window).  q: (B, H, Sq, D), k/v
-    the full cache.  ``pos`` is a scalar (static batch) or a (B,) vector
-    (slot pool: each row masks against its own length)."""
+def _sharded_write(ck, cv, k, v, pos, sharder) -> None:
+    """Write one step's k/v (B, 1, Hkv, D) into this rank's cache block
+    (B, Hkv, L, D) at global position ``pos`` (a scalar or per row),
+    clamped to the cache's global length as the one-device write clamps:
+    the rank whose block holds the position writes it, the others write
+    back what they hold (no host sync on which rank owns it)."""
+    b, s = k.shape[:2]
+    if s != 1:
+        raise NotImplementedError(
+            "sharded decode takes one token a step; prefill chunks come "
+            "with paged serving (ROADMAP queue 1 item 6)")
+    blk = ck.shape[2]
+    local = pos.long().clamp(max=blk * sharder.sp_size - 1) - (
+        sharder.sp_index * blk)
+    own = (local >= 0) & (local < blk)
+    idx = local.clamp(0, blk - 1)
+    if pos.dim() == 1:
+        rows = torch.arange(b, device=k.device)
+        for c, t in ((ck, k), (cv, v)):
+            c[rows, :, idx] = torch.where(own[:, None, None],
+                                          t[:, 0].to(c.dtype),
+                                          c[rows, :, idx])
+    else:
+        for c, t in ((ck, k), (cv, v)):
+            c[:, :, idx] = torch.where(own, t[:, 0].to(c.dtype),
+                                       c[:, :, idx])
+
+
+def _decode_partial(q, k, v, cfg: AttnConfig, pos, causal: bool,
+                    first: int):
+    """One block's softmax partial of decode attention, in float32: q (B,
+    H, Sq, D), k/v a block (B, Hkv, L, D) of the cache holding global
+    positions [first, first + L), masked by global positions (cols <= pos
+    + i, window).  ``pos`` is a scalar (static batch) or a (B,) vector
+    (slot pool: each row masks against its own length).  Returns (B, Hkv,
+    G, Sq, D + 2): the row max m, the sum l of exp(s - m) over the
+    unmasked columns and the unnormalised output o.  A row with every
+    column masked gives m = NEG_INF (finite), l = 0 and o = 0."""
     b, h, sq, d = q.shape
-    hkv = k.shape[1]
+    hkv, blk = k.shape[1], k.shape[2]
     g = h // hkv
     scale = cfg.scale if cfg.scale is not None else d ** -0.5
     qg = q.reshape(b, hkv, g, sq, d).float()
@@ -146,8 +198,8 @@ def _ref_decode(q, k, v, cfg: AttnConfig, pos, causal: bool):
     per_row = pos.dim() == 1
     steps = torch.arange(sq, device=q.device)
     q_pos = (pos[:, None] if per_row else pos) + steps
-    k_pos = torch.arange(k.shape[2], device=q.device)
-    mask = torch.ones(tuple(q_pos.shape) + (k.shape[2],), dtype=torch.bool,
+    k_pos = first + torch.arange(blk, device=q.device)
+    mask = torch.ones(tuple(q_pos.shape) + (blk,), dtype=torch.bool,
                       device=q.device)
     if causal:
         mask &= k_pos <= q_pos[..., None]
@@ -156,9 +208,44 @@ def _ref_decode(q, k, v, cfg: AttnConfig, pos, causal: bool):
     if per_row:                               # (B, sq, skv) row-wise mask
         mask = mask[:, None, None]
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
-    return o.reshape(b, h, sq, d).to(q.dtype)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
+    return torch.cat([m, e.sum(dim=-1, keepdim=True),
+                      torch.einsum("bhgqk,bhkd->bhgqd", e, v.float())], -1)
+
+
+def _merge_partials(parts, shape, dtype):
+    """The decode output from ``_decode_partial``s stacked on dim 0, one a
+    block of the sequence: exp(m_r - M)-weighted sums of l and o, o / l,
+    reshaped to ``shape`` in ``dtype``.  A block with every column masked
+    weighs exactly 0; a row masked everywhere comes out 0, never NaN.  At
+    one block the weight is exp(0) = 1, so one device and one rank of a
+    mesh compute the same bits."""
+    w = torch.exp(parts[..., :1] - parts[..., :1].amax(dim=0))
+    l = (w * parts[..., 1:2]).sum(dim=0)
+    o = (w * parts[..., 2:]).sum(dim=0) / torch.where(l > 0, l,
+                                                       torch.ones_like(l))
+    return o.reshape(shape).to(dtype)
+
+
+def _ref_decode(q, k, v, cfg: AttnConfig, pos, causal: bool):
+    """Decode attention with a position offset held in a tensor: q (B, H,
+    Sq, D), k/v the whole cache; the softmax of ``_decode_partial`` over
+    the one block."""
+    part = _decode_partial(q, k, v, cfg, pos, causal, 0)
+    return _merge_partials(part[None], q.shape, q.dtype)
+
+
+def _sharded_decode(q, k, v, cfg: AttnConfig, pos, causal: bool, sharder):
+    """``_ref_decode`` over a sequence-sharded cache: q (B, H, Sq, D) whole
+    on every rank, k/v this rank's block (B, Hkv, L, D) of positions
+    [r·L, (r+1)·L).  Each rank computes its block's softmax partial, and
+    one all-gather over ``model`` of the stacked (m, l, o) gives every
+    rank every partial to merge."""
+    part = _decode_partial(q, k, v, cfg, pos, causal,
+                           sharder.sp_index * k.shape[2])
+    return _merge_partials(dsp.gather(part[None], 0, sharder.ctx.sp_group),
+                           q.shape, q.dtype)
 
 
 def attention_sp(p, x, cfg: AttnConfig, *, sharder=None,
@@ -179,16 +266,18 @@ def attention_sp(p, x, cfg: AttnConfig, *, sharder=None,
     When the q heads do not divide the SP size, q stays sequence-sharded
     and K/V are gathered whole (the ``kv_gather`` layout).  The output
     switches back before ``wo``, whose contraction needs every head (JAX's
-    hook sits after ``wo``, where XLA moves it to).  ``return_kv`` (one
-    device) also returns the decode-cache K/V (B, Hkv, S, D)."""
+    hook sits after ``wo``, where XLA moves it to).  ``return_kv`` also
+    returns the decode-cache K/V (B, Hkv, S, D): on a mesh the rank's
+    sequence shard, rotated at global positions, taken before the
+    switch."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = _project(p, x, x if x_kv is None else x_kv, cfg)
     on_mesh = sharder is not None and sharder.ctx is not None
-    if on_mesh and (x_kv is not None or return_kv):
+    if on_mesh and x_kv is not None:
         raise NotImplementedError(
-            "cross-attention and the decode cache under a mesh come with "
-            "sharded serving (ROADMAP queue 1 item 5)")
+            "cross-attention under a mesh comes with the encoder-decoder "
+            "models (ROADMAP queue 1 item 7)")
     if cfg.rope and x_kv is None:
         if positions is None:
             positions = torch.arange(s, device=x.device)
@@ -209,6 +298,9 @@ def attention_sp(p, x, cfg: AttnConfig, *, sharder=None,
             return o, (k, v)
         return o
 
+    # the rank's sequence shard of the decode cache's K/V, at global
+    # positions, before any head repeat or switch
+    kv_out = (k.transpose(1, 2), v.transpose(1, 2)) if return_kv else None
     sp = sharder.sp_size
     head_switch = sharder.wants_head_switch(h)
     if head_switch and hkv < sp:
@@ -243,7 +335,8 @@ def attention_sp(p, x, cfg: AttnConfig, *, sharder=None,
         src = "mixer"
     o = o.transpose(1, 2)
     o = sharder.mixer_exit3(o.reshape(b, o.shape[1], -1), src=src)
-    return L.linear(p["wo"], o)
+    o = L.linear(p["wo"], o)
+    return (o, kv_out) if return_kv else o
 
 
 def chunked_attention(q, k, v, cfg: AttnConfig, *, sharder, layout: str,

@@ -22,7 +22,11 @@ the rank's slices (``parallel.partition.shard_params``: ZeRO-3 over
 ``("data", "model")``, the embedding tables over ``model``), gathered
 whole where the model reads them (``Sharder.whole``), the embedding
 through JAX's vocab ring (``sharded_embed``; ``param_contract`` counts
-what the layouts add to a step).  Serving runs on one device.
+what the layouts add to a step).  Serving runs sharded the same way
+(``forward_prefill``/``forward_decode(sharder=)``): the prefill as the
+training forward, decode with the KV cache sequence-sharded and the SSM
+state head-sharded over ``model`` (``serve_contract`` counts what it
+issues).
 """
 from __future__ import annotations
 
@@ -43,8 +47,8 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.parallel.partition import (
-    ParallelPlan, Sharder, entry_axes, null_sharder, param_pspecs,
-    reduce_axes, tree_map_with_path)
+    ParallelPlan, Sharder, cache_pspecs, entry_axes, null_sharder,
+    param_pspecs, reduce_axes, slice_index, tree_map_with_path)
 
 
 # ---------------------------------------------------------------------------
@@ -210,12 +214,13 @@ def stage_period(cfg: LMConfig) -> int:
 
 
 def dsp_schedule(cfg: LMConfig, n: int, *, seq: Optional[int] = None,
-                 batch: Optional[int] = None, joint: bool = False,
-                 bwd_dims=None) -> Schedule:
+                 batch: Optional[int] = None, topology=None,
+                 joint: bool = False, bwd_dims=None) -> Schedule:
     """Solve the switching plan (enter sequence-sharded from the dataloader
     split, return to it for the loss) and validate it is periodic with the
-    layer period.  The plan is priced in bytes: JAX's ``topology`` comes
-    with the port's link constants.  ``joint=True`` plans the backward too
+    layer period.  ``topology`` (``core.topology.Topology``) prices the plan
+    in seconds on its links; None prices it in bytes (JAX's TPU link
+    presets are not ported).  ``joint=True`` plans the backward too
     (``core.plan.plan_joint``), falling back to the mirrored plan when the
     joint one is not periodic.
     ``bwd_dims`` forces a backward plan (one period or every stage), as
@@ -224,7 +229,7 @@ def dsp_schedule(cfg: LMConfig, n: int, *, seq: Optional[int] = None,
     comes with ROADMAP queue 1 item 2."""
     st = stages(cfg, seq=seq, batch=batch)
     period = stage_period(cfg)
-    kw = dict(n=max(n, 1), initial=1, final=1)
+    kw = dict(n=max(n, 1), initial=1, final=1, topology=topology)
     if joint:
         sched = plan_joint_schedule(st, (1, 2), **kw)
         try:
@@ -402,8 +407,7 @@ def sharded_embed(params, tokens, cfg: LMConfig, sharder: Sharder):
     when the ranks do not divide the vocab, or with ``shard_vocab``
     off."""
     n = sharder.sp_size
-    if (sharder.ctx is None or n == 1 or cfg.vocab % n
-            or not sharder.plan.shard_vocab):
+    if not vocab_sharded(cfg, sharder):
         return L.embed(sharder.whole(params["embed"], "embed"), tokens,
                        scale_by_sqrt_dim=cfg.embed_scale)
     table = params["embed"]["table"]
@@ -610,6 +614,22 @@ def remat_step(contract: Dict[str, Dict[str, int]]
     return out
 
 
+def _gathered_numels(shape, spec, sizes: Dict[str, int]) -> List[int]:
+    """The elements each all-gather of ``gather_params`` returns, in turn,
+    for a leaf of global ``shape`` split by ``spec`` on a mesh of
+    ``sizes``: one per entry naming a mesh dim (a dim of size 1 too),
+    each growing its dim from the slice to the whole."""
+    def split(entry):
+        return math.prod(sizes[a] for a in entry_axes(entry, sizes))
+    shape = [d // split(e) for d, e in zip(shape, spec)]
+    out = []
+    for dim, entry in enumerate(spec):
+        if entry_axes(entry, sizes):
+            shape[dim] *= split(entry)
+            out.append(math.prod(shape))
+    return out
+
+
 def param_contract(cfg: LMConfig, params, plan: ParallelPlan,
                    sizes: Dict[str, int]) -> Dict[str, Dict[str, int]]:
     """The ``torch.distributed`` calls and bytes, by kind (``core.dsp``'s
@@ -647,13 +667,9 @@ def param_contract(cfg: LMConfig, params, plan: ParallelPlan,
         return math.prod(sizes[a] for a in entry_axes(entry, sizes))
 
     def gathers(shape, spec, itemsize, all_gathers, reduce_scatters):
-        shape = [d // split(e) for d, e in zip(shape, spec)]
-        for dim, entry in enumerate(spec):
-            if entry_axes(entry, sizes):
-                shape[dim] *= split(entry)
-                numel = math.prod(shape)
-                add("all-gather", numel * itemsize, all_gathers)
-                add("reduce-scatter", numel * 4, reduce_scatters)
+        for numel in _gathered_numels(shape, spec, sizes):
+            add("all-gather", numel * itemsize, all_gathers)
+            add("reduce-scatter", numel * 4, reduce_scatters)
 
     n = sizes.get("model", 1)
     ring = n > 1 and cfg.vocab % n == 0 and plan.shard_vocab
@@ -692,13 +708,17 @@ def param_contract(cfg: LMConfig, params, plan: ParallelPlan,
 # ---------------------------------------------------------------------------
 
 def init_caches(cfg: LMConfig, batch: int, max_len: int, *, dtype=None,
-                per_slot_pos: bool = False, device="cuda"):
+                per_slot_pos: bool = False, device="cuda", ctx=None,
+                plan: Optional[ParallelPlan] = None):
     """Zero caches, stacked per period.  Attention layers carry {k, v} of
     (n_periods, B, Hkv, max_len, Dh); SSM layers carry {conv, state} of
     (n_periods, B, d_conv - 1, d_xbc) in the model dtype and (n_periods,
     B, H, P, S) in float32.  ``pos`` is the write position: one shared
     scalar for a static batch, or a (B,) vector with ``per_slot_pos``
-    (continuous batching)."""
+    (continuous batching).  With ``ctx`` (a mesh's ``ParallelContext``)
+    each leaf is this rank's slice of those global shapes by
+    ``cache_pspecs`` under ``plan``: the KV sequence in blocks over
+    ``model``, the state by head, the batch over ``data``."""
     dev = resolve_device(device)
     kv_dtype = dtype or cfg.cache_dtype or cfg.dtype
     ssm_dtype = dtype or cfg.dtype
@@ -708,23 +728,88 @@ def init_caches(cfg: LMConfig, batch: int, max_len: int, *, dtype=None,
     def one_layer(spec: LayerSpec):
         if spec.mixer == "attn":
             return {"kv": {
-                "k": torch.zeros(shape, dtype=kv_dtype, device=dev),
-                "v": torch.zeros(shape, dtype=kv_dtype, device=dev)}}
+                "k": torch.zeros(shape, dtype=kv_dtype, device="meta"),
+                "v": torch.zeros(shape, dtype=kv_dtype, device="meta")}}
         one = S.init_ssm_cache(batch, cfg.ssm_cfg, dtype=ssm_dtype,
-                               device=dev)
+                               device="meta")
         return {"ssm": tree_map(
             lambda a: a.new_zeros((cfg.n_periods,) + tuple(a.shape)), one)}
 
     pos = torch.zeros((batch,) if per_slot_pos else (), dtype=torch.long,
                       device=dev)
+    periods = {str(i): one_layer(s) for i, s in enumerate(specs)}
+    cspecs = cache_pspecs(periods, plan if ctx is not None
+                          else ParallelPlan(mode="none"))
+
+    def alloc(_, a, spec):
+        local = [hi - lo for lo, hi in slice_index(a.shape, spec, ctx)]
+        return torch.zeros(local, dtype=a.dtype, device=dev)
     return {"pos": pos,
-            "periods": {str(i): one_layer(s) for i, s in enumerate(specs)}}
+            "periods": tree_map_with_path(alloc, periods, cspecs)}
 
 
-def logits_fn(params, x, cfg: LMConfig):
-    table = (params["embed"]["table"] if cfg.tie_embeddings
-             else params["unembed"]["table"])
+def vocab_sharded(cfg: LMConfig, sharder: Optional[Sharder]) -> bool:
+    """Whether the embedding table is split by vocab row over ``model``
+    and read there (the ring's condition, ``sharded_embed``): then the
+    serving logits come out vocab-sharded and the decode embedding is a
+    masked lookup plus one all-reduce."""
+    return (sharder is not None and sharder.ctx is not None
+            and sharder.sp_size > 1 and cfg.vocab % sharder.sp_size == 0
+            and sharder.plan.shard_vocab)
+
+
+def decode_embed(params, tokens, cfg: LMConfig, sharder: Sharder):
+    """The embedding of tokens whole on every model rank (a decode step):
+    under ``vocab_sharded`` each rank looks up the tokens its vocab chunk
+    holds, zeros for the rest, and one SUM all-reduce over ``model`` gives
+    every rank the rows bit for bit (one rank adds each row, the others
+    0): (B, S, d) bytes where JAX's ``sharded_embed`` rings the whole
+    table.  Else ``sharded_embed``'s lookup in the table gathered
+    whole."""
+    if not vocab_sharded(cfg, sharder):
+        return sharded_embed(params, tokens, cfg, sharder)
+    table = params["embed"]["table"]
+    chunk = table.shape[0]
+    rel = tokens - sharder.sp_index * chunk
+    ok = (rel >= 0) & (rel < chunk)
+    x = torch.where(ok[..., None], table[rel.clamp(0, chunk - 1)],
+                    torch.zeros((), dtype=table.dtype, device=table.device))
+    dsp.all_reduce(x, sharder.ctx.sp_group)
+    if cfg.embed_scale:
+        x = x * math.sqrt(table.shape[1])
+    return x
+
+
+def logits_fn(params, x, cfg: LMConfig, sharder: Optional[Sharder] = None):
+    """x (B, S, d) whole on every rank -> logits (B, S, V); under
+    ``vocab_sharded`` this rank's vocab chunk (B, S, V / n), against its
+    own rows of the (unembedding) table, else against the table gathered
+    whole (``Sharder.whole``)."""
+    key = "embed" if cfg.tie_embeddings else "unembed"
+    if vocab_sharded(cfg, sharder):
+        table = params[key]["table"]
+    else:
+        table = (sharder or null_sharder()).whole(params[key], key)["table"]
     return L.softcap_logits(x @ table.t(), cfg.final_softcap)
+
+
+def sharded_argmax(logits, cfg: LMConfig,
+                   sharder: Optional[Sharder] = None) -> torch.Tensor:
+    """argmax over the last dim of (..., V) logits, in global vocab ids,
+    ties to the lowest id (``jnp.argmax``'s rule).  Vocab-sharded logits
+    (``vocab_sharded``): each rank's max and its first index, shifted to
+    a global id, one all-gather over ``model`` of the stacked pairs (in
+    float64, exact for both), and the first rank holding the largest max
+    wins (the ranks hold the vocab in order)."""
+    if not vocab_sharded(cfg, sharder):
+        return torch.argmax(logits, dim=-1)
+    val, idx = logits.float().max(dim=-1)
+    # max(dim) returns the first index of the maximum, as argmax does
+    pair = torch.stack([val.double(), (idx + sharder.sp_index
+                                       * logits.shape[-1]).double()], -1)
+    pairs = dsp.gather(pair[None], 0, sharder.ctx.sp_group)
+    win = torch.argmax(pairs[..., 0], dim=0)
+    return torch.gather(pairs[..., 1], 0, win[None])[0].long()
 
 
 def _ffn_block(p, x, cfg: LMConfig, spec: LayerSpec,
@@ -739,62 +824,110 @@ def _ffn_block(p, x, cfg: LMConfig, spec: LayerSpec,
     return x + h
 
 
-def _decode_layer(p, x, pc, cfg: LMConfig, spec: LayerSpec, pos):
-    """One layer of incremental decode; x: (B, S, C).  Writes the layer's
-    cache ``pc`` in place and returns (x, pc)."""
+def _decode_layer(p, x, pc, cfg: LMConfig, spec: LayerSpec, pos,
+                  sharder: Optional[Sharder] = None):
+    """One layer of incremental decode; x: (B, S, C), whole on every rank
+    of a mesh.  Writes the layer's cache ``pc`` in place and returns (x,
+    pc)."""
     h = _apply_norm(cfg, p["ln1"], x)
     if spec.mixer == "attn":
         cache = {"k": pc["kv"]["k"], "v": pc["kv"]["v"], "pos": pos}
         h, _ = A.attention(p["attn"], h, cfg.attn_cfg(spec.window),
-                           causal=True, cache=cache)
+                           causal=True, cache=cache, sharder=sharder)
     else:
-        h, new = S.ssm_decode_step(p["ssm"], h, cfg.ssm_cfg, pc["ssm"])
+        h, new = S.ssm_decode_step(p["ssm"], h, cfg.ssm_cfg, pc["ssm"],
+                                   sharder=sharder)
         tree_map(lambda dst, src: dst.copy_(src), pc["ssm"], new)
     if cfg.post_norm:
         h = _apply_norm(cfg, p["pn1"], h)
     return _ffn_block(p, x + h, cfg, spec), pc
 
 
-def forward_decode(params, tokens, caches, cfg: LMConfig):
+def forward_decode(params, tokens, caches, cfg: LMConfig, *,
+                   sharder: Optional[Sharder] = None):
     """tokens: (B, S) -> (logits (B, S, V), caches).  ``caches['pos']`` may
     be a scalar (static batch) or a (B,) per-slot vector (continuous
     batching).  The cache tensors are written in place; the returned dict
-    holds them with ``pos`` advanced by S."""
+    holds them with ``pos`` advanced by S.
+
+    With ``sharder`` serving sharded (JAX's ``forward_decode(sharder=)``)
+    the tokens are whole on every model rank (the rank's batch slice over
+    ``data``), ``params`` the rank's slices (each period's gathered whole
+    where it is read, as in training), ``caches`` the rank's layout
+    (``init_caches(sharder=)``), and the logits vocab-sharded under
+    ``vocab_sharded`` (``sharded_argmax`` reads them)."""
+    sharder = sharder or null_sharder()
     specs = cfg.period_specs()
     pos = caches["pos"]
-    x = L.embed(params["embed"], tokens, scale_by_sqrt_dim=cfg.embed_scale)
-    for i in range(cfg.n_periods):
-        pp, pcs = _period(params["periods"], i), _period(caches["periods"], i)
+    x = decode_embed(params, tokens, cfg, sharder)
+    for pp, pcs in zip(unstack(params["periods"], cfg.n_periods),
+                       unstack(caches["periods"], cfg.n_periods)):
+        pp = sharder.whole(pp, "periods")
         for j, spec in enumerate(specs):
-            x, _ = _decode_layer(pp[str(j)], x, pcs[str(j)], cfg, spec, pos)
-    x = _apply_norm(cfg, params["final_norm"], x)
-    logits = logits_fn(params, x, cfg)
-    return logits, {"pos": pos + tokens.shape[1],
-                    "periods": caches["periods"]}
+            x, _ = _decode_layer(pp[str(j)], x, pcs[str(j)], cfg, spec, pos,
+                                 sharder)
+    x = _apply_norm(cfg, sharder.whole(params["final_norm"], "final_norm"),
+                    x)
+    return logits_fn(params, x, cfg, sharder), {
+        "pos": pos + tokens.shape[1], "periods": caches["periods"]}
+
+
+def prefill_shard_len(cfg: LMConfig, seq: int, n: int) -> int:
+    """Positions a rank holds of a ``seq``-token prompt padded on the right
+    for a prefill over ``n`` model ranks: a whole share of it, and at least
+    an SSM layer's ``d_conv - 1``, the conv halo one permute brings from
+    the previous rank (``Sharder.seq_halo``)."""
+    least = cfg.ssm_cfg.d_conv - 1 if any(
+        sp.mixer == "ssm" for sp in cfg.period_specs()) else 1
+    return max(-(-seq // n), least)
 
 
 def forward_prefill(params, tokens, cfg: LMConfig, *,
-                    backend: str = "kernel"):
-    """Full-sequence prefill: returns (last-position logits (B, 1, V),
-    caches with pos = S).  KV cache length == prompt length; SSM layers
-    leave their {conv, state} decode cache (``ssm_block(return_cache)``)."""
+                    sharder: Optional[Sharder] = None,
+                    backend: str = "kernel", length: Optional[int] = None):
+    """Full-sequence prefill: returns (logits (B, 1, V) at the prompt's
+    last position, caches with pos = its length).  KV cache length ==
+    prompt length; SSM layers leave their {conv, state} decode cache
+    (``ssm_block(return_cache)``).
+
+    With ``sharder`` on a mesh (JAX's ``forward_prefill(sharder=)``) the
+    tokens are the rank's shard of the prompt (``shard_lm_batch``: its
+    batch slice, its sequence chunk), the layers run as ``forward`` runs
+    them under the planned schedule (K1 and K2 on the rank's heads), and
+    the caches come in the rank's layout: K/V its sequence shard (the
+    engine re-cuts them onto the cache's blocks, ``Sharder.kv_cache``),
+    the SSM state its heads, ``conv`` whole.  ``length`` is the prompt's
+    true global length when it was padded on the right to a multiple of
+    the SP size (padding after ``length``: causal masking keeps it out of
+    the real positions, and the SSM state passes it unchanged); the
+    logits are taken at position ``length - 1``, whole on every rank
+    (``Sharder.seq_rows``), vocab-sharded under ``vocab_sharded``."""
+    sharder = sharder or null_sharder()
+    seq = tokens.shape[1] * sharder.seq_shards
+    sharder = _with_planned_schedule(sharder, cfg, seq=seq,
+                                     batch=tokens.shape[0] * sharder.dp_size)
+    length = seq if length is None else length
     specs = cfg.period_specs()
     kv_dtype = cfg.cache_dtype or cfg.dtype
-    x = L.embed(params["embed"], tokens, scale_by_sqrt_dim=cfg.embed_scale)
+    x = sharder.enter3(sharded_embed(params, tokens, cfg, sharder))
     periods = [{} for _ in specs]
-    for i in range(cfg.n_periods):
-        pp = _period(params["periods"], i)
+    for i, pp in enumerate(unstack(params["periods"], cfg.n_periods)):
+        pp = sharder.whole(pp, "periods")
+        x = sharder.wrap3(x)
         for j, spec in enumerate(specs):
             p = pp[str(j)]
             h = _apply_norm(cfg, p["ln1"], x)
             if spec.mixer == "attn":
                 h, (ck, cv) = A.attention_sp(
-                    p["attn"], h, cfg.attn_cfg(spec.window), backend=backend,
-                    causal=True, return_kv=True)
+                    p["attn"], h, cfg.attn_cfg(spec.window), sharder=sharder,
+                    backend=backend, causal=True, return_kv=True)
                 pc = {"kv": {"k": ck.to(kv_dtype), "v": cv.to(kv_dtype)}}
             else:
                 h, ssm_cache = S.ssm_block(p["ssm"], h, cfg.ssm_cfg,
-                                           backend=backend, return_cache=True)
+                                           backend=backend, sharder=sharder,
+                                           return_cache=True, length=length)
+                # ssm_block switches back itself: the mixer exit is a keep
+                h = sharder.mixer_exit3(h, src="resid")
                 pc = {"ssm": ssm_cache}
             if not periods[j]:      # stacked leaves, allocated at period 0
                 periods[j] = tree_map(
@@ -803,9 +936,147 @@ def forward_prefill(params, tokens, cfg: LMConfig, *,
             tree_map(lambda dst, src: dst[i].copy_(src), periods[j], pc)
             if cfg.post_norm:
                 h = _apply_norm(cfg, p["pn1"], h)
-            x = _ffn_block(p, x + h, cfg, spec)
-    x = _apply_norm(cfg, params["final_norm"], x)
-    logits = logits_fn(params, x[:, -1:], cfg)
-    return logits, {"pos": torch.tensor(tokens.shape[1], dtype=torch.long,
+            x = sharder.act3(_ffn_block(p, x + h, cfg, spec, sharder))
+    x = _apply_norm(cfg, sharder.whole(params["final_norm"], "final_norm"),
+                    sharder.seq_rows(x, length - 1, 1))
+    logits = logits_fn(params, x, cfg, sharder)
+    return logits, {"pos": torch.tensor(length, dtype=torch.long,
                                         device=x.device),
                     "periods": {str(j): pc for j, pc in enumerate(periods)}}
+
+
+def serve_contract(cfg: LMConfig, n: int, params, plan: ParallelPlan, *,
+                   dp: int = 1, prefill=None, decode: Optional[int] = None,
+                   migrate=None, ticks: int = 0
+                   ) -> Dict[str, Dict[str, int]]:
+    """The ``torch.distributed`` calls and bytes (``core.dsp``'s rule), by
+    kind, that sharded serving issues per rank on a ``(dp, n)`` mesh under
+    ``plan``, from ``params`` (the GLOBAL tree; meta tensors will do):
+
+      ``prefill=(batch, seq)``: one prefill of ``batch`` prompts of
+        ``seq`` tokens (padded to a multiple of n) and its argmax: the
+        hooks' forward (``collective_contract`` at the rank's shard); each
+        period leaf a spec splits gathered once (``_gathered_numels``),
+        the table read once (the ring's n permutes where ``shard_vocab``
+        splits it, else a gather if split), the final norm read; one
+        all-reduce of the last position (``Sharder.seq_rows``), one of
+        each SSM layer's conv window; per attention layer of the period,
+        one all-gather of its stacked K/V, every period's, onto the cache's
+        blocks (``Sharder.kv_cache``, the re-cut);
+      ``decode=rows``: one decode step of ``rows`` rows and its argmax: the
+        embedding's all-reduce (``decode_embed``, where the table is split
+        by vocab; else its read), each period leaf gathered once, per
+        attention layer one all-gather of the float32 softmax partials
+        (``_sharded_decode``), per SSM layer one of y in the model dtype,
+        the final norm read, and the logits' table read unless the logits
+        are vocab-sharded;
+      each argmax: one all-gather of (max, id) pairs in float64 over
+        ``model`` where the logits are vocab-sharded (``sharded_argmax``),
+        one of the int64 tokens over ``data`` where dp > 1;
+      ``migrate=(slots, max_len, n_new)``: one ``replan`` onto ``n_new``
+        ranks: every leaf of the engine's parameters and of a pool of
+        ``slots`` x ``max_len`` that a spec splits, gathered whole on this
+        mesh (``reshard``: one all-gather per split entry, ``data``'s of
+        size 1 too);
+      ``ticks``: the continuous scheduler's host-loop turns, one broadcast
+        of rank 0's clock each.
+
+    The trainer's contracts' rules: an all-gather counts its result's
+    bytes, an all-reduce twice its result's."""
+    sizes = {"data": dp, "model": n}
+    calls: Dict[str, int] = {}
+    nbytes: Dict[str, int] = {}
+
+    def add(kind, size, times=1):
+        if times:
+            calls[kind] = calls.get(kind, 0) + times
+            nbytes[kind] = nbytes.get(kind, 0) + size * times
+
+    def add_all(other):
+        for kind, c in other["calls"].items():
+            calls[kind] = calls.get(kind, 0) + c
+            nbytes[kind] = nbytes.get(kind, 0) + other["bytes"][kind]
+
+    specs = param_pspecs(params, plan, axis_sizes=sizes)
+    shard_vocab = (plan.shard_vocab and n > 1 and cfg.vocab % n == 0)
+    a_bytes = cfg.dtype.itemsize
+    kv_bytes = (cfg.cache_dtype or cfg.dtype).itemsize
+    period = cfg.period_specs()
+    n_attn = sum(sp.mixer == "attn" for sp in period) * cfg.n_periods
+    n_ssm = sum(sp.mixer == "ssm" for sp in period) * cfg.n_periods
+    key = "embed" if cfg.tie_embeddings else "unembed"
+
+    def read(path, times=1):
+        node, spec = params, specs
+        for k in path:
+            node, spec = node[k], spec[k]
+        for leaf, sp in zip(tree_leaves(node), tree_leaves(spec)):
+            for numel in _gathered_numels(tuple(leaf.shape), sp, sizes):
+                add("all-gather", numel * leaf.element_size(), times)
+
+    def periods():
+        for leaf, sp in zip(tree_leaves(params["periods"]),
+                            tree_leaves(specs["periods"])):
+            for numel in _gathered_numels(tuple(leaf.shape[1:]), sp[1:],
+                                          sizes):
+                add("all-gather", numel * leaf.element_size(),
+                    leaf.shape[0])
+
+    def argmax(rows):
+        if shard_vocab:
+            add("all-gather", n * rows * 2 * 8)
+        if dp > 1:
+            add("all-gather", dp * rows * 8)
+
+    if prefill is not None:
+        batch, seq = prefill
+        b, s = batch // dp, prefill_shard_len(cfg, seq, n)
+        add_all(collective_contract(cfg, n, b, s))
+        periods()
+        if shard_vocab:
+            table = params["embed"]["table"]
+            add("collective-permute",
+                table.numel() // n * table.element_size(), n)
+        else:
+            read(("embed",))
+        read(("final_norm",))
+        if not shard_vocab:
+            read((key,))
+        add("all-reduce", 2 * b * cfg.d_model * a_bytes)
+        if n_ssm:
+            sc = cfg.ssm_cfg
+            d_xbc = sc.d_inner + 2 * sc.n_groups * sc.d_state
+            add("all-reduce", 2 * b * (sc.d_conv - 1) * d_xbc * a_bytes,
+                n_ssm)
+        for _ in range(sum(sp.mixer == "attn" for sp in period)):
+            add("all-gather", 2 * cfg.n_periods * b * cfg.n_kv_heads
+                * s * n * cfg.head_dim * kv_bytes)
+        argmax(b)
+    if decode is not None:
+        r = decode // dp
+        if shard_vocab:
+            add("all-reduce", 2 * r * cfg.d_model * a_bytes)
+        else:
+            read(("embed",))
+        periods()
+        add("all-gather", n * r * cfg.n_heads * (cfg.head_dim + 2) * 4,
+            n_attn)
+        if n_ssm:
+            add("all-gather", r * cfg.ssm_cfg.d_inner * a_bytes, n_ssm)
+        read(("final_norm",))
+        if not shard_vocab:
+            read((key,))
+        argmax(r)
+    if migrate is not None:
+        slots, max_len, _ = migrate
+        for leaf, sp in zip(tree_leaves(params), tree_leaves(specs)):
+            for numel in _gathered_numels(tuple(leaf.shape), sp, sizes):
+                add("all-gather", numel * leaf.element_size())
+        pool = init_caches(cfg, slots, max_len, per_slot_pos=True,
+                           device="meta")
+        cspecs = cache_pspecs(pool, plan)
+        for leaf, sp in zip(tree_leaves(pool), tree_leaves(cspecs)):
+            for numel in _gathered_numels(tuple(leaf.shape), sp, sizes):
+                add("all-gather", numel * leaf.element_size())
+    add("broadcast", 8, ticks)
+    return {"calls": calls, "bytes": nbytes}

@@ -14,16 +14,21 @@ the output switches back.  The causal conv needs the previous rank's last
 
 Serving: ``ssm_block(return_cache=True)`` (prefill) also returns the
 decode cache {conv, state}; ``ssm_decode_step`` advances it by one token
-in O(1), in plain PyTorch with an f32 state, as JAX's does.
+in O(1), in plain PyTorch with an f32 state, as JAX's does.  Served
+sharded, the state stays split by head over ``model`` (the scan's own
+layout after the switch) and each decode step updates the rank's heads
+and gathers y; ``conv`` is whole on every rank.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import dsp
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import ssd_scan
 from repro_torch.kernels.ref import ssd_final_state
@@ -107,7 +112,8 @@ def _local_groups(bmat, cmat, h: int, h0: int, hl: int):
 
 
 def ssm_block(p, x, cfg: SSMConfig, *, backend: str = "kernel",
-              sharder=None, return_cache: bool = False):
+              sharder=None, return_cache: bool = False,
+              length: Optional[int] = None):
     """x: (B, L, d_model) -> (B, L, d_model) [, cache]; on a mesh the
     rank's sequence shard.
 
@@ -115,31 +121,43 @@ def ssm_block(p, x, cfg: SSMConfig, *, backend: str = "kernel",
     ``d_skip`` are sliced to them (``dt_bias`` is added before the switch,
     on every head), and K2 sees their groups (``_local_groups``).
 
-    ``return_cache`` (prefill, one device) also returns {"conv", "state"}
-    for decode.  JAX takes y and the state from the sequential ``ssd_ref``
-    there, since its kernel does not emit the state; here y stays on
-    ``ops.ssd_scan`` (the kernel on the card) and the state comes from
-    ``ssd_final_state``, the same function as one contraction.  ``conv``
-    holds the last ``d_conv - 1`` conv inputs, zeros on the left of a
-    shorter prompt: what decoding the prompt token by token from a zero
-    cache leaves."""
+    ``length`` (a prompt padded on the right to a multiple of the SP
+    size): the global positions from ``length`` on are padding, whose dt
+    is set to 0 after the softplus, so the state passes them unchanged
+    (decay exp(0) = 1, update 0); causality keeps them out of the real
+    positions' outputs.
+
+    ``return_cache`` (prefill) also returns {"conv", "state"} for decode.
+    JAX takes y and the state from the sequential ``ssd_ref`` there, since
+    its kernel does not emit the state; here y stays on ``ops.ssd_scan``
+    (the kernel on the card) and the state comes from ``ssd_final_state``,
+    the same function as one contraction, on the rank's heads on a mesh:
+    ``cache_pspecs``' head-sharded layout, with no move.  ``conv`` holds
+    the last ``d_conv - 1`` conv inputs before ``length``, zeros on the
+    left of a shorter prompt (what decoding the prompt token by token from
+    a zero cache leaves), whole on every rank (``Sharder.seq_rows``)."""
     b = x.shape[0]
     di, g, s, h, ph = (cfg.d_inner, cfg.n_groups, cfg.d_state, cfg.n_heads,
                        cfg.head_dim)
     sharder = sharder or null_sharder()
-    if return_cache and sharder.ctx is not None:
-        raise NotImplementedError("the decode cache under a mesh comes with "
-                                  "sharded serving (ROADMAP queue 1 item 5)")
     zxbcdt = L.linear(p["in_proj"], x)
     z, xbc_raw, dt = _split_proj(cfg, zxbcdt)
     xbc = _causal_conv(cfg, p, xbc_raw,
                        sharder.seq_halo(xbc_raw, cfg.d_conv - 1))
-    # planned DSP switch: seq-shard -> channel-shard (one all-to-all)
-    xs = sharder.mixer3(xbc[..., :di], src="resid")
-    bmat = sharder.replicated(xbc[..., di:di + g * s])    # whole groups
-    cmat = sharder.replicated(xbc[..., di + g * s:])
+    # planned DSP switch: seq-shard -> channel-shard (one all-to-all).  The
+    # scan's operands are made contiguous on every path, so that a mesh of
+    # one rank (whose collectives are copies) and one device give the
+    # layout-sensitive f32 products of the state the same bits
+    xs = sharder.mixer3(xbc[..., :di], src="resid").contiguous()
+    bmat = sharder.replicated(xbc[..., di:di + g * s]).contiguous()
+    cmat = sharder.replicated(xbc[..., di + g * s:]).contiguous()
     dt = sharder.mixer3(F.softplus(dt.float() + p["dt_bias"]), src="resid")
     l = xs.shape[1]
+    if length is not None:
+        first = (0 if sharder.ctx is None or sharder.mixer_dim == 2
+                 else sharder.seq_offset(l))
+        real = torch.arange(first, first + l, device=dt.device) < length
+        dt = torch.where(real[:, None], dt, torch.zeros_like(dt))
     h0, hl = sharder.mixer_slice(h)
     xs = xs.reshape(b, l, hl, ph)
     dt = dt.to(xs.dtype)
@@ -156,8 +174,9 @@ def ssm_block(p, x, cfg: SSMConfig, *, backend: str = "kernel",
     if not return_cache:
         return out
     k = cfg.d_conv - 1
-    conv = F.pad(xbc_raw, (0, 0, max(k - l, 0), 0))[:, -k:]
-    return out, {"conv": conv,
+    end = (length if length is not None
+           else xbc_raw.shape[1] * sharder.seq_shards)
+    return out, {"conv": sharder.seq_rows(xbc_raw, end - k, k),
                  "state": ssd_final_state(xs, dt, a, bl, cl)}
 
 
@@ -180,11 +199,23 @@ def init_ssm_cache(batch: int, cfg: SSMConfig, *, dtype=torch.float32,
     }
 
 
-def ssm_decode_step(p, x, cfg: SSMConfig, cache):
-    """x: (B, 1, d_model) -> (y, new_cache); ``cache`` is not written."""
+def ssm_decode_step(p, x, cfg: SSMConfig, cache, sharder=None):
+    """x: (B, 1, d_model) -> (y, new_cache); ``cache`` is not written.
+
+    With ``sharder`` serving sharded, ``cache["state"]`` holds this rank's
+    H/n heads (chunk ``sp_index``): the rank advances them from the whole
+    x and conv window, and y is gathered over ``model`` (one all-gather in
+    the model dtype) before the gated ``rms_norm``, which XLA does
+    implicitly in JAX."""
     b = x.shape[0]
     di, g, s, h, ph = (cfg.d_inner, cfg.n_groups, cfg.d_state, cfg.n_heads,
                        cfg.head_dim)
+    sharded = sharder is not None and sharder.serves_sharded
+    hl = h // sharder.sp_size if sharded else h
+    if hl * (sharder.sp_size if sharded else 1) != h:
+        raise ValueError(f"{h} SSM heads do not split over "
+                         f"{sharder.sp_size} model ranks")
+    h0 = sharder.sp_index * hl if sharded else 0
     zxbcdt = L.linear(p["in_proj"], x)
     z, xbc, dt = _split_proj(cfg, zxbcdt)                  # (B,1,*)
     # conv: window = cached K-1 inputs + current
@@ -194,19 +225,25 @@ def ssm_decode_step(p, x, cfg: SSMConfig, cache):
     conv_out = F.silu(conv_out)[:, None, :]
     new_conv = win[:, 1:, :]
 
-    xs = conv_out[..., :di].reshape(b, h, ph)
+    xs = conv_out[..., :di].reshape(b, h, ph)[:, h0:h0 + hl]
     bmat = conv_out[..., di:di + g * s].reshape(b, g, s)
     cmat = conv_out[..., di + g * s:].reshape(b, g, s)
-    dtv = F.softplus(dt[:, 0].float() + p["dt_bias"])     # (B, H)
-    a = -torch.exp(p["a_log"])
-    decay = torch.exp(dtv * a[None, :])                    # (B, H)
-    rep = h // g
-    bfull = torch.repeat_interleave(bmat, rep, dim=1).float()   # (B, H, S)
-    cfull = torch.repeat_interleave(cmat, rep, dim=1).float()
+    dtv = F.softplus(dt[:, 0].float() + p["dt_bias"])[:, h0:h0 + hl]
+    a = -torch.exp(p["a_log"][h0:h0 + hl])
+    decay = torch.exp(dtv * a[None, :])                    # (B, hl)
+    # each head's B/C group (head j reads group j // (H / G))
+    grp = torch.arange(h0, h0 + hl, device=x.device) // (h // g)
+    bfull = bmat[:, grp].float()                           # (B, hl, S)
+    cfull = cmat[:, grp].float()
     upd = torch.einsum("bhp,bhs->bhps", dtv[..., None] * xs.float(), bfull)
     state = decay[..., None, None] * cache["state"] + upd
     y = torch.einsum("bhps,bhs->bhp", state, cfull)
-    y = y + p["d_skip"][None, :, None] * xs.float()
-    y = y.to(x.dtype).reshape(b, 1, di) * F.silu(z)
+    y = y + p["d_skip"][None, h0:h0 + hl, None] * xs.float()
+    y = y.to(x.dtype).reshape(b, 1, hl * ph)
+    if sharded:
+        # contiguous as one device's y, so that the gated norm reduces it
+        # in the same order
+        y = dsp.gather(y, 2, sharder.ctx.sp_group).contiguous()
+    y = y * F.silu(z)
     y = L.rms_norm(p["norm"], y)
     return L.linear(p["out_proj"], y), {"conv": new_conv, "state": state}

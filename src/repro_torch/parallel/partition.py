@@ -38,10 +38,17 @@ and ``reduce_axes`` tell the trainer how many ranks hold each leaf and
 over which dims its grad is still to be summed.  ``make_sharder`` raises
 ``NotImplementedError`` for what it does not run yet, naming the ROADMAP
 item (queue 1) that brings it: ``tp`` (whose rules ``param_pspecs``
-carries) and ``ep``.  JAX's cache specs (``cache_pspecs``), its decode
-and MoE hooks, its inference ``tp_flat`` rules and its
-``stacked_prefixes`` option (enc-dec) come with those items; its
+carries) and ``ep``.  JAX's MoE hook, its inference ``tp_flat`` rules and
+its ``stacked_prefixes`` option (enc-dec) come with those items; its
 ``ffn_hidden``, which no JAX model calls, has no counterpart.
+
+Serving lays its caches out by JAX's ``cache_pspecs`` (the KV sequence in
+contiguous blocks over ``model``, the SSM state by head).  The decode
+hooks are ``decode_heads`` (a keep: the step's q/k/v are whole on every
+rank) and ``kv_cache`` (the prefill's re-cut onto the cache's blocks,
+one all-gather); ``seq_rows`` gives every rank some rows of the
+sequence-sharded stream (one all-reduce), and ``reshard`` moves a tree
+between meshes for the elastic resize.
 """
 from __future__ import annotations
 
@@ -334,6 +341,118 @@ def param_copies(specs, ctx: ParallelContext):
     return tree_map_with_path(one, specs)
 
 
+@torch.no_grad()
+def reshard(tree, old_specs, old_ctx: Optional[ParallelContext], new_specs,
+            new_ctx: Optional[ParallelContext], *, leaving: bool = False):
+    """``tree`` moved from one layout to another, one leaf at a time: each
+    leaf gathered whole from its old slices (``unshard_params``: one
+    all-gather per split entry, over the old mesh's groups), cut to this
+    rank's new slice (``shard_params``) and the whole leaf dropped, so a
+    rank holds its old and new slices and one whole leaf at most.  A spec
+    tree of None (or a None leaf) means whole; leaves that are not tensors
+    pass as they are.  ``leaving`` (a rank the new mesh drops): the rank
+    takes part in every gather and keeps nothing (None leaves).  Shared by
+    ``Trainer.replan``, ``ServingEngine.replan`` and ``KVPool.migrate``."""
+    def spec_of(specs, path):
+        if specs is None:
+            return None
+        for k in path:
+            specs = specs[k]
+        return specs
+
+    def move(path, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return None if leaving else leaf
+        old = spec_of(old_specs, path)
+        if old is not None and old_ctx is not None:
+            leaf = unshard_params(leaf, old, old_ctx)
+        if leaving:
+            return None
+        new = spec_of(new_specs, path)
+        if new is None or new_ctx is None:
+            return leaf
+        return shard_params(leaf, new, new_ctx)
+    return tree_map_with_path(move, tree)
+
+
+# ---------------------------------------------------------------------------
+# The decode cache and the slot pool (JAX's ``cache_pspecs``)
+#
+# The serving stack stores KV and SSM state stacked per period.  Under DSP
+# the KV *sequence* dim is split over ``model`` in contiguous blocks (rank r
+# holds positions [r·M/n, (r+1)·M/n) of a cache of M positions), so every
+# slot holds the same share of its history on every rank and slots come and
+# go with no resharding; the SSM state is split by head; ``conv`` and
+# ``pos`` are whole.  The slot (batch) dim is split over ``data``.
+# ---------------------------------------------------------------------------
+
+KV_SEQ_DIM = 3          # (periods, slots, Hkv, S, D): the sequence axis
+SLOT_DIM = 1            # (periods, slots, ...): the slot/batch axis
+
+
+def is_kv_leaf(path, leaf) -> bool:
+    """Whether a cache leaf at key path ``path`` is a stacked KV tensor;
+    SSM ``conv`` and ``state`` leaves are not.  The one definition shared
+    by ``cache_pspecs``, the layout check and the engine's re-cut."""
+    return (("k" in path or "v" in path)
+            and getattr(leaf, "ndim", 0) == KV_SEQ_DIM + 2)
+
+
+def cache_pspecs(caches, plan: ParallelPlan):
+    """The spec tree of a cache or slot-pool tree (JAX's rules for the
+    slot layout): KV (periods, slots, Hkv, S, D) split over ``model`` on
+    the sequence under ``dsp``/``tp``, the SSM ``state`` (periods, slots,
+    H, P, S) over ``model`` by head, ``conv`` whole; the slot dim over
+    ``data``; ``pos`` (a scalar or the pool's per-slot vector) whole.
+    JAX's ``paged=True`` rule comes with paged serving (ROADMAP queue 1
+    item 6)."""
+    seq = "model" if plan.mode in ("dsp", "tp") else None
+
+    def rule(path, leaf):
+        if "k" in path or "v" in path:
+            return (None, "data", None, seq, None)
+        if "state" in path:
+            return (None, "data", seq, None, None)
+        if "conv" in path:
+            return (None, "data", None, None)
+        return ()
+    return tree_map_with_path(rule, caches)
+
+
+def kv_block(ctx: Optional[ParallelContext], plan: ParallelPlan,
+             seq_len: int) -> Tuple[int, int]:
+    """(start, stop): the positions of a ``seq_len``-long KV cache this
+    rank holds under ``cache_pspecs`` (``slice_index`` on the sequence
+    dim); the whole cache without a mesh."""
+    spec = (None, None, None, "model" if plan.mode in ("dsp", "tp")
+            else None, None)
+    return slice_index((1, 1, 1, seq_len, 1), spec, ctx)[KV_SEQ_DIM]
+
+
+def assert_kv_cache_on_mesh(caches, ctx: Optional[ParallelContext],
+                            plan: ParallelPlan, seq_len: int) -> None:
+    """Assert that every KV leaf of a cache or slot pool (this rank's
+    tensors) holds the block of a ``seq_len``-long cache that
+    ``cache_pspecs`` gives it: ``seq_len / n`` positions, rank r the r-th
+    contiguous block (``kv_block``), so that its n blocks tile the
+    sequence.  A no-op off a mesh or under plan ``none``."""
+    sp = ctx.sp_size if ctx is not None else 1
+    if sp <= 1 or plan.mode not in ("dsp", "tp"):
+        return
+    start, stop = kv_block(ctx, plan, seq_len)
+
+    def check(path, leaf):
+        if is_kv_leaf(path, leaf):
+            assert (leaf.shape[KV_SEQ_DIM] * sp == seq_len
+                    and stop - start == leaf.shape[KV_SEQ_DIM]
+                    and start == ctx.sp_index * (seq_len // sp)), (
+                f"KV cache leaf {'/'.join(path)} not sequence-sharded over "
+                f"the {sp}-way model dim: this rank holds "
+                f"{tuple(leaf.shape)} of {seq_len} positions, the layout "
+                f"gives it [{start}, {stop})")
+    tree_map_with_path(check, caches)
+
+
 @dataclasses.dataclass(frozen=True)
 class Sharder:
     """Semantic activation-layout hooks over ``ctx``'s ``model`` group,
@@ -526,6 +645,63 @@ class Sharder:
                             self.ctx.sp_group)
         return halo * (self.sp_index != 0)
 
+    # -- serving: the prefill's rows, the decode token, the cache --------------
+    @property
+    def serves_sharded(self) -> bool:
+        """Whether serving runs sharded: on a mesh under plan ``dsp``, the
+        KV cache split by sequence and the SSM state by head over
+        ``model`` (``cache_pspecs``), at one model rank too."""
+        return self.ctx is not None and self.plan.mode == "dsp"
+
+    def _seq_sharded(self) -> bool:
+        return self.serves_sharded and self.resid_dim == 1
+
+    def seq_rows(self, x, first: int, count: int) -> torch.Tensor:
+        """Rows ``[first, first + count)`` of the global sequence of a
+        resid-layout (B, S, C) ``x``, whole on every rank, zeros at
+        positions below 0 (a prompt shorter than ``count``): the rank
+        holding each row adds it to a zero buffer, the others add zeros,
+        and one SUM all-reduce over ``model`` gives every rank the rows
+        bit for bit.  A slice without a mesh.  The prefill's last position
+        (for the logits) and the conv window's last inputs."""
+        s = x.shape[1]
+        off = self.sp_index * s if self._seq_sharded() else 0
+        out = x.new_zeros((x.shape[0], count) + tuple(x.shape[2:]))
+        lo, hi = max(first, off), min(first + count, off + s)
+        if lo < hi:
+            out[:, lo - first:hi - first] = x[:, lo - off:hi - off]
+        if self._seq_sharded():
+            dsp.all_reduce(out, self.ctx.sp_group)
+        return out
+
+    def decode_heads(self, x):
+        """(B, H, S, D) q/k/v of a decode step: whole on every model rank
+        (the step's embedding is whole there), so each rank attends its own
+        block of the sequence-sharded cache with every head; a keep, no
+        call (JAX's hook replicates them over ``model``)."""
+        return x
+
+    def kv_cache(self, kv, length: int, max_len: int) -> torch.Tensor:
+        """The prefill's K/V (..., S_local, D), this rank's sequence shard
+        of the prompt padded to n·S_local positions, -> this rank's block
+        of a ``max_len``-long cache (``kv_block``): on a mesh one
+        all-gather of the shards over ``model`` (JAX leaves this reshard
+        to XLA), then the block cut out, the prompt's first ``length``
+        positions kept and zeros past them.  Without a mesh the prompt's
+        cache widened with zeros."""
+        dim = kv.dim() - 2
+        if self._seq_sharded():
+            kv = dsp.gather(kv, dim, self.ctx.sp_group)
+        start, stop = kv_block(self.ctx, self.plan, max_len)
+        shape = list(kv.shape)
+        shape[dim] = stop - start
+        out = kv.new_zeros(shape)
+        hi = min(stop, length)
+        if start < hi:
+            out.narrow(dim, 0, hi - start).copy_(kv.narrow(dim, start,
+                                                           hi - start))
+        return out
+
 
 def _check_schedule(schedule, *, on_mesh: bool) -> None:
     if schedule is not None and hasattr(schedule, "layouts"):
@@ -641,5 +817,6 @@ def null_sharder() -> Sharder:
 __all__ = ["ParallelPlan", "Sharder", "make_sharder", "null_sharder",
            "param_pspecs", "mesh_sizes", "shard_params", "gather_params",
            "unshard_params", "entry_axes", "split_axes", "reduce_axes",
-           "global_shape", "slice_index", "param_copies",
-           "tree_map_with_path"]
+           "global_shape", "slice_index", "param_copies", "reshard",
+           "KV_SEQ_DIM", "SLOT_DIM", "is_kv_leaf", "cache_pspecs",
+           "kv_block", "assert_kv_cache_on_mesh", "tree_map_with_path"]

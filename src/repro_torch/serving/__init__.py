@@ -1,10 +1,13 @@
-"""Serving subsystem on one device: engine + continuous-batching scheduler.
+"""Serving subsystem: engine + continuous-batching scheduler, on one device
+or sharded under DSP on a ``("data", "model")`` process mesh.
 
-* ``engine``    — ``ServingEngine``: prefill/decode steps, static-batch
-  ``generate`` (the reference path), ``serve``.
+* ``engine``    — ``ServingEngine``: the (plan, schedule, sharder) triple,
+  prefill/decode steps, static-batch ``generate`` (the reference path),
+  ``serve``, ``replan``.
 * ``kv_pool``   — ``KVPool``: ``max_batch`` decode slots carved from the
-  cache; alloc/free/insert/compact.
-* ``scheduler`` — ``ContinuousScheduler`` and ``replay_static``.
+  (sequence-sharded) cache; alloc/free/insert/compact/migrate.
+* ``scheduler`` — ``ContinuousScheduler`` (one host loop on every rank,
+  rank 0's clock broadcast) and ``replay_static``.
 * ``metrics``   — TTFT/TPOT/queue-wait per request, throughput, occupancy.
 """
 from repro_torch.serving.engine import Request, RequestResult, ServingEngine

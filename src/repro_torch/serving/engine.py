@@ -1,18 +1,29 @@
-"""Serving engine on one device: batched prefill + decode (counterpart of
-``repro.serving.engine`` with no mesh, where the JAX engine's plan is
-``mode="none"`` and every sharding hook is the identity).
+"""Plan-aware serving engine: batched prefill + decode (counterpart of
+``repro.serving.engine``), on one device or sharded under DSP.
+
+``ServingEngine(params, cfg, mesh=, plan=, topology=)`` derives its
+parallel triple (plan, schedule, sharder) from a ``("data", "model")``
+process mesh (``launch.mesh``): the switching schedule solved on the
+topology (``Topology.uniform`` by default: each transition priced at its
+bytes), the parameters cut to the rank's slices by ``param_pspecs``, and
+the ``Sharder``.  Prefill runs as the training forward does on the
+rank's sequence shard (K1 and K2 on the rank's heads); its K/V are
+re-cut onto the cache's blocks (``Sharder.kv_cache``).  The decode
+caches stay sequence-sharded over ``model`` (``cache_pspecs``): each rank
+attends its block and merges softmax partials with the others', and the
+SSM state stays head-sharded.  ``next_tokens`` is the distributed greedy
+argmax every host loop reads.  ``replan(n)`` re-derives the triple on
+the first n ranks and moves the parameters; the slot pool moves its
+caches itself (``KVPool.migrate``).
 
 ``generate`` is the static-batch loop: one shared prefill, then all live
-sequences step together.  Per-request ``max_new_tokens`` and EOS early-exit
-are handled by masking outside the decode step.  ``serve(...,
+sequences step together.  Per-request ``max_new_tokens`` and EOS
+early-exit are handled by masking outside the decode step.  ``serve(...,
 continuous=True)`` delegates to ``serving.scheduler.ContinuousScheduler``;
 the static loop stays as the reference path and the parity oracle for it.
-
-Prefill runs the flash-attention kernel (attention layers) and the SSD
-scan kernel (SSM layers) whenever the engine's tensors are on the card
-(the kernels' plain versions on the CPU); decode attends and advances the
-SSM state in plain PyTorch, as the JAX package's decode does in jnp.
-Meshes, ``replan`` and paged serving come with the planner.
+Decode attends and advances the SSM state in plain PyTorch, as the JAX
+package's decode does in jnp.  Paged serving comes with ROADMAP queue 1
+item 6.
 """
 from __future__ import annotations
 
@@ -23,19 +34,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import dsp
+from repro_torch.core.layout import from_mesh
 from repro_torch.device import resolve_device
 from repro_torch.models import lm as LM
+from repro_torch.parallel.partition import (
+    ParallelPlan, assert_kv_cache_on_mesh, cache_pspecs,
+    global_shape, make_sharder, mesh_sizes, param_pspecs, reshard,
+    shard_params, tree_map_with_path)
 from repro_torch.serving.metrics import RequestMetrics
-
-
-KV_SEQ_DIM = 3          # KV leaves are (periods, B, Hkv, S, Dh)
-
-
-def is_kv_leaf(path, leaf) -> bool:
-    """Whether a cache leaf at key path ``path`` is a stacked KV tensor
-    (the rule of JAX's ``parallel.partition.is_kv_leaf``); SSM ``conv``
-    and ``state`` leaves are not."""
-    return ("k" in path or "v" in path) and leaf.ndim == KV_SEQ_DIM + 2
 
 
 @dataclasses.dataclass
@@ -64,45 +71,179 @@ class Request:
 
 
 class ServingEngine:
-    """Single-device engine over ``params`` (already on ``device``)."""
+    """``mesh``/``plan``/``topology`` derive the engine's parallel triple;
+    all three default to the unsharded engine on ``device``.  ``params``
+    are the whole tree, every rank alike (the engine cuts them).  On a
+    mesh every rank of it constructs the engine and drives the same host
+    loop."""
 
     def __init__(self, params, cfg: LM.LMConfig, *, max_len: int = 512,
-                 device="cuda"):
+                 mesh=None, plan: Optional[ParallelPlan] = None,
+                 topology=None, device="cuda"):
         self.device = resolve_device(device)
         table = params["embed"]["table"]
         if table.device.type != self.device.type:
             raise ValueError(f"params on {table.device}, engine on "
                              f"{self.device}")
-        self.params = params
         self.cfg = cfg
         self.max_len = max_len
+        self.active = True          # False on a rank ``replan`` dropped
+        self._build(mesh, plan, topology, params, None, None)
+        ctx = self.sharder.ctx
+        # from the first mesh, so a replan keeps the data dim's size
+        self._data_axis = (ctx.size("data") if ctx is not None
+                           and "data" in ctx.mesh.mesh_dim_names else 1)
+
+    # -- (plan, schedule, sharder) derivation --------------------------------
+
+    def _build(self, mesh, plan, topology, params, old_specs,
+               old_ctx) -> None:
+        """Derive the triple for ``mesh`` and lay ``params`` (laid out by
+        ``old_specs`` on ``old_ctx``; whole when None) out for it."""
+        if plan is None:
+            plan = (ParallelPlan(mode="dsp") if mesh is not None
+                    else ParallelPlan(mode="none"))
+        ctx = from_mesh(mesh) if mesh is not None else None
+        sp = ctx.sp_size if ctx is not None else 1
+        schedule = None
+        if ctx is not None and plan.mode == "dsp":
+            if self.max_len % sp:
+                raise ValueError(
+                    f"max_len {self.max_len} must be divisible by the SP "
+                    f"degree {sp} (the KV cache is sequence-sharded)")
+            if topology is None:
+                from repro_torch.core.topology import Topology
+                topology = Topology.uniform(sp)
+            schedule = LM.dsp_schedule(self.cfg, sp, topology=topology)
+        specs = None
+        if ctx is not None and (plan.zero or plan.shard_vocab):
+            template = tree_map_with_path(
+                lambda _, p, s: torch.empty(global_shape(p.shape, s,
+                                                         old_ctx),
+                                            dtype=p.dtype, device="meta"),
+                params, old_specs if old_specs is not None
+                else tree_map_with_path(lambda *_: (), params))
+            specs = param_pspecs(template, plan, axis_sizes=mesh_sizes(ctx))
+        self.params = (reshard(params, old_specs, old_ctx, specs, ctx)
+                       if old_specs is not None or specs is not None
+                       else params)
+        self.mesh, self.plan = mesh, plan
+        self.topology, self.schedule = topology, schedule
+        self.sharder = make_sharder(mesh, plan, schedule, param_specs=specs)
+
+    @property
+    def sp_degree(self) -> int:
+        return self.sharder.sp_size
+
+    def replan(self, n_devices: int):
+        """Elastic resize onto the first ``n_devices`` ranks of the world
+        (``launch.mesh.elastic_submesh``, shared with ``Trainer.replan``):
+        the data dim kept where it divides, the plan kept, the topology
+        resized, the schedule re-solved, and the parameters moved one leaf
+        at a time (``reshard``).  Every rank of the world calls it; ranks
+        past ``n_devices`` take part in the moves, keep nothing and go
+        inactive.  At one device the mesh is dropped (plan ``none``);
+        growing onto ranks that left raises ``NotImplementedError``.
+        Returns self.  Callers holding live caches move them too
+        (``KVPool.migrate``); ``generate`` prefills per batch and needs
+        nothing more."""
+        from repro_torch.launch.mesh import elastic_submesh
+        old_ctx = self.sharder.ctx
+        mesh, leaving = elastic_submesh(
+            n_devices, data=self._data_axis,
+            held=old_ctx.world_size if old_ctx is not None else 1,
+            active=self.active, device_type=self.device.type,
+            regrow="restart the server with that many ranks")
+        old_specs = self.sharder.param_specs
+        if leaving:
+            reshard(self.params, old_specs, old_ctx, None, None,
+                    leaving=True)
+            self.params = None
+            self.active = False
+            self.mesh, self.plan = None, ParallelPlan(mode="none")
+            self.sharder = make_sharder(None, self.plan)
+            return self
+        if mesh is None:
+            plan, topology = ParallelPlan(mode="none"), None
+        else:
+            plan = self.plan
+            topology = (self.topology.resized(from_mesh(mesh).sp_size)
+                        if self.topology is not None else None)
+        params, self.params = self.params, None
+        self._build(mesh, plan, topology, params, old_specs, old_ctx)
+        return self
+
+    def shard_caches(self, caches):
+        """A cache tree, whole on every rank, cut to this rank's slices on
+        the engine's current mesh (``cache_pspecs``); itself off a
+        mesh."""
+        if self.sharder.ctx is None:
+            return caches
+        return shard_params(caches, cache_pspecs(caches, self.plan),
+                            self.sharder.ctx)
 
     # -- steps ---------------------------------------------------------------
 
     @torch.no_grad()
     def _prefill(self, tokens):
-        logits, caches = LM.forward_prefill(self.params, tokens, self.cfg)
-        pad = self.max_len - tokens.shape[1]
-
-        # widen the KV leaves' sequence dim to max_len for subsequent
-        # decode appends; SSM leaves have no sequence dim
-        def widen(path, a):
-            if pad > 0 and is_kv_leaf(path, a):
-                return F.pad(a, (0, 0, 0, pad))
-            return a
-        periods = LM.tree_map_with_path(widen, caches["periods"])
+        """tokens (B, S), the whole batch on every rank -> (logits of the
+        rank's rows at the last position, caches in the rank's layout with
+        the KV widened to ``max_len``).  On a mesh the prompt is padded on
+        the right to ``lm.prefill_shard_len`` positions a rank, the rank
+        runs its batch slice and sequence shard, and the K/V are re-cut
+        onto the cache's blocks (``Sharder.kv_cache``)."""
+        sh = self.sharder
+        tokens = torch.as_tensor(tokens, device=self.device)
+        s = tokens.shape[1]
+        if sh.ctx is None:
+            logits, caches = LM.forward_prefill(self.params, tokens, self.cfg)
+        else:
+            n = sh.sp_size
+            tokens = F.pad(tokens, (0, n * LM.prefill_shard_len(
+                self.cfg, s, n) - s))
+            local = LM.shard_lm_batch({"tokens": tokens}, sh)["tokens"]
+            logits, caches = LM.forward_prefill(self.params, local, self.cfg,
+                                                sharder=sh, length=s)
+        periods = {}
+        for j, pc in caches["periods"].items():
+            if "kv" in pc:
+                kv = sh.kv_cache(torch.stack([pc["kv"]["k"], pc["kv"]["v"]]),
+                                 s, self.max_len)
+                pc = {"kv": {"k": kv[0], "v": kv[1]}}
+            periods[j] = pc
         return logits, {"pos": caches["pos"], "periods": periods}
 
     @torch.no_grad()
     def _decode(self, token, caches):
-        return LM.forward_decode(self.params, token, caches, self.cfg)
+        """token (B, 1), the whole batch on every rank (the rank decodes
+        its rows over ``data``) -> (logits of the rank's rows, caches)."""
+        sh = self.sharder
+        token = torch.as_tensor(token, device=self.device)
+        if sh.dp_size > 1:
+            token = dsp.shard(token, 0, sh.dp_size, sh.dp_index)
+        return LM.forward_decode(self.params, token, caches, self.cfg,
+                                 sharder=sh)
+
+    @torch.no_grad()
+    def next_tokens(self, logits) -> torch.Tensor:
+        """The greedy tokens (B,) of the whole batch, the same on every
+        rank: the argmax of the last position over the vocab
+        (``lm.sharded_argmax``: one all-gather where the logits are
+        vocab-sharded), the rows gathered over ``data`` (one all-gather)
+        where the batch is split."""
+        sh = self.sharder
+        tok = LM.sharded_argmax(logits[:, -1], self.cfg, sh)
+        if sh.dp_size > 1:
+            tok = dsp.gather(tok, 0, sh.ctx.group("data"))
+        return tok
 
     # -- host-side serving loop ----------------------------------------------
 
     def generate(self, prompts: torch.Tensor,
                  max_new_tokens: Union[int, Sequence[int]] = 16,
                  greedy: bool = True, *, eos_id: Optional[int] = None,
-                 pad_id: int = 0) -> torch.Tensor:
+                 pad_id: int = 0, check_sharding: bool = False
+                 ) -> torch.Tensor:
         """prompts: (B, S) -> (B, max(max_new_tokens)) generated ids.
 
         ``max_new_tokens`` may be one int or a per-request sequence; rows
@@ -110,6 +251,8 @@ class ServingEngine:
         same decode, their outputs masked to ``pad_id``.  Without an EOS the
         loop never reads a token on the host; with ``eos_id`` the host
         inspects each token and exits early once every row finished.
+        ``check_sharding`` asserts the prefill's KV caches landed
+        sequence-sharded on the mesh (``assert_kv_cache_on_mesh``).
         """
         if not greedy:
             raise NotImplementedError("only greedy decoding is ported")
@@ -131,7 +274,10 @@ class ServingEngine:
                 f"max_len {self.max_len}")
 
         logits, caches = self._prefill(prompts)
-        token = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        if check_sharding:
+            assert_kv_cache_on_mesh(caches["periods"], self.sharder.ctx,
+                                    self.plan, self.max_len)
+        token = self.next_tokens(logits)[:, None]
 
         if eos_id is None:
             out: List[torch.Tensor] = []
@@ -139,7 +285,7 @@ class ServingEngine:
                 out.append(token[:, 0])
                 if t + 1 < steps:
                     logits, caches = self._decode(token, caches)
-                    token = torch.argmax(logits[:, -1], dim=-1)[:, None]
+                    token = self.next_tokens(logits)[:, None]
             stacked = torch.stack(out, dim=1)
             if int(limits.min()) < steps:
                 keep = (torch.as_tensor(limits, device=self.device)[:, None]
@@ -163,7 +309,7 @@ class ServingEngine:
                             * (steps - t - 1))
                 break
             logits, caches = self._decode(token, caches)
-            token = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            token = self.next_tokens(logits)[:, None]
         return torch.as_tensor(np.stack(cols, axis=1), device=self.device)
 
     def serve(self, requests: List[Request], *,

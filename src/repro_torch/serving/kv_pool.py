@@ -1,4 +1,4 @@
-"""Slot-based KV pool for continuous batching on one device (counterpart of
+"""Slot-based KV pool for continuous batching (counterpart of
 ``repro.serving.kv_pool``).
 
 The pool is the decode cache (``models.lm.init_caches``) re-read as
@@ -9,7 +9,13 @@ KV ``(periods, slots, Hkv, max_len, Dh)`` and SSM ``conv``/``state``
 copies one prefilled request into its slot row in place.  Shapes never
 change: the pool is allocated once at ``(max_batch, max_len)``, and
 ``pos`` is a per-slot ``(max_batch,)`` vector, so each slot appends and
-masks at its own length.  The sharded pool comes with the planner.
+masks at its own length.
+
+On a mesh (``mesh``, ``plan``) each rank holds its slice of every leaf by
+``cache_pspecs``: the same block of the sequence for every slot, and its
+heads of the SSM state.  Slots are symmetric across the ranks, so
+admission and retirement need no communication; ``migrate`` moves the
+live pool onto a resized mesh (``reshard``).
 """
 from __future__ import annotations
 
@@ -18,9 +24,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.layout import from_mesh
 from repro_torch.models import lm as LM
-
-SLOT_DIM = 1          # cache leaves are (periods, slots, ...)
+from repro_torch.parallel.partition import (
+    SLOT_DIM, ParallelPlan, assert_kv_cache_on_mesh, cache_pspecs, reshard)
 
 
 class PoolExhausted(Exception):
@@ -36,23 +43,53 @@ class KVPool:
     ``max_batch * max_len``, i.e. no extra constraint.
     """
 
-    def __init__(self, cfg, max_batch: int, max_len: int, *,
+    def __init__(self, cfg, max_batch: int, max_len: int, *, mesh=None,
+                 plan: Optional[ParallelPlan] = None,
                  token_budget: Optional[int] = None, device="cuda"):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         self.cfg = cfg
         self.max_batch = max_batch
         self.max_len = max_len
+        self.mesh = mesh
+        self.ctx = from_mesh(mesh) if mesh is not None else None
+        self.plan = plan or ParallelPlan(mode="none")
         self.token_budget = (token_budget if token_budget is not None
                              else max_batch * max_len)
         self.caches = LM.init_caches(cfg, max_batch, max_len,
-                                     per_slot_pos=True, device=device)
+                                     per_slot_pos=True, device=device,
+                                     ctx=self.ctx, plan=self.plan)
         # host-side bookkeeping: free slots (LIFO keeps reuse visible in
         # tests), per-slot committed tokens + current lengths
         self._free: List[int] = list(range(max_batch - 1, -1, -1))
         self._committed = np.zeros((max_batch,), np.int64)
         self.lengths = np.zeros((max_batch,), np.int64)
         self.peak_committed = 0
+
+    # -- placement -----------------------------------------------------------
+
+    def migrate(self, mesh, plan: ParallelPlan, *, leaving: bool = False):
+        """Elastic resize: move the pool, live slots included, onto
+        ``mesh`` (None: one device) one leaf at a time (``reshard``): each
+        KV leaf gathered whole over the old mesh and cut to the new block
+        (M/4 to M/2 positions a rank from 4 ranks to 2), the SSM state
+        likewise by head.  The slot bookkeeping is untouched: slots stay
+        symmetric on the new mesh.  ``leaving``: this rank takes part in
+        the gathers and keeps nothing."""
+        old = cache_pspecs(self.caches, self.plan)
+        ctx = from_mesh(mesh) if mesh is not None else None
+        new = cache_pspecs(self.caches, plan) if ctx is not None else None
+        caches, self.caches = self.caches, None
+        self.caches = reshard(caches, old if self.ctx is not None else None,
+                              self.ctx, new, ctx, leaving=leaving)
+        self.mesh, self.ctx, self.plan = mesh, ctx, plan
+        return self
+
+    def assert_on_mesh(self) -> None:
+        """The serving contract: every KV leaf sequence-sharded over the
+        SP dim (``assert_kv_cache_on_mesh``; a no-op off a mesh)."""
+        assert_kv_cache_on_mesh(self.caches["periods"], self.ctx, self.plan,
+                                self.max_len)
 
     # -- admission / bookkeeping ----------------------------------------------
 

@@ -1,5 +1,5 @@
 """Continuous-batching request scheduler over the ServingEngine (counterpart
-of ``repro.serving.scheduler``, single device).
+of ``repro.serving.scheduler``, on one device or a mesh).
 
 * **FIFO admission with a token-budget test** — a waiting request is
   admitted when a slot is free AND its committed tokens (prompt + decode
@@ -16,8 +16,15 @@ of ``repro.serving.scheduler``, single device).
 
 The engine's static ``generate`` stays the reference path:
 ``ContinuousScheduler`` produces identical tokens for the same requests.
-``replay_static`` is the instrumented static-batching baseline.  The
-paged scheduler and elastic ``replan`` come with the planner.
+``replay_static`` is the instrumented static-batching baseline.
+
+On a mesh every rank runs the same host loop over the sequence-sharded
+pool, and its collectives deadlock unless admission, retirement and slot
+choice agree on every rank.  Tokens agree (``engine.next_tokens`` is
+the same on every rank); the clock does not, so each turn of the loop
+broadcasts rank 0's clock reading (one call, ``core.dsp.broadcast``) and
+every rank admits by it.  ``replan`` resizes the engine and migrates the
+live pool.  The paged scheduler comes with ROADMAP queue 1 item 6.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import dsp
 from repro_torch.serving.kv_pool import KVPool
 from repro_torch.serving.metrics import EngineMetrics, RequestMetrics
 
@@ -58,18 +66,39 @@ class ContinuousScheduler:
                  token_budget: Optional[int] = None,
                  clock: Callable[[], float] = time.monotonic,
                  sleep: Callable[[float], None] = time.sleep):
+        if engine.sharder.dp_size > 1:
+            raise ValueError(
+                "continuous batching serves with data=1: the slot dim is "
+                "scattered per-request, the SEQUENCE dim carries the "
+                "parallelism (use more model-axis ranks instead)")
         self.engine = engine
         self.max_batch = max_batch
         self.pool = KVPool(engine.cfg, max_batch, engine.max_len,
+                           mesh=engine.mesh, plan=engine.plan,
                            token_budget=token_budget, device=engine.device)
         self.metrics = EngineMetrics(max_batch)
         self._clock = clock
         self._sleep = sleep
         self._active: Dict[int, _Active] = {}
         self._t0: Optional[float] = None
+        self.ticks = 0              # host-loop turns (one broadcast each)
 
     def _now(self) -> float:
         return self._clock() - self._t0
+
+    def _shared_now(self) -> float:
+        """Rank 0's clock reading on every rank of the mesh (one broadcast
+        over its ``model`` group, which spans the mesh at data 1): what
+        admission reads, so every rank admits alike.  The local clock off
+        a mesh."""
+        now = self._now()
+        ctx = self.engine.sharder.ctx
+        self.ticks += 1
+        if ctx is None:
+            return now
+        t = torch.tensor([now], dtype=torch.float64,
+                         device=self.engine.device)
+        return float(dsp.broadcast(t, 0, ctx.sp_group))
 
     # -- main loop -------------------------------------------------------------
 
@@ -89,14 +118,17 @@ class ContinuousScheduler:
             sorted(requests, key=lambda r: r.arrival_time))
         step = 0
         while waiting or self._active:
-            self._admit(waiting, stream, eos_id)
+            now = self._shared_now()
+            self._admit(waiting, now, stream, eos_id)
             if self._active:
                 self._step(stream)
                 step += 1
                 if on_step is not None:
                     on_step(self, step)
+                if not self.engine.active:      # a rank ``replan`` dropped
+                    return requests
             elif waiting:
-                gap = waiting[0].arrival_time - self._now()
+                gap = waiting[0].arrival_time - now
                 if gap > 0:
                     self._sleep(min(gap, 0.005))
                 elif not self.pool.can_admit(self._need(waiting[0])):
@@ -115,10 +147,10 @@ class ContinuousScheduler:
 
     # -- admission -------------------------------------------------------------
 
-    def _admit(self, waiting, stream, default_eos) -> None:
+    def _admit(self, waiting, now: float, stream, default_eos) -> None:
         while waiting:
             req = waiting[0]
-            if req.arrival_time > self._now():
+            if req.arrival_time > now:
                 return
             need = self._need(req)
             if req.max_new_tokens < 1:
@@ -138,7 +170,7 @@ class ContinuousScheduler:
         self.metrics.record_admission()
         prompt = torch.as_tensor(req.prompt, device=self.engine.device)[None]
         logits, caches = self.engine._prefill(prompt)
-        first = int(torch.argmax(logits[0, -1]))
+        first = int(self.engine.next_tokens(logits)[0])
         rm.first_token_time = self._now()
         rm.n_generated = 1
         self.metrics.record_tokens(1, rm.first_token_time)
@@ -169,7 +201,7 @@ class ContinuousScheduler:
         token = torch.as_tensor(last[:, None], device=self.engine.device)
         logits, caches = self.engine._decode(token, self.pool.caches)
         self.pool.caches = caches
-        toks = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        toks = self.engine.next_tokens(logits).cpu().numpy()
         now = self._now()
         n_active = len(self._active)
         for slot in sorted(self._active):
@@ -193,6 +225,22 @@ class ContinuousScheduler:
                 del self._active[slot]
         self.metrics.record_tokens(n_active, now)
         self.metrics.record_step(n_active, now)
+
+    # -- elastic resize -------------------------------------------------------
+
+    def replan(self, n_devices: int):
+        """Elastic resize with slots live, between decode steps (e.g. from
+        ``run``'s ``on_step``): the engine re-plans onto the first
+        ``n_devices`` ranks (``ServingEngine.replan``), then the pool
+        migrates every leaf onto the new mesh (``KVPool.migrate``) and is
+        asserted on it.  Ranks past ``n_devices`` take part in both moves
+        and leave ``run``."""
+        self.engine.replan(n_devices)
+        self.pool.migrate(self.engine.mesh, self.engine.plan,
+                          leaving=not self.engine.active)
+        if self.engine.active:
+            self.pool.assert_on_mesh()
+        return self
 
     # -- pool compaction ----------------------------------------------------
 
@@ -259,7 +307,7 @@ def replay_static(engine, requests: List, *, max_batch: int,
                   (width - len(r.prompt), 0), value=pad_id)
             for r in chunk])
         logits, caches = engine._prefill(prompts)
-        token = torch.argmax(logits[:, -1], dim=-1)
+        token = engine.next_tokens(logits)
         now = clock() - t0
         toks = [[int(t)] for t in token.cpu().numpy()]
         done = np.zeros((len(chunk),), bool)
@@ -276,7 +324,7 @@ def replay_static(engine, requests: List, *, max_batch: int,
                 break
             n_active = int((~done).sum())
             logits, caches = engine._decode(token[:, None], caches)
-            token = torch.argmax(logits[:, -1], dim=-1)
+            token = engine.next_tokens(logits)
             host = token.cpu().numpy()
             now = clock() - t0
             emitted = 0

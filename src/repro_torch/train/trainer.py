@@ -34,7 +34,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import dsp
-from repro_torch.core.layout import _flat_group, from_mesh
+from repro_torch.core.layout import from_mesh
 from repro_torch.core.plan import JointPlan, StrategyPlan
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import tree_leaves, tree_map
@@ -42,8 +42,7 @@ from repro_torch.optim.adamw import OptConfig, apply_adamw, init_opt_state
 from repro_torch.optim.compress import compress_with_feedback, init_residuals
 from repro_torch.parallel.partition import (
     ParallelPlan, global_shape, make_sharder, mesh_sizes, null_sharder,
-    param_copies, param_pspecs, reduce_axes, shard_params,
-    tree_map_with_path, unshard_params)
+    param_copies, param_pspecs, reduce_axes, reshard, tree_map_with_path)
 from repro_torch.train.checkpoint import CheckpointManager
 
 log = logging.getLogger("repro_torch.train")
@@ -345,13 +344,13 @@ class Trainer:
         """Re-solve and rebuild on the first ``n_devices`` ranks of the
         world: the switching plan at the new SP degree
         (``ElasticSpec.solve_schedule``), the survivor mesh
-        (``launch.mesh.submesh``, keeping the data dim where it divides),
-        the loss and step through the ``ElasticSpec``.  The live state
-        (parameters, AdamW's moments, master copy and the residuals, laid
-        out as their parameters) then moves one leaf at a time: gathered
-        whole from the old slices, cut to the new slice, the whole leaf
-        dropped, so a rank holds its old and new slices and one whole leaf
-        at most.  Every rank of the world calls it (it makes process
+        (``launch.mesh.elastic_submesh``, keeping the data dim where it
+        divides), the loss and step through the ``ElasticSpec``.  The live
+        state (parameters, AdamW's moments, master copy and the residuals,
+        laid out as their parameters) then moves one leaf at a time
+        (``parallel.partition.reshard``): gathered whole from the old
+        slices, cut to the new slice, the whole leaf dropped, so a rank
+        holds its old and new slices and one whole leaf at most.  Every rank of the world calls it (it makes process
         groups, and every rank of the old mesh takes part in each
         gather); ranks past ``n_devices`` keep nothing and leave ``run()``
         with no steps.  At one device the mesh is dropped (plan
@@ -363,30 +362,19 @@ class Trainer:
                              "(elastic= at construction)")
         if self.ckpt is not None:
             self.ckpt.wait()      # never migrate under an in-flight save
-        world = dist.get_world_size() if dist.is_initialized() else 1
-        if n_devices > world:
-            raise ValueError(f"replan({n_devices}) exceeds the {world} "
-                             f"available devices")
-        held = self.ctx.world_size if self.ctx is not None else 1
-        if not self.active or n_devices > held:
-            raise NotImplementedError(
-                f"replan({n_devices}) onto ranks that hold no state (the "
-                f"mesh holds {held}): restart with that many ranks and "
-                f"try_resume, which reshards the checkpoint")
+        from repro_torch.launch.mesh import elastic_submesh
+        mesh, leaving = elastic_submesh(
+            n_devices, data=self._data_axis,
+            held=self.ctx.world_size if self.ctx is not None else 1,
+            active=self.active, device_type=self.device.type,
+            regrow="restart with that many ranks and try_resume, which "
+            "reshards the checkpoint")
         plan = self.elastic.plan or ParallelPlan(mode="dsp")
         rank = dist.get_rank() if dist.is_initialized() else 0
-        if n_devices == 1:
-            mesh = schedule = None
+        schedule = None
+        if mesh is None:
             plan = ParallelPlan(mode="none")
         else:
-            from repro_torch.launch.mesh import submesh
-            data = (self._data_axis if n_devices % self._data_axis == 0
-                    else 1)
-            mesh = submesh(n_devices, data, device_type=self.device.type,
-                           backend=dist.get_backend())
-            # the ("data", "model") group the step reads is made now, by
-            # every rank, as ``new_group`` requires
-            _flat_group(mesh, tuple(mesh.mesh_dim_names))
             sp = mesh.shape[mesh.mesh_dim_names.index("model")]
             schedule = (self.elastic.solve_schedule(sp)
                         if self.elastic.solve_schedule is not None and sp > 1
@@ -395,25 +383,17 @@ class Trainer:
             self.ckpt = CheckpointManager(
                 self.ckpt.dir, keep=self.ckpt.keep,
                 async_save=self.ckpt.async_save, ranks=range(n_devices))
-        leaving = rank >= n_devices
         ctx = from_mesh(mesh) if mesh is not None and not leaving else None
         specs = None
         if ctx is not None:
             specs = param_pspecs(self._template()["params"], plan,
                                  axis_sizes=mesh_sizes(ctx))
         state, old_ctx = self._state(), self.ctx
-        none = tree_map_with_path(lambda *_: None, state)
-        old_specs = self._state_specs() or none
-        new_specs = none if specs is None else self._state_specs(specs)
+        new_specs = None if specs is None else self._state_specs(specs)
+        old_specs = self._state_specs()
         self.params = self.opt_state = self.residuals = None
-
-        def move(_, leaf, old, new):
-            if not isinstance(leaf, int) and old is not None:
-                leaf = unshard_params(leaf, old, old_ctx)
-            if leaving or new is None or isinstance(leaf, int):
-                return None if leaving else leaf
-            return shard_params(leaf, new, ctx)
-        state = tree_map_with_path(move, state, old_specs, new_specs)
+        state = reshard(state, old_specs, old_ctx, new_specs, ctx,
+                        leaving=leaving)
         if leaving:
             self.active = False
             self.mesh = self.ctx = self.specs = None

@@ -35,11 +35,17 @@ for want in ("repro_torch.serving.scheduler", "repro_torch.train.trainer",
              "repro_torch.core.megatron_sp", "repro_torch.core.layout",
              "repro_torch.analysis.roofline",
              "repro_torch.parallel.partition",
-             "repro_torch.train.checkpoint", "repro_torch.optim.compress"):
+             "repro_torch.train.checkpoint", "repro_torch.optim.compress",
+             "repro_torch.serving.engine", "repro_torch.serving.kv_pool",
+             "repro_torch.launch.serve"):
     assert want in mods, (want, mods)
 from repro_torch.core.schedule import ScheduleExecutor2D
 from repro_torch.models.transformer2d import (
     dsp2d_schedule, forward2d, make_spmd_forward2d, stages2d)
+from repro_torch.launch.mesh import elastic_submesh, resolve_topology
+from repro_torch.models.lm import serve_contract, sharded_argmax
+from repro_torch.parallel.partition import (
+    assert_kv_cache_on_mesh, cache_pspecs, reshard)
 """
 
 
@@ -65,7 +71,8 @@ assert not bad, bad
                                     "_torch_l2d_worker.py",
                                     "_torch_lmdsp_worker.py",
                                     "_torch_zero_worker.py",
-                                    "_torch_ckpt_worker.py"])
+                                    "_torch_ckpt_worker.py",
+                                    "_torch_serve_worker.py"])
 def test_gloo_workers_import_no_jax_and_no_repro(worker):
     """The port's side of each multi-process check (a gloo rank) loads, with
     the helpers it shares with its JAX side, nothing of JAX or of the JAX
@@ -170,9 +177,10 @@ def test_flash_attention_kernel_path_takes_gradients(monkeypatch):
 
 def test_cli_flags_of_the_checkpoint_slice_are_ported(tmp_path):
     """The train CLI's ``--ckpt-dir``, ``--resume``, ``--grad-compress``
-    and ``--replan`` and the serve CLI's ``--ckpt-dir`` no longer exit
-    "not yet ported"; ``--devices`` still does, naming ``torchrun
-    --nproc-per-node``."""
+    and ``--replan`` and the serve CLI's ``--ckpt-dir``, ``--mode``,
+    ``--topology``, ``--data`` and ``--replan`` no longer exit "not yet
+    ported" (at world size 1 the mesh flags serve unsharded); ``--devices``
+    still does in both, naming ``torchrun --nproc-per-node``."""
     from repro_torch.launch import serve, train
     base = ["--arch", "mamba2-370m", "--device", "cpu", "--steps", "0"]
     for flags in (["--ckpt-dir", str(tmp_path)], ["--resume"],
@@ -185,3 +193,13 @@ def test_cli_flags_of_the_checkpoint_slice_are_ported(tmp_path):
     with pytest.raises(SystemExit, match="not yet ported; torchrun "
                        "--nproc-per-node"):
         train.main(base + ["--devices", "4"])
+    sbase = ["--arch", "qwen3-14b", "--device", "cpu", "--batch", "2",
+             "--prompt-len", "4", "--new-tokens", "2"]
+    want = serve.main(sbase)
+    for flags in (["--mode", "dsp"], ["--mode", "none"],
+                  ["--topology", "uniform"], ["--data", "1"],
+                  ["--replan", "1"]):
+        assert torch.equal(serve.main(sbase + flags), want)
+    with pytest.raises(SystemExit, match="not yet ported; torchrun "
+                       "--nproc-per-node"):
+        serve.main(sbase + ["--devices", "4"])
