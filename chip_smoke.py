@@ -28,7 +28,10 @@ Phases, in order; any failure raises and exits non-zero:
    both at the shapes a rank of phase 19 (b) gives them, each prompt
    padded to a whole share a rank: K1 on 10 q and 2 K/V heads (4 ranks)
    and on 20 and 4 (2 ranks), K2 on 8 heads (``SERVE_RANK_ATTN``,
-   ``SERVE_RANK_SSD``);
+   ``SERVE_RANK_SSD``); and K1 at the shapes phase 20 (a)'s prefill
+   chunks give it, bf16 on ``sm90``: 512 queries at offset L - 512
+   against L keys for L in 512, 1024, 1536, 2048, and a ragged 64-token
+   chunk at offset 1024 (``PAGED_ATTN``);
 4. time each kernel, its plain version and, where one exists, one PyTorch
    library call that computes the same function (a yardstick the port
    never calls); K1's routed kernel and the library call three times each
@@ -36,7 +39,9 @@ Phases, in order; any failure raises and exits non-zero:
    on ``cuda_cores`` three times each in turns (medians); K1 at the DiT's
    spatial shape and at one temporal layer's, on ``sm90`` and on
    ``cuda_cores``, against ``scaled_dot_product_attention``, three times
-   each in turns (medians);
+   each in turns (medians); K1 at each chunk shape of ``PAGED_ATTN``
+   against ``scaled_dot_product_attention`` with the chunk's mask, three
+   times each in turns (medians);
 5. qwen3-14b serving at full width, random weights from a seeded
    generator: at depth 2, prefill logits through the kernel against the
    plain path at the longest prompt and at a ragged one (bar 2e-2 of the
@@ -214,21 +219,49 @@ Phases, in order; any failure raises and exits non-zero:
     the serve CLI under ``torchrun --nproc-per-node 4 ... --mode dsp
     --backend gloo``: continuous over a Poisson trace with world 1's
     tokens, static ``--replan 2`` with identical output;
-20. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
+20. qwen3-14b served paged (``PagedScheduler``: the block pool, the
+    radix prefix tree, chunked prefill): (a) on one card under plan
+    ``none`` at full width and depth, 8 requests of a shared 1024-token
+    system prompt and seeded suffixes of 64, 256, 512 and 1024 tokens
+    (twice), 32 new tokens each, 4 slots, 16-token blocks, 512-token
+    chunks, first through ``ContinuousScheduler`` (the slot path), then
+    paged with the counters set to 0 just before and read just after:
+    every request finished, exactly 4 x 1024 = 4096 prefix-hit tokens and
+    18 chunks, K1 launched exactly 40 x 18 = 720 times, all ``sm90``; the
+    teacher-forced logits of a request that missed (its prompt across two
+    chunk boundaries) and one that hit, through the paged path against
+    the slot path, within 2e-2 of the largest logit; TTFT and TPOT of
+    both logged, with the share of equal tokens; (b) 4 processes sharing
+    the card over gloo, each this script with ``--paged-rank``, qwen3-14b
+    at depth 4 on a (1, 4) mesh under SERVE_RANK_PLAN, the blocks
+    sequence-sharded within: the teacher-forced logits against a one-rank
+    reference within 2e-2 before and after ``replan(2)``, which fires at
+    a decode step with a prefill mid-prompt (the blocks gathered before
+    and after bit-equal, the tables and ref counts unchanged), the trace
+    with prefix hits and 128-token chunks, the pool asserted on the mesh
+    after every step, per rank each segment's calls and bytes exactly
+    ``lm.serve_contract``'s, a paged decode step's equal to a slot decode
+    step's, K1 launched 0 times (a chunk on a mesh attends through plain
+    softmax partials); (c) the serve CLI ``--paged --prefill-chunk 8`` on
+    the card and under ``torchrun --nproc-per-node 4 ... --mode dsp
+    --backend gloo``, the ranks' tokens one card's;
+21. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
     counts over the paths above (K1 320 + 32 + 224 + 224 + phase 14's
     training runs, 16 per mode, 8 for ring and hybrid, + phase 15 (a)'s
-    28 + phase 16 (a)'s 32 + phase 17 (a)'s 32 + phase 19 (a)'s 320; K2
-    576 + 384 + phase 16 (a)'s 192 + phase 17 (a)'s 192 + phase 18 (a)'s
-    2 x 48 x 12 = 1152 + phase 19 (a)'s 384) and whose
-    ``launches_by_route`` split that sum by the route each launch took
-    (every one ``sm90``), with phase 19 (b)'s per rank beside, then the
-    last line ``{"ok": true, "device": {...}}``.
+    28 + phase 16 (a)'s 32 + phase 17 (a)'s 32 + phase 19 (a)'s 320 +
+    phase 20 (a)'s 720; K2 576 + 384 + phase 16 (a)'s 192 + phase 17
+    (a)'s 192 + phase 18 (a)'s 2 x 48 x 12 = 1152 + phase 19 (a)'s 384)
+    and whose ``launches_by_route`` split that sum by the route each
+    launch took (every one ``sm90``), with phase 19 (b)'s and 20 (b)'s
+    per rank beside and phase 4's chunk timings, then the last line
+    ``{"ok": true, "device": {...}}``.
 
 Each phase's header logs the seconds since the start and the host's
 memory since the previous header (the peaks of the process tree's
 resident memory, of the machine's used memory and of its tmpfs), and
 every time logged carries the card's name and power limit.
 """
+import collections
 import dataclasses
 import gc
 import json
@@ -271,9 +304,11 @@ from repro_torch.optim.adamw import OptConfig  # noqa: E402
 from repro_torch.parallel.partition import (  # noqa: E402
     ParallelPlan, make_sharder, mesh_sizes, param_pspecs, shard_params,
     slice_index, unshard_params)
+from repro_torch.serving.block_pool import BlockPool  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 from repro_torch.serving.kv_pool import KVPool  # noqa: E402
-from repro_torch.serving.scheduler import ContinuousScheduler  # noqa: E402
+from repro_torch.serving.scheduler import (  # noqa: E402
+    ContinuousScheduler, PagedScheduler)
 from repro_torch.train.trainer import (  # noqa: E402
     ElasticSpec, Trainer, TrainerConfig, allreduce_grads, slices_norm)
 
@@ -467,6 +502,38 @@ SERVE_RANK_SSD = tuple(
 # inside plan none's spread at depth 28 (PERF.md §6); 2 block pairs keep
 # every check, count and bar at a seventh of the time
 SP_DEPTH = 4
+# the paged phase (20): (a) one card, plan none, qwen3-14b at full width
+# and depth through PagedScheduler (a chat service whose requests share one
+# system prompt): 8 requests arriving at 0, each a shared PAGED_SYSTEM-
+# token prompt and a seeded suffix of PAGED_SUFFIXES tokens (in that order
+# twice), NEW_TOKENS new tokens each, MAX_BATCH slots, PAGED_BLOCK-token
+# blocks, PAGED_CHUNK-token chunks, the prefix cache on.  Requests 0-3 are
+# admitted together before any insert; 4-7 each find the system prompt in
+# the tree: PAGED_HITS tokens; chunks 3 + 3 + 3 + 4, then 1 + 1 + 1 + 2
+# (tests/test_torch_paged.py pins both on a tiny model).  The forced
+# check: requests PAGED_FORCED (a miss across two chunk boundaries, a hit)
+# teacher-forced through the paged and the slot path, SERVE_FORCED_STEPS
+# decode steps, within LOGIT_BAR
+PAGED_SYSTEM, PAGED_SUFFIXES = 1024, (64, 256, 512, 1024)
+PAGED_BLOCK, PAGED_CHUNK = 16, 512
+PAGED_HITS, PAGED_CHUNKS = 4 * PAGED_SYSTEM, 18
+PAGED_FORCED = (0, 4)
+# (b) PAGED_RANK_SLOTS processes sharing the card over gloo at (1,
+# DSP_RANKS), qwen3-14b at depth PAGED_RANK_DEPTH under SERVE_RANK_PLAN:
+# 4 requests of a PAGED_RANK_SYSTEM-token shared prefix and suffixes of
+# PAGED_RANK_SUFFIXES, PAGED_RANK_NEW new tokens, PAGED_RANK_CHUNK-token
+# chunks, 2 slots, replan(SERVE_REPLAN_TO) at the first decode step with a
+# prefill mid-prompt
+PAGED_RANK_DEPTH, PAGED_RANK_SLOTS = 4, 2
+PAGED_RANK_SYSTEM, PAGED_RANK_SUFFIXES = 256, (32, 128, 64, 96)
+PAGED_RANK_CHUNK, PAGED_RANK_NEW = 128, 8
+PAGED_RANK_FORCED = (0, 2)
+# K1 at the shapes phase 20 (a)'s chunks give it: 512 queries of the 40
+# heads at offset L - 512 against the row's L keys of 8 K/V heads, and a
+# ragged 64-token chunk at offset 1024
+PAGED_ATTN = tuple((1, _Q.n_heads, _Q.n_kv_heads, 512, n, _Q.head_dim, True,
+                    None, None) for n in (512, 1024, 1536, 2048)) + (
+    (1, _Q.n_heads, _Q.n_kv_heads, 64, 1088, _Q.head_dim, True, None, None),)
 
 
 def prefill_case(s: int):
@@ -3577,6 +3644,524 @@ def serve_cli_ranks(serve_main, work: str) -> None:
             log("  replan output identical: True")
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: paged serving (block pool, prefix tree, chunked prefill)
+# ---------------------------------------------------------------------------
+
+def paged_requests(cfg, system: int, suffixes, new: int,
+                   device="cuda") -> list:
+    """A shared ``system``-token prompt and a seeded suffix of each length
+    of ``suffixes``, ``new`` new tokens each, all arriving at 0."""
+    g = torch.Generator(device=device).manual_seed(5)
+    head = torch.randint(0, cfg.vocab, (system,), generator=g, device=device)
+    return [Request(prompt=torch.cat([head, torch.randint(
+                0, cfg.vocab, (n,), generator=g, device=device)]),
+                    max_new_tokens=new, request_id=i)
+            for i, n in enumerate(suffixes)]
+
+
+def paged_max_len(system: int, suffixes, new: int) -> int:
+    need = system + max(suffixes) + new
+    return need + (-need) % PAGED_BLOCK
+
+
+@torch.no_grad()
+def paged_forced_logits(eng, reqs, tokens, chunk: int):
+    """Teacher forcing through the paged tier: the requests admitted in
+    turn into one ``PagedScheduler``'s pool (the prefix tree on, so a later
+    request reads an earlier one's blocks), each prompt streamed in chunks
+    of ``chunk`` tokens (``_chunk_step``), then SERVE_FORCED_STEPS decode
+    steps of the pool fed ``tokens`` (the reference's own, the first one
+    generated at index 0).  Returns (the logits (requests, 1 +
+    SERVE_FORCED_STEPS, V or this rank's vocab chunk) in float32, the
+    scheduler)."""
+    sched = PagedScheduler(eng, max_batch=len(reqs), block_size=PAGED_BLOCK,
+                           prefill_chunk=chunk)
+    sched._t0 = sched._clock()
+    seen = []
+    steps = {"_chunk": eng._chunk, "_decode": eng._decode}
+
+    def grab(fn):
+        def inner(*a):
+            logits, caches = fn(*a)
+            seen.append(logits)
+            return logits, caches
+        return inner
+    for name, fn in steps.items():
+        setattr(eng, name, grab(fn))
+    try:
+        rows = []
+        for r in reqs:
+            sched._admit(collections.deque([r]), 0.0, None)
+            while sched._prefilling:
+                sched._chunk_step(None)
+            rows.append([seen[-1][0, -1].float()])
+        for t in range(SERVE_FORCED_STEPS):
+            for i, slot in enumerate(sorted(sched._active)):
+                sched._active[slot].last_token = tokens[i][t]
+            _, sched.pool.caches = sched._decode_step(sched.pool.caches)
+            for i, slot in enumerate(sorted(sched._active)):
+                rows[i].append(seen[-1][slot, -1].float())
+    finally:
+        for name, fn in steps.items():
+            setattr(eng, name, fn)
+    return torch.stack([torch.stack(r) for r in rows]), sched
+
+
+def paged_world_of_one(device="cuda") -> dict:
+    """(a) qwen3-14b at full width and depth, plan none, on one card: the
+    paged trace through the slot path (``ContinuousScheduler``) and then
+    through ``PagedScheduler`` with every launch counter set to 0 just
+    before and read just after: every request finished, PAGED_HITS
+    prefix-hit tokens, PAGED_CHUNKS chunks, K1 40 x PAGED_CHUNKS launches
+    all on ``sm90``; the forced requests' teacher-forced logits through
+    the paged path against the slot path's within LOGIT_BAR.  Logs the
+    share of tokens equal to the slot path's, TTFT and TPOT p50/p99 of
+    both, the peak blocks."""
+    cfg = qwen3_14b.CONFIG
+    t0 = time.perf_counter()
+    params = lm.init_lm(0, cfg, device=device)
+    torch.cuda.synchronize()
+    log_t(f"  init {lm.param_counts(cfg)['total'] / 1e9:.2f}B params in "
+          f"{time.perf_counter() - t0:.1f} s")
+    eng = ServingEngine(params, cfg, max_len=paged_max_len(
+        PAGED_SYSTEM, PAGED_SUFFIXES, NEW_TOKENS), device=device)
+    del params
+    suffixes = PAGED_SUFFIXES * 2
+    slot_reqs = paged_requests(cfg, PAGED_SYSTEM, suffixes, NEW_TOKENS,
+                               device)
+    slot = ContinuousScheduler(eng, max_batch=MAX_BATCH)
+    slot.run(slot_reqs)
+    torch.cuda.synchronize()
+    slot_m = slot.metrics.summary()
+    del slot
+    free_device()
+    reqs = paged_requests(cfg, PAGED_SYSTEM, suffixes, NEW_TOKENS, device)
+    sched = PagedScheduler(eng, max_batch=MAX_BATCH, block_size=PAGED_BLOCK,
+                           prefill_chunk=PAGED_CHUNK)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    reset_ssd_launches()
+    t0 = time.perf_counter()
+    sched.run(reqs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = flash_attention_fwd.launches
+    routes = dict(flash_attention_fwd.route_launches)
+    m = sched.metrics.summary()
+    m["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    share = float(np.mean([a == b for r, q in zip(reqs, slot_reqs)
+                           for a, b in zip(r.generated, q.generated)]))
+    log_t(f"  paged: {seconds:.1f} s, {m['prefill_chunk_steps']} chunks, "
+          f"{m['prefix_hit_tokens']} prefix-hit tokens of "
+          f"{sum(len(r.prompt) for r in reqs)}, peak blocks "
+          f"{m['peak_blocks_in_use']} of {sched.pool.n_blocks - 1}; K1 "
+          f"{launches} launches by route {routes}; share of tokens equal "
+          f"to the slot path's {share:.4f}")
+    log_t(f"  TTFT p50 / p99 paged {m['ttft_p50_s']:.4f} / "
+          f"{m['ttft_p99_s']:.4f} s, slot path {slot_m['ttft_p50_s']:.4f} "
+          f"/ {slot_m['ttft_p99_s']:.4f} s; TPOT p50 / p99 paged "
+          f"{m['tpot_p50_s'] * 1e3:.2f} / {m['tpot_p99_s'] * 1e3:.2f} ms, "
+          f"slot path {slot_m['tpot_p50_s'] * 1e3:.2f} / "
+          f"{slot_m['tpot_p99_s'] * 1e3:.2f} ms")
+    log_t("  metrics " + json.dumps(m, sort_keys=True))
+    log_t("  slot path metrics " + json.dumps(slot_m, sort_keys=True))
+    if any(r.result is None or len(r.generated) != NEW_TOKENS
+           for r in reqs):
+        raise AssertionError("not every paged request finished")
+    if m["prefix_hit_tokens"] != PAGED_HITS \
+            or m["prefill_chunk_steps"] != PAGED_CHUNKS:
+        raise AssertionError(f"prefix hits {m['prefix_hit_tokens']}, chunks "
+                             f"{m['prefill_chunk_steps']}: expected "
+                             f"{PAGED_HITS} and {PAGED_CHUNKS}")
+    if launches != cfg.n_layers * PAGED_CHUNKS or routes["sm90"] != launches:
+        raise AssertionError(f"K1 launched {launches} times by route "
+                             f"{routes}, expected {cfg.n_layers} x "
+                             f"{PAGED_CHUNKS} on sm90")
+    forced = [reqs[i] for i in PAGED_FORCED]
+    tokens = [r.generated for r in forced]
+    got, fsched = paged_forced_logits(eng, forced, tokens, PAGED_CHUNK)
+    hits = fsched.metrics.prefix_hit_tokens
+    del fsched
+    want = forced_logits(eng, forced, tokens, device)
+    gap = logit_gap(got, want)
+    rows = ((got - want).abs().amax(-1) / want.abs().amax()).tolist()
+    log(f"  forced logits of requests {PAGED_FORCED} (prefix-hit tokens "
+        f"{hits}), paged against the slot path over {SERVE_FORCED_STEPS} "
+        f"decode steps: max |delta| / max |logit| = {gap:.3e}; by request, "
+        f"the prefill's last position then each step: "
+        + "; ".join(" ".join(f"{g:.2e}" for g in r) for r in rows))
+    if hits != PAGED_SYSTEM or not gap <= LOGIT_BAR:
+        raise AssertionError(f"forced logits: gap {gap}, hits {hits}")
+    del eng, sched, got, want
+    free_device()
+    return {"launches": launches, "routes": nonzero(routes),
+            "metrics": m, "slot_metrics": slot_m, "token_share": share,
+            "forced_gap": gap}
+
+
+def paged_rank_cfg():
+    return lm_config("qwen3-14b", PAGED_RANK_DEPTH)
+
+
+def paged_rank_requests(cfg, device="cuda") -> list:
+    return paged_requests(cfg, PAGED_RANK_SYSTEM, PAGED_RANK_SUFFIXES,
+                          PAGED_RANK_NEW, device)
+
+
+def paged_rank_max_len() -> int:
+    return paged_max_len(PAGED_RANK_SYSTEM, PAGED_RANK_SUFFIXES,
+                         PAGED_RANK_NEW)
+
+
+def paged_refs(work: str, device="cuda") -> None:
+    """(b)'s reference on one rank, plan none, depth PAGED_RANK_DEPTH: the
+    trace's tokens through ``PagedScheduler`` and the teacher-forced
+    logits on them, written to ``work``."""
+    cfg = paged_rank_cfg()
+    eng = ServingEngine(lm.init_lm(0, cfg, device=device), cfg,
+                        max_len=paged_rank_max_len(), device=device)
+    reqs = paged_rank_requests(cfg, device)
+    PagedScheduler(eng, max_batch=PAGED_RANK_SLOTS, block_size=PAGED_BLOCK,
+                   prefill_chunk=PAGED_RANK_CHUNK).run(reqs)
+    tokens = [r.generated for r in reqs]
+    logits, _ = paged_forced_logits(
+        eng, [reqs[i] for i in PAGED_RANK_FORCED],
+        [tokens[i] for i in PAGED_RANK_FORCED], PAGED_RANK_CHUNK)
+    torch.save({"tokens": tokens, "logits": logits.cpu()},
+               os.path.join(work, "paged_ref.pt"))
+    del eng
+    free_device()
+
+
+class PagedLog:
+    """Wraps an engine's chunk and decode steps and its argmax, for
+    ``expected``: (SP degree, tokens) a chunk, (SP degree, rows) a decode
+    step (whose argmax ``serve_contract(decode=)`` counts), the SP degree
+    of each argmax outside a decode step (a prompt's first token); the sum
+    of ``lm.serve_contract`` over them and the loop's turns, as {kind:
+    [calls, bytes]}."""
+
+    def __init__(self, eng):
+        self.chunks, self.decodes, self.firsts = [], [], []
+        self.decoded = False
+        chunk, dec, argmax = eng._chunk, eng._decode, eng.next_tokens
+
+        def chunk_step(tokens, caches, slot, start):
+            self.chunks.append((eng.sp_degree, tokens.shape[1]))
+            return chunk(tokens, caches, slot, start)
+
+        def decode(token, caches):
+            self.decodes.append((eng.sp_degree, token.shape[0]))
+            self.decoded = True
+            return dec(token, caches)
+
+        def next_tokens(logits):
+            if not self.decoded:
+                self.firsts.append(eng.sp_degree)
+            self.decoded = False
+            return argmax(logits)
+        eng._chunk, eng._decode, eng.next_tokens = (chunk_step, decode,
+                                                    next_tokens)
+
+    def expected(self, cfg, template, plan, ticks: int) -> dict:
+        parts = [lm.serve_contract(cfg, n, template, plan, chunk=c)
+                 for n, c in self.chunks]
+        parts += [lm.serve_contract(cfg, n, template, plan, decode=r)
+                  for n, r in self.decodes]
+        parts += [lm.serve_contract(cfg, n, template, plan, first_tokens=1)
+                  for n in self.firsts]
+        parts.append(lm.serve_contract(cfg, 1, template, plan, ticks=ticks))
+        self.chunks, self.decodes, self.firsts = [], [], []
+        return add_contracts(*parts)
+
+
+def flatten_blocks(pool) -> dict:
+    """The block pool's KV leaves gathered whole on its mesh (not counted:
+    the caller resets the counters after)."""
+    from repro_torch.parallel.partition import cache_pspecs
+    periods = pool.caches["periods"]
+    if pool.ctx is not None:
+        periods = unshard_params(periods, cache_pspecs(
+            periods, pool.plan, paged=True), pool.ctx)
+    return {"/".join(p): t.clone() for p, t in
+            zip(leaf_paths_of(periods), lm.tree_leaves(periods))}
+
+
+def paged_rank_main(rank: int, world: int, work: str) -> None:
+    """One of (b)'s ranks, started by ``paged_four_ranks`` as
+    ``chip_smoke.py --paged-rank <rank> <world> <dir>``: gloo over the
+    card's CUDA tensors on a (1, world) mesh, qwen3-14b at depth
+    PAGED_RANK_DEPTH under SERVE_RANK_PLAN.  The teacher-forced logits
+    against the reference's, then one paged and one slot decode step of
+    the forced pool's rows, each counted; the trace through
+    ``PagedScheduler`` with the pool asserted on the mesh after every step
+    and ``replan(SERVE_REPLAN_TO)`` at the first decode step with a
+    prefill mid-prompt (the blocks gathered before and after, the tables
+    and ref counts), each segment counted; the forced logits again on the
+    survivors.  K1 must launch 0 times (a chunk on a mesh is plain).
+    Written to ``<dir>/paged_rank<r>.json``."""
+    device = json.load(open(os.path.join(work, "job20.json")))["device"]
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    full_f32()
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(work, "store20b"), world), rank=rank, world_size=world)
+    plan = SERVE_RANK_PLAN
+    try:
+        cfg = paged_rank_cfg()
+        ref = torch.load(os.path.join(work, "paged_ref.pt"))
+        mesh = make_mesh((1, world), ("data", "model"), device,
+                         backend="gloo")
+        params = lm.init_lm(0, cfg, device=device)
+        template = meta_tree(params)
+        eng = ServingEngine(params, cfg, max_len=paged_rank_max_len(),
+                            mesh=mesh, plan=plan, device=device)
+        del params
+        free_device()
+        reset_launches()
+        steps = PagedLog(eng)
+        reqs = paged_rank_requests(cfg, device)
+        forced = [reqs[i] for i in PAGED_RANK_FORCED]
+        forced_tokens = [ref["tokens"][i] for i in PAGED_RANK_FORCED]
+        segments, got = {}, {}
+        dsp.reset_calls()
+        logits, fsched = paged_forced_logits(eng, forced, forced_tokens,
+                                             PAGED_RANK_CHUNK)
+        got["forced"] = forced_gap(logits, ref["logits"], eng.sharder)
+        segments["forced"] = [counted(), steps.expected(cfg, template, plan,
+                                                        0)]
+        # a paged and a slot decode step of the same rows, each counted
+        token = torch.tensor([[t[0]] for t in forced_tokens], device=device)
+        for name, caches in (("paged decode", fsched.pool.caches),
+                             ("slot decode", KVPool(
+                                 cfg, len(forced), eng.max_len, mesh=mesh,
+                                 plan=plan, device=device).caches)):
+            eng.next_tokens(eng._decode(token, caches)[0])
+            segments[name] = [counted(), steps.expected(cfg, template, plan,
+                                                        0)]
+        del fsched, logits
+        free_device()
+        sched = PagedScheduler(eng, max_batch=PAGED_RANK_SLOTS,
+                               block_size=PAGED_BLOCK,
+                               prefill_chunk=PAGED_RANK_CHUNK)
+        seen = {}
+
+        def on_step(s, k):
+            s.pool.assert_on_mesh()
+            if seen or not s._prefilling:
+                return
+            pf = s._prefilling[0]
+            if not 0 < pf.done < len(pf.prompt):
+                return
+            segments["before"] = [counted(), steps.expected(
+                cfg, template, plan, s.ticks)]
+            seen.update(step=k, ticks=s.ticks, done=pf.done)
+            before = flatten_blocks(s.pool)
+            host = (s.pool.caches["table"].clone(), s.pool.ref.copy(),
+                    s.pool.slot_blocks(pf.slot))
+            dsp.reset_calls()
+            t0 = time.perf_counter()
+            s.replan(SERVE_REPLAN_TO)
+            torch.cuda.synchronize()
+            seen["replan_seconds"] = time.perf_counter() - t0
+            segments["migrate"] = [counted(), add_contracts(
+                lm.serve_contract(cfg, world, template, plan, paged_migrate=(
+                    PAGED_RANK_SLOTS, eng.max_len, PAGED_BLOCK,
+                    s.pool.n_blocks, SERVE_REPLAN_TO)))]
+            if s.engine.active:
+                after = flatten_blocks(s.pool)
+                seen["moved_equal"] = all(torch.equal(before[p], after[p])
+                                          for p in before)
+                seen["host_equal"] = bool(
+                    torch.equal(s.pool.caches["table"], host[0])
+                    and (s.pool.ref == host[1]).all()
+                    and s.pool.slot_blocks(pf.slot) == host[2])
+            del before
+            dsp.reset_calls()
+
+        t0 = time.perf_counter()
+        sched.run(reqs, on_step=on_step)
+        torch.cuda.synchronize()
+        got.update(seconds=time.perf_counter() - t0, active=eng.active,
+                   **{k: v for k, v in seen.items() if k != "ticks"})
+        if eng.active:
+            segments["after"] = [counted(), steps.expected(
+                cfg, template, plan, sched.ticks - seen["ticks"])]
+            got["finished"] = all(
+                r.result is not None and len(r.generated) == PAGED_RANK_NEW
+                for r in reqs)
+            got["token_share"] = float(np.mean([
+                a == b for r, t in zip(reqs, ref["tokens"])
+                for a, b in zip(r.generated, t)]))
+            got["metrics"] = sched.metrics.summary()
+            dsp.reset_calls()
+            logits, fsched = paged_forced_logits(
+                eng, [paged_rank_requests(cfg, device)[i]
+                      for i in PAGED_RANK_FORCED],
+                forced_tokens, PAGED_RANK_CHUNK)
+            got["forced_after"] = forced_gap(logits, ref["logits"],
+                                             eng.sharder)
+            segments["forced after"] = [counted(), steps.expected(
+                cfg, template, plan, 0)]
+            del fsched, logits
+        got["segments"] = segments
+        got["k1_launches"] = flash_attention_fwd.launches
+        got["host_gib"] = host_state()
+        del eng, sched
+        free_device()
+        json.dump(got, open(os.path.join(work, f"paged_rank{rank}.json"),
+                            "w"))
+    finally:
+        dist.destroy_process_group()
+
+
+def paged_four_ranks(work: str, device="cuda") -> dict:
+    """(b) DSP_RANKS processes sharing the card over gloo at (1,
+    DSP_RANKS): the teacher-forced logits within LOGIT_BAR of the one-rank
+    reference's before and after ``replan(SERVE_REPLAN_TO)``, which fires
+    with a prefill mid-prompt; the moved blocks bit-equal, the tables and
+    ref counts untouched; every request finished; per rank each segment's
+    calls and bytes exactly ``serve_contract``'s, a paged decode step's
+    equal to a slot decode step's; K1 0 launches.  The share of tokens
+    equal to the reference's is logged, not gated."""
+    with open(os.path.join(work, "job20.json"), "w") as f:
+        json.dump({"device": device}, f)
+    t0 = time.perf_counter()
+    paged_refs(work, device)
+    log_t(f"  reference at one rank in {time.perf_counter() - t0:.1f} s "
+          f"({elapsed()})")
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--paged-rank", str(r), str(DSP_RANKS), work],
+                              env=env)
+             for r in range(DSP_RANKS)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log_t(f"  {DSP_RANKS} ranks exited {rcs} after "
+          f"{time.perf_counter() - t0:.1f} s")
+    if any(rcs):
+        raise AssertionError(f"a paged serving rank failed: exit codes "
+                             f"{rcs}")
+    ranks = [json.load(open(os.path.join(work, f"paged_rank{r}.json")))
+             for r in range(DSP_RANKS)]
+    for r, got in enumerate(ranks):
+        log_t(f"  rank {r}: forced logits' worst row {got['forced']:.3e} "
+              f"(after the replan {got.get('forced_after')}); replan at "
+              f"decode step {got['step']} with a prefill at {got['done']} "
+              f"tokens, {got['replan_seconds']:.3f} s, moved blocks "
+              f"bit-equal {got.get('moved_equal')}, tables and ref counts "
+              f"unchanged {got.get('host_equal')}; served "
+              f"{got['seconds']:.1f} s, still serving {got['active']}, "
+              f"share of tokens equal to the reference's "
+              f"{got.get('token_share')}; K1 {got['k1_launches']}; host "
+              f"GiB {got['host_gib']}")
+        if got["active"]:
+            log_t(f"  rank {r} metrics " + json.dumps(got["metrics"],
+                                                     sort_keys=True))
+        for seg, (calls, want) in got["segments"].items():
+            log(f"  rank {r} {seg}: calls {calls}; contract {want}")
+            if calls != want:
+                raise AssertionError(f"rank {r} {seg}: calls {calls}, the "
+                                     f"contract says {want}")
+        segs = got["segments"]
+        if segs["paged decode"][0] != segs["slot decode"][0]:
+            raise AssertionError(f"rank {r}: a paged decode step's calls "
+                                 f"{segs['paged decode'][0]} differ from a "
+                                 f"slot decode step's "
+                                 f"{segs['slot decode'][0]}")
+        bars = [got["forced"]] + ([got["forced_after"]]
+                                  if "forced_after" in got else [])
+        if not max(bars) <= LOGIT_BAR:
+            raise AssertionError(f"rank {r}: forced logits {bars} past "
+                                 f"{LOGIT_BAR}")
+        if got["k1_launches"]:
+            raise AssertionError(f"rank {r}: K1 launched "
+                                 f"{got['k1_launches']} times on a mesh")
+        if got["active"] and not (got["finished"] and got["moved_equal"]
+                                  and got["host_equal"]):
+            raise AssertionError(f"rank {r}: finished {got['finished']}, "
+                                 f"moved blocks equal {got['moved_equal']}"
+                                 f", host state equal {got['host_equal']}")
+    if sum(got["active"] for got in ranks) != SERVE_REPLAN_TO:
+        raise AssertionError("replan kept the wrong number of ranks")
+    return {"ranks": ranks}
+
+
+def paged_clis(serve_main, work: str) -> None:
+    """(c) The serve CLI ``--paged --prefill-chunk 8`` at SMOKE size on the
+    card, then under ``torchrun --nproc-per-node`` DSP_RANKS with ``--mode
+    dsp --backend gloo``: both exit 0, the ranks' tokens one card's."""
+    import contextlib
+    import io
+    base = ["--arch", "qwen3-14b", "--batch", "4", "--prompt-len", "16",
+            "--new-tokens", "8", "--paged", "--prefill-chunk", "8"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        want = [r.generated for r in serve_main(base)]
+    log(f"  one card: {len(want)} requests served")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(DSP_RANKS), "-m",
+           "repro_torch.launch.serve", *base, "--mode", "dsp", "--backend",
+           "gloo"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=work, env=env, capture_output=True,
+                         text=True, timeout=300)
+    text = out.stdout
+    got = [json.loads(m) for m in re.findall(r"s: (\[[^\]]*\])", text)]
+    log_t(f"  torchrun: exit {out.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s; tokens equal to one card's "
+          f"{got == want}; " + " ".join(
+              line for line in text.splitlines() if line.startswith("paged")))
+    if out.returncode or got != want \
+            or "KV pool sequence-sharded over 4-way" not in text:
+        raise AssertionError(f"serve CLI --paged under torchrun: "
+                             f"{text[-2000:]}{out.stderr[-3000:]}")
+
+
+def time_chunk_attention(case) -> dict:
+    """K1 at a paged chunk's ``case`` in bf16 on its route, and
+    ``scaled_dot_product_attention`` with the chunk's mask (keys up to
+    the query's position at ``q_offset = Skv - Sq``), three times each in
+    turns (medians); the plain version once, and the bound."""
+    q, k, v = attn_inputs(case, torch.bfloat16, seed=12)
+    kw = attn_kw(case)
+    route = ROUTES[(torch.bfloat16, case[5])]
+    sq, skv = case[3], case[4]
+    mask = (torch.arange(skv, device="cuda")[None, :]
+            <= kw["q_offset"] + torch.arange(sq, device="cuda")[:, None])
+    fns = {route: lambda: flash_attention_fwd(q, k, v, **kw),
+           "library": lambda: F.scaled_dot_product_attention(
+               q, k, v, attn_mask=mask, enable_gqa=True)}
+    runs = {who: [] for who in fns}
+    for order in ((route, "library"), ("library", route), (route, "library")):
+        for who in order:
+            runs[who].append(time_ms(fns[who], iters=20, warmup=2))
+    ms, library_ms = (float(np.median(runs[w])) for w in fns)
+    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, **kw), iters=3,
+                       warmup=1)
+    bound = attention_bound_ms(case, torch.bfloat16)
+    log_t(f"  chunk {case[:6]} q_offset {kw['q_offset']}: kernel ({route}) "
+          f"{ms:.4f} ms (runs {runs[route]})  plain {plain_ms:.4f} ms  "
+          f"scaled_dot_product_attention {library_ms:.4f} ms (runs "
+          f"{runs['library']})  bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}; the kernel at "
+          f"{100 * bound['bound_ms'] / ms:.1f}% of the bound)")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"shape": list(case[:6]), "q_offset": kw["q_offset"],
+            "route": route, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"]}
+
+
 def time_dit_attention(shape) -> dict:
     """K1 at a DiT ``shape`` in bf16 on its route (DIT_ROUTE) and on
     ``cuda_cores``, and ``scaled_dot_product_attention``, three times each
@@ -3791,6 +4376,8 @@ def main() -> None:
         check_attention(case, torch.bfloat16, seed=410 + i)
     for i, case in enumerate(SERVE_RANK_SSD):
         check_ssd(case, torch.bfloat16, seed=430 + i)
+    for i, case in enumerate(PAGED_ATTN):
+        check_attention(case, torch.bfloat16, seed=440 + i)
 
     log(f"[4] timing at the slice's shape, bf16 ({elapsed()})")
     q, k, v = attn_inputs(SLICE, torch.bfloat16, seed=7)
@@ -3844,6 +4431,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     dit = time_dit_attention(DIT_SLICE)
     dit_temporal = time_dit_attention(DIT_TEMPORAL)
+    chunks = [time_chunk_attention(case) for case in PAGED_ATTN]
 
     log(f"[5] qwen3-14b serving at full width ({elapsed()})")
     cfg = qwen3_14b.CONFIG
@@ -3974,6 +4562,20 @@ def main() -> None:
     log_t(f"  done: phase 19 took {time.perf_counter() - t19:.1f} s "
           f"({elapsed()})")
 
+    log(f"[20] qwen3-14b paged: block pool, prefix tree, chunked prefill "
+        f"({elapsed()})")
+    t20 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        log("  (a) one card, plan none, full width and depth")
+        paged = paged_world_of_one()
+        log(f"  (b) {DSP_RANKS} ranks on the card over gloo, depth "
+            f"{PAGED_RANK_DEPTH} ({elapsed()})")
+        paged_ranks = paged_four_ranks(work)
+        log(f"  (c) the serve CLI --paged at SMOKE size ({elapsed()})")
+        paged_clis(serve_main, work)
+    log_t(f"  done: phase 20 took {time.perf_counter() - t20:.1f} s "
+          f"({elapsed()})")
+
     log(facts)
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
@@ -3982,9 +4584,14 @@ def main() -> None:
         "launches": (served["launches"] + q_trained["launches"]
                      + dit_trained["launches"] + dsp_trained["launches"]
                      + sp_launches + l2d["launches"] + q_dsp["launches"]
-                     + q_zero["launches"] + q_sv["launches"]),
+                     + q_zero["launches"] + q_sv["launches"]
+                     + paged["launches"]),
         "launches_by_route": by_route([served, q_trained, q_dsp, q_zero,
-                                       q_sv] + dit_runs),
+                                       q_sv, paged] + dit_runs),
+        "paged_launches": paged["launches"],
+        "paged_rank_launches": [r["k1_launches"]
+                                for r in paged_ranks["ranks"]],
+        "paged_chunks": chunks,
         "lm_dsp_launches": q_dsp["launches"],
         "lm_dsp_rank_launches": [r["qwen3-14b"]["k1_heads"]
                                  for r in lm_ranks["ranks"]],
@@ -4053,5 +4660,7 @@ if __name__ == "__main__":
         ckpt_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif sys.argv[1:2] == ["--serve-rank"]:
         serve_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:2] == ["--paged-rank"]:
+        paged_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     else:
         main()

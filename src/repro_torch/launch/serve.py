@@ -12,7 +12,12 @@ seed, as the JAX package's CLI does, and serves it through the plan-aware
   inter-arrival seconds; 0 = all at once), per-token streaming
   (``--stream``), and a metrics JSON (TTFT/TPOT/queue-wait percentiles,
   throughput, slot occupancy, the priced fabric) printed and optionally
-  written to ``--metrics PATH``.
+  written to ``--metrics PATH``;
+* ``--paged`` — the paged scheduler on the same trace: ``--block-size``
+  token KV blocks, the radix prefix cache (``--prefix-cache`` /
+  ``--no-prefix-cache``) and chunked prefill (``--prefill-chunk`` tokens a
+  slice), with a summary line of the blocks, the prefix hit rate and the
+  chunks beside the metrics JSON.
 
 Under ``torchrun`` with ``--mode dsp`` (the default) the ranks serve
 sharded on a ``(--data, world / --data)`` process mesh (NCCL on the
@@ -28,8 +33,8 @@ Rank 0 prints the summary in one write.  ``--ckpt-dir DIR`` serves the
 parameters of the latest checkpoint in DIR (``train.checkpoint``, either
 package's), restored onto the engine's layout.  ``--device`` defaults to
 ``cuda``.  ``--mode tp``, the JAX CLI's TPU topology presets and
-``--hosts``, ``--devices`` (``torchrun --nproc-per-node`` starts the
-ranks) and ``--paged`` (ROADMAP queue 1 item 6) exit with a message.
+``--hosts``, and ``--devices`` (``torchrun --nproc-per-node`` starts the
+ranks) exit with a message.
 """
 import argparse
 import json
@@ -69,8 +74,20 @@ def main(argv=None):
                     help="process-group backend (default: the device's)")
     ap.add_argument("--continuous", action="store_true",
                     help="serve through the continuous-batching scheduler")
+    ap.add_argument("--paged", action="store_true",
+                    help="serve through the paged scheduler (block-pool KV, "
+                    "radix prefix cache, chunked prefill)")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="tokens per KV block (paged mode)")
+    ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="share prompt-prefix KV blocks via the radix tree "
+                    "(paged mode)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="prompt tokens per chunked-prefill slice (paged "
+                    "mode; default: one slice per prompt)")
     ap.add_argument("--max-batch", type=int, default=4,
-                    help="decode slots in the KV pool (continuous)")
+                    help="decode slots in the KV pool (continuous/paged)")
     ap.add_argument("--arrival", type=float, default=0.0,
                     help="mean inter-arrival seconds of the Poisson request "
                     "trace (continuous mode; 0 = all arrive at once)")
@@ -87,15 +104,10 @@ def main(argv=None):
                     help="not ported (the JAX CLI's ici_dcn host count)")
     ap.add_argument("--devices", type=int, default=None,
                     help="not ported: torchrun --nproc-per-node")
-    ap.add_argument("--paged", action="store_true",
-                    help="not ported yet (ROADMAP queue 1 item 6)")
     args = ap.parse_args(argv)
     if args.devices is not None:
         raise SystemExit("--devices: not yet ported; torchrun "
                          "--nproc-per-node N starts the port's N ranks")
-    if args.paged:
-        raise SystemExit("--paged: not yet ported; paged serving comes "
-                         "with ROADMAP queue 1 item 6")
     if args.hosts is not None:
         raise SystemExit("--hosts: not yet ported; it sizes the JAX "
                          "package's TPU preset ici_dcn (ROADMAP queue 1, "
@@ -144,7 +156,8 @@ def main(argv=None):
     params = init_lm(0, cfg, device=device)
     max_len = args.prompt_len + args.new_tokens
     sp = world // args.data if mesh is not None else 1
-    max_len += (-max_len) % sp          # the sequence-sharded cache's blocks
+    # the sequence-sharded cache's blocks; paged: whole KV blocks
+    max_len += (-max_len) % (args.block_size if args.paged else sp)
     eng = ServingEngine(params, cfg, max_len=max_len, mesh=mesh, plan=plan,
                         topology=topo, device=device)
     if args.ckpt_dir:
@@ -175,8 +188,9 @@ def main(argv=None):
             sys.stdout.write("".join(line + "\n" for line in lines))
             sys.stdout.flush()
 
-    if args.continuous:
-        from repro_torch.serving.scheduler import ContinuousScheduler
+    if args.continuous or args.paged:
+        from repro_torch.serving.scheduler import (ContinuousScheduler,
+                                                   PagedScheduler)
         rng = np.random.RandomState(0)
         gaps = (rng.exponential(args.arrival, size=args.batch)
                 if args.arrival > 0 else np.zeros(args.batch))
@@ -189,7 +203,13 @@ def main(argv=None):
             def stream(req, tok):
                 if rank == 0:
                     print(f"req{req.request_id} += {tok}", flush=True)
-        sched = ContinuousScheduler(eng, max_batch=args.max_batch)
+        if args.paged:
+            sched = PagedScheduler(eng, max_batch=args.max_batch,
+                                   block_size=args.block_size,
+                                   prefix_cache=args.prefix_cache,
+                                   prefill_chunk=args.prefill_chunk)
+        else:
+            sched = ContinuousScheduler(eng, max_batch=args.max_batch)
         sched.run(reqs, stream=stream)
         if mesh is not None:
             sched.pool.assert_on_mesh()
@@ -198,6 +218,14 @@ def main(argv=None):
         sched.metrics.extra.update(facts)
         lines.append(sched.metrics.to_json(args.metrics if rank == 0
                                            else None))
+        if args.paged:
+            s = sched.metrics.summary()
+            hit = s["prefix_hit_rate"]
+            lines.append(f"paged: {sched.pool.n_blocks - 1} blocks x "
+                         f"{sched.pool.block_size} tokens, peak in use "
+                         f"{s['peak_blocks_in_use']}, prefix hit rate "
+                         f"{'-' if hit is None else f'{hit:.0%}'}, "
+                         f"{s['prefill_chunk_steps']} prefill chunks")
         lines.extend(f"req{r.request_id} [{r.result.finish_reason}] "
                      f"ttft={r.result.metrics.ttft:.3f}s: {r.generated}"
                      for r in reqs)

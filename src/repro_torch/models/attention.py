@@ -12,6 +12,15 @@ keeps the KV cache sequence-sharded over ``model``: each rank writes the
 step's K/V where its block holds the position, attends its block and
 merges its softmax partial with the others' (``_sharded_decode``).
 
+A cache with a ``table`` is the block pool's (``serving.block_pool``):
+K/V in fixed-size blocks (n_blocks, Hkv, block, D), each row's positions
+mapped onto blocks by its table row (``_paged``).  A decode step attends
+the row's gathered blocks in plain PyTorch, as JAX's
+``_ref_decode_paged`` does; a prefill chunk of one row on one device goes
+through ``kernels.ops.flash_attention`` (K1 on the card) at its start
+offset; on a mesh each rank holds a within-block slice of every block and
+a chunk merges softmax partials as a decode step does.
+
 Decode writes the new K/V into the cache tensors IN PLACE (the JAX package
 returns updated copies): at full width a copy of every layer's cache per
 generated token would double the cache traffic.  The returned cache dict
@@ -90,13 +99,19 @@ def attention(p, x, cfg: AttnConfig, *, causal: bool = True,
     given, runs incremental decoding: writes K/V at cache['pos'] (a scalar,
     or a (B,) vector of per-slot positions) and attends to the prefix;
     returns (out, new_cache), else just out.  ``backend`` picks the
-    flash-attention path of the no-cache branch; decode is always plain.
+    flash-attention path of the no-cache branch and of a paged prefill
+    chunk; decode is always plain.
 
     With ``sharder`` serving sharded (``Sharder.serves_sharded``) the
     cache tensors are this rank's block of the sequence (``kv_block``), x
     is whole on every rank, and one step (S = 1) writes its K/V on the
     rank whose block holds the position and attends through
-    ``_sharded_decode``."""
+    ``_sharded_decode``.
+
+    A ``cache['table']`` (B, blocks_per_slot) switches to the block pool's
+    layout (``_paged``); ``cache['start']``, a host int, is the first
+    position of a prefill chunk of one row (S > 1), which K1 takes as its
+    query offset on one device."""
     b, s, _ = x.shape
     h, dh = cfg.n_heads, cfg.head_dim
     q, k, v = _project(p, x, x if x_kv is None else x_kv, cfg)
@@ -116,6 +131,13 @@ def attention(p, x, cfg: AttnConfig, *, causal: bool = True,
         sharded = sharder is not None and sharder.serves_sharded
         if sharded:
             q, k, v = (sharder.decode_heads(t) for t in (q, k, v))
+        if "table" in cache:
+            o = _paged(q, k, v, cache, cfg, causal,
+                       sharder if sharded else None, backend)
+            o = o.transpose(1, 2).reshape(b, s, h * dh)
+            return L.linear(p["wo"], o), {"k": ck, "v": cv, "pos": pos + s,
+                                          "table": cache["table"]}
+        if sharded:
             _sharded_write(ck, cv, k, v, pos, sharder)
             o = _sharded_decode(q.transpose(1, 2), ck, cv, cfg, pos, causal,
                                 sharder)
@@ -158,8 +180,9 @@ def _sharded_write(ck, cv, k, v, pos, sharder) -> None:
     b, s = k.shape[:2]
     if s != 1:
         raise NotImplementedError(
-            "sharded decode takes one token a step; prefill chunks come "
-            "with paged serving (ROADMAP queue 1 item 6)")
+            "sharded decode into the slot layout takes one token a step; "
+            "prefill chunks on a mesh run in the block pool's layout "
+            "(_paged_write)")
     blk = ck.shape[2]
     local = pos.long().clamp(max=blk * sharder.sp_size - 1) - (
         sharder.sp_index * blk)
@@ -177,15 +200,14 @@ def _sharded_write(ck, cv, k, v, pos, sharder) -> None:
                                        c[:, :, idx])
 
 
-def _decode_partial(q, k, v, cfg: AttnConfig, pos, causal: bool,
-                    first: int):
+def _decode_partial(q, k, v, cfg: AttnConfig, pos, causal: bool, k_pos):
     """One block's softmax partial of decode attention, in float32: q (B,
-    H, Sq, D), k/v a block (B, Hkv, L, D) of the cache holding global
-    positions [first, first + L), masked by global positions (cols <= pos
-    + i, window).  ``pos`` is a scalar (static batch) or a (B,) vector
-    (slot pool: each row masks against its own length).  Returns (B, Hkv,
-    G, Sq, D + 2): the row max m, the sum l of exp(s - m) over the
-    unmasked columns and the unnormalised output o.  A row with every
+    H, Sq, D), k/v a block (B, Hkv, L, D) of the cache whose columns hold
+    the global positions ``k_pos`` (L,), masked by global positions (cols
+    <= pos + i, window).  ``pos`` is a scalar (static batch) or a (B,)
+    vector (slot pool: each row masks against its own length).  Returns
+    (B, Hkv, G, Sq, D + 2): the row max m, the sum l of exp(s - m) over
+    the unmasked columns and the unnormalised output o.  A row with every
     column masked gives m = NEG_INF (finite), l = 0 and o = 0."""
     b, h, sq, d = q.shape
     hkv, blk = k.shape[1], k.shape[2]
@@ -198,7 +220,6 @@ def _decode_partial(q, k, v, cfg: AttnConfig, pos, causal: bool,
     per_row = pos.dim() == 1
     steps = torch.arange(sq, device=q.device)
     q_pos = (pos[:, None] if per_row else pos) + steps
-    k_pos = first + torch.arange(blk, device=q.device)
     mask = torch.ones(tuple(q_pos.shape) + (blk,), dtype=torch.bool,
                       device=q.device)
     if causal:
@@ -232,7 +253,8 @@ def _ref_decode(q, k, v, cfg: AttnConfig, pos, causal: bool):
     """Decode attention with a position offset held in a tensor: q (B, H,
     Sq, D), k/v the whole cache; the softmax of ``_decode_partial`` over
     the one block."""
-    part = _decode_partial(q, k, v, cfg, pos, causal, 0)
+    part = _decode_partial(q, k, v, cfg, pos, causal,
+                           torch.arange(k.shape[2], device=q.device))
     return _merge_partials(part[None], q.shape, q.dtype)
 
 
@@ -242,10 +264,97 @@ def _sharded_decode(q, k, v, cfg: AttnConfig, pos, causal: bool, sharder):
     [r·L, (r+1)·L).  Each rank computes its block's softmax partial, and
     one all-gather over ``model`` of the stacked (m, l, o) gives every
     rank every partial to merge."""
-    part = _decode_partial(q, k, v, cfg, pos, causal,
-                           sharder.sp_index * k.shape[2])
+    blk = k.shape[2]
+    part = _decode_partial(q, k, v, cfg, pos, causal, sharder.sp_index * blk
+                           + torch.arange(blk, device=q.device))
     return _merge_partials(dsp.gather(part[None], 0, sharder.ctx.sp_group),
                            q.shape, q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The block pool's layout (paged serving)
+# ---------------------------------------------------------------------------
+
+def _paged(q, k, v, cache, cfg: AttnConfig, causal: bool, sharder,
+           backend: str):
+    """Paged attention (JAX's ``table`` branch): q/k/v (B, S, H|Hkv, D) of
+    the step, ``cache`` the block pool's row view: ``k``/``v`` (n_blocks,
+    Hkv, b_loc, D), ``table`` (B, blocks_per_slot) of block ids, ``pos``
+    (B,) and, for a chunk, ``start``.  The step's K/V go into the blocks
+    in place (``_paged_write``).  One device, S > 1: a prefill chunk of
+    one row, K1 over the row's blocks (``_paged_chunk``).  Otherwise each
+    row's blocks are gathered whole, (B, Hkv, blocks_per_slot · b_loc,
+    D), and attended in plain PyTorch (``_decode_partial``) with the
+    columns at their global positions: n·b + j for table entry n off a
+    mesh, n·b + r·b_loc + j on rank r of ``sharder``'s mesh, whose
+    partials one all-gather over ``model`` merges (``_sharded_decode``'s
+    single call).  Returns (B, H, S, D)."""
+    ck, cv, table, pos = cache["k"], cache["v"], cache["table"], cache["pos"]
+    sp, r = ((sharder.sp_size, sharder.sp_index) if sharder is not None
+             else (1, 0))
+    _paged_write(ck, cv, k, v, pos, table, sp, r)
+    q = q.transpose(1, 2)
+    if q.shape[2] > 1 and sharder is None:
+        return _paged_chunk(q, ck, cv, table, cache.get("start"), cfg,
+                            causal, backend)
+    b, nbs = table.shape
+    hkv, b_loc, d = ck.shape[1:]
+    blocks = [c[table].transpose(1, 2).reshape(b, hkv, nbs * b_loc, d)
+              for c in (ck, cv)]
+    k_pos = (torch.arange(nbs, device=q.device)[:, None] * (b_loc * sp)
+             + r * b_loc + torch.arange(b_loc, device=q.device)).reshape(-1)
+    part = _decode_partial(q, *blocks, cfg, pos, causal, k_pos)[None]
+    if sharder is not None:
+        part = dsp.gather(part, 0, sharder.ctx.sp_group)
+    return _merge_partials(part, q.shape, q.dtype)
+
+
+def _paged_write(ck, cv, k, v, pos, table, sp: int, r: int) -> None:
+    """Write the step's k/v (B, S, Hkv, D) into the blocks (n_blocks, Hkv,
+    b_loc, D) in place: row i's position p at block ``table[i, p // b]``,
+    offset p % b, b = b_loc · sp; rank r of ``sp`` holds offsets [r·b_loc,
+    (r+1)·b_loc) and writes those.  A position past the row's table (an
+    idle lane stepping past max_len) drops its write, as JAX's scatter
+    drops the out-of-range index its table read gives; it and a position
+    the rank does not hold write back what the garbage block holds there
+    (``block_pool.GARBAGE_BLOCK``, 0), so no live block is touched and no
+    host sync decides which rank owns a position."""
+    b_loc = ck.shape[2]
+    nbs = table.shape[1]
+    p = pos.long()[:, None] + torch.arange(k.shape[1], device=k.device)
+    n = p // (b_loc * sp)
+    off = p % (b_loc * sp) - r * b_loc
+    ok = (n < nbs) & (off >= 0) & (off < b_loc)
+    phys = torch.gather(table, 1, n.clamp(max=nbs - 1))
+    phys = torch.where(ok, phys, torch.zeros_like(phys))
+    off = off.clamp(0, b_loc - 1)
+    for c, t in ((ck, k), (cv, v)):
+        c[phys, :, off] = torch.where(ok[..., None, None], t.to(c.dtype),
+                                      c[phys, :, off])
+
+
+def _paged_chunk(q, ck, cv, table, start, cfg: AttnConfig, causal: bool,
+                 backend: str):
+    """A prefill chunk of one row on one device: q (1, H, c, D) at global
+    positions [start, start + c) against the row's first ceil((start +
+    c) / b) blocks gathered into (1, Hkv, start + c, D), through
+    ``kernels.ops.flash_attention`` at ``q_offset = start`` (K1 on a CUDA
+    tensor, its plain version on the CPU).  ``start`` is a host int, the
+    chunk's offset the scheduler holds; JAX attends the chunk through
+    ``_ref_decode_paged``, the same function."""
+    if q.shape[0] != 1 or start is None:
+        raise ValueError(
+            f"a paged prefill chunk is one row with its start as a host "
+            f"int, got {q.shape[0]} rows, start {start!r}")
+    end = start + q.shape[2]
+    blocks = table[0, :-(-end // ck.shape[2])]
+
+    def row(c):
+        g = c[blocks].transpose(0, 1).reshape(1, c.shape[1], -1, c.shape[3])
+        return g[:, :, :end].to(q.dtype)
+    return flash_attention(q, row(ck), row(cv), causal=causal,
+                           window=cfg.window, softcap=cfg.softcap,
+                           scale=cfg.scale, q_offset=start, backend=backend)
 
 
 def attention_sp(p, x, cfg: AttnConfig, *, sharder=None,

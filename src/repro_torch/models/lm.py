@@ -748,6 +748,41 @@ def init_caches(cfg: LMConfig, batch: int, max_len: int, *, dtype=None,
             "periods": tree_map_with_path(alloc, periods, cspecs)}
 
 
+def init_paged_caches(cfg: LMConfig, max_batch: int, max_len: int,
+                      block_size: int, n_blocks: int, *, device="cuda",
+                      ctx=None, plan: Optional[ParallelPlan] = None):
+    """The block pool's caches (JAX's ``BlockPool._init_caches``): per
+    attention layer {k, v} of (n_periods, n_blocks, Hkv, block_size, Dh)
+    in zeros (a masked column still multiplies v, and 0 x NaN is NaN),
+    ``table`` (max_batch, max_len // block_size) of block ids, every entry
+    the garbage block 0, and ``pos`` (max_batch,).  With ``ctx`` each KV
+    leaf is this rank's within-block slice by ``cache_pspecs(paged=True)``
+    under ``plan``; ``table`` and ``pos`` are whole."""
+    if any(sp.mixer != "attn" for sp in cfg.period_specs()):
+        raise ValueError(
+            "the block pool pages KV caches only; SSM state is O(1) per "
+            "request (nothing to page): serve hybrid and SSM models "
+            "through the slot-based KVPool")
+    dev = resolve_device(device)
+    shape = (cfg.n_periods, n_blocks, cfg.n_kv_heads, block_size,
+             cfg.head_dim)
+    kv_dtype = cfg.cache_dtype or cfg.dtype
+    periods = {str(i): {"kv": {
+        "k": torch.zeros(shape, dtype=kv_dtype, device="meta"),
+        "v": torch.zeros(shape, dtype=kv_dtype, device="meta")}}
+        for i, _ in enumerate(cfg.period_specs())}
+    cspecs = cache_pspecs(periods, plan if ctx is not None
+                          else ParallelPlan(mode="none"), paged=True)
+
+    def alloc(_, a, spec):
+        local = [hi - lo for lo, hi in slice_index(a.shape, spec, ctx)]
+        return torch.zeros(local, dtype=a.dtype, device=dev)
+    return {"pos": torch.zeros((max_batch,), dtype=torch.long, device=dev),
+            "table": torch.zeros((max_batch, max_len // block_size),
+                                 dtype=torch.long, device=dev),
+            "periods": tree_map_with_path(alloc, periods, cspecs)}
+
+
 def vocab_sharded(cfg: LMConfig, sharder: Optional[Sharder]) -> bool:
     """Whether the embedding table is split by vocab row over ``model``
     and read there (the ring's condition, ``sharded_embed``): then the
@@ -825,13 +860,19 @@ def _ffn_block(p, x, cfg: LMConfig, spec: LayerSpec,
 
 
 def _decode_layer(p, x, pc, cfg: LMConfig, spec: LayerSpec, pos,
-                  sharder: Optional[Sharder] = None):
+                  sharder: Optional[Sharder] = None, table=None,
+                  start: Optional[int] = None):
     """One layer of incremental decode; x: (B, S, C), whole on every rank
-    of a mesh.  Writes the layer's cache ``pc`` in place and returns (x,
-    pc)."""
+    of a mesh.  S is 1 for a decode step, or a prefill chunk's length
+    (the paged scheduler feeds prompt slices through this same layer).
+    ``table`` (B, blocks_per_slot) switches attention to the block pool's
+    layout, ``start`` (a host int) is a chunk's first position.  Writes
+    the layer's cache ``pc`` in place and returns (x, pc)."""
     h = _apply_norm(cfg, p["ln1"], x)
     if spec.mixer == "attn":
         cache = {"k": pc["kv"]["k"], "v": pc["kv"]["v"], "pos": pos}
+        if table is not None:
+            cache.update(table=table, start=start)
         h, _ = A.attention(p["attn"], h, cfg.attn_cfg(spec.window),
                            causal=True, cache=cache, sharder=sharder)
     else:
@@ -844,11 +885,17 @@ def _decode_layer(p, x, pc, cfg: LMConfig, spec: LayerSpec, pos,
 
 
 def forward_decode(params, tokens, caches, cfg: LMConfig, *,
-                   sharder: Optional[Sharder] = None):
+                   sharder: Optional[Sharder] = None,
+                   start: Optional[int] = None):
     """tokens: (B, S) -> (logits (B, S, V), caches).  ``caches['pos']`` may
     be a scalar (static batch) or a (B,) per-slot vector (continuous
     batching).  The cache tensors are written in place; the returned dict
-    holds them with ``pos`` advanced by S.
+    holds them with ``pos`` advanced by S.  S is 1 on the decode hot
+    path; the paged scheduler also pushes prefill chunks (S > 1) through
+    here.  A ``caches['table']`` switches to the block pool's layout
+    (``init_paged_caches``): rows write and read through their block
+    table, and ``start`` (a host int, the row's ``pos``) is a one-row
+    chunk's first position, K1's query offset on one device.
 
     With ``sharder`` serving sharded (JAX's ``forward_decode(sharder=)``)
     the tokens are whole on every model rank (the rank's batch slice over
@@ -859,17 +906,20 @@ def forward_decode(params, tokens, caches, cfg: LMConfig, *,
     sharder = sharder or null_sharder()
     specs = cfg.period_specs()
     pos = caches["pos"]
+    table = caches.get("table")
     x = decode_embed(params, tokens, cfg, sharder)
     for pp, pcs in zip(unstack(params["periods"], cfg.n_periods),
                        unstack(caches["periods"], cfg.n_periods)):
         pp = sharder.whole(pp, "periods")
         for j, spec in enumerate(specs):
             x, _ = _decode_layer(pp[str(j)], x, pcs[str(j)], cfg, spec, pos,
-                                 sharder)
+                                 sharder, table=table, start=start)
     x = _apply_norm(cfg, sharder.whole(params["final_norm"], "final_norm"),
                     x)
-    return logits_fn(params, x, cfg, sharder), {
-        "pos": pos + tokens.shape[1], "periods": caches["periods"]}
+    new = {"pos": pos + tokens.shape[1], "periods": caches["periods"]}
+    if table is not None:
+        new["table"] = table
+    return logits_fn(params, x, cfg, sharder), new
 
 
 def prefill_shard_len(cfg: LMConfig, seq: int, n: int) -> int:
@@ -947,7 +997,8 @@ def forward_prefill(params, tokens, cfg: LMConfig, *,
 
 def serve_contract(cfg: LMConfig, n: int, params, plan: ParallelPlan, *,
                    dp: int = 1, prefill=None, decode: Optional[int] = None,
-                   migrate=None, ticks: int = 0
+                   chunk: Optional[int] = None, first_tokens: int = 0,
+                   migrate=None, paged_migrate=None, ticks: int = 0
                    ) -> Dict[str, Dict[str, int]]:
     """The ``torch.distributed`` calls and bytes (``core.dsp``'s rule), by
     kind, that sharded serving issues per rank on a ``(dp, n)`` mesh under
@@ -969,7 +1020,14 @@ def serve_contract(cfg: LMConfig, n: int, params, plan: ParallelPlan, *,
         attention layer one all-gather of the float32 softmax partials
         (``_sharded_decode``), per SSM layer one of y in the model dtype,
         the final norm read, and the logits' table read unless the logits
-        are vocab-sharded;
+        are vocab-sharded.  The block pool's decode step issues exactly
+        these: its partials have the slot layout's shape, and its blocks'
+        gather and scatter stay on the rank;
+      ``chunk=c``: one paged prefill chunk of c tokens of one row (the
+        paged scheduler's, on a mesh: plain partials): a decode step of
+        one row with c tokens in it, without the argmax;
+      ``first_tokens=k``: k argmaxes of one row outside a decode step (the
+        paged scheduler takes one on a prompt's last chunk);
       each argmax: one all-gather of (max, id) pairs in float64 over
         ``model`` where the logits are vocab-sharded (``sharded_argmax``),
         one of the int64 tokens over ``data`` where dp > 1;
@@ -978,6 +1036,10 @@ def serve_contract(cfg: LMConfig, n: int, params, plan: ParallelPlan, *,
         ``slots`` x ``max_len`` that a spec splits, gathered whole on this
         mesh (``reshard``: one all-gather per split entry, ``data``'s of
         size 1 too);
+      ``paged_migrate=(slots, max_len, block_size, n_blocks, n_new)``:
+        the same for the block pool of ``n_blocks`` blocks
+        (``init_paged_caches``): the parameters and each KV leaf gathered
+        whole, the table and ``pos`` not at all;
       ``ticks``: the continuous scheduler's host-loop turns, one broadcast
         of rank 0's clock each.
 
@@ -1052,31 +1114,45 @@ def serve_contract(cfg: LMConfig, n: int, params, plan: ParallelPlan, *,
             add("all-gather", 2 * cfg.n_periods * b * cfg.n_kv_heads
                 * s * n * cfg.head_dim * kv_bytes)
         argmax(b)
-    if decode is not None:
-        r = decode // dp
+    def step(r, s, take_argmax=True):
         if shard_vocab:
-            add("all-reduce", 2 * r * cfg.d_model * a_bytes)
+            add("all-reduce", 2 * r * s * cfg.d_model * a_bytes)
         else:
             read(("embed",))
         periods()
-        add("all-gather", n * r * cfg.n_heads * (cfg.head_dim + 2) * 4,
+        add("all-gather", n * r * cfg.n_heads * s * (cfg.head_dim + 2) * 4,
             n_attn)
         if n_ssm:
-            add("all-gather", r * cfg.ssm_cfg.d_inner * a_bytes, n_ssm)
+            add("all-gather", r * s * cfg.ssm_cfg.d_inner * a_bytes, n_ssm)
         read(("final_norm",))
         if not shard_vocab:
             read((key,))
-        argmax(r)
-    if migrate is not None:
-        slots, max_len, _ = migrate
+        if take_argmax:
+            argmax(r)
+
+    def moved(pool, cspecs):
         for leaf, sp in zip(tree_leaves(params), tree_leaves(specs)):
             for numel in _gathered_numels(tuple(leaf.shape), sp, sizes):
                 add("all-gather", numel * leaf.element_size())
-        pool = init_caches(cfg, slots, max_len, per_slot_pos=True,
-                           device="meta")
-        cspecs = cache_pspecs(pool, plan)
         for leaf, sp in zip(tree_leaves(pool), tree_leaves(cspecs)):
             for numel in _gathered_numels(tuple(leaf.shape), sp, sizes):
                 add("all-gather", numel * leaf.element_size())
+
+    if decode is not None:
+        step(decode // dp, 1)
+    if chunk is not None:
+        step(1, chunk, take_argmax=False)
+    for _ in range(first_tokens):
+        argmax(1)
+    if migrate is not None:
+        slots, max_len, _ = migrate
+        pool = init_caches(cfg, slots, max_len, per_slot_pos=True,
+                           device="meta")
+        moved(pool, cache_pspecs(pool, plan))
+    if paged_migrate is not None:
+        slots, max_len, block, n_blocks, _ = paged_migrate
+        pool = init_paged_caches(cfg, slots, max_len, block, n_blocks,
+                                 device="meta")
+        moved(pool, cache_pspecs(pool, plan, paged=True))
     add("broadcast", 8, ticks)
     return {"calls": calls, "bytes": nbytes}

@@ -384,10 +384,19 @@ def reshard(tree, old_specs, old_ctx: Optional[ParallelContext], new_specs,
 # slot holds the same share of its history on every rank and slots come and
 # go with no resharding; the SSM state is split by head; ``conv`` and
 # ``pos`` are whole.  The slot (batch) dim is split over ``data``.
+#
+# The block pool (``serving.block_pool``) holds KV as (periods, blocks, Hkv,
+# block_size, D): the within-block sequence dim is split over ``model`` the
+# same way (rank r holds offsets [r·b/n, (r+1)·b/n) of every block), and the
+# block dim is whole, so a block id names the same slice on every rank and
+# alloc, free and share are host bookkeeping.
 # ---------------------------------------------------------------------------
 
 KV_SEQ_DIM = 3          # (periods, slots, Hkv, S, D): the sequence axis
 SLOT_DIM = 1            # (periods, slots, ...): the slot/batch axis
+BLOCK_DIM = 1           # (periods, blocks, Hkv, block, D): the paged block
+                        # axis, never split (blocks are scattered per
+                        # request by a host-side table)
 
 
 def is_kv_leaf(path, leaf) -> bool:
@@ -398,19 +407,20 @@ def is_kv_leaf(path, leaf) -> bool:
             and getattr(leaf, "ndim", 0) == KV_SEQ_DIM + 2)
 
 
-def cache_pspecs(caches, plan: ParallelPlan):
-    """The spec tree of a cache or slot-pool tree (JAX's rules for the
-    slot layout): KV (periods, slots, Hkv, S, D) split over ``model`` on
-    the sequence under ``dsp``/``tp``, the SSM ``state`` (periods, slots,
-    H, P, S) over ``model`` by head, ``conv`` whole; the slot dim over
-    ``data``; ``pos`` (a scalar or the pool's per-slot vector) whole.
-    JAX's ``paged=True`` rule comes with paged serving (ROADMAP queue 1
-    item 6)."""
+def cache_pspecs(caches, plan: ParallelPlan, *, paged: bool = False):
+    """The spec tree of a cache or slot-pool tree (JAX's rules): KV
+    (periods, slots, Hkv, S, D) split over ``model`` on the sequence
+    under ``dsp``/``tp``, the SSM ``state`` (periods, slots, H, P, S) over
+    ``model`` by head, ``conv`` whole; the slot dim over ``data``; ``pos``
+    (a scalar or the pool's per-slot vector) whole.  ``paged``: the block
+    pool's KV (periods, blocks, Hkv, block_size, D), the within-block
+    sequence over ``model`` and the block dim (``BLOCK_DIM``) never split;
+    its ``table`` and ``pos`` whole."""
     seq = "model" if plan.mode in ("dsp", "tp") else None
 
     def rule(path, leaf):
         if "k" in path or "v" in path:
-            return (None, "data", None, seq, None)
+            return (None, None if paged else "data", None, seq, None)
         if "state" in path:
             return (None, "data", seq, None, None)
         if "conv" in path:
@@ -423,7 +433,9 @@ def kv_block(ctx: Optional[ParallelContext], plan: ParallelPlan,
              seq_len: int) -> Tuple[int, int]:
     """(start, stop): the positions of a ``seq_len``-long KV cache this
     rank holds under ``cache_pspecs`` (``slice_index`` on the sequence
-    dim); the whole cache without a mesh."""
+    dim); the whole cache without a mesh.  In the paged layout pass the
+    block size: the within-block offsets [r·b/n, (r+1)·b/n) that rank r
+    holds of every block."""
     spec = (None, None, None, "model" if plan.mode in ("dsp", "tp")
             else None, None)
     return slice_index((1, 1, 1, seq_len, 1), spec, ctx)[KV_SEQ_DIM]
@@ -435,7 +447,9 @@ def assert_kv_cache_on_mesh(caches, ctx: Optional[ParallelContext],
     tensors) holds the block of a ``seq_len``-long cache that
     ``cache_pspecs`` gives it: ``seq_len / n`` positions, rank r the r-th
     contiguous block (``kv_block``), so that its n blocks tile the
-    sequence.  A no-op off a mesh or under plan ``none``."""
+    sequence.  For the block pool ``seq_len`` is the block size: rank r
+    holds offsets [r·b/n, (r+1)·b/n) of every block.  A no-op off a mesh
+    or under plan ``none``."""
     sp = ctx.sp_size if ctx is not None else 1
     if sp <= 1 or plan.mode not in ("dsp", "tp"):
         return
@@ -818,5 +832,6 @@ __all__ = ["ParallelPlan", "Sharder", "make_sharder", "null_sharder",
            "param_pspecs", "mesh_sizes", "shard_params", "gather_params",
            "unshard_params", "entry_axes", "split_axes", "reduce_axes",
            "global_shape", "slice_index", "param_copies", "reshard",
-           "KV_SEQ_DIM", "SLOT_DIM", "is_kv_leaf", "cache_pspecs",
-           "kv_block", "assert_kv_cache_on_mesh", "tree_map_with_path"]
+           "KV_SEQ_DIM", "SLOT_DIM", "BLOCK_DIM", "is_kv_leaf",
+           "cache_pspecs", "kv_block", "assert_kv_cache_on_mesh",
+           "tree_map_with_path"]

@@ -19,11 +19,13 @@ caches itself (``KVPool.migrate``).
 ``generate`` is the static-batch loop: one shared prefill, then all live
 sequences step together.  Per-request ``max_new_tokens`` and EOS
 early-exit are handled by masking outside the decode step.  ``serve(...,
-continuous=True)`` delegates to ``serving.scheduler.ContinuousScheduler``;
-the static loop stays as the reference path and the parity oracle for it.
+continuous=True)`` delegates to ``serving.scheduler.ContinuousScheduler``,
+``serve(..., paged=True)`` to ``serving.scheduler.PagedScheduler`` (the
+block pool, the prefix tree and chunked prefill through ``_chunk``); the
+static loop stays as the reference path and the parity oracle for both.
 Decode attends and advances the SSM state in plain PyTorch, as the JAX
-package's decode does in jnp.  Paged serving comes with ROADMAP queue 1
-item 6.
+package's decode does in jnp; a paged prefill chunk on one device goes
+through K1.
 """
 from __future__ import annotations
 
@@ -225,6 +227,26 @@ class ServingEngine:
                                  sharder=sh)
 
     @torch.no_grad()
+    def _chunk(self, tokens, caches, slot: int, start: int):
+        """One prefill chunk of a block-pool slot (JAX's ``_chunk_impl``):
+        tokens (1, c), whole on every rank, advance ``slot``'s row of the
+        pool through the decode path's layers (per-row position masking
+        makes c > 1 causal), so a long prompt streams into its blocks
+        slice by slice while the rest of the pool decodes between slices.
+        ``start`` is the row's position, a host int the scheduler holds: K1
+        takes it as its query offset on one device.  Returns (logits (1, c,
+        V or the rank's vocab chunk), caches with the slot's ``pos``
+        advanced by c)."""
+        tokens = torch.as_tensor(tokens, device=self.device)
+        row = {"pos": caches["pos"][slot:slot + 1],
+               "table": caches["table"][slot:slot + 1],
+               "periods": caches["periods"]}
+        logits, new = LM.forward_decode(self.params, tokens, row, self.cfg,
+                                        sharder=self.sharder, start=start)
+        caches["pos"][slot:slot + 1] = new["pos"]
+        return logits, caches
+
+    @torch.no_grad()
     def next_tokens(self, logits) -> torch.Tensor:
         """The greedy tokens (B,) of the whole batch, the same on every
         rank: the argmax of the last position over the vocab
@@ -316,16 +338,31 @@ class ServingEngine:
               eos_id: Optional[int] = None, pad_id: int = 0,
               continuous: bool = False, max_batch: Optional[int] = None,
               token_budget: Optional[int] = None, stream=None,
-              scheduler=None):
+              scheduler=None, paged: bool = False, block_size: int = 16,
+              n_blocks: Optional[int] = None, prefix_cache: bool = True,
+              prefill_chunk: Optional[int] = None):
         """Serve a list of Requests, filling ``Request.result`` on each.
 
         ``continuous=True`` delegates to ``ContinuousScheduler``: FIFO
         admission on arrival times, ``max_batch`` recycled slots, per-token
-        ``stream`` callbacks, latency metrics.  Pass ``scheduler`` to keep
-        its pool and metrics across calls.  The default static path is the
-        reference oracle: one lockstep batch (equal prompt lengths), and
-        continuous serving is token-identical to it.
+        ``stream`` callbacks, latency metrics.  ``paged=True`` (implies
+        continuous) serves through ``PagedScheduler`` instead:
+        ``block_size``-token KV blocks (``n_blocks`` of them, full
+        capacity by default), a radix prefix cache (``prefix_cache``) and
+        chunked prefill (``prefill_chunk`` tokens a slice; None: one slice
+        a prompt).  Pass ``scheduler`` to keep its pool and metrics across
+        calls.  The default static path is the reference oracle: one
+        lockstep batch (equal prompt lengths), and continuous serving,
+        slot-based and paged, is token-identical to it.
         """
+        if paged:
+            from repro_torch.serving.scheduler import PagedScheduler
+            sched = scheduler or PagedScheduler(
+                self, max_batch or min(len(requests), 8),
+                block_size=block_size, n_blocks=n_blocks,
+                prefix_cache=prefix_cache, prefill_chunk=prefill_chunk)
+            sched.run(requests, stream=stream, eos_id=eos_id)
+            return requests
         if continuous:
             from repro_torch.serving.scheduler import ContinuousScheduler
             sched = scheduler or ContinuousScheduler(

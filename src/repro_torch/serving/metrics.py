@@ -1,6 +1,6 @@
 """Serving metrics: per-request latency breakdown + engine-level counters
-(a copy of ``repro.serving.metrics`` without the paged-serving counters,
-which come with the paged scheduler; the port imports nothing of ``repro``).
+(a copy of ``repro.serving.metrics``; the port imports nothing of
+``repro``).
 
 Per request the scheduler records the classic serving triple —
 
@@ -15,7 +15,9 @@ Engine-level, ``EngineMetrics`` aggregates throughput (generated tokens per
 second of wall time), slot occupancy (mean fraction of the pool's slots
 active per decode step), and allocation counters (slot reuse shows up as
 ``slots_allocated > max_batch``).  ``summary()``/``to_json()`` export one
-flat dict, the JAX package's schema less its paged-serving keys.
+flat dict, the JAX package's schema: one key set for the static, slot
+and paged paths, the paged counters (prefill chunks, prefix-hit tokens,
+block gauges) zero or None where no block pool runs.
 """
 from __future__ import annotations
 
@@ -83,6 +85,15 @@ class EngineMetrics:
         self.prefills = 0
         self.slots_allocated = 0
         self.tokens_generated = 0
+        # paged serving (block pool + prefix tree + chunked prefill);
+        # zero/None on the slot-based and static paths — ONE schema for
+        # every arm so the bench JSON diffs cleanly
+        self.prefill_chunk_steps = 0
+        self.prefix_hit_tokens = 0
+        self.prompt_tokens = 0
+        self.blocks_in_use: Optional[int] = None     # latest gauge
+        self.blocks_free: Optional[int] = None
+        self.peak_blocks_in_use = 0
         self._occupancy_sum = 0.0
         self._elapsed_accum = 0.0        # closed segments (scheduler reuse)
         self.start_time: Optional[float] = None
@@ -116,6 +127,22 @@ class EngineMetrics:
         self.tokens_generated += n
         self.finish_time = now
 
+    def record_chunk(self) -> None:
+        """One chunked-prefill slice pushed through the decode cell."""
+        self.prefill_chunk_steps += 1
+
+    def record_prefix(self, hit_tokens: int, prompt_tokens: int) -> None:
+        """One admission's prefix-cache outcome: ``hit_tokens`` of the
+        request's ``prompt_tokens`` were served from shared blocks."""
+        self.prefix_hit_tokens += hit_tokens
+        self.prompt_tokens += prompt_tokens
+
+    def record_blocks(self, in_use: int, free: int) -> None:
+        """Block-pool occupancy gauge (latest value + running peak)."""
+        self.blocks_in_use = in_use
+        self.blocks_free = free
+        self.peak_blocks_in_use = max(self.peak_blocks_in_use, in_use)
+
     # -- export --------------------------------------------------------------
 
     @property
@@ -148,6 +175,13 @@ class EngineMetrics:
             "tpot_p99_s": percentile(tpots, 99),
             "queue_wait_p50_s": percentile(waits, 50),
             "queue_wait_p99_s": percentile(waits, 99),
+            "prefill_chunk_steps": self.prefill_chunk_steps,
+            "prefix_hit_tokens": self.prefix_hit_tokens,
+            "prefix_hit_rate": (self.prefix_hit_tokens / self.prompt_tokens
+                                if self.prompt_tokens else None),
+            "blocks_in_use": self.blocks_in_use,
+            "blocks_free": self.blocks_free,
+            "peak_blocks_in_use": self.peak_blocks_in_use,
             "padded_rows": sum(1 for r in self.requests if r.padded),
             **self.extra,
         }

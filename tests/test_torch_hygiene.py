@@ -37,7 +37,8 @@ for want in ("repro_torch.serving.scheduler", "repro_torch.train.trainer",
              "repro_torch.parallel.partition",
              "repro_torch.train.checkpoint", "repro_torch.optim.compress",
              "repro_torch.serving.engine", "repro_torch.serving.kv_pool",
-             "repro_torch.launch.serve"):
+             "repro_torch.serving.block_pool",
+             "repro_torch.serving.prefix_tree", "repro_torch.launch.serve"):
     assert want in mods, (want, mods)
 from repro_torch.core.schedule import ScheduleExecutor2D
 from repro_torch.models.transformer2d import (
@@ -45,7 +46,9 @@ from repro_torch.models.transformer2d import (
 from repro_torch.launch.mesh import elastic_submesh, resolve_topology
 from repro_torch.models.lm import serve_contract, sharded_argmax
 from repro_torch.parallel.partition import (
-    assert_kv_cache_on_mesh, cache_pspecs, reshard)
+    BLOCK_DIM, assert_kv_cache_on_mesh, cache_pspecs, reshard)
+from repro_torch.serving import (GARBAGE_BLOCK, BlockPool, PagedScheduler,
+                                 PrefixTree)
 """
 
 
@@ -72,7 +75,8 @@ assert not bad, bad
                                     "_torch_lmdsp_worker.py",
                                     "_torch_zero_worker.py",
                                     "_torch_ckpt_worker.py",
-                                    "_torch_serve_worker.py"])
+                                    "_torch_serve_worker.py",
+                                    "_torch_paged_worker.py"])
 def test_gloo_workers_import_no_jax_and_no_repro(worker):
     """The port's side of each multi-process check (a gloo rank) loads, with
     the helpers it shares with its JAX side, nothing of JAX or of the JAX
@@ -96,6 +100,8 @@ def test_entry_points_default_to_cuda(no_cuda):
         lm.init_lm(0, cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         lm.init_caches(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_paged_caches(cfg, 1, 16, 16, 2)
     params = lm.init_lm(0, cfg, device="cpu")
     for kw in ({}, {"device": "cuda"}):
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -121,9 +121,10 @@ def test_serve_cli_continuous_equals_static(capsys, tmp_path):
     reqs = main(args + ["--continuous", "--max-batch", "2"])
     assert [r.generated for r in reqs] == static.tolist()
     assert '"tokens_generated": 12' in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="not yet ported; paged serving "
-                       "comes with ROADMAP queue 1 item 6"):
-        main(args + ["--paged"])
+    # --paged is ported: the paged scheduler's tokens are the static path's
+    paged = main(args + ["--paged", "--max-batch", "2"])
+    assert [r.generated for r in paged] == static.tolist()
+    assert "prefill chunks" in capsys.readouterr().out
     # --ckpt-dir is ported: a directory with no checkpoint raises
     with pytest.raises(FileNotFoundError, match="no checkpoints"):
         main(args + ["--ckpt-dir", str(tmp_path)])

@@ -320,7 +320,6 @@ def test_serve_cli_continuous_under_torchrun(tmp_path, capsys):
     (["--topology", "ici"], "TPU link preset"),
     (["--mode", "tp"], "item 7"),
     (["--devices", "4"], "torchrun --nproc-per-node"),
-    (["--paged"], "item 6"),
     (["--hosts", "2"], "standing notes"),
 ])
 def test_serve_cli_exits_for_what_is_not_ported(flags, message, tmp_path):
