@@ -31,7 +31,10 @@ Phases, in order; any failure raises and exits non-zero:
    ``SERVE_RANK_SSD``); and K1 at the shapes phase 20 (a)'s prefill
    chunks give it, bf16 on ``sm90``: 512 queries at offset L - 512
    against L keys for L in 512, 1024, 1536, 2048, and a ragged 64-token
-   chunk at offset 1024 (``PAGED_ATTN``);
+   chunk at offset 1024 (``PAGED_ATTN``); and K1 at the shapes a rank of
+   phase 21 (b) gives it, f32 on ``cuda_cores``: 4 folded frames of a
+   spatial block, the 2048 folded patches of a temporal one
+   (``T2D_ZERO_ATTN``);
 4. time each kernel, its plain version and, where one exists, one PyTorch
    library call that computes the same function (a yardstick the port
    never calls); K1's routed kernel and the library call three times each
@@ -206,7 +209,7 @@ Phases, in order; any failure raises and exits non-zero:
     (K2) launch 320 (384) times on ``sm90``, and the calls and bytes must
     be exactly ``lm.serve_contract``'s; (b) 4 processes sharing the card
     over gloo, each this script with ``--serve-rank``, qwen3-14b at depth
-    4 and mamba2-370m at full depth on a (1, 4) mesh: the teacher-forced
+    2 and mamba2-370m at full depth on a (1, 4) mesh: the teacher-forced
     logits (SERVE_FORCED requests, SERVE_FORCED_STEPS decode steps on the
     one-rank reference's tokens) under SERVE_PLAN within LOGIT_BAR of the
     reference's, at each forced check's depth and dtype (mamba2: full
@@ -245,15 +248,41 @@ Phases, in order; any failure raises and exits non-zero:
     softmax partials); (c) the serve CLI ``--paged --prefill-chunk 8`` on
     the card and under ``torchrun --nproc-per-node 4 ... --mode dsp
     --backend gloo``, the ranks' tokens one card's;
-21. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
+21. transformer2d-720m under its spec's own plan
+    (``ParallelPlan(mode="dsp", zero=True, shard_vocab=False)``): the
+    parameters laid out by ``param_pspecs`` and cut to each rank's slices
+    (ZeRO-3 over ``("data", "model")`` flattened), each checkpointed group
+    of block pairs gathering its weights inside its checkpoint
+    (``t2d_loss(param_specs=)``), AdamW's state made from the slices
+    (``Trainer(param_specs=)``): (a) at world size 1 over NCCL, phase 13's
+    first step's loss and every grad again in the layout, bit-equal to
+    phase 13's path, then phase 13's four steps: the losses bit-equal to
+    phase 13's (or within 1e-5 relative where the clip's norm from slices
+    sums in another order, the grad norms shown), the calls and bytes
+    exactly ``transformer2d.step_contract`` each step (the planned
+    all-to-alls three times over plus ``transformer2d.param_contract``;
+    ``t2d_zero_contract``), K1
+    224 launches on ``sm90`` at head dim 72, step time and peak memory
+    logged beside phase 13's; (b) 4 processes sharing the card over gloo,
+    each this script with ``--t2d-zero-rank``, at depth 4 in f32 on 2 x 8
+    frames x 4096 patches, at (2, 2) and (1, 4): the loss and the clip's
+    norm within 1e-5 relative of one rank without ZeRO, each rank's slice
+    of every grad within 1e-4 of its leaf's max, per rank the contract's
+    calls and bytes exactly and 8 K1 launches on ``cuda_cores``, peak
+    memory logged; then one Trainer step at (2, 2) saved and restored by
+    a fresh Trainer at (1, 4), its state bit-equal to the saved state's
+    (1, 4) slices;
+22. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
     counts over the paths above (K1 320 + 32 + 224 + 224 + phase 14's
     training runs, 16 per mode, 8 for ring and hybrid, + phase 15 (a)'s
     28 + phase 16 (a)'s 32 + phase 17 (a)'s 32 + phase 19 (a)'s 320 +
-    phase 20 (a)'s 720; K2 576 + 384 + phase 16 (a)'s 192 + phase 17
-    (a)'s 192 + phase 18 (a)'s 2 x 48 x 12 = 1152 + phase 19 (a)'s 384)
+    phase 20 (a)'s 720 + phase 21 (a)'s 224; K2 576 + 384 + phase 16
+    (a)'s 192 + phase 17 (a)'s 192 + phase 18 (a)'s 2 x 48 x 12 = 1152 +
+    phase 19 (a)'s 384)
     and whose ``launches_by_route`` split that sum by the route each
     launch took (every one ``sm90``), with phase 19 (b)'s and 20 (b)'s
-    per rank beside and phase 4's chunk timings, then the last line
+    per rank beside (phase 21 (b)'s too) and phase 4's chunk timings,
+    then the last line
     ``{"ok": true, "device": {...}}``.
 
 Each phase's header logs the seconds since the start and the host's
@@ -302,8 +331,8 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import transformer2d as t2d  # noqa: E402
 from repro_torch.optim.adamw import OptConfig  # noqa: E402
 from repro_torch.parallel.partition import (  # noqa: E402
-    ParallelPlan, make_sharder, mesh_sizes, param_pspecs, shard_params,
-    slice_index, unshard_params)
+    ParallelPlan, make_sharder, mesh_sizes, param_pspecs, reshard,
+    shard_params, slice_index, unshard_params)
 from repro_torch.serving.block_pool import BlockPool  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 from repro_torch.serving.kv_pool import KVPool  # noqa: E402
@@ -459,8 +488,9 @@ CKPT_SSD = tuple((CKPT_BATCH, TRAIN_SEQ, _M.n_heads // n, _M.head_dim,
 # one-rank reference at the same depth: the logits of SERVE_FORCED_STEPS
 # decode steps fed the reference's tokens within LOGIT_BAR, and on the
 # replan case replan(SERVE_REPLAN_TO) at decode step SERVE_REPLAN_STEP.
-# qwen3-14b's 40 layers whole on 4 ranks would need ~118 GB: depth 4
-# On the 4 ranks the CLI's plan holds the teacher-forced check: the
+# qwen3-14b's 40 layers whole on 4 ranks would need ~118 GB: depth 2
+# (depth 4 until the DiT's ZeRO phase 21 needed its seconds).  On the 4
+# ranks the CLI's plan holds the teacher-forced check: the
 # SERVE_FORCED requests (the shortest and the longest prompt) and
 # SERVE_FORCED_STEPS decode steps.  The trace itself runs under
 # SERVE_RANK_PLAN, the same without ZeRO: ZeRO gathers every weight a
@@ -477,7 +507,7 @@ SERVE_RANK_PLAN = ParallelPlan(mode="dsp", zero=False)
 # stay within 7.6e-4 of one card; so its full-depth forced check runs in
 # f32 (K2 on ``cuda_cores``), and a depth-4 one in bf16 holds K2's
 # ``sm90`` route; the trace runs in bf16 (on ``sm90``)
-SERVE_RANK_CASES = (("qwen3-14b", 4, True, ((4, torch.bfloat16),)),
+SERVE_RANK_CASES = (("qwen3-14b", 2, True, ((2, torch.bfloat16),)),
                     ("mamba2-370m", None, False,
                      ((None, torch.float32), (4, torch.bfloat16))))
 SERVE_FORCED, SERVE_FORCED_STEPS = (0, N_REQUESTS - 1), 4
@@ -560,6 +590,29 @@ DIT_SLICE = (4, DIT_HEADS, DIT_HEADS, DIT_PATCHES, DIT_PATCHES, DIT_DH,
              False, None, None)
 # the route every K1 launch of the DiT (bf16 at head dim 72) must take
 DIT_ROUTE = "sm90"
+# the DiT's ZeRO phase (21): transformer2d-720m under its spec's own plan,
+# ZeRO-3 over ("data", "model"): (a) phase 13's four steps at world size 1
+# over NCCL, the first step's loss and grads bit-equal to phase 13's path,
+# the losses bit-equal to phase 13's (or within T2D_ZERO_LOSS_BAR where
+# the clip's norm from slices sums in another order); (b) DSP_RANKS
+# processes sharing the card over gloo at each mesh of T2D_ZERO_MESHES,
+# depth T2D_ZERO_DEPTH at T2D_ZERO_BATCH x T2D_ZERO_FRAMES x DIT_PATCHES in
+# float32 against one rank without ZeRO: the loss within T2D_ZERO_LOSS_BAR
+# relative and each grad slice within T2D_ZERO_GRAD_BAR of its leaf's max
+# (tests/test_torch_t2d_zero.py's bars; in bf16 each rank's partial grads
+# round to 8 bits before the reduce-scatter sums them, ~4e-3 of a leaf),
+# then a (2, 2) checkpoint restored at (1, 4) bit for bit
+T2D_ZERO_DEPTH, T2D_ZERO_BATCH, T2D_ZERO_FRAMES = 4, 2, 8
+T2D_ZERO_MESHES = ((2, 2), (1, 4))
+T2D_ZERO_LOSS_BAR, T2D_ZERO_GRAD_BAR = 1e-5, 1e-4
+# K1 at the shapes a rank of (b) gives it at either mesh, in float32: 4
+# folded frames of a spatial block, the 2048 folded patches of a temporal
+# block's 8 frames
+T2D_ZERO_ATTN = (
+    (4, DIT_HEADS, DIT_HEADS, DIT_PATCHES, DIT_PATCHES, DIT_DH, False, None,
+     None),
+    (2048, DIT_HEADS, DIT_HEADS, T2D_ZERO_FRAMES, T2D_ZERO_FRAMES, DIT_DH,
+     False, None, None))
 
 
 # the card's name and power limit (phase 1), logged beside every time
@@ -1044,7 +1097,8 @@ def full_width_train(cfg, kernel, batch_size, n_steps,
 
 def run_trainer(init, loss_fn, data_fn, kernel, *, tokens, n_steps,
                 n_layers, route, device="cuda", mesh=None,
-                launches_per_step=None, sharder=None) -> dict:
+                launches_per_step=None, sharder=None,
+                param_specs=None) -> dict:
     """``n_steps`` AdamW steps of the port's Trainer from ``init()``'s
     params, with every launch counter set to 0 just before and read just
     after.  ``kernel`` (K1's or K2's wrapper) must launch
@@ -1056,7 +1110,8 @@ def run_trainer(init, loss_fn, data_fn, kernel, *, tokens, n_steps,
     memory.  With ``mesh``, or the ``sharder`` of ``loss_fn`` on one (its
     ``param_specs`` the layout of ``init()``'s slices), the Trainer runs
     on it, and the ``torch.distributed`` calls of the run and their bytes
-    are returned by kind."""
+    are returned by kind; a loss with no sharder gives the layout as
+    ``param_specs`` beside ``mesh``."""
     if launches_per_step is None:
         launches_per_step = 2 * n_layers
     t0 = time.perf_counter()
@@ -1069,7 +1124,8 @@ def run_trainer(init, loss_fn, data_fn, kernel, *, tokens, n_steps,
         loss_fn=loss_fn, params=params,
         opt_cfg=OptConfig(peak_lr=3e-4, warmup_steps=2, total_steps=n_steps),
         cfg=TrainerConfig(total_steps=n_steps, log_every=1),
-        data_fn=data_fn, device=device, mesh=mesh, sharder=sharder)
+        data_fn=data_fn, device=device, mesh=mesh, sharder=sharder,
+        param_specs=param_specs)
     del params
     steps = []
     inner = trainer.step_fn
@@ -4126,6 +4182,390 @@ def paged_clis(serve_main, work: str) -> None:
                              f"{text[-2000:]}{out.stderr[-3000:]}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the DiT under its spec's own plan (ZeRO-3 over ("data", "model"))
+# ---------------------------------------------------------------------------
+
+def t2d_zero_layout(cfg, mesh, device="cuda") -> dict:
+    """``cfg``'s parameters from seed 0, modulation perturbed as phase 12's
+    training's (``perturb_modulation`` seed 6), under transformer2d-720m's
+    own plan on ``mesh``: the whole tree laid out by ``param_pspecs`` and
+    cut to this rank's slices (``shard_params``; at one rank each slice
+    is the whole leaf), and the whole tree's shapes (``meta_tree``) for
+    ``t2d_zero_contract``."""
+    plan = transformer2d_720m.SPEC.plan
+    ctx = from_mesh(mesh)
+    params = perturb_modulation(t2d.init_t2d(0, cfg, device=device), 6)
+    specs = param_pspecs(params, plan, axis_sizes=mesh_sizes(ctx))
+    return {"params": shard_params(params, specs, ctx), "specs": specs,
+            "plan": plan, "meta": meta_tree(params)}
+
+
+def t2d_zero_contract(cfg, lay: dict, shape, batch: int,
+                      frames: int) -> dict:
+    """{kind: [calls, bytes]} per rank of one loss of ``cfg`` with remat,
+    its grads, their sums and the clip's norm in ``lay``'s layout
+    (``t2d_zero_layout``) on a ``shape`` (data, model) mesh at a global
+    ``batch`` x ``frames`` x DIT_PATCHES: ``t2d.step_contract`` (the
+    planned all-to-alls three times over plus ``t2d.param_contract``)."""
+    step = t2d.step_contract(cfg, lay["meta"], lay["plan"],
+                             {"data": shape[0], "model": shape[1]},
+                             batch=batch, frames=frames, patches=DIT_PATCHES)
+    return {k: [c, step["bytes"][k]] for k, c in step["calls"].items()}
+
+
+def t2d_first_step(cfg, mesh, lay=None, device="cuda"):
+    """Phase 13's first step's loss and grads (its init, its first batch
+    at DIT_BATCH x DIT_FRAMES x DIT_PATCHES, remat group
+    DIT_REMAT_GROUP), summed by ``allreduce_grads``: on the whole
+    parameters over the world (``lay`` None, phase 13's path), or on
+    ``lay``'s slices (``t2d_zero_layout``), each grad over the dims its
+    leaf is not split over.  Returns (loss, [grad leaves])."""
+    if lay is None:
+        params = perturb_modulation(t2d.init_t2d(0, cfg, device=device), 6)
+        specs = ctx = None
+    else:
+        params, specs, ctx = lay.pop("params"), lay["specs"], from_mesh(mesh)
+    leaves = lm.tree_map(lambda p: p.detach().requires_grad_(True), params)
+    del params
+    batch = t2d.shard_video_batch(dit_batch(cfg, DIT_FRAMES, 0, device), mesh)
+    loss, _ = t2d.t2d_loss(leaves, batch, cfg, backend="kernel",
+                           remat_group=DIT_REMAT_GROUP, mesh=mesh,
+                           param_specs=specs)
+    grads = iter(torch.autograd.grad(loss, lm.tree_leaves(leaves)))
+    loss, grads = allreduce_grads(loss.detach(), lm.tree_map(
+        lambda p: next(grads), leaves), specs, ctx)
+    return loss, lm.tree_leaves(grads)
+
+
+def t2d_zero_rank_cfg():
+    """(b)'s model: transformer2d-720m at full width, depth T2D_ZERO_DEPTH,
+    in float32."""
+    return dataclasses.replace(transformer2d_720m.CONFIG,
+                               n_layers=T2D_ZERO_DEPTH, dtype=torch.float32)
+
+
+def t2d_zero_batch(cfg, step: int, device="cuda") -> dict:
+    """(b)'s global batch of step ``step``: T2D_ZERO_BATCH x
+    T2D_ZERO_FRAMES x DIT_PATCHES, the same on every rank."""
+    dcfg = DataConfig(task="video", batch=T2D_ZERO_BATCH,
+                      temporal=T2D_ZERO_FRAMES, spatial=DIT_PATCHES,
+                      in_dim=cfg.in_dim)
+    return t2d.model_dtype_batch(make_batch(dcfg, step, device=device), cfg)
+
+
+def t2d_zero_world_of_one(cfg, phase13: dict, work: str,
+                          device="cuda") -> dict:
+    """(a) At world size 1 on a (1, 1) mesh over NCCL, phase 13's training
+    under transformer2d-720m's own plan: the parameters and AdamW's state
+    in the ZeRO-3 layout (each slice the whole leaf, each gather a copy).
+    The first step's loss and every grad must equal phase 13's path's bit
+    for bit; then DIT_STEPS steps through the Trainer, whose calls and
+    bytes must be exactly ``t2d_zero_contract`` a step, whose K1 launches
+    must be phase 13's (224, all DIT_ROUTE at head dim 72), and whose
+    losses must equal phase 13's: bit for bit, or, where the clip's norm
+    from slices (``slices_norm``) sums in another order than
+    ``apply_adamw``'s (the grad norms then differ, and the log shows
+    them), within T2D_ZERO_LOSS_BAR relative.  Step time and peak memory
+    are logged beside phase 13's.  Then (b)'s reference: one rank without
+    ZeRO or mesh, ``t2d_zero_rank_cfg`` on the first
+    ``t2d_zero_batch``, its loss and grads written to ``work``.  What
+    earlier phases still hold on the card is logged first: the peaks
+    count it."""
+    free_device()
+    held = torch.cuda.memory_allocated() / 1e9
+    log(f"  held on the card before the phase: {held:.2f} GB")
+    backend = BACKEND_OF[torch.device(device).type]
+    dist.init_process_group(backend, store=dist.FileStore(
+        os.path.join(work, "store21a"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), torch.device(device).type)
+        ref_loss, ref_grads = t2d_first_step(cfg, mesh, device=device)
+        lay = t2d_zero_layout(cfg, mesh, device)
+        loss, grads = t2d_first_step(cfg, mesh, lay, device)
+        same = [torch.equal(a.float(), b.float())
+                for a, b in zip(grads, ref_grads)]
+        log_t(f"  first step: loss {float(loss):.9f} against phase 13's "
+              f"path's {float(ref_loss):.9f}, bit-equal "
+              f"{torch.equal(loss, ref_loss)}; grads bit-equal in "
+              f"{sum(same)} of {len(same)} leaves")
+        if not (torch.equal(loss, ref_loss) and all(same)):
+            raise AssertionError("the ZeRO-3 first step differs from phase "
+                                 "13's path")
+        del grads, ref_grads, lay
+        torch.cuda.empty_cache()
+        lay = t2d_zero_layout(cfg, mesh, device)
+        specs = lay["specs"]
+        contract = t2d_zero_contract(cfg, lay, (1, 1), DIT_BATCH,
+                                     DIT_FRAMES)
+        want = {k: [c * DIT_STEPS, b * DIT_STEPS]
+                for k, (c, b) in contract.items()}
+        log(f"  plan {lay['plan']}; per step the contract [count, bytes] "
+            f"{contract}")
+        trained = run_trainer(
+            lambda: lay.pop("params"),
+            lambda p, b: t2d.t2d_loss(p, b, cfg, backend="kernel",
+                                      remat_group=DIT_REMAT_GROUP, mesh=mesh,
+                                      param_specs=specs),
+            lambda st: t2d.shard_video_batch(
+                dit_batch(cfg, DIT_FRAMES, st, device), mesh),
+            flash_attention_fwd, tokens=DIT_BATCH * DIT_FRAMES * DIT_PATCHES,
+            n_steps=DIT_STEPS, n_layers=cfg.n_layers, route=DIT_ROUTE,
+            device=device, mesh=mesh, param_specs=specs)
+        dims = nonzero(flash_attention_fwd.head_dim_launches)
+        if dims != {cfg.dh: trained["launches"]}:
+            raise AssertionError(f"K1 launches by head dim {dims}")
+        got = {k: [trained["collectives"][k], trained["volume"][k]]
+               for k in sorted(trained["collectives"])}
+        log(f"  torch.distributed calls [count, bytes]: {got}")
+        if got != want:
+            raise AssertionError(f"collectives {got}, the contract says "
+                                 f"{want}")
+        met, ref = trained["metrics"], phase13["metrics"]
+        bit = met["losses"] == ref["losses"]
+        norms = met["grad_norms"] == ref["grad_norms"]
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(met["losses"], ref["losses"]))
+        log_t(f"  losses {met['losses']} against phase 13's "
+              f"{ref['losses']}: bit-equal {bit}, worst |delta| / |loss| "
+              f"{rel:.3e}; grad norms {met['grad_norms']} against "
+              f"{ref['grad_norms']}: bit-equal {norms}; step (median) "
+              f"{met['step_ms_median']:.2f} ms against phase 13's "
+              f"{ref['step_ms_median']:.2f} ms; peak "
+              f"{met['peak_memory_gb']:.2f} GB ({held:.2f} GB of it held "
+              f"before the phase) against {ref['peak_memory_gb']:.2f} GB")
+        if not (bit or (rel <= T2D_ZERO_LOSS_BAR and not norms)):
+            raise AssertionError(f"ZeRO-3 losses {met['losses']} differ "
+                                 f"from phase 13's {ref['losses']}")
+        del lay
+        torch.cuda.empty_cache()
+        rcfg = t2d_zero_rank_cfg()
+        leaves = lm.tree_map(lambda p: p.requires_grad_(True),
+                             perturb_modulation(t2d.init_t2d(
+                                 0, rcfg, device=device), 6))
+        loss, _ = t2d.t2d_loss(leaves, t2d_zero_batch(rcfg, 0, device), rcfg,
+                               backend="kernel")
+        grads = torch.autograd.grad(loss, lm.tree_leaves(leaves))
+        loss = loss.detach()
+        norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+        torch.save({"loss": loss.cpu(), "norm": norm.cpu(),
+                    "grads": [g.cpu() for g in grads]},
+                   os.path.join(work, "t2d_zero_ref.pt"))
+        log_t(f"  reference of (b): depth {rcfg.n_layers} in float32, "
+              f"{T2D_ZERO_BATCH} x {T2D_ZERO_FRAMES} x {DIT_PATCHES}, one "
+              f"rank without ZeRO: loss {float(loss):.9f}, grad norm "
+              f"{float(norm):.6f}")
+        del leaves, grads
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return {**trained, "contract": contract, "bit_equal": bit,
+            "held_gb": held}
+
+
+def t2d_zero_trainer(cfg, lay: dict, mesh, ckpt_dir: str,
+                     device="cuda") -> Trainer:
+    """A one-step Trainer of (b)'s ``cfg`` on ``lay``'s slices on
+    ``mesh``, checkpointing into ``ckpt_dir``."""
+    specs = lay["specs"]
+    return Trainer(
+        loss_fn=lambda p, b: t2d.t2d_loss(p, b, cfg, backend="kernel",
+                                          mesh=mesh, param_specs=specs),
+        params=lay.pop("params"),
+        opt_cfg=OptConfig(peak_lr=3e-4, warmup_steps=2, total_steps=2),
+        cfg=TrainerConfig(total_steps=1, log_every=1),
+        data_fn=lambda st: t2d.shard_video_batch(
+            t2d_zero_batch(cfg, st, device), mesh),
+        ckpt_dir=ckpt_dir, device=device, mesh=mesh, param_specs=specs)
+
+
+def t2d_zero_ckpt(cfg, work: str, device="cuda") -> dict:
+    """(b)'s checkpoint: one Trainer step of ``cfg`` on its (2, 2) slices,
+    saved by the ranks into ``<work>/ck21``; the saved state moved to its
+    (1, 4) slices by the (2, 2) mesh's own gathers (``reshard``: one whole
+    leaf at a time, not through the checkpoint); a fresh Trainer at (1, 4)
+    that ``try_resume``s, whose state must equal those slices bit for
+    bit."""
+    ckdir = os.path.join(work, "ck21")
+    meshes = {shape: make_mesh(shape, ("data", "model"),
+                               torch.device(device).type, backend="gloo")
+              for shape in ((2, 2), (1, 4))}
+    first = t2d_zero_trainer(cfg, t2d_zero_layout(cfg, meshes[2, 2], device),
+                             meshes[2, 2], ckdir, device)
+    first.run()
+    out = {"save": dict(first.ckpt.last_save)}
+    second = t2d_zero_trainer(cfg, t2d_zero_layout(cfg, meshes[1, 4],
+                                                   device),
+                              meshes[1, 4], ckdir, device)
+    want = state_bits(reshard(first._state(), first._state_specs(),
+                              first.ctx, second._state_specs(), second.ctx))
+    del first
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    second.try_resume()
+    torch.cuda.synchronize()
+    out.update(restore_s=time.perf_counter() - t0,
+               start_step=second.start_step,
+               restored_equal=same_bits(state_bits(second._state()), want))
+    del second, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def t2d_zero_rank_main(rank: int, world: int, work: str) -> None:
+    """One of (b)'s ranks, started by ``t2d_zero_four_ranks`` as
+    ``chip_smoke.py --t2d-zero-rank <rank> <world> <dir>``: gloo over the
+    card's tensors.  At each mesh of T2D_ZERO_MESHES: ``t2d_zero_rank_cfg``
+    on its slices (``t2d_zero_layout``), one ``t2d_loss(param_specs=)`` on
+    its shard of the first ``t2d_zero_batch`` with its grads summed by
+    ``allreduce_grads`` and the clip's norm (``slices_norm``), what it
+    counted and its peak memory; each grad slice held against the same
+    slice of (a)'s reference (``slice_gap``), each leaf's gap the largest
+    over the ranks.  Then ``t2d_zero_ckpt``.  Written to
+    ``<dir>/t2d_zero_rank<r>.json``."""
+    device = json.load(open(os.path.join(work, "job21.json")))["device"]
+    full_f32()
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(work, "store21b"), world), rank=rank, world_size=world)
+    try:
+        cfg = t2d_zero_rank_cfg()
+        ref = torch.load(os.path.join(work, "t2d_zero_ref.pt"), mmap=True)
+        res = {}
+        for shape in T2D_ZERO_MESHES:
+            mesh = make_mesh(shape, ("data", "model"),
+                             torch.device(device).type, backend="gloo")
+            ctx = from_mesh(mesh)
+            lay = t2d_zero_layout(cfg, mesh, device)
+            specs = lay["specs"]
+            leaves = lm.tree_map(lambda p: p.requires_grad_(True),
+                                 lay.pop("params"))
+            batch = t2d.shard_video_batch(t2d_zero_batch(cfg, 0, device),
+                                          mesh)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            loss, _ = t2d.t2d_loss(leaves, batch, cfg, backend="kernel",
+                                   mesh=mesh, param_specs=specs)
+            grads = iter(torch.autograd.grad(loss, lm.tree_leaves(leaves)))
+            loss, grads = allreduce_grads(loss.detach(), lm.tree_map(
+                lambda p: next(grads), leaves), specs, ctx)
+            norm = slices_norm(grads, specs, ctx)
+            got = read_counts()
+            got.update(seconds=time.perf_counter() - t0,
+                       coord=[ctx.dp_index, ctx.sp_index],
+                       contract=t2d_zero_contract(
+                           cfg, lay, shape, T2D_ZERO_BATCH, T2D_ZERO_FRAMES),
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            gaps = torch.tensor([slice_gap(g, w[tuple(
+                slice(a, b) for a, b in slice_index(w.shape, spec, ctx))])
+                for g, w, spec in zip(lm.tree_leaves(grads), ref["grads"],
+                                      lm.tree_leaves(specs))],
+                dtype=torch.float64)
+            dist.all_reduce(gaps, op=dist.ReduceOp.MAX)
+            shares = (gaps[:, 0] / gaps[:, 1].clamp_min(1e-30)).tolist()
+            worst = int(np.argmax(shares))
+            got.update(
+                loss=float(loss), loss_rel=float(
+                    (loss.cpu() - ref["loss"]).abs() / ref["loss"].abs()),
+                norm=float(norm), norm_rel=float(
+                    (norm.cpu() - ref["norm"]).abs() / ref["norm"]),
+                grad_rel=shares[worst], leaves=len(shares),
+                leaf=leaf_paths(specs)[worst], host_gib=host_state())
+            res[f"{shape[0]}x{shape[1]}"] = got
+            del leaves, grads, lay
+            host_empty_cache()
+            torch.cuda.empty_cache()
+        del ref
+        t0 = time.perf_counter()
+        res["ckpt"] = t2d_zero_ckpt(cfg, work, device)
+        res["ckpt"]["seconds"] = time.perf_counter() - t0
+        res["host_gib"] = host_state()
+        json.dump(res, open(os.path.join(work, f"t2d_zero_rank{rank}.json"),
+                            "w"))
+    finally:
+        dist.destroy_process_group()
+
+
+def t2d_zero_four_ranks(work: str, device="cuda") -> dict:
+    """(b) DSP_RANKS processes sharing the card over gloo
+    (``t2d_zero_rank_main``), ``t2d_zero_rank_cfg`` in float32, so that
+    only the order of the sums differs from one rank: at each mesh of
+    T2D_ZERO_MESHES the loss and the clip's norm within T2D_ZERO_LOSS_BAR
+    relative of (a)'s one-rank reference, each rank's slice of every
+    grad within T2D_ZERO_GRAD_BAR of its leaf's max; per rank exactly the
+    contract's calls and bytes and 2 K1 launches a block (forward and
+    recompute; f32 takes ``ROUTES``' ``cuda_cores``); each rank's peak
+    memory logged; the (2, 2) checkpoint restored at (1, 4) bit-equal."""
+    with open(os.path.join(work, "job21.json"), "w") as f:
+        json.dump({"device": device}, f)
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--t2d-zero-rank", str(r), str(DSP_RANKS),
+                               work], env=env)
+             for r in range(DSP_RANKS)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log_t(f"  {DSP_RANKS} ranks exited {rcs} after "
+          f"{time.perf_counter() - t0:.1f} s")
+    if any(rcs):
+        raise AssertionError(f"a ZeRO DiT rank failed: exit codes {rcs}")
+    ranks = [json.load(open(os.path.join(work, f"t2d_zero_rank{r}.json")))
+             for r in range(DSP_RANKS)]
+    cfg = t2d_zero_rank_cfg()
+    route = ROUTES[(cfg.dtype, cfg.dh)]
+    k1 = 2 * cfg.n_layers
+    for shape in T2D_ZERO_MESHES:
+        label = f"{shape[0]}x{shape[1]}"
+        g = ranks[0][label]
+        log_t(f"  {label}: depth {cfg.n_layers} in float32, "
+              f"{T2D_ZERO_BATCH} x {T2D_ZERO_FRAMES} x {DIT_PATCHES}: loss "
+              f"{g['loss']:.9f}, |delta| / |loss| against one rank "
+              f"{g['loss_rel']:.3e}, grad norm {g['norm']:.6f} "
+              f"({g['norm_rel']:.3e}), worst grad slice {g['leaf']} "
+              f"{g['grad_rel']:.3e} of its leaf's max over {g['leaves']} "
+              f"leaves; per rank the contract {g['contract']}")
+        if not (g["grad_rel"] <= T2D_ZERO_GRAD_BAR
+                and g["norm_rel"] <= T2D_ZERO_LOSS_BAR):
+            raise AssertionError(f"{label}: the {DSP_RANKS}-rank grads or "
+                                 f"norm disagree with one rank: {g}")
+        for r, res in enumerate(ranks):
+            got = res[label]
+            log_t(f"  rank {r} (data {got['coord'][0]}, model "
+                  f"{got['coord'][1]}): {got['seconds']:.1f} s, peak "
+                  f"{got['peak_gb']:.2f} GB, calls {got['calls']}, K1 "
+                  f"{got['k1']} {got['k1_routes']}; host GiB "
+                  f"{got['host_gib']}")
+            if not (got["loss_rel"] <= T2D_ZERO_LOSS_BAR
+                    and got["calls"] == got["contract"] and got["k1"] == k1
+                    and got["k1_routes"] == {route: k1}):
+                raise AssertionError(f"rank {r} {label}: {got}, the contract "
+                                     f"says {got['contract']} and {k1} K1 "
+                                     f"launches on {route}")
+    for r, res in enumerate(ranks):
+        ck = res["ckpt"]
+        log_t(f"  rank {r}: saved at (2, 2) {ck['save']['bytes']} B (write "
+              f"{ck['save']['write_s']:.3f} s, snapshot "
+              f"{ck['save']['snapshot_s']:.3f} s, publish "
+              f"{ck['save']['publish_s']:.3f} s); restored at (1, 4) step "
+              f"{ck['start_step']} in {ck['restore_s']:.3f} s, bit-equal "
+              f"{ck['restored_equal']}; {ck['seconds']:.1f} s; host GiB "
+              f"{res['host_gib']}")
+        if not (ck["restored_equal"] and ck["start_step"] == 1):
+            raise AssertionError(f"rank {r}: the (2, 2) checkpoint did not "
+                                 f"come back at (1, 4): {ck}")
+    return {"ranks": ranks, "k1": k1}
+
+
 def time_chunk_attention(case) -> dict:
     """K1 at a paged chunk's ``case`` in bf16 on its route, and
     ``scaled_dot_product_attention`` with the chunk's mask (keys up to
@@ -4378,6 +4818,8 @@ def main() -> None:
         check_ssd(case, torch.bfloat16, seed=430 + i)
     for i, case in enumerate(PAGED_ATTN):
         check_attention(case, torch.bfloat16, seed=440 + i)
+    for i, case in enumerate(T2D_ZERO_ATTN):
+        check_attention(case, torch.float32, seed=450 + i)
 
     log(f"[4] timing at the slice's shape, bf16 ({elapsed()})")
     q, k, v = attn_inputs(SLICE, torch.bfloat16, seed=7)
@@ -4576,6 +5018,19 @@ def main() -> None:
     log_t(f"  done: phase 20 took {time.perf_counter() - t20:.1f} s "
           f"({elapsed()})")
 
+    log(f"[21] transformer2d-720m under its spec's own plan, ZeRO-3 over "
+        f"(data, model) ({elapsed()})")
+    t21 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        log("  (a) world size 1 over NCCL, full width and depth")
+        t2d_zero = t2d_zero_world_of_one(dcfg, dsp_trained, work)
+        log(f"  (b) {DSP_RANKS} ranks on the card over gloo, depth "
+            f"{T2D_ZERO_DEPTH} in float32 ({elapsed()})")
+        t2d_zero_ranks = t2d_zero_four_ranks(work)
+    dit_runs.append(t2d_zero)
+    log_t(f"  done: phase 21 took {time.perf_counter() - t21:.1f} s "
+          f"({elapsed()})")
+
     log(facts)
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
@@ -4585,7 +5040,7 @@ def main() -> None:
                      + dit_trained["launches"] + dsp_trained["launches"]
                      + sp_launches + l2d["launches"] + q_dsp["launches"]
                      + q_zero["launches"] + q_sv["launches"]
-                     + paged["launches"]),
+                     + paged["launches"] + t2d_zero["launches"]),
         "launches_by_route": by_route([served, q_trained, q_dsp, q_zero,
                                        q_sv, paged] + dit_runs),
         "paged_launches": paged["launches"],
@@ -4613,6 +5068,11 @@ def main() -> None:
                 "l2d_launches": l2d["launches"],
                 "l2d_rank_launches": {k: v["k1"]
                                       for k, v in l2d_ranks.items()},
+                "zero_launches": t2d_zero["launches"],
+                "zero_rank_launches": [
+                    {label: r[label]["k1_routes"] for label in
+                     (f"{a}x{b}" for a, b in T2D_ZERO_MESHES)}
+                    for r in t2d_zero_ranks["ranks"]],
                 "launches_by_route": by_route(dit_runs),
                 "max_abs_err": dit_err, "temporal": dit_temporal}}, {
         "name": "ssd_scan_fwd", "route": "cuda",
@@ -4662,5 +5122,7 @@ if __name__ == "__main__":
         serve_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif sys.argv[1:2] == ["--paged-rank"]:
         paged_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:2] == ["--t2d-zero-rank"]:
+        t2d_zero_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     else:
         main()

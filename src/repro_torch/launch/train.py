@@ -20,22 +20,29 @@ with ``--device cpu``):
 
 Every rank draws the same global batch and trains on its shard (batch
 over ``data``; frames, or an LM's tokens, over ``model``) with the joint
-plan of the family's ``dsp_schedule``.  The LM family runs
-``lm_loss(sharder=...)`` under its spec's own plan: ZeRO-3 splits each
-weight over ``("data", "model")`` and ``shard_vocab`` the embedding
-tables over ``model`` (``param_pspecs``, ``shard_params``; the vocab
-ring), and the ``Trainer`` sums each grad over the dims its leaf is not
-split over.  The 2D DiT runs ``t2d_loss(mesh=...)`` with its spec's plan
-with ``zero`` off: its parameters stay whole on every rank, and the
-``Trainer`` sums the grads over the world.  The summary prints the plan
-run.  The plan is priced in bytes (``topology=None``): the JAX CLI prices
-it on its TPU link constants, which the port does not carry.
+plan of the family's ``dsp_schedule``, under its spec's own plan
+(``param_pspecs``, ``shard_params``): ZeRO-3 splits each weight over
+``("data", "model")``, each rank holding its slices and their AdamW
+state, and the ``Trainer`` sums each grad over the dims its leaf is not
+split over.  The LM family runs ``lm_loss(sharder=...)``, with
+``shard_vocab`` splitting the embedding tables over ``model`` (the vocab
+ring); the 2D DiT runs ``t2d_loss(mesh=..., param_specs=...)``, each
+group of block pairs gathering its weights inside its checkpoint:
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch transformer2d-720m --mesh 2,2
+    ... plan ParallelPlan(mode='dsp', ep=False, zero=True, shard_vocab=False)
+
+The summary prints the plan run.  The plan is priced in bytes
+(``topology=None``): the JAX CLI prices it on its TPU link constants,
+which the port does not carry.
 
 ``--ckpt-dir`` checkpoints every ``--steps // 4`` steps and at the end
 (each rank its slices), ``--resume`` continues from the latest
-checkpoint, resharded onto this run's mesh, and ``--replan N`` then
-resizes the LM family's run onto the first N ranks (re-solving the plan;
-the ranks past N leave with no steps):
+checkpoint, resharded onto this run's mesh (a DiT run saved at ``--mesh
+2,2`` resumes at ``--mesh 1,4``), and ``--replan N`` then resizes the LM
+family's run onto the first N ranks (re-solving the plan; the ranks past
+N leave with no steps):
 
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
         --arch qwen3-14b --mesh 2,2 --ckpt-dir ck --steps 40
@@ -49,7 +56,6 @@ compression.  ``--device`` defaults to ``cuda``.  The JAX CLI's
 --nproc-per-node`` starts the ranks.
 """
 import argparse
-import dataclasses
 import sys
 
 NOT_PORTED = ("devices",)
@@ -93,37 +99,39 @@ def main(argv=None):
     from repro_torch.models import transformer2d as t2d
     from repro_torch.models.lm import init_lm, lm_loss, shard_lm_batch
     from repro_torch.optim.adamw import OptConfig
+    from repro_torch.parallel.partition import (mesh_sizes, param_pspecs,
+                                                shard_params)
     from repro_torch.train.trainer import ElasticSpec, Trainer, TrainerConfig
 
     spec = configs.get(args.arch)
     cfg = spec.config if args.full else spec.smoke
     device = resolve_device(args.device)
-    mesh = None
+    mesh = ctx = None
     ran = "none (one rank)"
     if args.mesh is not None:
+        from repro_torch.core.layout import from_mesh
         from repro_torch.launch.mesh import make_mesh
         dp, mp = (int(a) for a in args.mesh.split(","))
         mesh = make_mesh((dp, mp), ("data", "model"), device.type)
+        ctx = from_mesh(mesh)
         ran = f"{spec.plan}"
-    sharder = elastic = None
+    sharder = elastic = param_specs = psched = None
     if spec.family == "t2d":
-        if mesh is not None:
-            ran = (f"{dataclasses.replace(spec.plan, zero=False)} (the "
-                   f"spec's {spec.plan} with zero off: the DiT's "
-                   f"parameters stay whole on every rank)")
         spatial = args.seq // 8 or 16
-        psched = None
+        params = t2d.init_t2d(0, cfg, device=device)
         if mesh is not None:
             psched = t2d.dsp_schedule(cfg, mp, t_len=8, s_len=spatial,
                                       batch=args.batch, topology=None,
                                       joint=True)
-        params = t2d.init_t2d(0, cfg, device=device)
+            param_specs = param_pspecs(params, spec.plan,
+                                       axis_sizes=mesh_sizes(ctx))
+            params = shard_params(params, param_specs, ctx)
         dcfg = DataConfig(task="video", batch=args.batch, temporal=8,
                           spatial=spatial, in_dim=cfg.in_dim)
 
         def loss_fn(p, b):
             return t2d.t2d_loss(p, b, cfg, backend="kernel", mesh=mesh,
-                                schedule=psched)
+                                schedule=psched, param_specs=param_specs)
 
         def make(step):
             batch = t2d.model_dtype_batch(make_batch(dcfg, step,
@@ -148,16 +156,13 @@ def main(argv=None):
         elastic = ElasticSpec(make_loss=make_loss,
                               solve_schedule=solve_schedule, plan=spec.plan)
         if mesh is not None:
-            from repro_torch.core.layout import from_mesh
-            from repro_torch.parallel.partition import (
-                make_sharder, mesh_sizes, param_pspecs, shard_params)
-            ctx = from_mesh(mesh)
-            param_specs = param_pspecs(params, spec.plan,
-                                       axis_sizes=mesh_sizes(ctx))
-            params = shard_params(params, param_specs, ctx)
+            from repro_torch.parallel.partition import make_sharder
+            specs = param_pspecs(params, spec.plan,
+                                 axis_sizes=mesh_sizes(ctx))
+            params = shard_params(params, specs, ctx)
             sharder = make_sharder(mesh, spec.plan,
                                    schedule=solve_schedule(mp),
-                                   param_specs=param_specs)
+                                   param_specs=specs)
         dcfg = DataConfig(task="lm_shift", vocab=cfg.vocab, seq=args.seq,
                           batch=args.batch)
         loss_fn = make_loss(mesh, sharder, None)
@@ -183,6 +188,8 @@ def main(argv=None):
                           else 0, grad_compress=args.grad_compress),
         data_fn=data_fn, ckpt_dir=args.ckpt_dir, device=device,
         mesh=mesh if sharder is None else None, sharder=sharder,
+        param_specs=param_specs,
+        schedule=None if psched is None else psched.schedule,
         elastic=elastic)
     if args.resume:
         trainer.try_resume()

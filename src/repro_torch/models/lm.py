@@ -47,8 +47,8 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.parallel.partition import (
-    ParallelPlan, Sharder, cache_pspecs, entry_axes, null_sharder,
-    param_pspecs, reduce_axes, slice_index, tree_map_with_path)
+    ParallelPlan, Sharder, cache_pspecs, gathered_numels, null_sharder,
+    param_pspecs, slice_index, store_contract, tree_map_with_path)
 
 
 # ---------------------------------------------------------------------------
@@ -614,22 +614,6 @@ def remat_step(contract: Dict[str, Dict[str, int]]
     return out
 
 
-def _gathered_numels(shape, spec, sizes: Dict[str, int]) -> List[int]:
-    """The elements each all-gather of ``gather_params`` returns, in turn,
-    for a leaf of global ``shape`` split by ``spec`` on a mesh of
-    ``sizes``: one per entry naming a mesh dim (a dim of size 1 too),
-    each growing its dim from the slice to the whole."""
-    def split(entry):
-        return math.prod(sizes[a] for a in entry_axes(entry, sizes))
-    shape = [d // split(e) for d, e in zip(shape, spec)]
-    out = []
-    for dim, entry in enumerate(spec):
-        if entry_axes(entry, sizes):
-            shape[dim] *= split(entry)
-            out.append(math.prod(shape))
-    return out
-
-
 def param_contract(cfg: LMConfig, params, plan: ParallelPlan,
                    sizes: Dict[str, int]) -> Dict[str, Dict[str, int]]:
     """The ``torch.distributed`` calls and bytes, by kind (``core.dsp``'s
@@ -637,7 +621,9 @@ def param_contract(cfg: LMConfig, params, plan: ParallelPlan,
     training step with ``remat`` on a mesh of ``sizes`` (``mesh_sizes``),
     beside ``remat_step`` of ``collective_contract``.  Derived from
     ``param_pspecs`` of ``params``, the GLOBAL tree (meta tensors will
-    do), each read as ``forward`` and ``lm_loss`` read it:
+    do), each read as ``forward`` and ``lm_loss`` read it
+    (``parallel.partition.store_contract``, which adds the trainer's
+    all-reduces):
 
       each period leaf a spec splits: per period, 2 all-gathers of the
         whole leaf (the forward's and the recompute's) and 1 reduce-scatter
@@ -647,60 +633,30 @@ def param_contract(cfg: LMConfig, params, plan: ParallelPlan,
         is read by nobody);
       any other leaf a spec splits, at each read outside the checkpoints
         (the table off the ring; the tied table, the unembedding table and
-        the final norm in the loss): 1 all-gather and 1 reduce-scatter;
-      the trainer: one all-reduce of one float32 bucket per set of
-        ``reduce_axes`` of the leaves, the loss in the world's
-        (``allreduce_grads``), and one of the clip's scalar
-        (``train.trainer.slices_norm``).
+        the final norm in the loss): 1 all-gather and 1 reduce-scatter.
 
     An entry naming only dims of size 1 is still issued (at one rank each
     is a copy)."""
-    specs = param_pspecs(params, plan, axis_sizes=sizes)
-    calls: Dict[str, int] = {}
-    nbytes: Dict[str, int] = {}
-
-    def add(kind, size, times=1):
-        calls[kind] = calls.get(kind, 0) + times
-        nbytes[kind] = nbytes.get(kind, 0) + size * times
-
-    def split(entry):
-        return math.prod(sizes[a] for a in entry_axes(entry, sizes))
-
-    def gathers(shape, spec, itemsize, all_gathers, reduce_scatters):
-        for numel in _gathered_numels(shape, spec, sizes):
-            add("all-gather", numel * itemsize, all_gathers)
-            add("reduce-scatter", numel * 4, reduce_scatters)
-
     n = sizes.get("model", 1)
     ring = n > 1 and cfg.vocab % n == 0 and plan.shard_vocab
     reads = {("embed", "table"): (0 if ring else 1) + cfg.tie_embeddings,
              ("unembed", "table"): 1, ("final_norm", "scale"): 1,
              ("final_norm", "bias"): 1}
-    buckets: Dict[tuple, int] = {}
-    world = tuple(sizes)
 
-    def count(path, p, spec):
+    def times(path):
         if path[0] == "periods":
-            gathers(tuple(p.shape[1:]), spec[1:], p.element_size(),
-                    2 * p.shape[0], p.shape[0])
-        else:
-            gathers(tuple(p.shape), spec, p.element_size(), reads[path],
-                    reads[path])
-        key = reduce_axes(spec, world)
-        if key:
-            buckets[key] = buckets.get(key, 0) + p.numel() // math.prod(
-                split(e) for e in spec)
+            return 2, 1
+        return reads[path], reads[path]
 
-    tree_map_with_path(count, params, specs)
+    out = store_contract(params, param_pspecs(params, plan,
+                                              axis_sizes=sizes),
+                         sizes, times)
     if ring:
         chunk = params["embed"]["table"]
-        add("collective-permute", chunk.numel() // n * chunk.element_size(),
-            2 * n - 1)
-    buckets[world] = buckets.get(world, 0) + 1          # the loss
-    for elems in buckets.values():
-        add("all-reduce", 2 * 4 * elems)
-    add("all-reduce", 2 * 4)                            # the clip's norm
-    return {"calls": calls, "bytes": nbytes}
+        size, k = chunk.numel() // n * chunk.element_size(), 2 * n - 1
+        out["calls"]["collective-permute"] = k
+        out["bytes"]["collective-permute"] = size * k
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1007,7 +963,7 @@ def serve_contract(cfg: LMConfig, n: int, params, plan: ParallelPlan, *,
       ``prefill=(batch, seq)``: one prefill of ``batch`` prompts of
         ``seq`` tokens (padded to a multiple of n) and its argmax: the
         hooks' forward (``collective_contract`` at the rank's shard); each
-        period leaf a spec splits gathered once (``_gathered_numels``),
+        period leaf a spec splits gathered once (``gathered_numels``),
         the table read once (the ring's n permutes where ``shard_vocab``
         splits it, else a gather if split), the final norm read; one
         all-reduce of the last position (``Sharder.seq_rows``), one of
@@ -1073,13 +1029,13 @@ def serve_contract(cfg: LMConfig, n: int, params, plan: ParallelPlan, *,
         for k in path:
             node, spec = node[k], spec[k]
         for leaf, sp in zip(tree_leaves(node), tree_leaves(spec)):
-            for numel in _gathered_numels(tuple(leaf.shape), sp, sizes):
+            for numel in gathered_numels(tuple(leaf.shape), sp, sizes):
                 add("all-gather", numel * leaf.element_size(), times)
 
     def periods():
         for leaf, sp in zip(tree_leaves(params["periods"]),
                             tree_leaves(specs["periods"])):
-            for numel in _gathered_numels(tuple(leaf.shape[1:]), sp[1:],
+            for numel in gathered_numels(tuple(leaf.shape[1:]), sp[1:],
                                           sizes):
                 add("all-gather", numel * leaf.element_size(),
                     leaf.shape[0])
@@ -1132,10 +1088,10 @@ def serve_contract(cfg: LMConfig, n: int, params, plan: ParallelPlan, *,
 
     def moved(pool, cspecs):
         for leaf, sp in zip(tree_leaves(params), tree_leaves(specs)):
-            for numel in _gathered_numels(tuple(leaf.shape), sp, sizes):
+            for numel in gathered_numels(tuple(leaf.shape), sp, sizes):
                 add("all-gather", numel * leaf.element_size())
         for leaf, sp in zip(tree_leaves(pool), tree_leaves(cspecs)):
-            for numel in _gathered_numels(tuple(leaf.shape), sp, sizes):
+            for numel in gathered_numels(tuple(leaf.shape), sp, sizes):
                 add("all-gather", numel * leaf.element_size())
 
     if decode is not None:

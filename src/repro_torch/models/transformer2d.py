@@ -43,6 +43,17 @@ plans in bytes; JAX's ICI/DCN presets (``sp2d_topology``,
 ``forward``, ``forward2d`` and ``t2d_loss`` take the rank's local shard;
 ``make_spmd_forward`` and ``make_spmd_forward2d`` take the global batch on
 every rank, as the paper's ``dsp_dataloader`` does.
+
+ZeRO-3 (the specs' own plan, ``zero=True``): with ``param_specs``
+(``parallel.partition.param_pspecs`` of the global tree) ``forward`` and
+``t2d_loss`` take each rank's slices of the parameters
+(``shard_params``: every block weight split on its first dim after the
+stack over ``("data", "model")`` flattened, the scales and biases whole,
+as JAX's ``build_t2d_cell`` places them) and gather them where they are
+read, each checkpointed group of pairs inside its checkpoint;
+``param_contract`` counts the calls and bytes that adds to a step, and
+``step_contract`` the whole step's with the mode's own.  The
+``("sp_out", "sp_in")`` grid (``hybrid``, ``forward2d``) has no ZeRO.
 """
 from __future__ import annotations
 
@@ -68,7 +79,9 @@ from repro_torch.core.schedule import (Schedule2D, ScheduleExecutor,
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.models import layers as L
-from repro_torch.models.lm import tree_leaves, tree_map, unstack
+from repro_torch.models.lm import remat_step, tree_leaves, tree_map, unstack
+from repro_torch.parallel.partition import (param_pspecs, store_contract,
+                                            whole_params)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -492,6 +505,13 @@ def _megatron_block(p, x, cfg: T2DConfig, *, axis: int, ctx, t_emb=None,
 # the paper's DSP and the embedded-SP baselines it compares with (Table 3)
 MODES = ("dsp", "ulysses", "ulysses_fused", "ring", "megatron", "hybrid")
 
+# why the ("sp_out", "sp_in") grid refuses ``param_specs``
+_NO_GRID_ZERO = (
+    "{what} with param_specs: ZeRO on the ('sp_out', 'sp_in') grid is not "
+    "ported. The JAX package's training cells place the DiT's parameters "
+    "on no such grid, and param_pspecs names the 'data' and 'model' dims, "
+    "which it lacks (ROADMAP queue 1 item 3.4)")
+
 
 def _check_mode(cfg: T2DConfig, mesh, mode: str, overlap: Optional[str]):
     """The mesh's context, once ``mode`` and ``overlap`` are known to run
@@ -576,7 +596,8 @@ def _mode_block(cfg: T2DConfig, mode: str, ctx, backend: str):
 def forward(params, x, t, cfg: T2DConfig, *, mesh=None, mode: str = "dsp",
             backend: str = "kernel", remat: bool = True, remat_group: int = 2,
             t_offset: int = 0, s_offset: int = 0, topology=None,
-            joint: bool = False, schedule=None, overlap: Optional[str] = None):
+            joint: bool = False, schedule=None, overlap: Optional[str] = None,
+            param_specs=None):
     """x: (B, T, S, C_in) in the model dtype, t: (B,) or None ->
     (B, T, S, C_in).  Pairs of blocks (spatial, then temporal) in order;
     with ``remat`` each group of ``remat_group`` pairs (1 when the pair
@@ -594,9 +615,22 @@ def forward(params, x, t, cfg: T2DConfig, *, mesh=None, mode: str = "dsp",
     their own collectives inside the blocks.  ``topology``, ``joint`` and
     ``schedule`` act only with a mesh and ``dsp``, as in JAX.  Without a
     mesh there are no ranks to share the work, so ``mode`` must be
-    ``dsp`` and ``overlap`` None."""
+    ``dsp`` and ``overlap`` None.
+
+    With a mesh and ``param_specs`` (``param_pspecs`` of the global tree
+    at the mesh's sizes), ``params`` are this rank's slices
+    (``shard_params``).  Each checkpointed group gathers its pairs' split
+    leaves at the top of its body, inside the checkpoint, so that no
+    gathered weight lives from the forward to the backward: the recompute
+    gathers them again (without ``remat`` each group gathers once).
+    ``embed``, ``t_proj``, ``final_norm`` and ``head`` are gathered where
+    they are read.  Each gather's backward reduce-scatters the gradient in
+    float32 (``core.dsp.gather_param``).  The gather sits at the group
+    boundary, so every mode on a ``("data", "model")`` mesh runs it;
+    ``hybrid`` raises ``NotImplementedError`` (``_NO_GRID_ZERO``)."""
     ex = ScheduleExecutor.null()
     psched = None
+    ctx = None
 
     def block(p, xc, *, axis, t_emb):
         return t2d_block(p, xc, cfg, axis=axis, t_emb=t_emb, backend=backend)
@@ -607,6 +641,9 @@ def forward(params, x, t, cfg: T2DConfig, *, mesh=None, mode: str = "dsp",
                              f"the work over a mesh: pass mesh=")
     else:
         ctx = _check_mode(cfg, mesh, mode, overlap)
+        if param_specs is not None and mode == "hybrid":
+            raise NotImplementedError(_NO_GRID_ZERO.format(
+                what="mode 'hybrid'"))
         n, t_loc = ctx.sp_size, x.shape[1]
         t_offset = t_offset + ctx.sp_index * t_loc
         if mode == "dsp":
@@ -620,15 +657,20 @@ def forward(params, x, t, cfg: T2DConfig, *, mesh=None, mode: str = "dsp",
             block = _mode_block(cfg, mode, ctx, backend)
     unrolled = isinstance(psched, UnrolledSchedule)
 
-    x = L.patch_embed(params["embed"], x)
+    def whole(key):                   # a leaf group outside the pairs
+        return whole_params(params[key], None if param_specs is None
+                            else param_specs[key], ctx)
+
+    x = L.patch_embed(whole("embed"), x)
     x = add_pos_embed(x, cfg, t_offset, s_offset)
     x = ex.enter(x)                   # planned entry (dataloader split on T)
     t_emb = None
     if cfg.modulate and t is not None:
-        t_emb = L.linear(params["t_proj"],
+        t_emb = L.linear(whole("t_proj"),
                          L.timestep_embedding(t, cfg.d_model).to(x.dtype))
 
     layers = params["layers"]
+    layer_specs = None if param_specs is None else param_specs["layers"]
     n_pairs = tree_leaves(layers)[0].shape[0]
     pairs = unstack(layers, n_pairs)
     g = (remat_group if (remat and n_pairs % remat_group == 0
@@ -647,6 +689,7 @@ def forward(params, x, t, cfg: T2DConfig, *, mesh=None, mode: str = "dsp",
 
     def group_body(i0, xc, te, *group):
         for j, lp in enumerate(group):
+            lp = whole_params(lp, layer_specs, ctx, stacked=True)
             xc = pair_body(xc, te, i0 + j, lp)
         return xc
 
@@ -661,8 +704,78 @@ def forward(params, x, t, cfg: T2DConfig, *, mesh=None, mode: str = "dsp",
         else:
             x = body(x, t_emb, *group)
     x = ex.exit(x)                    # planned final layout (loss/head on T)
-    x = L.rms_norm(params["final_norm"], x)
-    return L.linear(params["head"], x)
+    x = L.rms_norm(whole("final_norm"), x)
+    return L.linear(whole("head"), x)
+
+
+def param_contract(cfg: T2DConfig, params, plan,
+                   sizes: Dict[str, int]) -> Dict[str, Dict[str, int]]:
+    """The ``torch.distributed`` calls and bytes, by kind (``core.dsp``'s
+    rule), that the parameter layouts of ``plan`` add per rank to one
+    training step of ``t2d_loss`` with ``remat`` (``param_specs=``, the
+    batch carrying t) on a mesh of ``sizes`` (``mesh_sizes``), beside the
+    mode's own collectives (``step_contract`` adds them).  Derived from
+    ``param_pspecs`` of ``params``, the GLOBAL tree (meta tensors will
+    do), each leaf read as ``forward`` reads it
+    (``parallel.partition.store_contract``, which adds the trainer's
+    all-reduces):
+
+      each pair leaf a spec splits: per pair, 2 all-gathers of the whole
+        leaf (the forward's and the recompute's) and 1 reduce-scatter of
+        its float32 gradient, whatever ``remat_group``: each group gathers
+        its own pairs;
+      ``embed``, ``final_norm``, ``head`` and, where ``cfg`` modulates,
+        ``t_proj``: 1 all-gather and 1 reduce-scatter of each leaf a spec
+        splits.
+
+    An entry naming only dims of size 1 is still issued (at one rank each
+    is a copy)."""
+    def reads(path):
+        if path[0] == "layers":
+            return 2, 1
+        if path[0] == "t_proj" and not cfg.modulate:
+            return 0, 0
+        return 1, 1
+    return store_contract(params, param_pspecs(params, plan,
+                                               axis_sizes=sizes),
+                          sizes, reads)
+
+
+def step_contract(cfg: T2DConfig, params, plan, sizes: Dict[str, int], *,
+                  batch: int, frames: int, patches: int, mode: str = "dsp",
+                  schedule=None) -> Dict[str, Dict[str, int]]:
+    """{"calls": {kind: n}, "bytes": {kind: n}} per rank of one training
+    step of ``t2d_loss`` with ``remat`` under ``mode`` and
+    ``param_specs=`` on a ``sizes`` mesh, at a global ``batch`` x
+    ``frames`` x ``patches``: the mode's collectives in one forward
+    (``dsp``: the switches of ``schedule``, by default ``forward``'s own
+    ``dsp_schedule``, each the rank's stream; ``ulysses``: a temporal
+    block's all-to-alls of the rank's q, k, v and o) three times over
+    (forward, recompute, backward: ``lm.remat_step``), plus
+    ``param_contract`` (the gathers, their reduce-scatters, the trainer's
+    all-reduces)."""
+    dp, mp = sizes["data"], sizes["model"]
+    pairs = cfg.n_layers // 2
+    stream = (batch // dp * frames // mp * patches * cfg.d_model
+              * cfg.dtype.itemsize)
+    if mode == "dsp":
+        psched = schedule if schedule is not None else dsp_schedule(
+            cfg, mp, t_len=frames, s_len=patches, batch=batch)
+        n = ScheduleExecutor(psched, backend="explicit").expected_collectives(
+            pairs).get("all-to-all", 0)
+        moved = n * stream
+    elif mode == "ulysses":
+        n = 4 * pairs
+        moved = pairs * 2 * stream * (cfg.n_heads + cfg.kvh) // cfg.n_heads
+    else:
+        raise ValueError(f"step_contract counts modes 'dsp' and 'ulysses'; "
+                         f"got {mode!r}")
+    step = remat_step({"calls": {"all-to-all": n},
+                       "bytes": {"all-to-all": moved}})
+    layout = param_contract(cfg, params, plan, sizes)
+    return {part: {k: step[part].get(k, 0) + layout[part].get(k, 0)
+                   for k in {*step[part], *layout[part]}}
+            for part in ("calls", "bytes")}
 
 
 def _check_2d(cfg: T2DConfig, mesh):
@@ -681,7 +794,7 @@ def _check_2d(cfg: T2DConfig, mesh):
 
 
 def forward2d(params, x, t, cfg: T2DConfig, *, mesh, backend: str = "kernel",
-              remat: bool = True, schedule=None):
+              remat: bool = True, schedule=None, param_specs=None):
     """The 2D-layout forward on an ``("sp_out", "sp_in")`` mesh.
 
     x: (B, T, S, C_in) and t: (B,), this rank's shard at the plan's
@@ -702,7 +815,11 @@ def forward2d(params, x, t, cfg: T2DConfig, *, mesh, backend: str = "kernel",
     accounting does not count (PERF.md §6).  K1 runs every core, on the
     heads the layout leaves the rank.  With ``remat`` each layer pair is
     checkpointed, its collectives included.  Gradients flow through the
-    switches' transposes; no 2D backward is planned."""
+    switches' transposes; no 2D backward is planned.  ``param_specs``
+    raises ``NotImplementedError``: the grid has no ZeRO
+    (``_NO_GRID_ZERO``)."""
+    if param_specs is not None:
+        raise NotImplementedError(_NO_GRID_ZERO.format(what="forward2d"))
     ctx = _check_2d(cfg, mesh)
     grid = (ctx.size("sp_out"), ctx.size("sp_in"))
     initial = (schedule.schedule.initial if schedule is not None
@@ -885,7 +1002,10 @@ def t2d_loss(params, batch: Dict[str, torch.Tensor], cfg: T2DConfig, *,
     ``mesh``, ``batch`` is the rank's shard (``shard_video_batch``) and the
     loss is its squared-error sum over the global element count: the ranks'
     losses sum to the global mean, and their gradients, summed over the
-    world, to its gradient."""
+    world, to its gradient.  ``kw`` go to ``forward``; with
+    ``param_specs`` ``params`` are the rank's slices, and their gradients
+    the rank's slices of the gradient, summed over the dims each leaf is
+    split over (``train.trainer.allreduce_grads`` sums the rest)."""
     pred = forward(params, batch["x"], batch.get("t"), cfg, mesh=mesh, **kw)
     err = (pred.float() - batch["target"].float()) ** 2
     if mesh is None:

@@ -33,9 +33,12 @@ over ``("data", "model")`` flattened, data-major, as JAX's
 are split over ``model`` by vocab row.  ``shard_params`` keeps each rank's
 slice, ``gather_params`` (differentiable: one all-gather forward, one
 float32 reduce-scatter backward) gives the model whole leaves where it
-reads them, ``unshard_params`` gathers for checks, and ``param_copies``
-and ``reduce_axes`` tell the trainer how many ranks hold each leaf and
-over which dims its grad is still to be summed.  ``make_sharder`` raises
+reads them (``whole_params``: a subtree, or one entry of a stacked one,
+as the LM's ``Sharder.whole`` and the 2D DiT's groups of block pairs
+read it), ``unshard_params`` gathers for checks, ``param_copies`` and
+``reduce_axes`` tell the trainer how many ranks hold each leaf and over
+which dims its grad is still to be summed, and ``store_contract`` counts
+the calls and bytes the store adds to a training step.  ``make_sharder`` raises
 ``NotImplementedError`` for what it does not run yet, naming the ROADMAP
 item (queue 1) that brings it: ``tp`` (whose rules ``param_pspecs``
 carries) and ``ep``.  JAX's MoE hook, its inference ``tp_flat`` rules and
@@ -53,7 +56,8 @@ between meshes for the elastic resize.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+import math
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -312,6 +316,21 @@ def gather_params(params, specs, ctx: ParallelContext):
     return tree_map_with_path(one, params, specs)
 
 
+def whole_params(tree, specs, ctx: Optional[ParallelContext], *,
+                 stacked: bool = False):
+    """``tree``, a subtree of the parameters, with every leaf its spec
+    (``specs``, the same subtree of ``param_pspecs``) splits gathered
+    whole (``gather_params``), where the model reads it; ``tree`` itself
+    without a mesh or specs.  ``stacked``: ``tree`` is one entry of a
+    subtree stacked on a leading dim (a period, a block pair), so the
+    specs drop their leading entry."""
+    if ctx is None or specs is None:
+        return tree
+    if stacked:
+        specs = tree_map_with_path(lambda _, s: s[1:], specs)
+    return gather_params(tree, specs, ctx)
+
+
 @torch.no_grad()
 def unshard_params(params, specs, ctx: ParallelContext):
     """``gather_params`` without autograd: the whole tree (or one leaf)
@@ -339,6 +358,73 @@ def param_copies(specs, ctx: ParallelContext):
             n *= ctx.size(a)
         return n
     return tree_map_with_path(one, specs)
+
+
+def gathered_numels(shape, spec: Spec, sizes: Dict[str, int]) -> List[int]:
+    """The elements each all-gather of ``gather_params`` returns, in turn,
+    for a leaf of global ``shape`` split by ``spec`` on a mesh of
+    ``sizes``: one per entry naming a mesh dim (a dim of size 1 too),
+    each growing its dim from the slice to the whole."""
+    def split(entry):
+        return math.prod(sizes[a] for a in entry_axes(entry, sizes))
+    shape = [d // split(e) for d, e in zip(shape, spec)]
+    out = []
+    for dim, entry in enumerate(spec):
+        if entry_axes(entry, sizes):
+            shape[dim] *= split(entry)
+            out.append(math.prod(shape))
+    return out
+
+
+def store_contract(params, specs, sizes: Dict[str, int],
+                   reads: Callable[[Tuple[str, ...]], Tuple[int, int]]
+                   ) -> Dict[str, Dict[str, int]]:
+    """The ``torch.distributed`` calls and bytes, by kind (``core.dsp``'s
+    rule), that the parameter store adds per rank to one training step on
+    a mesh of ``sizes`` (``mesh_sizes``).  ``params`` is the GLOBAL tree
+    (meta tensors will do) and ``specs`` its ``param_pspecs``:
+
+      each leaf a spec splits, as often as ``reads(path)`` = (all-gathers,
+        reduce-scatters) says: each all-gather of the whole leaf in its
+        dtype (``gather_params``), each reduce-scatter of its float32
+        gradient; a leaf under ``STACKED`` that often per entry of its
+        leading dim, at the entry's shape;
+      the trainer: one all-reduce of one float32 bucket per set of
+        ``reduce_axes`` of the leaves, the loss in the world's
+        (``train.trainer.allreduce_grads``), and one of the clip's scalar
+        (``train.trainer.slices_norm``).
+
+    An entry naming only dims of size 1 is still issued (at one rank each
+    is a copy)."""
+    calls: Dict[str, int] = {}
+    nbytes: Dict[str, int] = {}
+    buckets: Dict[tuple, int] = {}
+    world = tuple(sizes)
+
+    def add(kind, size, times=1):
+        calls[kind] = calls.get(kind, 0) + times
+        nbytes[kind] = nbytes.get(kind, 0) + size * times
+
+    def count(path, p, spec):
+        all_gathers, reduce_scatters = reads(path)
+        shape, entries, times = tuple(p.shape), spec, 1
+        if path[0] in STACKED:
+            shape, entries, times = shape[1:], spec[1:], shape[0]
+        for numel in gathered_numels(shape, entries, sizes):
+            add("all-gather", numel * p.element_size(), all_gathers * times)
+            add("reduce-scatter", numel * 4, reduce_scatters * times)
+        key = reduce_axes(spec, world)
+        if key:
+            buckets[key] = buckets.get(key, 0) + p.numel() // math.prod(
+                math.prod(sizes[a] for a in entry_axes(e, sizes))
+                for e in spec)
+
+    tree_map_with_path(count, params, specs)
+    buckets[world] = buckets.get(world, 0) + 1          # the loss
+    for elems in buckets.values():
+        add("all-reduce", 2 * 4 * elems)
+    add("all-reduce", 2 * 4)                            # the clip's norm
+    return {"calls": calls, "bytes": nbytes}
 
 
 @torch.no_grad()
@@ -537,18 +623,16 @@ class Sharder:
 
     def whole(self, tree, *path: str):
         """``tree``, the parameters' subtree at ``path``, with every leaf
-        its spec splits gathered whole (``gather_params``), where the
+        its spec splits gathered whole (``whole_params``), where the
         model reads it; ``tree`` itself without a mesh or specs.  Under
         ``periods`` ``tree`` is one period: the specs drop their leading
         (period) entry."""
-        if self.ctx is None or self.param_specs is None:
-            return tree
         specs = self.param_specs
-        for k in path:
-            specs = specs[k]
-        if path[:1] == ("periods",):
-            specs = tree_map_with_path(lambda _, s: s[1:], specs)
-        return gather_params(tree, specs, self.ctx)
+        if specs is not None:
+            for k in path:
+                specs = specs[k]
+        return whole_params(tree, specs, self.ctx,
+                            stacked=path[:1] == ("periods",))
 
     # -- the one transition ----------------------------------------------------
     def _class(self, name: str) -> Optional[int]:
@@ -830,7 +914,8 @@ def null_sharder() -> Sharder:
 
 __all__ = ["ParallelPlan", "Sharder", "make_sharder", "null_sharder",
            "param_pspecs", "mesh_sizes", "shard_params", "gather_params",
-           "unshard_params", "entry_axes", "split_axes", "reduce_axes",
+           "whole_params", "unshard_params", "gathered_numels",
+           "store_contract", "entry_axes", "split_axes", "reduce_axes",
            "global_shape", "slice_index", "param_copies", "reshard",
            "KV_SEQ_DIM", "SLOT_DIM", "BLOCK_DIM", "is_kv_leaf",
            "cache_pspecs", "kv_block", "assert_kv_cache_on_mesh",

@@ -6,10 +6,11 @@ over a leading microbatch dim, then AdamW.  With a mesh, each rank's loss
 and grads are its shard's share of the global mean's (``t2d_loss`` with
 ``mesh=``, ``lm_loss`` with a sharder), and all-reduces of flattened f32
 buckets sum them over the mesh before clipping and AdamW
-(``allreduce_grads``: over the whole world, or, under a sharder's
-parameter layout, each leaf over the dims it is not split over), so the
-clip (``clip_scale``, with ``slices_norm`` under a layout) sees the
-global gradient and the logged loss is the global one.  ``Trainer`` owns
+(``allreduce_grads``: over the whole world, or, under a parameter
+layout, a sharder's or one given as ``param_specs``, each leaf over the
+dims it is not split over), so the clip (``clip_scale``, with
+``slices_norm`` under a layout) sees the global gradient and the logged
+loss is the global one.  ``Trainer`` owns
 the host loop: deterministic data from a step-indexed ``data_fn``, a
 step-time EMA watchdog that flags stragglers, the loss history,
 plan-aware checkpoints every ``ckpt_every`` steps and at the end
@@ -136,7 +137,7 @@ def slices_norm(grads, specs, ctx) -> torch.Tensor:
 
 def make_train_step(loss_fn: Callable, opt_cfg: OptConfig, *,
                     grad_accum: int = 1, mesh=None, sharder=None,
-                    grad_compress: bool = False):
+                    param_specs=None, grad_compress: bool = False):
     """loss_fn(params, batch) -> (scalar, metrics dict).
 
     With grad_accum > 1, ``batch`` leaves carry a leading (grad_accum,
@@ -146,7 +147,10 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptConfig, *,
     one ``loss_fn`` runs under) gives the mesh in its place, and with it
     the layout of the rank's ``params`` (``Sharder.param_specs``): each
     grad is then summed over the dims its leaf is not split over, and the
-    clip takes the whole gradient's norm (``slices_norm``).  With
+    clip takes the whole gradient's norm (``slices_norm``).  A loss with
+    no sharder (the 2D DiT's ``t2d_loss(param_specs=)``) gives the layout
+    as ``param_specs`` beside ``mesh``; a sharder and ``param_specs``
+    together raise.  With
     ``grad_compress`` the summed grads go through
     ``compress_with_feedback`` (each slice at its whole leaf's scale)
     before the clip, and the step takes and returns the residuals:
@@ -154,11 +158,19 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptConfig, *,
     residuals, metrics).
     """
     ctx = specs = None
+    if sharder is not None and param_specs is not None:
+        raise ValueError("pass sharder= or param_specs=, not both: the "
+                         "sharder's specs are the layout trained on")
     if sharder is not None and sharder.ctx is not None:
         if mesh is not None:
             raise ValueError("pass mesh= or sharder=, not both: the "
                              "sharder's mesh is the one trained on")
         ctx, specs, mesh = sharder.ctx, sharder.param_specs, sharder.ctx.mesh
+    elif param_specs is not None:
+        if mesh is None:
+            raise ValueError("param_specs lay the parameters out on a mesh: "
+                             "pass mesh= too")
+        ctx, specs = from_mesh(mesh), param_specs
 
     def grads_of(params, batch):
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -210,8 +222,10 @@ class Trainer:
     With ``mesh`` (or the ``sharder`` of ``loss_fn``, on a mesh),
     ``data_fn`` gives the rank's shard and ``loss_fn`` its share of the
     global loss (``make_train_step``); under the sharder's
-    ``param_specs``, ``params`` are the rank's slices (``shard_params``),
-    and so are the AdamW state and the residuals made from them.
+    ``param_specs``, or the ``param_specs`` given beside ``mesh`` (a loss
+    with no sharder, the 2D DiT's), ``params`` are the rank's slices
+    (``shard_params``), and so are the AdamW state and the residuals made
+    from them.
 
     With ``ckpt_dir`` every rank of the world constructs the trainer
     (the ``CheckpointManager``'s group), saves its slices every
@@ -223,7 +237,7 @@ class Trainer:
     def __init__(self, *, loss_fn, params, opt_cfg: OptConfig,
                  cfg: TrainerConfig, data_fn: Callable[[int], Any],
                  ckpt_dir: Optional[str] = None, device="cuda", mesh=None,
-                 sharder=None, schedule=None,
+                 sharder=None, param_specs=None, schedule=None,
                  elastic: Optional[ElasticSpec] = None):
         self.device = resolve_device(device)
         for p in tree_leaves(params):
@@ -241,6 +255,7 @@ class Trainer:
         self.step_fn = make_train_step(loss_fn, opt_cfg,
                                        grad_accum=cfg.grad_accum, mesh=mesh,
                                        sharder=sharder,
+                                       param_specs=param_specs,
                                        grad_compress=cfg.grad_compress)
         # the layout of the live state: the mesh, its context and the
         # specs of the rank's slices (None: every leaf whole)
@@ -248,7 +263,8 @@ class Trainer:
             mesh = sharder.ctx.mesh
         self.mesh = mesh
         self.ctx = from_mesh(mesh) if mesh is not None else None
-        self.specs = sharder.param_specs if sharder is not None else None
+        self.specs = (sharder.param_specs if sharder is not None
+                      else param_specs)
         self.schedule = (schedule if schedule is not None
                          else getattr(sharder, "schedule", None))
         self.elastic = elastic

@@ -395,20 +395,63 @@ def test_auto_backend_raises():
 # The train CLI under torchrun
 # ---------------------------------------------------------------------------
 
-def test_train_cli_under_torchrun():
-    """``torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch
-    transformer2d-720m --mesh 1,4 --device cpu --steps 3`` at SMOKE size:
-    every rank logs the same global loss, and it falls."""
+def _train_cli(mesh: str, *extra: str) -> str:
+    """stdout of ``torchrun --nproc-per-node 4 -m repro_torch.launch.train
+    --arch transformer2d-720m --mesh <mesh> --device cpu`` at SMOKE size,
+    which must exit 0."""
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
                + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", "4", "-m", "repro_torch.launch.train",
-         "--arch", "transformer2d-720m", "--mesh", "1,4", "--device", "cpu",
-         "--steps", "3"],
+         "--arch", "transformer2d-720m", "--mesh", mesh, "--device", "cpu",
+         *extra],
         env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
-    lines = [l for l in proc.stdout.splitlines() if l.startswith("loss ")]
-    assert len(lines) == 4 and len(set(lines)) == 1, proc.stdout
-    first, last = (float(v) for v in lines[0].split()[1::2])
-    assert last < first, lines[0]
+    return proc.stdout
+
+
+def _lines(out: str, prefix: str):
+    """Each rank's summary line starting with ``prefix``: the 4 must
+    agree."""
+    lines = [l for l in out.splitlines() if l.startswith(prefix)]
+    assert len(lines) == 4 and len(set(lines)) == 1, out
+    return lines[0]
+
+
+def test_train_cli_under_torchrun():
+    """``torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch
+    transformer2d-720m --mesh 1,4 --device cpu --steps 3`` at SMOKE size
+    trains under the spec's own plan, ZeRO-3 on: every rank prints that
+    plan and logs the same global loss, and it falls."""
+    out = _train_cli("1,4", "--steps", "3")
+    assert _lines(out, "plan ") == (
+        "plan ParallelPlan(mode='dsp', ep=False, zero=True, "
+        "shard_vocab=False)")
+    first, last = (float(v) for v in _lines(out, "loss ").split()[1::2])
+    assert last < first, out
+
+
+def test_train_cli_resumes_on_another_mesh(tmp_path):
+    """``--mesh 2,2 --ckpt-dir <d> --steps 4`` (a checkpoint each step, the
+    last 3 kept), its checkpoints past step 2 removed, then ``--mesh 1,4
+    --steps 4 --resume``: each rank restores its (1, 4) slices of the
+    (2, 2) ranks' step-2 state and takes steps 3 and 4, whose losses equal
+    the uninterrupted run's within 1e-5 relative."""
+    import ast
+    import shutil
+    from repro_torch.train.checkpoint import CheckpointManager
+    ck = str(tmp_path)
+    base = ["--steps", "4", "--ckpt-dir", ck]
+    whole = ast.literal_eval(_lines(_train_cli("2,2", *base),
+                                    "history: ")[len("history: "):])
+    assert [s for s, _ in whole] == [1, 2, 3, 4]
+    mgr = CheckpointManager(ck)
+    assert mgr.all_steps() == [2, 3, 4]
+    for step in (3, 4):
+        shutil.rmtree(os.path.join(ck, f"step_{step:08d}"))
+    resumed = ast.literal_eval(_lines(_train_cli("1,4", *base, "--resume"),
+                                      "history: ")[len("history: "):])
+    assert [s for s, _ in resumed] == [3, 4]
+    np.testing.assert_allclose([l for _, l in resumed],
+                               [l for _, l in whole[2:]], rtol=1e-5, atol=0)

@@ -46,7 +46,9 @@ from repro_torch.models.transformer2d import (
 from repro_torch.launch.mesh import elastic_submesh, resolve_topology
 from repro_torch.models.lm import serve_contract, sharded_argmax
 from repro_torch.parallel.partition import (
-    BLOCK_DIM, assert_kv_cache_on_mesh, cache_pspecs, reshard)
+    BLOCK_DIM, assert_kv_cache_on_mesh, cache_pspecs, reshard,
+    store_contract, whole_params)
+from repro_torch.models.transformer2d import param_contract, step_contract
 from repro_torch.serving import (GARBAGE_BLOCK, BlockPool, PagedScheduler,
                                  PrefixTree)
 """
@@ -76,7 +78,8 @@ assert not bad, bad
                                     "_torch_zero_worker.py",
                                     "_torch_ckpt_worker.py",
                                     "_torch_serve_worker.py",
-                                    "_torch_paged_worker.py"])
+                                    "_torch_paged_worker.py",
+                                    "_torch_t2d_zero_worker.py"])
 def test_gloo_workers_import_no_jax_and_no_repro(worker):
     """The port's side of each multi-process check (a gloo rank) loads, with
     the helpers it shares with its JAX side, nothing of JAX or of the JAX
