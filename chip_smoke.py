@@ -34,7 +34,12 @@ Phases, in order; any failure raises and exits non-zero:
    chunk at offset 1024 (``PAGED_ATTN``); and K1 at the shapes a rank of
    phase 21 (b) gives it, f32 on ``cuda_cores``: 4 folded frames of a
    spatial block, the 2048 folded patches of a temporal one
-   (``T2D_ZERO_ATTN``);
+   (``T2D_ZERO_ATTN``); and K1 at the prefill shapes of phase 22's models
+   in bf16 (``MODEL_ATTN``: starcoder2-7b's 36 q and 4 K/V heads and
+   qwen2-moe-a2.7b's 16 and 16 at 2048 tokens, D 128, on ``sm90``;
+   gemma2-2b's 8 and 4 at D 256 with softcap 50 and window 4096 over
+   4608 keys, on ``cuda_cores``) and at the shapes a rank of phase 23 (b)
+   gives it, f32 on ``cuda_cores`` (``MOE_RANK_ATTN``);
 4. time each kernel, its plain version and, where one exists, one PyTorch
    library call that computes the same function (a yardstick the port
    never calls); K1's routed kernel and the library call three times each
@@ -44,7 +49,10 @@ Phases, in order; any failure raises and exits non-zero:
    ``cuda_cores``, against ``scaled_dot_product_attention``, three times
    each in turns (medians); K1 at each chunk shape of ``PAGED_ATTN``
    against ``scaled_dot_product_attention`` with the chunk's mask, three
-   times each in turns (medians);
+   times each in turns (medians); K1 at each shape of ``MODEL_ATTN``
+   against ``scaled_dot_product_attention`` (causal, GQA) three times
+   each in turns (medians), gemma2's against ``flex_attention`` compiled
+   with its softcap and window (``library_attention``);
 5. qwen3-14b serving at full width, random weights from a seeded
    generator: at depth 2, prefill logits through the kernel against the
    plain path at the longest prompt and at a ragged one (bar 2e-2 of the
@@ -272,17 +280,54 @@ Phases, in order; any failure raises and exits non-zero:
     memory logged; then one Trainer step at (2, 2) saved and restored by
     a fresh Trainer at (1, 4), its state bit-equal to the saved state's
     (1, 4) slices;
-22. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
+22. starcoder2-7b, gemma2-2b and qwen2-moe-a2.7b on one card, bf16,
+    random weights from seed 0, the card freed between models: (a)
+    starcoder2-7b's depth-2 prefill logits at 2048 and 512 tokens, kernel
+    against plain within 2e-2 of the largest logit, then at full depth 32
+    4 requests (prompts 512-2048, 16 new tokens) through
+    ``ContinuousScheduler``: K1 exactly 32 x 4 = 128 launches, all
+    ``sm90`` (GQA 36/4); (b) gemma2-2b the same at a 4608-token and a
+    512-token prompt, then at full depth 26 4 requests, one of 4608
+    tokens (past its window of 4096): K1 104 launches, all ``cuda_cores``
+    (D 256, softcap 50, window 4096); (c) qwen2-moe-a2.7b (14.31B
+    parameters, 60 experts padded to 64): depth-2 prefill logits and
+    ``lm_loss`` kernel against plain in bf16 and, with every grad, in f32
+    (phase 5's and 7's bars; in bf16 the paths send some pairs to other
+    experts, each moving a token's whole contribution between two
+    experts' grads; the share of such routes logged), phase 5's
+    8-request trace at full depth 24 (K1 192, all ``sm90``), and 4
+    Trainer steps at depth 4 at 1 x 4096 (K1 32;
+    TTFT, TPOT, step time, tokens/s, peak memory and the dropped share
+    logged);
+23. MoE under DSP with ``ep`` on a (data, model) mesh, qwen2-moe-a2.7b
+    under its spec's own plan (``dsp``, ``ep``, ZeRO-3, the vocab ring):
+    (a) at world size 1 over NCCL, phase 22 (c)'s training again, the
+    losses within 1e-4 relative of phase 22's, the calls and bytes
+    exactly the contract each step (``zero_contract``: the count exchange,
+    the dispatch and the combine, their rows from the step's kept pairs,
+    plus ``lm.param_contract``), K1 32 on ``sm90``; then (b)'s
+    reference; (b) 4 processes sharing the card over gloo, each this
+    script with ``--moe-rank``, at full width, depth 2 in f32 at 2 x 2048
+    tokens, at (1, 4) and (2, 2): the loss within 1e-5 relative of one
+    rank's, each rank's grad slices within 1e-4 of their leaf's max, the
+    dropped pairs of each MoE call and the dropped share exactly one
+    rank's, per rank the calls and bytes exactly the contract (the
+    dispatch's rows by ``route_rows`` of the run's routing)
+    and 4 K1 launches on ``cuda_cores``; (c) the train CLI at SMOKE size
+    under ``torchrun --nproc-per-node 4 --mesh 1,4 --backend gloo``;
+24. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
     counts over the paths above (K1 320 + 32 + 224 + 224 + phase 14's
     training runs, 16 per mode, 8 for ring and hybrid, + phase 15 (a)'s
     28 + phase 16 (a)'s 32 + phase 17 (a)'s 32 + phase 19 (a)'s 320 +
-    phase 20 (a)'s 720 + phase 21 (a)'s 224; K2 576 + 384 + phase 16
-    (a)'s 192 + phase 17 (a)'s 192 + phase 18 (a)'s 2 x 48 x 12 = 1152 +
-    phase 19 (a)'s 384)
+    phase 20 (a)'s 720 + phase 21 (a)'s 224 + phase 22's 128 + 104 + 192
+    + 32 + phase 23 (a)'s 32; K2 576 + 384 + phase 16 (a)'s 192 + phase
+    17 (a)'s 192 + phase 18 (a)'s 2 x 48 x 12 = 1152 + phase 19 (a)'s
+    384)
     and whose ``launches_by_route`` split that sum by the route each
-    launch took (every one ``sm90``), with phase 19 (b)'s and 20 (b)'s
-    per rank beside (phase 21 (b)'s too) and phase 4's chunk timings,
-    then the last line
+    launch took (``sm90``, and gemma2's 104 on ``cuda_cores``), with phase
+    19 (b)'s and 20 (b)'s per rank beside (phase 21 (b)'s and 23 (b)'s
+    too), phase 4's chunk timings and the three models' shapes
+    (``models``), then the last line
     ``{"ok": true, "device": {...}}``.
 
 Each phase's header logs the seconds since the start and the host's
@@ -293,6 +338,7 @@ every time logged carries the card's name and power limit.
 import collections
 import dataclasses
 import gc
+import contextlib
 import json
 import math
 import os
@@ -312,7 +358,8 @@ import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import (  # noqa: E402
-    mamba2_370m, qwen3_14b, transformer2d_720m)
+    gemma2_2b, mamba2_370m, qwen2_moe_a2_7b, qwen3_14b, starcoder2_7b,
+    transformer2d_720m)
 from repro_torch.core import dsp  # noqa: E402
 from repro_torch.core.layout import from_mesh  # noqa: E402
 from repro_torch.core.schedule import (  # noqa: E402
@@ -328,6 +375,7 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
 from repro_torch.launch.mesh import (  # noqa: E402
     BACKEND_OF, make_mesh, make_sp2d_mesh)
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer2d as t2d  # noqa: E402
 from repro_torch.optim.adamw import OptConfig  # noqa: E402
 from repro_torch.parallel.partition import (  # noqa: E402
@@ -564,6 +612,38 @@ PAGED_RANK_FORCED = (0, 2)
 PAGED_ATTN = tuple((1, _Q.n_heads, _Q.n_kv_heads, 512, n, _Q.head_dim, True,
                     None, None) for n in (512, 1024, 1536, 2048)) + (
     (1, _Q.n_heads, _Q.n_kv_heads, 64, 1088, _Q.head_dim, True, None, None),)
+
+
+# phase 22: starcoder2-7b and gemma2-2b each serve MODEL_REQUESTS requests
+# of MODEL_NEW_TOKENS new tokens, starcoder2's prompts over 512-2048
+# tokens, gemma2's with one of GEMMA_LONG tokens, past its window of 4096;
+# qwen2-moe-a2.7b serves phase 5's trace and trains at depth
+# MOE_TRAIN_DEPTH of 24 (AdamW's f32 state for its 15.1B stored
+# parameters does not fit one card), MOE_TRAIN_STEPS steps at 1 x
+# TRAIN_SEQ
+MODEL_REQUESTS, MODEL_NEW_TOKENS = 4, 16
+STARCODER_LENS = np.linspace(512, 2048, MODEL_REQUESTS).astype(int).tolist()
+GEMMA_LONG = 4608
+GEMMA_LENS = [512, 1024, 2048, GEMMA_LONG]
+MOE_TRAIN_DEPTH, MOE_TRAIN_STEPS = 4, 4
+# phase 23 (b): qwen2-moe-a2.7b at full width, depth MOE_RANK_DEPTH in
+# float32 at MOE_RANK_BATCH x MOE_RANK_SEQ, under its spec's plan (dsp, ep,
+# ZeRO-3) at each mesh of MOE_RANK_MESHES against one rank: the loss
+# within MOE_LOSS_BAR relative, each grad slice within MOE_GRAD_BAR of its
+# leaf's max (tests/test_torch_moe_ep.py's bars)
+MOE_RANK_DEPTH, MOE_RANK_BATCH, MOE_RANK_SEQ = 2, 2, 2048
+MOE_RANK_MESHES = ((1, 4), (2, 2))
+MOE_LOSS_BAR, MOE_GRAD_BAR = 1e-5, 1e-4
+# K1 at the three models' prefill shapes: starcoder2's GQA group of 9,
+# qwen2-moe's 16 heads, gemma2's D 256 with window and softcap at
+# GEMMA_LONG keys (phase 3, timed in phase 4); and at a rank's shapes in
+# phase 23 (b), float32 (16 heads over 4 ranks at batch 2, over 2 at 1)
+MODEL_ATTN = {
+    "starcoder2-7b": (1, 36, 4, 2048, 2048, 128, True, None, None),
+    "qwen2-moe-a2.7b": (1, 16, 16, 2048, 2048, 128, True, None, None),
+    "gemma2-2b": (1, 8, 4, GEMMA_LONG, GEMMA_LONG, 256, True, 4096, 50.0)}
+MOE_RANK_ATTN = ((2, 4, 4, MOE_RANK_SEQ, MOE_RANK_SEQ, 128, True, None, None),
+                 (1, 8, 8, MOE_RANK_SEQ, MOE_RANK_SEQ, 128, True, None, None))
 
 
 def prefill_case(s: int):
@@ -878,14 +958,16 @@ def ssd_state_check(cfg, device="cuda") -> float:
     return rel
 
 
-def trace_requests(cfg, device="cuda") -> list:
-    """The served trace: N_REQUESTS prompts of PROMPT_LENS tokens from a
-    seeded generator, NEW_TOKENS new tokens each, all arriving at 0."""
+def trace_requests(cfg, device="cuda", lens=None,
+                   new_tokens: int = NEW_TOKENS) -> list:
+    """The served trace: prompts of ``lens`` tokens (PROMPT_LENS by
+    default) from a seeded generator, ``new_tokens`` new tokens each, all
+    arriving at 0."""
     g = torch.Generator(device=device).manual_seed(3)
     return [Request(prompt=torch.randint(0, cfg.vocab, (n,), generator=g,
                                          device=device),
-                    max_new_tokens=NEW_TOKENS, request_id=i)
-            for i, n in enumerate(PROMPT_LENS)]
+                    max_new_tokens=new_tokens, request_id=i)
+            for i, n in enumerate(PROMPT_LENS if lens is None else lens)]
 
 
 def meta_tree(params):
@@ -946,20 +1028,25 @@ def counted() -> dict:
 
 
 def full_width_serve(cfg, kernel, device="cuda", mesh=None,
-                     plan=None) -> dict:
+                     plan=None, lens=None, new_tokens: int = NEW_TOKENS,
+                     route: str = "sm90") -> dict:
     """``cfg`` at full depth behind ContinuousScheduler: 8 requests, prompts
-    spread over 512-2048 tokens, 32 new tokens each, all arriving at 0.
-    ``kernel`` (K1's or K2's wrapper) must launch once per layer per
-    prefill, every launch on the ``sm90`` route.  With ``mesh`` (and
-    ``plan``) the engine serves sharded, and the calls and bytes counted
-    must be exactly ``lm.serve_contract``'s."""
+    spread over 512-2048 tokens (or ``lens``), 32 (``new_tokens``) new
+    tokens each, all arriving at 0.  ``kernel`` (K1's or K2's wrapper)
+    must launch once per layer per prefill, every launch on ``route``.
+    With ``mesh`` (and ``plan``) the engine serves sharded, and the calls
+    and bytes counted must be exactly ``lm.serve_contract``'s."""
+    lens = PROMPT_LENS if lens is None else lens
     t0 = time.perf_counter()
     params = lm.init_lm(0, cfg, device=device)
     torch.cuda.synchronize()
-    log_t(f"  init {lm.param_counts(cfg)['total'] / 1e9:.2f}B params in "
+    stored = sum(p.numel() for p in lm.tree_leaves(params))
+    log_t(f"  init {lm.param_counts(cfg)['total'] / 1e9:.2f}B params "
+          f"({stored / 1e9:.2f}B stored, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB) in "
           f"{time.perf_counter() - t0:.1f} s")
     template = meta_tree(params)
-    eng = ServingEngine(params, cfg, max_len=max(PROMPT_LENS) + NEW_TOKENS,
+    eng = ServingEngine(params, cfg, max_len=max(lens) + new_tokens,
                         device=device, mesh=mesh, plan=plan)
     del params
     steps = StepLog(eng)
@@ -973,7 +1060,7 @@ def full_width_serve(cfg, kernel, device="cuda", mesh=None,
         return inner
 
     eng._prefill, eng._decode = watch(eng._prefill), watch(eng._decode)
-    reqs = trace_requests(cfg, device)
+    reqs = trace_requests(cfg, device, lens, new_tokens)
     sched = ContinuousScheduler(eng, max_batch=MAX_BATCH)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -992,16 +1079,16 @@ def full_width_serve(cfg, kernel, device="cuda", mesh=None,
         f"prefills of {cfg.n_layers} layers, by route {routes}; "
         f"flash_attention_fwd {flash_attention_fwd.launches}, ssd_scan_fwd "
         f"{ssd_scan_fwd.launches} in all")
-    if launches != cfg.n_layers * prefills or prefills != N_REQUESTS:
+    if launches != cfg.n_layers * prefills or prefills != len(lens):
         raise AssertionError(f"{kernel.__name__} launched {launches} times, "
-                             f"expected {cfg.n_layers} x {N_REQUESTS}")
-    if routes["sm90"] != launches:
-        raise AssertionError(f"not every prefill launch took the sm90 "
+                             f"expected {cfg.n_layers} x {len(lens)}")
+    if routes[route] != launches:
+        raise AssertionError(f"not every prefill launch took the {route} "
                              f"route: {routes}")
     for r in reqs:
-        if r.result is None or len(r.generated) != NEW_TOKENS:
+        if r.result is None or len(r.generated) != new_tokens:
             raise AssertionError(f"request {r.request_id} did not finish "
-                                 f"with {NEW_TOKENS} tokens")
+                                 f"with {new_tokens} tokens")
     if int(bad):
         raise AssertionError(f"{int(bad)} non-finite logits")
     if mesh is not None:
@@ -1137,7 +1224,8 @@ def run_trainer(init, loss_fn, data_fn, kernel, *, tokens, n_steps,
         torch.cuda.synchronize()
         steps.append({"seconds": time.perf_counter() - t,
                       "loss": float(out[2]["loss"]),
-                      "grad_norm": float(out[2]["grad_norm"])})
+                      "grad_norm": float(out[2]["grad_norm"]),
+                      "dropped": float(out[2].get("moe_dropped", 0.0))})
         return out
     trainer.step_fn = timed
     torch.cuda.synchronize()
@@ -1162,7 +1250,8 @@ def run_trainer(init, loss_fn, data_fn, kernel, *, tokens, n_steps,
                "tokens_per_s": tokens / step_s,
                "peak_memory_gb": peak_gb,
                "losses": [st["loss"] for st in steps],
-               "grad_norms": [st["grad_norm"] for st in steps]}
+               "grad_norms": [st["grad_norm"] for st in steps],
+               "dropped": [st["dropped"] for st in steps]}
     log(f"  launches: {kernel.__name__} {launches} over {n_steps} steps of "
         f"{n_layers} layers (forward + checkpointed recompute), by route "
         f"{routes}; flash_attention_fwd {flash_attention_fwd.launches} "
@@ -2432,15 +2521,18 @@ def zero_layout(name: str, cfg, mesh, batch: int, device="cuda") -> dict:
             "sharder": sharder, "plan": plan, "contract": contract}
 
 
-def zero_contract(cfg, shape, batch: int, layout: dict) -> dict:
+def zero_contract(cfg, shape, batch: int, layout: dict, seq=TRAIN_SEQ,
+                  rows=None) -> dict:
     """{kind: [calls, bytes]} per rank of one loss, its grads, their sums
     and the clip's norm with remat on a ``shape`` (data, model) mesh at a
-    global ``batch`` x TRAIN_SEQ tokens: the hooks' (``lm.remat_step`` of
-    ``lm.collective_contract``) plus the layouts' (``lm.param_contract``:
+    global ``batch`` x ``seq`` tokens: the hooks' (``lm.remat_step`` of
+    ``lm.collective_contract``; with MoE under ``ep``, the dispatch and
+    combine moving ``rows``) plus the layouts' (``lm.param_contract``:
     the gathers, the ring, the trainer's all-reduces)."""
     dp, mp = shape
-    hooks = lm.remat_step(lm.collective_contract(cfg, mp, batch // dp,
-                                                 TRAIN_SEQ // mp))
+    hooks = lm.remat_step(lm.collective_contract(
+        cfg, mp, batch // dp, seq // mp, dp=dp, ep=rows is not None,
+        moe_rows=rows))
     return {k: [hooks["calls"].get(k, 0) + layout["calls"].get(k, 0),
                 hooks["bytes"].get(k, 0) + layout["bytes"].get(k, 0)]
             for k in sorted(set(hooks["calls"]) | set(layout["calls"]))}
@@ -3295,7 +3387,7 @@ def layer_drift(cfg, prompt, device="cuda") -> dict:
         for j, spec in enumerate(cfg.period_specs()):
             def layer(h, backend):
                 return lm._apply_layer(pp[str(j)], h, cfg, spec, sh, backend,
-                                       True)
+                                       True)[0]
             yr = layer(xr, "ref")
             out["local"].append(logit_gap(layer(xr, "kernel"), yr))
             xk, xr, xn = layer(xk, "kernel"), yr, layer(xn, "ref")
@@ -4566,6 +4658,648 @@ def t2d_zero_four_ranks(work: str, device="cuda") -> dict:
     return {"ranks": ranks, "k1": k1}
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: starcoder2-7b, gemma2-2b and qwen2-moe-a2.7b on one card
+# ---------------------------------------------------------------------------
+
+def model_cfg(name: str, depth=None, dtype=None):
+    cfg = {"starcoder2-7b": starcoder2_7b.CONFIG,
+           "gemma2-2b": gemma2_2b.CONFIG,
+           "qwen2-moe-a2.7b": qwen2_moe_a2_7b.CONFIG}[name]
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+
+@contextlib.contextmanager
+def moe_calls(replay=None):
+    """While open, records each MoE call of the model in call order, as a
+    dict: ``experts``, the (B, S, K) experts its router picks
+    (``models.moe._route``); ``dropped``, the share of dropped pairs its
+    aux reports (``models.moe.moe_gather``, a rank's share on a mesh);
+    and ``layer``, the data pointer of its router's weight, which names
+    its layer in every path over the same parameters.  With ``replay``
+    (``layer_routes`` of an earlier record) each call takes that record's
+    experts for its layer instead of its own top-k, its gate values read
+    from its own router probabilities at those experts, and ``differ``
+    counts the pairs on which its own pick differs: two paths compared so
+    route alike, which top-k, not being continuous, does not promise."""
+    calls = []
+    route, gather = moe._route, moe.moe_gather
+
+    def recorded_route(p, x, meta, norm_topk):
+        probs, vals, idx = route(p, x, meta, norm_topk)
+        layer = p["router"]["w"].data_ptr()
+        call = {"layer": layer, "experts": idx.detach().cpu()}
+        if replay is not None:
+            want = replay[layer].to(idx.device)
+            call["differ"] = int((~(idx[..., :, None]
+                                    == want[..., None, :]).any(-1)).sum())
+            idx, vals = want, probs.gather(-1, want)
+            if norm_topk:                           # as ``moe._route``
+                vals = vals / (vals.sum(-1, keepdim=True) + 1e-9)
+        calls.append(call)
+        return probs, vals, idx
+
+    def recorded_gather(*args, **kwargs):
+        y, aux = gather(*args, **kwargs)
+        calls[-1]["dropped"] = float(aux["dropped"])
+        return y, aux
+
+    moe._route, moe.moe_gather = recorded_route, recorded_gather
+    try:
+        yield calls
+    finally:
+        moe._route, moe.moe_gather = route, gather
+
+
+def layer_routes(calls) -> dict:
+    """``moe_calls``' record as a replay table: layer -> experts."""
+    return {c["layer"]: c["experts"] for c in calls}
+
+
+def route_disagreement(got: list, want: list) -> float:
+    """The share of (token, k) routes whose expert one path picks and the
+    other does not, over every MoE call of two ``moe_calls`` records."""
+    differ = total = 0
+    for g, w in zip(got, want):
+        same = (g["experts"][..., :, None]
+                == w["experts"][..., None, :]).any(-1)
+        differ += int((~same).sum())
+        total += same.numel()
+    return differ / max(total, 1)
+
+
+def lm_capacity(cfg, seq: int) -> int:
+    """The expert capacity of ``cfg``'s MoE layers at a row of ``seq``
+    tokens: ``lm`` calls ``moe.moe`` with its default capacity factor,
+    which the gather dispatch raises to at least 2."""
+    meta = lm.moe_meta(cfg)
+    return moe._capacity(seq, meta.top_k, meta.e_phys, 2.0)
+
+
+def kept_pairs(experts: torch.Tensor, e_phys: int, cap: int) -> torch.Tensor:
+    """The (B, S, K) pairs of a whole batch's routing ``experts`` that
+    their experts keep: a pair's slot is the count of its row's pairs
+    before it (token-major, then k) on its expert, and a slot past
+    ``cap`` is dropped (JAX's ``moe`` semantics, counted here with one-hot
+    sums, apart from the port's sort)."""
+    b, s, k = experts.shape
+    flat = experts.reshape(b, s * k, 1).long()
+    hot = F.one_hot(flat[..., 0], e_phys)
+    slot = (hot.cumsum(1) - hot).gather(-1, flat)[..., 0]
+    return (slot < cap).reshape(b, s, k)
+
+
+def route_rows(routes, e_phys: int, cap: int, dp: int, n: int,
+               dp_index: int, seq_index: int):
+    """From the GLOBAL routing of some MoE calls (each the experts (B, S,
+    K) of a whole batch), the rows the rank at (``dp_index``,
+    ``seq_index``) of a (dp, n) mesh with ``ep`` receives in their
+    dispatches (kept pairs of its data slice's rows on its experts) and
+    gets back in their combines (its own tokens' kept pairs):
+    ``lm.collective_contract``'s ``moe_rows``."""
+    received = returned = 0
+    el = e_phys // n
+    for experts in routes:
+        kept = kept_pairs(experts, e_phys, cap)
+        bl, sl = experts.shape[0] // dp, experts.shape[1] // n
+        rows = slice(dp_index * bl, (dp_index + 1) * bl)
+        e, k = experts[rows], kept[rows]
+        received += int((k & (e // el == seq_index)).sum())
+        returned += int(k[:, seq_index * sl:(seq_index + 1) * sl].sum())
+    return received, returned
+
+
+def moe_depth2_checks(cfg, device="cuda") -> dict:
+    """Depth-2 ``cfg`` (qwen2-moe-a2.7b), the kernel against the plain
+    path: in bf16 the last-position prefill logits at the longest and
+    shortest prompts (phase 5's bar), each path routing itself; then, at 1
+    x TRAIN_SEQ, ``lm_loss`` with each path routing itself (phase 7's loss
+    bar), and ``lm_loss`` and every grad with the plain path's routing
+    replayed in the kernel path (``moe_calls``; phase 7's bars): top-k is
+    not continuous, so where the paths' roundings pick another expert for
+    a pair, that pair's whole contribution moves from one expert's grad to
+    another's.  Then the same in float32, each path routing itself.  The
+    share of (token, k) routes on which the two paths' own picks differ
+    is logged for each."""
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    params = lm.init_lm(0, cfg2, device=device)
+    g = torch.Generator(device=device).manual_seed(2)
+    out = {}
+    for s in (max(PROMPT_LENS), min(PROMPT_LENS)):
+        tok = torch.randint(0, cfg.vocab, (1, s), generator=g, device=device)
+        logits, routes = {}, {}
+        with torch.no_grad():
+            for backend in ("kernel", "ref"):
+                with moe_calls() as routes[backend]:
+                    logits[backend] = lm.forward_prefill(
+                        params, tok, cfg2, backend=backend)[0]
+        gap = logit_gap(logits["kernel"], logits["ref"])
+        share = route_disagreement(routes["kernel"], routes["ref"])
+        log(f"  depth-2 prefill logits at {s} tokens: max |kernel - plain| "
+            f"/ max |logit| = {gap:.3e}; routes that differ {share:.3e}")
+        if not gap <= LOGIT_BAR:
+            raise AssertionError(f"depth-2 prefill logits disagree at {s} "
+                                 f"tokens: {gap}")
+        out[f"prefill_{s}"] = {"gap": gap, "routes_differ": share}
+    batch = make_batch(DataConfig(task="lm_random", vocab=cfg.vocab,
+                                  seq=TRAIN_SEQ, batch=1), 0, device=device)
+    for dtype in (torch.bfloat16, torch.float32):
+        cfg_d = dataclasses.replace(cfg2, dtype=dtype)
+        if dtype == torch.float32:              # the same weights, widened
+            params = lm.tree_map(lambda p: p.float(), params)
+        losses, routes = {}, {}
+        with torch.no_grad():
+            for b in ("kernel", "ref"):
+                with moe_calls() as routes[b]:
+                    losses[b] = lm.lm_loss(params, batch, cfg_d,
+                                           backend=b)[0]
+        share = route_disagreement(routes["kernel"], routes["ref"])
+        own = float((losses["kernel"] - losses["ref"]).abs()
+                    / losses["ref"].abs())
+        name = str(dtype).split(".")[-1]
+        replay = (layer_routes(routes["ref"]) if dtype == torch.bfloat16
+                  else None)
+        with moe_calls(replay) as calls:
+            gap = loss_grads_gap(params, batch, cfg_d)
+        replayed = "routing replayed" if replay else "own routing"
+        log(f"  {name}: depth-2 loss {gap['loss']:.6f}: each path routing "
+            f"itself |kernel - plain| / |loss| = {own:.3e}, routes that "
+            f"differ {share:.3e}; {replayed} over {len(calls)} MoE calls "
+            f"|kernel - plain| / |loss| = {gap['loss_rel']:.3e}, worst "
+            f"grad leaf {gap['leaf']} max |delta| / max |plain| = "
+            f"{gap['grad_rel']:.3e} over {gap['leaves']} leaves")
+        if not (own <= LOSS_BAR and gap_passes(gap)):
+            raise AssertionError(f"depth-2 {name} loss or grads disagree: "
+                                 f"{own}, {gap}")
+        out[f"loss/{name}"] = {**gap, "loss_rel_own_routing": own,
+                               "routes_differ": share,
+                               "routing_replayed": replay is not None}
+    del params
+    free_device()
+    return out
+
+
+def models_on_one_card(device="cuda") -> dict:
+    """(a) starcoder2-7b: depth-2 prefill logits kernel against plain, then
+    full depth behind the scheduler (MODEL_REQUESTS requests over
+    STARCODER_LENS, MODEL_NEW_TOKENS new tokens), K1 once a layer a
+    prefill on ``sm90``.  (b) gemma2-2b the same over GEMMA_LENS, one
+    prompt past its window, K1 on ``cuda_cores`` (D 256).  (c)
+    qwen2-moe-a2.7b: ``moe_depth2_checks``, phase 5's trace at full depth,
+    and MOE_TRAIN_STEPS Trainer steps at depth MOE_TRAIN_DEPTH."""
+    out = {}
+    log("  (a) starcoder2-7b")
+    cfg = model_cfg("starcoder2-7b")
+    full_width_prefill_check(cfg, (max(STARCODER_LENS), min(STARCODER_LENS)))
+    out["starcoder2-7b"] = full_width_serve(
+        cfg, flash_attention_fwd, lens=STARCODER_LENS,
+        new_tokens=MODEL_NEW_TOKENS)
+    log(f"  (b) gemma2-2b ({elapsed()})")
+    cfg = model_cfg("gemma2-2b")
+    full_width_prefill_check(cfg, (GEMMA_LONG, min(GEMMA_LENS)))
+    out["gemma2-2b"] = full_width_serve(
+        cfg, flash_attention_fwd, lens=GEMMA_LENS,
+        new_tokens=MODEL_NEW_TOKENS, route=ROUTES[(torch.bfloat16, 256)])
+    log(f"  (c) qwen2-moe-a2.7b ({elapsed()})")
+    cfg = model_cfg("qwen2-moe-a2.7b")
+    out["qwen2-moe-a2.7b/checks"] = moe_depth2_checks(cfg, device)
+    out["qwen2-moe-a2.7b"] = full_width_serve(cfg, flash_attention_fwd)
+    log(f"  training at depth {MOE_TRAIN_DEPTH}, {MOE_TRAIN_STEPS} steps "
+        f"at 1 x {TRAIN_SEQ} ({elapsed()})")
+    out["qwen2-moe-a2.7b/train"] = trained = full_width_train(
+        model_cfg("qwen2-moe-a2.7b", MOE_TRAIN_DEPTH), flash_attention_fwd,
+        1, MOE_TRAIN_STEPS)
+    log(f"  dropped share of (token, k) pairs per step "
+        f"{trained['metrics']['dropped']}")
+    free_device()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 23: MoE under DSP, with ep, on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+MOE_PLAN = qwen2_moe_a2_7b.SPEC.plan
+
+
+def moe_layout(cfg, mesh, batch: int, seq: int, device="cuda") -> dict:
+    """``cfg``'s parameters from seed 0 under MOE_PLAN on ``mesh``: the
+    rank's slices, the specs, the sharder of the joint planned schedule at
+    ``batch`` x ``seq`` and the layouts' contract."""
+    ctx = from_mesh(mesh)
+    sizes = mesh_sizes(ctx)
+    params = lm.init_lm(0, cfg, device=device)
+    specs = param_pspecs(params, MOE_PLAN, axis_sizes=sizes)
+    layout = lm.param_contract(cfg, meta_tree(params), MOE_PLAN, sizes)
+    sharder = make_sharder(mesh, MOE_PLAN, schedule=lm.dsp_schedule(
+        cfg, ctx.sp_size, seq=seq, batch=batch, joint=True),
+        param_specs=specs)
+    return {"params": shard_params(params, specs, ctx), "specs": specs,
+            "sharder": sharder, "layout": layout}
+
+
+def moe_world_of_one(phase22: dict, work: str, device="cuda") -> dict:
+    """(a) At world size 1 on a (1, 1) mesh over NCCL: phase 22 (c)'s
+    training under the spec's own plan (``dsp``, ``ep``, ZeRO-3, the vocab
+    ring), the losses within DSP_LOSS_BAR of phase 22's, the calls and
+    bytes exactly ``zero_contract`` each step (the dispatch's rows the
+    step's kept pairs in phase 22, from its dropped share), K1 as in phase
+    22, all on ``sm90``; the dropped shares equal phase 22's step by step.
+    Then (b)'s reference: depth MOE_RANK_DEPTH in float32 at
+    MOE_RANK_BATCH x MOE_RANK_SEQ, plan none, its loss, grads, dropped
+    share and routing, written to ``work``."""
+    backend = BACKEND_OF[torch.device(device).type]
+    dist.init_process_group(backend, store=dist.FileStore(
+        os.path.join(work, "store23a"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), torch.device(device).type)
+        cfg = model_cfg("qwen2-moe-a2.7b", MOE_TRAIN_DEPTH)
+        lay = moe_layout(cfg, mesh, 1, TRAIN_SEQ, device)
+        sharder = lay["sharder"]
+        trained = run_trainer(
+            lambda: lay.pop("params"),
+            lambda p, b: lm.lm_loss(p, b, cfg, sharder=sharder,
+                                    backend="kernel"),
+            lambda st: lm.shard_lm_batch(lm_batch(cfg, 1, st, device),
+                                         sharder),
+            flash_attention_fwd, tokens=TRAIN_SEQ, n_steps=MOE_TRAIN_STEPS,
+            n_layers=cfg.n_layers, route="sm90", device=device,
+            sharder=sharder)
+        met = trained["metrics"]
+        ref = phase22["qwen2-moe-a2.7b/train"]["metrics"]
+        if met["dropped"] != ref["dropped"]:
+            raise AssertionError(f"qwen2-moe under {MOE_PLAN} dropped "
+                                 f"{met['dropped']}, phase 22 "
+                                 f"{ref['dropped']}")
+        # the dispatch's rows from phase 22's kept pairs, counted there
+        # with no mesh and no exchange: at world 1 every kept pair goes to
+        # the one rank and comes back
+        pairs = lm.n_moe_layers(cfg) * TRAIN_SEQ * cfg.top_k
+        want = {}
+        for dropped in ref["dropped"]:
+            kept = pairs - round(dropped * pairs)
+            step = zero_contract(cfg, (1, 1), 1, lay["layout"],
+                                 rows=(kept, kept))
+            for k, (c, b) in step.items():
+                have = want.setdefault(k, [0, 0])
+                have[0] += c
+                have[1] += b
+        got = {k: [trained["collectives"][k], trained["volume"][k]]
+               for k in sorted(trained["collectives"])}
+        log(f"  torch.distributed calls [count, bytes]: {got}; the contract "
+            f"{want}")
+        if got != want:
+            raise AssertionError(f"qwen2-moe under {MOE_PLAN}: collectives "
+                                 f"{got}, the contract says {want}")
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(met["losses"], ref["losses"]))
+        log_t(f"  losses {met['losses']} against phase 22's "
+              f"{ref['losses']}: worst |delta| / |loss| = {rel:.3e}; "
+              f"dropped {met['dropped']} against {ref['dropped']}; step "
+              f"(median) {met['step_ms_median']:.2f} ms against "
+              f"{ref['step_ms_median']:.2f} ms; peak "
+              f"{met['peak_memory_gb']:.2f} GB against "
+              f"{ref['peak_memory_gb']:.2f} GB")
+        if not rel <= DSP_LOSS_BAR:
+            raise AssertionError(f"qwen2-moe losses {met['losses']} differ "
+                                 f"from phase 22's")
+        del lay
+        free_device()
+        moe_rank_ref(work, device)
+    finally:
+        dist.destroy_process_group()
+    return trained
+
+
+def moe_rank_cfg():
+    return model_cfg("qwen2-moe-a2.7b", MOE_RANK_DEPTH, torch.float32)
+
+
+def moe_rank_batch(cfg, device="cuda") -> dict:
+    return make_batch(DataConfig(task="lm_shift", vocab=cfg.vocab,
+                                 seq=MOE_RANK_SEQ, batch=MOE_RANK_BATCH), 0,
+                      device=device)
+
+
+def moe_rank_ref(work: str, device="cuda") -> None:
+    """(b)'s reference on one rank without a mesh: ``moe_rank_cfg``'s loss,
+    grads (float32), dropped share and routing on ``moe_rank_batch``,
+    written to ``work/moe_ref.pt``."""
+    cfg = moe_rank_cfg()
+    params = lm.init_lm(0, cfg, device=device)
+    leaves = lm.tree_map(lambda p: p.requires_grad_(True), params)
+    batch = moe_rank_batch(cfg, device)
+    with torch.no_grad(), moe_calls() as calls:
+        lm.forward(params, batch["tokens"], cfg, backend="kernel",
+                   remat=False)
+    loss, metrics = lm.lm_loss(leaves, batch, cfg, backend="kernel")
+    grads = torch.autograd.grad(loss, lm.tree_leaves(leaves))
+    torch.save({"loss": loss.detach().cpu(),
+                "dropped": float(metrics["moe_dropped"]),
+                "routes": [c["experts"] for c in calls],
+                "call_dropped": [c["dropped"] for c in calls],
+                "grads": [g.cpu() for g in grads]},
+               os.path.join(work, "moe_ref.pt"))
+    log_t(f"  reference: depth {cfg.n_layers} in float32, {MOE_RANK_BATCH} "
+          f"x {MOE_RANK_SEQ}: loss {float(loss.detach()):.6f}, dropped "
+          f"share {float(metrics['moe_dropped']):.6f}")
+    del params, leaves, grads
+    free_device()
+
+
+def moe_rank_main(rank: int, world: int, work: str) -> None:
+    """One of (b)'s ranks, started by ``moe_four_ranks`` as
+    ``chip_smoke.py --moe-rank <rank> <world> <dir>``: gloo over the
+    card's tensors.  At each mesh of MOE_RANK_MESHES: ``moe_rank_cfg`` on
+    its slices under MOE_PLAN, one ``lm_loss(sharder=)`` on its shard of
+    ``moe_rank_batch`` with its grads summed by ``allreduce_grads`` and
+    the clip's norm, what it counted, its peak memory, its dropped share
+    and its routing (the forward's MoE calls); each grad slice held
+    against the same slice of (a)'s reference.  Written to
+    ``<dir>/moe_rank<r>.json`` and ``.pt``; every rank waits at a barrier,
+    then leaves the group."""
+    device = json.load(open(os.path.join(work, "job23.json")))["device"]
+    full_f32()
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(work, "store23b"), world), rank=rank, world_size=world)
+    try:
+        cfg = moe_rank_cfg()
+        ref = torch.load(os.path.join(work, "moe_ref.pt"), mmap=True)
+        res, routes = {}, {}
+        for shape in MOE_RANK_MESHES:
+            label = f"{shape[0]}x{shape[1]}"
+            mesh = make_mesh(shape, ("data", "model"),
+                             torch.device(device).type, backend="gloo")
+            ctx = from_mesh(mesh)
+            lay = moe_layout(cfg, mesh, MOE_RANK_BATCH, MOE_RANK_SEQ, device)
+            specs, sharder = lay["specs"], lay["sharder"]
+            leaves = lm.tree_map(lambda p: p.requires_grad_(True),
+                                 lay.pop("params"))
+            batch = lm.shard_lm_batch(moe_rank_batch(cfg, device), sharder)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            with moe_calls() as calls:          # the forward's, not the
+                loss, metrics = lm.lm_loss(      # backward's recompute
+                    leaves, batch, cfg, sharder=sharder, backend="kernel")
+            routes[label] = calls
+            grads = iter(torch.autograd.grad(loss, lm.tree_leaves(leaves)))
+            loss, grads = allreduce_grads(loss.detach(), lm.tree_map(
+                lambda p: next(grads), leaves), specs, ctx)
+            slices_norm(grads, specs, ctx)
+            got = read_counts()
+            got.update(seconds=time.perf_counter() - t0,
+                       coord=[ctx.dp_index, ctx.sp_index],
+                       layout=lay["layout"],
+                       dropped=float(metrics["moe_dropped"]),
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            gaps = torch.tensor([slice_gap(g, w[tuple(
+                slice(a, b) for a, b in slice_index(w.shape, spec, ctx))])
+                for g, w, spec in zip(lm.tree_leaves(grads), ref["grads"],
+                                      lm.tree_leaves(specs))],
+                dtype=torch.float64)
+            dist.all_reduce(gaps, op=dist.ReduceOp.MAX)
+            shares = (gaps[:, 0] / gaps[:, 1].clamp_min(1e-30)).tolist()
+            worst = int(np.argmax(shares))
+            got.update(
+                loss=float(loss), loss_rel=float(
+                    (loss.cpu() - ref["loss"]).abs() / ref["loss"].abs()),
+                grad_rel=shares[worst], leaves=len(shares),
+                leaf=leaf_paths(specs)[worst], host_gib=host_state())
+            res[label] = got
+            del leaves, grads, lay
+            host_empty_cache()
+            torch.cuda.empty_cache()
+        torch.save(routes, os.path.join(work, f"moe_rank{rank}.pt"))
+        json.dump(res, open(os.path.join(work, f"moe_rank{rank}.json"), "w"))
+    finally:
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def assemble_routes(parts: dict, shape) -> list:
+    """The run's global routing from each rank's (coord -> its
+    ``moe_calls`` record): per MoE call, the experts (B, S, K)."""
+    dp, mp = shape
+    calls = len(next(iter(parts.values())))
+    return [torch.cat([torch.cat([parts[(a, b)][i]["experts"]
+                                  for b in range(mp)], dim=1)
+                       for a in range(dp)], dim=0) for i in range(calls)]
+
+
+def moe_four_ranks(work: str, device="cuda") -> dict:
+    """(b) DSP_RANKS processes sharing the card over gloo
+    (``moe_rank_main``), ``moe_rank_cfg`` in float32 at each mesh of
+    MOE_RANK_MESHES under MOE_PLAN: the loss within MOE_LOSS_BAR relative
+    of (a)'s one-rank reference, each rank's grad slices within
+    MOE_GRAD_BAR of their leaf's max, the ranks' dropped shares summed
+    equal to the reference's, call by call and in all (the reference's
+    per call its routing's, by ``kept_pairs``), each rank's calls and
+    bytes exactly ``zero_contract`` with the dispatch's rows from the
+    run's routing (``route_rows``), 2 K1 launches a layer on the f32
+    route; each rank's peak memory and host memory logged."""
+    with open(os.path.join(work, "job23.json"), "w") as f:
+        json.dump({"device": device}, f)
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--moe-rank", str(r), str(DSP_RANKS), work],
+                              env=env)
+             for r in range(DSP_RANKS)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log_t(f"  {DSP_RANKS} ranks exited {rcs} after "
+          f"{time.perf_counter() - t0:.1f} s")
+    if any(rcs):
+        raise AssertionError(f"a MoE rank failed: exit codes {rcs}")
+    ranks = [json.load(open(os.path.join(work, f"moe_rank{r}.json")))
+             for r in range(DSP_RANKS)]
+    routes = [torch.load(os.path.join(work, f"moe_rank{r}.pt"))
+              for r in range(DSP_RANKS)]
+    ref = torch.load(os.path.join(work, "moe_ref.pt"), mmap=True)
+    cfg = moe_rank_cfg()
+    e_phys = lm.moe_meta(cfg).e_phys
+    route = ROUTES[(cfg.dtype, cfg.head_dim)]
+    k1 = 2 * cfg.n_layers
+    cap = lm_capacity(cfg, MOE_RANK_SEQ)
+    pairs = MOE_RANK_BATCH * MOE_RANK_SEQ * cfg.top_k
+
+    def count(shares):
+        return [int(round(float(x) * pairs)) for x in shares]
+    ref_dropped = count(ref["call_dropped"])
+    if ref_dropped != [int((~kept_pairs(e, e_phys, cap)).sum())
+                       for e in ref["routes"]]:
+        raise AssertionError(f"one rank's dropped pairs per MoE call "
+                             f"{ref_dropped} are not its routing's")
+    for shape in MOE_RANK_MESHES:
+        label = f"{shape[0]}x{shape[1]}"
+        parts = {tuple(res[label]["coord"]): rt[label]
+                 for res, rt in zip(ranks, routes)}
+        glob = assemble_routes(parts, shape)
+        # each call's dropped pairs: the ranks' shares summed
+        dropped = count(np.sum([[c["dropped"] for c in calls]
+                                for calls in parts.values()], axis=0))
+        share = sum(res[label]["dropped"] for res in ranks)
+        g = ranks[0][label]
+        log_t(f"  {label}: depth {cfg.n_layers} in float32, "
+              f"{MOE_RANK_BATCH} x {MOE_RANK_SEQ}: loss {g['loss']:.9f}, "
+              f"|delta| / |loss| against one rank {g['loss_rel']:.3e}, "
+              f"worst grad slice {g['leaf']} {g['grad_rel']:.3e} of its "
+              f"leaf's max over {g['leaves']} leaves; dropped pairs per MoE "
+              f"call {dropped} against one rank's {ref_dropped}, share "
+              f"{share} against {ref['dropped']}")
+        if not (g["grad_rel"] <= MOE_GRAD_BAR and dropped == ref_dropped
+                and share == ref["dropped"]):
+            raise AssertionError(f"{label}: the {DSP_RANKS}-rank grads or "
+                                 f"drops disagree with one rank: {g}, "
+                                 f"dropped {dropped} against {ref_dropped}")
+        for r, res in enumerate(ranks):
+            got = res[label]
+            i, j = got["coord"]
+            rows = route_rows(glob, e_phys, cap, shape[0], shape[1], i, j)
+            want = zero_contract(cfg, shape, MOE_RANK_BATCH, got["layout"],
+                                 MOE_RANK_SEQ, rows)
+            log_t(f"  rank {r} (data {i}, model {j}): {got['seconds']:.1f} "
+                  f"s, peak {got['peak_gb']:.2f} GB, dispatch rows "
+                  f"(received, returned) {rows}, calls {got['calls']}, K1 "
+                  f"{got['k1']} {got['k1_routes']}; host GiB "
+                  f"{got['host_gib']}")
+            if not (got["loss_rel"] <= MOE_LOSS_BAR and got["calls"] == want
+                    and got["k1"] == k1 and got["k1_routes"] == {route: k1}):
+                raise AssertionError(f"rank {r} {label}: {got}, the contract "
+                                     f"says {want} and {k1} K1 launches on "
+                                     f"{route}")
+    return {"ranks": ranks, "k1": k1}
+
+
+def moe_cli_ranks(work: str, train_main) -> None:
+    """(c) The train CLI at SMOKE size under ``torchrun --nproc-per-node``
+    DSP_RANKS on the card, gloo over its tensors (``--backend gloo``),
+    ``--mesh 1,4``: the spec's plan with ``ep``, every rank the same
+    global loss, beside one rank's without a mesh."""
+    arch = "qwen2-moe-a2.7b"
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(DSP_RANKS), "-m",
+           "repro_torch.launch.train", "--arch", arch, "--mesh",
+           f"1,{DSP_RANKS}", "--backend", "gloo", "--steps", "3"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=work, env=env, capture_output=True,
+                         text=True, timeout=300)
+    lines = [l for l in out.stdout.splitlines() if l.startswith("loss ")]
+    plans = {l for l in out.stdout.splitlines() if l.startswith("plan ")}
+    hist = train_main(["--arch", arch, "--steps", "3"])["history"]
+    log_t(f"  exit {out.returncode} in {time.perf_counter() - t0:.1f} s; "
+          f"{sorted(plans)}; {lines[:1]} on each of {len(lines)} ranks; one "
+          f"rank: loss {hist[0][1]:.4f} -> {hist[-1][1]:.4f}")
+    if (out.returncode or len(lines) != DSP_RANKS or len(set(lines)) != 1
+            or plans != {f"plan {MOE_PLAN}"}):
+        raise AssertionError(f"train CLI under torchrun: "
+                             f"{out.stdout[-2000:]}{out.stderr[-3000:]}")
+
+
+def library_attention(case, compile: bool = True):
+    """One PyTorch call that computes K1's function at ``case`` where
+    ``scaled_dot_product_attention`` cannot, for a softcap or a window:
+    ``flex_attention`` with the softcap as its ``score_mod`` and the
+    causal and window limits at ``q_offset`` as its block mask, GQA on,
+    compiled into its Triton kernel where ``compile``.  Returns fn(q, k,
+    v); it is timed beside the kernel and used nowhere in the port."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    _, _, _, sq, skv, _, causal, window, softcap = case
+    q_offset = attn_kw(case)["q_offset"]
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        q_pos = q_idx + q_offset
+        keep = kv_idx <= q_pos if causal else kv_idx >= 0
+        if window is not None:
+            keep = keep & (kv_idx > q_pos - window)
+        return keep
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return softcap * torch.tanh(score / softcap)
+
+    if compile:
+        import torch._inductor.config as inductor
+        inductor.compile_threads = 1            # no pool of workers
+        flex_attention = torch.compile(flex_attention, dynamic=False)
+    cache = {}
+
+    def fn(q, k, v):
+        if q.device not in cache:
+            cache[q.device] = create_block_mask(mask_mod, None, None, sq,
+                                                skv, device=q.device)
+        return flex_attention(q, k, v,
+                              score_mod=None if softcap is None
+                              else score_mod,
+                              block_mask=cache[q.device], enable_gqa=True)
+    return fn
+
+
+def time_model_attention(name: str) -> dict:
+    """K1 at ``name``'s prefill shape (MODEL_ATTN) in bf16 on its route,
+    and one library call for the same function: ``scaled_dot_product_
+    attention`` (causal, GQA), or ``library_attention``'s compiled
+    ``flex_attention`` where the shape has a softcap or a window (its
+    first call, the compile, untimed, and its output held against the
+    plain version's at K1's bar), three times each in turns (medians);
+    the plain version once, and the bound."""
+    case = MODEL_ATTN[name]
+    q, k, v = attn_inputs(case, torch.bfloat16, seed=13)
+    kw = attn_kw(case)
+    route = ROUTES[(torch.bfloat16, case[5])]
+    fns = {route: lambda: flash_attention_fwd(q, k, v, **kw)}
+    plain = flash_attention_plain(q, k, v, **kw)
+    if case[8] is None and case[7] is None:
+        library = "scaled_dot_product_attention"
+        fns["library"] = lambda: sdpa(q, k, v)
+    else:
+        library = "flex_attention (torch.compile)"
+        flex = library_attention(case)
+        t0 = time.perf_counter()
+        share = attn_worst_share(flex(q, k, v), plain, torch.bfloat16)
+        torch.cuda.synchronize()
+        log_t(f"  {name}: {library} compiled and run in "
+              f"{time.perf_counter() - t0:.1f} s; against the plain "
+              f"version {share:.3f} of K1's bar")
+        if not share <= 1.0:
+            raise AssertionError(f"{library} at {case} is not K1's "
+                                 f"function: {share} of the bar")
+        fns["library"] = lambda: flex(q, k, v)
+    del plain
+    runs = {who: [] for who in fns}
+    for order in (tuple(fns), tuple(fns)[::-1], tuple(fns)):
+        for who in order:
+            runs[who].append(time_ms(fns[who], iters=10, warmup=2))
+    med = {w: float(np.median(r)) for w, r in runs.items()}
+    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, **kw), iters=2,
+                       warmup=1)
+    bound = attention_bound_ms(case, torch.bfloat16)
+    log_t(f"  {name} {case[:6]} window {case[7]} softcap {case[8]}: kernel "
+          f"({route}) {med[route]:.4f} ms (runs {runs[route]})  plain "
+          f"{plain_ms:.4f} ms  {library} {med['library']:.4f} ms (runs "
+          f"{runs['library']})  bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}; the kernel at "
+          f"{100 * bound['bound_ms'] / med[route]:.1f}% of the bound)")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"shape": list(case[:6]), "window": case[7], "softcap": case[8],
+            "route": route, "ms": med[route], "plain_ms": plain_ms,
+            "library": library, "library_ms": med["library"],
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+
+
 def time_chunk_attention(case) -> dict:
     """K1 at a paged chunk's ``case`` in bf16 on its route, and
     ``scaled_dot_product_attention`` with the chunk's mask (keys up to
@@ -4820,6 +5554,10 @@ def main() -> None:
         check_attention(case, torch.bfloat16, seed=440 + i)
     for i, case in enumerate(T2D_ZERO_ATTN):
         check_attention(case, torch.float32, seed=450 + i)
+    model_errs = {name: check_attention(case, torch.bfloat16, seed=460 + i)
+                  for i, (name, case) in enumerate(MODEL_ATTN.items())}
+    for i, case in enumerate(MOE_RANK_ATTN):
+        check_attention(case, torch.float32, seed=470 + i)
 
     log(f"[4] timing at the slice's shape, bf16 ({elapsed()})")
     q, k, v = attn_inputs(SLICE, torch.bfloat16, seed=7)
@@ -4874,6 +5612,9 @@ def main() -> None:
     dit = time_dit_attention(DIT_SLICE)
     dit_temporal = time_dit_attention(DIT_TEMPORAL)
     chunks = [time_chunk_attention(case) for case in PAGED_ATTN]
+    models = {name: {**time_model_attention(name),
+                     "max_abs_err": model_errs[name]}
+              for name in MODEL_ATTN}
 
     log(f"[5] qwen3-14b serving at full width ({elapsed()})")
     cfg = qwen3_14b.CONFIG
@@ -5031,6 +5772,32 @@ def main() -> None:
     log_t(f"  done: phase 21 took {time.perf_counter() - t21:.1f} s "
           f"({elapsed()})")
 
+    log(f"[22] starcoder2-7b, gemma2-2b and qwen2-moe-a2.7b on one card "
+        f"({elapsed()})")
+    t22 = time.perf_counter()
+    m22 = models_on_one_card()
+    log_t(f"  done: phase 22 took {time.perf_counter() - t22:.1f} s "
+          f"({elapsed()})")
+
+    log(f"[23] qwen2-moe-a2.7b under its spec's own plan: MoE with ep under "
+        f"DSP on a (data, model) mesh ({elapsed()})")
+    t23 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        log("  (a) world size 1 over NCCL, full width, depth "
+            f"{MOE_TRAIN_DEPTH}")
+        moe_dsp = moe_world_of_one(m22, work)
+        log(f"  (b) {DSP_RANKS} ranks on the card over gloo, depth "
+            f"{MOE_RANK_DEPTH} in float32 ({elapsed()})")
+        moe_ranks = moe_four_ranks(work)
+        log(f"  (c) the train CLI under torchrun at SMOKE size "
+            f"({elapsed()})")
+        moe_cli_ranks(work, train_main)
+    log_t(f"  done: phase 23 took {time.perf_counter() - t23:.1f} s "
+          f"({elapsed()})")
+    model_runs = [m22["starcoder2-7b"], m22["gemma2-2b"],
+                  m22["qwen2-moe-a2.7b"], m22["qwen2-moe-a2.7b/train"],
+                  moe_dsp]
+
     log(facts)
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
@@ -5040,9 +5807,23 @@ def main() -> None:
                      + dit_trained["launches"] + dsp_trained["launches"]
                      + sp_launches + l2d["launches"] + q_dsp["launches"]
                      + q_zero["launches"] + q_sv["launches"]
-                     + paged["launches"] + t2d_zero["launches"]),
+                     + paged["launches"] + t2d_zero["launches"]
+                     + sum(r["launches"] for r in model_runs)),
         "launches_by_route": by_route([served, q_trained, q_dsp, q_zero,
-                                       q_sv, paged] + dit_runs),
+                                       q_sv, paged] + dit_runs + model_runs),
+        "models": {**{name: {**models[name],
+                             "launches": m22[name]["launches"],
+                             "routes": m22[name]["routes"]}
+                      for name in MODEL_ATTN},
+                   "qwen2-moe-a2.7b/train": {
+                       "launches": m22["qwen2-moe-a2.7b/train"]["launches"],
+                       "routes": m22["qwen2-moe-a2.7b/train"]["routes"]},
+                   "qwen2-moe-a2.7b/dsp": {
+                       "launches": moe_dsp["launches"],
+                       "routes": moe_dsp["routes"]},
+                   "qwen2-moe-a2.7b/rank_launches": [
+                       {label: r[label]["k1_routes"] for label in r}
+                       for r in moe_ranks["ranks"]]},
         "paged_launches": paged["launches"],
         "paged_rank_launches": [r["k1_launches"]
                                 for r in paged_ranks["ranks"]],
@@ -5124,5 +5905,7 @@ if __name__ == "__main__":
         paged_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif sys.argv[1:2] == ["--t2d-zero-rank"]:
         t2d_zero_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:2] == ["--moe-rank"]:
+        moe_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     else:
         main()

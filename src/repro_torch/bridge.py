@@ -31,8 +31,13 @@ def _leaf(a: np.ndarray, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
 
 def params_from_numpy(tree: Any, *, device, dtype: Optional[torch.dtype] = None):
     """Nested dicts of numpy arrays -> the same dicts of tensors on
-    ``device``; floating leaves are cast to ``dtype`` when it is given."""
+    ``device``; floating leaves are cast to ``dtype`` when it is given,
+    except a MoE router's, which stays float32 as both packages' inits
+    draw it (``models.moe.init_moe``)."""
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device=device, dtype=dtype)
+        return {k: params_from_numpy(
+                    v, device=device,
+                    dtype=(torch.float32 if k == "router" and dtype
+                           is not None else dtype))
                 for k, v in tree.items()}
     return _leaf(tree, device, dtype)

@@ -12,6 +12,10 @@ directly, mirroring the paper's four-function API one-to-one:
 * ``split`` — a local slice (no communication);
 * ``dsp_shard_batch`` — the paper's ``dsp_dataloader``.
 
+``exchange`` is the variable-split all-to-all of MoE's dispatch under
+expert parallelism (the switch from the token dim to the expert dim), and
+with the splits reversed its combine.
+
 Beside them, the collectives the embedded-SP baselines and the overlapped
 switch are built from: ``reduce_scatter`` (Megatron-SP's block exit) and
 ``ppermute`` (``jax.lax.ppermute``: ring hops and the overlapped switch's
@@ -302,6 +306,45 @@ def ppermute(x: torch.Tensor, perm: Perm, group) -> torch.Tensor:
     return _Permute.apply(x, tuple(tuple(p) for p in perm), group)
 
 
+def _exchange(x: torch.Tensor, send: Sequence[int], recv: Sequence[int],
+              group) -> torch.Tensor:
+    out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
+    _issue("all-to-all", dist.all_to_all_single, out, x.contiguous(),
+           group=group, output_split_sizes=list(recv),
+           input_split_sizes=list(send))
+    return out
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, send, recv, group):
+        ctx.args = (send, recv, group)
+        return _exchange(x, send, recv, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        send, recv, group = ctx.args
+        return _exchange(g, recv, send, group), None, None, None
+
+
+def exchange(x: torch.Tensor, send: Sequence[int], recv: Sequence[int],
+             group) -> torch.Tensor:
+    """Rows of ``x`` (its dim 0) to every rank of ``group``: the first
+    ``send[0]`` rows to rank 0, the next ``send[1]`` to rank 1, and so on;
+    the result holds ``recv[j]`` rows from each rank j, in rank order.  One
+    all-to-all (``all_to_all_single`` with split sizes; its bytes are the
+    result's, as for every all-to-all), whose backward is the same
+    exchange with ``send`` and ``recv`` swapped.  Every rank's ``send[j]``
+    must be rank j's ``recv`` entry for it."""
+    if len(send) != _group_size(group) or len(recv) != len(send):
+        raise ValueError(f"exchange: {len(send)} send and {len(recv)} recv "
+                         f"splits over a group of {_group_size(group)}")
+    if sum(send) != x.shape[0]:
+        raise ValueError(f"exchange: send splits {list(send)} do not cover "
+                         f"the {x.shape[0]} rows of x")
+    return _Exchange.apply(x, tuple(send), tuple(recv), group)
+
+
 def dsp_shard_batch(batch, tgt_shard: int, group):
     """The paper's ``dsp_dataloader``: every member of an SP group holds the
     same global batch; slice each tensor along ``tgt_shard`` locally."""
@@ -390,6 +433,6 @@ __all__ = [
     "calls", "volume", "reset_calls", "all_reduce", "broadcast",
     "dynamic_switch", "shard", "split", "gather", "gather_param",
     "reduce_scatter", "ppermute",
-    "start_permute", "dsp_shard_batch",
+    "start_permute", "exchange", "dsp_shard_batch",
     "comm_volume_bytes", "per_device_bytes",
 ]

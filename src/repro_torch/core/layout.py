@@ -188,6 +188,24 @@ class ParallelContext:
         return tuple(out)
 
 
+@dataclasses.dataclass(frozen=True)
+class ExpertPlace:
+    """Where a rank's MoE tokens and experts sit on a mesh
+    (``parallel.partition.Sharder.moe_experts``, read by
+    ``models.moe.moe_gather``): the row's tokens split over the
+    ``seq_shards`` ranks of ``group`` in order (this one holds chunk
+    ``seq_index``), the batch over ``dp_size`` ranks; with ``ep`` the
+    experts split over ``group`` in contiguous blocks.  ``world_group``
+    carries the count exchange."""
+    group: object
+    world_group: object
+    seq_shards: int
+    seq_index: int
+    dp_size: int
+    dp_index: int
+    ep: bool
+
+
 # (id of a mesh, its SP dims) -> the group over them flattened
 _FLAT_GROUPS: Dict[Tuple[int, Tuple[str, ...]], object] = {}
 

@@ -46,6 +46,18 @@ def _world(device_type: str, backend: Optional[str]) -> None:
                          f"{dist.get_backend()}, the mesh asks for {backend}")
 
 
+def close_world() -> None:
+    """Leave the default process group, if any, once every rank got here:
+    one barrier, then ``destroy_process_group``.  A gloo group left to the
+    interpreter's exit is torn down while a peer's threads may still talk
+    to it, and the process aborts ("terminate called without an active
+    exception") after its work is done.  The CLIs call it after their
+    work under ``torchrun``."""
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+
+
 def make_mesh(shape: Sequence[int], axes: Sequence[str] = ("data", "model"),
               device_type: str = "cuda", *,
               backend: Optional[str] = None) -> DeviceMesh:

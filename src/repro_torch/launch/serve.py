@@ -258,4 +258,6 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from repro_torch.launch.mesh import close_world
     main()
+    close_world()

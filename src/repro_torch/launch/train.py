@@ -50,12 +50,18 @@ N leave with no steps):
         --arch qwen3-14b --mesh 2,2 --ckpt-dir ck --steps 80 --resume \
         --replan 2
 
+``--backend gloo`` lets several ranks share one card (NCCL takes one rank
+a card).  MoE (qwen2-moe-a2.7b) trains under its spec's plan, ``ep`` with
+ZeRO-3: each rank runs its block of experts on the tokens the dispatch
+brings it.
+
 ``--grad-compress`` runs the summed grads through error-feedback int8
 compression.  ``--device`` defaults to ``cuda``.  The JAX CLI's
 ``--devices`` (simulated host devices) has no counterpart: ``torchrun
 --nproc-per-node`` starts the ranks.
 """
 import argparse
+import os
 import sys
 
 NOT_PORTED = ("devices",)
@@ -76,6 +82,9 @@ def main(argv=None):
     ap.add_argument("--mesh", default=None,
                     help="dp,mp: DSP over a (data, model) process mesh "
                          "(under torchrun)")
+    ap.add_argument("--backend", default=None, choices=["gloo", "nccl"],
+                    help="process-group backend of --mesh (default: the "
+                         "device's)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--replan", type=int, default=0,
@@ -112,7 +121,13 @@ def main(argv=None):
         from repro_torch.core.layout import from_mesh
         from repro_torch.launch.mesh import make_mesh
         dp, mp = (int(a) for a in args.mesh.split(","))
-        mesh = make_mesh((dp, mp), ("data", "model"), device.type)
+        if device.type == "cuda":
+            import torch
+            # a rank a card, or (gloo) ranks sharing the cards there are
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0"))
+                                  % torch.cuda.device_count())
+        mesh = make_mesh((dp, mp), ("data", "model"), device.type,
+                         backend=args.backend)
         ctx = from_mesh(mesh)
         ran = f"{spec.plan}"
     sharder = elastic = param_specs = psched = None
@@ -210,5 +225,7 @@ def main(argv=None):
 
 if __name__ == "__main__":
     import logging
+    from repro_torch.launch.mesh import close_world
     logging.basicConfig(level=logging.INFO)
     main()
+    close_world()

@@ -5,8 +5,10 @@ path (prefill, decode, logits).
 Per-period layer parameters live under ``periods`` stacked on a leading
 ``n_periods`` dim, as in the JAX package, so a JAX parameter tree crosses
 over with no transpose (``repro_torch.bridge``).  The JAX ``lax.scan`` over
-periods is a Python loop here.  Attention, MLP and SSM layers are ported;
-MoE layers come with their family.
+periods is a Python loop here.  Attention, MLP, MoE (``models.moe``, the
+gather dispatch on every path, as JAX's) and SSM layers are ported; the
+training forward returns MoE's load-balance aux beside the hidden states,
+and ``lm_loss`` adds it as JAX's does.
 
 Training runs under DSP through a ``parallel.partition.Sharder``
 (``forward``/``lm_loss(sharder=...)``): the model calls the sharder's
@@ -26,7 +28,9 @@ what the layouts add to a step).  Serving runs sharded the same way
 (``forward_prefill``/``forward_decode(sharder=)``): the prefill as the
 training forward, decode with the KV cache sequence-sharded and the SSM
 state head-sharded over ``model`` (``serve_contract`` counts what it
-issues).
+issues).  MoE trains on the mesh with ``ep`` or without
+(``Sharder.moe_experts``); MoE serving on a mesh is refused (ROADMAP
+queue 1 item 3.6).
 """
 from __future__ import annotations
 
@@ -45,10 +49,12 @@ from repro_torch.core.schedule import (Schedule, plan_joint_schedule,
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.parallel.partition import (
-    ParallelPlan, Sharder, cache_pspecs, gathered_numels, null_sharder,
-    param_pspecs, slice_index, store_contract, tree_map_with_path)
+    ParallelPlan, Sharder, cache_pspecs, gathered_numels, local_experts,
+    null_sharder, param_pspecs, slice_index, store_contract,
+    tree_map_with_path)
 
 
 # ---------------------------------------------------------------------------
@@ -280,8 +286,6 @@ def _apply_norm(cfg: LMConfig, p, x):
 
 
 def _init_layer(gen: torch.Generator, cfg: LMConfig, spec: LayerSpec):
-    if spec.ffn == "moe":
-        raise NotImplementedError("moe layers are not ported yet")
     dev = gen.device
     p: Dict[str, Any] = {"ln1": _init_norm_kind(cfg, cfg.d_model, dev)}
     if spec.mixer == "attn":
@@ -293,9 +297,16 @@ def _init_layer(gen: torch.Generator, cfg: LMConfig, spec: LayerSpec):
         p["pn1"] = _init_norm_kind(cfg, cfg.d_model, dev)
     if spec.ffn != "none":
         p["ln2"] = _init_norm_kind(cfg, cfg.d_model, dev)
-        ff = cfg.d_ff if not cfg.n_experts else (cfg.dense_ff or cfg.d_ff)
-        p["mlp"] = L.init_mlp(gen, cfg.d_model, ff, kind=cfg.mlp_kind,
-                              dtype=cfg.dtype)
+        if spec.ffn == "moe":
+            p["moe"] = M.init_moe(
+                gen, cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k,
+                n_shared=cfg.n_shared, shared_ff=cfg.shared_ff,
+                dense_ff=cfg.dense_ff, kind=cfg.mlp_kind,
+                pad_experts_to=cfg.ep_pad, dtype=cfg.dtype)
+        else:
+            ff = cfg.d_ff if not cfg.n_experts else (cfg.dense_ff or cfg.d_ff)
+            p["mlp"] = L.init_mlp(gen, cfg.d_model, ff, kind=cfg.mlp_kind,
+                                  dtype=cfg.dtype)
         if cfg.post_norm:
             p["pn2"] = _init_norm_kind(cfg, cfg.d_model, dev)
     return p
@@ -372,8 +383,19 @@ def param_counts(cfg: LMConfig) -> Dict[str, int]:
 # Training: forward and loss
 # ---------------------------------------------------------------------------
 
+def moe_meta(cfg: LMConfig) -> M.MoEArgs:
+    return M.MoEArgs(n_experts=cfg.n_experts, top_k=cfg.top_k,
+                     e_phys=cfg.ep_pad or cfg.n_experts, kind=cfg.mlp_kind,
+                     has_shared=cfg.n_shared > 0,
+                     has_dense=cfg.dense_ff is not None)
+
+
+def n_moe_layers(cfg: LMConfig) -> int:
+    return sum(sp.ffn == "moe" for sp in cfg.period_specs()) * cfg.n_periods
+
+
 def _apply_layer(p, x, cfg: LMConfig, spec: LayerSpec, sharder: Sharder,
-                 backend: str, fused_switch: bool):
+                 backend: str, fused_switch: bool, place=None):
     h = _apply_norm(cfg, p["ln1"], x)
     if spec.mixer == "attn":
         h = A.attention_sp(p["attn"], h, cfg.attn_cfg(spec.window),
@@ -386,10 +408,10 @@ def _apply_layer(p, x, cfg: LMConfig, spec: LayerSpec, sharder: Sharder,
                         sharder=sharder), src="resid")
     if cfg.post_norm:
         h = _apply_norm(cfg, p["pn1"], h)
-    x = _ffn_block(p, x + h, cfg, spec, sharder)
+    x, aux = _ffn_block(p, x + h, cfg, spec, sharder, place)
     # layer exit: a resid-stage boundary either way (after the FFN, or
     # after the mixer's switch back in an ffn-less layer)
-    return sharder.act3(x)
+    return sharder.act3(x), aux
 
 
 def sharded_embed(params, tokens, cfg: LMConfig, sharder: Sharder):
@@ -434,7 +456,11 @@ def sharded_embed(params, tokens, cfg: LMConfig, sharder: Sharder):
 def forward(params, tokens, cfg: LMConfig, *, sharder: Optional[Sharder] = None,
             backend: str = "kernel", remat: bool = True,
             fused_switch: bool = True):
-    """tokens: (B, S) -> final hidden states (B, S, C).  With ``sharder`` on
+    """tokens: (B, S) -> (final hidden states (B, S, C), aux), aux JAX's
+    {"moe_load_balance": the MoE layers' load-balance stats summed} and
+    {"moe_dropped": the mean over MoE layers of the share of (token, k)
+    pairs dropped past the capacity} (both 0 without MoE layers; on a
+    mesh the rank's shares, ``models.moe``).  With ``sharder`` on
     a mesh both are the rank's shard (``shard_lm_batch``): its batch slice
     and sequence chunk, and ``params`` are laid out as the sharder's
     ``param_specs`` say (``parallel.partition.shard_params``).  Each
@@ -444,33 +470,42 @@ def forward(params, tokens, cfg: LMConfig, *, sharder: Optional[Sharder] = None,
     each period and recomputes it in the backward (JAX's
     ``remat_policy="full"``), its collectives included, so the backward
     runs every period's forward once more.  ``fused_switch`` is
-    ``attention_sp``'s.  The JAX forward's MoE load-balance aux comes with
-    MoE."""
+    ``attention_sp``'s.  The aux sums run through each period's checkpoint
+    beside x, so the recompute's routing is the forward's."""
     sharder = sharder or null_sharder()
     sharder = _with_planned_schedule(
         sharder, cfg, seq=tokens.shape[1] * sharder.seq_shards,
         batch=tokens.shape[0] * sharder.dp_size)
     specs = cfg.period_specs()
+    n_moe = n_moe_layers(cfg)
+    place = sharder.moe_experts() if n_moe else None
     x = sharder.enter3(sharded_embed(params, tokens, cfg, sharder))
 
     def period_body(x, pp):
         pp = sharder.whole(pp, "periods")
         x = sharder.wrap3(x)
+        lb = dropped = torch.zeros((), dtype=torch.float32, device=x.device)
         for j, spec in enumerate(specs):
-            x = _apply_layer(pp[str(j)], x, cfg, spec, sharder, backend,
-                             fused_switch)
-        return x
+            x, aux = _apply_layer(pp[str(j)], x, cfg, spec, sharder, backend,
+                                  fused_switch, place)
+            if aux is not None:
+                lb, dropped = lb + aux[0], dropped + aux[1]
+        return x, lb, dropped
 
+    lb = dropped = torch.zeros((), dtype=torch.float32, device=x.device)
     for pp in unstack(params["periods"], cfg.n_periods):
         if remat:
             # no early stop: the recompute reissues every collective of the
             # period, the last one too, on every rank alike
             with set_checkpoint_early_stop(False):
-                x = checkpoint(period_body, x, pp, use_reentrant=False)
+                x, a, d = checkpoint(period_body, x, pp, use_reentrant=False)
         else:
-            x = period_body(x, pp)
-    return _apply_norm(cfg, sharder.whole(params["final_norm"], "final_norm"),
-                       x)
+            x, a, d = period_body(x, pp)
+        lb, dropped = lb + a, dropped + d
+    x = _apply_norm(cfg, sharder.whole(params["final_norm"], "final_norm"),
+                    x)
+    return x, {"moe_load_balance": lb,
+               "moe_dropped": dropped / max(n_moe, 1)}
 
 
 def chunked_xent(x, table, labels, cfg: LMConfig, *, chunk: int = 512,
@@ -506,20 +541,25 @@ def chunked_xent(x, table, labels, cfg: LMConfig, *, chunk: int = 512,
 
 def lm_loss(params, batch, cfg: LMConfig, *, sharder: Optional[Sharder] = None,
             backend: str = "kernel", remat: bool = True,
-            fused_switch: bool = True):
+            fused_switch: bool = True, aux_weight: float = 0.01):
     """batch {"tokens", "labels"}: (B, S) -> (loss, {"xent": loss}).  With
-    ``sharder`` on a mesh the batch is the rank's shard and the loss its
-    share of the global mean: summed over the world (the trainer's
-    all-reduce) it is the mean.  The unembedding table (the embedding's
-    when tied) is gathered whole once, outside the loss's per-chunk
-    checkpoints."""
-    x = forward(params, batch["tokens"], cfg, sharder=sharder,
-                backend=backend, remat=remat, fused_switch=fused_switch)
+    MoE layers the loss is JAX's: the cross-entropy plus ``aux_weight``
+    times the load-balance aux over the layer count, and the metrics add
+    ``forward``'s aux.  With ``sharder`` on a mesh the batch is the rank's
+    shard and the loss its share of the global mean: summed over the
+    world (the trainer's all-reduce) it is the mean.  The unembedding
+    table (the embedding's when tied) is gathered whole once, outside the
+    loss's per-chunk checkpoints."""
+    x, aux = forward(params, batch["tokens"], cfg, sharder=sharder,
+                     backend=backend, remat=remat, fused_switch=fused_switch)
     key = "embed" if cfg.tie_embeddings else "unembed"
     # gathered once, outside the chunks' checkpoints
     table = (sharder or null_sharder()).whole(params[key], key)["table"]
     loss = chunked_xent(x, table, batch["labels"], cfg, sharder=sharder)
-    return loss, {"xent": loss}
+    if not n_moe_layers(cfg):
+        return loss, {"xent": loss}
+    total = loss + aux_weight * aux["moe_load_balance"] / max(cfg.n_layers, 1)
+    return total, {"xent": loss, **aux}
 
 
 def shard_lm_batch(batch: Dict[str, torch.Tensor], sharder: Sharder):
@@ -536,7 +576,8 @@ def shard_lm_batch(batch: Dict[str, torch.Tensor], sharder: Sharder):
 
 
 def collective_contract(cfg: LMConfig, n: int, batch: int, seq: int, *,
-                        fused_switch: bool = True
+                        fused_switch: bool = True, dp: int = 1,
+                        ep: bool = False, moe_rows=None
                         ) -> Dict[str, Dict[str, int]]:
     """The ``torch.distributed`` calls one forward issues per rank of a
     mesh with ``n`` ranks on ``model``, by kind, and their bytes
@@ -551,6 +592,14 @@ def collective_contract(cfg: LMConfig, n: int, batch: int, seq: int, *,
       attention, kv_gather (heads do not divide n): 1 all-gather;
       SSM: 1 permute (the conv's halo; none at n = 1), 2 all-gathers (B,
         C), 2 all-to-alls in (x, dt) and 1 out;
+      MoE, on a mesh of ``dp`` x ``n``: 1 all-reduce over the world of the
+        (dp, n, batch, E) int64 expert counts (the count exchange); under
+        ``ep`` 2 all-to-alls (the dispatch and the combine, each counted
+        by its result), whose bytes are the routed rows':
+        ``moe_rows`` = (rows this rank receives, rows it gets back) over
+        the forward's MoE layers, which follow from the routing: the kept
+        pairs of its data slice's rows on its experts, and its own
+        tokens' kept pairs;
       embedding, norms, MLP and the loss: none.
 
     A training step with ``remat`` issues ``remat_step`` of it, and the
@@ -560,9 +609,20 @@ def collective_contract(cfg: LMConfig, n: int, batch: int, seq: int, *,
     s = seq * n                                   # the whole sequence
     a_bytes = cfg.dtype.itemsize
 
-    def add(kind, elems, width=a_bytes):
-        calls[kind] = calls.get(kind, 0) + 1
-        nbytes[kind] = nbytes.get(kind, 0) + elems * width
+    def add(kind, elems, width=a_bytes, times=1):
+        calls[kind] = calls.get(kind, 0) + times
+        nbytes[kind] = nbytes.get(kind, 0) + elems * width * times
+
+    n_moe = n_moe_layers(cfg)
+    if n_moe:
+        add("all-reduce", 2 * dp * n * batch * moe_meta(cfg).e_phys, 8,
+            n_moe)
+        if ep:
+            if moe_rows is None:
+                raise ValueError("the dispatch's bytes follow the routing: "
+                                 "pass moe_rows")
+            add("all-to-all", sum(moe_rows) * cfg.d_model)
+            calls["all-to-all"] += 2 * n_moe - 1
 
     for layer in range(cfg.n_layers):
         spec = cfg.period_specs()[layer % len(cfg.period_specs())]
@@ -603,13 +663,17 @@ def remat_step(contract: Dict[str, Dict[str, int]]
     training step's loss and grads with ``remat``: the forward's twice
     (forward, recompute) and each one's transpose once, a switch's and a
     permute's one more of their kind, a gather's a reduce-scatter of the
-    same bytes.  The trainer's all-reduce is not in it."""
+    same bytes; an all-reduce (MoE's count exchange, which carries no
+    gradient) has no transpose.  The trainer's all-reduce is not in it."""
     out = {}
     for part, fwd in contract.items():
-        step = {k: 3 * v for k, v in fwd.items() if k != "all-gather"}
+        step = {k: 3 * v for k, v in fwd.items()
+                if k not in ("all-gather", "all-reduce")}
         if "all-gather" in fwd:
             step["all-gather"] = 2 * fwd["all-gather"]
             step["reduce-scatter"] = fwd["all-gather"]
+        if "all-reduce" in fwd:
+            step["all-reduce"] = 2 * fwd["all-reduce"]
         out[part] = step
     return out
 
@@ -633,7 +697,9 @@ def param_contract(cfg: LMConfig, params, plan: ParallelPlan,
         is read by nobody);
       any other leaf a spec splits, at each read outside the checkpoints
         (the table off the ring; the tied table, the unembedding table and
-        the final norm in the loss): 1 all-gather and 1 reduce-scatter.
+        the final norm in the loss): 1 all-gather and 1 reduce-scatter;
+      under ``ep`` an expert leaf only over its entries other than
+        ``model`` (``local_experts``).
 
     An entry naming only dims of size 1 is still issued (at one rank each
     is a copy)."""
@@ -648,9 +714,9 @@ def param_contract(cfg: LMConfig, params, plan: ParallelPlan,
             return 2, 1
         return reads[path], reads[path]
 
-    out = store_contract(params, param_pspecs(params, plan,
-                                              axis_sizes=sizes),
-                         sizes, times)
+    specs = param_pspecs(params, plan, axis_sizes=sizes)
+    out = store_contract(params, specs, sizes, times,
+                         read_specs=local_experts(specs, plan))
     if ring:
         chunk = params["embed"]["table"]
         size, k = chunk.numel() // n * chunk.element_size(), 2 * n - 1
@@ -804,15 +870,34 @@ def sharded_argmax(logits, cfg: LMConfig,
 
 
 def _ffn_block(p, x, cfg: LMConfig, spec: LayerSpec,
-               sharder: Optional[Sharder] = None):
+               sharder: Optional[Sharder] = None, place=None):
+    """The layer's FFN half -> (x, aux): aux the MoE layer's
+    (load_balance, dropped), None for an MLP.  ``place``
+    (``Sharder.moe_experts``) puts the MoE on a mesh."""
     if spec.ffn == "none":
-        return x
-    h = L.mlp(p["mlp"], _apply_norm(cfg, p["ln2"], x), cfg.mlp_kind)
+        return x, None
+    h = _apply_norm(cfg, p["ln2"], x)
+    aux = None
+    if spec.ffn == "moe":
+        h, a = M.moe(p["moe"], h, moe_meta(cfg), norm_topk=cfg.norm_topk,
+                     expert_hook=place)
+        aux = (a["load_balance"], a["dropped"])
+    else:
+        h = L.mlp(p["mlp"], h, cfg.mlp_kind)
     if sharder is not None:
         h = sharder.act3(h)
     if cfg.post_norm:
         h = _apply_norm(cfg, p["pn2"], h)
-    return x + h
+    return x + h, aux
+
+
+def refuse_moe_serving(cfg: LMConfig, on_mesh: bool) -> None:
+    """MoE layers serve on one device; on a mesh they raise."""
+    if on_mesh and n_moe_layers(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: MoE serving on a mesh is not ported yet (ROADMAP "
+            f"queue 1 item 3.6); MoE trains on a mesh, and serves on one "
+            f"device")
 
 
 def _decode_layer(p, x, pc, cfg: LMConfig, spec: LayerSpec, pos,
@@ -837,7 +922,7 @@ def _decode_layer(p, x, pc, cfg: LMConfig, spec: LayerSpec, pos,
         tree_map(lambda dst, src: dst.copy_(src), pc["ssm"], new)
     if cfg.post_norm:
         h = _apply_norm(cfg, p["pn1"], h)
-    return _ffn_block(p, x + h, cfg, spec), pc
+    return _ffn_block(p, x + h, cfg, spec)[0], pc
 
 
 def forward_decode(params, tokens, caches, cfg: LMConfig, *,
@@ -859,6 +944,7 @@ def forward_decode(params, tokens, caches, cfg: LMConfig, *,
     where it is read, as in training), ``caches`` the rank's layout
     (``init_caches(sharder=)``), and the logits vocab-sharded under
     ``vocab_sharded`` (``sharded_argmax`` reads them)."""
+    refuse_moe_serving(cfg, sharder is not None and sharder.ctx is not None)
     sharder = sharder or null_sharder()
     specs = cfg.period_specs()
     pos = caches["pos"]
@@ -908,6 +994,7 @@ def forward_prefill(params, tokens, cfg: LMConfig, *,
     the real positions, and the SSM state passes it unchanged); the
     logits are taken at position ``length - 1``, whole on every rank
     (``Sharder.seq_rows``), vocab-sharded under ``vocab_sharded``."""
+    refuse_moe_serving(cfg, sharder is not None and sharder.ctx is not None)
     sharder = sharder or null_sharder()
     seq = tokens.shape[1] * sharder.seq_shards
     sharder = _with_planned_schedule(sharder, cfg, seq=seq,
@@ -942,7 +1029,7 @@ def forward_prefill(params, tokens, cfg: LMConfig, *,
             tree_map(lambda dst, src: dst[i].copy_(src), periods[j], pc)
             if cfg.post_norm:
                 h = _apply_norm(cfg, p["pn1"], h)
-            x = sharder.act3(_ffn_block(p, x + h, cfg, spec, sharder))
+            x = sharder.act3(_ffn_block(p, x + h, cfg, spec, sharder)[0])
     x = _apply_norm(cfg, sharder.whole(params["final_norm"], "final_norm"),
                     sharder.seq_rows(x, length - 1, 1))
     logits = logits_fn(params, x, cfg, sharder)

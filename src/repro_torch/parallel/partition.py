@@ -41,9 +41,17 @@ which dims its grad is still to be summed, and ``store_contract`` counts
 the calls and bytes the store adds to a training step.  ``make_sharder`` raises
 ``NotImplementedError`` for what it does not run yet, naming the ROADMAP
 item (queue 1) that brings it: ``tp`` (whose rules ``param_pspecs``
-carries) and ``ep``.  JAX's MoE hook, its inference ``tp_flat`` rules and
-its ``stacked_prefixes`` option (enc-dec) come with those items; its
-``ffn_hidden``, which no JAX model calls, has no counterpart.
+carries).  JAX's inference ``tp_flat`` rules and its ``stacked_prefixes``
+option (enc-dec) come with their items; its ``ffn_hidden``, which no JAX
+model calls, has no counterpart.
+
+MoE runs under DSP with ``ep`` or without: ``Sharder.moe_experts`` (JAX's
+hook of that name) places the rank's tokens and experts for
+``models.moe.moe_gather``, which exchanges the expert counts, and under
+``ep`` dispatches and combines with ``core.dsp.exchange``.  Under ``ep``
+an expert leaf is split over ``model`` by expert (``param_pspecs``), and
+the rank runs its own experts: ``Sharder.whole`` gathers only its other
+splits (``local_experts``).
 
 Serving lays its caches out by JAX's ``cache_pspecs`` (the KV sequence in
 contiguous blocks over ``model``, the SSM state by head).  The decode
@@ -62,7 +70,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.core import dsp
-from repro_torch.core.layout import ParallelContext, from_mesh
+from repro_torch.core.layout import ExpertPlace, ParallelContext, from_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,7 +161,7 @@ def _leaf_spec(path: str, shape, plan: ParallelPlan, fsdp,
         return g(fsdp, None)
 
     # MoE stacked experts (E, d, f) / (E, f, d)
-    if nd == 3 and any(path.endswith(s) for s in ("wi", "wg", "wo")):
+    if is_expert_leaf(path, nd):
         if plan.ep and tp and not plan.zero:
             return (g("model", None, "data") if not path.endswith("wo")
                     else g("model", "data", None))
@@ -200,6 +208,31 @@ def _leaf_spec(path: str, shape, plan: ParallelPlan, fsdp,
 
 # subtrees whose leaves carry a leading period (scan) dim
 STACKED = ("layers", "periods")
+
+
+def is_expert_leaf(path: str, ndim: int) -> bool:
+    """Whether the unstacked leaf at ``path`` ("/"-joined keys) of
+    ``ndim`` dims is a MoE layer's stacked experts (E, d, f) / (E, f,
+    d)."""
+    return ndim == 3 and any(path.endswith(s) for s in ("wi", "wg", "wo"))
+
+
+def local_experts(specs, plan: ParallelPlan, path: Tuple[str, ...] = ()):
+    """``specs`` (the ``param_pspecs`` subtree at ``path``) as the model
+    reads the leaves: under ``ep`` each expert leaf keeps its split over
+    ``model`` (the rank runs its own experts) and is gathered over its
+    other entries only; ``specs`` itself otherwise."""
+    if not plan.ep or specs is None:
+        return specs
+
+    def one(path, spec):
+        p = _path_str(path)
+        stacked = any(p.startswith(s + "/") or f"/{s}/" in p
+                      for s in STACKED)
+        if not is_expert_leaf(p, len(spec) - stacked):
+            return spec
+        return tuple(None if e == "model" else e for e in spec)
+    return tree_map_with_path(one, specs, path=tuple(path))
 
 
 def param_pspecs(params, plan: ParallelPlan, *,
@@ -377,8 +410,8 @@ def gathered_numels(shape, spec: Spec, sizes: Dict[str, int]) -> List[int]:
 
 
 def store_contract(params, specs, sizes: Dict[str, int],
-                   reads: Callable[[Tuple[str, ...]], Tuple[int, int]]
-                   ) -> Dict[str, Dict[str, int]]:
+                   reads: Callable[[Tuple[str, ...]], Tuple[int, int]],
+                   read_specs=None) -> Dict[str, Dict[str, int]]:
     """The ``torch.distributed`` calls and bytes, by kind (``core.dsp``'s
     rule), that the parameter store adds per rank to one training step on
     a mesh of ``sizes`` (``mesh_sizes``).  ``params`` is the GLOBAL tree
@@ -394,8 +427,9 @@ def store_contract(params, specs, sizes: Dict[str, int],
         (``train.trainer.allreduce_grads``), and one of the clip's scalar
         (``train.trainer.slices_norm``).
 
-    An entry naming only dims of size 1 is still issued (at one rank each
-    is a copy)."""
+    ``read_specs`` (default ``specs``) are the specs the leaves are
+    gathered by where they are read (``local_experts``).  An entry naming
+    only dims of size 1 is still issued (at one rank each is a copy)."""
     calls: Dict[str, int] = {}
     nbytes: Dict[str, int] = {}
     buckets: Dict[tuple, int] = {}
@@ -405,11 +439,15 @@ def store_contract(params, specs, sizes: Dict[str, int],
         calls[kind] = calls.get(kind, 0) + times
         nbytes[kind] = nbytes.get(kind, 0) + size * times
 
-    def count(path, p, spec):
+    def count(path, p, spec, read):
         all_gathers, reduce_scatters = reads(path)
-        shape, entries, times = tuple(p.shape), spec, 1
+        shape, entries, kept, times = tuple(p.shape), read, spec, 1
         if path[0] in STACKED:
-            shape, entries, times = shape[1:], spec[1:], shape[0]
+            shape, entries, kept, times = (shape[1:], read[1:], spec[1:],
+                                           shape[0])
+        # what the read leaves split stays the rank's slice
+        shape = tuple(d * _axes_size(r, sizes) // _axes_size(e, sizes)
+                      for d, e, r in zip(shape, kept, entries))
         for numel in gathered_numels(shape, entries, sizes):
             add("all-gather", numel * p.element_size(), all_gathers * times)
             add("reduce-scatter", numel * 4, reduce_scatters * times)
@@ -419,7 +457,8 @@ def store_contract(params, specs, sizes: Dict[str, int],
                 math.prod(sizes[a] for a in entry_axes(e, sizes))
                 for e in spec)
 
-    tree_map_with_path(count, params, specs)
+    tree_map_with_path(count, params, specs,
+                       specs if read_specs is None else read_specs)
     buckets[world] = buckets.get(world, 0) + 1          # the loss
     for elems in buckets.values():
         add("all-reduce", 2 * 4 * elems)
@@ -631,6 +670,7 @@ class Sharder:
         if specs is not None:
             for k in path:
                 specs = specs[k]
+            specs = local_experts(specs, self.plan, path)
         return whole_params(tree, specs, self.ctx,
                             stacked=path[:1] == ("periods",))
 
@@ -742,6 +782,26 @@ class Sharder:
                             [(r, (r + 1) % n) for r in range(n)],
                             self.ctx.sp_group)
         return halo * (self.sp_index != 0)
+
+    # -- MoE -------------------------------------------------------------------
+    def moe_experts(self) -> Optional[ExpertPlace]:
+        """Where this rank's MoE tokens and experts sit (JAX's hook of this
+        name shards the (B, E, C, d) dispatch buffer over ``model`` under
+        ``ep``): the row's tokens in the resid layout, split by sequence
+        over ``model``; under ``ep`` the experts split there in blocks.
+        None without a mesh (one device: ``models.moe`` runs alone)."""
+        if self.ctx is None or self.plan.mode != "dsp":
+            return None
+        if self.resid_dim != 1:
+            raise NotImplementedError(
+                f"MoE on a mesh needs the residual stream split by sequence "
+                f"over 'model' (the plan puts it on dim {self.resid_dim})")
+        return ExpertPlace(
+            group=self.ctx.sp_group,
+            world_group=self.ctx.axes_group(tuple(
+                self.ctx.mesh.mesh_dim_names)),
+            seq_shards=self.sp_size, seq_index=self.sp_index,
+            dp_size=self.dp_size, dp_index=self.dp_index, ep=self.plan.ep)
 
     # -- serving: the prefill's rows, the decode token, the cache --------------
     @property
@@ -869,7 +929,7 @@ def make_sharder(mesh, plan: ParallelPlan, schedule=None, *,
     (``shard_params``); on a mesh a plan with ``zero`` or ``shard_vocab``
     needs it.
 
-    On a mesh plan mode ``dsp`` runs, ``ep`` off, under a mirrored
+    On a mesh plan mode ``dsp`` runs, ``ep`` on or off, under a mirrored
     all-"dsp" schedule with no ``overlap``; the rest raises
     ``NotImplementedError`` naming the ROADMAP item that brings it."""
     if plan.mode not in MODES:
@@ -884,17 +944,11 @@ def make_sharder(mesh, plan: ParallelPlan, schedule=None, *,
         if plan.mode == "none":
             raise ValueError("plan mode 'none' shares no work over the "
                              "model dim: pass mesh=None")
-        refused = {
-            "mode='tp'": (plan.mode == "tp", "tp's column- and "
-                          "row-parallel execution, ROADMAP queue 1 item 7 "
-                          "(param_pspecs carries its rules)"),
-            "ep=True": (plan.ep, "MoE with ep, ROADMAP queue 1 item 7"),
-        }
-        for what, (hit, item) in refused.items():
-            if hit:
-                raise NotImplementedError(
-                    f"ParallelPlan {what} on a mesh is not ported yet: "
-                    f"{item}")
+        if plan.mode == "tp":
+            raise NotImplementedError(
+                "ParallelPlan mode='tp' on a mesh is not ported yet: tp's "
+                "column- and row-parallel execution, ROADMAP queue 1 item 7 "
+                "(param_pspecs carries its rules)")
         if (plan.zero or plan.shard_vocab) and param_specs is None:
             raise ValueError(
                 "a plan with zero or shard_vocab on a mesh splits the "
@@ -915,6 +969,7 @@ def null_sharder() -> Sharder:
 __all__ = ["ParallelPlan", "Sharder", "make_sharder", "null_sharder",
            "param_pspecs", "mesh_sizes", "shard_params", "gather_params",
            "whole_params", "unshard_params", "gathered_numels",
+           "is_expert_leaf", "local_experts",
            "store_contract", "entry_axes", "split_axes", "reduce_axes",
            "global_shape", "slice_index", "param_copies", "reshard",
            "KV_SEQ_DIM", "SLOT_DIM", "BLOCK_DIM", "is_kv_leaf",

@@ -61,7 +61,7 @@ def scenario(out, name, cfg, params_np, batch, shape, fused):
     with torch.no_grad():
         out[f"{name}/out"] = TL.forward(params, local["tokens"], cfg,
                                         sharder=sharder, remat=False,
-                                        fused_switch=fused)
+                                        fused_switch=fused)[0]
     counted(out, f"{name}/fwd")
     flat = [p.requires_grad_(True) for p in tree_leaves(params)]
     loss, _ = TL.lm_loss(params, local, cfg, sharder=sharder, remat=True,

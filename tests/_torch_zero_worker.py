@@ -99,7 +99,7 @@ def scenario(out, name, cfg, params_np, batch, shape, plan):
             [hooks[part].get(k, 0) + layout[part].get(k, 0) for k in KINDS])
     with torch.no_grad():
         out[f"{name}/out"] = TL.forward(params, local["tokens"], cfg,
-                                        sharder=sharder, remat=False)
+                                        sharder=sharder, remat=False)[0]
     dsp.reset_calls()
     flat = [p.requires_grad_(True) for p in tree_leaves(params)]
     loss, _ = TL.lm_loss(params, local, cfg, sharder=sharder)

@@ -38,7 +38,10 @@ for want in ("repro_torch.serving.scheduler", "repro_torch.train.trainer",
              "repro_torch.train.checkpoint", "repro_torch.optim.compress",
              "repro_torch.serving.engine", "repro_torch.serving.kv_pool",
              "repro_torch.serving.block_pool",
-             "repro_torch.serving.prefix_tree", "repro_torch.launch.serve"):
+             "repro_torch.serving.prefix_tree", "repro_torch.launch.serve",
+             "repro_torch.models.moe", "repro_torch.configs.starcoder2_7b",
+             "repro_torch.configs.gemma2_2b",
+             "repro_torch.configs.qwen2_moe_a2_7b"):
     assert want in mods, (want, mods)
 from repro_torch.core.schedule import ScheduleExecutor2D
 from repro_torch.models.transformer2d import (
@@ -79,7 +82,8 @@ assert not bad, bad
                                     "_torch_ckpt_worker.py",
                                     "_torch_serve_worker.py",
                                     "_torch_paged_worker.py",
-                                    "_torch_t2d_zero_worker.py"])
+                                    "_torch_t2d_zero_worker.py",
+                                    "_torch_moe_ep_worker.py"])
 def test_gloo_workers_import_no_jax_and_no_repro(worker):
     """The port's side of each multi-process check (a gloo rank) loads, with
     the helpers it shares with its JAX side, nothing of JAX or of the JAX

@@ -396,3 +396,26 @@ def test_backward_recompute_is_one_slice_at_batch_one(monkeypatch):
     out = tops._FlashAttention.apply(q, kv, kv, {}, True)
     out.sum().backward()
     assert calls == [1]
+
+
+# K1's function with a softcap or a window: the cases phase 4 times against
+# ``flex_attention`` in place of ``scaled_dot_product_attention``
+LIBRARY_CASES = [(1, 4, 2, 48, 96, 32, True, 20, 2.0),
+                 (1, 2, 2, 64, 64, 16, False, None, 3.0),
+                 (2, 4, 1, 40, 40, 32, True, 9, None)]
+
+
+@pytest.mark.parametrize("case", LIBRARY_CASES)
+def test_chip_smoke_library_attention_is_k1s_function(case):
+    """``chip_smoke.library_attention`` (``flex_attention`` with the
+    softcap as its score_mod and the causal and window limits at
+    ``q_offset`` as its block mask), run eagerly in float32, within 1e-5
+    of the largest |value| of K1's plain version."""
+    import chip_smoke
+    b, hq, hkv, sq, skv, d = case[:6]
+    g = torch.Generator().manual_seed(14)
+    q = torch.randn((b, hq, sq, d), generator=g)
+    k, v = (torch.randn((b, hkv, skv, d), generator=g) for _ in range(2))
+    want = flash_attention_plain(q, k, v, **chip_smoke.attn_kw(case))
+    got = chip_smoke.library_attention(case, compile=False)(q, k, v)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())

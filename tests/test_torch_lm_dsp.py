@@ -371,7 +371,6 @@ def _refusals():
                  ValueError),
         "shard_vocab": (ParallelPlan(mode="dsp", zero=False), None,
                         ValueError),
-        "ep": (dataclasses.replace(ok, ep=True), None, NotImplementedError),
         "strategies": (ok, dataclasses.replace(
             joint, strategies=("dsp", "ulysses", "dsp") * cfg.n_layers),
             NotImplementedError),
@@ -390,11 +389,11 @@ def _refusals():
 
 @pytest.mark.parametrize("case", sorted(_refusals()))
 def test_make_sharder_refuses(world_of_one, case):
-    """On a mesh ``make_sharder`` runs plan ``dsp`` with ep off under a
-    mirrored all-"dsp" schedule without overlap that enters and leaves on
-    the sequence; everything else raises, what is not ported yet
-    (``tp``'s execution, ``ep``) as ``NotImplementedError`` naming its
-    ROADMAP item.  A plan with ``zero`` or ``shard_vocab`` splits the
+    """On a mesh ``make_sharder`` runs plan ``dsp`` (``ep`` on or off)
+    under a mirrored all-"dsp" schedule without overlap that enters and
+    leaves on the sequence; everything else raises, what is not ported yet
+    (``tp``'s execution) as ``NotImplementedError`` naming its ROADMAP
+    item.  A plan with ``zero`` or ``shard_vocab`` splits the
     parameters: it is refused without their layout and runs with it
     (``param_specs``, ``param_pspecs`` of the global tree)."""
     plan, schedule, exc = _refusals()[case]

@@ -422,8 +422,13 @@ def test_chip_smoke_perturbs_every_blocks_modulation():
 @pytest.mark.parametrize("fault,passes", [(None, True), ("drop_key", False)])
 def test_chip_smoke_dit_grads_bar_discriminates(monkeypatch, fault, passes):
     """chip_smoke's depth-2 bars on the DiT at SMOKE width, with a plain
-    stand-in for the kernel: the stand-in passes; one that drops the last
-    key of every sequence fails the loss and grad bars."""
+    stand-in for the kernel: the stand-in passes bit for bit; one that
+    drops the last key of every sequence fails the loss and grad bars.
+    The kernel branch hands its kernel contiguous copies of q, k and v
+    (``kernels/ops.py``), the plain branch strided views, and the CPU's
+    matmuls need not round those two layouts alike (7.689e-07 of a grad
+    leaf apart): the plain branch gets the same copies here, so the two
+    paths differ only by the stand-in."""
     import chip_smoke
 
     def stand_in(q, k, v, **kw):
@@ -431,9 +436,14 @@ def test_chip_smoke_dit_grads_bar_discriminates(monkeypatch, fault, passes):
             k, v = k[:, :, :-1], v[:, :, :-1]
         return flash_attention_plain(q, k, v, **kw)
 
+    def plain(q, k, v, **kw):
+        return flash_attention_plain(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), **kw)
+
     monkeypatch.setattr(tops, "_use_plain",
                         lambda t, backend: backend == "ref")
     monkeypatch.setattr(tops, "flash_attention_fwd", stand_in)
+    monkeypatch.setattr(tops, "flash_attention_plain", plain)
     cfg = dataclasses.replace(tc720.SMOKE, n_layers=2)
     params = chip_smoke.perturb_modulation(TT.init_t2d(0, cfg, device="cpu"),
                                            5)

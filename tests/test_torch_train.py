@@ -104,8 +104,8 @@ def test_forward_matches_jax(jparams):
     want, _ = JLM.forward(jparams, jnp.asarray(b["tokens"]), JCFG,
                           backend="pallas")
     with torch.no_grad():
-        got = TLM.forward(_cross(jparams), torch.from_numpy(b["tokens"]),
-                          TCFG)
+        got, _ = TLM.forward(_cross(jparams), torch.from_numpy(b["tokens"]),
+                             TCFG)
     assert _rel(got, want) < REL
 
 
