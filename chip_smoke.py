@@ -39,7 +39,11 @@ Phases, in order; any failure raises and exits non-zero:
    qwen2-moe-a2.7b's 16 and 16 at 2048 tokens, D 128, on ``sm90``;
    gemma2-2b's 8 and 4 at D 256 with softcap 50 and window 4096 over
    4608 keys, on ``cuda_cores``) and at the shapes a rank of phase 23 (b)
-   gives it, f32 on ``cuda_cores`` (``MOE_RANK_ATTN``);
+   gives it, f32 on ``cuda_cores`` (``MOE_RANK_ATTN``); and K1 at
+   mistral-large-123b's prefill shape, 96 q and 8 K/V heads over 2048
+   tokens, and at one rank's heads under ``tp`` at n = 4, 24 and 2, in
+   bf16 on ``sm90`` (``TP_ATTN``), and at the shapes a rank of phase 25
+   (b) gives it, f32 on ``cuda_cores`` (``TP_RANK_ATTN``);
 4. time each kernel, its plain version and, where one exists, one PyTorch
    library call that computes the same function (a yardstick the port
    never calls); K1's routed kernel and the library call three times each
@@ -52,7 +56,8 @@ Phases, in order; any failure raises and exits non-zero:
    times each in turns (medians); K1 at each shape of ``MODEL_ATTN``
    against ``scaled_dot_product_attention`` (causal, GQA) three times
    each in turns (medians), gemma2's against ``flex_attention`` compiled
-   with its softcap and window (``library_attention``);
+   with its softcap and window (``library_attention``); K1 at each shape
+   of ``TP_ATTN`` the same way;
 5. qwen3-14b serving at full width, random weights from a seeded
    generator: at depth 2, prefill logits through the kernel against the
    plain path at the longest prompt and at a ragged one (bar 2e-2 of the
@@ -119,12 +124,12 @@ Phases, in order; any failure raises and exits non-zero:
     ``ring``, ``megatron``, ``hybrid`` on the ``("sp_out", "sp_in")``
     grid, and ``dsp`` with ``overlap="chunked"``): (a) at world size 1
     over NCCL, for each mode the depth-2 loss and grads at 1 x 4 x 4096
-    against plan ``none``'s plain path (phase 7's bars), the depth-4
+    against plan ``none``'s plain path (phase 7's bars), the depth-2
     (SP_DEPTH) forward at 1 x 16 x 4096 against plan ``none``'s within
-    2e-2 of its largest |value|, and 2 Trainer steps at depth 4 (step 2's
+    2e-2 of its largest |value|, and 2 Trainer steps at depth 2 (step 2's
     time logged); (b) 4 processes sharing the card over gloo, each this
     script with ``--sp-rank``, every mode's depth-2 loss and grads and
-    gathered depth-4 forward against (a)'s.  Each mode's step at depth 28
+    gathered depth-2 forward against (a)'s.  Each mode's step at depth 28
     sat inside plan none's spread (PERF.md §5), and the checks, counts and
     bars hold at any depth.  Around every run the
     counters are set to 0 just before and read just after: each rank's
@@ -162,7 +167,7 @@ Phases, in order; any failure raises and exits non-zero:
     2 x 48 x 2 = 192, all ``sm90``; each step time is logged beside the
     plan-none phase's; (b) 4 processes sharing the card over gloo on a
     (1, 4) mesh, each this script with ``--lm-rank``: qwen3-14b at depth
-    2 and mamba2-370m at depth 4, full width, 1 x 4096 tokens, one loss
+    2 and mamba2-370m at depth 2, full width, 1 x 4096 tokens, one loss
     and its grads summed over the ranks against (a)'s path at the same
     depth (phase 7's bars), and per rank exactly the contract's calls and
     bytes, K1 on 10 of 40 q and 2 of 8 K/V heads and K2 on 8 of 32 heads,
@@ -186,8 +191,8 @@ Phases, in order; any failure raises and exits non-zero:
     bars, each leaf's worst over the ranks), the clip's norm within 1e-3;
     per rank exactly the contract's calls and bytes, K1 and K2 twice a
     layer at the rank's head counts, all ``sm90``; one Trainer step on
-    qwen3 at (1, 4) and mamba2 at (2, 2) with the contract's calls and a
-    grad norm within 1e-3 of world 1's; each rank's peak device memory,
+    mamba2 at (2, 2) with the contract's calls and a grad norm within
+    1e-3 of world 1's; each rank's peak device memory,
     peak resident host memory and pinned host blocks logged;
 18. mamba2-370m checkpoints (``train.checkpoint``), resume, int8
     error-feedback compression (``optim.compress``) and ``replan``, under
@@ -201,7 +206,7 @@ Phases, in order; any failure raises and exits non-zero:
     printed); K2 must launch 2 x 48 a step, all ``sm90``, in every run;
     the checkpoint's bytes and the seconds of snapshot, write, publish
     and restore are logged; (b) 4 processes sharing the card over gloo,
-    each this script with ``--ckpt-rank``, at depth 4: one step at (2,
+    each this script with ``--ckpt-rank``, at depth 2: one step at (2,
     2), saved; restored at (1, 4) in the same processes and at world size
     1 in this one, each gathered bit-equal to the saved global tree; step
     2 at (1, 4) and, after ``replan(2)`` (ranks 2 and 3 leave), step 3 on
@@ -217,19 +222,21 @@ Phases, in order; any failure raises and exits non-zero:
     (K2) launch 320 (384) times on ``sm90``, and the calls and bytes must
     be exactly ``lm.serve_contract``'s; (b) 4 processes sharing the card
     over gloo, each this script with ``--serve-rank``, qwen3-14b at depth
-    2 and mamba2-370m at full depth on a (1, 4) mesh: the teacher-forced
-    logits (SERVE_FORCED requests, SERVE_FORCED_STEPS decode steps on the
-    one-rank reference's tokens) under SERVE_PLAN within LOGIT_BAR of the
-    reference's, at each forced check's depth and dtype (mamba2: full
-    depth in f32, depth 4 in bf16); the trace through the scheduler under SERVE_RANK_PLAN
-    with the pool asserted on the mesh after every step, every request
+    2 and mamba2-370m at depth 12 of 48 on a (1, 4) mesh: the
+    teacher-forced logits (SERVE_FORCED requests, SERVE_FORCED_STEPS
+    decode steps on the one-rank reference's tokens) under SERVE_PLAN
+    within LOGIT_BAR of the reference's, at each forced check's depth and
+    dtype (mamba2: depth 12 in f32, depth 4 in bf16); the trace, 8 new
+    tokens a request, through the scheduler under SERVE_RANK_PLAN with
+    the pool asserted on the mesh after every step, every request
     finished, per rank each segment's calls and bytes exactly the
     contract's and K1 (K2) once a layer a prefill on the rank's heads,
     all ``sm90``; on qwen3 ``replan(2)`` at decode step 3 with the moved
     pool bit-equal and the survivors' forced logits within the bar; (c)
     the serve CLI under ``torchrun --nproc-per-node 4 ... --mode dsp
-    --backend gloo``: continuous over a Poisson trace with world 1's
-    tokens, static ``--replan 2`` with identical output;
+    --backend gloo``, the two launches side by side: continuous over a
+    Poisson trace with world 1's tokens, static ``--replan 2`` with
+    identical output;
 20. qwen3-14b served paged (``PagedScheduler``: the block pool, the
     radix prefix tree, chunked prefill): (a) on one card under plan
     ``none`` at full width and depth, 8 requests of a shared 1024-token
@@ -244,7 +251,7 @@ Phases, in order; any failure raises and exits non-zero:
     the slot path, within 2e-2 of the largest logit; TTFT and TPOT of
     both logged, with the share of equal tokens; (b) 4 processes sharing
     the card over gloo, each this script with ``--paged-rank``, qwen3-14b
-    at depth 4 on a (1, 4) mesh under SERVE_RANK_PLAN, the blocks
+    at depth 2 on a (1, 4) mesh under SERVE_RANK_PLAN, the blocks
     sequence-sharded within: the teacher-forced logits against a one-rank
     reference within 2e-2 before and after ``replan(2)``, which fires at
     a decode step with a prefill mid-prompt (the blocks gathered before
@@ -272,11 +279,11 @@ Phases, in order; any failure raises and exits non-zero:
     ``t2d_zero_contract``), K1
     224 launches on ``sm90`` at head dim 72, step time and peak memory
     logged beside phase 13's; (b) 4 processes sharing the card over gloo,
-    each this script with ``--t2d-zero-rank``, at depth 4 in f32 on 2 x 8
+    each this script with ``--t2d-zero-rank``, at depth 2 in f32 on 2 x 8
     frames x 4096 patches, at (2, 2) and (1, 4): the loss and the clip's
     norm within 1e-5 relative of one rank without ZeRO, each rank's slice
     of every grad within 1e-4 of its leaf's max, per rank the contract's
-    calls and bytes exactly and 8 K1 launches on ``cuda_cores``, peak
+    calls and bytes exactly and 4 K1 launches on ``cuda_cores``, peak
     memory logged; then one Trainer step at (2, 2) saved and restored by
     a fresh Trainer at (1, 4), its state bit-equal to the saved state's
     (1, 4) slices;
@@ -307,7 +314,7 @@ Phases, in order; any failure raises and exits non-zero:
     the dispatch and the combine, their rows from the step's kept pairs,
     plus ``lm.param_contract``), K1 32 on ``sm90``; then (b)'s
     reference; (b) 4 processes sharing the card over gloo, each this
-    script with ``--moe-rank``, at full width, depth 2 in f32 at 2 x 2048
+    script with ``--moe-rank``, at full width, depth 1 in f32 at 2 x 1024
     tokens, at (1, 4) and (2, 2): the loss within 1e-5 relative of one
     rank's, each rank's grad slices within 1e-4 of their leaf's max, the
     dropped pairs of each MoE call and the dropped share exactly one
@@ -315,19 +322,60 @@ Phases, in order; any failure raises and exits non-zero:
     dispatch's rows by ``route_rows`` of the run's routing)
     and 4 K1 launches on ``cuda_cores``; (c) the train CLI at SMOKE size
     under ``torchrun --nproc-per-node 4 --mesh 1,4 --backend gloo``;
-24. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
+24. mistral-large-123b (its published config: 96 q and 8 K/V heads of
+    128, its KV cache in float8_e4m3fn) on one card, bf16, random weights
+    from seed 0: (a) at depth 2, kernel against plain (bar 2e-2 of the
+    largest logit): the prefill logits at a 2048-token prompt and 4
+    decode steps; the static decode write at a scalar position into an
+    fp8 ``init_caches`` cache holding each path's prefill K/V (the write
+    ``index_copy_`` lacks for fp8); the engine's ``generate``; 4 requests
+    over 512-2048 tokens teacher-forced through the slot pool (per-slot
+    fp8 writes) and through the block pool (fp8 block writes, K1 on each
+    prefill chunk over the blocks widened to bf16, the decode's reads),
+    the plain path through ``plain_attention``; (b) at depth 16 of 88
+    (22.95B parameters, 45.9 GB) those 4 requests, 16 new tokens each,
+    through ``ContinuousScheduler``: K1 exactly 16 x 4 = 64 launches, all
+    ``sm90``; (c) 4 Trainer steps at depth 2 at 1 x 4096 (AdamW's f32
+    state for 123B parameters fits no card): K1 exactly 2 x 2 x 4 = 16
+    launches, all ``sm90`` (TTFT, TPOT, step time, tokens/s and peak
+    memory logged);
+25. mistral-large-123b under its spec's own plan (``tp``, ZeRO-3 over
+    ``data``, the vocab ring): (a) at world size 1 over NCCL, phase 24
+    (c)'s training, the losses within 1e-4 relative of phase 24's, the
+    calls and bytes exactly the contract each step (``zero_contract(tp=
+    True)``: per block an all-gather and a reduce-scatter of the whole
+    sequence three times over, plus ``lm.param_contract``), K1 16 on
+    ``sm90``; phase 24 (b)'s trace on the same weights, the tokens phase
+    24's, K1 64 on ``sm90``, the calls exactly ``lm.serve_contract``;
+    then (b)'s references; (b) 4 processes sharing the card over gloo,
+    each this script with ``--tp-rank``, at full width, depth 1 in f32 at
+    2 x 256 tokens (depth 2's 14.3 GB of f32 weights took 96 s for the
+    two meshes' steps, and with its reference the 4 ranks' host memory
+    ended a rank), at (1, 4) (the ranks' K/V heads their own) and (2,
+    2): the loss within 1e-5 relative of one rank's, each rank's grad
+    slices within 1e-4 of their leaf's max, per rank the calls and bytes
+    exactly the contract and 2 K1 launches on ``cuda_cores`` on the
+    rank's heads; then at (1, 4) with ZeRO and the vocab split off and
+    an f32 KV cache 2 requests through
+    ``ContinuousScheduler`` and ``replan(2)`` at decode step 3, the
+    tokens one rank's; host memory logged; (c) the train CLI at ``--mesh
+    1,4`` and the serve CLI at ``--mode tp --continuous``, SMOKE size,
+    under ``torchrun --nproc-per-node 4 --backend gloo``;
+26. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
     counts over the paths above (K1 320 + 32 + 224 + 224 + phase 14's
-    training runs, 16 per mode, 8 for ring and hybrid, + phase 15 (a)'s
+    training runs, 8 per mode, 4 for ring and hybrid, + phase 15 (a)'s
     28 + phase 16 (a)'s 32 + phase 17 (a)'s 32 + phase 19 (a)'s 320 +
     phase 20 (a)'s 720 + phase 21 (a)'s 224 + phase 22's 128 + 104 + 192
-    + 32 + phase 23 (a)'s 32; K2 576 + 384 + phase 16 (a)'s 192 + phase
+    + 32 + phase 23 (a)'s 32 + phase 24's 64 + 16 + phase 25 (a)'s 16 +
+    64; K2 576 + 384 + phase 16 (a)'s 192 + phase
     17 (a)'s 192 + phase 18 (a)'s 2 x 48 x 12 = 1152 + phase 19 (a)'s
     384)
     and whose ``launches_by_route`` split that sum by the route each
     launch took (``sm90``, and gemma2's 104 on ``cuda_cores``), with phase
-    19 (b)'s and 20 (b)'s per rank beside (phase 21 (b)'s and 23 (b)'s
-    too), phase 4's chunk timings and the three models' shapes
-    (``models``), then the last line
+    19 (b)'s and 20 (b)'s per rank beside (phase 21 (b)'s, 23 (b)'s and
+    25 (b)'s too), phase 4's chunk timings and the models' shapes
+    (``models``, mistral's two of ``TP_ATTN`` with them), then the last
+    line
     ``{"ok": true, "device": {...}}``.
 
 Each phase's header logs the seconds since the start and the host's
@@ -358,8 +406,8 @@ import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import (  # noqa: E402
-    gemma2_2b, mamba2_370m, qwen2_moe_a2_7b, qwen3_14b, starcoder2_7b,
-    transformer2d_720m)
+    gemma2_2b, mamba2_370m, mistral_large_123b, qwen2_moe_a2_7b, qwen3_14b,
+    starcoder2_7b, transformer2d_720m)
 from repro_torch.core import dsp  # noqa: E402
 from repro_torch.core.layout import from_mesh  # noqa: E402
 from repro_torch.core.schedule import (  # noqa: E402
@@ -374,6 +422,7 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_scan_fwd, ssd_scan_plain)
 from repro_torch.launch.mesh import (  # noqa: E402
     BACKEND_OF, make_mesh, make_sp2d_mesh)
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer2d as t2d  # noqa: E402
@@ -483,7 +532,8 @@ LM_PLAN = ParallelPlan(mode="dsp", zero=False, shard_vocab=False)
 # one loss and its grads of each LM at LM_RANK_DEPTHS, 1 x TRAIN_SEQ
 # tokens, against the world-1 path at the same depth (phase 7's bars)
 LM_MAMBA_STEPS = 2
-LM_RANK_DEPTHS = (("qwen3-14b", 2), ("mamba2-370m", 4))
+# (mamba2 at depth 4 until phases 24-25 needed the seconds)
+LM_RANK_DEPTHS = (("qwen3-14b", 2), ("mamba2-370m", 2))
 # the kernels at the shapes one of those ranks gives them (the heads split
 # DSP_RANKS ways by the switch, the whole sequence), held against their
 # plain versions in phase 3: K1 on qwen3-14b's 10 q and 2 K/V heads, K2 on
@@ -506,7 +556,9 @@ LM_REDUCE_PIECE = 1 << 26
 # ZERO_NORM_BAR of world 1's
 ZERO_CASES = (("qwen3-14b", 2, (2, 2), 2), ("mamba2-370m", 4, (2, 2), 2),
               ("qwen3-14b", 2, (1, 4), 1))
-ZERO_TRAIN = ("qwen3-14b/1x4", "mamba2-370m/2x2")
+# (qwen3 at (1, 4) too until phases 24-25 needed its 27 s: its loss and
+# grad slices stay checked above)
+ZERO_TRAIN = ("mamba2-370m/2x2",)
 ZERO_NORM_BAR = 1e-3
 # the checkpoint phase: mamba2-370m under its spec's plan with grad_compress
 # at CKPT_BATCH x TRAIN_SEQ, CKPT_STEPS steps uninterrupted against a run
@@ -515,7 +567,8 @@ ZERO_NORM_BAR = 1e-3
 # sharing the card over gloo at depth CKPT_RANK_DEPTH: save at (2, 2),
 # restore at (1, 4) and at world size 1, replan(2)
 CKPT_BATCH, CKPT_STEPS, CKPT_RESUME, CKPT_LOSS_BAR = 2, 4, 2, 1e-5
-CKPT_RANK_DEPTH = 4
+# (4 until phases 24-25 needed the seconds)
+CKPT_RANK_DEPTH = 2
 # the kernels at the shapes a rank of the (2, 2) cases gives them: K1 on
 # qwen3-14b's 20 q and 4 K/V heads, K2 on mamba2-370m's 16 heads
 LM_ZERO_ATTN = (1, _Q.n_heads // 2, _Q.n_kv_heads // 2, TRAIN_SEQ, TRAIN_SEQ,
@@ -552,13 +605,17 @@ SERVE_RANK_PLAN = ParallelPlan(mode="dsp", zero=False)
 # arithmetic: in bf16 on one H100 K2's kernel and its plain version already
 # drift 0.17-0.40 of the largest logit apart over the forced steps
 # (``serve_refs`` logs it, and the gap layer by layer), in f32 the 4 ranks
-# stay within 7.6e-4 of one card; so its full-depth forced check runs in
-# f32 (K2 on ``cuda_cores``), and a depth-4 one in bf16 holds K2's
-# ``sm90`` route; the trace runs in bf16 (on ``sm90``)
+# stay within 7.6e-4 of one card; so its forced check at the served depth
+# runs in f32 (K2 on ``cuda_cores``), and a depth-4 one in bf16 holds K2's
+# ``sm90`` route; the trace runs in bf16 (on ``sm90``).  mamba2 serves at
+# depth 12 of 48 on the ranks (48 until phases 24-25 needed the seconds)
 SERVE_RANK_CASES = (("qwen3-14b", 2, True, ((2, torch.bfloat16),)),
-                    ("mamba2-370m", None, False,
-                     ((None, torch.float32), (4, torch.bfloat16))))
+                    ("mamba2-370m", 12, False,
+                     ((12, torch.float32), (4, torch.bfloat16))))
 SERVE_FORCED, SERVE_FORCED_STEPS = (0, N_REQUESTS - 1), 4
+# the new tokens of each request of the ranks' trace (NEW_TOKENS until
+# phases 24-25 needed the seconds)
+SERVE_RANK_NEW = 8
 SERVE_REPLAN_STEP, SERVE_REPLAN_TO = 3, 2
 # the kernels at the shapes a rank of (b) gives them, held against their
 # plain versions in phase 3: each prompt of the trace padded on the right
@@ -577,9 +634,10 @@ SERVE_RANK_SSD = tuple(
     for s in sorted({DSP_RANKS * lm.prefill_shard_len(
         mamba2_370m.CONFIG, t, DSP_RANKS) for t in PROMPT_LENS}))
 # the baselines phase's DiT depth: its six modes at world size 1 each sat
-# inside plan none's spread at depth 28 (PERF.md §6); 2 block pairs keep
-# every check, count and bar at a seventh of the time
-SP_DEPTH = 4
+# inside plan none's spread at depth 28 (PERF.md §6); one block pair keeps
+# every check, count and bar (2 pairs until phases 24-25 needed the
+# seconds)
+SP_DEPTH = 2
 # the paged phase (20): (a) one card, plan none, qwen3-14b at full width
 # and depth through PagedScheduler (a chat service whose requests share one
 # system prompt): 8 requests arriving at 0, each a shared PAGED_SYSTEM-
@@ -602,7 +660,8 @@ PAGED_FORCED = (0, 4)
 # PAGED_RANK_SUFFIXES, PAGED_RANK_NEW new tokens, PAGED_RANK_CHUNK-token
 # chunks, 2 slots, replan(SERVE_REPLAN_TO) at the first decode step with a
 # prefill mid-prompt
-PAGED_RANK_DEPTH, PAGED_RANK_SLOTS = 4, 2
+# (depth 4 until phases 24-25 needed the seconds)
+PAGED_RANK_DEPTH, PAGED_RANK_SLOTS = 2, 2
 PAGED_RANK_SYSTEM, PAGED_RANK_SUFFIXES = 256, (32, 128, 64, 96)
 PAGED_RANK_CHUNK, PAGED_RANK_NEW = 128, 8
 PAGED_RANK_FORCED = (0, 2)
@@ -631,7 +690,8 @@ MOE_TRAIN_DEPTH, MOE_TRAIN_STEPS = 4, 4
 # ZeRO-3) at each mesh of MOE_RANK_MESHES against one rank: the loss
 # within MOE_LOSS_BAR relative, each grad slice within MOE_GRAD_BAR of its
 # leaf's max (tests/test_torch_moe_ep.py's bars)
-MOE_RANK_DEPTH, MOE_RANK_BATCH, MOE_RANK_SEQ = 2, 2, 2048
+# (depth 2 at 2048 tokens until phases 24-25 needed its seconds)
+MOE_RANK_DEPTH, MOE_RANK_BATCH, MOE_RANK_SEQ = 1, 2, 1024
 MOE_RANK_MESHES = ((1, 4), (2, 2))
 MOE_LOSS_BAR, MOE_GRAD_BAR = 1e-5, 1e-4
 # K1 at the three models' prefill shapes: starcoder2's GQA group of 9,
@@ -644,6 +704,53 @@ MODEL_ATTN = {
     "gemma2-2b": (1, 8, 4, GEMMA_LONG, GEMMA_LONG, 256, True, 4096, 50.0)}
 MOE_RANK_ATTN = ((2, 4, 4, MOE_RANK_SEQ, MOE_RANK_SEQ, 128, True, None, None),
                  (1, 8, 8, MOE_RANK_SEQ, MOE_RANK_SEQ, 128, True, None, None))
+# phases 24-25: mistral-large-123b (its published config, the KV cache in
+# float8_e4m3fn) on one card, bf16, random weights from seed 0: (a) at
+# depth 2 the kernel path against the plain path, the prefill at
+# max(MISTRAL_LENS) tokens; (b) at depth MISTRAL_SERVE_DEPTH of 88 (16 x
+# 1.384B + the two 0.40B tables = 22.95B parameters, 45.9 GB, the deepest
+# that leaves the card room for the pool and a prefill)
+# MISTRAL_REQUESTS requests over MISTRAL_LENS, MODEL_NEW_TOKENS new tokens
+# each, through ContinuousScheduler; (c) MISTRAL_TRAIN_STEPS Trainer steps
+# at depth MISTRAL_TRAIN_DEPTH at 1 x TRAIN_SEQ (AdamW's f32 state for
+# 123B parameters fits no card).  Phase 25 runs them under the spec's own
+# plan (TP_PLAN: tp, ZeRO-3 over data, the vocab ring), at world size 1
+# over NCCL and on DSP_RANKS gloo ranks at each mesh of TP_RANK_MESHES,
+# depth TP_RANK_DEPTH in float32 at TP_RANK_BATCH x TP_RANK_SEQ against
+# one rank (TP_LOSS_BAR, TP_GRAD_BAR: tests/test_torch_tp.py's bars), and
+# serves TP_RANK_LENS at (1, DSP_RANKS) through replan(SERVE_REPLAN_TO)
+MISTRAL_REQUESTS, MISTRAL_SERVE_DEPTH = 4, 16
+MISTRAL_LENS = np.linspace(512, 2048, MISTRAL_REQUESTS).astype(int).tolist()
+MISTRAL_TRAIN_DEPTH, MISTRAL_TRAIN_STEPS = 2, 4
+TP_PLAN = mistral_large_123b.SPEC.plan
+TP_RANK_DEPTH, TP_RANK_BATCH, TP_RANK_SEQ = 1, 2, 256
+TP_RANK_MESHES = ((1, 4), (2, 2))
+TP_LOSS_BAR, TP_GRAD_BAR = 1e-5, 1e-4
+TP_RANK_LENS, TP_RANK_NEW = (256, 512), 8
+# the ranks' tokens must be one rank's up to a step where one rank's two
+# best logits lie within TP_TIE_BAR of its largest |logit| (f32 sums over
+# 4 ranks round apart by ~1e-6 of it; random weights make near-ties)
+TP_TIE_BAR = 1e-4
+# the 4 ranks' trace runs with ZeRO and the vocab split off, as phase 19
+# (b)'s runs with ZeRO off: ZeRO gathers every weight a decode step and
+# the ring moves the whole f32 table a prefill, through the host over gloo
+TP_RANK_SERVE_PLAN = dataclasses.replace(TP_PLAN, zero=False,
+                                         shard_vocab=False)
+_MI = mistral_large_123b.CONFIG
+# K1 at mistral's prefill shape (96 q and 8 K/V heads, a GQA group of 12)
+# and at one rank's heads under tp at n = 4 (24 and 2), bf16 on ``sm90``
+# (phase 3, timed in phase 4); and at the shapes a rank of phase 25 (b)
+# gives it, f32 on ``cuda_cores`` (TP_RANK_ATTN)
+TP_ATTN = {
+    "mistral-large-123b": (1, _MI.n_heads, _MI.n_kv_heads, 2048, 2048,
+                           _MI.head_dim, True, None, None),
+    "mistral-large-123b/rank": (1, _MI.n_heads // DSP_RANKS,
+                                _MI.n_kv_heads // DSP_RANKS, 2048, 2048,
+                                _MI.head_dim, True, None, None)}
+TP_RANK_ATTN = tuple(
+    (TP_RANK_BATCH // dp, _MI.n_heads // mp, _MI.n_kv_heads // mp,
+     TP_RANK_SEQ, TP_RANK_SEQ, _MI.head_dim, True, None, None)
+    for dp, mp in TP_RANK_MESHES)
 
 
 def prefill_case(s: int):
@@ -681,8 +788,9 @@ DIT_ROUTE = "sm90"
 # relative and each grad slice within T2D_ZERO_GRAD_BAR of its leaf's max
 # (tests/test_torch_t2d_zero.py's bars; in bf16 each rank's partial grads
 # round to 8 bits before the reduce-scatter sums them, ~4e-3 of a leaf),
-# then a (2, 2) checkpoint restored at (1, 4) bit for bit
-T2D_ZERO_DEPTH, T2D_ZERO_BATCH, T2D_ZERO_FRAMES = 4, 2, 8
+# then a (2, 2) checkpoint restored at (1, 4) bit for bit (depth 4 until
+# phases 24-25 needed the seconds)
+T2D_ZERO_DEPTH, T2D_ZERO_BATCH, T2D_ZERO_FRAMES = 2, 2, 8
 T2D_ZERO_MESHES = ((2, 2), (1, 4))
 T2D_ZERO_LOSS_BAR, T2D_ZERO_GRAD_BAR = 1e-5, 1e-4
 # K1 at the shapes a rank of (b) gives it at either mesh, in float32: 4
@@ -985,6 +1093,7 @@ class StepLog:
 
     def __init__(self, eng):
         self.prefills, self.decodes, self.every_prefill = [], [], []
+        self.max_len = eng.max_len
         pre, dec = eng._prefill, eng._decode
 
         def prefill(tokens):
@@ -998,7 +1107,8 @@ class StepLog:
         eng._prefill, eng._decode = prefill, decode
 
     def expected(self, cfg, template, plan, ticks: int) -> dict:
-        parts = [lm.serve_contract(cfg, n, template, plan, prefill=(b, s))
+        parts = [lm.serve_contract(cfg, n, template, plan, prefill=(b, s),
+                                   max_len=self.max_len)
                  for n, b, s in self.prefills]
         parts += [lm.serve_contract(cfg, n, template, plan, decode=r)
                   for n, r in self.decodes]
@@ -2522,17 +2632,18 @@ def zero_layout(name: str, cfg, mesh, batch: int, device="cuda") -> dict:
 
 
 def zero_contract(cfg, shape, batch: int, layout: dict, seq=TRAIN_SEQ,
-                  rows=None) -> dict:
+                  rows=None, tp: bool = False) -> dict:
     """{kind: [calls, bytes]} per rank of one loss, its grads, their sums
     and the clip's norm with remat on a ``shape`` (data, model) mesh at a
     global ``batch`` x ``seq`` tokens: the hooks' (``lm.remat_step`` of
     ``lm.collective_contract``; with MoE under ``ep``, the dispatch and
-    combine moving ``rows``) plus the layouts' (``lm.param_contract``:
-    the gathers, the ring, the trainer's all-reduces)."""
+    combine moving ``rows``; under ``tp`` its blocks' gathers and
+    reduce-scatters) plus the layouts' (``lm.param_contract``: the
+    gathers, the ring, the trainer's all-reduces)."""
     dp, mp = shape
     hooks = lm.remat_step(lm.collective_contract(
         cfg, mp, batch // dp, seq // mp, dp=dp, ep=rows is not None,
-        moe_rows=rows))
+        moe_rows=rows, tp=tp))
     return {k: [hooks["calls"].get(k, 0) + layout["calls"].get(k, 0),
                 hooks["bytes"].get(k, 0) + layout["bytes"].get(k, 0)]
             for k in sorted(set(hooks["calls"]) | set(layout["calls"]))}
@@ -3434,7 +3545,7 @@ def serve_refs(work: str, device="cuda") -> None:
         cfg = serve_cfg(name)
         eng = ServingEngine(lm.init_lm(0, cfg, device=device), cfg,
                             max_len=serve_max_len(), device=device)
-        reqs = trace_requests(cfg, device)
+        reqs = trace_requests(cfg, device, new_tokens=SERVE_RANK_NEW)
         eng.serve(reqs, continuous=True, max_batch=MAX_BATCH)
         tokens = [r.generated for r in reqs]
         del eng
@@ -3530,7 +3641,7 @@ def serve_rank_main(rank: int, world: int, work: str) -> None:
             got = res[name] = {"host_gib": {}, "forced": {}}
             mesh = make_mesh((1, world), ("data", "model"), device,
                              backend="gloo")
-            reqs = trace_requests(cfg, device)
+            reqs = trace_requests(cfg, device, new_tokens=SERVE_RANK_NEW)
             forced = [reqs[i] for i in SERVE_FORCED]
             forced_tokens = [ref["tokens"][i] for i in SERVE_FORCED]
             segments, seen = {}, {}
@@ -3608,8 +3719,8 @@ def serve_rank_main(rank: int, world: int, work: str) -> None:
                     cfg, template, SERVE_RANK_PLAN,
                     sched.ticks - seen.get("ticks", 0))]
                 got["finished"] = all(
-                    r.result is not None and len(r.generated) == NEW_TOKENS
-                    for r in reqs)
+                    r.result is not None
+                    and len(r.generated) == SERVE_RANK_NEW for r in reqs)
                 got["token_share"] = float(np.mean([
                     a == b for r, t in zip(reqs, ref["tokens"])
                     for a, b in zip(r.generated, t)]))
@@ -3754,30 +3865,38 @@ def serve_cli_ranks(serve_main, work: str) -> None:
     NCCL takes one rank a card), ``--mode dsp``: continuous over a Poisson
     trace (``--arrival 0.01``), whose tokens must be world 1's, and static
     with ``--replan 2``, which must print ``replan output identical:
-    True``."""
+    True``; the two launches side by side, world 1 in this process
+    meanwhile."""
     import contextlib
     import io
     base = ["--arch", "qwen3-14b", "--batch", "4", "--prompt-len", "16",
             "--new-tokens", "8"]
     cont = ["--continuous", "--arrival", "0.01"]
-    with contextlib.redirect_stdout(io.StringIO()):
-        want = [r.generated for r in serve_main(base + cont)]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    for flags in (cont, ["--replan", "2"]):
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               "--nproc-per-node", str(DSP_RANKS), "-m",
-               "repro_torch.launch.serve", *base, "--mode", "dsp",
-               "--backend", "gloo", *flags]
-        t0 = time.perf_counter()
-        out = subprocess.run(cmd, cwd=work, env=env, capture_output=True,
-                             text=True, timeout=300)
-        text = out.stdout
-        log_t(f"  {' '.join(flags)}: exit {out.returncode} in "
-              f"{time.perf_counter() - t0:.1f} s; "
-              f"{text.splitlines()[0] if text else out.stderr[-2000:]}")
-        if out.returncode:
+    t0 = time.perf_counter()
+    procs = [(flags, subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(DSP_RANKS), "-m",
+         "repro_torch.launch.serve", *base, "--mode", "dsp", "--backend",
+         "gloo", *flags], cwd=work, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True))
+        for flags in (cont, ["--replan", "2"])]
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            want = [r.generated for r in serve_main(base + cont)]
+        outs = [p.communicate(timeout=300) for _, p in procs]
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for (flags, p), (text, err) in zip(procs, outs):
+        log_t(f"  {' '.join(flags)}: exit {p.returncode} (both launches in "
+              f"{time.perf_counter() - t0:.1f} s); "
+              f"{text.splitlines()[0] if text else err[-2000:]}")
+        if p.returncode:
             raise AssertionError(f"serve CLI under torchrun {flags}: "
-                                 f"{out.stdout[-2000:]}{out.stderr[-3000:]}")
+                                 f"{text[-2000:]}{err[-3000:]}")
         if flags is cont:
             got = [json.loads(m) for m in re.findall(r"s: (\[[^\]]*\])",
                                                      text)]
@@ -5208,6 +5327,538 @@ def moe_cli_ranks(work: str, train_main) -> None:
                              f"{out.stdout[-2000:]}{out.stderr[-3000:]}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: mistral-large-123b on one card, its KV cache in fp8
+# ---------------------------------------------------------------------------
+
+def mistral_cfg(depth: int, dtype=None):
+    cfg = dataclasses.replace(mistral_large_123b.CONFIG, n_layers=depth)
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """While open, every K1 call of the model's attention layers
+    (``models.attention.flash_attention``) takes its plain version, so
+    the engine's steps, which run the kernel path, run the plain one."""
+    inner = attn_mod.flash_attention
+
+    def plain(*a, **kw):
+        return inner(*a, **{**kw, "backend": "ref"})
+    attn_mod.flash_attention = plain
+    try:
+        yield
+    finally:
+        attn_mod.flash_attention = inner
+
+
+@torch.no_grad()
+def fp8_cache_checks(cfg, device="cuda") -> dict:
+    """(a)'s fp8 cache at depth 2, the kernel path against the plain path
+    (``plain_attention``) on the same weights, each within LOGIT_BAR of
+    the largest logit: the static decode write at a scalar position (the
+    one ``index_copy_`` lacks for fp8) into an fp8 ``init_caches`` cache
+    holding each path's prefill K/V, SERVE_FORCED_STEPS steps; the
+    engine's ``generate`` (whose cache is the prefill's, bf16, as JAX's);
+    the slot pool (``forced_logits``: the per-slot fp8 writes) and the
+    block pool (``paged_forced_logits``: the fp8 block writes, K1 over the
+    blocks widened to bf16 for each prefill chunk, the decode's reads),
+    MISTRAL_REQUESTS requests over MISTRAL_LENS teacher-forced
+    SERVE_FORCED_STEPS decode steps."""
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    params = lm.init_lm(0, cfg2, device=device)
+    g = torch.Generator(device=device).manual_seed(6)
+    s = max(MISTRAL_LENS)
+    tok = torch.randint(0, cfg.vocab, (1, s + SERVE_FORCED_STEPS),
+                        generator=g, device=device)
+    rows = {}
+    for backend in ("kernel", "ref"):
+        _, pre = lm.forward_prefill(params, tok[:, :s], cfg2,
+                                    backend=backend)
+        caches = lm.init_caches(cfg2, 1, s + SERVE_FORCED_STEPS,
+                                device=device)
+        for j, pc in pre["periods"].items():
+            for kv in ("k", "v"):
+                caches["periods"][j]["kv"][kv][..., :s, :].copy_(
+                    pc["kv"][kv])
+        caches["pos"] = torch.tensor(s, device=device)
+        out = []
+        for t in range(SERVE_FORCED_STEPS):
+            logits, caches = lm.forward_decode(
+                params, tok[:, s + t:s + t + 1], caches, cfg2)
+            out.append(logits[0, -1].float())
+        rows[backend] = torch.stack(out)
+        kv_dtype = caches["periods"]["0"]["kv"]["k"].dtype
+    gaps = {"static": logit_gap(rows["kernel"], rows["ref"])}
+    eng = ServingEngine(params, cfg2, max_len=paged_max_len(
+        0, [s], SERVE_FORCED_STEPS), device=device)
+    generated = eng.generate(tok[:, :s], SERVE_FORCED_STEPS)
+    reqs = trace_requests(cfg2, device, MISTRAL_LENS, SERVE_FORCED_STEPS)
+    fed = torch.randint(0, cfg.vocab, (len(reqs), SERVE_FORCED_STEPS),
+                        generator=g, device=device).tolist()
+    for name, fn in (
+            ("slot", lambda: forced_logits(eng, reqs, fed, device)),
+            ("paged", lambda: paged_forced_logits(eng, reqs, fed,
+                                                  PAGED_CHUNK)[0])):
+        reset_launches()
+        got = fn()
+        launches = flash_attention_fwd.launches
+        with plain_attention():
+            want = fn()
+        gaps[name] = logit_gap(got, want)
+        log(f"  {name} pool: K1 {launches} launches "
+            f"{nonzero(flash_attention_fwd.route_launches)} on the kernel "
+            f"path")
+    log(f"  fp8 cache ({kv_dtype}): teacher-forced logits, max |kernel - "
+        f"plain| / max |logit| {gaps}; generate {generated.tolist()}")
+    if kv_dtype != torch.float8_e4m3fn or not max(gaps.values()) <= LOGIT_BAR:
+        raise AssertionError(f"fp8 cache paths disagree: {gaps}, cache "
+                             f"{kv_dtype}")
+    if tuple(generated.shape) != (1, SERVE_FORCED_STEPS):
+        raise AssertionError(f"generate gave {generated.shape}")
+    del params, eng
+    free_device()
+    return gaps
+
+
+def mistral_on_one_card(device="cuda") -> dict:
+    """(a) depth 2, kernel against plain: the prefill logits at
+    max(MISTRAL_LENS) tokens and SERVE_FORCED_STEPS decode steps, then
+    ``fp8_cache_checks``; (b) depth MISTRAL_SERVE_DEPTH behind the
+    scheduler, K1 once a layer a prefill on ``sm90``; (c)
+    MISTRAL_TRAIN_STEPS Trainer steps at depth MISTRAL_TRAIN_DEPTH, K1
+    twice a layer a step on ``sm90``."""
+    out = {}
+    cfg = mistral_large_123b.CONFIG
+    log(f"  (a) depth 2, kernel against plain, the KV cache in "
+        f"{cfg.cache_dtype}")
+    full_width_prefill_check(cfg, (max(MISTRAL_LENS),),
+                             decode_steps=SERVE_FORCED_STEPS, device=device)
+    out["fp8"] = fp8_cache_checks(cfg, device)
+    log(f"  (b) depth {MISTRAL_SERVE_DEPTH} of {cfg.n_layers}: "
+        f"{MISTRAL_REQUESTS} requests over {MISTRAL_LENS} tokens "
+        f"({elapsed()})")
+    out["serve"] = full_width_serve(
+        mistral_cfg(MISTRAL_SERVE_DEPTH), flash_attention_fwd, device,
+        lens=MISTRAL_LENS, new_tokens=MODEL_NEW_TOKENS)
+    log(f"  (c) training at depth {MISTRAL_TRAIN_DEPTH}, "
+        f"{MISTRAL_TRAIN_STEPS} steps at 1 x {TRAIN_SEQ} ({elapsed()})")
+    out["train"] = full_width_train(mistral_cfg(MISTRAL_TRAIN_DEPTH),
+                                    flash_attention_fwd, 1,
+                                    MISTRAL_TRAIN_STEPS, device)
+    free_device()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 25: mistral-large-123b under tp on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+def tp_layout(cfg, mesh, device="cuda") -> dict:
+    """``cfg``'s parameters from seed 0 under TP_PLAN on ``mesh``: the
+    rank's slices (its columns and rows over ``model``, ZeRO over
+    ``data``), the specs, the sharder (no schedule) and the layouts'
+    contract."""
+    ctx = from_mesh(mesh)
+    sizes = mesh_sizes(ctx)
+    params = lm.init_lm(0, cfg, device=device)
+    specs = param_pspecs(params, TP_PLAN, axis_sizes=sizes)
+    layout = lm.param_contract(cfg, meta_tree(params), TP_PLAN, sizes)
+    return {"params": shard_params(params, specs, ctx), "specs": specs,
+            "sharder": make_sharder(mesh, TP_PLAN, param_specs=specs),
+            "layout": layout}
+
+
+def tp_world_of_one(phase24: dict, work: str, device="cuda") -> dict:
+    """(a) At world size 1 on a (1, 1) mesh over NCCL, under TP_PLAN:
+    phase 24 (c)'s training, the losses within DSP_LOSS_BAR of phase
+    24's, the calls and bytes exactly ``zero_contract(tp=True)`` each step
+    (the blocks' gathers and reduce-scatters three times over, plus
+    ``lm.param_contract``), K1 as there; phase 24 (b)'s trace on the same
+    weights, the tokens phase 24's, K1 as there, the calls exactly
+    ``lm.serve_contract``.  Then (b)'s references (``tp_rank_refs``)."""
+    backend = BACKEND_OF[torch.device(device).type]
+    dist.init_process_group(backend, store=dist.FileStore(
+        os.path.join(work, "store25a"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), torch.device(device).type)
+        cfg = mistral_cfg(MISTRAL_TRAIN_DEPTH)
+        lay = tp_layout(cfg, mesh, device)
+        sharder = lay["sharder"]
+        trained = run_trainer(
+            lambda: lay.pop("params"),
+            lambda p, b: lm.lm_loss(p, b, cfg, sharder=sharder,
+                                    backend="kernel"),
+            lambda st: lm.shard_lm_batch(lm_batch(cfg, 1, st, device),
+                                         sharder),
+            flash_attention_fwd, tokens=TRAIN_SEQ,
+            n_steps=MISTRAL_TRAIN_STEPS, n_layers=cfg.n_layers,
+            route="sm90", device=device, sharder=sharder)
+        step = zero_contract(cfg, (1, 1), 1, lay["layout"], TRAIN_SEQ,
+                             tp=True)
+        want = {k: [c * MISTRAL_TRAIN_STEPS, b * MISTRAL_TRAIN_STEPS]
+                for k, (c, b) in step.items()}
+        got = {k: [trained["collectives"][k], trained["volume"][k]]
+               for k in sorted(trained["collectives"])}
+        met, ref = trained["metrics"], phase24["train"]["metrics"]
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(met["losses"], ref["losses"]))
+        log_t(f"  training under {TP_PLAN}: calls [count, bytes] {got}; the "
+              f"contract {want}; losses {met['losses']} against phase 24's "
+              f"{ref['losses']}: worst |delta| / |loss| = {rel:.3e}; step "
+              f"(median) {met['step_ms_median']:.2f} ms against "
+              f"{ref['step_ms_median']:.2f} ms; peak "
+              f"{met['peak_memory_gb']:.2f} GB against "
+              f"{ref['peak_memory_gb']:.2f} GB")
+        if got != want or not rel <= DSP_LOSS_BAR:
+            raise AssertionError(f"mistral under {TP_PLAN}: calls {got}, "
+                                 f"the contract says {want}; losses "
+                                 f"{met['losses']} against {ref['losses']}")
+        del lay
+        free_device()
+        log(f"  serving phase 24 (b)'s trace under {TP_PLAN} ({elapsed()})")
+        served = full_width_serve(
+            mistral_cfg(MISTRAL_SERVE_DEPTH), flash_attention_fwd, device,
+            mesh=mesh, plan=TP_PLAN, lens=MISTRAL_LENS,
+            new_tokens=MODEL_NEW_TOKENS)
+        same = served["tokens"] == phase24["serve"]["tokens"]
+        log(f"  tokens equal to phase 24 (b)'s: {same}")
+        if not same:
+            raise AssertionError(f"tp at world 1 served "
+                                 f"{served['tokens']}, one card "
+                                 f"{phase24['serve']['tokens']}")
+        tp_rank_refs(work, device)
+    finally:
+        dist.destroy_process_group()
+    return {"train": trained, "serve": served}
+
+
+def tp_rank_cfg():
+    """(b)'s model: mistral at depth TP_RANK_DEPTH in float32, its KV cache
+    in float32 too: an fp8 cache rounds the ranks' f32 differences (~1e-7
+    of a value) to whole fp8 steps, which moved a logit 6.5e-3 of the
+    largest and a token (the fp8 pools are phase 24 (a)'s)."""
+    return dataclasses.replace(mistral_cfg(TP_RANK_DEPTH, torch.float32),
+                               cache_dtype=None)
+
+
+def tp_rank_batch(cfg, device="cuda") -> dict:
+    return make_batch(DataConfig(task="lm_shift", vocab=cfg.vocab,
+                                 seq=TP_RANK_SEQ, batch=TP_RANK_BATCH), 0,
+                      device=device)
+
+
+def tp_rank_max_len() -> int:
+    need = max(TP_RANK_LENS) + TP_RANK_NEW
+    return need + (-need) % DSP_RANKS
+
+
+def tp_rank_refs(work: str, device="cuda") -> None:
+    """(b)'s references on one rank without a mesh, ``tp_rank_cfg`` in
+    float32: the loss and grads on ``tp_rank_batch`` (``work/tp_ref.pt``)
+    and the tokens of TP_RANK_LENS's requests, TP_RANK_NEW new tokens
+    each, through ``ContinuousScheduler``, with each generated token's
+    margin (its two best logits' gap over the largest |logit|, from
+    ``forward`` over the prompt and the tokens before it)
+    (``work/tp_serve.json``)."""
+    cfg = tp_rank_cfg()
+    free = shutil.disk_usage(work).free
+    params = lm.init_lm(0, cfg, device=device)
+    leaves = lm.tree_map(lambda p: p.requires_grad_(True), params)
+    loss, _ = lm.lm_loss(leaves, tp_rank_batch(cfg, device), cfg,
+                         backend="kernel")
+    grads = torch.autograd.grad(loss, lm.tree_leaves(leaves))
+    torch.save({"loss": loss.detach().cpu(),
+                "grads": [g.cpu() for g in grads]},
+               os.path.join(work, "tp_ref.pt"))
+    del leaves, grads
+    eng = ServingEngine(params, cfg, max_len=tp_rank_max_len(),
+                        device=device)
+    reqs = trace_requests(cfg, device, TP_RANK_LENS, TP_RANK_NEW)
+    eng.serve(reqs, continuous=True, max_batch=len(reqs))
+    margins = []
+    with torch.no_grad():
+        for r in reqs:
+            seq = torch.cat([r.prompt, torch.tensor(r.generated[:-1],
+                                                    device=device)])
+            x, _ = lm.forward(params, seq[None], cfg, remat=False)
+            logits = lm.logits_fn(params, x[:, len(r.prompt) - 1:],
+                                  cfg)[0].float()
+            top = logits.topk(2, dim=-1).values
+            margins.append(((top[:, 0] - top[:, 1])
+                            / logits.abs().amax(-1)).tolist())
+    json.dump({"tokens": [r.generated for r in reqs], "margins": margins},
+              open(os.path.join(work, "tp_serve.json"), "w"))
+    log_t(f"  references: depth {cfg.n_layers} in float32, "
+          f"{TP_RANK_BATCH} x {TP_RANK_SEQ}: loss {float(loss.detach()):.6f}, "
+          f"{os.path.getsize(os.path.join(work, 'tp_ref.pt')) / 1e9:.2f} GB "
+          f"written ({free / 1e9:.1f} GB were free); tokens "
+          f"{[r.generated for r in reqs]}")
+    del params, eng
+    free_device()
+
+
+def in_turn(rank: int, world: int, fn):
+    """``fn()`` on each rank in turn, the others waiting at a barrier, so
+    that one rank at a time holds the whole tree it cuts to its slices."""
+    out = None
+    for r in range(world):
+        if r == rank:
+            out = fn()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def tp_rank_main(rank: int, world: int, work: str) -> None:
+    """One of (b)'s ranks, started by ``tp_four_ranks`` as ``chip_smoke.py
+    --tp-rank <rank> <world> <dir>``: gloo over the card's tensors.  At
+    each mesh of TP_RANK_MESHES: ``tp_rank_cfg`` on its slices under
+    TP_PLAN (the ranks cut theirs in turn), one ``lm_loss(sharder=)`` on
+    its shard of ``tp_rank_batch`` with its grads summed by
+    ``allreduce_grads`` and the clip's norm, what it counted, its peak
+    memory, each grad slice against the same slice of (a)'s reference.
+    Then at (1, world) TP_RANK_LENS's requests under TP_RANK_SERVE_PLAN
+    through ``ContinuousScheduler``, ``replan(SERVE_REPLAN_TO)`` at
+    decode step SERVE_REPLAN_STEP: the tokens.  Rank 0 logs its progress
+    (``note``).  Written to ``<dir>/tp_rank<r>.json``;
+    every rank waits at a barrier, then leaves the group."""
+    device = json.load(open(os.path.join(work, "job25.json")))["device"]
+    full_f32()
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(work, "store25b"), world), rank=rank, world_size=world)
+    t_start = time.perf_counter()
+
+    def note(what):
+        if rank == 0:
+            log(f"    rank 0: {what} at {time.perf_counter() - t_start:.1f} "
+                f"s, {torch.cuda.memory_allocated() / 1e9:.2f} GB held, "
+                f"host GiB {host_state()}")
+    try:
+        cfg = tp_rank_cfg()
+        ref = torch.load(os.path.join(work, "tp_ref.pt"), mmap=True)
+        res = {}
+        for shape in TP_RANK_MESHES:
+            label = f"{shape[0]}x{shape[1]}"
+            mesh = make_mesh(shape, ("data", "model"),
+                             torch.device(device).type, backend="gloo")
+            ctx = from_mesh(mesh)
+            lay = in_turn(rank, world, lambda: tp_layout(cfg, mesh, device))
+            note(f"{label}: the slices cut")
+            specs, sharder = lay["specs"], lay["sharder"]
+            leaves = lm.tree_map(lambda p: p.requires_grad_(True),
+                                 lay.pop("params"))
+            batch = lm.shard_lm_batch(tp_rank_batch(cfg, device), sharder)
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            loss, _ = lm.lm_loss(leaves, batch, cfg, sharder=sharder,
+                                 backend="kernel")
+            grads = iter(torch.autograd.grad(loss, lm.tree_leaves(leaves)))
+            loss, grads = allreduce_grads(loss.detach(), lm.tree_map(
+                lambda p: next(grads), leaves), specs, ctx)
+            slices_norm(grads, specs, ctx)
+            got = read_counts()
+            got.update(seconds=time.perf_counter() - t0,
+                       coord=[ctx.dp_index, ctx.sp_index],
+                       layout=lay["layout"],
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            note(f"{label}: the loss and grads")
+            gaps = torch.tensor([slice_gap(g, w[tuple(
+                slice(a, b) for a, b in slice_index(w.shape, spec, ctx))])
+                for g, w, spec in zip(lm.tree_leaves(grads), ref["grads"],
+                                      lm.tree_leaves(specs))],
+                dtype=torch.float64)
+            dist.all_reduce(gaps, op=dist.ReduceOp.MAX)
+            shares = (gaps[:, 0] / gaps[:, 1].clamp_min(1e-30)).tolist()
+            worst = int(np.argmax(shares))
+            got.update(
+                loss=float(loss), loss_rel=float(
+                    (loss.cpu() - ref["loss"]).abs() / ref["loss"].abs()),
+                grad_rel=shares[worst], leaves=len(shares),
+                leaf=leaf_paths(specs)[worst], host_gib=host_state())
+            res[label] = got
+            del leaves, grads, lay
+            host_empty_cache()
+            torch.cuda.empty_cache()
+            note(f"{label}: the slices held against the reference")
+        mesh = make_mesh((1, world), ("data", "model"),
+                         torch.device(device).type, backend="gloo")
+        eng = in_turn(rank, world, lambda: ServingEngine(
+            lm.init_lm(0, cfg, device=device), cfg,
+            max_len=tp_rank_max_len(), mesh=mesh, plan=TP_RANK_SERVE_PLAN,
+            device=device))
+        note("the engine built")
+        reqs = trace_requests(cfg, device, TP_RANK_LENS, TP_RANK_NEW)
+        sched = ContinuousScheduler(eng, max_batch=len(reqs))
+
+        def on_step(s, k):
+            if k == SERVE_REPLAN_STEP:
+                note("the replan")
+                s.replan(SERVE_REPLAN_TO)
+                host_empty_cache()
+                torch.cuda.empty_cache()
+                note("replanned")
+        reset_counts()
+        t0 = time.perf_counter()
+        sched.run(reqs, on_step=on_step)
+        got = read_counts()
+        res["serve"] = {
+            "active": eng.active, "seconds": time.perf_counter() - t0,
+            "tokens": [r.generated for r in reqs] if eng.active else None,
+            "k1": got["k1"], "k1_routes": got["k1_routes"],
+            "host_gib": host_state()}
+        note("served")
+        json.dump(res, open(os.path.join(work, f"tp_rank{rank}.json"), "w"))
+    finally:
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def tp_four_ranks(work: str, device="cuda") -> dict:
+    """(b) DSP_RANKS processes sharing the card over gloo
+    (``tp_rank_main``), ``tp_rank_cfg`` in float32 at each mesh of
+    TP_RANK_MESHES under TP_PLAN: the loss within TP_LOSS_BAR relative of
+    (a)'s one-rank reference, each rank's grad slices within TP_GRAD_BAR
+    of their leaf's max, each rank's calls and bytes exactly
+    ``zero_contract(tp=True)``, K1 twice a layer on the f32 route on the
+    rank's heads; then the requests served through the replan, the
+    tokens of the ranks still serving the reference's up to a near-tie
+    (TP_TIE_BAR), after which the two runs decode other prefixes.  Each
+    rank's peak memory and host memory logged."""
+    with open(os.path.join(work, "job25.json"), "w") as f:
+        json.dump({"device": device}, f)
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--tp-rank", str(r), str(DSP_RANKS), work],
+                              env=env)
+             for r in range(DSP_RANKS)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log_t(f"  {DSP_RANKS} ranks exited {rcs} after "
+          f"{time.perf_counter() - t0:.1f} s")
+    if any(rcs):
+        raise AssertionError(f"a tp rank failed: exit codes {rcs}")
+    ranks = [json.load(open(os.path.join(work, f"tp_rank{r}.json")))
+             for r in range(DSP_RANKS)]
+    cfg = tp_rank_cfg()
+    route = ROUTES[(cfg.dtype, cfg.head_dim)]
+    k1 = 2 * cfg.n_layers
+    for shape in TP_RANK_MESHES:
+        label = f"{shape[0]}x{shape[1]}"
+        g = ranks[0][label]
+        log_t(f"  {label}: depth {cfg.n_layers} in float32, {TP_RANK_BATCH} "
+              f"x {TP_RANK_SEQ}: loss {g['loss']:.9f}, |delta| / |loss| "
+              f"against one rank {g['loss_rel']:.3e}, worst grad slice "
+              f"{g['leaf']} {g['grad_rel']:.3e} of its leaf's max over "
+              f"{g['leaves']} leaves")
+        if not g["grad_rel"] <= TP_GRAD_BAR:
+            raise AssertionError(f"{label}: the {DSP_RANKS}-rank grads "
+                                 f"disagree with one rank: {g}")
+        for r, res in enumerate(ranks):
+            got = res[label]
+            want = zero_contract(cfg, shape, TP_RANK_BATCH, got["layout"],
+                                 TP_RANK_SEQ, tp=True)
+            log_t(f"  rank {r} (data {got['coord'][0]}, model "
+                  f"{got['coord'][1]}): {got['seconds']:.1f} s, peak "
+                  f"{got['peak_gb']:.2f} GB, calls {got['calls']}, K1 "
+                  f"{got['k1']} {got['k1_routes']} {got['k1_dims']}; host "
+                  f"GiB {got['host_gib']}")
+            if not (got["loss_rel"] <= TP_LOSS_BAR and got["calls"] == want
+                    and got["k1"] == k1 and got["k1_routes"] == {route: k1}):
+                raise AssertionError(f"rank {r} {label}: {got}, the contract "
+                                     f"says {want} and {k1} K1 launches on "
+                                     f"{route}")
+    ref = json.load(open(os.path.join(work, "tp_serve.json")))
+    want = ref["tokens"]
+    k1 = cfg.n_layers * len(TP_RANK_LENS)
+    for r, res in enumerate(ranks):
+        sv = res["serve"]
+        # per request the first step that differs, and one rank's margin
+        # there
+        apart = [next(([t, m[t]] for t, (a, b) in enumerate(zip(g, w))
+                       if a != b), None)
+                 for g, w, m in zip(sv["tokens"] or [], want,
+                                    ref["margins"])]
+        log_t(f"  rank {r} served {sv['seconds']:.1f} s, still serving "
+              f"{sv['active']}, tokens {sv['tokens']}, K1 {sv['k1']} "
+              f"{sv['k1_routes']}; host GiB {sv['host_gib']}; [first step "
+              f"apart, one rank's margin there] {apart}")
+        if (sv["active"] != (r < SERVE_REPLAN_TO)
+                or any(a is not None and a[1] > TP_TIE_BAR for a in apart)
+                or sv["k1_routes"] != {route: k1}):
+            raise AssertionError(f"rank {r} served {sv}, one rank {ref} "
+                                 f"with {k1} K1 launches on {route}")
+    log(f"  tokens through replan({SERVE_REPLAN_TO}) against one rank's "
+        f"{want}, margins {ref['margins']}")
+    return {"ranks": ranks}
+
+
+def tp_cli_ranks(work: str, train_main, serve_main) -> None:
+    """(c) Both CLIs with mistral-large-123b at SMOKE size under ``torchrun
+    --nproc-per-node`` DSP_RANKS on the card, gloo over its tensors, the
+    two launches side by side: the train CLI at ``--mesh 1,4`` (the
+    spec's plan, every rank one rank's loss) and the serve CLI ``--mode tp
+    --continuous`` (one rank's tokens); the one-rank runs in this
+    process meanwhile."""
+    import io
+    arch = "mistral-large-123b"
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(DSP_RANKS), "-m"]
+    serve = ["--arch", arch, "--batch", "4", "--prompt-len", "16",
+             "--new-tokens", "8", "--continuous"]
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        run + cmd, cwd=work, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for name, cmd in (
+            ("train", ["repro_torch.launch.train", "--arch", arch, "--mesh",
+                       f"1,{DSP_RANKS}", "--backend", "gloo", "--steps",
+                       "3"]),
+            ("serve", ["repro_torch.launch.serve", *serve, "--mode", "tp",
+                       "--backend", "gloo"]))}
+    try:
+        hist = train_main(["--arch", arch, "--steps", "3"])["history"]
+        with contextlib.redirect_stdout(io.StringIO()):
+            want = [r.generated for r in serve_main(serve)]
+        outs = {name: p.communicate(timeout=300)
+                for name, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    out, err = outs["train"]
+    lines = [l for l in out.splitlines() if l.startswith("loss ")]
+    plans = {l for l in out.splitlines() if l.startswith("plan ")}
+    one = f"loss {hist[0][1]:.4f} -> {hist[-1][1]:.4f}"
+    log_t(f"  train: exit {procs['train'].returncode}; {sorted(plans)}; "
+          f"{lines[:1]} on each of {len(lines)} ranks; one rank: {one}")
+    if (procs["train"].returncode or lines != [one] * DSP_RANKS
+            or plans != {f"plan {TP_PLAN}"}):
+        raise AssertionError(f"train CLI under torchrun: "
+                             f"{out[-2000:]}{err[-3000:]}")
+    out, err = outs["serve"]
+    got = [json.loads(m) for m in re.findall(r"s: (\[[^\]]*\])", out)]
+    log_t(f"  serve --mode tp --continuous: exit "
+          f"{procs['serve'].returncode}; "
+          f"{out.splitlines()[0] if out else ''}; tokens equal to one "
+          f"rank's: {got == want}; both launches in {seconds:.1f} s")
+    if (procs["serve"].returncode or got != want
+            or "KV pool sequence-sharded over 4-way" not in out):
+        raise AssertionError(f"serve CLI --mode tp under torchrun: "
+                             f"{out[-2000:]}{err[-3000:]}")
+
+
 def library_attention(case, compile: bool = True):
     """One PyTorch call that computes K1's function at ``case`` where
     ``scaled_dot_product_attention`` cannot, for a softcap or a window:
@@ -5247,15 +5898,16 @@ def library_attention(case, compile: bool = True):
     return fn
 
 
-def time_model_attention(name: str) -> dict:
-    """K1 at ``name``'s prefill shape (MODEL_ATTN) in bf16 on its route,
+def time_model_attention(name: str, case=None) -> dict:
+    """K1 at ``name``'s prefill shape (MODEL_ATTN, or ``case``) in bf16 on
+    its route,
     and one library call for the same function: ``scaled_dot_product_
     attention`` (causal, GQA), or ``library_attention``'s compiled
     ``flex_attention`` where the shape has a softcap or a window (its
     first call, the compile, untimed, and its output held against the
     plain version's at K1's bar), three times each in turns (medians);
     the plain version once, and the bound."""
-    case = MODEL_ATTN[name]
+    case = MODEL_ATTN[name] if case is None else case
     q, k, v = attn_inputs(case, torch.bfloat16, seed=13)
     kw = attn_kw(case)
     route = ROUTES[(torch.bfloat16, case[5])]
@@ -5558,6 +6210,10 @@ def main() -> None:
                   for i, (name, case) in enumerate(MODEL_ATTN.items())}
     for i, case in enumerate(MOE_RANK_ATTN):
         check_attention(case, torch.float32, seed=470 + i)
+    tp_errs = {name: check_attention(case, torch.bfloat16, seed=480 + i)
+               for i, (name, case) in enumerate(TP_ATTN.items())}
+    for i, case in enumerate(TP_RANK_ATTN):
+        check_attention(case, torch.float32, seed=490 + i)
 
     log(f"[4] timing at the slice's shape, bf16 ({elapsed()})")
     q, k, v = attn_inputs(SLICE, torch.bfloat16, seed=7)
@@ -5615,6 +6271,9 @@ def main() -> None:
     models = {name: {**time_model_attention(name),
                      "max_abs_err": model_errs[name]}
               for name in MODEL_ATTN}
+    tp_times = {name: {**time_model_attention(name, TP_ATTN[name]),
+                       "max_abs_err": tp_errs[name]}
+                for name in TP_ATTN}
 
     log(f"[5] qwen3-14b serving at full width ({elapsed()})")
     cfg = qwen3_14b.CONFIG
@@ -5794,9 +6453,34 @@ def main() -> None:
         moe_cli_ranks(work, train_main)
     log_t(f"  done: phase 23 took {time.perf_counter() - t23:.1f} s "
           f"({elapsed()})")
+
+    log(f"[24] mistral-large-123b on one card, its KV cache in "
+        f"{mistral_large_123b.CONFIG.cache_dtype} ({elapsed()})")
+    t24 = time.perf_counter()
+    m24 = mistral_on_one_card()
+    log_t(f"  done: phase 24 took {time.perf_counter() - t24:.1f} s "
+          f"({elapsed()})")
+
+    log(f"[25] mistral-large-123b under its spec's own plan: tp with ZeRO-3 "
+        f"over data and the vocab ring on a (data, model) mesh "
+        f"({elapsed()})")
+    t25 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        log(f"  (a) world size 1 over NCCL, full width, depth "
+            f"{MISTRAL_TRAIN_DEPTH} (training) and {MISTRAL_SERVE_DEPTH} "
+            f"(serving)")
+        m25 = tp_world_of_one(m24, work)
+        log(f"  (b) {DSP_RANKS} ranks on the card over gloo, depth "
+            f"{TP_RANK_DEPTH} in float32 ({elapsed()})")
+        tp_ranks = tp_four_ranks(work)
+        log(f"  (c) the CLIs under torchrun at SMOKE size ({elapsed()})")
+        tp_cli_ranks(work, train_main, serve_main)
+    log_t(f"  done: phase 25 took {time.perf_counter() - t25:.1f} s "
+          f"({elapsed()})")
     model_runs = [m22["starcoder2-7b"], m22["gemma2-2b"],
                   m22["qwen2-moe-a2.7b"], m22["qwen2-moe-a2.7b/train"],
-                  moe_dsp]
+                  moe_dsp, m24["serve"], m24["train"], m25["train"],
+                  m25["serve"]]
 
     log(facts)
     print(json.dumps({"kernels": [{
@@ -5823,7 +6507,18 @@ def main() -> None:
                        "routes": moe_dsp["routes"]},
                    "qwen2-moe-a2.7b/rank_launches": [
                        {label: r[label]["k1_routes"] for label in r}
-                       for r in moe_ranks["ranks"]]},
+                       for r in moe_ranks["ranks"]],
+                   **{name: {**tp_times[name]} for name in TP_ATTN},
+                   "mistral-large-123b/launches": {
+                       "serve": m24["serve"]["launches"],
+                       "train": m24["train"]["launches"],
+                       "tp_train": m25["train"]["launches"],
+                       "tp_serve": m25["serve"]["launches"],
+                       "routes": by_route([m24["serve"], m24["train"],
+                                           m25["train"], m25["serve"]])},
+                   "mistral-large-123b/rank_launches": [
+                       {label: r[label]["k1_routes"] for label in r}
+                       for r in tp_ranks["ranks"]]},
         "paged_launches": paged["launches"],
         "paged_rank_launches": [r["k1_launches"]
                                 for r in paged_ranks["ranks"]],
@@ -5907,5 +6602,7 @@ if __name__ == "__main__":
         t2d_zero_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif sys.argv[1:2] == ["--moe-rank"]:
         moe_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:2] == ["--tp-rank"]:
+        tp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     else:
         main()

@@ -97,6 +97,16 @@ def _group_size(group) -> int:
     return dist.get_world_size(group)
 
 
+_FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+def as_bytes(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the collectives that only move data see it: a float8
+    tensor (the fp8 KV cache) viewed as uint8, which gloo and NCCL both
+    move, bit for bit; any other tensor itself."""
+    return x.view(torch.uint8) if x.dtype in _FP8 else x
+
+
 def _a2a(x: torch.Tensor, split_dim: int, concat_dim: int,
          group) -> torch.Tensor:
     """Tiled all-to-all: dim ``split_dim`` shrinks by n, ``concat_dim``
@@ -110,7 +120,8 @@ def _a2a(x: torch.Tensor, split_dim: int, concat_dim: int,
                        + shape[split_dim + 1:])
     send = chunks.movedim(split_dim, 0).contiguous()
     recv = torch.empty_like(send)
-    _issue("all-to-all", dist.all_to_all_single, recv, send, group=group)
+    _issue("all-to-all", dist.all_to_all_single, as_bytes(recv),
+           as_bytes(send), group=group)
     shape[split_dim] //= n
     shape[concat_dim] *= n
     return recv.movedim(0, concat_dim).reshape(shape)
@@ -164,8 +175,8 @@ def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     n = _group_size(group)
     send = x.movedim(dim, 0).contiguous()
     recv = send.new_empty((n * send.shape[0],) + tuple(send.shape[1:]))
-    _issue("all-gather", dist.all_gather_into_tensor, recv, send,
-           group=group)
+    _issue("all-gather", dist.all_gather_into_tensor, as_bytes(recv),
+           as_bytes(send), group=group)
     return recv.movedim(0, dim)
 
 
@@ -430,7 +441,7 @@ def per_device_bytes(strategy: str, global_bytes: float, n: int, *,
 
 
 __all__ = [
-    "calls", "volume", "reset_calls", "all_reduce", "broadcast",
+    "calls", "volume", "reset_calls", "all_reduce", "broadcast", "as_bytes",
     "dynamic_switch", "shard", "split", "gather", "gather_param",
     "reduce_scatter", "ppermute",
     "start_permute", "exchange", "dsp_shard_batch",

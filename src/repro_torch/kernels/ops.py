@@ -25,6 +25,9 @@ BACKENDS = ("kernel", "ref")
 # recompute may hold: (batch slice, Hq, Sq, Skv) x 4 B; autograd keeps a few
 # such tensors live at once
 BACKWARD_SCORE_BYTES = 2 << 30
+# one sequence whose scores pass this recomputes over groups of its K/V
+# heads (mistral-large-123b's 96 heads at 4096 tokens hold 6.4 GB)
+BACKWARD_HEAD_SCORE_BYTES = 4 << 30
 
 
 def _use_plain(t: torch.Tensor, backend: str) -> bool:
@@ -55,10 +58,12 @@ class _FlashAttention(torch.autograd.Function):
     """Forward as JAX's ``fwd_plain``: the kernel (or its plain version);
     backward through ``attention_ref`` on the saved q, k, v with the same
     mask, softcap, scale and offset, as JAX's custom VJP does.  Sequences
-    do not interact, so the backward recomputes over slices of the batch
-    dim, each holding at most ``BACKWARD_SCORE_BYTES`` of scores (at least
-    one sequence), and concatenates the grads: the same values as one
-    recompute of the whole batch."""
+    and K/V heads do not interact, so the backward recomputes over slices
+    of the batch dim, each holding at most ``BACKWARD_SCORE_BYTES`` of
+    scores (at least one sequence), where one sequence holds more than
+    ``BACKWARD_HEAD_SCORE_BYTES`` over groups of its K/V heads with their
+    q heads (at least one), and concatenates the grads: the same values
+    as one recompute of the whole batch."""
 
     @staticmethod
     def forward(ctx, q, k, v, kw: dict, plain: bool):
@@ -73,18 +78,29 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
         b, hq, sq, _ = q.shape
-        per_seq = 4 * hq * sq * k.shape[2]
-        step = max(1, BACKWARD_SCORE_BYTES // max(per_seq, 1))
+        hkv, skv = k.shape[1], k.shape[2]
+        grp = hq // hkv
+        per_head = 4 * sq * skv
+        step = max(1, BACKWARD_SCORE_BYTES // max(hq * per_head, 1))
+        kstep = (hkv if hq * per_head <= BACKWARD_HEAD_SCORE_BYTES
+                 else max(1, BACKWARD_HEAD_SCORE_BYTES // (grp * per_head)))
         need = ctx.needs_input_grad[:3]
-        parts = []
+        rows = []
         for i in range(0, b, step):
-            inputs = [t[i:i + step].detach().requires_grad_(n)
-                      for t, n in zip((q, k, v), need)]
-            with torch.enable_grad():
-                o = _ref.attention_ref(*inputs, **ctx.kw)
-            parts.append(torch.autograd.grad(
-                o, [t for t in inputs if t.requires_grad], g[i:i + step]))
-        grads = iter(zip(*parts))        # each needed grad's slices
+            cols = []
+            for j in range(0, hkv, kstep):
+                heads = (slice(j * grp, (j + kstep) * grp),
+                         slice(j, j + kstep), slice(j, j + kstep))
+                inputs = [t[i:i + step, h].detach().requires_grad_(n)
+                          for t, h, n in zip((q, k, v), heads, need)]
+                with torch.enable_grad():
+                    o = _ref.attention_ref(*inputs, **ctx.kw)
+                cols.append(torch.autograd.grad(
+                    o, [t for t in inputs if t.requires_grad],
+                    g[i:i + step, heads[0]]))
+            rows.append([c[0] if len(c) == 1 else torch.cat(c, 1)
+                         for c in zip(*cols)])
+        grads = iter(zip(*rows))         # each needed grad's batch slices
         out = []
         for n in need:
             gs = next(grads) if n else None

@@ -29,12 +29,20 @@ mesh, the plan priced on ``--topology`` (``uniform``, the byte model, or
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve \\
         --arch qwen3-14b --continuous --arrival 0.01
 
+``--mode tp`` serves under ``ParallelPlan(mode="tp")`` as the JAX CLI
+does, static, ``--continuous`` or ``--paged``: column- and row-parallel
+attention and MLP, the same sequence-sharded KV caches, no switching
+schedule:
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve \\
+        --arch mistral-large-123b --mode tp --continuous
+
 Rank 0 prints the summary in one write.  ``--ckpt-dir DIR`` serves the
 parameters of the latest checkpoint in DIR (``train.checkpoint``, either
 package's), restored onto the engine's layout.  ``--device`` defaults to
-``cuda``.  ``--mode tp``, the JAX CLI's TPU topology presets and
-``--hosts``, and ``--devices`` (``torchrun --nproc-per-node`` starts the
-ranks) exit with a message.
+``cuda``.  The JAX CLI's TPU topology presets and ``--hosts``, and
+``--devices`` (``torchrun --nproc-per-node`` starts the ranks) exit with
+a message.
 """
 import argparse
 import json
@@ -112,10 +120,6 @@ def main(argv=None):
         raise SystemExit("--hosts: not yet ported; it sizes the JAX "
                          "package's TPU preset ici_dcn (ROADMAP queue 1, "
                          "standing notes)")
-    if args.mode == "tp":
-        raise SystemExit("--mode tp: not yet ported; tp's column- and "
-                         "row-parallel execution comes with ROADMAP queue "
-                         "1 item 7")
 
     import numpy as np
     import torch
@@ -172,8 +176,9 @@ def main(argv=None):
     del params
     if mesh is not None:
         lines.append(f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}; "
-                     f"plan {plan}; planned switches "
-                     f"{eng.schedule.n_switches()}")
+                     f"plan {plan}" + ("" if eng.schedule is None else
+                                       f"; planned switches "
+                                       f"{eng.schedule.n_switches()}"))
     gen = torch.Generator(device=device).manual_seed(1)
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                             generator=gen, device=device)

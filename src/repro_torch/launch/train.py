@@ -53,7 +53,14 @@ N leave with no steps):
 ``--backend gloo`` lets several ranks share one card (NCCL takes one rank
 a card).  MoE (qwen2-moe-a2.7b) trains under its spec's plan, ``ep`` with
 ZeRO-3: each rank runs its block of experts on the tokens the dispatch
-brings it.
+brings it.  mistral-large-123b trains under its spec's ``tp`` with ZeRO-3
+over ``data``: each rank runs its heads and hidden columns over the
+whole sequence, gathered into each block and reduce-scattered out of it
+(no switching schedule):
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch mistral-large-123b --mesh 1,4
+    ... plan ParallelPlan(mode='tp', ep=False, zero=True, shard_vocab=True)
 
 ``--grad-compress`` runs the summed grads through error-feedback int8
 compression.  ``--device`` defaults to ``cuda``.  The JAX CLI's
@@ -160,6 +167,8 @@ def main(argv=None):
         def solve_schedule(sp):
             return dsp_schedule(cfg, sp, seq=args.seq, batch=args.batch,
                                 joint=True)
+        if spec.plan.mode == "tp":
+            solve_schedule = None       # tp's blocks switch nothing
 
         # the loss cuts the rank's shard of the global batch, so that
         # --replan rebuilds it for the resized mesh
@@ -175,9 +184,9 @@ def main(argv=None):
             specs = param_pspecs(params, spec.plan,
                                  axis_sizes=mesh_sizes(ctx))
             params = shard_params(params, specs, ctx)
-            sharder = make_sharder(mesh, spec.plan,
-                                   schedule=solve_schedule(mp),
-                                   param_specs=specs)
+            sharder = make_sharder(
+                mesh, spec.plan, schedule=None if solve_schedule is None
+                else solve_schedule(mp), param_specs=specs)
         dcfg = DataConfig(task="lm_shift", vocab=cfg.vocab, seq=args.seq,
                           batch=args.batch)
         loss_fn = make_loss(mesh, sharder, None)

@@ -21,10 +21,18 @@ through ``kernels.ops.flash_attention`` (K1 on the card) at its start
 offset; on a mesh each rank holds a within-block slice of every block and
 a chunk merges softmax partials as a decode step does.
 
+Under plan ``tp`` (``Sharder.tp``) the projections are column- and
+row-parallel: ``attention_sp`` gathers the rank's sequence shard whole,
+runs its heads (K1 at q_offset 0) and reduce-scatters the partial
+output of its rows of ``wo`` (``_attention_tp``); a decode step gathers
+the step's q/k/v heads, writes and attends the sequence-sharded cache
+as under DSP, and sums its rows' partial output with one all-reduce.
+
 Decode writes the new K/V into the cache tensors IN PLACE (the JAX package
 returns updated copies): at full width a copy of every layer's cache per
 generated token would double the cache traffic.  The returned cache dict
-holds the same tensors.
+holds the same tensors.  The writes go through uint8 views of the cache
+(``core.dsp.as_bytes``), so a float8 cache takes the same indexing.
 """
 from __future__ import annotations
 
@@ -90,6 +98,82 @@ def _project(p, x, src, cfg: AttnConfig):
     return q, k, v
 
 
+def tp_columns(p, sharder):
+    """A column-parallel projection as the rank reads it under ``tp``:
+    its weight as given (the rank's block of output columns, or the whole
+    weight where ``Sharder.whole`` gathered it) and the same block of the
+    bias, which the layout keeps whole (``param_pspecs``)."""
+    w = p["w"]
+    out = {"w": w}
+    if "b" in p:
+        k = w.shape[1]
+        out["b"] = (p["b"] if p["b"].shape[0] == k
+                    else p["b"].narrow(0, sharder.sp_index * k, k))
+    return out
+
+
+def tp_rows(p, x, sharder, *, step: bool):
+    """A row-parallel projection under ``tp``: x (..., C/n), the rank's
+    block of the input, through its rows of the weight into a partial
+    output, summed over ``model`` (``step``: a decode step's whole
+    tokens, one all-reduce; else the sequence, one reduce-scatter that
+    keeps the rank's shard), and the bias, whole, added once after the
+    sum."""
+    y = x @ p["w"]
+    y = sharder.tp_sum(y) if step else sharder.tp_exit(y)
+    return y + p["b"] if "b" in p else y
+
+
+def _tp_project(p, x, cfg: AttnConfig, sharder):
+    """q (B, S, H/n, D) of this rank's heads from its columns of ``wq``,
+    and k/v (B, S, Hkv/n, D) of its K/V heads from its columns of ``wk``
+    and ``wv``, or (``Sharder.kv_whole``, the K/V heads do not divide
+    the ranks) every K/V head from the whole ``wk``/``wv``."""
+    b, s, _ = x.shape
+    dh = cfg.head_dim
+    q = L.linear(tp_columns(p["wq"], sharder), x).reshape(b, s, -1, dh)
+    k = L.linear(tp_columns(p["wk"], sharder), x).reshape(b, s, -1, dh)
+    v = L.linear(tp_columns(p["wv"], sharder), x).reshape(b, s, -1, dh)
+    if cfg.qk_norm:
+        q = L.rms_norm(p["q_norm"], q)
+        k = L.rms_norm(p["k_norm"], k)
+    return q, k, v
+
+
+def _tp_kv_heads(k, v, cfg: AttnConfig, sharder):
+    """The K/V heads (B, S, ., D) that this rank's H/n q heads read: its
+    own K/V heads as they are, or under ``kv_whole`` (every K/V head
+    computed) the one each of its q heads maps onto, in q head order."""
+    if not sharder.kv_whole:
+        return k, v
+    hq = cfg.n_heads // sharder.sp_size
+    g = cfg.n_heads // cfg.n_kv_heads
+    idx = torch.arange(sharder.sp_index * hq, (sharder.sp_index + 1) * hq,
+                       device=k.device) // g
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _tp_gather_heads(q, k, v, sharder):
+    """A decode step's q/k/v of the rank's heads (B, S, ., D) -> every
+    head on every rank, in head order: one all-gather over ``model`` of
+    the three stacked on the head dim (of q alone under ``kv_whole``,
+    whose k/v hold every head already)."""
+    n = sharder.sp_size
+    hq = q.shape[2]
+    parts = q if sharder.kv_whole else torch.cat([q, k, v], 2)
+    got = dsp.gather(parts[None], 0, sharder.ctx.sp_group)
+    # (n, B, S, heads of a rank, D) -> (B, S, n x heads, D) per tensor
+
+    def heads(t):
+        return t.permute(1, 2, 0, 3, 4).reshape(
+            t.shape[1], t.shape[2], -1, t.shape[-1])
+    if sharder.kv_whole:
+        return heads(got), k, v
+    kh = k.shape[2]
+    return (heads(got[:, :, :, :hq]), heads(got[:, :, :, hq:hq + kh]),
+            heads(got[:, :, :, hq + kh:]))
+
+
 def attention(p, x, cfg: AttnConfig, *, causal: bool = True,
               positions: Optional[torch.Tensor] = None,
               x_kv: Optional[torch.Tensor] = None,
@@ -114,7 +198,21 @@ def attention(p, x, cfg: AttnConfig, *, causal: bool = True,
     query offset on one device."""
     b, s, _ = x.shape
     h, dh = cfg.n_heads, cfg.head_dim
-    q, k, v = _project(p, x, x if x_kv is None else x_kv, cfg)
+    tp = sharder is not None and sharder.tp
+    if tp:
+        q, k, v = _tp_project(p, x, cfg, sharder)
+    else:
+        q, k, v = _project(p, x, x if x_kv is None else x_kv, cfg)
+
+    def out(o):
+        # o (B, S, H·D), every head -> the block's output: under tp the
+        # rank's heads through its rows of wo
+        if not tp:
+            return L.linear(p["wo"], o)
+        n = h * dh // sharder.sp_size
+        return tp_rows(p["wo"], o[..., sharder.sp_index * n:
+                                  (sharder.sp_index + 1) * n], sharder,
+                       step=True)
 
     if positions is None:
         base = (cache["pos"] if cache is not None
@@ -129,14 +227,16 @@ def attention(p, x, cfg: AttnConfig, *, causal: bool = True,
         pos = cache["pos"]
         ck, cv = cache["k"], cache["v"]
         sharded = sharder is not None and sharder.serves_sharded
-        if sharded:
+        if tp:
+            q, k, v = _tp_gather_heads(q, k, v, sharder)
+        elif sharded:
             q, k, v = (sharder.decode_heads(t) for t in (q, k, v))
         if "table" in cache:
             o = _paged(q, k, v, cache, cfg, causal,
                        sharder if sharded else None, backend)
             o = o.transpose(1, 2).reshape(b, s, h * dh)
-            return L.linear(p["wo"], o), {"k": ck, "v": cv, "pos": pos + s,
-                                          "table": cache["table"]}
+            return out(o), {"k": ck, "v": cv, "pos": pos + s,
+                            "table": cache["table"]}
         if sharded:
             _sharded_write(ck, cv, k, v, pos, sharder)
             o = _sharded_decode(q.transpose(1, 2), ck, cv, cfg, pos, causal,
@@ -147,21 +247,25 @@ def attention(p, x, cfg: AttnConfig, *, causal: bool = True,
             # dynamic_update_slice does: idle pool slots keep stepping past
             # max_len on garbage that the next insert overwrites
             start = pos.long().clamp(max=ck.shape[2] - s)
+            # written as bytes: an fp8 cache has no index_copy_ (and its
+            # casts round as JAX's dynamic_update_slice stores them)
             if pos.dim() == 1:
                 # per-slot write positions (continuous-batching slot pool):
                 # each row appends at its own sequence offset
                 rows = torch.arange(b, device=x.device)[:, None]
                 cols = start[:, None] + steps
-                ck[rows, :, cols] = k.to(ck.dtype)    # k is (B, S, Hkv, D)
-                cv[rows, :, cols] = v.to(cv.dtype)
+                for c, t in ((ck, k), (cv, v)):    # t is (B, S, Hkv, D)
+                    dsp.as_bytes(c)[rows, :, cols] = dsp.as_bytes(
+                        t.to(c.dtype))
             else:
                 idx = start + steps
-                ck.index_copy_(2, idx, k.transpose(1, 2).to(ck.dtype))
-                cv.index_copy_(2, idx, v.transpose(1, 2).to(cv.dtype))
+                for c, t in ((ck, k), (cv, v)):
+                    dsp.as_bytes(c)[:, :, idx] = dsp.as_bytes(
+                        t.transpose(1, 2).to(c.dtype))
             o = _ref_decode(q.transpose(1, 2), ck, cv, cfg, pos, causal)
         new_cache = {"k": ck, "v": cv, "pos": pos + s}
         o = o.transpose(1, 2).reshape(b, s, h * dh)
-        return L.linear(p["wo"], o), new_cache
+        return out(o), new_cache
 
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), causal=causal and x_kv is None,
@@ -188,16 +292,19 @@ def _sharded_write(ck, cv, k, v, pos, sharder) -> None:
         sharder.sp_index * blk)
     own = (local >= 0) & (local < blk)
     idx = local.clamp(0, blk - 1)
+    # as bytes, so an fp8 cache takes the same ops
     if pos.dim() == 1:
         rows = torch.arange(b, device=k.device)
         for c, t in ((ck, k), (cv, v)):
+            c = dsp.as_bytes(c)
             c[rows, :, idx] = torch.where(own[:, None, None],
-                                          t[:, 0].to(c.dtype),
+                                          dsp.as_bytes(t[:, 0].to(ck.dtype)),
                                           c[rows, :, idx])
     else:
         for c, t in ((ck, k), (cv, v)):
-            c[:, :, idx] = torch.where(own, t[:, 0].to(c.dtype),
-                                       c[:, :, idx])
+            c = dsp.as_bytes(c)
+            c[:, :, idx] = torch.where(own, dsp.as_bytes(
+                t[:, 0].to(ck.dtype)), c[:, :, idx])
 
 
 def _decode_partial(q, k, v, cfg: AttnConfig, pos, causal: bool, k_pos):
@@ -299,8 +406,8 @@ def _paged(q, k, v, cache, cfg: AttnConfig, causal: bool, sharder,
                             causal, backend)
     b, nbs = table.shape
     hkv, b_loc, d = ck.shape[1:]
-    blocks = [c[table].transpose(1, 2).reshape(b, hkv, nbs * b_loc, d)
-              for c in (ck, cv)]
+    blocks = [dsp.as_bytes(c)[table].view(c.dtype).transpose(1, 2).reshape(
+        b, hkv, nbs * b_loc, d) for c in (ck, cv)]
     k_pos = (torch.arange(nbs, device=q.device)[:, None] * (b_loc * sp)
              + r * b_loc + torch.arange(b_loc, device=q.device)).reshape(-1)
     part = _decode_partial(q, *blocks, cfg, pos, causal, k_pos)[None]
@@ -328,8 +435,10 @@ def _paged_write(ck, cv, k, v, pos, table, sp: int, r: int) -> None:
     phys = torch.gather(table, 1, n.clamp(max=nbs - 1))
     phys = torch.where(ok, phys, torch.zeros_like(phys))
     off = off.clamp(0, b_loc - 1)
-    for c, t in ((ck, k), (cv, v)):
-        c[phys, :, off] = torch.where(ok[..., None, None], t.to(c.dtype),
+    for c, t in ((ck, k), (cv, v)):     # as bytes: an fp8 cache too
+        dt, c = c.dtype, dsp.as_bytes(c)
+        c[phys, :, off] = torch.where(ok[..., None, None],
+                                      dsp.as_bytes(t.to(dt)),
                                       c[phys, :, off])
 
 
@@ -350,7 +459,8 @@ def _paged_chunk(q, ck, cv, table, start, cfg: AttnConfig, causal: bool,
     blocks = table[0, :-(-end // ck.shape[2])]
 
     def row(c):
-        g = c[blocks].transpose(0, 1).reshape(1, c.shape[1], -1, c.shape[3])
+        g = dsp.as_bytes(c)[blocks].view(c.dtype).transpose(0, 1).reshape(
+            1, c.shape[1], -1, c.shape[3])
         return g[:, :, :end].to(q.dtype)
     return flash_attention(q, row(ck), row(cv), causal=causal,
                            window=cfg.window, softcap=cfg.softcap,
@@ -379,14 +489,17 @@ def attention_sp(p, x, cfg: AttnConfig, *, sharder=None,
     returns the decode-cache K/V (B, Hkv, S, D): on a mesh the rank's
     sequence shard, rotated at global positions, taken before the
     switch."""
-    b, s, _ = x.shape
-    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, k, v = _project(p, x, x if x_kv is None else x_kv, cfg)
     on_mesh = sharder is not None and sharder.ctx is not None
     if on_mesh and x_kv is not None:
         raise NotImplementedError(
             "cross-attention under a mesh comes with the encoder-decoder "
             "models (ROADMAP queue 1 item 7)")
+    if on_mesh and sharder.tp:
+        return _attention_tp(p, x, cfg, sharder, backend=backend,
+                             causal=causal, return_kv=return_kv)
+    b, s, _ = x.shape
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = _project(p, x, x if x_kv is None else x_kv, cfg)
     if cfg.rope and x_kv is None:
         if positions is None:
             positions = torch.arange(s, device=x.device)
@@ -445,6 +558,37 @@ def attention_sp(p, x, cfg: AttnConfig, *, sharder=None,
     o = o.transpose(1, 2)
     o = sharder.mixer_exit3(o.reshape(b, o.shape[1], -1), src=src)
     o = L.linear(p["wo"], o)
+    return (o, kv_out) if return_kv else o
+
+
+def _attention_tp(p, x, cfg: AttnConfig, sharder, *, backend: str,
+                  causal: bool, return_kv: bool):
+    """``attention_sp`` under ``tp`` (Megatron-SP): the rank's sequence
+    shard x (B, S/n, C) gathered whole (``Sharder.tp_enter``), q/k/v of
+    the rank's heads from its columns (``_tp_project``), rotated at
+    global positions 0..S-1, K1 on those heads over the whole sequence
+    (q_offset 0), the output through the rank's rows of ``wo`` into a
+    partial, and its sum reduce-scattered back onto the rank's shard
+    (``tp_rows``).  ``return_kv`` also returns the cache's K/V (B,
+    Hkv/n, S, D): the rank's K/V heads over the whole sequence (every
+    head under ``kv_whole``), which ``Sharder.kv_cache`` switches onto
+    the rank's block of the cache."""
+    x = sharder.tp_enter(x)
+    b, s, _ = x.shape
+    q, k, v = _tp_project(p, x, cfg, sharder)
+    if cfg.rope:
+        positions = torch.arange(s, device=x.device)
+        q = L.apply_rope(q, positions, theta=cfg.rope_theta)
+        k = L.apply_rope(k, positions, theta=cfg.rope_theta)
+    kv_out = (k.transpose(1, 2), v.transpose(1, 2)) if return_kv else None
+    ka, va = _tp_kv_heads(k, v, cfg, sharder)
+    o = flash_attention(q.transpose(1, 2).contiguous(),
+                        ka.transpose(1, 2).contiguous(),
+                        va.transpose(1, 2).contiguous(), causal=causal,
+                        window=cfg.window, softcap=cfg.softcap,
+                        scale=cfg.scale, backend=backend)
+    o = tp_rows(p["wo"], o.transpose(1, 2).reshape(b, s, -1), sharder,
+                step=False)
     return (o, kv_out) if return_kv else o
 
 

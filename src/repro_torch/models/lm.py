@@ -31,6 +31,15 @@ state head-sharded over ``model`` (``serve_contract`` counts what it
 issues).  MoE trains on the mesh with ``ep`` or without
 (``Sharder.moe_experts``); MoE serving on a mesh is refused (ROADMAP
 queue 1 item 3.6).
+
+Under plan ``tp`` (``check_tp``: attention and dense MLP layers, the q
+heads divided by the ranks) each attention and MLP block gathers the
+whole sequence, runs the rank's heads or hidden columns and
+reduce-scatters the rows' partial outputs back
+(``attention.attention_sp``, ``tp_mlp``), and serving decodes with the
+step's q/k/v heads gathered and one all-reduce a block;
+``collective_contract(tp=True)``, ``param_contract`` and
+``serve_contract`` count it.
 """
 from __future__ import annotations
 
@@ -52,8 +61,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.parallel.partition import (
-    ParallelPlan, Sharder, cache_pspecs, gathered_numels, local_experts,
-    null_sharder, param_pspecs, slice_index, store_contract,
+    ParallelPlan, Sharder, cache_pspecs, gathered_numels, null_sharder,
+    param_pspecs, read_numels, read_specs, slice_index, store_contract,
     tree_map_with_path)
 
 
@@ -258,13 +267,48 @@ def dsp_schedule(cfg: LMConfig, n: int, *, seq: Optional[int] = None,
     return sched
 
 
-def _with_planned_schedule(sharder: Sharder, cfg: LMConfig, seq: int,
-                           batch: int) -> Sharder:
-    """Attach the planned schedule when running DSP on a mesh and none was
-    given: the plan, not the model, decides the stage layouts, priced in
-    bytes.  ``seq`` and ``batch`` are global."""
-    if (sharder.ctx is None or sharder.plan.mode != "dsp"
-            or sharder.schedule is not None):
+def check_tp(cfg: LMConfig, n: int) -> None:
+    """Raise unless plan ``tp`` runs ``cfg`` over ``n`` model ranks: its
+    attention splits the q heads (``n_heads % n == 0``), and its layers
+    are attention and dense MLPs."""
+    specs = cfg.period_specs()
+    if any(sp.ffn == "moe" for sp in specs):
+        raise NotImplementedError(
+            f"{cfg.name}: plan 'tp' with MoE layers (arctic-480b, tp with "
+            f"ep) is not ported yet (ROADMAP queue 1 item 7.8)")
+    if any(sp.mixer == "ssm" for sp in specs):
+        raise NotImplementedError(
+            f"{cfg.name}: plan 'tp' with SSM layers is not ported yet "
+            f"(ROADMAP queue 1 item 7.9)")
+    if cfg.n_heads % n:
+        raise ValueError(f"{cfg.name}: plan 'tp' splits the q heads over "
+                         f"the model ranks: n_heads {cfg.n_heads} % {n} "
+                         f"!= 0")
+
+
+def kv_whole(cfg: LMConfig, plan: ParallelPlan, n: int) -> bool:
+    """Whether ``tp`` over ``n`` model ranks reads ``wk``/``wv`` whole:
+    the K/V heads do not divide the ranks, so their column blocks would
+    cut a head, which RoPE rotates whole (``parallel.partition
+    .read_specs``)."""
+    return plan.mode == "tp" and n > 1 and cfg.n_kv_heads % n != 0
+
+
+def fit_sharder(sharder: Sharder, cfg: LMConfig, seq: Optional[int] = None,
+                 batch: Optional[int] = None) -> Sharder:
+    """The sharder as ``cfg`` runs on it.  Under DSP on a mesh with no
+    schedule given (and ``seq``, ``batch`` global): the planned schedule
+    attached, so that the plan, not the model, decides the stage
+    layouts, priced in bytes.  Under ``tp`` on a mesh: ``check_tp``, and
+    ``kv_whole`` set."""
+    if sharder.ctx is None:
+        return sharder
+    if sharder.plan.mode == "tp":
+        check_tp(cfg, sharder.sp_size)
+        return dataclasses.replace(
+            sharder, kv_whole=kv_whole(cfg, sharder.plan, sharder.sp_size))
+    if (sharder.plan.mode != "dsp" or sharder.schedule is not None
+            or seq is None):
         return sharder
     return sharder.with_schedule(
         dsp_schedule(cfg, sharder.sp_size, seq=seq, batch=batch))
@@ -473,7 +517,7 @@ def forward(params, tokens, cfg: LMConfig, *, sharder: Optional[Sharder] = None,
     ``attention_sp``'s.  The aux sums run through each period's checkpoint
     beside x, so the recompute's routing is the forward's."""
     sharder = sharder or null_sharder()
-    sharder = _with_planned_schedule(
+    sharder = fit_sharder(
         sharder, cfg, seq=tokens.shape[1] * sharder.seq_shards,
         batch=tokens.shape[0] * sharder.dp_size)
     specs = cfg.period_specs()
@@ -577,7 +621,7 @@ def shard_lm_batch(batch: Dict[str, torch.Tensor], sharder: Sharder):
 
 def collective_contract(cfg: LMConfig, n: int, batch: int, seq: int, *,
                         fused_switch: bool = True, dp: int = 1,
-                        ep: bool = False, moe_rows=None
+                        ep: bool = False, moe_rows=None, tp: bool = False
                         ) -> Dict[str, Dict[str, int]]:
     """The ``torch.distributed`` calls one forward issues per rank of a
     mesh with ``n`` ranks on ``model``, by kind, and their bytes
@@ -602,6 +646,12 @@ def collective_contract(cfg: LMConfig, n: int, batch: int, seq: int, *,
         tokens' kept pairs;
       embedding, norms, MLP and the loss: none.
 
+    Under ``tp`` (Megatron-SP, ``Sharder.tp_enter``/``tp_exit``) each
+    attention and each MLP block instead issues 1 all-gather of the
+    whole (batch, n·seq, d) sequence in and 1 reduce-scatter of the same
+    out; ``wk``/``wv`` read whole under ``kv_whole`` count in
+    ``param_contract``.
+
     A training step with ``remat`` issues ``remat_step`` of it, and the
     trainer adds one all-reduce."""
     calls: Dict[str, int] = {}
@@ -613,6 +663,14 @@ def collective_contract(cfg: LMConfig, n: int, batch: int, seq: int, *,
         calls[kind] = calls.get(kind, 0) + times
         nbytes[kind] = nbytes.get(kind, 0) + elems * width * times
 
+    if tp:
+        check_tp(cfg, n)
+        blocks = sum(1 + (sp.ffn == "mlp") for sp in cfg.period_specs())
+        add("all-gather", batch * s * cfg.d_model,
+            times=blocks * cfg.n_periods)
+        add("reduce-scatter", batch * s * cfg.d_model,
+            times=blocks * cfg.n_periods)
+        return {"calls": calls, "bytes": nbytes}
     n_moe = n_moe_layers(cfg)
     if n_moe:
         add("all-reduce", 2 * dp * n * batch * moe_meta(cfg).e_phys, 8,
@@ -663,15 +721,18 @@ def remat_step(contract: Dict[str, Dict[str, int]]
     training step's loss and grads with ``remat``: the forward's twice
     (forward, recompute) and each one's transpose once, a switch's and a
     permute's one more of their kind, a gather's a reduce-scatter of the
-    same bytes; an all-reduce (MoE's count exchange, which carries no
-    gradient) has no transpose.  The trainer's all-reduce is not in it."""
+    same bytes and a reduce-scatter's a gather; an all-reduce (MoE's count
+    exchange, which carries no gradient) has no transpose.  The trainer's
+    all-reduce is not in it."""
     out = {}
     for part, fwd in contract.items():
+        pair = ("all-gather", "reduce-scatter")
         step = {k: 3 * v for k, v in fwd.items()
-                if k not in ("all-gather", "all-reduce")}
-        if "all-gather" in fwd:
-            step["all-gather"] = 2 * fwd["all-gather"]
-            step["reduce-scatter"] = fwd["all-gather"]
+                if k not in pair + ("all-reduce",)}
+        if any(k in fwd for k in pair):
+            ag, rs = (fwd.get(k, 0) for k in pair)
+            step["all-gather"] = 2 * ag + rs
+            step["reduce-scatter"] = ag + 2 * rs
         if "all-reduce" in fwd:
             step["all-reduce"] = 2 * fwd["all-reduce"]
         out[part] = step
@@ -699,7 +760,9 @@ def param_contract(cfg: LMConfig, params, plan: ParallelPlan,
         (the table off the ring; the tied table, the unembedding table and
         the final norm in the loss): 1 all-gather and 1 reduce-scatter;
       under ``ep`` an expert leaf only over its entries other than
-        ``model`` (``local_experts``).
+        ``model``, under ``tp`` a column or row leaf only over ``data``,
+        ``wk``/``wv`` over ``model`` too under ``kv_whole``
+        (``read_specs``).
 
     An entry naming only dims of size 1 is still issued (at one rank each
     is a copy)."""
@@ -716,7 +779,8 @@ def param_contract(cfg: LMConfig, params, plan: ParallelPlan,
 
     specs = param_pspecs(params, plan, axis_sizes=sizes)
     out = store_contract(params, specs, sizes, times,
-                         read_specs=local_experts(specs, plan))
+                         read_specs=read_specs(
+                             specs, plan, kv_whole=kv_whole(cfg, plan, n)))
     if ring:
         chunk = params["embed"]["table"]
         size, k = chunk.numel() // n * chunk.element_size(), 2 * n - 1
@@ -869,11 +933,27 @@ def sharded_argmax(logits, cfg: LMConfig,
     return torch.gather(pairs[..., 1], 0, win[None])[0].long()
 
 
+def tp_mlp(p, x, kind: str, sharder: Sharder, *, step: bool):
+    """The MLP under ``tp``: x the rank's sequence shard, gathered whole
+    (``Sharder.tp_enter``), or a decode ``step``'s tokens, whole on every
+    rank; the rank's F/n columns of ``wi``/``wg``, the activation, its
+    rows of ``wo`` into a partial, summed over ``model``
+    (``attention.tp_rows``: a reduce-scatter back onto the shard, or a
+    step's all-reduce)."""
+    cols = {k: A.tp_columns(p[k], sharder) for k in ("wi", "wg") if k in p}
+    h = L.mlp({**cols, "wo": {"w": p["wo"]["w"]}},
+              x if step else sharder.tp_enter(x), kind)
+    y = sharder.tp_sum(h) if step else sharder.tp_exit(h)
+    return y + p["wo"]["b"] if "b" in p["wo"] else y
+
+
 def _ffn_block(p, x, cfg: LMConfig, spec: LayerSpec,
-               sharder: Optional[Sharder] = None, place=None):
+               sharder: Optional[Sharder] = None, place=None, *,
+               step: bool = False):
     """The layer's FFN half -> (x, aux): aux the MoE layer's
     (load_balance, dropped), None for an MLP.  ``place``
-    (``Sharder.moe_experts``) puts the MoE on a mesh."""
+    (``Sharder.moe_experts``) puts the MoE on a mesh.  ``step``: x is a
+    decode step's, whole on every rank (``tp_mlp``)."""
     if spec.ffn == "none":
         return x, None
     h = _apply_norm(cfg, p["ln2"], x)
@@ -882,6 +962,8 @@ def _ffn_block(p, x, cfg: LMConfig, spec: LayerSpec,
         h, a = M.moe(p["moe"], h, moe_meta(cfg), norm_topk=cfg.norm_topk,
                      expert_hook=place)
         aux = (a["load_balance"], a["dropped"])
+    elif sharder is not None and sharder.tp:
+        h = tp_mlp(p["mlp"], h, cfg.mlp_kind, sharder, step=step)
     else:
         h = L.mlp(p["mlp"], h, cfg.mlp_kind)
     if sharder is not None:
@@ -922,7 +1004,7 @@ def _decode_layer(p, x, pc, cfg: LMConfig, spec: LayerSpec, pos,
         tree_map(lambda dst, src: dst.copy_(src), pc["ssm"], new)
     if cfg.post_norm:
         h = _apply_norm(cfg, p["pn1"], h)
-    return _ffn_block(p, x + h, cfg, spec)[0], pc
+    return _ffn_block(p, x + h, cfg, spec, sharder, step=True)[0], pc
 
 
 def forward_decode(params, tokens, caches, cfg: LMConfig, *,
@@ -945,7 +1027,7 @@ def forward_decode(params, tokens, caches, cfg: LMConfig, *,
     (``init_caches(sharder=)``), and the logits vocab-sharded under
     ``vocab_sharded`` (``sharded_argmax`` reads them)."""
     refuse_moe_serving(cfg, sharder is not None and sharder.ctx is not None)
-    sharder = sharder or null_sharder()
+    sharder = fit_sharder(sharder or null_sharder(), cfg)
     specs = cfg.period_specs()
     pos = caches["pos"]
     table = caches.get("table")
@@ -979,8 +1061,9 @@ def forward_prefill(params, tokens, cfg: LMConfig, *,
                     backend: str = "kernel", length: Optional[int] = None):
     """Full-sequence prefill: returns (logits (B, 1, V) at the prompt's
     last position, caches with pos = its length).  KV cache length ==
-    prompt length; SSM layers leave their {conv, state} decode cache
-    (``ssm_block(return_cache)``).
+    prompt length, in the activation dtype as JAX's (``cache_dtype`` is
+    the pools': ``init_caches``, ``init_paged_caches``); SSM layers leave
+    their {conv, state} decode cache (``ssm_block(return_cache)``).
 
     With ``sharder`` on a mesh (JAX's ``forward_prefill(sharder=)``) the
     tokens are the rank's shard of the prompt (``shard_lm_batch``: its
@@ -997,11 +1080,10 @@ def forward_prefill(params, tokens, cfg: LMConfig, *,
     refuse_moe_serving(cfg, sharder is not None and sharder.ctx is not None)
     sharder = sharder or null_sharder()
     seq = tokens.shape[1] * sharder.seq_shards
-    sharder = _with_planned_schedule(sharder, cfg, seq=seq,
-                                     batch=tokens.shape[0] * sharder.dp_size)
+    sharder = fit_sharder(sharder, cfg, seq=seq,
+                           batch=tokens.shape[0] * sharder.dp_size)
     length = seq if length is None else length
     specs = cfg.period_specs()
-    kv_dtype = cfg.cache_dtype or cfg.dtype
     x = sharder.enter3(sharded_embed(params, tokens, cfg, sharder))
     periods = [{} for _ in specs]
     for i, pp in enumerate(unstack(params["periods"], cfg.n_periods)):
@@ -1014,7 +1096,9 @@ def forward_prefill(params, tokens, cfg: LMConfig, *,
                 h, (ck, cv) = A.attention_sp(
                     p["attn"], h, cfg.attn_cfg(spec.window), sharder=sharder,
                     backend=backend, causal=True, return_kv=True)
-                pc = {"kv": {"k": ck.to(kv_dtype), "v": cv.to(kv_dtype)}}
+                # the activation dtype, as JAX's: a pool of ``cache_dtype``
+                # rounds them where it takes them in
+                pc = {"kv": {"k": ck, "v": cv}}
             else:
                 h, ssm_cache = S.ssm_block(p["ssm"], h, cfg.ssm_cfg,
                                            backend=backend, sharder=sharder,
@@ -1041,7 +1125,8 @@ def forward_prefill(params, tokens, cfg: LMConfig, *,
 def serve_contract(cfg: LMConfig, n: int, params, plan: ParallelPlan, *,
                    dp: int = 1, prefill=None, decode: Optional[int] = None,
                    chunk: Optional[int] = None, first_tokens: int = 0,
-                   migrate=None, paged_migrate=None, ticks: int = 0
+                   migrate=None, paged_migrate=None, ticks: int = 0,
+                   max_len: Optional[int] = None
                    ) -> Dict[str, Dict[str, int]]:
     """The ``torch.distributed`` calls and bytes (``core.dsp``'s rule), by
     kind, that sharded serving issues per rank on a ``(dp, n)`` mesh under
@@ -1086,6 +1171,15 @@ def serve_contract(cfg: LMConfig, n: int, params, plan: ParallelPlan, *,
       ``ticks``: the continuous scheduler's host-loop turns, one broadcast
         of rank 0's clock each.
 
+    Under ``tp`` a leaf is gathered only over the splits the model does
+    not keep (``read_specs``); the prefill's hooks are ``tp``'s
+    (``collective_contract(tp=True)``) and its K/V re-cut one all-to-all
+    per attention layer of the period onto the blocks of a ``max_len``
+    cache (none under ``kv_whole``); a decode step (or chunk) adds per
+    attention layer one all-gather of the step's q/k/v heads (of q alone
+    under ``kv_whole``) and one SUM all-reduce of the attention output,
+    and per MLP one all-reduce.
+
     The trainer's contracts' rules: an all-gather counts its result's
     bytes, an all-reduce twice its result's."""
     sizes = {"data": dp, "model": n}
@@ -1103,27 +1197,31 @@ def serve_contract(cfg: LMConfig, n: int, params, plan: ParallelPlan, *,
             nbytes[kind] = nbytes.get(kind, 0) + other["bytes"][kind]
 
     specs = param_pspecs(params, plan, axis_sizes=sizes)
+    tp = plan.mode == "tp"
+    whole_kv = kv_whole(cfg, plan, n)
+    reads = read_specs(specs, plan, kv_whole=whole_kv)
     shard_vocab = (plan.shard_vocab and n > 1 and cfg.vocab % n == 0)
     a_bytes = cfg.dtype.itemsize
-    kv_bytes = (cfg.cache_dtype or cfg.dtype).itemsize
     period = cfg.period_specs()
     n_attn = sum(sp.mixer == "attn" for sp in period) * cfg.n_periods
     n_ssm = sum(sp.mixer == "ssm" for sp in period) * cfg.n_periods
     key = "embed" if cfg.tie_embeddings else "unembed"
 
     def read(path, times=1):
-        node, spec = params, specs
+        node, spec, rd = params, specs, reads
         for k in path:
-            node, spec = node[k], spec[k]
-        for leaf, sp in zip(tree_leaves(node), tree_leaves(spec)):
-            for numel in gathered_numels(tuple(leaf.shape), sp, sizes):
+            node, spec, rd = node[k], spec[k], rd[k]
+        for leaf, sp, r in zip(tree_leaves(node), tree_leaves(spec),
+                               tree_leaves(rd)):
+            for numel in read_numels(tuple(leaf.shape), sp, r, sizes):
                 add("all-gather", numel * leaf.element_size(), times)
 
     def periods():
-        for leaf, sp in zip(tree_leaves(params["periods"]),
-                            tree_leaves(specs["periods"])):
-            for numel in gathered_numels(tuple(leaf.shape[1:]), sp[1:],
-                                          sizes):
+        for leaf, sp, r in zip(tree_leaves(params["periods"]),
+                               tree_leaves(specs["periods"]),
+                               tree_leaves(reads["periods"])):
+            for numel in read_numels(tuple(leaf.shape[1:]), sp[1:], r[1:],
+                                     sizes):
                 add("all-gather", numel * leaf.element_size(),
                     leaf.shape[0])
 
@@ -1136,7 +1234,7 @@ def serve_contract(cfg: LMConfig, n: int, params, plan: ParallelPlan, *,
     if prefill is not None:
         batch, seq = prefill
         b, s = batch // dp, prefill_shard_len(cfg, seq, n)
-        add_all(collective_contract(cfg, n, b, s))
+        add_all(collective_contract(cfg, n, b, s, tp=tp))
         periods()
         if shard_vocab:
             table = params["embed"]["table"]
@@ -1154,8 +1252,15 @@ def serve_contract(cfg: LMConfig, n: int, params, plan: ParallelPlan, *,
             add("all-reduce", 2 * b * (sc.d_conv - 1) * d_xbc * a_bytes,
                 n_ssm)
         for _ in range(sum(sp.mixer == "attn" for sp in period)):
-            add("all-gather", 2 * cfg.n_periods * b * cfg.n_kv_heads
-                * s * n * cfg.head_dim * kv_bytes)
+            if not tp:
+                add("all-gather", 2 * cfg.n_periods * b * cfg.n_kv_heads
+                    * s * n * cfg.head_dim * a_bytes)
+            elif not whole_kv:
+                if max_len is None:
+                    raise ValueError("tp's K/V re-cut moves a max_len "
+                                     "cache's blocks: pass max_len")
+                add("all-to-all", 2 * cfg.n_periods * b * cfg.n_kv_heads
+                    * (max_len // n) * cfg.head_dim * a_bytes)
         argmax(b)
     def step(r, s, take_argmax=True):
         if shard_vocab:
@@ -1163,6 +1268,12 @@ def serve_contract(cfg: LMConfig, n: int, params, plan: ParallelPlan, *,
         else:
             read(("embed",))
         periods()
+        if tp:
+            heads = cfg.n_heads + (0 if whole_kv else 2 * cfg.n_kv_heads)
+            add("all-gather", r * s * heads * cfg.head_dim * a_bytes, n_attn)
+            add("all-reduce", 2 * r * s * cfg.d_model * a_bytes,
+                n_attn + sum(sp.ffn == "mlp" for sp in period)
+                * cfg.n_periods)
         add("all-gather", n * r * cfg.n_heads * s * (cfg.head_dim + 2) * 4,
             n_attn)
         if n_ssm:

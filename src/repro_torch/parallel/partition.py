@@ -40,10 +40,22 @@ read it), ``unshard_params`` gathers for checks, ``param_copies`` and
 which dims its grad is still to be summed, and ``store_contract`` counts
 the calls and bytes the store adds to a training step.  ``make_sharder`` raises
 ``NotImplementedError`` for what it does not run yet, naming the ROADMAP
-item (queue 1) that brings it: ``tp`` (whose rules ``param_pspecs``
-carries).  JAX's inference ``tp_flat`` rules and its ``stacked_prefixes``
-option (enc-dec) come with their items; its ``ffn_hidden``, which no JAX
-model calls, has no counterpart.
+item (queue 1) that brings it.  JAX's inference ``tp_flat`` rules and its
+``stacked_prefixes`` option (enc-dec) come with their items; its
+``ffn_hidden``, which no JAX model calls, has no counterpart.
+
+Plan ``tp`` (Megatron-SP) keeps the residual stream split by sequence
+over ``model`` and runs each attention and MLP block tensor-parallel:
+``tp_enter`` gathers the whole sequence (one all-gather), the rank's
+columns of ``wq``/``wk``/``wv``/``wi``/``wg`` give its heads and hidden
+units, its rows of ``wo`` a partial output, and ``tp_exit`` sums the
+partials and keeps the rank's shard (one reduce-scatter); a decode step,
+whole on every rank, sums with one all-reduce (``tp_sum``).  Its
+parameters are laid out by ``param_pspecs``' ``tp`` rules (a column or
+row leaf split over ``model``, ZeRO over ``data``), and ``whole`` keeps
+the ``model`` split (``read_specs``), except ``wk``/``wv`` where the K/V
+heads do not divide the ranks (``Sharder.kv_whole``).  It takes no
+switching schedule.
 
 MoE runs under DSP with ``ep`` or without: ``Sharder.moe_experts`` (JAX's
 hook of that name) places the rank's tokens and experts for
@@ -51,7 +63,7 @@ hook of that name) places the rank's tokens and experts for
 ``ep`` dispatches and combines with ``core.dsp.exchange``.  Under ``ep``
 an expert leaf is split over ``model`` by expert (``param_pspecs``), and
 the rank runs its own experts: ``Sharder.whole`` gathers only its other
-splits (``local_experts``).
+splits (``read_specs``).
 
 Serving lays its caches out by JAX's ``cache_pspecs`` (the KV sequence in
 contiguous blocks over ``model``, the SSM state by head).  The decode
@@ -217,19 +229,43 @@ def is_expert_leaf(path: str, ndim: int) -> bool:
     return ndim == 3 and any(path.endswith(s) for s in ("wi", "wg", "wo"))
 
 
-def local_experts(specs, plan: ParallelPlan, path: Tuple[str, ...] = ()):
+def is_tp_leaf(path: str, ndim: int) -> bool:
+    """Whether the unstacked leaf at ``path`` of ``ndim`` dims is a dense
+    weight that ``tp`` splits over ``model`` (``param_pspecs``): a
+    column-parallel projection's (``wq``, ``wk``, ``wv``, ``wi``, ``wg``)
+    by output column, or a row-parallel one's (``wo``) by input row.
+    Biases stay whole, as in JAX's rules: the rank reads its columns of a
+    column bias and adds a row bias once, after the sum."""
+    if "/ssm/" in path or path.startswith("ssm/"):
+        return False
+    return ndim == 2 and any(f"{n}/w" in path for n in
+                             ("wq", "wk", "wv", "wi", "wg", "wo"))
+
+
+def read_specs(specs, plan: ParallelPlan, path: Tuple[str, ...] = (), *,
+               kv_whole: bool = False):
     """``specs`` (the ``param_pspecs`` subtree at ``path``) as the model
-    reads the leaves: under ``ep`` each expert leaf keeps its split over
-    ``model`` (the rank runs its own experts) and is gathered over its
-    other entries only; ``specs`` itself otherwise."""
-    if not plan.ep or specs is None:
+    reads the leaves, gathered over every entry but the ones that stay the
+    rank's: under ``ep`` an expert leaf's ``model`` split (the rank runs
+    its own experts); under ``tp`` a dense column or row leaf's ``model``
+    split (``is_tp_leaf``: the rank runs its heads and its hidden
+    columns), unless ``kv_whole`` and the leaf is ``wk``/``wv``: K/V
+    heads that the ranks' column blocks cut (``n_kv_heads % n != 0``) are
+    read whole.  Only the ``data`` (ZeRO)
+    split is gathered otherwise.  ``specs`` itself under other plans."""
+    if specs is None or not (plan.ep or plan.mode == "tp"):
         return specs
 
     def one(path, spec):
         p = _path_str(path)
         stacked = any(p.startswith(s + "/") or f"/{s}/" in p
                       for s in STACKED)
-        if not is_expert_leaf(p, len(spec) - stacked):
+        nd = len(spec) - stacked
+        local = (plan.ep and is_expert_leaf(p, nd)) or (
+            plan.mode == "tp" and is_tp_leaf(p, nd)
+            and not (kv_whole and any(f"/{n}/" in f"/{p}"
+                                      for n in ("wk", "wv"))))
+        if not local:
             return spec
         return tuple(None if e == "model" else e for e in spec)
     return tree_map_with_path(one, specs, path=tuple(path))
@@ -339,13 +375,16 @@ def gather_params(params, specs, ctx: ParallelContext):
     names, one all-gather over that entry's group (``ctx.axes_group``;
     issued at one rank too), whose backward reduce-scatters the gradient
     summed in float32 (``core.dsp.gather_param``).  Leaves whose spec
-    names no mesh dim come back as they are."""
+    names no mesh dim come back as they are.  A leaf gathered along a dim
+    past its first (a ``tp`` row leaf over ``data``) comes back in the
+    whole leaf's layout, not as the gather's transposed view: a matmul
+    reads the weight as the unsharded model reads it, bit for bit."""
     def one(_, p, spec):
         for dim, entry in enumerate(spec):
             axes = entry_axes(entry, ctx.mesh.mesh_dim_names)
             if axes:
                 p = dsp.gather_param(p, dim, ctx.axes_group(axes))
-        return p
+        return p.contiguous() if isinstance(p, torch.Tensor) else p
     return tree_map_with_path(one, params, specs)
 
 
@@ -409,6 +448,16 @@ def gathered_numels(shape, spec: Spec, sizes: Dict[str, int]) -> List[int]:
     return out
 
 
+def read_numels(shape, spec: Spec, read: Spec,
+                sizes: Dict[str, int]) -> List[int]:
+    """``gathered_numels`` of a leaf of global ``shape`` laid out by
+    ``spec`` and read by ``read`` (``read_specs``): the splits the read
+    keeps stay the rank's, so each all-gather returns that much less."""
+    shape = tuple(d * _axes_size(r, sizes) // _axes_size(e, sizes)
+                  for d, e, r in zip(shape, spec, read))
+    return gathered_numels(shape, read, sizes)
+
+
 def store_contract(params, specs, sizes: Dict[str, int],
                    reads: Callable[[Tuple[str, ...]], Tuple[int, int]],
                    read_specs=None) -> Dict[str, Dict[str, int]]:
@@ -428,7 +477,8 @@ def store_contract(params, specs, sizes: Dict[str, int],
         (``train.trainer.slices_norm``).
 
     ``read_specs`` (default ``specs``) are the specs the leaves are
-    gathered by where they are read (``local_experts``).  An entry naming
+    gathered by where they are read (the function ``read_specs``).  An
+    entry naming
     only dims of size 1 is still issued (at one rank each is a copy)."""
     calls: Dict[str, int] = {}
     nbytes: Dict[str, int] = {}
@@ -445,10 +495,7 @@ def store_contract(params, specs, sizes: Dict[str, int],
         if path[0] in STACKED:
             shape, entries, kept, times = (shape[1:], read[1:], spec[1:],
                                            shape[0])
-        # what the read leaves split stays the rank's slice
-        shape = tuple(d * _axes_size(r, sizes) // _axes_size(e, sizes)
-                      for d, e, r in zip(shape, kept, entries))
-        for numel in gathered_numels(shape, entries, sizes):
+        for numel in read_numels(shape, kept, entries, sizes):
             add("all-gather", numel * p.element_size(), all_gathers * times)
             add("reduce-scatter", numel * 4, reduce_scatters * times)
         key = reduce_axes(spec, world)
@@ -610,6 +657,9 @@ class Sharder:
     # ``param_pspecs`` of the global parameter tree: how the tree the
     # model is given is split (None: every leaf whole)
     param_specs: Optional[Dict[str, Any]] = None
+    # under ``tp``: the K/V heads do not divide the model ranks, so
+    # ``whole`` reads ``wk``/``wv`` whole (``models.lm`` sets it)
+    kv_whole: bool = False
 
     def with_schedule(self, schedule) -> "Sharder":
         _check_schedule(schedule, on_mesh=self.ctx is not None)
@@ -633,6 +683,12 @@ class Sharder:
     @property
     def dp_index(self) -> int:
         return 0 if self.ctx is None else self.ctx.dp_index
+
+    @property
+    def tp(self) -> bool:
+        """Whether the layers run tensor-parallel: plan ``tp`` on a
+        mesh."""
+        return self.ctx is not None and self.plan.mode == "tp"
 
     @property
     def seq_shards(self) -> int:
@@ -662,15 +718,17 @@ class Sharder:
 
     def whole(self, tree, *path: str):
         """``tree``, the parameters' subtree at ``path``, with every leaf
-        its spec splits gathered whole (``whole_params``), where the
-        model reads it; ``tree`` itself without a mesh or specs.  Under
-        ``periods`` ``tree`` is one period: the specs drop their leading
-        (period) entry."""
+        gathered over the splits the model does not keep
+        (``read_specs``: all but ``ep``'s experts and ``tp``'s columns and
+        rows), where the model reads it; ``tree`` itself without a mesh or
+        specs.  Under ``periods`` ``tree`` is one period: the specs drop
+        their leading (period) entry."""
         specs = self.param_specs
         if specs is not None:
             for k in path:
                 specs = specs[k]
-            specs = local_experts(specs, self.plan, path)
+            specs = read_specs(specs, self.plan, path,
+                               kv_whole=self.kv_whole)
         return whole_params(tree, specs, self.ctx,
                             stacked=path[:1] == ("periods",))
 
@@ -783,6 +841,32 @@ class Sharder:
                             self.ctx.sp_group)
         return halo * (self.sp_index != 0)
 
+    # -- tensor parallelism (Megatron-SP) ------------------------------------
+    def tp_enter(self, x):
+        """Into a ``tp`` block: the (B, S/n, C) resid shard -> the whole
+        sequence, one all-gather over ``model`` (its backward a
+        reduce-scatter); a keep off ``tp``."""
+        if not self.tp:
+            return x
+        return dsp.gather(x, 1, self.ctx.sp_group)
+
+    def tp_exit(self, x):
+        """Out of a ``tp`` block: the ranks' partial row-parallel outputs
+        (B, S, C) summed, the rank's sequence shard kept, one
+        reduce-scatter over ``model`` (its backward an all-gather); a keep
+        off ``tp``."""
+        if not self.tp:
+            return x
+        return dsp.reduce_scatter(x, 1, self.ctx.sp_group)
+
+    def tp_sum(self, x):
+        """A decode step's partial row-parallel output (whole sequence on
+        every rank) summed over ``model``: one SUM all-reduce, in place; a
+        keep off ``tp``."""
+        if self.tp:
+            dsp.all_reduce(x, self.ctx.sp_group)
+        return x
+
     # -- MoE -------------------------------------------------------------------
     def moe_experts(self) -> Optional[ExpertPlace]:
         """Where this rank's MoE tokens and experts sit (JAX's hook of this
@@ -806,10 +890,10 @@ class Sharder:
     # -- serving: the prefill's rows, the decode token, the cache --------------
     @property
     def serves_sharded(self) -> bool:
-        """Whether serving runs sharded: on a mesh under plan ``dsp``, the
-        KV cache split by sequence and the SSM state by head over
-        ``model`` (``cache_pspecs``), at one model rank too."""
-        return self.ctx is not None and self.plan.mode == "dsp"
+        """Whether serving runs sharded: on a mesh under plan ``dsp`` or
+        ``tp``, the KV cache split by sequence and the SSM state by head
+        over ``model`` (``cache_pspecs``), at one model rank too."""
+        return self.ctx is not None and self.plan.mode in ("dsp", "tp")
 
     def _seq_sharded(self) -> bool:
         return self.serves_sharded and self.resid_dim == 1
@@ -846,9 +930,22 @@ class Sharder:
         all-gather of the shards over ``model`` (JAX leaves this reshard
         to XLA), then the block cut out, the prompt's first ``length``
         positions kept and zeros past them.  Without a mesh the prompt's
-        cache widened with zeros."""
+        cache widened with zeros.
+
+        Under ``tp`` the K/V (..., Hkv/n, S, D) are the rank's heads over
+        the whole padded prompt: widened to ``max_len`` with zeros past
+        ``length`` and switched from heads to sequence (one all-to-all
+        over ``model``), they are this rank's block with every head.
+        With ``kv_whole`` they hold every head already, and the rank cuts
+        its block with no call."""
         dim = kv.dim() - 2
-        if self._seq_sharded():
+        if self.tp and not self.kv_whole:
+            s = min(kv.shape[dim], length)
+            pad = list(kv.shape)
+            pad[dim] = max_len - s
+            kv = torch.cat([kv.narrow(dim, 0, s), kv.new_zeros(pad)], dim)
+            return dsp.dynamic_switch(kv, dim - 1, dim, self.ctx.sp_group)
+        if self._seq_sharded() and not self.tp:
             kv = dsp.gather(kv, dim, self.ctx.sp_group)
         start, stop = kv_block(self.ctx, self.plan, max_len)
         shape = list(kv.shape)
@@ -926,12 +1023,14 @@ def make_sharder(mesh, plan: ParallelPlan, schedule=None, *,
     batch's shape, priced in bytes.  ``param_specs`` is
     ``param_pspecs(params, plan, axis_sizes=mesh_sizes(ctx))`` of the
     global tree, the layout of the parameters the model is given
-    (``shard_params``); on a mesh a plan with ``zero`` or ``shard_vocab``
-    needs it.
+    (``shard_params``); on a mesh a plan with ``zero``, ``shard_vocab``
+    or mode ``tp`` needs it.
 
     On a mesh plan mode ``dsp`` runs, ``ep`` on or off, under a mirrored
-    all-"dsp" schedule with no ``overlap``; the rest raises
-    ``NotImplementedError`` naming the ROADMAP item that brings it."""
+    all-"dsp" schedule with no ``overlap``, and plan ``tp`` with no
+    schedule (the model checks what it runs: ``models.lm.check_tp``);
+    the rest raises ``NotImplementedError`` naming the ROADMAP item that
+    brings it."""
     if plan.mode not in MODES:
         raise ValueError(f"plan mode {plan.mode!r} not in {MODES}")
     ctx = None
@@ -944,14 +1043,14 @@ def make_sharder(mesh, plan: ParallelPlan, schedule=None, *,
         if plan.mode == "none":
             raise ValueError("plan mode 'none' shares no work over the "
                              "model dim: pass mesh=None")
-        if plan.mode == "tp":
-            raise NotImplementedError(
-                "ParallelPlan mode='tp' on a mesh is not ported yet: tp's "
-                "column- and row-parallel execution, ROADMAP queue 1 item 7 "
-                "(param_pspecs carries its rules)")
-        if (plan.zero or plan.shard_vocab) and param_specs is None:
+        if plan.mode == "tp" and schedule is not None:
+            raise ValueError("plan mode 'tp' takes no switching schedule: "
+                             "its blocks gather the sequence and "
+                             "reduce-scatter it back (Sharder.tp_enter)")
+        if (plan.zero or plan.shard_vocab
+                or plan.mode == "tp") and param_specs is None:
             raise ValueError(
-                "a plan with zero or shard_vocab on a mesh splits the "
+                "a plan with zero, shard_vocab or tp on a mesh splits the "
                 "parameters: pass param_specs=param_pspecs(params, plan, "
                 "axis_sizes=mesh_sizes(ctx)) of the global tree")
     _check_schedule(schedule, on_mesh=ctx is not None)
@@ -969,7 +1068,8 @@ def null_sharder() -> Sharder:
 __all__ = ["ParallelPlan", "Sharder", "make_sharder", "null_sharder",
            "param_pspecs", "mesh_sizes", "shard_params", "gather_params",
            "whole_params", "unshard_params", "gathered_numels",
-           "is_expert_leaf", "local_experts",
+           "read_numels",
+           "is_expert_leaf", "is_tp_leaf", "read_specs",
            "store_contract", "entry_axes", "split_axes", "reduce_axes",
            "global_shape", "slice_index", "param_copies", "reshard",
            "KV_SEQ_DIM", "SLOT_DIM", "BLOCK_DIM", "is_kv_leaf",

@@ -1,5 +1,5 @@
 """Plan-aware serving engine: batched prefill + decode (counterpart of
-``repro.serving.engine``), on one device or sharded under DSP.
+``repro.serving.engine``), on one device or sharded under DSP or ``tp``.
 
 ``ServingEngine(params, cfg, mesh=, plan=, topology=)`` derives its
 parallel triple (plan, schedule, sharder) from a ``("data", "model")``
@@ -14,7 +14,13 @@ attends its block and merges softmax partials with the others', and the
 SSM state stays head-sharded.  ``next_tokens`` is the distributed greedy
 argmax every host loop reads.  ``replan(n)`` re-derives the triple on
 the first n ranks and moves the parameters; the slot pool moves its
-caches itself (``KVPool.migrate``).
+caches itself (``KVPool.migrate``).  Under ``ParallelPlan(mode="tp")``
+there is no schedule: the prefill's blocks gather the sequence and
+reduce-scatter it back, the parameters are the rank's columns and rows
+(``param_pspecs`` of the ``tp`` plan), the K/V re-cut is one all-to-all
+from the rank's heads onto its block of the cache, and a decode step
+gathers the step's q/k/v heads, attends the rank's block with every
+head and sums the rows' partial outputs (one all-reduce a block).
 
 ``generate`` is the static-batch loop: one shared prefill, then all live
 sequences step together.  Per-request ``max_new_tokens`` and EOS
@@ -109,17 +115,19 @@ class ServingEngine:
         ctx = from_mesh(mesh) if mesh is not None else None
         sp = ctx.sp_size if ctx is not None else 1
         schedule = None
-        if ctx is not None and plan.mode == "dsp":
+        if ctx is not None and plan.mode in ("dsp", "tp"):
             if self.max_len % sp:
                 raise ValueError(
                     f"max_len {self.max_len} must be divisible by the SP "
                     f"degree {sp} (the KV cache is sequence-sharded)")
+        if ctx is not None and plan.mode == "dsp":
             if topology is None:
                 from repro_torch.core.topology import Topology
                 topology = Topology.uniform(sp)
             schedule = LM.dsp_schedule(self.cfg, sp, topology=topology)
         specs = None
-        if ctx is not None and (plan.zero or plan.shard_vocab):
+        if ctx is not None and (plan.zero or plan.shard_vocab
+                                or plan.mode == "tp"):
             template = tree_map_with_path(
                 lambda _, p, s: torch.empty(global_shape(p.shape, s,
                                                          old_ctx),
@@ -132,7 +140,8 @@ class ServingEngine:
                        else params)
         self.mesh, self.plan = mesh, plan
         self.topology, self.schedule = topology, schedule
-        self.sharder = make_sharder(mesh, plan, schedule, param_specs=specs)
+        self.sharder = LM.fit_sharder(
+            make_sharder(mesh, plan, schedule, param_specs=specs), self.cfg)
 
     @property
     def sp_degree(self) -> int:

@@ -24,6 +24,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import dsp
 from repro_torch.core.layout import from_mesh
 from repro_torch.models import lm as LM
 from repro_torch.parallel.partition import (
@@ -159,8 +160,10 @@ class KVPool:
         idx = torch.tensor(perm, device=self.caches["pos"].device)
         self.caches = {
             "pos": self.caches["pos"].index_select(0, idx),
-            "periods": LM.tree_map(lambda a: a.index_select(SLOT_DIM, idx),
-                                   self.caches["periods"])}
+            # as bytes: an fp8 cache takes the same gather
+            "periods": LM.tree_map(
+                lambda a: dsp.as_bytes(a).index_select(SLOT_DIM, idx).view(
+                    a.dtype), self.caches["periods"])}
         self._committed = self._committed[perm]
         self.lengths = self.lengths[perm]
         self._free = list(range(self.max_batch - 1, len(live) - 1, -1))

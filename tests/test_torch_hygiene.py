@@ -41,7 +41,8 @@ for want in ("repro_torch.serving.scheduler", "repro_torch.train.trainer",
              "repro_torch.serving.prefix_tree", "repro_torch.launch.serve",
              "repro_torch.models.moe", "repro_torch.configs.starcoder2_7b",
              "repro_torch.configs.gemma2_2b",
-             "repro_torch.configs.qwen2_moe_a2_7b"):
+             "repro_torch.configs.qwen2_moe_a2_7b",
+             "repro_torch.configs.mistral_large_123b"):
     assert want in mods, (want, mods)
 from repro_torch.core.schedule import ScheduleExecutor2D
 from repro_torch.models.transformer2d import (
@@ -49,7 +50,7 @@ from repro_torch.models.transformer2d import (
 from repro_torch.launch.mesh import elastic_submesh, resolve_topology
 from repro_torch.models.lm import serve_contract, sharded_argmax
 from repro_torch.parallel.partition import (
-    BLOCK_DIM, assert_kv_cache_on_mesh, cache_pspecs, reshard,
+    BLOCK_DIM, assert_kv_cache_on_mesh, cache_pspecs, read_specs, reshard,
     store_contract, whole_params)
 from repro_torch.models.transformer2d import param_contract, step_contract
 from repro_torch.serving import (GARBAGE_BLOCK, BlockPool, PagedScheduler,
@@ -83,7 +84,8 @@ assert not bad, bad
                                     "_torch_serve_worker.py",
                                     "_torch_paged_worker.py",
                                     "_torch_t2d_zero_worker.py",
-                                    "_torch_moe_ep_worker.py"])
+                                    "_torch_moe_ep_worker.py",
+                                    "_torch_tp_worker.py"])
 def test_gloo_workers_import_no_jax_and_no_repro(worker):
     """The port's side of each multi-process check (a gloo rank) loads, with
     the helpers it shares with its JAX side, nothing of JAX or of the JAX

@@ -419,3 +419,37 @@ def test_chip_smoke_library_attention_is_k1s_function(case):
     want = flash_attention_plain(q, k, v, **chip_smoke.attn_kw(case))
     got = chip_smoke.library_attention(case, compile=False)(q, k, v)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("budget,groups", [(1, [1, 1, 1]),
+                                           (2 * 2 * 24 * 24 * 4, [2, 1])])
+def test_backward_recompute_over_head_groups_matches_one_slice(
+        monkeypatch, budget, groups):
+    """With ``BACKWARD_HEAD_SCORE_BYTES`` patched small, each sequence
+    recomputes over groups of its K/V heads with their q heads (GQA 6/3:
+    one K/V head a group, or two and then one), and the grads equal
+    those of one recompute of the whole batch."""
+    b, hq, hkv, s, d = 2, 6, 3, 24, 16
+    arrays = _inputs(b, hq, hkv, s, s, d, seed=10)
+    cot = torch.from_numpy(np.random.RandomState(11).standard_normal(
+        (b, hq, s, d)).astype(np.float32))
+    kw = dict(causal=True, window=9, softcap=20.0)
+
+    def grads():
+        tin = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+        return torch.autograd.grad(tops.flash_attention(*tin, **kw), tin, cot)
+
+    whole = grads()
+    calls = []
+    ref_fn = tops._ref.attention_ref
+
+    def counted(*a, **k):
+        calls.append((a[0].shape[0], a[0].shape[1], a[1].shape[1]))
+        return ref_fn(*a, **k)
+
+    monkeypatch.setattr(tops._ref, "attention_ref", counted)
+    monkeypatch.setattr(tops, "BACKWARD_HEAD_SCORE_BYTES", budget)
+    sliced = grads()
+    assert calls == [(b, 2 * n, n) for n in groups]
+    for g, w in zip(sliced, whole):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)

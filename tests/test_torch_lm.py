@@ -1,7 +1,8 @@
 """The port's LM serving path against the JAX package at the SMOKE sizes
 of qwen3-14b, starcoder2-7b (layer norm, biases, GELU MLP), gemma2-2b
 (local/global windows of 16, attention and final softcaps, post-norms,
-scaled embeddings) and qwen2-moe-a2.7b (MoE) (float32, d_model 64):
+scaled embeddings), qwen2-moe-a2.7b (MoE) (float32, d_model 64) and
+mistral-large-123b (d_model 96, untied):
 ``forward_prefill`` logits and caches (JAX through the Pallas kernel,
 interpret mode) over a 24-token prompt, past gemma2's window,
 ``forward_decode`` logits over 4 steps with scalar and per-slot
@@ -22,7 +23,8 @@ from repro_torch.models import lm as TLM
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 ARCHS = {"qwen3-14b": "qwen3_14b", "starcoder2-7b": "starcoder2_7b",
-         "gemma2-2b": "gemma2_2b", "qwen2-moe-a2.7b": "qwen2_moe_a2_7b"}
+         "gemma2-2b": "gemma2_2b", "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+         "mistral-large-123b": "mistral_large_123b"}
 
 
 def _confs(arch):

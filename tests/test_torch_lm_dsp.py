@@ -365,8 +365,6 @@ def _refusals():
     joint = TL.dsp_schedule(cfg, 1, seq=SEQ, batch=BATCH)
     ok = ParallelPlan(mode="dsp", zero=False, shard_vocab=False)
     return {
-        "tp": (ParallelPlan(mode="tp", zero=False, shard_vocab=False), None,
-               NotImplementedError),
         "zero": (ParallelPlan(mode="dsp", shard_vocab=False), None,
                  ValueError),
         "shard_vocab": (ParallelPlan(mode="dsp", zero=False), None,
@@ -392,10 +390,12 @@ def test_make_sharder_refuses(world_of_one, case):
     """On a mesh ``make_sharder`` runs plan ``dsp`` (``ep`` on or off)
     under a mirrored all-"dsp" schedule without overlap that enters and
     leaves on the sequence; everything else raises, what is not ported yet
-    (``tp``'s execution) as ``NotImplementedError`` naming its ROADMAP
-    item.  A plan with ``zero`` or ``shard_vocab`` splits the
-    parameters: it is refused without their layout and runs with it
-    (``param_specs``, ``param_pspecs`` of the global tree)."""
+    (embedded strategies, a planned backward, ``overlap``) as
+    ``NotImplementedError`` naming its ROADMAP item (plan ``tp``'s
+    refusals are ``tests/test_torch_tp.py``'s).  A plan with ``zero`` or
+    ``shard_vocab`` splits the parameters: it is refused without their
+    layout and runs with it (``param_specs``, ``param_pspecs`` of the
+    global tree)."""
     plan, schedule, exc = _refusals()[case]
     with pytest.raises(exc) as info:
         make_sharder(world_of_one, plan, schedule=schedule)

@@ -28,8 +28,8 @@ from _torch_moe_ep_jax import (BATCH, SCENARIOS, SEQ, configs, jax_forward,
 from repro_torch import bridge
 from repro_torch.models import lm as TL
 from repro_torch.models import ssm as TSSM
-from repro_torch.parallel.partition import (ParallelPlan, local_experts,
-                                            param_pspecs, reduce_axes)
+from repro_torch.parallel.partition import (ParallelPlan, param_pspecs,
+                                            read_specs, reduce_axes)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "..", "src")
@@ -245,7 +245,7 @@ def test_expert_leaves_layout(ep, zero):
     params = TL.init_lm(0, cfg, device="cpu")
     specs = param_pspecs(params, plan, axis_sizes={"data": 2, "model": 2})
     spec = specs["periods"]["0"]["moe"]["wi"]
-    read = local_experts(specs, plan)["periods"]["0"]["moe"]["wi"]
+    read = read_specs(specs, plan)["periods"]["0"]["moe"]["wi"]
     names = ("data", "model")
     want = {(True, True): ((None, "model", "data", None),
                            (None, None, "data", None), ()),
@@ -255,7 +255,7 @@ def test_expert_leaves_layout(ep, zero):
                             (None, None, ("data", "model"), None), ())}
     assert (spec, read, reduce_axes(spec, names)) == want[(ep, zero)]
     router = specs["periods"]["0"]["moe"]["router"]["w"]
-    assert local_experts(specs, plan)["periods"]["0"]["moe"]["router"][
+    assert read_specs(specs, plan)["periods"]["0"]["moe"]["router"][
         "w"] == router
 
 

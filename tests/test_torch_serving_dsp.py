@@ -318,7 +318,6 @@ def test_serve_cli_continuous_under_torchrun(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags, message", [
     (["--topology", "ici"], "TPU link preset"),
-    (["--mode", "tp"], "item 7"),
     (["--devices", "4"], "torchrun --nproc-per-node"),
     (["--hosts", "2"], "standing notes"),
 ])
