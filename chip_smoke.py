@@ -43,7 +43,12 @@ Phases, in order; any failure raises and exits non-zero:
    mistral-large-123b's prefill shape, 96 q and 8 K/V heads over 2048
    tokens, and at one rank's heads under ``tp`` at n = 4, 24 and 2, in
    bf16 on ``sm90`` (``TP_ATTN``), and at the shapes a rank of phase 25
-   (b) gives it, f32 on ``cuda_cores`` (``TP_RANK_ATTN``);
+   (b) gives it, f32 on ``cuda_cores`` (``TP_RANK_ATTN``); and K1 at
+   seamless-m4t-large-v2's three shapes, 16 heads of 64 in bf16 on
+   ``sm90`` (``SEAMLESS_ATTN``: the encoder's 4096 frames not causal, the
+   decoder's 2048 tokens causal, and the cross-attention of 2048 queries
+   against 4096 keys, not causal), and at the shapes a rank of phase 26
+   (e) gives it, f32 on ``cuda_cores`` (``SEAMLESS_RANK_ATTN``);
 4. time each kernel, its plain version and, where one exists, one PyTorch
    library call that computes the same function (a yardstick the port
    never calls); K1's routed kernel and the library call three times each
@@ -57,7 +62,8 @@ Phases, in order; any failure raises and exits non-zero:
    against ``scaled_dot_product_attention`` (causal, GQA) three times
    each in turns (medians), gemma2's against ``flex_attention`` compiled
    with its softcap and window (``library_attention``); K1 at each shape
-   of ``TP_ATTN`` the same way;
+   of ``TP_ATTN`` and ``SEAMLESS_ATTN`` the same way (the library call
+   causal where the shape is);
 5. qwen3-14b serving at full width, random weights from a seeded
    generator: at depth 2, prefill logits through the kernel against the
    plain path at the longest prompt and at a ragged one (bar 2e-2 of the
@@ -167,11 +173,12 @@ Phases, in order; any failure raises and exits non-zero:
     2 x 48 x 2 = 192, all ``sm90``; each step time is logged beside the
     plan-none phase's; (b) 4 processes sharing the card over gloo on a
     (1, 4) mesh, each this script with ``--lm-rank``: qwen3-14b at depth
-    2 and mamba2-370m at depth 2, full width, 1 x 4096 tokens, one loss
-    and its grads summed over the ranks against (a)'s path at the same
-    depth (phase 7's bars), and per rank exactly the contract's calls and
-    bytes, K1 on 10 of 40 q and 2 of 8 K/V heads and K2 on 8 of 32 heads,
-    twice a layer, all ``sm90``;
+    1 and mamba2-370m at depth 2 (qwen3 at depth 2 until phase 26 needed
+    the seconds), full width, 1 x 4096 tokens, one loss and its grads
+    summed over the ranks against (a)'s path at the same depth (phase 7's
+    bars), and per rank exactly the contract's calls and bytes, K1 on 10
+    of 40 q and 2 of 8 K/V heads and K2 on 8 of 32 heads, twice a layer,
+    all ``sm90``;
 17. qwen3-14b and mamba2-370m under their specs' own plans
     (``ParallelPlan(mode="dsp", zero=True, shard_vocab=True)``): the
     parameters laid out by ``param_pspecs`` and cut to each rank's slices
@@ -185,10 +192,10 @@ Phases, in order; any failure raises and exits non-zero:
     ``sm90``; step time and peak memory logged beside phase 16 (a)'s; (b)
     4 processes sharing the card over gloo, each this script with
     ``--zero-rank``: qwen3-14b at depth 2 and mamba2-370m at depth 4 on a
-    (2, 2) mesh at 2 x 4096 tokens, qwen3-14b at depth 2 on (1, 4) at 1 x
-    4096 (the ring over 4): one loss, and each rank's grad slices against
-    the same slices of (a)'s path at the same depth and batch (phase 7's
-    bars, each leaf's worst over the ranks), the clip's norm within 1e-3;
+    (2, 2) mesh at 2 x 4096 tokens: one loss, and each rank's grad slices
+    against the same slices of (a)'s path at the same depth and batch
+    (phase 7's bars, each leaf's worst over the ranks), the clip's norm
+    within 1e-3;
     per rank exactly the contract's calls and bytes, K1 and K2 twice a
     layer at the rank's head counts, all ``sm90``; one Trainer step on
     mamba2 at (2, 2) with the contract's calls and a grad norm within
@@ -222,21 +229,20 @@ Phases, in order; any failure raises and exits non-zero:
     (K2) launch 320 (384) times on ``sm90``, and the calls and bytes must
     be exactly ``lm.serve_contract``'s; (b) 4 processes sharing the card
     over gloo, each this script with ``--serve-rank``, qwen3-14b at depth
-    2 and mamba2-370m at depth 12 of 48 on a (1, 4) mesh: the
+    2 and mamba2-370m at depth 6 of 48 on a (1, 4) mesh: the
     teacher-forced logits (SERVE_FORCED requests, SERVE_FORCED_STEPS
     decode steps on the one-rank reference's tokens) under SERVE_PLAN
     within LOGIT_BAR of the reference's, at each forced check's depth and
-    dtype (mamba2: depth 12 in f32, depth 4 in bf16); the trace, 8 new
+    dtype (mamba2: depth 6 in f32, depth 4 in bf16); the trace, 8 new
     tokens a request, through the scheduler under SERVE_RANK_PLAN with
     the pool asserted on the mesh after every step, every request
     finished, per rank each segment's calls and bytes exactly the
     contract's and K1 (K2) once a layer a prefill on the rank's heads,
     all ``sm90``; on qwen3 ``replan(2)`` at decode step 3 with the moved
-    pool bit-equal and the survivors' forced logits within the bar; (c)
-    the serve CLI under ``torchrun --nproc-per-node 4 ... --mode dsp
-    --backend gloo``, the two launches side by side: continuous over a
-    Poisson trace with world 1's tokens, static ``--replan 2`` with
-    identical output;
+    pool bit-equal and the survivors' forced logits within the bar; (c),
+    run in phase 27, the serve CLI under ``torchrun --nproc-per-node 4
+    ... --mode dsp --backend gloo``: continuous over a Poisson trace with
+    world 1's tokens, static ``--replan 2`` with identical output;
 20. qwen3-14b served paged (``PagedScheduler``: the block pool, the
     radix prefix tree, chunked prefill): (a) on one card under plan
     ``none`` at full width and depth, 8 requests of a shared 1024-token
@@ -260,9 +266,9 @@ Phases, in order; any failure raises and exits non-zero:
     after every step, per rank each segment's calls and bytes exactly
     ``lm.serve_contract``'s, a paged decode step's equal to a slot decode
     step's, K1 launched 0 times (a chunk on a mesh attends through plain
-    softmax partials); (c) the serve CLI ``--paged --prefill-chunk 8`` on
-    the card and under ``torchrun --nproc-per-node 4 ... --mode dsp
-    --backend gloo``, the ranks' tokens one card's;
+    softmax partials); (c), run in phase 27, the serve CLI ``--paged
+    --prefill-chunk 8`` on the card and under ``torchrun --nproc-per-node
+    4 ... --mode dsp --backend gloo``, the ranks' tokens one card's;
 21. transformer2d-720m under its spec's own plan
     (``ParallelPlan(mode="dsp", zero=True, shard_vocab=False)``): the
     parameters laid out by ``param_pspecs`` and cut to each rank's slices
@@ -320,8 +326,9 @@ Phases, in order; any failure raises and exits non-zero:
     dropped pairs of each MoE call and the dropped share exactly one
     rank's, per rank the calls and bytes exactly the contract (the
     dispatch's rows by ``route_rows`` of the run's routing)
-    and 4 K1 launches on ``cuda_cores``; (c) the train CLI at SMOKE size
-    under ``torchrun --nproc-per-node 4 --mesh 1,4 --backend gloo``;
+    and 4 K1 launches on ``cuda_cores``; (c), run in phase 27, the train
+    CLI at SMOKE size under ``torchrun --nproc-per-node 4 --mesh 1,4
+    --backend gloo``, every rank one rank's loss;
 24. mistral-large-123b (its published config: 96 q and 8 K/V heads of
     128, its KV cache in float8_e4m3fn) on one card, bf16, random weights
     from seed 0: (a) at depth 2, kernel against plain (bar 2e-2 of the
@@ -358,23 +365,66 @@ Phases, in order; any failure raises and exits non-zero:
     rank's heads; then at (1, 4) with ZeRO and the vocab split off and
     an f32 KV cache 2 requests through
     ``ContinuousScheduler`` and ``replan(2)`` at decode step 3, the
-    tokens one rank's; host memory logged; (c) the train CLI at ``--mesh
-    1,4`` and the serve CLI at ``--mode tp --continuous``, SMOKE size,
-    under ``torchrun --nproc-per-node 4 --backend gloo``;
-26. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
+    tokens one rank's; host memory logged; (c), run in phase 27, the train
+    CLI at ``--mesh 1,4`` and the serve CLI at ``--mode tp
+    --continuous``, SMOKE size, under ``torchrun --nproc-per-node 4
+    --backend gloo``;
+26. seamless-m4t-large-v2 (``models/encdec.py``: 24 encoder and 24
+    decoder layers, d 1024, 16 heads of 64, vocab 256206; 1.37B
+    parameters), bf16, random weights from seed 0: (a) at depth 2 + 2,
+    kernel against plain, the loss and every grad at 2 x (4096 frames,
+    2048 tokens) on weights drawn in bf16, in f32 (the weights upcast; K1
+    on ``cuda_cores``; bars 1e-4 and 2e-2) and in bf16 (K1 on ``sm90``;
+    the loss 1e-4 against plain; each grad leaf against the f32 plain
+    path's, the kernel's max error within twice the plain bf16 path's or
+    2e-2, FlashAttention's tests' rule), the prefill of 4 requests of
+    4096 frames with 16-token prompts and 4 decode steps (2e-2 of the largest
+    logit), and the kernel path's first decode step against a full
+    decoder forward over the prompt and that token (2e-2); (b) at full
+    depth those 4 requests, 32 new tokens each, caches of 48 positions,
+    with the counters set to 0 just before and read just after: K1
+    exactly 24 + 2 x 24 = 72 launches (the prefill's; a decode step
+    attends in plain PyTorch), all ``sm90``; TTFT, TPOT p50/p99 and peak
+    memory logged; (c) 4 Trainer steps at full depth at 2 x (4096, 2048):
+    K1 exactly 2 x 72 x 4 = 576 launches (forward and checkpointed
+    recompute), all ``sm90``; (d) (c) again at world size 1 over NCCL
+    under the spec's own plan (``dsp``, ZeRO-3 over ``("data",
+    "model")``, each layer gathering its weights inside its checkpoint):
+    the losses bit-equal to (c)'s or within 1e-4 relative (said which),
+    the calls and bytes exactly ``lm.remat_step`` of
+    ``encdec.collective_contract`` plus
+    ``encdec.param_contract`` each step, K1 576 on ``sm90``; then (e)'s
+    reference; (e) 4 processes sharing the card over gloo, each this
+    script with ``--seamless-rank``, at full width, depth 1 + 1 in f32
+    at 2 x (1024, 256), at (1, 4) (the table whole: 4 does not divide
+    256206) and (2, 2) (the table split over ``model``): the loss within
+    1e-5 relative of one rank's, each rank's grad slices within 1e-4 of
+    their leaf's max, both runs with the ReLU's gradient held at 0 where
+    the one-rank pre-activation lies within 2e-5 of the layer's RMS of 0
+    (``relu_held``) and no pre-activation outside those entries changed
+    in sign, per rank the calls and bytes exactly the contract and 6 K1
+    launches on ``cuda_cores`` on the rank's heads; then, in
+    phase 27, the train CLI at SMOKE size under ``torchrun
+    --nproc-per-node 4 --mesh 1,4 --backend gloo``;
+27. the CLIs under ``torchrun`` of phases 19 (c), 20 (c), 23 (c), 25 (c)
+    and 26 (e), all seven launches started together after the timed
+    phases (``cli_launches``: each spends most of its time starting its
+    ranks), each checked against its one-rank run in this process;
+28. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
     counts over the paths above (K1 320 + 32 + 224 + 224 + phase 14's
     training runs, 8 per mode, 4 for ring and hybrid, + phase 15 (a)'s
     28 + phase 16 (a)'s 32 + phase 17 (a)'s 32 + phase 19 (a)'s 320 +
     phase 20 (a)'s 720 + phase 21 (a)'s 224 + phase 22's 128 + 104 + 192
     + 32 + phase 23 (a)'s 32 + phase 24's 64 + 16 + phase 25 (a)'s 16 +
-    64; K2 576 + 384 + phase 16 (a)'s 192 + phase
+    64 + phase 26's 72 + 576 + 576; K2 576 + 384 + phase 16 (a)'s 192 + phase
     17 (a)'s 192 + phase 18 (a)'s 2 x 48 x 12 = 1152 + phase 19 (a)'s
     384)
     and whose ``launches_by_route`` split that sum by the route each
     launch took (``sm90``, and gemma2's 104 on ``cuda_cores``), with phase
     19 (b)'s and 20 (b)'s per rank beside (phase 21 (b)'s, 23 (b)'s and
-    25 (b)'s too), phase 4's chunk timings and the models' shapes
-    (``models``, mistral's two of ``TP_ATTN`` with them), then the last
+    25 (b)'s and 26 (e)'s too), phase 4's chunk timings and the models'
+    shapes (``models``, mistral's two of ``TP_ATTN`` and seamless's three
+    of ``SEAMLESS_ATTN`` with them), then the last
     line
     ``{"ok": true, "device": {...}}``.
 
@@ -407,7 +457,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import (  # noqa: E402
     gemma2_2b, mamba2_370m, mistral_large_123b, qwen2_moe_a2_7b, qwen3_14b,
-    starcoder2_7b, transformer2d_720m)
+    seamless_m4t_large_v2, starcoder2_7b, transformer2d_720m)
 from repro_torch.core import dsp  # noqa: E402
 from repro_torch.core.layout import from_mesh  # noqa: E402
 from repro_torch.core.schedule import (  # noqa: E402
@@ -423,6 +473,8 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
 from repro_torch.launch.mesh import (  # noqa: E402
     BACKEND_OF, make_mesh, make_sp2d_mesh)
 from repro_torch.models import attention as attn_mod  # noqa: E402
+from repro_torch.models import encdec as ED  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer2d as t2d  # noqa: E402
@@ -532,8 +584,9 @@ LM_PLAN = ParallelPlan(mode="dsp", zero=False, shard_vocab=False)
 # one loss and its grads of each LM at LM_RANK_DEPTHS, 1 x TRAIN_SEQ
 # tokens, against the world-1 path at the same depth (phase 7's bars)
 LM_MAMBA_STEPS = 2
-# (mamba2 at depth 4 until phases 24-25 needed the seconds)
-LM_RANK_DEPTHS = (("qwen3-14b", 2), ("mamba2-370m", 2))
+# (mamba2 at depth 4 until phases 24-25 needed the seconds, qwen3 at depth
+# 2 until phase 26 did)
+LM_RANK_DEPTHS = (("qwen3-14b", 1), ("mamba2-370m", 2))
 # the kernels at the shapes one of those ranks gives them (the heads split
 # DSP_RANKS ways by the switch, the whole sequence), held against their
 # plain versions in phase 3: K1 on qwen3-14b's 10 q and 2 K/V heads, K2 on
@@ -554,10 +607,11 @@ LM_REDUCE_PIECE = 1 << 26
 # world 1's at the same depth and batch (phase 7's bars), and on the cases
 # of ZERO_TRAIN one Trainer step, whose grad norm must be within
 # ZERO_NORM_BAR of world 1's
-ZERO_CASES = (("qwen3-14b", 2, (2, 2), 2), ("mamba2-370m", 4, (2, 2), 2),
-              ("qwen3-14b", 2, (1, 4), 1))
-# (qwen3 at (1, 4) too until phases 24-25 needed its 27 s: its loss and
-# grad slices stay checked above)
+ZERO_CASES = (("qwen3-14b", 2, (2, 2), 2), ("mamba2-370m", 4, (2, 2), 2))
+# (qwen3 at (1, 4) too, its Trainer step until phases 24-25 needed its 27
+# s, its loss and grad slices until phase 26 needed their ~25 s: DSP with
+# ZeRO-3 at (1, 4) stays on the card in phases 23 (b) and 26 (e), the
+# vocab ring over 4 ranks in 25 (b))
 ZERO_TRAIN = ("mamba2-370m/2x2",)
 ZERO_NORM_BAR = 1e-3
 # the checkpoint phase: mamba2-370m under its spec's plan with grad_compress
@@ -608,10 +662,11 @@ SERVE_RANK_PLAN = ParallelPlan(mode="dsp", zero=False)
 # stay within 7.6e-4 of one card; so its forced check at the served depth
 # runs in f32 (K2 on ``cuda_cores``), and a depth-4 one in bf16 holds K2's
 # ``sm90`` route; the trace runs in bf16 (on ``sm90``).  mamba2 serves at
-# depth 12 of 48 on the ranks (48 until phases 24-25 needed the seconds)
+# depth 6 of 48 on the ranks (48 until phases 24-25 needed the seconds,
+# 12 until phase 26 did)
 SERVE_RANK_CASES = (("qwen3-14b", 2, True, ((2, torch.bfloat16),)),
-                    ("mamba2-370m", 12, False,
-                     ((12, torch.float32), (4, torch.bfloat16))))
+                    ("mamba2-370m", 6, False,
+                     ((6, torch.float32), (4, torch.bfloat16))))
 SERVE_FORCED, SERVE_FORCED_STEPS = (0, N_REQUESTS - 1), 4
 # the new tokens of each request of the ranks' trace (NEW_TOKENS until
 # phases 24-25 needed the seconds)
@@ -751,6 +806,65 @@ TP_RANK_ATTN = tuple(
     (TP_RANK_BATCH // dp, _MI.n_heads // mp, _MI.n_kv_heads // mp,
      TP_RANK_SEQ, TP_RANK_SEQ, _MI.head_dim, True, None, None)
     for dp, mp in TP_RANK_MESHES)
+# phase 26: seamless-m4t-large-v2 (24 + 24 layers, d 1024, 16 heads of
+# 64, vocab 256206: 1.37B parameters), bf16, random weights from seed 0:
+# (a) at depth 2 + 2 the loss and grads at SEAMLESS_BATCH x (SEAMLESS_ENC
+# frames, SEAMLESS_DEC tokens) and the serving path kernel against plain
+# (SEAMLESS_CHECK_STEPS decode steps); (b) at full depth SEAMLESS_REQUESTS
+# requests of SEAMLESS_ENC frames with SEAMLESS_PROMPT-token prompts and
+# SEAMLESS_NEW new tokens each (speech-to-text translation over long
+# audio); (c) SEAMLESS_STEPS Trainer steps at full depth; (d) (c) at world
+# size 1 over NCCL under the spec's plan (SEAMLESS_PLAN: dsp, ZeRO-3);
+# (e) DSP_RANKS gloo ranks at each mesh of SEAMLESS_RANK_MESHES, depth
+# SEAMLESS_RANK_DEPTH + SEAMLESS_RANK_DEPTH in float32 at
+# SEAMLESS_RANK_BATCH x (SEAMLESS_RANK_ENC, SEAMLESS_RANK_DEC) against one
+# rank (tests/test_torch_encdec_dsp.py's bars)
+_SE = seamless_m4t_large_v2.CONFIG
+SEAMLESS_PLAN = seamless_m4t_large_v2.SPEC.plan
+SEAMLESS_BATCH, SEAMLESS_ENC, SEAMLESS_DEC, SEAMLESS_STEPS = 2, 4096, 2048, 4
+SEAMLESS_REQUESTS, SEAMLESS_PROMPT, SEAMLESS_NEW = 4, 16, 32
+SEAMLESS_CHECK_STEPS = 4
+SEAMLESS_RANK_DEPTH, SEAMLESS_RANK_BATCH = 1, 2
+SEAMLESS_RANK_ENC, SEAMLESS_RANK_DEC = 1024, 256
+SEAMLESS_RANK_MESHES = ((1, 4), (2, 2))
+SEAMLESS_LOSS_BAR, SEAMLESS_GRAD_BAR = 1e-5, 1e-4
+# the cross-attention's K bias: its gradient is zero in exact arithmetic
+# (no rope, and the softmax is invariant to a shift along the keys), so
+# two paths' rounding noise there is held against the whole gradient's
+# largest |value|, not the leaf's
+SEAMLESS_ZERO_GRAD = "cross_attn/wk/b"
+# (a)'s bf16 grads against the f32 plain path's: the kernel's max error
+# of each leaf at most this many times the plain bf16 path's own, the rule
+# FlashAttention's tests hold their bf16 gradients to
+BF16_SPREAD = 2
+# (e)'s ReLUs: where the two runs' f32 roundings put a pre-activation on
+# either side of 0 (one of (e)'s 4.2M decoder entries on an H100), that
+# token's whole term moves its unit's column of ``wi`` (5.9e-3 of the
+# leaf's max) and every leaf upstream (up to 7.4e-4).  Both runs take the
+# ReLU's gradient as 0 at the entries whose one-rank pre-activation lies
+# within SEAMLESS_HELD_TAU times the layer's RMS of 0 (``relu_held``; the
+# forward is unchanged), and the ranks show that no entry outside them
+# changed sign: every leaf is then held to SEAMLESS_GRAD_BAR
+SEAMLESS_HELD_TAU = 2e-5
+# K1 at seamless's three shapes, bf16 on ``sm90`` at D 64 (phase 3, timed
+# in phase 4 beside scaled_dot_product_attention): the encoder's
+# bidirectional self-attention, the decoder's causal one, and the
+# cross-attention of S_dec queries against S_enc keys, not causal; and at
+# the shapes a rank of (e) gives it, f32 on ``cuda_cores``
+SEAMLESS_ATTN = {
+    "seamless/encoder": (1, _SE.n_heads, _SE.n_kv_heads, SEAMLESS_ENC,
+                         SEAMLESS_ENC, _SE.head_dim, False, None, None),
+    "seamless/decoder": (1, _SE.n_heads, _SE.n_kv_heads, SEAMLESS_DEC,
+                         SEAMLESS_DEC, _SE.head_dim, True, None, None),
+    "seamless/cross": (1, _SE.n_heads, _SE.n_kv_heads, SEAMLESS_DEC,
+                       SEAMLESS_ENC, _SE.head_dim, False, None, None)}
+SEAMLESS_RANK_ATTN = tuple(
+    (SEAMLESS_RANK_BATCH // dp, _SE.n_heads // mp, _SE.n_kv_heads // mp,
+     sq, skv, _SE.head_dim, causal, None, None)
+    for dp, mp in SEAMLESS_RANK_MESHES
+    for sq, skv, causal in ((SEAMLESS_RANK_ENC, SEAMLESS_RANK_ENC, False),
+                            (SEAMLESS_RANK_DEC, SEAMLESS_RANK_DEC, True),
+                            (SEAMLESS_RANK_DEC, SEAMLESS_RANK_ENC, False)))
 
 
 def prefill_case(s: int):
@@ -1230,26 +1344,39 @@ def leaf_paths(tree, path="") -> list:
     return [path]
 
 
-def loss_grads_gap(params, batch, cfg, loss_fn=lm.lm_loss) -> dict:
-    """``loss_fn`` (``lm_loss`` or ``t2d_loss``) and every gradient with the
-    kernels against the plain path: the loss's |delta| / |loss|, and the
-    worst grad leaf's max |delta| / max |plain| with that leaf's path."""
-    def loss_and_grads(backend):
-        leaves = lm.tree_map(lambda p: p.detach().requires_grad_(True),
-                             params)
-        loss, _ = loss_fn(leaves, batch, cfg, backend=backend)
-        return loss.detach(), torch.autograd.grad(loss,
-                                                  lm.tree_leaves(leaves))
+def loss_and_grads(params, batch, cfg, loss_fn, backend: str):
+    """``loss_fn``'s loss and its grads, leaf by leaf, on ``backend``."""
+    leaves = lm.tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss, _ = loss_fn(leaves, batch, cfg, backend=backend)
+    return loss.detach(), torch.autograd.grad(loss, lm.tree_leaves(leaves))
 
-    loss_k, grads_k = loss_and_grads("kernel")
-    loss_r, grads_r = loss_and_grads("ref")
-    shares = [float((gk.float() - gr.float()).abs().max()
-                    / gr.float().abs().max().clamp_min(1e-30))
-              for gk, gr in zip(grads_k, grads_r)]
+
+def grad_shares(grads, refs, paths, zero_grads=()) -> list:
+    """Each leaf's max |grad - ref| / max |ref|.  A leaf whose path ends
+    in one of ``zero_grads`` has a zero gradient in exact arithmetic (two
+    paths' rounding noise apart): it is held against the largest |ref| of
+    the whole gradient instead."""
+    top = max(float(r.float().abs().max()) for r in refs)
+    return [float((g.float() - r.float()).abs().max()
+                  / (top if path.endswith(zero_grads) else
+                     r.float().abs().max().clamp_min(1e-30)))
+            for g, r, path in zip(grads, refs, paths)]
+
+
+def loss_grads_gap(params, batch, cfg, loss_fn=lm.lm_loss,
+                   zero_grads=()) -> dict:
+    """``loss_fn`` (``lm_loss``, ``t2d_loss`` or ``encdec_loss``) and every
+    gradient with the kernels against the plain path: the loss's |delta| /
+    |loss|, and the worst grad leaf's ``grad_shares`` with that leaf's
+    path."""
+    loss_k, grads_k = loss_and_grads(params, batch, cfg, loss_fn, "kernel")
+    loss_r, grads_r = loss_and_grads(params, batch, cfg, loss_fn, "ref")
+    paths = leaf_paths(params)
+    shares = grad_shares(grads_k, grads_r, paths, zero_grads)
     worst = int(np.argmax(shares))
     return {"loss": float(loss_r),
             "loss_rel": float((loss_k - loss_r).abs() / loss_r.abs()),
-            "grad_rel": shares[worst], "leaf": leaf_paths(params)[worst],
+            "grad_rel": shares[worst], "leaf": paths[worst],
             "leaves": len(shares)}
 
 
@@ -1670,10 +1797,7 @@ def dsp_four_ranks(cfg, work: str, device="cuda") -> dict:
                            "d_model": cfg.d_model, "n_heads": cfg.n_heads,
                            "d_ff": cfg.d_ff, "in_dim": cfg.in_dim}}, f)
     t0 = time.perf_counter()
-    # each rank is this script again, as started (sys.argv[0])
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(sys.argv[0]),
-                               "--dsp-rank", str(r), str(DSP_RANKS), work])
-             for r in range(DSP_RANKS)]
+    procs = spawn_ranks("--dsp-rank", work)
     try:
         rcs = [p.wait(timeout=900) for p in procs]
     finally:
@@ -2056,9 +2180,7 @@ def sp_four_ranks(cfg, bucket2: int, work: str, device="cuda") -> dict:
                            "d_model": cfg.d_model, "n_heads": cfg.n_heads,
                            "d_ff": cfg.d_ff, "in_dim": cfg.in_dim}}, f)
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                               "--sp-rank", str(r), str(DSP_RANKS), work])
-             for r in range(DSP_RANKS)]
+    procs = spawn_ranks("--sp-rank", work)
     try:
         rcs = [p.wait(timeout=900) for p in procs]
     finally:
@@ -2298,9 +2420,7 @@ def l2d_four_ranks(cfg, work: str, device="cuda") -> dict:
                            "d_model": cfg.d_model, "n_heads": cfg.n_heads,
                            "d_ff": cfg.d_ff, "in_dim": cfg.in_dim}}, f)
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                               "--l2d-rank", str(r), str(DSP_RANKS), work])
-             for r in range(DSP_RANKS)]
+    procs = spawn_ranks("--l2d-rank", work)
     try:
         rcs = [p.wait(timeout=600) for p in procs]
     finally:
@@ -2553,9 +2673,7 @@ def lm_four_ranks(work: str, device="cuda") -> dict:
     with open(os.path.join(work, "job16.json"), "w") as f:
         json.dump({"device": device}, f)
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                               "--lm-rank", str(r), str(DSP_RANKS), work])
-             for r in range(DSP_RANKS)]
+    procs = spawn_ranks("--lm-rank", work)
     try:
         rcs = [p.wait(timeout=600) for p in procs]
     finally:
@@ -2880,6 +2998,20 @@ def slice_gap(got: torch.Tensor, want: torch.Tensor) -> list:
     return [gap, top]
 
 
+def slice_sq(got: torch.Tensor, want: torch.Tensor) -> list:
+    """[sum (got - want)^2, sum want^2] of one slice, in pieces as
+    ``slice_gap`` compares them."""
+    got, want = got.reshape((-1,) + tuple(got.shape[1:])), \
+        want.reshape((-1,) + tuple(want.shape[1:]))
+    rows = max(1, LM_REDUCE_PIECE // max(1, got[0].numel()))
+    out = [0.0, 0.0]
+    for a, b in zip(got.split(rows), want.split(rows)):
+        b = b.to(a.device).float()
+        out[0] += float((a.float() - b).square().sum())
+        out[1] += float(b.square().sum())
+    return out
+
+
 def zero_train_step(cfg, lay: dict, batch: int, device="cuda") -> dict:
     """One Trainer step with this rank's slices (AdamW's state made from
     them) on the first batch: its loss and grad norm, the calls it made
@@ -2927,13 +3059,7 @@ def zero_four_ranks(work: str, device="cuda") -> dict:
     with open(os.path.join(work, "job17.json"), "w") as f:
         json.dump({"device": device}, f)
     t0 = time.perf_counter()
-    # 4 caching allocators share the card: expandable segments let each
-    # give back what it frees
-    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                               "--zero-rank", str(r), str(DSP_RANKS), work],
-                              env=env)
-             for r in range(DSP_RANKS)]
+    procs = spawn_ranks("--zero-rank", work)
     try:
         rcs = [p.wait(timeout=600) for p in procs]
     finally:
@@ -3293,11 +3419,7 @@ def ckpt_four_ranks(work: str, device="cuda") -> dict:
     with open(os.path.join(work, "job18.json"), "w") as f:
         json.dump({"device": device}, f)
     t0 = time.perf_counter()
-    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                               "--ckpt-rank", str(r), str(DSP_RANKS), work],
-                              env=env)
-             for r in range(DSP_RANKS)]
+    procs = spawn_ranks("--ckpt-rank", work)
     try:
         rcs = [p.wait(timeout=600) for p in procs]
     finally:
@@ -3785,12 +3907,8 @@ def serve_four_ranks(work: str, device="cuda") -> dict:
     log_t(f"  references at one rank in {time.perf_counter() - t0:.1f} s, "
           f"this process holding {torch.cuda.memory_reserved() / 1e9:.2f} "
           f"GB of the card ({elapsed()})")
-    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                               "--serve-rank", str(r), str(DSP_RANKS), work],
-                              env=env)
-             for r in range(DSP_RANKS)]
+    procs = spawn_ranks("--serve-rank", work)
     try:
         rcs = [p.wait(timeout=900) for p in procs]
     finally:
@@ -3859,45 +3977,30 @@ def serve_four_ranks(work: str, device="cuda") -> dict:
     return {"ranks": ranks}
 
 
-def serve_cli_ranks(serve_main, work: str) -> None:
-    """(c) The serve CLI at SMOKE size under ``torchrun --nproc-per-node``
-    DSP_RANKS on the card, gloo over its tensors (``--backend gloo``:
-    NCCL takes one rank a card), ``--mode dsp``: continuous over a Poisson
-    trace (``--arrival 0.01``), whose tokens must be world 1's, and static
-    with ``--replan 2``, which must print ``replan output identical:
-    True``; the two launches side by side, world 1 in this process
-    meanwhile."""
+SERVE_CLI = ["--arch", "qwen3-14b", "--batch", "4", "--prompt-len", "16",
+             "--new-tokens", "8"]
+SERVE_CLI_CONT = ["--continuous", "--arrival", "0.01"]
+
+
+def serve_cli_ranks(serve_main, launched: dict) -> None:
+    """Phase 19 (c), run in phase 27: the serve CLI at SMOKE size under
+    ``torchrun --nproc-per-node`` DSP_RANKS on the card, gloo over its
+    tensors (``--backend gloo``: NCCL takes one rank a card), ``--mode
+    dsp``: continuous over a Poisson trace (``--arrival 0.01``), whose
+    tokens must be world 1's (run in this process), and static with
+    ``--replan 2``, which must print ``replan output identical: True``."""
     import contextlib
     import io
-    base = ["--arch", "qwen3-14b", "--batch", "4", "--prompt-len", "16",
-            "--new-tokens", "8"]
-    cont = ["--continuous", "--arrival", "0.01"]
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    t0 = time.perf_counter()
-    procs = [(flags, subprocess.Popen(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node", str(DSP_RANKS), "-m",
-         "repro_torch.launch.serve", *base, "--mode", "dsp", "--backend",
-         "gloo", *flags], cwd=work, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True))
-        for flags in (cont, ["--replan", "2"])]
-    try:
-        with contextlib.redirect_stdout(io.StringIO()):
-            want = [r.generated for r in serve_main(base + cont)]
-        outs = [p.communicate(timeout=300) for _, p in procs]
-    finally:
-        for _, p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for (flags, p), (text, err) in zip(procs, outs):
-        log_t(f"  {' '.join(flags)}: exit {p.returncode} (both launches in "
-              f"{time.perf_counter() - t0:.1f} s); "
+    with contextlib.redirect_stdout(io.StringIO()):
+        want = [r.generated for r in serve_main(SERVE_CLI + SERVE_CLI_CONT)]
+    for name in ("19c/continuous", "19c/replan"):
+        rc, text, err, seconds = finish(launched[name])
+        log_t(f"  {name}: exit {rc} in {seconds:.1f} s; "
               f"{text.splitlines()[0] if text else err[-2000:]}")
-        if p.returncode:
-            raise AssertionError(f"serve CLI under torchrun {flags}: "
+        if rc:
+            raise AssertionError(f"serve CLI under torchrun {name}: "
                                  f"{text[-2000:]}{err[-3000:]}")
-        if flags is cont:
+        if name == "19c/continuous":
             got = [json.loads(m) for m in re.findall(r"s: (\[[^\]]*\])",
                                                      text)]
             log(f"  tokens equal to world 1's: {got == want}")
@@ -4299,12 +4402,8 @@ def paged_four_ranks(work: str, device="cuda") -> dict:
     paged_refs(work, device)
     log_t(f"  reference at one rank in {time.perf_counter() - t0:.1f} s "
           f"({elapsed()})")
-    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                               "--paged-rank", str(r), str(DSP_RANKS), work],
-                              env=env)
-             for r in range(DSP_RANKS)]
+    procs = spawn_ranks("--paged-rank", work)
     try:
         rcs = [p.wait(timeout=600) for p in procs]
     finally:
@@ -4362,35 +4461,28 @@ def paged_four_ranks(work: str, device="cuda") -> dict:
     return {"ranks": ranks}
 
 
-def paged_clis(serve_main, work: str) -> None:
-    """(c) The serve CLI ``--paged --prefill-chunk 8`` at SMOKE size on the
-    card, then under ``torchrun --nproc-per-node`` DSP_RANKS with ``--mode
-    dsp --backend gloo``: both exit 0, the ranks' tokens one card's."""
+PAGED_CLI = ["--arch", "qwen3-14b", "--batch", "4", "--prompt-len", "16",
+             "--new-tokens", "8", "--paged", "--prefill-chunk", "8"]
+
+
+def paged_clis(serve_main, launched: dict) -> None:
+    """Phase 20 (c), run in phase 27: the serve CLI ``--paged
+    --prefill-chunk 8`` at SMOKE size on the card (in this process), and
+    under ``torchrun --nproc-per-node`` DSP_RANKS with ``--mode dsp
+    --backend gloo``: both exit 0, the ranks' tokens one card's."""
     import contextlib
     import io
-    base = ["--arch", "qwen3-14b", "--batch", "4", "--prompt-len", "16",
-            "--new-tokens", "8", "--paged", "--prefill-chunk", "8"]
     with contextlib.redirect_stdout(io.StringIO()):
-        want = [r.generated for r in serve_main(base)]
+        want = [r.generated for r in serve_main(PAGED_CLI)]
     log(f"  one card: {len(want)} requests served")
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", str(DSP_RANKS), "-m",
-           "repro_torch.launch.serve", *base, "--mode", "dsp", "--backend",
-           "gloo"]
-    t0 = time.perf_counter()
-    out = subprocess.run(cmd, cwd=work, env=env, capture_output=True,
-                         text=True, timeout=300)
-    text = out.stdout
+    rc, text, err, seconds = finish(launched["20c/paged"])
     got = [json.loads(m) for m in re.findall(r"s: (\[[^\]]*\])", text)]
-    log_t(f"  torchrun: exit {out.returncode} in "
-          f"{time.perf_counter() - t0:.1f} s; tokens equal to one card's "
-          f"{got == want}; " + " ".join(
+    log_t(f"  20c/paged: exit {rc} in {seconds:.1f} s; tokens equal to one "
+          f"card's {got == want}; " + " ".join(
               line for line in text.splitlines() if line.startswith("paged")))
-    if out.returncode or got != want \
-            or "KV pool sequence-sharded over 4-way" not in text:
+    if rc or got != want or "KV pool sequence-sharded over 4-way" not in text:
         raise AssertionError(f"serve CLI --paged under torchrun: "
-                             f"{text[-2000:]}{out.stderr[-3000:]}")
+                             f"{text[-2000:]}{err[-3000:]}")
 
 
 # ---------------------------------------------------------------------------
@@ -4714,11 +4806,7 @@ def t2d_zero_four_ranks(work: str, device="cuda") -> dict:
     with open(os.path.join(work, "job21.json"), "w") as f:
         json.dump({"device": device}, f)
     t0 = time.perf_counter()
-    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                               "--t2d-zero-rank", str(r), str(DSP_RANKS),
-                               work], env=env)
-             for r in range(DSP_RANKS)]
+    procs = spawn_ranks("--t2d-zero-rank", work)
     try:
         rcs = [p.wait(timeout=600) for p in procs]
     finally:
@@ -5225,11 +5313,7 @@ def moe_four_ranks(work: str, device="cuda") -> dict:
     with open(os.path.join(work, "job23.json"), "w") as f:
         json.dump({"device": device}, f)
     t0 = time.perf_counter()
-    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                               "--moe-rank", str(r), str(DSP_RANKS), work],
-                              env=env)
-             for r in range(DSP_RANKS)]
+    procs = spawn_ranks("--moe-rank", work)
     try:
         rcs = [p.wait(timeout=600) for p in procs]
     finally:
@@ -5301,30 +5385,22 @@ def moe_four_ranks(work: str, device="cuda") -> dict:
     return {"ranks": ranks, "k1": k1}
 
 
-def moe_cli_ranks(work: str, train_main) -> None:
-    """(c) The train CLI at SMOKE size under ``torchrun --nproc-per-node``
-    DSP_RANKS on the card, gloo over its tensors (``--backend gloo``),
-    ``--mesh 1,4``: the spec's plan with ``ep``, every rank the same
-    global loss, beside one rank's without a mesh."""
-    arch = "qwen2-moe-a2.7b"
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", str(DSP_RANKS), "-m",
-           "repro_torch.launch.train", "--arch", arch, "--mesh",
-           f"1,{DSP_RANKS}", "--backend", "gloo", "--steps", "3"]
-    t0 = time.perf_counter()
-    out = subprocess.run(cmd, cwd=work, env=env, capture_output=True,
-                         text=True, timeout=300)
-    lines = [l for l in out.stdout.splitlines() if l.startswith("loss ")]
-    plans = {l for l in out.stdout.splitlines() if l.startswith("plan ")}
+def train_cli_ranks(name: str, launched: dict, train_main, arch: str,
+                    plan) -> None:
+    """A train CLI at SMOKE size under ``torchrun --nproc-per-node``
+    DSP_RANKS on the card, gloo over its tensors, ``--mesh 1,4``
+    (``cli_launches``' ``name``): exit 0, ``plan`` printed, every rank
+    one rank's loss without a mesh (run in this process)."""
     hist = train_main(["--arch", arch, "--steps", "3"])["history"]
-    log_t(f"  exit {out.returncode} in {time.perf_counter() - t0:.1f} s; "
-          f"{sorted(plans)}; {lines[:1]} on each of {len(lines)} ranks; one "
-          f"rank: loss {hist[0][1]:.4f} -> {hist[-1][1]:.4f}")
-    if (out.returncode or len(lines) != DSP_RANKS or len(set(lines)) != 1
-            or plans != {f"plan {MOE_PLAN}"}):
-        raise AssertionError(f"train CLI under torchrun: "
-                             f"{out.stdout[-2000:]}{out.stderr[-3000:]}")
+    rc, out, err, seconds = finish(launched[name])
+    lines = [l for l in out.splitlines() if l.startswith("loss ")]
+    plans = {l for l in out.splitlines() if l.startswith("plan ")}
+    one = f"loss {hist[0][1]:.4f} -> {hist[-1][1]:.4f}"
+    log_t(f"  {name}: exit {rc} in {seconds:.1f} s; {sorted(plans)}; "
+          f"{lines[:1]} on each of {len(lines)} ranks; one rank: {one}")
+    if rc or lines != [one] * DSP_RANKS or plans != {f"plan {plan}"}:
+        raise AssertionError(f"train CLI under torchrun {name}: "
+                             f"{out[-2000:]}{err[-3000:]}")
 
 
 # ---------------------------------------------------------------------------
@@ -5731,11 +5807,7 @@ def tp_four_ranks(work: str, device="cuda") -> dict:
     with open(os.path.join(work, "job25.json"), "w") as f:
         json.dump({"device": device}, f)
     t0 = time.perf_counter()
-    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                               "--tp-rank", str(r), str(DSP_RANKS), work],
-                              env=env)
-             for r in range(DSP_RANKS)]
+    procs = spawn_ranks("--tp-rank", work)
     try:
         rcs = [p.wait(timeout=600) for p in procs]
     finally:
@@ -5802,61 +5874,751 @@ def tp_four_ranks(work: str, device="cuda") -> dict:
     return {"ranks": ranks}
 
 
-def tp_cli_ranks(work: str, train_main, serve_main) -> None:
-    """(c) Both CLIs with mistral-large-123b at SMOKE size under ``torchrun
-    --nproc-per-node`` DSP_RANKS on the card, gloo over its tensors, the
-    two launches side by side: the train CLI at ``--mesh 1,4`` (the
-    spec's plan, every rank one rank's loss) and the serve CLI ``--mode tp
-    --continuous`` (one rank's tokens); the one-rank runs in this
-    process meanwhile."""
+TP_SERVE_CLI = ["--arch", "mistral-large-123b", "--batch", "4",
+                "--prompt-len", "16", "--new-tokens", "8", "--continuous"]
+
+
+def tp_cli_ranks(launched: dict, serve_main) -> None:
+    """Phase 25 (c)'s serve CLI, run in phase 27: ``--mode tp
+    --continuous`` under ``torchrun --nproc-per-node`` DSP_RANKS on the
+    card, gloo over its tensors: exit 0, one rank's tokens (run in this
+    process).  Its train CLI is ``train_cli_ranks``'."""
     import io
-    arch = "mistral-large-123b"
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", str(DSP_RANKS), "-m"]
-    serve = ["--arch", arch, "--batch", "4", "--prompt-len", "16",
-             "--new-tokens", "8", "--continuous"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        want = [r.generated for r in serve_main(TP_SERVE_CLI)]
+    rc, out, err, seconds = finish(launched["25c/serve"])
+    got = [json.loads(m) for m in re.findall(r"s: (\[[^\]]*\])", out)]
+    log_t(f"  25c/serve: exit {rc} in {seconds:.1f} s; "
+          f"{out.splitlines()[0] if out else ''}; tokens equal to one "
+          f"rank's: {got == want}")
+    if rc or got != want or "KV pool sequence-sharded over 4-way" not in out:
+        raise AssertionError(f"serve CLI --mode tp under torchrun: "
+                             f"{out[-2000:]}{err[-3000:]}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 26: seamless-m4t-large-v2, the enc-dec model
+# ---------------------------------------------------------------------------
+
+def seamless_cfg(depth=None, dtype=None):
+    """seamless's published config, ``depth`` encoder and ``depth``
+    decoder layers where given, in ``dtype`` where given."""
+    cfg = _SE if depth is None else dataclasses.replace(
+        _SE, n_enc_layers=depth, n_dec_layers=depth)
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+
+def seamless_batch(cfg, batch: int, s_enc: int, s_dec: int, step: int,
+                   device="cuda") -> dict:
+    return make_batch(DataConfig(task="encdec", vocab=cfg.vocab, seq=s_dec,
+                                 enc_seq=s_enc, batch=batch,
+                                 frontend_dim=cfg.frontend_dim), step,
+                      device=device)
+
+
+def seamless_requests(cfg, device="cuda") -> dict:
+    """SEAMLESS_REQUESTS requests of SEAMLESS_ENC frames each and a
+    SEAMLESS_PROMPT-token decoder prompt, as one batch."""
+    b = seamless_batch(cfg, SEAMLESS_REQUESTS, SEAMLESS_ENC, SEAMLESS_PROMPT,
+                       7, device)
+    return {"feats": b["feats"], "tokens": b["tokens"]}
+
+
+def seamless_checks(device="cuda") -> dict:
+    """(a) depth 2 + 2 at full width, kernel against plain, on weights
+    drawn in bf16: the loss and every grad at SEAMLESS_BATCH x
+    (SEAMLESS_ENC frames, SEAMLESS_DEC tokens) in f32 (the weights
+    upcast; K1 on ``cuda_cores``) under LOSS_BAR and GRAD_BAR, and in
+    bf16 (K1 on ``sm90``) with the loss under LOSS_BAR and each grad leaf
+    held, as FlashAttention's own tests hold theirs, against the f32
+    plain path's (the truth): its max |kernel - truth| / max |truth| at
+    most BF16_SPREAD times the plain bf16 path's own, or GRAD_BAR where
+    that is larger (``seamless_bf16_grads``); then in bf16 the prefill
+    of seamless_requests and SEAMLESS_CHECK_STEPS decode steps (each path
+    its own caches, the plain path's tokens fed to both) within LOGIT_BAR
+    of the largest logit; the kernel path's first decode step against a
+    full decoder forward over the prompt and that token (the step writes
+    past the prompt, not on its last row)."""
+    cfg = seamless_cfg(2, torch.bfloat16)
+    params = ED.init_encdec(0, cfg, device=device)
+    batch = seamless_batch(cfg, SEAMLESS_BATCH, SEAMLESS_ENC, SEAMLESS_DEC,
+                           0, device)
+    paths = leaf_paths(params)
+    zero = (SEAMLESS_ZERO_GRAD,)
+    cfg32 = seamless_cfg(2, torch.float32)
+    params32 = lm.tree_map(lambda p: p.float(), params)
+    loss_t, truth = loss_and_grads(params32, batch, cfg32, ED.encdec_loss,
+                                   "ref")
+    loss_k, grads_k = loss_and_grads(params32, batch, cfg32, ED.encdec_loss,
+                                     "kernel")
+    shares = grad_shares(grads_k, truth, paths, zero)
+    worst = int(np.argmax(shares))
+    gaps32 = {"loss": float(loss_t),
+              "loss_rel": float((loss_k - loss_t).abs() / loss_t.abs()),
+              "grad_rel": shares[worst], "leaf": paths[worst],
+              "leaves": len(shares)}
+    log(f"  depth-2 + 2 in float32, K1 on "
+        f"{ROUTES[(torch.float32, cfg.head_dim)]}: loss {gaps32['loss']:.6f}"
+        f" at {SEAMLESS_BATCH} x ({SEAMLESS_ENC} frames, {SEAMLESS_DEC} "
+        f"tokens): |kernel - plain| / |loss| = {gaps32['loss_rel']:.3e}; "
+        f"worst grad leaf {gaps32['leaf']} max |delta| / max |plain| = "
+        f"{gaps32['grad_rel']:.3e} over {gaps32['leaves']} leaves")
+    if not gap_passes(gaps32):
+        raise AssertionError(f"seamless depth-2 loss or grads disagree in "
+                             f"float32: {gaps32}")
+    del params32, grads_k
+    free_device()
+    gap = seamless_bf16_grads(params, batch, cfg, truth, paths)
+    del truth
+    free_device()
+    del batch
+    reqs = seamless_requests(cfg, device)
+    max_len = SEAMLESS_PROMPT + SEAMLESS_CHECK_STEPS
+    with torch.no_grad():
+        got, c_got = ED.prefill(params, reqs, cfg, backend="kernel",
+                                max_len=max_len)
+        want, c_want = ED.prefill(params, reqs, cfg, backend="ref",
+                                  max_len=max_len)
+        gaps = [logit_gap(got, want)]
+        first = None
+        for i in range(SEAMLESS_CHECK_STEPS):
+            nxt = want.argmax(-1)
+            got, c_got = ED.decode_step(params, nxt, c_got, cfg)
+            want, c_want = ED.decode_step(params, nxt, c_want, cfg)
+            gaps.append(logit_gap(got, want))
+            if i == 0:
+                first = (nxt, got)
+        tokens = torch.cat([reqs["tokens"], first[0]], 1)
+        enc = ED.encode(params, reqs["feats"], cfg, remat=False)
+        x = ED.decode(params, tokens, enc, cfg, remat=False)
+        full = x[:, -1:] @ params["embed"]["table"].t()
+        first_gap = logit_gap(first[1], full)
+    log(f"  depth-2 + 2 prefill of {SEAMLESS_REQUESTS} x ({SEAMLESS_ENC} "
+        f"frames, {SEAMLESS_PROMPT} tokens): max |kernel - plain| / max "
+        f"|logit| = {gaps[0]:.3e}; then {SEAMLESS_CHECK_STEPS} decode steps, "
+        f"worst {max(gaps[1:]):.3e}; the first step against a full decoder "
+        f"forward over {tokens.shape[1]} tokens {first_gap:.3e}")
+    if not max(gaps + [first_gap]) <= LOGIT_BAR:
+        raise AssertionError(f"seamless depth-2 serving disagrees: {gaps}, "
+                             f"first step against a full forward "
+                             f"{first_gap}")
+    del params, c_got, c_want, enc
+    free_device()
+    return {"loss_grads": gap, "loss_grads_f32": gaps32, "serve_gaps": gaps,
+            "first_step": first_gap}
+
+
+def seamless_bf16_grads(params, batch, cfg, truth, paths) -> dict:
+    """(a)'s bf16 loss and grads: the kernel path and the plain path in
+    bf16, each leaf's ``grad_shares`` against ``truth`` (the f32 plain
+    path's grads on the same weights upcast): the kernel's within
+    BF16_SPREAD times the plain path's, or GRAD_BAR where that is larger;
+    the loss kernel against plain within LOSS_BAR.  Both bf16 paths
+    round their ReLUs' pre-activations on either side of 0 where the
+    truth does not, which moves a unit's column of ``wi`` by a token's
+    whole term: several per cent of the leaf's max, in the plain path as
+    in the kernel's."""
+    kw = dict(loss_fn=ED.encdec_loss, backend="kernel")
+    loss_k, grads_k = loss_and_grads(params, batch, cfg, **kw)
+    kw["backend"] = "ref"
+    loss_p, grads_p = loss_and_grads(params, batch, cfg, **kw)
+    zero = (SEAMLESS_ZERO_GRAD,)
+    vs_plain = grad_shares(grads_k, grads_p, paths, zero)
+    err_k = grad_shares(grads_k, truth, paths, zero)
+    del grads_k
+    err_p = grad_shares(grads_p, truth, paths, zero)
+    del grads_p
+    bars = [max(GRAD_BAR, BF16_SPREAD * e) for e in err_p]
+    ratio = [k / b for k, b in zip(err_k, bars)]
+    worst, tight = int(np.argmax(vs_plain)), int(np.argmax(ratio))
+    gap = {"loss": float(loss_p),
+           "loss_rel": float((loss_k - loss_p).abs() / loss_p.abs()),
+           "grad_rel": vs_plain[worst], "leaf": paths[worst],
+           "leaves": len(paths),
+           "vs_truth": {paths[i]: [err_k[i], err_p[i]]
+                        for i in np.argsort(err_k)[::-1][:5]},
+           "tightest": [paths[tight], err_k[tight], bars[tight]]}
+    log(f"  depth-2 + 2 in bfloat16, K1 on "
+        f"{ROUTES[(torch.bfloat16, cfg.head_dim)]}: loss {gap['loss']:.6f}: "
+        f"|kernel - plain| / |loss| = {gap['loss_rel']:.3e}; worst grad "
+        f"leaf {gap['leaf']} max |kernel - plain| / max |plain| = "
+        f"{gap['grad_rel']:.3e} over {gap['leaves']} leaves; against the "
+        f"f32 truth [kernel, plain bf16], worst five by the kernel's: "
+        f"{gap['vs_truth']}; the leaf nearest its bar {gap['tightest'][0]} "
+        f"{gap['tightest'][1]:.3e} of {gap['tightest'][2]:.3e} "
+        f"(max({GRAD_BAR}, {BF16_SPREAD} x the plain path's))")
+    if not (gap["loss_rel"] <= LOSS_BAR and max(ratio) <= 1):
+        over = [[p, k, b] for p, k, b in zip(paths, err_k, bars) if k > b]
+        raise AssertionError(f"seamless depth-2 loss or grads disagree in "
+                             f"bfloat16: {gap}; over their bars: {over}")
+    return gap
+
+
+def seamless_serve(device="cuda") -> dict:
+    """(b) at full width and depth: seamless_requests through ``prefill``
+    (caches of SEAMLESS_PROMPT + SEAMLESS_NEW positions) and greedy
+    ``decode_step``s to SEAMLESS_NEW new tokens a request, the counters
+    set to 0 just before and read just after: K1 exactly n_enc + 2 n_dec
+    launches, all ``sm90`` (the prefill's; a decode step attends in plain
+    PyTorch); TTFT (the prefill and the first token), TPOT p50/p99 over
+    the decode steps, peak memory."""
+    cfg = seamless_cfg()
     t0 = time.perf_counter()
-    procs = {name: subprocess.Popen(
-        run + cmd, cwd=work, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for name, cmd in (
-            ("train", ["repro_torch.launch.train", "--arch", arch, "--mesh",
-                       f"1,{DSP_RANKS}", "--backend", "gloo", "--steps",
-                       "3"]),
-            ("serve", ["repro_torch.launch.serve", *serve, "--mode", "tp",
-                       "--backend", "gloo"]))}
+    params = ED.init_encdec(0, cfg, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in lm.tree_leaves(params))
+    log_t(f"  init {n_params / 1e6:.1f}M params in "
+          f"{time.perf_counter() - t0:.1f} s")
+    reqs = seamless_requests(cfg, device)
+    k1 = cfg.n_enc_layers + 2 * cfg.n_dec_layers
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        logits, caches = ED.prefill(params, reqs, cfg, backend="kernel",
+                                    max_len=SEAMLESS_PROMPT + SEAMLESS_NEW)
+        toks = [logits.argmax(-1)]
+        torch.cuda.synchronize()
+        ttft = time.perf_counter() - t0
+        tpot = []
+        for _ in range(SEAMLESS_NEW - 1):
+            t = time.perf_counter()
+            logits, caches = ED.decode_step(params, toks[-1], caches, cfg)
+            toks.append(logits.argmax(-1))
+            torch.cuda.synchronize()
+            tpot.append(time.perf_counter() - t)
+        got = read_counts()
+    tokens = torch.cat(toks, 1).tolist()
+    metrics = {"ttft_ms": ttft * 1e3,
+               "tpot_ms_p50": float(np.percentile(tpot, 50)) * 1e3,
+               "tpot_ms_p99": float(np.percentile(tpot, 99)) * 1e3,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "new_tokens": SEAMLESS_REQUESTS * SEAMLESS_NEW}
+    log_t(f"  {SEAMLESS_REQUESTS} requests of {SEAMLESS_ENC} frames, "
+          f"{SEAMLESS_PROMPT}-token prompts, {SEAMLESS_NEW} new tokens each: "
+          f"K1 {got['k1']} {got['k1_routes']} at head dims {got['k1_dims']}; "
+          f"metrics " + json.dumps(metrics, sort_keys=True))
+    if got["k1"] != k1 or got["k1_routes"] != {"sm90": k1}:
+        raise AssertionError(f"seamless serving launched K1 {got}, expected "
+                             f"{k1} on sm90")
+    if any(len(t) != SEAMLESS_NEW for t in tokens):
+        raise AssertionError(f"seamless serving did not finish: {tokens}")
+    del params, caches
+    free_device()
+    return {"launches": got["k1"], "routes": got["k1_routes"],
+            "tokens": tokens, "metrics": metrics}
+
+
+def seamless_train(device="cuda") -> dict:
+    """(c) SEAMLESS_STEPS Trainer steps at full width and depth,
+    SEAMLESS_BATCH x (SEAMLESS_ENC frames, SEAMLESS_DEC tokens): K1 twice
+    a step per attention (the forward's n_enc + 2 n_dec and the
+    checkpointed recompute's; the backward recomputes through
+    ``attention_ref``), all ``sm90``; tokens/s counts frames and tokens."""
+    cfg = seamless_cfg()
+    return run_trainer(
+        lambda: ED.init_encdec(0, cfg, device=device),
+        lambda p, b: ED.encdec_loss(p, b, cfg, backend="kernel"),
+        lambda s: seamless_batch(cfg, SEAMLESS_BATCH, SEAMLESS_ENC,
+                                 SEAMLESS_DEC, s, device),
+        flash_attention_fwd,
+        tokens=SEAMLESS_BATCH * (SEAMLESS_ENC + SEAMLESS_DEC),
+        n_steps=SEAMLESS_STEPS, n_layers=cfg.n_enc_layers + cfg.n_dec_layers,
+        route="sm90", device=device,
+        launches_per_step=2 * (cfg.n_enc_layers + 2 * cfg.n_dec_layers))
+
+
+def seamless_layout(cfg, mesh, batch: int, s_enc: int, s_dec: int,
+                    device="cuda") -> dict:
+    """``cfg``'s parameters from seed 0 under SEAMLESS_PLAN on ``mesh``:
+    the rank's slices (``param_pspecs``,
+    ZeRO-3 over ``("data", "model")``, the table over ``model`` where the
+    ranks divide the vocab), the sharder of the joint planned schedule at
+    ``batch`` x (``s_enc``, ``s_dec``), and the step's contract
+    (``seamless_contract``)."""
+    ctx = from_mesh(mesh)
+    sizes = mesh_sizes(ctx)
+    params = ED.init_encdec(0, cfg, device=device)
+    specs = param_pspecs(params, SEAMLESS_PLAN, axis_sizes=sizes)
+    sharder = make_sharder(mesh, SEAMLESS_PLAN, schedule=ED.dsp_schedule(
+        cfg, ctx.sp_size, s_enc=s_enc, s_dec=s_dec, batch=batch,
+        joint=True), param_specs=specs)
+    layout = ED.param_contract(cfg, meta_tree(params), SEAMLESS_PLAN, sizes)
+    return {"params": shard_params(params, specs, ctx), "specs": specs,
+            "sharder": sharder, "contract": seamless_contract(
+                cfg, (ctx.dp_size, ctx.sp_size), batch, s_enc, s_dec,
+                layout)}
+
+
+def seamless_contract(cfg, shape, batch: int, s_enc: int, s_dec: int,
+                      layout: dict) -> dict:
+    """{kind: [calls, bytes]} per rank of one loss, its grads, their sums
+    and the clip's norm with remat on a ``shape`` (data, model) mesh at a
+    global ``batch`` x (``s_enc``, ``s_dec``): ``lm.remat_step`` of
+    ``encdec.collective_contract`` (the switches three times over) plus
+    ``layout``
+    (``encdec.param_contract``: ZeRO-3's gathers per checkpointed layer,
+    its reduce-scatters, the trainer's all-reduces)."""
+    dp, mp = shape
+    hooks = lm.remat_step(ED.collective_contract(
+        cfg, mp, batch // dp, s_enc // mp, s_dec // mp))
+    return {k: [hooks["calls"].get(k, 0) + layout["calls"].get(k, 0),
+                hooks["bytes"].get(k, 0) + layout["bytes"].get(k, 0)]
+            for k in sorted(set(hooks["calls"]) | set(layout["calls"]))}
+
+
+def seamless_world_of_one(phase_c: dict, work: str, device="cuda") -> dict:
+    """(d) (c)'s training at world size 1 on a (1, 1) mesh over NCCL under
+    SEAMLESS_PLAN (ZeRO-3, each layer gathering its weights inside its
+    checkpoint): the losses bit-equal to (c)'s or within DSP_LOSS_BAR
+    relative (said which), the calls and bytes exactly
+    ``seamless_contract`` each step, K1 as in (c), the step time beside
+    (c)'s.  Then (e)'s reference (``seamless_rank_ref``)."""
+    backend = BACKEND_OF[torch.device(device).type]
+    dist.init_process_group(backend, store=dist.FileStore(
+        os.path.join(work, "store26d"), 1), rank=0, world_size=1)
     try:
-        hist = train_main(["--arch", arch, "--steps", "3"])["history"]
-        with contextlib.redirect_stdout(io.StringIO()):
-            want = [r.generated for r in serve_main(serve)]
-        outs = {name: p.communicate(timeout=300)
-                for name, p in procs.items()}
+        mesh = make_mesh((1, 1), ("data", "model"), torch.device(device).type)
+        cfg = seamless_cfg()
+        lay = seamless_layout(cfg, mesh, SEAMLESS_BATCH, SEAMLESS_ENC,
+                              SEAMLESS_DEC, device)
+        sharder = lay["sharder"]
+        trained = run_trainer(
+            lambda: lay.pop("params"),
+            lambda p, b: ED.encdec_loss(p, lm.shard_lm_batch(b, sharder),
+                                        cfg, sharder=sharder,
+                                        backend="kernel"),
+            lambda s: seamless_batch(cfg, SEAMLESS_BATCH, SEAMLESS_ENC,
+                                     SEAMLESS_DEC, s, device),
+            flash_attention_fwd,
+            tokens=SEAMLESS_BATCH * (SEAMLESS_ENC + SEAMLESS_DEC),
+            n_steps=SEAMLESS_STEPS,
+            n_layers=cfg.n_enc_layers + cfg.n_dec_layers, route="sm90",
+            device=device, sharder=sharder,
+            launches_per_step=2 * (cfg.n_enc_layers + 2 * cfg.n_dec_layers))
+        want = {k: [c * SEAMLESS_STEPS, b * SEAMLESS_STEPS]
+                for k, (c, b) in lay["contract"].items()}
+        got = {k: [trained["collectives"][k], trained["volume"][k]]
+               for k in sorted(trained["collectives"])}
+        met, ref = trained["metrics"], phase_c["metrics"]
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(met["losses"], ref["losses"]))
+        same = met["losses"] == ref["losses"]
+        agree = "bit-equal" if same else f"worst |delta| / |loss| {rel:.3e}"
+        log_t(f"  training under {SEAMLESS_PLAN}: calls [count, bytes] {got}; "
+              f"the contract {want}; losses {met['losses']} against (c)'s "
+              f"{ref['losses']}: {agree} (grad norms {met['grad_norms']} "
+              f"against {ref['grad_norms']}); step (median) "
+              f"{met['step_ms_median']:.2f} ms against "
+              f"{ref['step_ms_median']:.2f} ms; peak "
+              f"{met['peak_memory_gb']:.2f} GB against "
+              f"{ref['peak_memory_gb']:.2f} GB")
+        if got != want or not rel <= DSP_LOSS_BAR:
+            raise AssertionError(f"seamless under {SEAMLESS_PLAN}: calls "
+                                 f"{got}, the contract says {want}; losses "
+                                 f"{met['losses']} against {ref['losses']}")
+        del lay
+        free_device()
+        seamless_rank_ref(work, device)
     finally:
-        for p in procs.values():
+        dist.destroy_process_group()
+    trained["bit_equal"] = same
+    return trained
+
+
+def seamless_rank_cfg():
+    """(e)'s model: seamless at depth SEAMLESS_RANK_DEPTH +
+    SEAMLESS_RANK_DEPTH in float32 (in bf16 each rank's partial grads
+    round to 8 bits before the sums, far past the 1e-4 bar)."""
+    return seamless_cfg(SEAMLESS_RANK_DEPTH, torch.float32)
+
+
+def seamless_rank_batch(cfg, device="cuda") -> dict:
+    return seamless_batch(cfg, SEAMLESS_RANK_BATCH, SEAMLESS_RANK_ENC,
+                          SEAMLESS_RANK_DEC, 0, device)
+
+
+@contextlib.contextmanager
+def relu_held(held: dict, seen: dict):
+    """While open, ``layers.mlp`` (seamless's ReLU MLP) computes the same
+    function with the ReLU's gradient 0 on the entries ``held`` marks: a
+    bool mask of the pre-activations (B, S, d_ff) in the call's own
+    layout (on a mesh the rank's shard), keyed by the input's sequence
+    length S (the encoder's frames and the decoder's tokens, which differ
+    in (e)).  Each length's first pre-activations (the forward's; a
+    checkpoint's recompute comes later) go into ``seen``."""
+    inner = L.mlp
+
+    def mlp(p, x, kind="silu_glu"):
+        if kind != "relu":
+            raise ValueError(f"relu_held holds a ReLU MLP, not {kind}")
+        pre = L.linear(p["wi"], x)
+        seen.setdefault(x.shape[1], pre.detach())
+        act = F.relu(pre)
+        if x.shape[1] in held:
+            act = torch.where(held[x.shape[1]], act.detach(), act)
+        return L.linear(p["wo"], act)
+    L.mlp = mlp
+    try:
+        yield
+    finally:
+        L.mlp = inner
+
+
+def seamless_rank_ref(work: str, device="cuda") -> None:
+    """(e)'s reference on one rank without a mesh, on
+    ``seamless_rank_batch``: the forward's ReLU pre-activations of
+    ``seamless_rank_cfg`` (the encoder's and the decoder's), the entries
+    within SEAMLESS_HELD_TAU of the layer's RMS of 0, and the loss and
+    grads with the ReLU's gradient held at 0 there (``relu_held``), in
+    ``work/seamless_ref.pt``."""
+    cfg = seamless_rank_cfg()
+    params = ED.init_encdec(0, cfg, device=device)
+    batch = seamless_rank_batch(cfg, device)
+    lengths = {"enc": SEAMLESS_RANK_ENC, "dec": SEAMLESS_RANK_DEC}
+    seen = {}
+    with torch.no_grad(), relu_held({}, seen):
+        ED.encdec_loss(params, batch, cfg, backend="kernel")
+    pre = {k: seen[n] for k, n in lengths.items()}
+    tau = {k: SEAMLESS_HELD_TAU * float(v.square().mean().sqrt())
+           for k, v in pre.items()}
+    held = {k: pre[k].abs() <= tau[k] for k in lengths}
+    leaves = lm.tree_map(lambda p: p.requires_grad_(True), params)
+    with relu_held({n: held[k] for k, n in lengths.items()}, {}):
+        loss, _ = ED.encdec_loss(leaves, batch, cfg, backend="kernel")
+        grads = torch.autograd.grad(loss, lm.tree_leaves(leaves))
+    torch.save({"loss": loss.detach().cpu(),
+                "grads": [g.cpu() for g in grads], "tau": tau,
+                "pre": {k: v.cpu() for k, v in pre.items()},
+                "held": {k: v.cpu() for k, v in held.items()}},
+               os.path.join(work, "seamless_ref.pt"))
+    counts = {k: [int(v.sum()), v.numel(), tau[k]] for k, v in held.items()}
+    log_t(f"  (e)'s reference: depth {cfg.n_enc_layers} + {cfg.n_dec_layers} "
+          f"in float32, {SEAMLESS_RANK_BATCH} x ({SEAMLESS_RANK_ENC} frames, "
+          f"{SEAMLESS_RANK_DEC} tokens): loss {float(loss.detach()):.6f}; "
+          f"ReLU entries held [count, of all, tau]: {counts}; "
+          f"{os.path.getsize(os.path.join(work, 'seamless_ref.pt')) / 1e9:.2f}"
+          f" GB written")
+    del params, leaves, grads, seen, pre, held
+    free_device()
+
+
+def relu_signs(seen: dict, mine: dict, lengths: dict) -> dict:
+    """(e)'s ReLUs on this rank against the reference's same entries
+    (``mine``: the rank's shard of its ``pre`` and ``held``): the sign
+    changes outside and inside the held entries, summed over the world,
+    and the largest |pre-activation delta| over the world, by layer."""
+    out = {}
+    for k, n in lengths.items():
+        got, want = seen[n], mine[f"pre_{k}"]
+        flip = (got > 0) != (want > 0)
+        held = mine[f"held_{k}"]
+        counts = torch.stack([(flip & ~held).sum(), (flip & held).sum()])
+        delta = (got - want).abs().max().reshape(1).double()
+        dist.all_reduce(counts)
+        dist.all_reduce(delta, op=dist.ReduceOp.MAX)
+        out[k] = {"outside": int(counts[0]), "inside": int(counts[1]),
+                  "delta": float(delta)}
+    return out
+
+
+def seamless_rank_main(rank: int, world: int, work: str) -> None:
+    """One of (e)'s ranks, started by ``seamless_four_ranks`` as
+    ``chip_smoke.py --seamless-rank <rank> <world> <dir>``: gloo over the
+    card's tensors.  At each mesh of SEAMLESS_RANK_MESHES:
+    ``seamless_rank_cfg`` on its slices under SEAMLESS_PLAN (the ranks cut
+    theirs in turn), one ``encdec_loss(sharder=)`` on its shard of
+    ``seamless_rank_batch`` (its batch slice, its shard of both
+    sequences), its grads summed by ``allreduce_grads`` and the clip's
+    norm, what it counted, its peak memory, each grad slice against the
+    same slice of (d)'s reference.  Written to
+    ``<dir>/seamless_rank<r>.json``; every rank waits at a barrier, then
+    leaves the group."""
+    device = json.load(open(os.path.join(work, "job26.json")))["device"]
+    full_f32()
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(work, "store26e"), world), rank=rank, world_size=world)
+    try:
+        cfg = seamless_rank_cfg()
+        ref = torch.load(os.path.join(work, "seamless_ref.pt"), mmap=True)
+        res = {}
+        for shape in SEAMLESS_RANK_MESHES:
+            label = f"{shape[0]}x{shape[1]}"
+            mesh = make_mesh(shape, ("data", "model"),
+                             torch.device(device).type, backend="gloo")
+            ctx = from_mesh(mesh)
+            lay = in_turn(rank, world, lambda: seamless_layout(
+                cfg, mesh, SEAMLESS_RANK_BATCH, SEAMLESS_RANK_ENC,
+                SEAMLESS_RANK_DEC, device))
+            specs, sharder = lay["specs"], lay["sharder"]
+            leaves = lm.tree_map(lambda p: p.requires_grad_(True),
+                                 lay.pop("params"))
+            batch = lm.shard_lm_batch(seamless_rank_batch(cfg, device),
+                                      sharder)
+            mine = lm.shard_lm_batch(
+                {f"{a}_{k}": ref[a][k].to(device) for a in ("pre", "held")
+                 for k in ("enc", "dec")}, sharder)
+            lengths = {"enc": batch["feats"].shape[1],
+                       "dec": batch["tokens"].shape[1]}
+            assert lengths["enc"] != lengths["dec"], lengths
+            seen = {}
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            with relu_held({n: mine[f"held_{k}"]
+                            for k, n in lengths.items()}, seen):
+                loss, _ = ED.encdec_loss(leaves, batch, cfg, sharder=sharder,
+                                         backend="kernel")
+                grads = iter(torch.autograd.grad(loss,
+                                                 lm.tree_leaves(leaves)))
+            loss, grads = allreduce_grads(loss.detach(), lm.tree_map(
+                lambda p: next(grads), leaves), specs, ctx)
+            slices_norm(grads, specs, ctx)
+            got = read_counts()
+            got.update(seconds=time.perf_counter() - t0,
+                       coord=[ctx.dp_index, ctx.sp_index],
+                       contract=lay["contract"],
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            leaves_g = lm.tree_leaves(grads)
+            cuts = [tuple(slice(a, b) for a, b in slice_index(
+                w.shape, spec, ctx)) for w, spec in zip(
+                    ref["grads"], lm.tree_leaves(specs))]
+            gaps = torch.tensor([slice_gap(g, w[c]) for g, w, c in zip(
+                leaves_g, ref["grads"], cuts)], dtype=torch.float64)
+            dist.all_reduce(gaps, op=dist.ReduceOp.MAX)
+            paths = leaf_paths(specs)
+            relu = relu_signs(seen, mine, lengths)
+            sq = torch.tensor([slice_sq(g, w[c]) for g, w, c in zip(
+                leaves_g, ref["grads"], cuts)], dtype=torch.float64)
+            dist.all_reduce(sq)
+            frob = (sq[:, 0] / sq[:, 1].clamp_min(1e-300)).sqrt().tolist()
+            shares = (gaps[:, 0] / gaps[:, 1].clamp_min(1e-30)).tolist()
+            # the cross-attention's K bias has a zero gradient in exact
+            # arithmetic (no rope; the softmax is invariant to a shift
+            # along the keys): its rounding noise against the largest grad
+            top = float(gaps[:, 1].max())
+            for i, p in enumerate(paths):
+                if p.endswith(SEAMLESS_ZERO_GRAD):
+                    shares[i] = float(gaps[i, 0]) / top
+            order = np.argsort(shares)[::-1]
+            by_norm = [i for i in np.argsort(frob)[::-1]
+                       if not paths[i].endswith(SEAMLESS_ZERO_GRAD)]
+            got.update(
+                loss=float(loss), loss_rel=float(
+                    (loss.cpu() - ref["loss"]).abs() / ref["loss"].abs()),
+                grad_rel=shares[order[0]], leaves=len(shares),
+                leaf=paths[order[0]],
+                next=[[paths[i], shares[i]] for i in order[1:5]],
+                norm_rel=[[paths[i], frob[i]] for i in by_norm[:5]],
+                relu=relu, tau=ref["tau"], host_gib=host_state())
+            res[label] = got
+            del leaves, grads, lay, seen, mine
+            host_empty_cache()
+            torch.cuda.empty_cache()
+        json.dump(res, open(os.path.join(work, f"seamless_rank{rank}.json"),
+                            "w"))
+    finally:
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def seamless_four_ranks(work: str, device="cuda") -> dict:
+    """(e) DSP_RANKS processes sharing the card over gloo
+    (``seamless_rank_main``), ``seamless_rank_cfg`` in float32 at each
+    mesh of SEAMLESS_RANK_MESHES under SEAMLESS_PLAN: the loss within
+    SEAMLESS_LOSS_BAR relative of (d)'s one-rank reference, each rank's
+    grad slices within SEAMLESS_GRAD_BAR of their leaf's max, both runs
+    with the ReLU's gradient held at 0 on the same entries (``relu_held``)
+    and no pre-activation outside them changed in sign, each rank's
+    calls and bytes exactly ``seamless_contract``, K1 twice per attention
+    on ``cuda_cores`` (f32) on the rank's heads."""
+    with open(os.path.join(work, "job26.json"), "w") as f:
+        json.dump({"device": device}, f)
+    t0 = time.perf_counter()
+    procs = spawn_ranks("--seamless-rank", work)
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    seconds = time.perf_counter() - t0
-    out, err = outs["train"]
-    lines = [l for l in out.splitlines() if l.startswith("loss ")]
-    plans = {l for l in out.splitlines() if l.startswith("plan ")}
-    one = f"loss {hist[0][1]:.4f} -> {hist[-1][1]:.4f}"
-    log_t(f"  train: exit {procs['train'].returncode}; {sorted(plans)}; "
-          f"{lines[:1]} on each of {len(lines)} ranks; one rank: {one}")
-    if (procs["train"].returncode or lines != [one] * DSP_RANKS
-            or plans != {f"plan {TP_PLAN}"}):
-        raise AssertionError(f"train CLI under torchrun: "
-                             f"{out[-2000:]}{err[-3000:]}")
-    out, err = outs["serve"]
-    got = [json.loads(m) for m in re.findall(r"s: (\[[^\]]*\])", out)]
-    log_t(f"  serve --mode tp --continuous: exit "
-          f"{procs['serve'].returncode}; "
-          f"{out.splitlines()[0] if out else ''}; tokens equal to one "
-          f"rank's: {got == want}; both launches in {seconds:.1f} s")
-    if (procs["serve"].returncode or got != want
-            or "KV pool sequence-sharded over 4-way" not in out):
-        raise AssertionError(f"serve CLI --mode tp under torchrun: "
-                             f"{out[-2000:]}{err[-3000:]}")
+    log_t(f"  {DSP_RANKS} ranks exited {rcs} after "
+          f"{time.perf_counter() - t0:.1f} s")
+    if any(rcs):
+        raise AssertionError(f"a seamless rank failed: exit codes {rcs}")
+    ranks = [json.load(open(os.path.join(work, f"seamless_rank{r}.json")))
+             for r in range(DSP_RANKS)]
+    cfg = seamless_rank_cfg()
+    route = ROUTES[(cfg.dtype, cfg.head_dim)]
+    k1 = 2 * (cfg.n_enc_layers + 2 * cfg.n_dec_layers)
+    for shape in SEAMLESS_RANK_MESHES:
+        label = f"{shape[0]}x{shape[1]}"
+        g = ranks[0][label]
+        relu = {k: [v["outside"], v["inside"], v["delta"], g["tau"][k]]
+                for k, v in g["relu"].items()}
+        log_t(f"  {label}: depth {cfg.n_enc_layers} + {cfg.n_dec_layers} in "
+              f"float32, {SEAMLESS_RANK_BATCH} x ({SEAMLESS_RANK_ENC} frames, "
+              f"{SEAMLESS_RANK_DEC} tokens): loss {g['loss']:.9f}, |delta| / "
+              f"|loss| against one rank {g['loss_rel']:.3e}, worst grad slice "
+              f"{g['leaf']} {g['grad_rel']:.3e} of its leaf's max over "
+              f"{g['leaves']} leaves (next {g['next']}); by norm "
+              f"{g['norm_rel']}; ReLU pre-activations against one rank's "
+              f"[sign changes outside the held entries, inside them, the "
+              f"largest |delta|, tau]: {relu}")
+        if any(v["outside"] for v in g["relu"].values()):
+            raise AssertionError(f"{label}: a ReLU pre-activation changed "
+                                 f"sign outside the held entries: "
+                                 f"{g['relu']}")
+        if not g["grad_rel"] <= SEAMLESS_GRAD_BAR:
+            raise AssertionError(f"{label}: the {DSP_RANKS}-rank grads "
+                                 f"disagree with one rank: {g}")
+        for r, res in enumerate(ranks):
+            got = res[label]
+            log_t(f"  rank {r} (data {got['coord'][0]}, model "
+                  f"{got['coord'][1]}): {got['seconds']:.1f} s, peak "
+                  f"{got['peak_gb']:.2f} GB, calls {got['calls']}, K1 "
+                  f"{got['k1']} {got['k1_routes']} {got['k1_dims']}; host "
+                  f"GiB {got['host_gib']}")
+            if not (got["loss_rel"] <= SEAMLESS_LOSS_BAR
+                    and got["calls"] == got["contract"]
+                    and got["k1"] == k1 and got["k1_routes"] == {route: k1}):
+                raise AssertionError(f"rank {r} {label}: {got}, {k1} K1 "
+                                     f"launches on {route} expected")
+    return {"ranks": ranks}
+
+
+def seamless_phase(work: str, device="cuda") -> dict:
+    """Phase 26, (a) to (e); (e)'s train CLI runs in phase 27."""
+    out = {}
+    log("  (a) depth 2 + 2, kernel against plain")
+    out["checks"] = seamless_checks(device)
+    log(f"  (b) serving at full width and depth ({elapsed()})")
+    out["serve"] = seamless_serve(device)
+    log(f"  (c) training at full width and depth, {SEAMLESS_STEPS} steps at "
+        f"{SEAMLESS_BATCH} x ({SEAMLESS_ENC} frames, {SEAMLESS_DEC} tokens) "
+        f"({elapsed()})")
+    out["train"] = seamless_train(device)
+    log(f"  (d) world size 1 over NCCL under {SEAMLESS_PLAN} ({elapsed()})")
+    out["dsp"] = seamless_world_of_one(out["train"], work, device)
+    log(f"  (e) {DSP_RANKS} ranks on the card over gloo, depth "
+        f"{SEAMLESS_RANK_DEPTH} + {SEAMLESS_RANK_DEPTH} in float32 "
+        f"({elapsed()})")
+    out["ranks"] = seamless_four_ranks(work, device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The 4-rank phases' processes
+# ---------------------------------------------------------------------------
+
+# the flags whose ranks run with expandable segments: 4 caching allocators
+# share the card, and expandable segments let each give back what it frees
+EXPANDABLE = ("--zero-rank", "--ckpt-rank", "--serve-rank", "--paged-rank",
+              "--t2d-zero-rank", "--moe-rank", "--tp-rank", "--seamless-rank")
+# (flag, work) -> the rank processes ``prespawn`` started, not yet released
+_READY: dict = {}
+
+
+def _start_ranks(flag: str, work: str) -> list:
+    env = (dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+           if flag in EXPANDABLE else None)
+    return [subprocess.Popen([sys.executable, os.path.abspath(__file__), flag,
+                              str(r), str(DSP_RANKS), work], env=env)
+            for r in range(DSP_RANKS)]
+
+
+def prespawn(flag: str, work: str) -> None:
+    """Start a phase's DSP_RANKS rank processes (this script with
+    ``flag`` on ``work``) at the top of the phase: each imports the port,
+    then waits for ``spawn_ranks`` to release it (``wait_for_go``), so
+    that the ~8 s of imports overlap the phase's world-1 part."""
+    _READY[(flag, work)] = _start_ranks(flag, work)
+
+
+def spawn_ranks(flag: str, work: str) -> list:
+    """The phase's rank processes, released to their work: those that
+    ``prespawn`` started, or new ones."""
+    open(os.path.join(work, "go" + flag), "w").close()
+    procs = _READY.pop((flag, work), None)
+    return procs if procs is not None else _start_ranks(flag, work)
+
+
+def wait_for_go(flag: str, work: str) -> None:
+    """A rank process: wait until ``spawn_ranks`` releases the ranks of
+    ``flag``, or leave when its phase has ended without them (``work``
+    removed)."""
+    go = os.path.join(work, "go" + flag)
+    while not os.path.exists(go):
+        if not os.path.isdir(work):
+            raise SystemExit(1)
+        time.sleep(0.05)
+
+
+def stop_ready() -> None:
+    """Stop the rank processes that no phase released."""
+    for procs in _READY.values():
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    _READY.clear()
+
+
+# ---------------------------------------------------------------------------
+# Phase 27: the CLIs under torchrun, side by side
+# ---------------------------------------------------------------------------
+
+def cli_launches() -> dict:
+    """Start every CLI that phases 19, 20, 23, 25 and 26 run under
+    ``torchrun --standalone --nproc-per-node`` DSP_RANKS on the card, gloo
+    over its tensors, all at once, each in a temporary directory of its
+    own: {name: (Popen, start time, directory)}.  Each launch spends most
+    of its time starting its ranks, so side by side they take about one
+    launch's time."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    dsp_serve = ["--mode", "dsp", "--backend", "gloo"]
+    mesh = ["--mesh", f"1,{DSP_RANKS}", "--backend", "gloo", "--steps", "3"]
+    cmds = {
+        "19c/continuous": ("serve", SERVE_CLI + dsp_serve + SERVE_CLI_CONT),
+        "19c/replan": ("serve", SERVE_CLI + dsp_serve + ["--replan", "2"]),
+        "20c/paged": ("serve", PAGED_CLI + dsp_serve),
+        "23c/train": ("train", ["--arch", "qwen2-moe-a2.7b", *mesh]),
+        "25c/train": ("train", ["--arch", "mistral-large-123b", *mesh]),
+        "25c/serve": ("serve", TP_SERVE_CLI + ["--mode", "tp", "--backend",
+                                               "gloo"]),
+        "26e/train": ("train", ["--arch", "seamless-m4t-large-v2", *mesh])}
+    out = {}
+    for name, (cli, args) in cmds.items():
+        work = tempfile.mkdtemp()
+        out[name] = (subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(DSP_RANKS), "-m",
+             f"repro_torch.launch.{cli}", *args], cwd=work, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+            time.perf_counter(), work)
+    return out
+
+
+def finish(launch) -> tuple:
+    """(exit code, stdout, stderr, seconds since its start) of a launch of
+    ``cli_launches``, waited for."""
+    proc, t0, _ = launch
+    out, err = proc.communicate(timeout=600)
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+def close_launches(launched: dict) -> None:
+    """Kill what is still running of ``cli_launches``' launches and remove
+    their directories."""
+    for proc, _, work in launched.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def library_attention(case, compile: bool = True):
@@ -5898,7 +6660,8 @@ def library_attention(case, compile: bool = True):
     return fn
 
 
-def time_model_attention(name: str, case=None) -> dict:
+def time_model_attention(name: str, case=None,
+                         cuda_cores: bool = False) -> dict:
     """K1 at ``name``'s prefill shape (MODEL_ATTN, or ``case``) in bf16 on
     its route,
     and one library call for the same function: ``scaled_dot_product_
@@ -5915,7 +6678,7 @@ def time_model_attention(name: str, case=None) -> dict:
     plain = flash_attention_plain(q, k, v, **kw)
     if case[8] is None and case[7] is None:
         library = "scaled_dot_product_attention"
-        fns["library"] = lambda: sdpa(q, k, v)
+        fns["library"] = lambda: sdpa(q, k, v, causal=case[6])
     else:
         library = "flex_attention (torch.compile)"
         flex = library_attention(case)
@@ -5937,17 +6700,22 @@ def time_model_attention(name: str, case=None) -> dict:
     med = {w: float(np.median(r)) for w, r in runs.items()}
     plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, **kw), iters=2,
                        warmup=1)
+    cores_ms = (time_ms(lambda: flash_attention_fwd(
+        q, k, v, route="cuda_cores", **kw), iters=3, warmup=1)
+        if cuda_cores else None)
     bound = attention_bound_ms(case, torch.bfloat16)
     log_t(f"  {name} {case[:6]} window {case[7]} softcap {case[8]}: kernel "
           f"({route}) {med[route]:.4f} ms (runs {runs[route]})  plain "
           f"{plain_ms:.4f} ms  {library} {med['library']:.4f} ms (runs "
           f"{runs['library']})  bound {bound['bound_ms']:.4f} ms "
           f"({bound['bound_by']}; the kernel at "
-          f"{100 * bound['bound_ms'] / med[route]:.1f}% of the bound)")
+          f"{100 * bound['bound_ms'] / med[route]:.1f}% of the bound)"
+          + (f"; cuda_cores kernel {cores_ms:.4f} ms" if cuda_cores else ""))
     del q, k, v
     torch.cuda.empty_cache()
     return {"shape": list(case[:6]), "window": case[7], "softcap": case[8],
             "route": route, "ms": med[route], "plain_ms": plain_ms,
+            "cuda_cores_ms": cores_ms, "causal": case[6],
             "library": library, "library_ms": med["library"],
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
 
@@ -6214,6 +6982,11 @@ def main() -> None:
                for i, (name, case) in enumerate(TP_ATTN.items())}
     for i, case in enumerate(TP_RANK_ATTN):
         check_attention(case, torch.float32, seed=490 + i)
+    seamless_errs = {name: check_attention(case, torch.bfloat16,
+                                           seed=500 + i)
+                     for i, (name, case) in enumerate(SEAMLESS_ATTN.items())}
+    for i, case in enumerate(SEAMLESS_RANK_ATTN):
+        check_attention(case, torch.float32, seed=510 + i)
 
     log(f"[4] timing at the slice's shape, bf16 ({elapsed()})")
     q, k, v = attn_inputs(SLICE, torch.bfloat16, seed=7)
@@ -6274,6 +7047,11 @@ def main() -> None:
     tp_times = {name: {**time_model_attention(name, TP_ATTN[name]),
                        "max_abs_err": tp_errs[name]}
                 for name in TP_ATTN}
+    seamless_times = {
+        name: {**time_model_attention(name, SEAMLESS_ATTN[name],
+                                      cuda_cores=True),
+               "max_abs_err": seamless_errs[name]}
+        for name in SEAMLESS_ATTN}
 
     log(f"[5] qwen3-14b serving at full width ({elapsed()})")
     cfg = qwen3_14b.CONFIG
@@ -6325,6 +7103,7 @@ def main() -> None:
 
     log(f"[13] transformer2d-720m under DSP ({elapsed()})")
     with tempfile.TemporaryDirectory() as work:
+        prespawn("--dsp-rank", work)
         log("  (a) world size 1 over NCCL, full width and depth")
         dsp_trained = dsp_world_of_one(dcfg, dit_trained, work)
         log(f"  (b) {DSP_RANKS} ranks on the card over gloo "
@@ -6336,6 +7115,7 @@ def main() -> None:
         f"overlapped switch ({elapsed()})")
     spcfg = dataclasses.replace(dcfg, n_layers=SP_DEPTH)
     with tempfile.TemporaryDirectory() as work:
+        prespawn("--sp-rank", work)
         log(f"  (a) world size 1 over NCCL, full width, depth {SP_DEPTH}")
         sp = sp_world_of_one(spcfg, work)
         log(f"  (b) {DSP_RANKS} ranks on the card over gloo ({elapsed()})")
@@ -6346,6 +7126,7 @@ def main() -> None:
     log(f"[15] transformer2d-720m on dim pairs, forward2d over the "
         f"(sp_out, sp_in) grid ({elapsed()})")
     with tempfile.TemporaryDirectory() as work:
+        prespawn("--l2d-rank", work)
         log("  (a) world size 1 over NCCL, grid (1, 1), full width")
         l2d = l2d_world_of_one(dcfg, work)
         log(f"  (b) {DSP_RANKS} ranks on the card over gloo at grids "
@@ -6357,6 +7138,7 @@ def main() -> None:
     log(f"[16] qwen3-14b and mamba2-370m under DSP, the Sharder's hooks on "
         f"a (data, model) mesh ({elapsed()})")
     with tempfile.TemporaryDirectory() as work:
+        prespawn("--lm-rank", work)
         log("  (a) world size 1 over NCCL, full width")
         lm_dsp = lm_world_of_one({"qwen3-14b": q_trained,
                                   "mamba2-370m": trained}, work)
@@ -6368,6 +7150,7 @@ def main() -> None:
     log(f"[17] qwen3-14b and mamba2-370m under their specs' own plans, "
         f"ZeRO-3 over (data, model) and the vocab ring ({elapsed()})")
     with tempfile.TemporaryDirectory() as work:
+        prespawn("--zero-rank", work)
         log("  (a) world size 1 over NCCL, full width")
         lm_zero = zero_world_of_one(lm_dsp, work)
         log(f"  (b) {DSP_RANKS} ranks on the card over gloo ({elapsed()})")
@@ -6379,6 +7162,7 @@ def main() -> None:
         f"resharding and replan ({elapsed()})")
     t18 = time.perf_counter()
     with tempfile.TemporaryDirectory() as work:
+        prespawn("--ckpt-rank", work)
         log("  (a) world size 1 over NCCL, full width and depth")
         m_ckpt = ckpt_world_of_one(work)
         log(f"  (b) {DSP_RANKS} ranks on the card over gloo ({elapsed()})")
@@ -6392,14 +7176,12 @@ def main() -> None:
         f"sequence-sharded, the SSM state head-sharded ({elapsed()})")
     t19 = time.perf_counter()
     with tempfile.TemporaryDirectory() as work:
+        prespawn("--serve-rank", work)
         log("  (a) world size 1 over NCCL, full width and depth")
         sv = serve_world_of_one({"qwen3-14b": served,
                                  "mamba2-370m": m_served}, work)
         log(f"  (b) {DSP_RANKS} ranks on the card over gloo ({elapsed()})")
         serve_ranks = serve_four_ranks(work)
-        log(f"  (c) the serve CLI under torchrun at SMOKE size "
-            f"({elapsed()})")
-        serve_cli_ranks(serve_main, work)
     q_sv, m_sv = sv["qwen3-14b"], sv["mamba2-370m"]
     log_t(f"  done: phase 19 took {time.perf_counter() - t19:.1f} s "
           f"({elapsed()})")
@@ -6408,13 +7190,12 @@ def main() -> None:
         f"({elapsed()})")
     t20 = time.perf_counter()
     with tempfile.TemporaryDirectory() as work:
+        prespawn("--paged-rank", work)
         log("  (a) one card, plan none, full width and depth")
         paged = paged_world_of_one()
         log(f"  (b) {DSP_RANKS} ranks on the card over gloo, depth "
             f"{PAGED_RANK_DEPTH} ({elapsed()})")
         paged_ranks = paged_four_ranks(work)
-        log(f"  (c) the serve CLI --paged at SMOKE size ({elapsed()})")
-        paged_clis(serve_main, work)
     log_t(f"  done: phase 20 took {time.perf_counter() - t20:.1f} s "
           f"({elapsed()})")
 
@@ -6422,6 +7203,7 @@ def main() -> None:
         f"(data, model) ({elapsed()})")
     t21 = time.perf_counter()
     with tempfile.TemporaryDirectory() as work:
+        prespawn("--t2d-zero-rank", work)
         log("  (a) world size 1 over NCCL, full width and depth")
         t2d_zero = t2d_zero_world_of_one(dcfg, dsp_trained, work)
         log(f"  (b) {DSP_RANKS} ranks on the card over gloo, depth "
@@ -6442,15 +7224,13 @@ def main() -> None:
         f"DSP on a (data, model) mesh ({elapsed()})")
     t23 = time.perf_counter()
     with tempfile.TemporaryDirectory() as work:
+        prespawn("--moe-rank", work)
         log("  (a) world size 1 over NCCL, full width, depth "
             f"{MOE_TRAIN_DEPTH}")
         moe_dsp = moe_world_of_one(m22, work)
         log(f"  (b) {DSP_RANKS} ranks on the card over gloo, depth "
             f"{MOE_RANK_DEPTH} in float32 ({elapsed()})")
         moe_ranks = moe_four_ranks(work)
-        log(f"  (c) the train CLI under torchrun at SMOKE size "
-            f"({elapsed()})")
-        moe_cli_ranks(work, train_main)
     log_t(f"  done: phase 23 took {time.perf_counter() - t23:.1f} s "
           f"({elapsed()})")
 
@@ -6466,6 +7246,7 @@ def main() -> None:
         f"({elapsed()})")
     t25 = time.perf_counter()
     with tempfile.TemporaryDirectory() as work:
+        prespawn("--tp-rank", work)
         log(f"  (a) world size 1 over NCCL, full width, depth "
             f"{MISTRAL_TRAIN_DEPTH} (training) and {MISTRAL_SERVE_DEPTH} "
             f"(serving)")
@@ -6473,14 +7254,41 @@ def main() -> None:
         log(f"  (b) {DSP_RANKS} ranks on the card over gloo, depth "
             f"{TP_RANK_DEPTH} in float32 ({elapsed()})")
         tp_ranks = tp_four_ranks(work)
-        log(f"  (c) the CLIs under torchrun at SMOKE size ({elapsed()})")
-        tp_cli_ranks(work, train_main, serve_main)
     log_t(f"  done: phase 25 took {time.perf_counter() - t25:.1f} s "
+          f"({elapsed()})")
+
+    log(f"[26] seamless-m4t-large-v2, the enc-dec model: served and trained "
+        f"on one card, and under its spec's own plan on a (data, model) "
+        f"mesh ({elapsed()})")
+    t26 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        prespawn("--seamless-rank", work)
+        m26 = seamless_phase(work)
+    log_t(f"  done: phase 26 took {time.perf_counter() - t26:.1f} s "
+          f"({elapsed()})")
+
+    log(f"[27] the CLIs under torchrun at SMOKE size, side by side: phases "
+        f"19 (c), 20 (c), 23 (c), 25 (c) and 26 (e)'s ({elapsed()})")
+    t27 = time.perf_counter()
+    launched = cli_launches()
+    try:
+        serve_cli_ranks(serve_main, launched)
+        paged_clis(serve_main, launched)
+        train_cli_ranks("23c/train", launched, train_main,
+                        "qwen2-moe-a2.7b", MOE_PLAN)
+        train_cli_ranks("25c/train", launched, train_main,
+                        "mistral-large-123b", TP_PLAN)
+        tp_cli_ranks(launched, serve_main)
+        train_cli_ranks("26e/train", launched, train_main,
+                        "seamless-m4t-large-v2", SEAMLESS_PLAN)
+    finally:
+        close_launches(launched)
+    log_t(f"  done: phase 27 took {time.perf_counter() - t27:.1f} s "
           f"({elapsed()})")
     model_runs = [m22["starcoder2-7b"], m22["gemma2-2b"],
                   m22["qwen2-moe-a2.7b"], m22["qwen2-moe-a2.7b/train"],
                   moe_dsp, m24["serve"], m24["train"], m25["train"],
-                  m25["serve"]]
+                  m25["serve"], m26["serve"], m26["train"], m26["dsp"]]
 
     log(facts)
     print(json.dumps({"kernels": [{
@@ -6518,7 +7326,17 @@ def main() -> None:
                                            m25["train"], m25["serve"]])},
                    "mistral-large-123b/rank_launches": [
                        {label: r[label]["k1_routes"] for label in r}
-                       for r in tp_ranks["ranks"]]},
+                       for r in tp_ranks["ranks"]],
+                   **seamless_times,
+                   "seamless-m4t-large-v2/launches": {
+                       "serve": m26["serve"]["launches"],
+                       "train": m26["train"]["launches"],
+                       "dsp_train": m26["dsp"]["launches"],
+                       "routes": by_route([m26["serve"], m26["train"],
+                                           m26["dsp"]])},
+                   "seamless-m4t-large-v2/rank_launches": [
+                       {label: r[label]["k1_routes"] for label in r}
+                       for r in m26["ranks"]["ranks"]]},
         "paged_launches": paged["launches"],
         "paged_rank_launches": [r["k1_launches"]
                                 for r in paged_ranks["ranks"]],
@@ -6532,7 +7350,7 @@ def main() -> None:
         "lm_zero_launches": q_zero["launches"],
         "lm_zero_rank_launches": {
             label: [r[label]["k1_heads"] for r in zero_ranks["ranks"]]
-            for label in ("qwen3-14b/2x2", "qwen3-14b/1x4")},
+            for label in ("qwen3-14b/2x2",)},
         "max_abs_err": slice_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"], "library_ms": library_ms,
@@ -6582,6 +7400,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] and sys.argv[1].endswith("-rank"):
+        wait_for_go(sys.argv[1], sys.argv[4])
     if sys.argv[1:2] == ["--dsp-rank"]:
         dsp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif sys.argv[1:2] == ["--sp-rank"]:
@@ -6604,5 +7424,10 @@ if __name__ == "__main__":
         moe_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif sys.argv[1:2] == ["--tp-rank"]:
         tp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:2] == ["--seamless-rank"]:
+        seamless_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     else:
-        main()
+        try:
+            main()
+        finally:
+            stop_ready()

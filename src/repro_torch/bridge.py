@@ -1,7 +1,8 @@
 """Carry a JAX parameter tree into the port.
 
 The JAX package and the port share one tree layout (same keys, linears as
-(d_in, d_out), ``periods`` leaves stacked on a leading n_periods dim), so
+(d_in, d_out), ``periods`` leaves stacked on a leading n_periods dim, the
+enc-dec model's ``enc_periods``/``dec_periods`` on a leading layer dim), so
 crossing over is a leafwise copy with no transpose.  The caller converts
 the JAX tree to numpy first (``jax.tree_util.tree_map(np.asarray, ...)``);
 this module never imports JAX.

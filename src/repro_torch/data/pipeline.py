@@ -12,9 +12,12 @@ package's batches to both.  Tasks:
 * ``lm_random``: i.i.d. tokens and labels (throughput);
 * ``video``: latent video tensors and diffusion targets for transformer2d,
   x and target (batch, temporal, spatial, in_dim) from normals, t (batch,)
-  from a uniform draw, all float32.
+  from a uniform draw, all float32;
+* ``encdec``: audio-frame features and transcript tokens for the enc-dec
+  model, feats (batch, enc_seq, frontend_dim) float32 from normals,
+  tokens (batch, seq) and labels = (tokens + 1) mod V.
 
-The enc-dec and VLM tasks come with their model families.
+The VLM task comes with its model family.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-TASKS = ("lm_shift", "lm_random", "video")
+TASKS = ("lm_shift", "lm_random", "video", "encdec")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +42,9 @@ class DataConfig:
     temporal: int = 8
     spatial: int = 64
     in_dim: int = 16
+    # encdec
+    enc_seq: int = 512
+    frontend_dim: int = 80
 
 
 def _generator(step: int, device: torch.device) -> torch.Generator:
@@ -48,7 +54,8 @@ def _generator(step: int, device: torch.device) -> torch.Generator:
 def make_batch(cfg: DataConfig, step: int, *,
                device="cuda") -> Dict[str, torch.Tensor]:
     """{"tokens", "labels"}: (batch, seq) int64 on ``device``; for
-    ``video``, {"x", "t", "target"}."""
+    ``video``, {"x", "t", "target"}; for ``encdec``, {"feats", "tokens",
+    "labels"}."""
     if cfg.task not in TASKS:
         raise ValueError(f"task {cfg.task!r} not in {TASKS}")
     dev = resolve_device(device)
@@ -58,6 +65,13 @@ def make_batch(cfg: DataConfig, step: int, *,
         return {"x": torch.randn(shape, generator=gen, device=dev),
                 "t": torch.rand((cfg.batch,), generator=gen, device=dev),
                 "target": torch.randn(shape, generator=gen, device=dev)}
+    if cfg.task == "encdec":
+        feats = torch.randn((cfg.batch, cfg.enc_seq, cfg.frontend_dim),
+                            generator=gen, device=dev)
+        tokens = torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq),
+                               generator=gen, device=dev)
+        return {"feats": feats, "tokens": tokens,
+                "labels": (tokens + 1) % cfg.vocab}
     shape = (cfg.batch, cfg.seq)
     tokens = torch.randint(0, cfg.vocab, shape, generator=gen, device=dev)
     if cfg.task == "lm_random":
@@ -75,17 +89,24 @@ def batch_for_arch(spec, shape_name: str, *,
                    seq_override: Optional[int] = None, step: int = 0,
                    device="cuda") -> Dict[str, torch.Tensor]:
     """A concrete batch for an ArchSpec x one of its shapes: ``video`` at
-    the shape's temporal x spatial for the t2d family, ``lm_random`` for
-    the LM family."""
+    the shape's temporal x spatial for the t2d family, ``encdec`` at
+    S_enc = seq and S_dec = seq // 4 for the enc-dec family (JAX's
+    budget), ``lm_random`` for the LM family."""
     shp = spec.shapes()[shape_name]
     if spec.family == "t2d":
         cfg = DataConfig(task="video", batch=batch_override or shp["batch"],
                          temporal=shp["temporal"], spatial=shp["spatial"],
                          in_dim=spec.config.in_dim)
         return make_batch(cfg, step, device=device)
+    seq = seq_override or shp["seq"]
+    batch = batch_override or shp["batch"]
+    if spec.family == "encdec":
+        cfg = DataConfig(task="encdec", vocab=spec.config.vocab,
+                         seq=seq // 4, enc_seq=seq, batch=batch,
+                         frontend_dim=spec.config.frontend_dim)
+        return make_batch(cfg, step, device=device)
     if spec.family != "lm":
         raise NotImplementedError(f"{spec.family} batches: not yet ported")
-    cfg = DataConfig(task="lm_random", vocab=spec.config.vocab,
-                     seq=seq_override or shp["seq"],
-                     batch=batch_override or shp["batch"])
+    cfg = DataConfig(task="lm_random", vocab=spec.config.vocab, seq=seq,
+                     batch=batch)
     return make_batch(cfg, step, device=device)

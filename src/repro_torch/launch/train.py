@@ -62,6 +62,18 @@ whole sequence, gathered into each block and reduce-scattered out of it
         --arch mistral-large-123b --mesh 1,4
     ... plan ParallelPlan(mode='tp', ep=False, zero=True, shard_vocab=True)
 
+seamless-m4t-large-v2 (the enc-dec family) trains on ``encdec``
+batches of ``--seq`` audio frames and ``--seq // 2`` decoder tokens, as
+the JAX CLI does, and under ``--mesh`` its spec's plan (``dsp`` with
+ZeRO-3: each rank its shard of both sequences, cross-attention switching
+the decoder's shard to heads beside the encoder K/V's own switch):
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch seamless-m4t-large-v2 --mesh 1,4
+    ... plan ParallelPlan(mode='dsp', ep=False, zero=True, shard_vocab=True)
+
+It takes no ``--replan`` (ROADMAP queue 1 item 3.7).
+
 ``--grad-compress`` runs the summed grads through error-feedback int8
 compression.  ``--device`` defaults to ``cuda``.  The JAX CLI's
 ``--devices`` (simulated host devices) has no counterpart: ``torchrun
@@ -138,7 +150,34 @@ def main(argv=None):
         ctx = from_mesh(mesh)
         ran = f"{spec.plan}"
     sharder = elastic = param_specs = psched = None
-    if spec.family == "t2d":
+    if spec.family == "encdec" and args.replan:
+        raise SystemExit("--replan: the enc-dec family has no elastic "
+                         "resize yet (ROADMAP queue 1 item 3.7)")
+    if spec.family == "encdec":
+        from repro_torch.models import encdec as ED
+        from repro_torch.parallel.partition import make_sharder
+        params = ED.init_encdec(0, cfg, device=device)
+        s_enc, s_dec = args.seq, args.seq // 2
+        if mesh is not None:
+            specs = param_pspecs(params, spec.plan,
+                                 axis_sizes=mesh_sizes(ctx))
+            params = shard_params(params, specs, ctx)
+            sharder = make_sharder(mesh, spec.plan, schedule=ED.dsp_schedule(
+                cfg, mp, s_enc=s_enc, s_dec=s_dec, batch=args.batch,
+                joint=True), param_specs=specs)
+        dcfg = DataConfig(task="encdec", vocab=cfg.vocab, seq=s_dec,
+                          enc_seq=s_enc, batch=args.batch,
+                          frontend_dim=cfg.frontend_dim)
+
+        def loss_fn(p, b):
+            if sharder is None:
+                return ED.encdec_loss(p, b, cfg, backend="kernel")
+            return ED.encdec_loss(p, shard_lm_batch(b, sharder), cfg,
+                                  sharder=sharder, backend="kernel")
+
+        def make(step):
+            return make_batch(dcfg, step, device=device)
+    elif spec.family == "t2d":
         spatial = args.seq // 8 or 16
         params = t2d.init_t2d(0, cfg, device=device)
         if mesh is not None:

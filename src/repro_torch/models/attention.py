@@ -7,7 +7,9 @@ CUDA kernel on the card); decode attends over the cache with plain
 PyTorch (``_ref_decode``), as the JAX package does with jnp.
 ``attention_sp`` with a ``parallel.partition.Sharder`` on a mesh runs the
 DSP-1D attention of a sequence-sharded rank (the LM's training path and
-its sharded prefill).  Sharded decode (``attention(cache=, sharder=)``)
+its sharded prefill, and the enc-dec model's cross-attention, whose
+encoder K/V take a switch of their own).  Sharded decode
+(``attention(cache=, sharder=)``)
 keeps the KV cache sequence-sharded over ``model``: each rank writes the
 step's K/V where its block holds the position, attends its block and
 merges its softmax partial with the others' (``_sharded_decode``).
@@ -488,12 +490,20 @@ def attention_sp(p, x, cfg: AttnConfig, *, sharder=None,
     hook sits after ``wo``, where XLA moves it to).  ``return_kv`` also
     returns the decode-cache K/V (B, Hkv, S, D): on a mesh the rank's
     sequence shard, rotated at global positions, taken before the
-    switch."""
+    switch.
+
+    Cross-attention (``x_kv``, the encoder output (B, S_kv, C): on a mesh
+    the rank's shard of its own sequence) projects K/V from ``x_kv``
+    with no rope and no causal mask.  On a mesh q takes its own switch
+    and the K/V one stacked switch, as JAX's do where the two lengths
+    differ (JAX stacks all three where the rank's lengths are equal, and
+    so does this), and the core runs over the whole S x S_kv on the
+    rank's heads."""
     on_mesh = sharder is not None and sharder.ctx is not None
-    if on_mesh and x_kv is not None:
+    if on_mesh and sharder.tp and x_kv is not None:
         raise NotImplementedError(
-            "cross-attention under a mesh comes with the encoder-decoder "
-            "models (ROADMAP queue 1 item 7)")
+            "cross-attention under plan 'tp' is not ported (the enc-dec "
+            "model's spec runs dsp)")
     if on_mesh and sharder.tp:
         return _attention_tp(p, x, cfg, sharder, backend=backend,
                              causal=causal, return_kv=return_kv)
@@ -539,7 +549,7 @@ def attention_sp(p, x, cfg: AttnConfig, *, sharder=None,
                               backend=backend)
         src = "resid"
     else:
-        if fused_switch and h == hkv:
+        if fused_switch and h == hkv and s == k.shape[2]:
             qkv = sharder.heads_stacked(torch.stack([q, k, v]))   # ONE a2a
             q, k, v = qkv[0], qkv[1], qkv[2]
         elif fused_switch:

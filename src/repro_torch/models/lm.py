@@ -610,7 +610,10 @@ def shard_lm_batch(batch: Dict[str, torch.Tensor], sharder: Sharder):
     """The rank's shard of a global (B, S) batch, as every rank of the
     mesh draws the same one: its slice of the batch over the data dims,
     then its sequence chunk over ``model`` (``dsp.dsp_shard_batch``, the
-    paper's dataloader split); the batch itself without a mesh."""
+    paper's dataloader split); the batch itself without a mesh.  An
+    enc-dec batch splits the same way, each tensor on its own sequence:
+    ``feats`` (B, S_enc, F) on S_enc, ``tokens`` and ``labels`` on
+    S_dec."""
     ctx = sharder.ctx
     if ctx is None:
         return batch

@@ -38,11 +38,15 @@ as the LM's ``Sharder.whole`` and the 2D DiT's groups of block pairs
 read it), ``unshard_params`` gathers for checks, ``param_copies`` and
 ``reduce_axes`` tell the trainer how many ranks hold each leaf and over
 which dims its grad is still to be summed, and ``store_contract`` counts
-the calls and bytes the store adds to a training step.  ``make_sharder`` raises
+the calls and bytes the store adds to a training step.  Leaves under a
+stacked subtree (``STACKED``: the LM's and DiT's, and the enc-dec model's
+``enc_periods`` and ``dec_periods``, which JAX passes as
+``stacked_prefixes``; no tree holds keys of both) carry a leading period
+dim that no spec splits.  ``make_sharder`` raises
 ``NotImplementedError`` for what it does not run yet, naming the ROADMAP
-item (queue 1) that brings it.  JAX's inference ``tp_flat`` rules and its
-``stacked_prefixes`` option (enc-dec) come with their items; its
-``ffn_hidden``, which no JAX model calls, has no counterpart.
+item (queue 1) that brings it.  JAX's inference ``tp_flat`` rules come
+with their item; its ``ffn_hidden``, which no JAX model calls, has no
+counterpart.
 
 Plan ``tp`` (Megatron-SP) keeps the residual stream split by sequence
 over ``model`` and runs each attention and MLP block tensor-parallel:
@@ -218,8 +222,15 @@ def _leaf_spec(path: str, shape, plan: ParallelPlan, fsdp,
     return (None,) * nd
 
 
-# subtrees whose leaves carry a leading period (scan) dim
-STACKED = ("layers", "periods")
+# subtrees whose leaves carry a leading period (scan) dim: JAX's default
+# ``stacked_prefixes`` and the enc-dec model's
+STACKED = ("layers", "periods", "enc_periods", "dec_periods")
+
+
+def _stacked(path: str) -> bool:
+    """Whether the "/"-joined ``path`` lies under a ``STACKED`` subtree."""
+    return any(path.startswith(s + "/") or f"/{s}/" in path
+               for s in STACKED)
 
 
 def is_expert_leaf(path: str, ndim: int) -> bool:
@@ -258,9 +269,7 @@ def read_specs(specs, plan: ParallelPlan, path: Tuple[str, ...] = (), *,
 
     def one(path, spec):
         p = _path_str(path)
-        stacked = any(p.startswith(s + "/") or f"/{s}/" in p
-                      for s in STACKED)
-        nd = len(spec) - stacked
+        nd = len(spec) - _stacked(p)
         local = (plan.ep and is_expert_leaf(p, nd)) or (
             plan.mode == "tp" and is_tp_leaf(p, nd)
             and not (kv_whole and any(f"/{n}/" in f"/{p}"
@@ -276,9 +285,9 @@ def param_pspecs(params, plan: ParallelPlan, *,
     """The spec tree of ``params`` (nested dicts; leaves with a ``shape``,
     meta tensors included, at their GLOBAL shapes), by JAX's rules
     (``repro.parallel.partition.param_pspecs``).  Leaves under a
-    ``STACKED`` subtree carry a leading period dim; their base spec gets
-    a None prepended.  ``axis_sizes`` ({"data": 16, "model":
-    16}, the default: the production pod) drives the divisibility guard."""
+    ``STACKED`` subtree carry a leading period dim; their base spec gets a
+    None prepended.  ``axis_sizes`` ({"data": 16, "model": 16}, the default:
+    the production pod) drives the divisibility guard."""
     axis_sizes = axis_sizes or {"data": 16, "model": 16}
     if not plan.zero:
         fsdp = None
@@ -290,8 +299,7 @@ def param_pspecs(params, plan: ParallelPlan, *,
     def rule(path, leaf):
         s = _path_str(path)
         shape = tuple(leaf.shape) if hasattr(leaf, "shape") else None
-        if any(s.startswith(p + "/") or f"/{p}/" in s
-               for p in STACKED):
+        if _stacked(s):
             return (None,) + _leaf_spec(s, shape[1:], plan, fsdp, axis_sizes)
         return _leaf_spec(s, shape, plan, fsdp, axis_sizes)
 
@@ -721,8 +729,8 @@ class Sharder:
         gathered over the splits the model does not keep
         (``read_specs``: all but ``ep``'s experts and ``tp``'s columns and
         rows), where the model reads it; ``tree`` itself without a mesh or
-        specs.  Under ``periods`` ``tree`` is one period: the specs drop
-        their leading (period) entry."""
+        specs.  Under a ``STACKED`` subtree ``tree`` is one period: the
+        specs drop their leading (period) entry."""
         specs = self.param_specs
         if specs is not None:
             for k in path:
@@ -730,7 +738,7 @@ class Sharder:
             specs = read_specs(specs, self.plan, path,
                                kv_whole=self.kv_whole)
         return whole_params(tree, specs, self.ctx,
-                            stacked=path[:1] == ("periods",))
+                            stacked=bool(path) and path[0] in STACKED)
 
     # -- the one transition ----------------------------------------------------
     def _class(self, name: str) -> Optional[int]:
@@ -1071,6 +1079,7 @@ __all__ = ["ParallelPlan", "Sharder", "make_sharder", "null_sharder",
            "read_numels",
            "is_expert_leaf", "is_tp_leaf", "read_specs",
            "store_contract", "entry_axes", "split_axes", "reduce_axes",
+           "STACKED",
            "global_shape", "slice_index", "param_copies", "reshard",
            "KV_SEQ_DIM", "SLOT_DIM", "BLOCK_DIM", "is_kv_leaf",
            "cache_pspecs", "kv_block", "assert_kv_cache_on_mesh",

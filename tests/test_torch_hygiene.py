@@ -42,7 +42,9 @@ for want in ("repro_torch.serving.scheduler", "repro_torch.train.trainer",
              "repro_torch.models.moe", "repro_torch.configs.starcoder2_7b",
              "repro_torch.configs.gemma2_2b",
              "repro_torch.configs.qwen2_moe_a2_7b",
-             "repro_torch.configs.mistral_large_123b"):
+             "repro_torch.configs.mistral_large_123b",
+             "repro_torch.models.encdec",
+             "repro_torch.configs.seamless_m4t_large_v2"):
     assert want in mods, (want, mods)
 from repro_torch.core.schedule import ScheduleExecutor2D
 from repro_torch.models.transformer2d import (
@@ -85,7 +87,8 @@ assert not bad, bad
                                     "_torch_paged_worker.py",
                                     "_torch_t2d_zero_worker.py",
                                     "_torch_moe_ep_worker.py",
-                                    "_torch_tp_worker.py"])
+                                    "_torch_tp_worker.py",
+                                    "_torch_encdec_worker.py"])
 def test_gloo_workers_import_no_jax_and_no_repro(worker):
     """The port's side of each multi-process check (a gloo rank) loads, with
     the helpers it shares with its JAX side, nothing of JAX or of the JAX

@@ -292,7 +292,7 @@ def test_make_batch(task):
     else:
         assert shifted < 0.1
     with pytest.raises(ValueError):
-        make_batch(dataclasses.replace(cfg, task="encdec"), 0, device="cpu")
+        make_batch(dataclasses.replace(cfg, task="vlm"), 0, device="cpu")
 
 
 def test_trainer_rejects_what_is_not_ported(tmp_path):
