@@ -48,7 +48,11 @@ Phases, in order; any failure raises and exits non-zero:
    ``sm90`` (``SEAMLESS_ATTN``: the encoder's 4096 frames not causal, the
    decoder's 2048 tokens causal, and the cross-attention of 2048 queries
    against 4096 keys, not causal), and at the shapes a rank of phase 26
-   (e) gives it, f32 on ``cuda_cores`` (``SEAMLESS_RANK_ATTN``);
+   (e) gives it, f32 on ``cuda_cores`` (``SEAMLESS_RANK_ATTN``); and K1
+   at arctic-480b's prefill shape, 56 q and 8 K/V heads over 2048
+   tokens, and at one rank's heads under ``tp`` at n = 4, 14 and 2, in
+   bf16 on ``sm90`` (``ARCTIC_ATTN``), and at the shapes a rank of phase
+   27 (e) gives it, f32 on ``cuda_cores`` (``ARCTIC_RANK_ATTN``);
 4. time each kernel, its plain version and, where one exists, one PyTorch
    library call that computes the same function (a yardstick the port
    never calls); K1's routed kernel and the library call three times each
@@ -62,8 +66,9 @@ Phases, in order; any failure raises and exits non-zero:
    against ``scaled_dot_product_attention`` (causal, GQA) three times
    each in turns (medians), gemma2's against ``flex_attention`` compiled
    with its softcap and window (``library_attention``); K1 at each shape
-   of ``TP_ATTN`` and ``SEAMLESS_ATTN`` the same way (the library call
-   causal where the shape is);
+   of ``TP_ATTN``, ``SEAMLESS_ATTN`` and ``ARCTIC_ATTN`` the same way
+   (the library call causal where the shape is; arctic's on
+   ``cuda_cores`` too);
 5. qwen3-14b serving at full width, random weights from a seeded
    generator: at depth 2, prefill logits through the kernel against the
    plain path at the longest prompt and at a ragged one (bar 2e-2 of the
@@ -173,8 +178,8 @@ Phases, in order; any failure raises and exits non-zero:
     2 x 48 x 2 = 192, all ``sm90``; each step time is logged beside the
     plan-none phase's; (b) 4 processes sharing the card over gloo on a
     (1, 4) mesh, each this script with ``--lm-rank``: qwen3-14b at depth
-    1 and mamba2-370m at depth 2 (qwen3 at depth 2 until phase 26 needed
-    the seconds), full width, 1 x 4096 tokens, one loss and its grads
+    1 and mamba2-370m at depth 1 (qwen3 at depth 2 until phase 26 needed
+    the seconds, mamba2 until phase 27 did), full width, 1 x 4096 tokens, one loss and its grads
     summed over the ranks against (a)'s path at the same depth (phase 7's
     bars), and per rank exactly the contract's calls and bytes, K1 on 10
     of 40 q and 2 of 8 K/V heads and K2 on 8 of 32 heads, twice a layer,
@@ -191,7 +196,7 @@ Phases, in order; any failure raises and exits non-zero:
     each step (``zero_contract``), K1 must launch 32 times and K2 192, all
     ``sm90``; step time and peak memory logged beside phase 16 (a)'s; (b)
     4 processes sharing the card over gloo, each this script with
-    ``--zero-rank``: qwen3-14b at depth 2 and mamba2-370m at depth 4 on a
+    ``--zero-rank``: qwen3-14b at depth 1 and mamba2-370m at depth 4 on a
     (2, 2) mesh at 2 x 4096 tokens: one loss, and each rank's grad slices
     against the same slices of (a)'s path at the same depth and batch
     (phase 7's bars, each leaf's worst over the ranks), the clip's norm
@@ -213,7 +218,7 @@ Phases, in order; any failure raises and exits non-zero:
     printed); K2 must launch 2 x 48 a step, all ``sm90``, in every run;
     the checkpoint's bytes and the seconds of snapshot, write, publish
     and restore are logged; (b) 4 processes sharing the card over gloo,
-    each this script with ``--ckpt-rank``, at depth 2: one step at (2,
+    each this script with ``--ckpt-rank``, at depth 1: one step at (2,
     2), saved; restored at (1, 4) in the same processes and at world size
     1 in this one, each gathered bit-equal to the saved global tree; step
     2 at (1, 4) and, after ``replan(2)`` (ranks 2 and 3 leave), step 3 on
@@ -229,18 +234,18 @@ Phases, in order; any failure raises and exits non-zero:
     (K2) launch 320 (384) times on ``sm90``, and the calls and bytes must
     be exactly ``lm.serve_contract``'s; (b) 4 processes sharing the card
     over gloo, each this script with ``--serve-rank``, qwen3-14b at depth
-    2 and mamba2-370m at depth 6 of 48 on a (1, 4) mesh: the
+    1 and mamba2-370m at depth 4 of 48 on a (1, 4) mesh: the
     teacher-forced logits (SERVE_FORCED requests, SERVE_FORCED_STEPS
     decode steps on the one-rank reference's tokens) under SERVE_PLAN
     within LOGIT_BAR of the reference's, at each forced check's depth and
-    dtype (mamba2: depth 6 in f32, depth 4 in bf16); the trace, 8 new
+    dtype (mamba2: depth 4 in f32, depth 2 in bf16); the trace, 8 new
     tokens a request, through the scheduler under SERVE_RANK_PLAN with
     the pool asserted on the mesh after every step, every request
     finished, per rank each segment's calls and bytes exactly the
     contract's and K1 (K2) once a layer a prefill on the rank's heads,
     all ``sm90``; on qwen3 ``replan(2)`` at decode step 3 with the moved
     pool bit-equal and the survivors' forced logits within the bar; (c),
-    run in phase 27, the serve CLI under ``torchrun --nproc-per-node 4
+    run in phase 28, the serve CLI under ``torchrun --nproc-per-node 4
     ... --mode dsp --backend gloo``: continuous over a Poisson trace with
     world 1's tokens, static ``--replan 2`` with identical output;
 20. qwen3-14b served paged (``PagedScheduler``: the block pool, the
@@ -266,7 +271,7 @@ Phases, in order; any failure raises and exits non-zero:
     after every step, per rank each segment's calls and bytes exactly
     ``lm.serve_contract``'s, a paged decode step's equal to a slot decode
     step's, K1 launched 0 times (a chunk on a mesh attends through plain
-    softmax partials); (c), run in phase 27, the serve CLI ``--paged
+    softmax partials); (c), run in phase 28, the serve CLI ``--paged
     --prefill-chunk 8`` on the card and under ``torchrun --nproc-per-node
     4 ... --mode dsp --backend gloo``, the ranks' tokens one card's;
 21. transformer2d-720m under its spec's own plan
@@ -285,7 +290,7 @@ Phases, in order; any failure raises and exits non-zero:
     ``t2d_zero_contract``), K1
     224 launches on ``sm90`` at head dim 72, step time and peak memory
     logged beside phase 13's; (b) 4 processes sharing the card over gloo,
-    each this script with ``--t2d-zero-rank``, at depth 2 in f32 on 2 x 8
+    each this script with ``--t2d-zero-rank``, at depth 2 in f32 on 2 x 4
     frames x 4096 patches, at (2, 2) and (1, 4): the loss and the clip's
     norm within 1e-5 relative of one rank without ZeRO, each rank's slice
     of every grad within 1e-4 of its leaf's max, per rank the contract's
@@ -326,7 +331,7 @@ Phases, in order; any failure raises and exits non-zero:
     dropped pairs of each MoE call and the dropped share exactly one
     rank's, per rank the calls and bytes exactly the contract (the
     dispatch's rows by ``route_rows`` of the run's routing)
-    and 4 K1 launches on ``cuda_cores``; (c), run in phase 27, the train
+    and 4 K1 launches on ``cuda_cores``; (c), run in phase 28, the train
     CLI at SMOKE size under ``torchrun --nproc-per-node 4 --mesh 1,4
     --backend gloo``, every rank one rank's loss;
 24. mistral-large-123b (its published config: 96 q and 8 K/V heads of
@@ -365,7 +370,7 @@ Phases, in order; any failure raises and exits non-zero:
     rank's heads; then at (1, 4) with ZeRO and the vocab split off and
     an f32 KV cache 2 requests through
     ``ContinuousScheduler`` and ``replan(2)`` at decode step 3, the
-    tokens one rank's; host memory logged; (c), run in phase 27, the train
+    tokens one rank's; host memory logged; (c), run in phase 28, the train
     CLI at ``--mesh 1,4`` and the serve CLI at ``--mode tp
     --continuous``, SMOKE size, under ``torchrun --nproc-per-node 4
     --backend gloo``;
@@ -404,27 +409,72 @@ Phases, in order; any failure raises and exits non-zero:
     (``relu_held``) and no pre-activation outside those entries changed
     in sign, per rank the calls and bytes exactly the contract and 6 K1
     launches on ``cuda_cores`` on the rank's heads; then, in
-    phase 27, the train CLI at SMOKE size under ``torchrun
+    phase 28, the train CLI at SMOKE size under ``torchrun
     --nproc-per-node 4 --mesh 1,4 --backend gloo``;
-27. the CLIs under ``torchrun`` of phases 19 (c), 20 (c), 23 (c), 25 (c)
-    and 26 (e), all seven launches started together after the timed
-    phases (``cli_launches``: each spends most of its time starting its
-    ranks), each checked against its one-rank run in this process;
-28. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
+27. arctic-480b (its published config: 35 layers, d 7168, 56 q and 8
+    K/V heads of 128, 128 experts top-2 of F 4864 beside a dense
+    residual MLP of 4864, its KV cache in float8_e4m3fn) and MoE served
+    on a mesh, bf16, random weights from seed 0: (a) at depth 2 of 35
+    (27.7B parameters, 55.4 GB), kernel against plain on one set of
+    weights with the plain path's routing replayed (``replayed``: where
+    the paths' roundings flip a top-2 pick; the share logged), each
+    within 2e-2 of the largest logit: the prefill logits at a
+    2048-token prompt and 4 decode steps, and 4 requests over 512-2048
+    tokens teacher-forced 4 decode steps through the slot pool and the
+    block pool, both in the fp8 cache; (b) those 4 requests, 16 new
+    tokens each, at depth 2 through ``ContinuousScheduler``: K1 exactly
+    2 x 4 = 8 launches, all ``sm90``; the same trace at depth 1 on one
+    card and under ``tp`` + ``ep`` (the serving rule: experts over
+    ``model``, their hidden columns over ``data``) at world size 1 over
+    NCCL, the tokens equal, K1 4 each on ``sm90``, the calls exactly
+    ``lm.serve_contract`` (at one rank each expert read copies its leaf:
+    beside depth 2's 55.4 GB that exceeds the card); (c) 4 Trainer steps
+    at depth 1 with the experts cut from 128 to 16 at 1 x 4096: K1
+    exactly 2 x 1 x 4 = 8, all ``sm90``; the same under the spec's plan
+    (``tp``, ``ep``, ZeRO-3 over ``data``, the vocab ring) at world size
+    1: the losses within 1e-4 relative, the dropped shares equal, the
+    calls and bytes exactly ``zero_contract(tp=True)`` each step; (d)
+    qwen2-moe-a2.7b at full width and depth, phase 22's trace under
+    ``dsp`` + ``ep`` at world size 1: the tokens phase 22's, K1 192 on
+    ``sm90``, the calls exactly ``lm.serve_contract``; (e) 4 processes
+    sharing the card over gloo, each this script with
+    ``--arctic-rank``: arctic's widths at depth 1 with 8 experts in f32,
+    trained under the spec's plan at 2 x 256 tokens at (1, 4) and (2,
+    2): the loss within 1e-5 relative of one rank's, each rank's grad
+    slices within 1e-4 of their leaf's max, the dropped shares one
+    rank's, per rank the calls and bytes exactly the contract (the
+    dispatch's rows by ``route_rows``) and 2 K1 launches on
+    ``cuda_cores`` on the rank's heads; then at (1, 4) with an f32 cache,
+    ZeRO and the vocab split off, 2 requests under ``dsp`` without
+    ``ep``, then under ``tp`` + ``ep`` through ``replan(2)`` at decode
+    step 3: the tokens one rank's; host memory logged; (f), started
+    after (b) and checked in phase 28, the train CLI at ``--mesh 1,4``
+    and the serve CLI at ``--mode tp --continuous``, SMOKE size, under
+    ``torchrun --nproc-per-node 4 --backend gloo``;
+28. the CLIs under ``torchrun`` of phases 19 (c), 20 (c), 23 (c), 25
+    (c), 26 (e) and 27 (f), each checked against its one-rank run in this
+    process: the four of ``EARLY_CLIS`` start together in phase 27, once
+    (b)'s run under ``tp`` + ``ep`` has given the card back its memory,
+    and run beside (c)-(e), whose times may carry that load; the other
+    five start together after phase 27 (``cli_launches``: each launch
+    spends most of its time starting its ranks);
+29. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
     counts over the paths above (K1 320 + 32 + 224 + 224 + phase 14's
     training runs, 8 per mode, 4 for ring and hybrid, + phase 15 (a)'s
     28 + phase 16 (a)'s 32 + phase 17 (a)'s 32 + phase 19 (a)'s 320 +
     phase 20 (a)'s 720 + phase 21 (a)'s 224 + phase 22's 128 + 104 + 192
     + 32 + phase 23 (a)'s 32 + phase 24's 64 + 16 + phase 25 (a)'s 16 +
-    64 + phase 26's 72 + 576 + 576; K2 576 + 384 + phase 16 (a)'s 192 + phase
+    64 + phase 26's 72 + 576 + 576 + phase 27's 8 + 4 + 4 + 8 + 8 + 192;
+    K2 576 + 384 + phase 16 (a)'s 192 + phase
     17 (a)'s 192 + phase 18 (a)'s 2 x 48 x 12 = 1152 + phase 19 (a)'s
     384)
     and whose ``launches_by_route`` split that sum by the route each
     launch took (``sm90``, and gemma2's 104 on ``cuda_cores``), with phase
-    19 (b)'s and 20 (b)'s per rank beside (phase 21 (b)'s, 23 (b)'s and
-    25 (b)'s and 26 (e)'s too), phase 4's chunk timings and the models'
-    shapes (``models``, mistral's two of ``TP_ATTN`` and seamless's three
-    of ``SEAMLESS_ATTN`` with them), then the last
+    19 (b)'s and 20 (b)'s per rank beside (phase 21 (b)'s, 23 (b)'s,
+    25 (b)'s, 26 (e)'s and 27 (e)'s too), phase 4's chunk timings and the
+    models' shapes (``models``, mistral's two of ``TP_ATTN``, seamless's
+    three of ``SEAMLESS_ATTN`` and arctic's two of ``ARCTIC_ATTN`` with
+    them), then the last
     line
     ``{"ok": true, "device": {...}}``.
 
@@ -456,8 +506,8 @@ import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import (  # noqa: E402
-    gemma2_2b, mamba2_370m, mistral_large_123b, qwen2_moe_a2_7b, qwen3_14b,
-    seamless_m4t_large_v2, starcoder2_7b, transformer2d_720m)
+    arctic_480b, gemma2_2b, mamba2_370m, mistral_large_123b, qwen2_moe_a2_7b,
+    qwen3_14b, seamless_m4t_large_v2, starcoder2_7b, transformer2d_720m)
 from repro_torch.core import dsp  # noqa: E402
 from repro_torch.core.layout import from_mesh  # noqa: E402
 from repro_torch.core.schedule import (  # noqa: E402
@@ -584,9 +634,9 @@ LM_PLAN = ParallelPlan(mode="dsp", zero=False, shard_vocab=False)
 # one loss and its grads of each LM at LM_RANK_DEPTHS, 1 x TRAIN_SEQ
 # tokens, against the world-1 path at the same depth (phase 7's bars)
 LM_MAMBA_STEPS = 2
-# (mamba2 at depth 4 until phases 24-25 needed the seconds, qwen3 at depth
-# 2 until phase 26 did)
-LM_RANK_DEPTHS = (("qwen3-14b", 1), ("mamba2-370m", 2))
+# (mamba2 at depth 4 until phases 24-25 needed the seconds, 2 until phase
+# 27 did; qwen3 at depth 2 until phase 26 did)
+LM_RANK_DEPTHS = (("qwen3-14b", 1), ("mamba2-370m", 1))
 # the kernels at the shapes one of those ranks gives them (the heads split
 # DSP_RANKS ways by the switch, the whole sequence), held against their
 # plain versions in phase 3: K1 on qwen3-14b's 10 q and 2 K/V heads, K2 on
@@ -607,8 +657,8 @@ LM_REDUCE_PIECE = 1 << 26
 # world 1's at the same depth and batch (phase 7's bars), and on the cases
 # of ZERO_TRAIN one Trainer step, whose grad norm must be within
 # ZERO_NORM_BAR of world 1's
-ZERO_CASES = (("qwen3-14b", 2, (2, 2), 2), ("mamba2-370m", 4, (2, 2), 2))
-# (qwen3 at (1, 4) too, its Trainer step until phases 24-25 needed its 27
+ZERO_CASES = (("qwen3-14b", 1, (2, 2), 2), ("mamba2-370m", 4, (2, 2), 2))
+# (qwen3 at depth 2 until phase 27 needed the seconds; at (1, 4) too, its Trainer step until phases 24-25 needed its 27
 # s, its loss and grad slices until phase 26 needed their ~25 s: DSP with
 # ZeRO-3 at (1, 4) stays on the card in phases 23 (b) and 26 (e), the
 # vocab ring over 4 ranks in 25 (b))
@@ -621,8 +671,8 @@ ZERO_NORM_BAR = 1e-3
 # sharing the card over gloo at depth CKPT_RANK_DEPTH: save at (2, 2),
 # restore at (1, 4) and at world size 1, replan(2)
 CKPT_BATCH, CKPT_STEPS, CKPT_RESUME, CKPT_LOSS_BAR = 2, 4, 2, 1e-5
-# (4 until phases 24-25 needed the seconds)
-CKPT_RANK_DEPTH = 2
+# (4 until phases 24-25 needed the seconds, 2 until phase 27 did)
+CKPT_RANK_DEPTH = 1
 # the kernels at the shapes a rank of the (2, 2) cases gives them: K1 on
 # qwen3-14b's 20 q and 4 K/V heads, K2 on mamba2-370m's 16 heads
 LM_ZERO_ATTN = (1, _Q.n_heads // 2, _Q.n_kv_heads // 2, TRAIN_SEQ, TRAIN_SEQ,
@@ -643,8 +693,9 @@ CKPT_SSD = tuple((CKPT_BATCH, TRAIN_SEQ, _M.n_heads // n, _M.head_dim,
 # one-rank reference at the same depth: the logits of SERVE_FORCED_STEPS
 # decode steps fed the reference's tokens within LOGIT_BAR, and on the
 # replan case replan(SERVE_REPLAN_TO) at decode step SERVE_REPLAN_STEP.
-# qwen3-14b's 40 layers whole on 4 ranks would need ~118 GB: depth 2
-# (depth 4 until the DiT's ZeRO phase 21 needed its seconds).  On the 4
+# qwen3-14b's 40 layers whole on 4 ranks would need ~118 GB: depth 1
+# (depth 4 until the DiT's ZeRO phase 21 needed its seconds, 2 until
+# phase 27 did).  On the 4
 # ranks the CLI's plan holds the teacher-forced check: the
 # SERVE_FORCED requests (the shortest and the longest prompt) and
 # SERVE_FORCED_STEPS decode steps.  The trace itself runs under
@@ -662,11 +713,11 @@ SERVE_RANK_PLAN = ParallelPlan(mode="dsp", zero=False)
 # stay within 7.6e-4 of one card; so its forced check at the served depth
 # runs in f32 (K2 on ``cuda_cores``), and a depth-4 one in bf16 holds K2's
 # ``sm90`` route; the trace runs in bf16 (on ``sm90``).  mamba2 serves at
-# depth 6 of 48 on the ranks (48 until phases 24-25 needed the seconds,
-# 12 until phase 26 did)
-SERVE_RANK_CASES = (("qwen3-14b", 2, True, ((2, torch.bfloat16),)),
-                    ("mamba2-370m", 6, False,
-                     ((6, torch.float32), (4, torch.bfloat16))))
+# depth 4 of 48 on the ranks (48 until phases 24-25 needed the seconds,
+# 12 until phase 26 did, 6 until phase 27 did)
+SERVE_RANK_CASES = (("qwen3-14b", 1, True, ((1, torch.bfloat16),)),
+                    ("mamba2-370m", 4, False,
+                     ((4, torch.float32), (2, torch.bfloat16))))
 SERVE_FORCED, SERVE_FORCED_STEPS = (0, N_REQUESTS - 1), 4
 # the new tokens of each request of the ranks' trace (NEW_TOKENS until
 # phases 24-25 needed the seconds)
@@ -865,6 +916,68 @@ SEAMLESS_RANK_ATTN = tuple(
     for sq, skv, causal in ((SEAMLESS_RANK_ENC, SEAMLESS_RANK_ENC, False),
                             (SEAMLESS_RANK_DEC, SEAMLESS_RANK_DEC, True),
                             (SEAMLESS_RANK_DEC, SEAMLESS_RANK_ENC, False)))
+# phase 27: arctic-480b (35 layers, d 7168, 56/8 heads of 128, 128 experts
+# top-2 of F 4864 beside a dense residual MLP of 4864, vocab 32000, its KV
+# cache in float8_e4m3fn: 13.61B parameters a layer), bf16, random weights
+# from seed 0: (a) at depth ARCTIC_DEPTH (27.7B parameters, 55.4 GB; depth
+# 3 is 82.6 GB) kernel against plain; (b) ARCTIC_LENS's requests,
+# ARCTIC_NEW new tokens each, at that depth, and again at depth
+# ARCTIC_MESH_DEPTH on one card and under ARCTIC_SERVE_PLAN at world size
+# 1 (at one rank every read of a leaf that a spec splits over ``data`` is
+# an all-gather that copies it: a period's 13.4B expert parameters copied
+# beside depth 2's 55.4 GB exceed the card); (c) ARCTIC_TRAIN_STEPS
+# Trainer steps at depth 1 with the experts cut to ARCTIC_TRAIN_EXPERTS
+# (AdamW's f32 state for one full layer fits no card), at 1 x TRAIN_SEQ,
+# and again under the spec's plan (ARCTIC_PLAN: tp, ep, ZeRO-3 over data,
+# the vocab ring) at world size 1; (d) qwen2-moe-a2.7b's phase-22 trace
+# under QWEN_MESH_PLAN at world size 1; (e) DSP_RANKS gloo ranks, arctic's
+# widths at depth ARCTIC_RANK_DEPTH with ARCTIC_RANK_EXPERTS experts in
+# float32 at ARCTIC_RANK_BATCH x ARCTIC_RANK_SEQ under ARCTIC_PLAN at each
+# mesh of ARCTIC_RANK_MESHES against one rank (TP_LOSS_BAR, TP_GRAD_BAR),
+# then ARCTIC_RANK_LENS's requests at (1, DSP_RANKS) under each of
+# ARCTIC_RANK_PLANS (ZeRO and the vocab split off, as 25 (b)'s), ``tp`` +
+# ``ep`` through replan(SERVE_REPLAN_TO)
+_AR = arctic_480b.CONFIG
+ARCTIC_DEPTH, ARCTIC_MESH_DEPTH, ARCTIC_NEW = 2, 1, 16
+ARCTIC_LENS = np.linspace(512, 2048, 4).astype(int).tolist()
+ARCTIC_TRAIN_EXPERTS, ARCTIC_TRAIN_STEPS = 16, 4
+ARCTIC_PLAN = arctic_480b.SPEC.plan
+# the serving rule of ``param_pspecs`` for tp with ep: the experts over
+# model, each expert's hidden columns over data
+ARCTIC_SERVE_PLAN = ParallelPlan(mode="tp", ep=True, zero=False)
+# (d)'s plan without ZeRO or the vocab split, whose per-step gathers of
+# every weight, or of both tables (each a copy at world 1), took TPOT p50
+# from 101 to 305 ms, or 162, on one H100 80GB HBM3 at 700 W
+QWEN_MESH_PLAN = ParallelPlan(mode="dsp", ep=True, zero=False,
+                              shard_vocab=False)
+ARCTIC_RANK_DEPTH, ARCTIC_RANK_EXPERTS = 1, 8
+ARCTIC_RANK_BATCH, ARCTIC_RANK_SEQ = 2, 256
+ARCTIC_RANK_MESHES = ((1, 4), (2, 2))
+ARCTIC_RANK_LENS, ARCTIC_RANK_NEW = (64, 128), 6
+ARCTIC_RANK_PLANS = {
+    "dsp": ParallelPlan(mode="dsp", zero=False, shard_vocab=False),
+    "tp_ep": dataclasses.replace(ARCTIC_SERVE_PLAN, shard_vocab=False)}
+ARCTIC_SERVE_CLI = ["--arch", "arctic-480b", "--batch", "4", "--prompt-len",
+                    "16", "--new-tokens", "8", "--continuous"]
+# K1 at arctic's prefill shape (56 q and 8 K/V heads, a GQA group of 7)
+# and at one rank's heads under tp at n = 4 (14 and 2), bf16 on ``sm90``
+# (phase 3, timed in phase 4 with the ``cuda_cores`` route); and at the
+# shapes a rank of (e) gives it, f32 on ``cuda_cores``: training at each
+# mesh, and each prompt padded to a whole share a rank
+ARCTIC_ATTN = {
+    "arctic-480b": (1, _AR.n_heads, _AR.n_kv_heads, 2048, 2048,
+                    _AR.head_dim, True, None, None),
+    "arctic-480b/rank": (1, _AR.n_heads // DSP_RANKS,
+                         _AR.n_kv_heads // DSP_RANKS, 2048, 2048,
+                         _AR.head_dim, True, None, None)}
+ARCTIC_RANK_ATTN = tuple(
+    (ARCTIC_RANK_BATCH // dp, _AR.n_heads // mp, _AR.n_kv_heads // mp,
+     ARCTIC_RANK_SEQ, ARCTIC_RANK_SEQ, _AR.head_dim, True, None, None)
+    for dp, mp in ARCTIC_RANK_MESHES) + tuple(
+    (1, _AR.n_heads // DSP_RANKS, _AR.n_kv_heads // DSP_RANKS, s, s,
+     _AR.head_dim, True, None, None)
+    for s in sorted({DSP_RANKS * lm.prefill_shard_len(_AR, t, DSP_RANKS)
+                     for t in ARCTIC_RANK_LENS}))
 
 
 def prefill_case(s: int):
@@ -903,16 +1016,16 @@ DIT_ROUTE = "sm90"
 # (tests/test_torch_t2d_zero.py's bars; in bf16 each rank's partial grads
 # round to 8 bits before the reduce-scatter sums them, ~4e-3 of a leaf),
 # then a (2, 2) checkpoint restored at (1, 4) bit for bit (depth 4 until
-# phases 24-25 needed the seconds)
-T2D_ZERO_DEPTH, T2D_ZERO_BATCH, T2D_ZERO_FRAMES = 2, 2, 8
+# phases 24-25 needed the seconds, 8 frames until phase 27 did)
+T2D_ZERO_DEPTH, T2D_ZERO_BATCH, T2D_ZERO_FRAMES = 2, 2, 4
 T2D_ZERO_MESHES = ((2, 2), (1, 4))
 T2D_ZERO_LOSS_BAR, T2D_ZERO_GRAD_BAR = 1e-5, 1e-4
-# K1 at the shapes a rank of (b) gives it at either mesh, in float32: 4
+# K1 at the shapes a rank of (b) gives it at either mesh, in float32: 2
 # folded frames of a spatial block, the 2048 folded patches of a temporal
-# block's 8 frames
+# block's 4 frames
 T2D_ZERO_ATTN = (
-    (4, DIT_HEADS, DIT_HEADS, DIT_PATCHES, DIT_PATCHES, DIT_DH, False, None,
-     None),
+    (T2D_ZERO_BATCH * T2D_ZERO_FRAMES // DSP_RANKS, DIT_HEADS, DIT_HEADS,
+     DIT_PATCHES, DIT_PATCHES, DIT_DH, False, None, None),
     (2048, DIT_HEADS, DIT_HEADS, T2D_ZERO_FRAMES, T2D_ZERO_FRAMES, DIT_DH,
      False, None, None))
 
@@ -1203,17 +1316,25 @@ class StepLog:
     """Wraps an engine's steps and logs what each ran on, (SP degree,
     batch, prompt length) a prefill and (SP degree, rows) a decode step,
     for ``expected``: the sum of ``lm.serve_contract`` over them and the
-    scheduler's loop turns, as {kind: [calls, bytes]}."""
+    scheduler's loop turns, as {kind: [calls, bytes]}.  Under ``ep`` (at
+    world size 1) each prefill's dispatch rows come from its routing
+    (``world_one_rows``)."""
 
     def __init__(self, eng):
         self.prefills, self.decodes, self.every_prefill = [], [], []
+        self.rows = []
         self.max_len = eng.max_len
         pre, dec = eng._prefill, eng._decode
 
         def prefill(tokens):
             self.prefills.append((eng.sp_degree, *tuple(tokens.shape)))
             self.every_prefill.append(self.prefills[-1])
-            return pre(tokens)
+            if not eng.plan.ep:
+                return pre(tokens)
+            with moe_calls() as calls:
+                out = pre(tokens)
+            self.rows.append(world_one_rows(eng, calls, tokens.shape[1]))
+            return out
 
         def decode(token, caches):
             self.decodes.append((eng.sp_degree, token.shape[0]))
@@ -1221,14 +1342,30 @@ class StepLog:
         eng._prefill, eng._decode = prefill, decode
 
     def expected(self, cfg, template, plan, ticks: int) -> dict:
+        rows = self.rows or [None] * len(self.prefills)
         parts = [lm.serve_contract(cfg, n, template, plan, prefill=(b, s),
-                                   max_len=self.max_len)
-                 for n, b, s in self.prefills]
+                                   max_len=self.max_len, moe_rows=r)
+                 for (n, b, s), r in zip(self.prefills, rows)]
         parts += [lm.serve_contract(cfg, n, template, plan, decode=r)
                   for n, r in self.decodes]
         parts.append(lm.serve_contract(cfg, 1, template, plan, ticks=ticks))
-        self.prefills, self.decodes = [], []
+        self.prefills, self.decodes, self.rows = [], [], []
         return add_contracts(*parts)
+
+
+def world_one_rows(eng, calls, seq: int) -> tuple:
+    """A prefill's dispatch rows under ``ep`` at world size 1 (``lm
+    .collective_contract``'s ``moe_rows``): every kept pair goes to the
+    one rank and comes back, so (kept, kept) over its MoE calls, each
+    call's kept pairs by ``kept_pairs`` of its routing."""
+    if eng.sp_degree != 1 or eng.sharder.dp_size != 1:
+        raise ValueError("the rows of a prefill on more ranks follow the "
+                         "ranks' routing: route_rows")
+    e_phys = lm.moe_meta(eng.cfg).e_phys
+    cap = lm_capacity(eng.cfg, seq)
+    kept = sum(int(kept_pairs(c["experts"], e_phys, cap).sum())
+               for c in calls)
+    return kept, kept
 
 
 def add_contracts(*parts) -> dict:
@@ -1253,16 +1390,19 @@ def counted() -> dict:
 
 def full_width_serve(cfg, kernel, device="cuda", mesh=None,
                      plan=None, lens=None, new_tokens: int = NEW_TOKENS,
-                     route: str = "sm90") -> dict:
+                     route: str = "sm90", params=None) -> dict:
     """``cfg`` at full depth behind ContinuousScheduler: 8 requests, prompts
     spread over 512-2048 tokens (or ``lens``), 32 (``new_tokens``) new
     tokens each, all arriving at 0.  ``kernel`` (K1's or K2's wrapper)
     must launch once per layer per prefill, every launch on ``route``.
     With ``mesh`` (and ``plan``) the engine serves sharded, and the calls
-    and bytes counted must be exactly ``lm.serve_contract``'s."""
+    and bytes counted must be exactly ``lm.serve_contract``'s.  The
+    weights are ``lm.init_lm(0, cfg)``'s, or ``params`` (the caller's
+    last reference to them)."""
     lens = PROMPT_LENS if lens is None else lens
     t0 = time.perf_counter()
-    params = lm.init_lm(0, cfg, device=device)
+    if params is None:
+        params = lm.init_lm(0, cfg, device=device)
     torch.cuda.synchronize()
     stored = sum(p.numel() for p in lm.tree_leaves(params))
     log_t(f"  init {lm.param_counts(cfg)['total'] / 1e9:.2f}B params "
@@ -3983,7 +4123,7 @@ SERVE_CLI_CONT = ["--continuous", "--arrival", "0.01"]
 
 
 def serve_cli_ranks(serve_main, launched: dict) -> None:
-    """Phase 19 (c), run in phase 27: the serve CLI at SMOKE size under
+    """Phase 19 (c), run in phase 28: the serve CLI at SMOKE size under
     ``torchrun --nproc-per-node`` DSP_RANKS on the card, gloo over its
     tensors (``--backend gloo``: NCCL takes one rank a card), ``--mode
     dsp``: continuous over a Poisson trace (``--arrival 0.01``), whose
@@ -4466,7 +4606,7 @@ PAGED_CLI = ["--arch", "qwen3-14b", "--batch", "4", "--prompt-len", "16",
 
 
 def paged_clis(serve_main, launched: dict) -> None:
-    """Phase 20 (c), run in phase 27: the serve CLI ``--paged
+    """Phase 20 (c), run in phase 28: the serve CLI ``--paged
     --prefill-chunk 8`` at SMOKE size on the card (in this process), and
     under ``torchrun --nproc-per-node`` DSP_RANKS with ``--mode dsp
     --backend gloo``: both exit 0, the ranks' tokens one card's."""
@@ -4886,11 +5026,13 @@ def moe_calls(replay=None):
     aux reports (``models.moe.moe_gather``, a rank's share on a mesh);
     and ``layer``, the data pointer of its router's weight, which names
     its layer in every path over the same parameters.  With ``replay``
-    (``layer_routes`` of an earlier record) each call takes that record's
-    experts for its layer instead of its own top-k, its gate values read
-    from its own router probabilities at those experts, and ``differ``
-    counts the pairs on which its own pick differs: two paths compared so
-    route alike, which top-k, not being continuous, does not promise."""
+    (``layer_routes`` of an earlier record, or a list of experts in call
+    order, for paths that call each layer more than once) each call takes
+    that record's experts for its layer (its place) instead of its own
+    top-k, its gate values read from its own router probabilities at
+    those experts, and ``differ`` counts the pairs on which its own pick
+    differs: two paths compared so route alike, which top-k, not being
+    continuous, does not promise."""
     calls = []
     route, gather = moe._route, moe.moe_gather
 
@@ -4899,7 +5041,8 @@ def moe_calls(replay=None):
         layer = p["router"]["w"].data_ptr()
         call = {"layer": layer, "experts": idx.detach().cpu()}
         if replay is not None:
-            want = replay[layer].to(idx.device)
+            want = (replay[len(calls)] if isinstance(replay, list)
+                    else replay[layer]).to(idx.device)
             call["differ"] = int((~(idx[..., :, None]
                                     == want[..., None, :]).any(-1)).sum())
             idx, vals = want, probs.gather(-1, want)
@@ -5530,18 +5673,19 @@ def mistral_on_one_card(device="cuda") -> dict:
 # Phase 25: mistral-large-123b under tp on a (data, model) mesh
 # ---------------------------------------------------------------------------
 
-def tp_layout(cfg, mesh, device="cuda") -> dict:
-    """``cfg``'s parameters from seed 0 under TP_PLAN on ``mesh``: the
-    rank's slices (its columns and rows over ``model``, ZeRO over
-    ``data``), the specs, the sharder (no schedule) and the layouts'
-    contract."""
+def tp_layout(cfg, mesh, device="cuda", plan=None) -> dict:
+    """``cfg``'s parameters from seed 0 under ``plan`` (TP_PLAN by default)
+    on ``mesh``: the rank's slices (its columns and rows over ``model``,
+    ZeRO over ``data``; under ``ep`` its experts), the specs, the sharder
+    (no schedule) and the layouts' contract."""
+    plan = TP_PLAN if plan is None else plan
     ctx = from_mesh(mesh)
     sizes = mesh_sizes(ctx)
     params = lm.init_lm(0, cfg, device=device)
-    specs = param_pspecs(params, TP_PLAN, axis_sizes=sizes)
-    layout = lm.param_contract(cfg, meta_tree(params), TP_PLAN, sizes)
+    specs = param_pspecs(params, plan, axis_sizes=sizes)
+    layout = lm.param_contract(cfg, meta_tree(params), plan, sizes)
     return {"params": shard_params(params, specs, ctx), "specs": specs,
-            "sharder": make_sharder(mesh, TP_PLAN, param_specs=specs),
+            "sharder": make_sharder(mesh, plan, param_specs=specs),
             "layout": layout}
 
 
@@ -5878,17 +6022,20 @@ TP_SERVE_CLI = ["--arch", "mistral-large-123b", "--batch", "4",
                 "--prompt-len", "16", "--new-tokens", "8", "--continuous"]
 
 
-def tp_cli_ranks(launched: dict, serve_main) -> None:
-    """Phase 25 (c)'s serve CLI, run in phase 27: ``--mode tp
-    --continuous`` under ``torchrun --nproc-per-node`` DSP_RANKS on the
-    card, gloo over its tensors: exit 0, one rank's tokens (run in this
-    process).  Its train CLI is ``train_cli_ranks``'."""
+def tp_cli_ranks(launched: dict, serve_main, name: str = "25c/serve",
+                 cli=None) -> None:
+    """Phase 25 (c)'s serve CLI (or phase 27 (f)'s, ``name`` and its
+    ``cli``), run in phase 28: ``--mode tp --continuous`` under ``torchrun
+    --nproc-per-node`` DSP_RANKS on the card, gloo over its tensors: exit
+    0, one rank's tokens (run in this process).  Its train CLI is
+    ``train_cli_ranks``'."""
     import io
     with contextlib.redirect_stdout(io.StringIO()):
-        want = [r.generated for r in serve_main(TP_SERVE_CLI)]
-    rc, out, err, seconds = finish(launched["25c/serve"])
+        want = [r.generated for r in serve_main(
+            TP_SERVE_CLI if cli is None else cli)]
+    rc, out, err, seconds = finish(launched[name])
     got = [json.loads(m) for m in re.findall(r"s: (\[[^\]]*\])", out)]
-    log_t(f"  25c/serve: exit {rc} in {seconds:.1f} s; "
+    log_t(f"  {name}: exit {rc} in {seconds:.1f} s; "
           f"{out.splitlines()[0] if out else ''}; tokens equal to one "
           f"rank's: {got == want}")
     if rc or got != want or "KV pool sequence-sharded over 4-way" not in out:
@@ -6492,7 +6639,7 @@ def seamless_four_ranks(work: str, device="cuda") -> dict:
 
 
 def seamless_phase(work: str, device="cuda") -> dict:
-    """Phase 26, (a) to (e); (e)'s train CLI runs in phase 27."""
+    """Phase 26, (a) to (e); (e)'s train CLI runs in phase 28."""
     out = {}
     log("  (a) depth 2 + 2, kernel against plain")
     out["checks"] = seamless_checks(device)
@@ -6512,13 +6659,521 @@ def seamless_phase(work: str, device="cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 27: arctic-480b under its own plan, and MoE served on a mesh
+# ---------------------------------------------------------------------------
+
+def arctic_cfg(depth: int, experts=None, dtype=None):
+    """arctic-480b's published config at ``depth``, with ``experts``
+    routed experts (top-2 kept) and in ``dtype`` where given."""
+    cfg = dataclasses.replace(arctic_480b.CONFIG, n_layers=depth)
+    if experts is not None:
+        cfg = dataclasses.replace(cfg, n_experts=experts)
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+
+def replayed(fn) -> dict:
+    """``fn()`` (its logits) on the plain path (``plain_attention``, each
+    MoE call routing itself), then on the kernel path with the plain
+    path's routing replayed call by call (``moe_calls``): {"gap": max
+    |kernel - plain| / max |logit|, "launches": the kernel path's K1
+    launches by route, "differ": the share of (token, k) routes on which
+    the kernel path's own pick differs}."""
+    with torch.no_grad(), plain_attention(), moe_calls() as ref:
+        want = fn()
+    reset_launches()
+    with torch.no_grad(), moe_calls([c["experts"] for c in ref]) as calls:
+        got = fn()
+    differ = sum(c["differ"] for c in calls)
+    total = sum(c["experts"].numel() for c in calls)
+    return {"gap": logit_gap(got, want),
+            "launches": nonzero(flash_attention_fwd.route_launches),
+            "differ": differ / max(total, 1), "calls": len(calls)}
+
+
+def arctic_init(cfg, device="cuda"):
+    """``lm.init_lm(0, cfg)``'s weights, the periods before the last staged
+    on the host (``stage``): at depth ARCTIC_DEPTH the stack (55.4 GB) and
+    one period's draw (26.8 GB of experts and one leaf's float32 draw,
+    17.8 GB) do not fit the card together."""
+    t0 = time.perf_counter()
+    params = lm.init_lm(0, cfg, device=device, stage="cpu")
+    torch.cuda.synchronize()
+    log_t(f"  init {lm.param_counts(cfg)['total'] / 1e9:.2f}B params "
+          f"({torch.cuda.memory_allocated() / 1e9:.2f} GB), staged on the "
+          f"host, in {time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def arctic_checks(params, cfg, device="cuda") -> dict:
+    """(a) ``cfg`` (depth ARCTIC_DEPTH at full width in bf16) on
+    ``params``, the kernel path against the plain one, the plain path's
+    routing replayed (``replayed``), each within LOGIT_BAR of the largest
+    logit: the prefill logits at max(ARCTIC_LENS) tokens and
+    SERVE_FORCED_STEPS decode steps; ARCTIC_LENS's requests teacher-forced
+    SERVE_FORCED_STEPS decode steps through the slot pool and the block
+    pool, both in the config's float8_e4m3fn cache (``forced_logits``,
+    ``paged_forced_logits``)."""
+    g = torch.Generator(device=device).manual_seed(6)
+    s = max(ARCTIC_LENS)
+    tok = torch.randint(0, cfg.vocab, (1, s + SERVE_FORCED_STEPS),
+                        generator=g, device=device)
+
+    def static():
+        logits, caches = lm.forward_prefill(params, tok[:, :s], cfg)
+        rows = [logits[0, -1].float()]
+        for t in range(SERVE_FORCED_STEPS):
+            logits, caches = lm.forward_decode(
+                params, tok[:, s + t:s + t + 1], caches, cfg)
+            rows.append(logits[0, -1].float())
+        return torch.stack(rows)
+    eng = ServingEngine(params, cfg, max_len=paged_max_len(
+        0, ARCTIC_LENS, SERVE_FORCED_STEPS), device=device)
+    reqs = trace_requests(cfg, device, ARCTIC_LENS, SERVE_FORCED_STEPS)
+    fed = torch.randint(0, cfg.vocab, (len(reqs), SERVE_FORCED_STEPS),
+                        generator=g, device=device).tolist()
+    out = {}
+    for name, fn in (
+            ("static", static),
+            ("slot", lambda: forced_logits(eng, reqs, fed, device)),
+            ("paged", lambda: paged_forced_logits(eng, reqs, fed,
+                                                  PAGED_CHUNK)[0])):
+        out[name] = r = replayed(fn)
+        log_t(f"  {name}: max |kernel - plain| / max |logit| "
+              f"{r['gap']:.3e} over {r['calls']} MoE calls, the plain "
+              f"path's routing replayed (the kernel path's own pick differs "
+              f"on {r['differ']:.3e} of the routes); K1 {r['launches']} on "
+              f"the kernel path")
+    kv = KVPool(cfg, 1, 16, device=device).caches["periods"]["0"]["kv"]["k"]
+    if kv.dtype != torch.float8_e4m3fn or not max(
+            r["gap"] for r in out.values()) <= LOGIT_BAR:
+        raise AssertionError(f"arctic at depth {ARCTIC_DEPTH}: kernel "
+                             f"against plain {out}, pool {kv.dtype}")
+    del eng
+    free_device()
+    return out
+
+
+def arctic_mesh_serve(cfg, ref: dict, mesh, plan, device="cuda",
+                      **kw) -> dict:
+    """``full_width_serve`` of ``cfg`` on ``mesh`` under ``plan`` (the
+    calls exactly ``lm.serve_contract``'s, the dispatch's rows from each
+    prefill's routing), the tokens ``ref``'s (the same trace without a
+    mesh), and TPOT p50 beside ``ref``'s."""
+    served = full_width_serve(cfg, flash_attention_fwd, device, mesh=mesh,
+                              plan=plan, **kw)
+    same = served["tokens"] == ref["tokens"]
+    log(f"  tokens under {plan} at world 1 equal to one card's: {same}; "
+        f"TPOT p50 {served['metrics']['tpot_p50_s'] * 1e3:.2f} ms against "
+        f"{ref['metrics']['tpot_p50_s'] * 1e3:.2f}")
+    if not same:
+        raise AssertionError(f"{cfg.name} under {plan}: {served['tokens']}, "
+                             f"one card {ref['tokens']}")
+    return served
+
+
+def arctic_world_of_one(out: dict, phase22: dict, work: str,
+                        device="cuda", early=None) -> None:
+    """At world size 1 on a (1, 1) mesh over NCCL: (b)'s depth-1 trace
+    under ARCTIC_SERVE_PLAN (``arctic_mesh_serve``); (c)'s training under
+    the spec's plan (ARCTIC_PLAN), the losses within DSP_LOSS_BAR of
+    (c)'s, the dropped shares equal, the calls and bytes exactly
+    ``zero_contract(tp=True)`` each step with the dispatch's rows the
+    step's kept pairs in (c); (d) qwen2-moe-a2.7b's phase-22 trace at
+    full width and depth under QWEN_MESH_PLAN, the tokens phase 22's; then
+    (e)'s references (``arctic_rank_refs``).  ``early()`` runs once (b)'s
+    run has given the card back its memory (phase 28's early launches)."""
+    backend = BACKEND_OF[torch.device(device).type]
+    dist.init_process_group(backend, store=dist.FileStore(
+        os.path.join(work, "store27"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), torch.device(device).type)
+        log(f"  (b) the depth-{ARCTIC_MESH_DEPTH} trace under "
+            f"{ARCTIC_SERVE_PLAN} at world size 1 ({elapsed()})")
+        out["tp_serve"] = arctic_mesh_serve(
+            arctic_cfg(ARCTIC_MESH_DEPTH), out["serve1"], mesh,
+            ARCTIC_SERVE_PLAN, device, lens=ARCTIC_LENS,
+            new_tokens=ARCTIC_NEW)
+        if early is not None:
+            early()
+        log(f"  (c) training under {ARCTIC_PLAN} at world size 1 "
+            f"({elapsed()})")
+        cfg = arctic_cfg(1, ARCTIC_TRAIN_EXPERTS)
+        lay = tp_layout(cfg, mesh, device, plan=ARCTIC_PLAN)
+        sharder = lay["sharder"]
+        trained = run_trainer(
+            lambda: lay.pop("params"),
+            lambda p, b: lm.lm_loss(p, b, cfg, sharder=sharder,
+                                    backend="kernel"),
+            lambda st: lm.shard_lm_batch(lm_batch(cfg, 1, st, device),
+                                         sharder),
+            flash_attention_fwd, tokens=TRAIN_SEQ,
+            n_steps=ARCTIC_TRAIN_STEPS, n_layers=cfg.n_layers, route="sm90",
+            device=device, sharder=sharder)
+        met, ref = trained["metrics"], out["train"]["metrics"]
+        pairs = lm.n_moe_layers(cfg) * TRAIN_SEQ * cfg.top_k
+        want = {}
+        for dropped in ref["dropped"]:
+            kept = pairs - round(dropped * pairs)
+            step = zero_contract(cfg, (1, 1), 1, lay["layout"], TRAIN_SEQ,
+                                 rows=(kept, kept), tp=True)
+            for k, (c, b) in step.items():
+                have = want.setdefault(k, [0, 0])
+                have[0] += c
+                have[1] += b
+        got = {k: [trained["collectives"][k], trained["volume"][k]]
+               for k in sorted(trained["collectives"])}
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(met["losses"], ref["losses"]))
+        log_t(f"  calls [count, bytes] {got}; the contract {want}; losses "
+              f"{met['losses']} against (c)'s {ref['losses']}: worst "
+              f"|delta| / |loss| = {rel:.3e}; dropped {met['dropped']} "
+              f"against {ref['dropped']}; step (median) "
+              f"{met['step_ms_median']:.2f} ms against "
+              f"{ref['step_ms_median']:.2f} ms; peak "
+              f"{met['peak_memory_gb']:.2f} GB against "
+              f"{ref['peak_memory_gb']:.2f} GB")
+        if (got != want or not rel <= DSP_LOSS_BAR
+                or met["dropped"] != ref["dropped"]):
+            raise AssertionError(f"arctic under {ARCTIC_PLAN}: calls {got}, "
+                                 f"the contract says {want}; losses "
+                                 f"{met['losses']} against {ref['losses']}")
+        out["tp_train"] = trained
+        del lay
+        free_device()
+        log(f"  (d) qwen2-moe-a2.7b's phase-22 trace under {QWEN_MESH_PLAN} "
+            f"at world size 1 ({elapsed()})")
+        out["qwen2_mesh"] = arctic_mesh_serve(
+            model_cfg("qwen2-moe-a2.7b"), phase22["qwen2-moe-a2.7b"], mesh,
+            QWEN_MESH_PLAN, device)
+        arctic_rank_refs(work, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def arctic_rank_cfg():
+    """(e)'s model: arctic's widths at depth ARCTIC_RANK_DEPTH with
+    ARCTIC_RANK_EXPERTS experts, in float32 with an f32 KV cache (phase 25
+    (b)'s reason)."""
+    return dataclasses.replace(arctic_cfg(ARCTIC_RANK_DEPTH,
+                                          ARCTIC_RANK_EXPERTS,
+                                          torch.float32), cache_dtype=None)
+
+
+def arctic_rank_batch(cfg, device="cuda") -> dict:
+    return make_batch(DataConfig(task="lm_shift", vocab=cfg.vocab,
+                                 seq=ARCTIC_RANK_SEQ,
+                                 batch=ARCTIC_RANK_BATCH), 0, device=device)
+
+
+def arctic_rank_max_len() -> int:
+    need = max(ARCTIC_RANK_LENS) + ARCTIC_RANK_NEW
+    return need + (-need) % DSP_RANKS
+
+
+def arctic_rank_refs(work: str, device="cuda") -> None:
+    """(e)'s references on one rank without a mesh, ``arctic_rank_cfg``:
+    the loss, grads and dropped share on ``arctic_rank_batch``
+    (``work/arctic_ref.pt``), and the tokens of ARCTIC_RANK_LENS's
+    requests through ``ContinuousScheduler`` with each generated token's
+    margin, as ``tp_rank_refs`` takes them (``work/arctic_serve.json``)."""
+    cfg = arctic_rank_cfg()
+    params = lm.init_lm(0, cfg, device=device)
+    leaves = lm.tree_map(lambda p: p.requires_grad_(True), params)
+    loss, metrics = lm.lm_loss(leaves, arctic_rank_batch(cfg, device), cfg,
+                               backend="kernel")
+    grads = torch.autograd.grad(loss, lm.tree_leaves(leaves))
+    torch.save({"loss": loss.detach().cpu(),
+                "dropped": float(metrics["moe_dropped"]),
+                "grads": [g.cpu() for g in grads]},
+               os.path.join(work, "arctic_ref.pt"))
+    del leaves, grads
+    eng = ServingEngine(params, cfg, max_len=arctic_rank_max_len(),
+                        device=device)
+    reqs = trace_requests(cfg, device, ARCTIC_RANK_LENS, ARCTIC_RANK_NEW)
+    eng.serve(reqs, continuous=True, max_batch=len(reqs))
+    margins = []
+    with torch.no_grad():
+        for r in reqs:
+            seq = torch.cat([r.prompt, torch.tensor(r.generated[:-1],
+                                                    device=device)])
+            x, _ = lm.forward(params, seq[None], cfg, remat=False)
+            logits = lm.logits_fn(params, x[:, len(r.prompt) - 1:],
+                                  cfg)[0].float()
+            top = logits.topk(2, dim=-1).values
+            margins.append(((top[:, 0] - top[:, 1])
+                            / logits.abs().amax(-1)).tolist())
+    json.dump({"tokens": [r.generated for r in reqs], "margins": margins},
+              open(os.path.join(work, "arctic_serve.json"), "w"))
+    log_t(f"  (e)'s references: depth {cfg.n_layers}, {cfg.n_experts} "
+          f"experts in float32, {ARCTIC_RANK_BATCH} x {ARCTIC_RANK_SEQ}: "
+          f"loss {float(loss.detach()):.6f}, dropped share "
+          f"{float(metrics['moe_dropped']):.6f}; tokens "
+          f"{[r.generated for r in reqs]}")
+    del params, eng
+    free_device()
+
+
+def arctic_rank_main(rank: int, world: int, work: str) -> None:
+    """One of (e)'s ranks, started by ``arctic_four_ranks`` as
+    ``chip_smoke.py --arctic-rank <rank> <world> <dir>``: gloo over the
+    card's tensors.  At each mesh of ARCTIC_RANK_MESHES: ``arctic_rank_cfg``
+    on its slices under ARCTIC_PLAN (the ranks cut theirs in turn), one
+    ``lm_loss(sharder=)`` on its shard of ``arctic_rank_batch`` with its
+    grads summed by ``allreduce_grads`` and the clip's norm, what it
+    counted, its routing (the forward's MoE calls), its dropped share and
+    peak memory, each grad slice against the same slice of the reference.
+    Then at (1, world) ARCTIC_RANK_LENS's requests through
+    ``ContinuousScheduler`` under each of ARCTIC_RANK_PLANS, ``tp`` + ``ep``
+    with ``replan(SERVE_REPLAN_TO)`` at decode step SERVE_REPLAN_STEP: the
+    tokens and K1's launches.  Written to ``<dir>/arctic_rank<r>.json`` and
+    ``.pt``; every rank waits at a barrier, then leaves the group."""
+    device = json.load(open(os.path.join(work, "job27.json")))["device"]
+    full_f32()
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(work, "store27e"), world), rank=rank, world_size=world)
+    t_start = time.perf_counter()
+
+    def note(what):
+        if rank == 0:
+            log(f"    rank 0: {what} at {time.perf_counter() - t_start:.1f} "
+                f"s, {torch.cuda.memory_allocated() / 1e9:.2f} GB held, "
+                f"host GiB {host_state()}")
+    try:
+        cfg = arctic_rank_cfg()
+        ref = torch.load(os.path.join(work, "arctic_ref.pt"), mmap=True)
+        res, routes = {}, {}
+        for shape in ARCTIC_RANK_MESHES:
+            label = f"{shape[0]}x{shape[1]}"
+            mesh = make_mesh(shape, ("data", "model"),
+                             torch.device(device).type, backend="gloo")
+            ctx = from_mesh(mesh)
+            lay = in_turn(rank, world, lambda: tp_layout(
+                cfg, mesh, device, plan=ARCTIC_PLAN))
+            note(f"{label}: the slices cut")
+            specs, sharder = lay["specs"], lay["sharder"]
+            leaves = lm.tree_map(lambda p: p.requires_grad_(True),
+                                 lay.pop("params"))
+            batch = lm.shard_lm_batch(arctic_rank_batch(cfg, device),
+                                      sharder)
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            with moe_calls() as calls:
+                loss, metrics = lm.lm_loss(leaves, batch, cfg,
+                                           sharder=sharder, backend="kernel")
+            routes[label] = calls
+            grads = iter(torch.autograd.grad(loss, lm.tree_leaves(leaves)))
+            loss, grads = allreduce_grads(loss.detach(), lm.tree_map(
+                lambda p: next(grads), leaves), specs, ctx)
+            slices_norm(grads, specs, ctx)
+            got = read_counts()
+            got.update(seconds=time.perf_counter() - t0,
+                       coord=[ctx.dp_index, ctx.sp_index],
+                       layout=lay["layout"],
+                       dropped=float(metrics["moe_dropped"]),
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            note(f"{label}: the loss and grads")
+            gaps = torch.tensor([slice_gap(g, w[tuple(
+                slice(a, b) for a, b in slice_index(w.shape, spec, ctx))])
+                for g, w, spec in zip(lm.tree_leaves(grads), ref["grads"],
+                                      lm.tree_leaves(specs))],
+                dtype=torch.float64)
+            dist.all_reduce(gaps, op=dist.ReduceOp.MAX)
+            shares = (gaps[:, 0] / gaps[:, 1].clamp_min(1e-30)).tolist()
+            worst = int(np.argmax(shares))
+            got.update(
+                loss=float(loss), loss_rel=float(
+                    (loss.cpu() - ref["loss"]).abs() / ref["loss"].abs()),
+                grad_rel=shares[worst], leaves=len(shares),
+                leaf=leaf_paths(specs)[worst], host_gib=host_state())
+            res[label] = got
+            del leaves, grads, lay
+            host_empty_cache()
+            torch.cuda.empty_cache()
+        torch.save(routes, os.path.join(work, f"arctic_rank{rank}.pt"))
+        mesh = make_mesh((1, world), ("data", "model"),
+                         torch.device(device).type, backend="gloo")
+        for name, plan in ARCTIC_RANK_PLANS.items():
+            eng = in_turn(rank, world, lambda: ServingEngine(
+                lm.init_lm(0, cfg, device=device), cfg,
+                max_len=arctic_rank_max_len(), mesh=mesh, plan=plan,
+                device=device))
+            note(f"serve {name}: the engine built")
+            reqs = trace_requests(cfg, device, ARCTIC_RANK_LENS,
+                                  ARCTIC_RANK_NEW)
+            sched = ContinuousScheduler(eng, max_batch=len(reqs))
+
+            def on_step(s, k):
+                if plan.mode == "tp" and k == SERVE_REPLAN_STEP:
+                    s.replan(SERVE_REPLAN_TO)
+                    host_empty_cache()
+                    torch.cuda.empty_cache()
+                    note(f"serve {name}: replanned")
+            reset_counts()
+            t0 = time.perf_counter()
+            sched.run(reqs, on_step=on_step)
+            got = read_counts()
+            res[f"serve/{name}"] = {
+                "active": eng.active, "seconds": time.perf_counter() - t0,
+                "tokens": ([r.generated for r in reqs] if eng.active
+                           else None),
+                "k1": got["k1"], "k1_routes": got["k1_routes"],
+                "host_gib": host_state()}
+            note(f"serve {name}: served")
+            del eng, sched
+            free_device()
+        json.dump(res, open(os.path.join(work, f"arctic_rank{rank}.json"),
+                            "w"))
+    finally:
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def arctic_four_ranks(work: str, device="cuda") -> dict:
+    """(e) DSP_RANKS processes sharing the card over gloo
+    (``arctic_rank_main``), ``arctic_rank_cfg`` in float32 at each mesh of
+    ARCTIC_RANK_MESHES under ARCTIC_PLAN: the loss within TP_LOSS_BAR
+    relative of the one-rank reference, each rank's grad slices within
+    TP_GRAD_BAR of their leaf's max, the ranks' dropped shares summed
+    equal to the reference's, each rank's calls and bytes exactly
+    ``zero_contract(tp=True)`` with the dispatch's rows from the run's
+    routing (``route_rows``), K1 twice a layer on the f32 route on the
+    rank's heads; then the requests served under each plan, the tokens
+    one rank's up to a near-tie (TP_TIE_BAR), K1 once a layer a prefill.
+    Each rank's peak memory and host memory logged."""
+    with open(os.path.join(work, "job27.json"), "w") as f:
+        json.dump({"device": device}, f)
+    t0 = time.perf_counter()
+    procs = spawn_ranks("--arctic-rank", work)
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log_t(f"  {DSP_RANKS} ranks exited {rcs} after "
+          f"{time.perf_counter() - t0:.1f} s")
+    if any(rcs):
+        raise AssertionError(f"an arctic rank failed: exit codes {rcs}")
+    ranks = [json.load(open(os.path.join(work, f"arctic_rank{r}.json")))
+             for r in range(DSP_RANKS)]
+    routes = [torch.load(os.path.join(work, f"arctic_rank{r}.pt"))
+              for r in range(DSP_RANKS)]
+    ref = torch.load(os.path.join(work, "arctic_ref.pt"), mmap=True)
+    cfg = arctic_rank_cfg()
+    e_phys = lm.moe_meta(cfg).e_phys
+    route = ROUTES[(cfg.dtype, cfg.head_dim)]
+    k1 = 2 * cfg.n_layers
+    cap = lm_capacity(cfg, ARCTIC_RANK_SEQ)
+    for shape in ARCTIC_RANK_MESHES:
+        label = f"{shape[0]}x{shape[1]}"
+        parts = {tuple(res[label]["coord"]): rt[label]
+                 for res, rt in zip(ranks, routes)}
+        glob = assemble_routes(parts, shape)
+        share = sum(res[label]["dropped"] for res in ranks)
+        g = ranks[0][label]
+        log_t(f"  {label}: depth {cfg.n_layers}, {cfg.n_experts} experts in "
+              f"float32, {ARCTIC_RANK_BATCH} x {ARCTIC_RANK_SEQ}: loss "
+              f"{g['loss']:.9f}, |delta| / |loss| against one rank "
+              f"{g['loss_rel']:.3e}, worst grad slice {g['leaf']} "
+              f"{g['grad_rel']:.3e} of its leaf's max over {g['leaves']} "
+              f"leaves; dropped share {share} against {ref['dropped']}")
+        if not (g["grad_rel"] <= TP_GRAD_BAR
+                and abs(share - ref["dropped"]) < 1e-9):
+            raise AssertionError(f"{label}: the {DSP_RANKS}-rank grads or "
+                                 f"drops disagree with one rank: {g}, "
+                                 f"dropped {share} against {ref['dropped']}")
+        for r, res in enumerate(ranks):
+            got = res[label]
+            i, j = got["coord"]
+            rows = route_rows(glob, e_phys, cap, shape[0], shape[1], i, j)
+            want = zero_contract(cfg, shape, ARCTIC_RANK_BATCH,
+                                 got["layout"], ARCTIC_RANK_SEQ, rows,
+                                 tp=True)
+            log_t(f"  rank {r} (data {i}, model {j}): {got['seconds']:.1f} "
+                  f"s, peak {got['peak_gb']:.2f} GB, dispatch rows "
+                  f"(received, returned) {rows}, calls {got['calls']}, K1 "
+                  f"{got['k1']} {got['k1_routes']} {got['k1_dims']}; host "
+                  f"GiB {got['host_gib']}")
+            if not (got["loss_rel"] <= TP_LOSS_BAR and got["calls"] == want
+                    and got["k1"] == k1 and got["k1_routes"] == {route: k1}):
+                raise AssertionError(f"rank {r} {label}: {got}, the contract "
+                                     f"says {want} and {k1} K1 launches on "
+                                     f"{route}")
+    sref = json.load(open(os.path.join(work, "arctic_serve.json")))
+    k1 = cfg.n_layers * len(ARCTIC_RANK_LENS)
+    for name, plan in ARCTIC_RANK_PLANS.items():
+        for r, res in enumerate(ranks):
+            sv = res[f"serve/{name}"]
+            apart = [next(([t, m[t]] for t, (a, b) in enumerate(zip(g, w))
+                           if a != b), None)
+                     for g, w, m in zip(sv["tokens"] or [], sref["tokens"],
+                                        sref["margins"])]
+            survives = plan.mode != "tp" or r < SERVE_REPLAN_TO
+            log_t(f"  serve {name}, rank {r}: {sv['seconds']:.1f} s, still "
+                  f"serving {sv['active']}, tokens {sv['tokens']}, K1 "
+                  f"{sv['k1']} {sv['k1_routes']}; host GiB "
+                  f"{sv['host_gib']}; [first step apart, one rank's margin "
+                  f"there] {apart}")
+            if (sv["active"] != survives
+                    or any(a is not None and a[1] > TP_TIE_BAR
+                           for a in apart)
+                    or sv["k1_routes"] != {route: k1}):
+                raise AssertionError(f"serve {name}, rank {r}: {sv}, one "
+                                     f"rank {sref} with {k1} K1 launches on "
+                                     f"{route}")
+    log(f"  tokens against one rank's {sref['tokens']}, margins "
+        f"{sref['margins']}")
+    return {"ranks": ranks}
+
+
+def arctic_phase(phase22: dict, work: str, device="cuda",
+                 early=None) -> dict:
+    """Phase 27, (a) to (e); (f)'s CLIs start with ``early`` (beside (c)
+    to (e)) and are checked in phase 28."""
+    out = {}
+    cfg = arctic_cfg(ARCTIC_DEPTH)
+    log(f"  (a) depth {ARCTIC_DEPTH} of {arctic_480b.CONFIG.n_layers}, "
+        f"kernel against plain, the KV cache in {cfg.cache_dtype}")
+    box = {"params": arctic_init(cfg, device)}
+    out["checks"] = arctic_checks(box["params"], cfg, device)
+    log(f"  (b) depth {ARCTIC_DEPTH}, the same weights: {len(ARCTIC_LENS)} "
+        f"requests over {ARCTIC_LENS} tokens, {ARCTIC_NEW} new tokens each "
+        f"({elapsed()})")
+    out["serve"] = full_width_serve(cfg, flash_attention_fwd, device,
+                                    lens=ARCTIC_LENS, new_tokens=ARCTIC_NEW,
+                                    params=box.pop("params"))
+    log(f"  (b) the same trace at depth {ARCTIC_MESH_DEPTH}, one card, the "
+        f"reference of its run under {ARCTIC_SERVE_PLAN} ({elapsed()})")
+    out["serve1"] = full_width_serve(arctic_cfg(ARCTIC_MESH_DEPTH),
+                                     flash_attention_fwd, device,
+                                     lens=ARCTIC_LENS, new_tokens=ARCTIC_NEW)
+    log(f"  (c) training at depth 1 with {ARCTIC_TRAIN_EXPERTS} experts, "
+        f"{ARCTIC_TRAIN_STEPS} steps at 1 x {TRAIN_SEQ} ({elapsed()})")
+    out["train"] = full_width_train(arctic_cfg(1, ARCTIC_TRAIN_EXPERTS),
+                                    flash_attention_fwd, 1,
+                                    ARCTIC_TRAIN_STEPS, device)
+    free_device()
+    arctic_world_of_one(out, phase22, work, device, early)
+    log(f"  (e) {DSP_RANKS} ranks on the card over gloo, depth "
+        f"{ARCTIC_RANK_DEPTH} with {ARCTIC_RANK_EXPERTS} experts in float32 "
+        f"({elapsed()})")
+    out["ranks"] = arctic_four_ranks(work, device)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The 4-rank phases' processes
 # ---------------------------------------------------------------------------
 
 # the flags whose ranks run with expandable segments: 4 caching allocators
 # share the card, and expandable segments let each give back what it frees
 EXPANDABLE = ("--zero-rank", "--ckpt-rank", "--serve-rank", "--paged-rank",
-              "--t2d-zero-rank", "--moe-rank", "--tp-rank", "--seamless-rank")
+              "--t2d-zero-rank", "--moe-rank", "--tp-rank", "--seamless-rank",
+              "--arctic-rank")
 # (flag, work) -> the rank processes ``prespawn`` started, not yet released
 _READY: dict = {}
 
@@ -6569,20 +7224,22 @@ def stop_ready() -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 27: the CLIs under torchrun, side by side
+# Phase 28: the CLIs under torchrun, side by side
 # ---------------------------------------------------------------------------
 
-def cli_launches() -> dict:
-    """Start every CLI that phases 19, 20, 23, 25 and 26 run under
-    ``torchrun --standalone --nproc-per-node`` DSP_RANKS on the card, gloo
-    over its tensors, all at once, each in a temporary directory of its
-    own: {name: (Popen, start time, directory)}.  Each launch spends most
-    of its time starting its ranks, so side by side they take about one
-    launch's time."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+# the launches that start in phase 27, once (b)'s run under tp + ep at
+# world size 1 has given the card back its memory, and run beside (c)-(e):
+# ~4 GiB of host memory and ~3 GB of the card a launch, where phase 28's
+# nine together took 116-136 s
+EARLY_CLIS = ("25c/train", "26e/train", "27f/train", "27f/serve")
+
+
+def cli_commands() -> dict:
+    """{name: (CLI module, arguments)} of every CLI that phases 19, 20, 23,
+    25, 26 and 27 run under ``torchrun``."""
     dsp_serve = ["--mode", "dsp", "--backend", "gloo"]
     mesh = ["--mesh", f"1,{DSP_RANKS}", "--backend", "gloo", "--steps", "3"]
-    cmds = {
+    return {
         "19c/continuous": ("serve", SERVE_CLI + dsp_serve + SERVE_CLI_CONT),
         "19c/replan": ("serve", SERVE_CLI + dsp_serve + ["--replan", "2"]),
         "20c/paged": ("serve", PAGED_CLI + dsp_serve),
@@ -6590,9 +7247,24 @@ def cli_launches() -> dict:
         "25c/train": ("train", ["--arch", "mistral-large-123b", *mesh]),
         "25c/serve": ("serve", TP_SERVE_CLI + ["--mode", "tp", "--backend",
                                                "gloo"]),
-        "26e/train": ("train", ["--arch", "seamless-m4t-large-v2", *mesh])}
+        "26e/train": ("train", ["--arch", "seamless-m4t-large-v2", *mesh]),
+        "27f/train": ("train", ["--arch", "arctic-480b", *mesh]),
+        "27f/serve": ("serve", ARCTIC_SERVE_CLI + ["--mode", "tp",
+                                                   "--backend", "gloo"])}
+
+
+def cli_launches(names) -> dict:
+    """Start the CLIs ``names`` of ``cli_commands`` under ``torchrun
+    --standalone --nproc-per-node`` DSP_RANKS on the card, gloo over its
+    tensors, all at once, each in a temporary directory of its own: {name:
+    (Popen, start time, directory)}.  Each launch spends most of its time
+    starting its ranks, so side by side they take about one launch's
+    time."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = {}
-    for name, (cli, args) in cmds.items():
+    for name, (cli, args) in cli_commands().items():
+        if name not in names:
+            continue
         work = tempfile.mkdtemp()
         out[name] = (subprocess.Popen(
             [sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -6987,6 +7659,10 @@ def main() -> None:
                      for i, (name, case) in enumerate(SEAMLESS_ATTN.items())}
     for i, case in enumerate(SEAMLESS_RANK_ATTN):
         check_attention(case, torch.float32, seed=510 + i)
+    arctic_errs = {name: check_attention(case, torch.bfloat16, seed=520 + i)
+                   for i, (name, case) in enumerate(ARCTIC_ATTN.items())}
+    for i, case in enumerate(ARCTIC_RANK_ATTN):
+        check_attention(case, torch.float32, seed=530 + i)
 
     log(f"[4] timing at the slice's shape, bf16 ({elapsed()})")
     q, k, v = attn_inputs(SLICE, torch.bfloat16, seed=7)
@@ -7052,6 +7728,11 @@ def main() -> None:
                                       cuda_cores=True),
                "max_abs_err": seamless_errs[name]}
         for name in SEAMLESS_ATTN}
+    arctic_times = {
+        name: {**time_model_attention(name, ARCTIC_ATTN[name],
+                                      cuda_cores=True),
+               "max_abs_err": arctic_errs[name]}
+        for name in ARCTIC_ATTN}
 
     log(f"[5] qwen3-14b serving at full width ({elapsed()})")
     cfg = qwen3_14b.CONFIG
@@ -7267,11 +7948,30 @@ def main() -> None:
     log_t(f"  done: phase 26 took {time.perf_counter() - t26:.1f} s "
           f"({elapsed()})")
 
-    log(f"[27] the CLIs under torchrun at SMOKE size, side by side: phases "
-        f"19 (c), 20 (c), 23 (c), 25 (c) and 26 (e)'s ({elapsed()})")
+    log(f"[27] arctic-480b under its spec's own plan (tp with ep and "
+        f"ZeRO-3) on a (data, model) mesh, and MoE served on a mesh "
+        f"({elapsed()})")
     t27 = time.perf_counter()
-    launched = cli_launches()
+    early = {}
     try:
+        with tempfile.TemporaryDirectory() as work:
+            prespawn("--arctic-rank", work)
+            m27 = arctic_phase(m22, work, early=lambda: early.update(
+                cli_launches(EARLY_CLIS)))
+    except BaseException:
+        close_launches(early)
+        raise
+    log_t(f"  done: phase 27 took {time.perf_counter() - t27:.1f} s "
+          f"({elapsed()})")
+
+    log(f"[28] the CLIs under torchrun at SMOKE size, side by side: phases "
+        f"19 (c), 20 (c), 23 (c), 25 (c), 26 (e) and 27 (f)'s, "
+        f"{sorted(early)} started in phase 27 ({elapsed()})")
+    t28 = time.perf_counter()
+    launched = dict(early)
+    try:
+        launched.update(cli_launches(
+            [n for n in cli_commands() if n not in early]))
         serve_cli_ranks(serve_main, launched)
         paged_clis(serve_main, launched)
         train_cli_ranks("23c/train", launched, train_main,
@@ -7281,14 +7981,20 @@ def main() -> None:
         tp_cli_ranks(launched, serve_main)
         train_cli_ranks("26e/train", launched, train_main,
                         "seamless-m4t-large-v2", SEAMLESS_PLAN)
+        train_cli_ranks("27f/train", launched, train_main, "arctic-480b",
+                        ARCTIC_PLAN)
+        tp_cli_ranks(launched, serve_main, "27f/serve", ARCTIC_SERVE_CLI)
     finally:
         close_launches(launched)
-    log_t(f"  done: phase 27 took {time.perf_counter() - t27:.1f} s "
+    log_t(f"  done: phase 28 took {time.perf_counter() - t28:.1f} s "
           f"({elapsed()})")
+    arctic_runs = [m27["serve"], m27["serve1"], m27["tp_serve"],
+                   m27["train"], m27["tp_train"], m27["qwen2_mesh"]]
     model_runs = [m22["starcoder2-7b"], m22["gemma2-2b"],
                   m22["qwen2-moe-a2.7b"], m22["qwen2-moe-a2.7b/train"],
                   moe_dsp, m24["serve"], m24["train"], m25["train"],
-                  m25["serve"], m26["serve"], m26["train"], m26["dsp"]]
+                  m25["serve"], m26["serve"], m26["train"], m26["dsp"],
+                  *arctic_runs]
 
     log(facts)
     print(json.dumps({"kernels": [{
@@ -7336,7 +8042,20 @@ def main() -> None:
                                            m26["dsp"]])},
                    "seamless-m4t-large-v2/rank_launches": [
                        {label: r[label]["k1_routes"] for label in r}
-                       for r in m26["ranks"]["ranks"]]},
+                       for r in m26["ranks"]["ranks"]],
+                   **arctic_times,
+                   "arctic-480b/launches": {
+                       "serve": m27["serve"]["launches"],
+                       "serve_depth1": m27["serve1"]["launches"],
+                       "tp_ep_serve": m27["tp_serve"]["launches"],
+                       "train": m27["train"]["launches"],
+                       "tp_ep_zero_train": m27["tp_train"]["launches"],
+                       "qwen2-moe_dsp_ep_serve":
+                           m27["qwen2_mesh"]["launches"],
+                       "routes": by_route(arctic_runs)},
+                   "arctic-480b/rank_launches": [
+                       {label: r[label]["k1_routes"] for label in r}
+                       for r in m27["ranks"]["ranks"]]},
         "paged_launches": paged["launches"],
         "paged_rank_launches": [r["k1_launches"]
                                 for r in paged_ranks["ranks"]],
@@ -7426,6 +8145,8 @@ if __name__ == "__main__":
         tp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif sys.argv[1:2] == ["--seamless-rank"]:
         seamless_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:2] == ["--arctic-rank"]:
+        arctic_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     else:
         try:
             main()

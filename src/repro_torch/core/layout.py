@@ -196,7 +196,11 @@ class ExpertPlace:
     ``seq_shards`` ranks of ``group`` in order (this one holds chunk
     ``seq_index``), the batch over ``dp_size`` ranks; with ``ep`` the
     experts split over ``group`` in contiguous blocks.  ``world_group``
-    carries the count exchange."""
+    carries the count exchange (None: no exchange, a serving step's
+    routing is the step's own).  ``whole``: the row's tokens are whole on
+    every rank of ``group`` instead (``tp``'s gathered sequence, a
+    serving step), so each rank routes them all, and with ``ep`` runs the
+    pairs routed to its block of experts."""
     group: object
     world_group: object
     seq_shards: int
@@ -204,6 +208,7 @@ class ExpertPlace:
     dp_size: int
     dp_index: int
     ep: bool
+    whole: bool = False
 
 
 # (id of a mesh, its SP dims) -> the group over them flattened

@@ -37,6 +37,14 @@ schedule:
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve \\
         --arch mistral-large-123b --mode tp --continuous
 
+MoE configs (qwen2-moe-a2.7b, arctic-480b) serve under either mode: a
+decode step's tokens are whole on every rank, which routes them all and
+runs whatever of each expert it holds (every expert under ``dsp``, its
+hidden columns under ``tp``), the partials summed with the block's:
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve \\
+        --arch arctic-480b --mode tp --continuous
+
 Rank 0 prints the summary in one write.  ``--ckpt-dir DIR`` serves the
 parameters of the latest checkpoint in DIR (``train.checkpoint``, either
 package's), restored onto the engine's layout.  ``--device`` defaults to

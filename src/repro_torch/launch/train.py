@@ -62,6 +62,15 @@ whole sequence, gathered into each block and reduce-scattered out of it
         --arch mistral-large-123b --mesh 1,4
     ... plan ParallelPlan(mode='tp', ep=False, zero=True, shard_vocab=True)
 
+arctic-480b trains under its spec's ``tp`` with ``ep`` and ZeRO-3:
+attention and the dense residual MLP tensor-parallel, the 128 routed
+experts split over the same ``model`` ranks, each rank running its
+experts on the tokens the dispatch brings it from its sequence shard:
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch arctic-480b --mesh 1,4
+    ... plan ParallelPlan(mode='tp', ep=True, zero=True, shard_vocab=True)
+
 seamless-m4t-large-v2 (the enc-dec family) trains on ``encdec``
 batches of ``--seq`` audio frames and ``--seq // 2`` decoder tokens, as
 the JAX CLI does, and under ``--mesh`` its spec's plan (``dsp`` with

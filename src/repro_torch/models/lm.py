@@ -28,16 +28,20 @@ what the layouts add to a step).  Serving runs sharded the same way
 (``forward_prefill``/``forward_decode(sharder=)``): the prefill as the
 training forward, decode with the KV cache sequence-sharded and the SSM
 state head-sharded over ``model`` (``serve_contract`` counts what it
-issues).  MoE trains on the mesh with ``ep`` or without
-(``Sharder.moe_experts``); MoE serving on a mesh is refused (ROADMAP
-queue 1 item 3.6).
+issues).  MoE trains and serves on the mesh with ``ep`` or without
+(``Sharder.moe_experts``, ``moe_block``): the training forward and the
+prefill route the rank's sequence shard (a padded prefill's padding
+takes no expert slot), and a serving step routes its tokens, whole on
+every rank, on each rank.
 
-Under plan ``tp`` (``check_tp``: attention and dense MLP layers, the q
-heads divided by the ranks) each attention and MLP block gathers the
+Under plan ``tp`` (``check_tp``: attention, dense MLP and MoE layers, the
+q heads divided by the ranks) each attention and MLP block gathers the
 whole sequence, runs the rank's heads or hidden columns and
 reduce-scatters the rows' partial outputs back
-(``attention.attention_sp``, ``tp_mlp``), and serving decodes with the
-step's q/k/v heads gathered and one all-reduce a block;
+(``attention.attention_sp``, ``tp_mlp``); a MoE layer runs its experts
+as under DSP with ``ep``, else the rank's hidden columns of every expert
+inside such a block (``moe_block``); serving decodes with the step's
+q/k/v heads gathered and one all-reduce a block;
 ``collective_contract(tp=True)``, ``param_contract`` and
 ``serve_contract`` count it.
 """
@@ -270,12 +274,8 @@ def dsp_schedule(cfg: LMConfig, n: int, *, seq: Optional[int] = None,
 def check_tp(cfg: LMConfig, n: int) -> None:
     """Raise unless plan ``tp`` runs ``cfg`` over ``n`` model ranks: its
     attention splits the q heads (``n_heads % n == 0``), and its layers
-    are attention and dense MLPs."""
+    are attention, dense MLPs and MoE."""
     specs = cfg.period_specs()
-    if any(sp.ffn == "moe" for sp in specs):
-        raise NotImplementedError(
-            f"{cfg.name}: plan 'tp' with MoE layers (arctic-480b, tp with "
-            f"ep) is not ported yet (ROADMAP queue 1 item 7.8)")
     if any(sp.mixer == "ssm" for sp in specs):
         raise NotImplementedError(
             f"{cfg.name}: plan 'tp' with SSM layers is not ported yet "
@@ -356,12 +356,17 @@ def _init_layer(gen: torch.Generator, cfg: LMConfig, spec: LayerSpec):
     return p
 
 
-def init_lm(seed: int, cfg: LMConfig, *, device="cuda"):
+def init_lm(seed: int, cfg: LMConfig, *, device="cuda", stage=None):
     """Returns the parameter tree, drawn from a ``torch.Generator`` seeded
     with ``seed`` on ``device``.  Per-period layer params live under
     ``periods`` with a stacked leading dim of n_periods; each period is
-    drawn and copied in turn, so the peak is the model plus one period's
-    float32 draw."""
+    drawn and copied in turn, so the peak is the model plus one period
+    and one leaf's float32 draw.  ``stage`` (a device, "cpu") keeps the
+    periods before the last there as they are drawn, and assembles each
+    stacked leaf on ``device`` from them and the last period's leaf,
+    that leaf freed as its stack is made: the same values, for a model
+    whose stack and one period's draw do not fit the card together
+    (arctic-480b's 13.6B-parameter layer)."""
     if cfg.frontend_dim:
         raise NotImplementedError("the VLM frontend is not ported yet")
     dev = resolve_device(device)
@@ -370,20 +375,47 @@ def init_lm(seed: int, cfg: LMConfig, *, device="cuda"):
     params: Dict[str, Any] = {
         "embed": L.init_embedding(gen, cfg.vocab, cfg.d_model,
                                   dtype=cfg.dtype)}
-    periods = None
-    for i in range(cfg.n_periods):
+    n = cfg.n_periods
+    periods, staged = None, []
+    for i in range(n):
         one = {str(j): _init_layer(gen, cfg, spec)
                for j, spec in enumerate(specs)}
-        if periods is None:
-            periods = tree_map(
-                lambda a: a.new_empty((cfg.n_periods,) + tuple(a.shape)), one)
-        tree_map(lambda dst, src: dst[i].copy_(src), periods, one)
+        if stage is not None and i < n - 1:
+            staged.append(tree_map(lambda a: a.to(stage), one))
+        elif stage is not None:
+            periods = _stack_last(one, staged, n)
+        else:
+            if periods is None:
+                periods = tree_map(
+                    lambda a: a.new_empty((n,) + tuple(a.shape)), one)
+            tree_map(lambda dst, src: dst[i].copy_(src), periods, one)
+        del one                  # before the next period's draw
     params["periods"] = periods
     params["final_norm"] = _init_norm_kind(cfg, cfg.d_model, dev)
     if not cfg.tie_embeddings:
         params["unembed"] = L.init_embedding(gen, cfg.vocab, cfg.d_model,
                                              dtype=cfg.dtype)
     return params
+
+
+def _stack_last(last: dict, staged: list, n: int) -> dict:
+    """Each leaf of the last period's tree ``last`` stacked after its
+    ``staged`` earlier periods' (``init_lm``'s ``stage``) on its device,
+    popped from ``last`` as its stack is made so that it is freed then."""
+    out = {}
+    for k in list(last):
+        leaf = last.pop(k)
+        earlier = [t[k] for t in staged]
+        if isinstance(leaf, dict):
+            out[k] = _stack_last(leaf, earlier, n)
+            continue
+        stack = leaf.new_empty((n,) + tuple(leaf.shape))
+        for i, e in enumerate(earlier):
+            stack[i].copy_(e)
+        stack[n - 1].copy_(leaf)
+        out[k] = stack
+        del leaf
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -652,8 +684,12 @@ def collective_contract(cfg: LMConfig, n: int, batch: int, seq: int, *,
     Under ``tp`` (Megatron-SP, ``Sharder.tp_enter``/``tp_exit``) each
     attention and each MLP block instead issues 1 all-gather of the
     whole (batch, n·seq, d) sequence in and 1 reduce-scatter of the same
-    out; ``wk``/``wv`` read whole under ``kv_whole`` count in
-    ``param_contract``.
+    out, and each MoE layer, beside its count exchange (``moe_block``),
+    1 more such pair: without ``ep`` around the whole layer (every
+    expert's and the shared and dense MLPs' partials summed in one), with
+    ``ep`` around its shared and dense MLPs (none if it has neither),
+    the experts' 2 all-to-alls as under DSP; ``wk``/``wv`` read whole
+    under ``kv_whole`` count in ``param_contract``.
 
     A training step with ``remat`` issues ``remat_step`` of it, and the
     trainer adds one all-reduce."""
@@ -666,24 +702,26 @@ def collective_contract(cfg: LMConfig, n: int, batch: int, seq: int, *,
         calls[kind] = calls.get(kind, 0) + times
         nbytes[kind] = nbytes.get(kind, 0) + elems * width * times
 
-    if tp:
-        check_tp(cfg, n)
-        blocks = sum(1 + (sp.ffn == "mlp") for sp in cfg.period_specs())
-        add("all-gather", batch * s * cfg.d_model,
-            times=blocks * cfg.n_periods)
-        add("reduce-scatter", batch * s * cfg.d_model,
-            times=blocks * cfg.n_periods)
-        return {"calls": calls, "bytes": nbytes}
     n_moe = n_moe_layers(cfg)
     if n_moe:
-        add("all-reduce", 2 * dp * n * batch * moe_meta(cfg).e_phys, 8,
-            n_moe)
+        meta = moe_meta(cfg)
+        add("all-reduce", 2 * dp * n * batch * meta.e_phys, 8, n_moe)
         if ep:
             if moe_rows is None:
                 raise ValueError("the dispatch's bytes follow the routing: "
                                  "pass moe_rows")
             add("all-to-all", sum(moe_rows) * cfg.d_model)
             calls["all-to-all"] += 2 * n_moe - 1
+    if tp:
+        check_tp(cfg, n)
+        blocks = sum(1 + (sp.ffn == "mlp") for sp in cfg.period_specs())
+        if n_moe and (not ep or meta.has_shared or meta.has_dense):
+            blocks = blocks * cfg.n_periods + n_moe
+        else:
+            blocks = blocks * cfg.n_periods
+        add("all-gather", batch * s * cfg.d_model, times=blocks)
+        add("reduce-scatter", batch * s * cfg.d_model, times=blocks)
+        return {"calls": calls, "bytes": nbytes}
 
     for layer in range(cfg.n_layers):
         spec = cfg.period_specs()[layer % len(cfg.period_specs())]
@@ -936,34 +974,88 @@ def sharded_argmax(logits, cfg: LMConfig,
     return torch.gather(pairs[..., 1], 0, win[None])[0].long()
 
 
+def tp_partial(p, x, kind: str):
+    """An MLP's partial output under ``tp`` on x whole (the gathered
+    sequence, or a decode step's tokens): the rank's F/n columns of
+    ``wi``/``wg`` (``attention.tp_columns``), the activation, its rows of
+    ``wo``, without ``wo``'s bias, which the caller adds once after the
+    sum over ``model``."""
+    return L.mlp({**{k: p[k] for k in ("wi", "wg") if k in p},
+                  "wo": {"w": p["wo"]["w"]}}, x, kind)
+
+
 def tp_mlp(p, x, kind: str, sharder: Sharder, *, step: bool):
     """The MLP under ``tp``: x the rank's sequence shard, gathered whole
     (``Sharder.tp_enter``), or a decode ``step``'s tokens, whole on every
-    rank; the rank's F/n columns of ``wi``/``wg``, the activation, its
-    rows of ``wo`` into a partial, summed over ``model``
+    rank; ``tp_partial`` on it, summed over ``model``
     (``attention.tp_rows``: a reduce-scatter back onto the shard, or a
-    step's all-reduce)."""
+    step's all-reduce), and ``wo``'s bias."""
     cols = {k: A.tp_columns(p[k], sharder) for k in ("wi", "wg") if k in p}
-    h = L.mlp({**cols, "wo": {"w": p["wo"]["w"]}},
-              x if step else sharder.tp_enter(x), kind)
+    h = tp_partial({**cols, "wo": p["wo"]}, x if step
+                   else sharder.tp_enter(x), kind)
     y = sharder.tp_sum(h) if step else sharder.tp_exit(h)
     return y + p["wo"]["b"] if "b" in p["wo"] else y
 
 
+def moe_block(p, x, cfg: LMConfig, sharder: Sharder, place, *,
+              step: bool = False, length: Optional[int] = None):
+    """The MoE layer on x -> (y, aux) (``models.moe.moe``), placed by
+    ``place`` (``Sharder.moe_experts``; None on one device):
+
+      under DSP, the rank's sequence shard, the count exchange and, under
+        ``ep``, the dispatch's exchanges; a serving ``step`` routes its
+        tokens, whole on every rank, on each rank, and under ``ep`` each
+        rank runs its block of experts and one SUM all-reduce over
+        ``model`` adds the blocks, the shared and dense MLPs added once
+        after it;
+      under ``tp`` with ``ep``, the experts as under DSP on the shard, the
+        shared and dense MLPs as ``tp_mlp`` runs (column and row blocks
+        between their own gather and reduce-scatter);
+      under ``tp`` without ``ep`` (or a ``tp`` step), the tokens whole
+        (``tp_enter``'s sequence, or the step's), the rank's hidden
+        columns of every expert (or under ``ep`` its block) and of the
+        shared and dense MLPs, all partials, summed by one ``tp_exit``
+        (a step's ``tp_sum``).
+
+    The MoE MLPs carry no bias (``init_moe``).  ``length`` is the
+    prefill's true length (``moe_gather``)."""
+    meta = moe_meta(cfg)
+    kw = dict(norm_topk=cfg.norm_topk, expert_hook=place, length=length)
+    if place is None:
+        return M.moe(p, x, meta, **kw)
+    if sharder.tp:
+        if place.whole:
+            xw = x if step else sharder.tp_enter(x)
+            y, aux = M.moe(p, xw, meta, shared=False, **kw)
+            y = y + M.shared_and_dense(p, xw, meta, mlp=tp_partial)
+            return (sharder.tp_sum(y) if step else sharder.tp_exit(y)), aux
+        y, aux = M.moe(p, x, meta, shared=False, **kw)
+        if "shared" in p or "dense" in p:
+            y = y + sharder.tp_exit(M.shared_and_dense(
+                p, sharder.tp_enter(x), meta, mlp=tp_partial))
+        return y, aux
+    if place.whole and place.ep:
+        y, aux = M.moe(p, x, meta, shared=False, **kw)
+        dsp.all_reduce(y, place.group)
+        return y + M.shared_and_dense(p, x, meta), aux
+    return M.moe(p, x, meta, **kw)
+
+
 def _ffn_block(p, x, cfg: LMConfig, spec: LayerSpec,
                sharder: Optional[Sharder] = None, place=None, *,
-               step: bool = False):
+               step: bool = False, length: Optional[int] = None):
     """The layer's FFN half -> (x, aux): aux the MoE layer's
     (load_balance, dropped), None for an MLP.  ``place``
-    (``Sharder.moe_experts``) puts the MoE on a mesh.  ``step``: x is a
-    decode step's, whole on every rank (``tp_mlp``)."""
+    (``Sharder.moe_experts``) puts the MoE on a mesh (``moe_block``).
+    ``step``: x is a decode step's, whole on every rank (``tp_mlp``).
+    ``length``: a padded prefill's true length."""
     if spec.ffn == "none":
         return x, None
     h = _apply_norm(cfg, p["ln2"], x)
     aux = None
     if spec.ffn == "moe":
-        h, a = M.moe(p["moe"], h, moe_meta(cfg), norm_topk=cfg.norm_topk,
-                     expert_hook=place)
+        h, a = moe_block(p["moe"], h, cfg, sharder or null_sharder(), place,
+                         step=step, length=length)
         aux = (a["load_balance"], a["dropped"])
     elif sharder is not None and sharder.tp:
         h = tp_mlp(p["mlp"], h, cfg.mlp_kind, sharder, step=step)
@@ -976,24 +1068,17 @@ def _ffn_block(p, x, cfg: LMConfig, spec: LayerSpec,
     return x + h, aux
 
 
-def refuse_moe_serving(cfg: LMConfig, on_mesh: bool) -> None:
-    """MoE layers serve on one device; on a mesh they raise."""
-    if on_mesh and n_moe_layers(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: MoE serving on a mesh is not ported yet (ROADMAP "
-            f"queue 1 item 3.6); MoE trains on a mesh, and serves on one "
-            f"device")
-
-
 def _decode_layer(p, x, pc, cfg: LMConfig, spec: LayerSpec, pos,
-                  sharder: Optional[Sharder] = None, table=None,
+                  sharder: Optional[Sharder] = None, place=None, table=None,
                   start: Optional[int] = None):
     """One layer of incremental decode; x: (B, S, C), whole on every rank
     of a mesh.  S is 1 for a decode step, or a prefill chunk's length
     (the paged scheduler feeds prompt slices through this same layer).
-    ``table`` (B, blocks_per_slot) switches attention to the block pool's
-    layout, ``start`` (a host int) is a chunk's first position.  Writes
-    the layer's cache ``pc`` in place and returns (x, pc)."""
+    ``place`` is the step's MoE placement (``Sharder.moe_experts(step=
+    True)``).  ``table`` (B, blocks_per_slot) switches attention to the
+    block pool's layout, ``start`` (a host int) is a chunk's first
+    position.  Writes the layer's cache ``pc`` in place and returns (x,
+    pc)."""
     h = _apply_norm(cfg, p["ln1"], x)
     if spec.mixer == "attn":
         cache = {"k": pc["kv"]["k"], "v": pc["kv"]["v"], "pos": pos}
@@ -1007,7 +1092,7 @@ def _decode_layer(p, x, pc, cfg: LMConfig, spec: LayerSpec, pos,
         tree_map(lambda dst, src: dst.copy_(src), pc["ssm"], new)
     if cfg.post_norm:
         h = _apply_norm(cfg, p["pn1"], h)
-    return _ffn_block(p, x + h, cfg, spec, sharder, step=True)[0], pc
+    return _ffn_block(p, x + h, cfg, spec, sharder, place, step=True)[0], pc
 
 
 def forward_decode(params, tokens, caches, cfg: LMConfig, *,
@@ -1029,9 +1114,9 @@ def forward_decode(params, tokens, caches, cfg: LMConfig, *,
     where it is read, as in training), ``caches`` the rank's layout
     (``init_caches(sharder=)``), and the logits vocab-sharded under
     ``vocab_sharded`` (``sharded_argmax`` reads them)."""
-    refuse_moe_serving(cfg, sharder is not None and sharder.ctx is not None)
     sharder = fit_sharder(sharder or null_sharder(), cfg)
     specs = cfg.period_specs()
+    place = sharder.moe_experts(step=True) if n_moe_layers(cfg) else None
     pos = caches["pos"]
     table = caches.get("table")
     x = decode_embed(params, tokens, cfg, sharder)
@@ -1040,7 +1125,7 @@ def forward_decode(params, tokens, caches, cfg: LMConfig, *,
         pp = sharder.whole(pp, "periods")
         for j, spec in enumerate(specs):
             x, _ = _decode_layer(pp[str(j)], x, pcs[str(j)], cfg, spec, pos,
-                                 sharder, table=table, start=start)
+                                 sharder, place, table=table, start=start)
     x = _apply_norm(cfg, sharder.whole(params["final_norm"], "final_norm"),
                     x)
     new = {"pos": pos + tokens.shape[1], "periods": caches["periods"]}
@@ -1080,13 +1165,13 @@ def forward_prefill(params, tokens, cfg: LMConfig, *,
     the real positions, and the SSM state passes it unchanged); the
     logits are taken at position ``length - 1``, whole on every rank
     (``Sharder.seq_rows``), vocab-sharded under ``vocab_sharded``."""
-    refuse_moe_serving(cfg, sharder is not None and sharder.ctx is not None)
     sharder = sharder or null_sharder()
     seq = tokens.shape[1] * sharder.seq_shards
     sharder = fit_sharder(sharder, cfg, seq=seq,
                            batch=tokens.shape[0] * sharder.dp_size)
     length = seq if length is None else length
     specs = cfg.period_specs()
+    place = sharder.moe_experts() if n_moe_layers(cfg) else None
     x = sharder.enter3(sharded_embed(params, tokens, cfg, sharder))
     periods = [{} for _ in specs]
     for i, pp in enumerate(unstack(params["periods"], cfg.n_periods)):
@@ -1116,7 +1201,8 @@ def forward_prefill(params, tokens, cfg: LMConfig, *,
             tree_map(lambda dst, src: dst[i].copy_(src), periods[j], pc)
             if cfg.post_norm:
                 h = _apply_norm(cfg, p["pn1"], h)
-            x = sharder.act3(_ffn_block(p, x + h, cfg, spec, sharder)[0])
+            x = sharder.act3(_ffn_block(p, x + h, cfg, spec, sharder, place,
+                                        length=length)[0])
     x = _apply_norm(cfg, sharder.whole(params["final_norm"], "final_norm"),
                     sharder.seq_rows(x, length - 1, 1))
     logits = logits_fn(params, x, cfg, sharder)
@@ -1129,7 +1215,7 @@ def serve_contract(cfg: LMConfig, n: int, params, plan: ParallelPlan, *,
                    dp: int = 1, prefill=None, decode: Optional[int] = None,
                    chunk: Optional[int] = None, first_tokens: int = 0,
                    migrate=None, paged_migrate=None, ticks: int = 0,
-                   max_len: Optional[int] = None
+                   max_len: Optional[int] = None, moe_rows=None
                    ) -> Dict[str, Dict[str, int]]:
     """The ``torch.distributed`` calls and bytes (``core.dsp``'s rule), by
     kind, that sharded serving issues per rank on a ``(dp, n)`` mesh under
@@ -1144,14 +1230,19 @@ def serve_contract(cfg: LMConfig, n: int, params, plan: ParallelPlan, *,
         all-reduce of the last position (``Sharder.seq_rows``), one of
         each SSM layer's conv window; per attention layer of the period,
         one all-gather of its stacked K/V, every period's, onto the cache's
-        blocks (``Sharder.kv_cache``, the re-cut);
+        blocks (``Sharder.kv_cache``, the re-cut); MoE layers as the
+        training forward issues them (``collective_contract``, with
+        ``moe_rows`` of the prefill's routing under ``ep``);
       ``decode=rows``: one decode step of ``rows`` rows and its argmax: the
         embedding's all-reduce (``decode_embed``, where the table is split
         by vocab; else its read), each period leaf gathered once, per
         attention layer one all-gather of the float32 softmax partials
         (``_sharded_decode``), per SSM layer one of y in the model dtype,
         the final norm read, and the logits' table read unless the logits
-        are vocab-sharded.  The block pool's decode step issues exactly
+        are vocab-sharded; per MoE layer under ``ep`` one all-reduce of
+        the experts' outputs (``moe_block``: each rank runs its block on
+        the step's whole tokens), none without.  The block pool's decode
+        step issues exactly
         these: its partials have the slot layout's shape, and its blocks'
         gather and scatter stay on the rank;
       ``chunk=c``: one paged prefill chunk of c tokens of one row (the
@@ -1181,7 +1272,8 @@ def serve_contract(cfg: LMConfig, n: int, params, plan: ParallelPlan, *,
     cache (none under ``kv_whole``); a decode step (or chunk) adds per
     attention layer one all-gather of the step's q/k/v heads (of q alone
     under ``kv_whole``) and one SUM all-reduce of the attention output,
-    and per MLP one all-reduce.
+    and per MLP or MoE layer one all-reduce (a MoE layer's, under ``ep``
+    too, its only one).
 
     The trainer's contracts' rules: an all-gather counts its result's
     bytes, an all-reduce twice its result's."""
@@ -1237,7 +1329,8 @@ def serve_contract(cfg: LMConfig, n: int, params, plan: ParallelPlan, *,
     if prefill is not None:
         batch, seq = prefill
         b, s = batch // dp, prefill_shard_len(cfg, seq, n)
-        add_all(collective_contract(cfg, n, b, s, tp=tp))
+        add_all(collective_contract(cfg, n, b, s, tp=tp, dp=dp, ep=plan.ep,
+                                    moe_rows=moe_rows))
         periods()
         if shard_vocab:
             table = params["embed"]["table"]
@@ -1271,12 +1364,15 @@ def serve_contract(cfg: LMConfig, n: int, params, plan: ParallelPlan, *,
         else:
             read(("embed",))
         periods()
+        n_moe = n_moe_layers(cfg)
         if tp:
             heads = cfg.n_heads + (0 if whole_kv else 2 * cfg.n_kv_heads)
             add("all-gather", r * s * heads * cfg.head_dim * a_bytes, n_attn)
             add("all-reduce", 2 * r * s * cfg.d_model * a_bytes,
-                n_attn + sum(sp.ffn == "mlp" for sp in period)
+                n_attn + n_moe + sum(sp.ffn == "mlp" for sp in period)
                 * cfg.n_periods)
+        elif plan.ep:
+            add("all-reduce", 2 * r * s * cfg.d_model * a_bytes, n_moe)
         add("all-gather", n * r * cfg.n_heads * s * (cfg.head_dim + 2) * 4,
             n_attn)
         if n_ssm:

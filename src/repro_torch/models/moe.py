@@ -31,6 +31,16 @@ output home.  Each rank combines its own tokens: its pairs' outputs
 gathered back through the inverse permutation and summed over k in order,
 with no atomics, so two runs agree bit for bit.
 
+Where the row's tokens are whole on every model rank instead (under
+``tp`` without ``ep``, the block's gathered sequence; a serving step),
+each rank routes them all, with no position offsets: without ``ep`` it
+runs what it holds of every expert (all of each, or under ``tp`` its
+hidden columns, a partial output), with ``ep`` the pairs routed to its
+block of experts, and the caller sums the partials (``models.lm
+.moe_block``).  A prefill padded on the right passes its true
+``length``: the padding takes no slot and the capacity is the unpadded
+row's.
+
 The aux stats are JAX's, global over the batch: ``load_balance`` (E ·
 sum over experts of the routed fraction times the mean router
 probability) and ``dropped`` (the share of pairs past the capacity).  On
@@ -152,7 +162,7 @@ def moe_einsum(p, x, meta: MoEArgs, *, capacity_factor: float = 1.25,
     xe = torch.einsum("bsec,bsd->becd", dispatch.to(x.dtype), x)
     ye = _expert_ffn(p, xe, meta.kind)
     y = torch.einsum("becd,bsec->bsd", ye, combine.to(x.dtype))
-    y = y + _shared_and_dense(p, x, meta)
+    y = y + shared_and_dense(p, x, meta)
     frac = assign.sum(2).mean(dim=(0, 1))
     pmean = probs.mean(dim=(0, 1))
     aux = {"load_balance": e_phys * torch.sum(frac * pmean),
@@ -179,43 +189,75 @@ def _count_exchange(counts: torch.Tensor, place: ExpertPlace):
 
 def moe_gather(p, x, meta: MoEArgs, *, capacity_factor: float = 2.0,
                norm_topk: bool = True,
-               expert_hook: Optional[ExpertPlace] = None):
+               expert_hook: Optional[ExpertPlace] = None,
+               length: Optional[int] = None, shared: bool = True):
     """Sort-based dispatch per batch row (JAX's ``moe_gather``): per row
     only (S·K,) index vectors and an (E, C, d) buffer exist.  x: (B, S, d)
     -> (y, aux).  ``expert_hook`` (``Sharder.moe_experts()``) places the
     rank on a mesh: x is then its shard of the rows (its data slice, its
     sequence chunk) and the dispatch runs as the module docstring says;
-    None runs on one device."""
+    None runs on one device.  Under ``ExpertPlace.whole`` x holds the
+    row's tokens whole on every model rank: each rank routes them all, its
+    capacity from their own count, and runs its block of experts (under
+    ``ep``) or whatever of every expert it holds (all of each, or its
+    hidden columns under ``tp``); the caller sums the ranks' outputs
+    where they are partial, and the aux shares are divided among the
+    ranks that hold the same tokens.
+
+    ``length``: the row's true global length, where it was padded on the
+    right (a prefill on a mesh): the positions at or past it take no
+    expert slot, and the capacity comes from ``length``, so the kept
+    pairs are an unpadded row's.  ``shared=False`` leaves out the shared
+    and dense MLPs (``shared_and_dense``), which the caller then runs."""
     place = expert_hook
     e_phys, k = meta.e_phys, meta.top_k
     b, s, d = x.shape
     sk = s * k
-    n = 1 if place is None else place.seq_shards
+    whole = place is None or place.whole
+    n = 1 if whole else place.seq_shards      # ranks the row is split over
+    seq = s * n if length is None else length    # the row's true length
     probs, gate_vals, gate_idx = _route(p, x, meta, norm_topk)
-    cap = _capacity(s * n, k, e_phys, capacity_factor)
+    cap = _capacity(seq, k, e_phys, capacity_factor)
     dev = x.device
 
     flat_e = gate_idx.reshape(b, sk)
+    real = torch.ones((s,), dtype=torch.bool, device=dev)
+    if length is not None:
+        # padded positions route to a sentinel expert past the real ones:
+        # their pairs sort last and take no slot
+        first = 0 if whole else place.seq_index * s
+        real = torch.arange(first, first + s, device=dev) < length
+        flat_e = torch.where(real.repeat_interleave(k)[None], flat_e, e_phys)
     order = torch.argsort(flat_e, dim=-1, stable=True)        # (B, SK)
     e_sorted = flat_e.gather(1, order)
-    counts = torch.zeros((b, e_phys), dtype=torch.long, device=dev)
+    counts = torch.zeros((b, e_phys + 1), dtype=torch.long, device=dev)
     counts.scatter_add_(1, flat_e, torch.ones_like(flat_e))
     start = _exclusive_cumsum(counts, 1)          # each run's first index
     pos = torch.arange(sk, device=dev) - start.gather(1, e_sorted)
-    if place is None:
+    counts = counts[:, :e_phys]
+    routed = e_sorted < e_phys
+    copies = 1                 # model ranks that route the same tokens
+    if place is None or place.world_group is None:
         every, total = counts[None], counts.sum(0)
     else:
         every, total = _count_exchange(counts, place)
-        # the pairs of earlier ranks in the sequence come first
-        pos = pos + _exclusive_cumsum(every, 0)[place.seq_index].gather(
-            1, e_sorted)
-    valid = pos < cap                                          # (B, SK)
+        if whole:
+            copies = place.seq_shards
+            total = total // copies
+        else:
+            # the pairs of earlier ranks in the sequence come first
+            pos = pos + _exclusive_cumsum(every, 0)[place.seq_index].gather(
+                1, e_sorted.clamp(max=e_phys - 1))
+    valid = (pos < cap) & routed                               # (B, SK)
 
     xk = x.unsqueeze(2).expand(b, s, k, d).reshape(b, sk, d)
     rows = xk.gather(1, order[..., None].expand(b, sk, d))     # sorted
-    if place is not None and place.ep:
+    if place is not None and place.ep and not whole:
         out = _experts_ep(p, meta, rows, e_sorted, pos, valid, every, cap,
                           place)
+    elif place is not None and place.ep:
+        out = _experts_local(p, meta, rows, e_sorted, pos, valid, cap,
+                             block=(place.seq_index, place.seq_shards))
     else:
         out = _experts_local(p, meta, rows, e_sorted, pos, valid, cap)
     gate_sorted = gate_vals.reshape(b, sk).gather(1, order)
@@ -223,28 +265,39 @@ def moe_gather(p, x, meta: MoEArgs, *, capacity_factor: float = 2.0,
     inverse = torch.argsort(order, dim=-1)
     y = out.gather(1, inverse[..., None].expand(b, sk, d))
     y = y.reshape(b, s, k, d).sum(dim=2)
-    y = y + _shared_and_dense(p, x, meta)
+    if shared:
+        y = y + shared_and_dense(p, x, meta)
 
-    tokens, pairs = b * s, b * sk                  # global counts below
+    tokens = b * seq                               # global counts below
     if place is not None:
-        tokens *= n * place.dp_size
-        pairs *= n * place.dp_size
+        tokens *= place.dp_size
     frac = total.float() / tokens
-    aux = {"load_balance": e_phys * torch.sum(frac * probs.sum(dim=(0, 1))
-                                              / tokens),
-           "dropped": (~valid).sum().float() / pairs}
+    psum = torch.where(real[None, :, None], probs, 0.0).sum(dim=(0, 1))
+    aux = {"load_balance": e_phys * torch.sum(frac * psum / tokens)
+           / copies,
+           "dropped": (routed & ~valid).sum().float() / (tokens * k)
+           / copies}
     return y.to(x.dtype), aux
 
 
-def _experts_local(p, meta: MoEArgs, rows, e_sorted, pos, valid, cap: int):
+def _experts_local(p, meta: MoEArgs, rows, e_sorted, pos, valid, cap: int,
+                   block=None):
     """Every expert on this rank: the kept rows (B, SK, d) of each row into
     a (B, E, C, d) buffer at their slots, the experts over it, and each
-    pair's output back in the rows' order (zeros for dropped pairs)."""
+    pair's output back in the rows' order (zeros for dropped pairs).
+    ``block`` (i, n): the rank holds the i-th of n blocks of the experts
+    (``ep`` with the tokens whole), and runs only the pairs routed there;
+    the others' outputs are zeros."""
     b, sk, d = rows.shape
     e_phys = meta.e_phys
+    first = 0
+    if block is not None:
+        e_phys //= block[1]
+        first = block[0] * e_phys
+        valid = valid & (e_sorted >= first) & (e_sorted < first + e_phys)
     size = b * e_phys * cap
     slot = (torch.arange(b, device=rows.device)[:, None] * e_phys
-            + e_sorted) * cap + pos
+            + e_sorted - first) * cap + pos
     slot = torch.where(valid, slot, size).reshape(-1)   # dropped: a spare row
     buf = rows.new_zeros((size + 1, d)).index_copy(0, slot,
                                                    rows.reshape(-1, d))
@@ -302,29 +355,36 @@ def _experts_ep(p, meta: MoEArgs, rows, e_sorted, pos, valid, every, cap,
     return out.reshape(b, sk, d)
 
 
-def _shared_and_dense(p, x, meta: MoEArgs):
+def shared_and_dense(p, x, meta: MoEArgs, mlp=L.mlp):
+    """The shared experts (gated by ``shared_gate``) and the dense
+    residual MLP on x, summed; 0 where the layer has neither.  ``mlp``
+    runs each of them (``models.lm``'s ``tp_partial`` under ``tp``: the
+    rank's columns and rows, a partial output that is linear in the gated
+    sum, so the caller sums it over ``model``)."""
     out = 0.0
     if "shared" in p:
-        sh = L.mlp(p["shared"], x, meta.kind)
+        sh = mlp(p["shared"], x, meta.kind)
         gate = torch.sigmoid(L.linear(p["shared_gate"], x))
         out = out + gate * sh
     if "dense" in p:
-        out = out + L.mlp(p["dense"], x, meta.kind)
+        out = out + mlp(p["dense"], x, meta.kind)
     return out
 
 
 def moe(p, x, meta: MoEArgs, *, impl: str = "gather",
         capacity_factor: float = 1.25, norm_topk: bool = True,
-        expert_hook: Optional[ExpertPlace] = None):
+        expert_hook: Optional[ExpertPlace] = None,
+        length: Optional[int] = None, shared: bool = True):
     if impl == "einsum":
-        if expert_hook is not None:
+        if expert_hook is not None or length is not None or not shared:
             raise NotImplementedError(
                 "the einsum dispatch runs on one device; on a mesh use "
                 "impl='gather', as the LM does")
         return moe_einsum(p, x, meta, capacity_factor=capacity_factor,
                           norm_topk=norm_topk)
     return moe_gather(p, x, meta, capacity_factor=max(capacity_factor, 2.0),
-                      norm_topk=norm_topk, expert_hook=expert_hook)
+                      norm_topk=norm_topk, expert_hook=expert_hook,
+                      length=length, shared=shared)
 
 
 def moe_active_params(d_model: int, d_ff: int, top_k: int, kind: str,
@@ -340,4 +400,4 @@ def moe_active_params(d_model: int, d_ff: int, top_k: int, kind: str,
 
 
 __all__ = ["MoEArgs", "init_moe", "moe", "moe_einsum", "moe_gather",
-           "moe_active_params"]
+           "shared_and_dense", "moe_active_params"]

@@ -61,13 +61,17 @@ the ``model`` split (``read_specs``), except ``wk``/``wv`` where the K/V
 heads do not divide the ranks (``Sharder.kv_whole``).  It takes no
 switching schedule.
 
-MoE runs under DSP with ``ep`` or without: ``Sharder.moe_experts`` (JAX's
-hook of that name) places the rank's tokens and experts for
-``models.moe.moe_gather``, which exchanges the expert counts, and under
-``ep`` dispatches and combines with ``core.dsp.exchange``.  Under ``ep``
-an expert leaf is split over ``model`` by expert (``param_pspecs``), and
-the rank runs its own experts: ``Sharder.whole`` gathers only its other
-splits (``read_specs``).
+MoE runs under DSP and ``tp``, with ``ep`` or without:
+``Sharder.moe_experts`` (JAX's hook of that name) places the rank's
+tokens and experts for ``models.moe.moe_gather``, which exchanges the
+expert counts, and under ``ep`` dispatches and combines with
+``core.dsp.exchange``.  Under ``ep`` an expert leaf is split over
+``model`` by expert (``param_pspecs``), and the rank runs its own
+experts; under ``tp`` without ``ep`` by hidden column, and the rank runs
+its columns of every expert on the block's gathered sequence.
+``Sharder.whole`` gathers only an expert leaf's other splits
+(``read_specs``).  A serving step holds its tokens whole on every model
+rank (``moe_experts(step=True)``): each rank routes them all.
 
 Serving lays its caches out by JAX's ``cache_pspecs`` (the KV sequence in
 contiguous blocks over ``model``, the SSM state by head).  The decode
@@ -258,8 +262,9 @@ def read_specs(specs, plan: ParallelPlan, path: Tuple[str, ...] = (), *,
     """``specs`` (the ``param_pspecs`` subtree at ``path``) as the model
     reads the leaves, gathered over every entry but the ones that stay the
     rank's: under ``ep`` an expert leaf's ``model`` split (the rank runs
-    its own experts); under ``tp`` a dense column or row leaf's ``model``
-    split (``is_tp_leaf``: the rank runs its heads and its hidden
+    its own experts); under ``tp`` an expert leaf's too (without ``ep``
+    the rank runs its hidden columns of every expert) and a dense column
+    or row leaf's (``is_tp_leaf``: the rank runs its heads and its hidden
     columns), unless ``kv_whole`` and the leaf is ``wk``/``wv``: K/V
     heads that the ranks' column blocks cut (``n_kv_heads % n != 0``) are
     read whole.  Only the ``data`` (ZeRO)
@@ -270,8 +275,9 @@ def read_specs(specs, plan: ParallelPlan, path: Tuple[str, ...] = (), *,
     def one(path, spec):
         p = _path_str(path)
         nd = len(spec) - _stacked(p)
-        local = (plan.ep and is_expert_leaf(p, nd)) or (
-            plan.mode == "tp" and is_tp_leaf(p, nd)
+        tp = plan.mode == "tp"
+        local = ((plan.ep or tp) and is_expert_leaf(p, nd)) or (
+            tp and is_tp_leaf(p, nd)
             and not (kv_whole and any(f"/{n}/" in f"/{p}"
                                       for n in ("wk", "wv"))))
         if not local:
@@ -876,24 +882,32 @@ class Sharder:
         return x
 
     # -- MoE -------------------------------------------------------------------
-    def moe_experts(self) -> Optional[ExpertPlace]:
+    def moe_experts(self, *, step: bool = False) -> Optional[ExpertPlace]:
         """Where this rank's MoE tokens and experts sit (JAX's hook of this
         name shards the (B, E, C, d) dispatch buffer over ``model`` under
         ``ep``): the row's tokens in the resid layout, split by sequence
-        over ``model``; under ``ep`` the experts split there in blocks.
-        None without a mesh (one device: ``models.moe`` runs alone)."""
-        if self.ctx is None or self.plan.mode != "dsp":
+        over ``model``, with the count exchange over the world; under
+        ``ep`` the experts split there in blocks.  Under ``tp`` without
+        ``ep`` the tokens are the block's gathered sequence instead, whole
+        on every model rank (``ExpertPlace.whole``), and each expert's
+        hidden columns split over ``model`` (``param_pspecs``).  A serving
+        ``step`` (a decode step, a paged prefill chunk) holds its tokens
+        whole on every model rank: no count exchange.  None without a
+        mesh (one device: ``models.moe`` runs alone)."""
+        if self.ctx is None or self.plan.mode not in ("dsp", "tp"):
             return None
-        if self.resid_dim != 1:
+        whole = step or (self.tp and not self.plan.ep)
+        if not whole and self.resid_dim != 1:
             raise NotImplementedError(
                 f"MoE on a mesh needs the residual stream split by sequence "
                 f"over 'model' (the plan puts it on dim {self.resid_dim})")
         return ExpertPlace(
             group=self.ctx.sp_group,
-            world_group=self.ctx.axes_group(tuple(
+            world_group=None if step else self.ctx.axes_group(tuple(
                 self.ctx.mesh.mesh_dim_names)),
             seq_shards=self.sp_size, seq_index=self.sp_index,
-            dp_size=self.dp_size, dp_index=self.dp_index, ep=self.plan.ep)
+            dp_size=self.dp_size, dp_index=self.dp_index, ep=self.plan.ep,
+            whole=whole)
 
     # -- serving: the prefill's rows, the decode token, the cache --------------
     @property

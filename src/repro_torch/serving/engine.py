@@ -96,7 +96,6 @@ class ServingEngine:
         self.cfg = cfg
         self.max_len = max_len
         self.active = True          # False on a rank ``replan`` dropped
-        LM.refuse_moe_serving(cfg, mesh is not None)
         self._build(mesh, plan, topology, params, None, None)
         ctx = self.sharder.ctx
         # from the first mesh, so a replan keeps the data dim's size

@@ -43,6 +43,7 @@ for want in ("repro_torch.serving.scheduler", "repro_torch.train.trainer",
              "repro_torch.configs.gemma2_2b",
              "repro_torch.configs.qwen2_moe_a2_7b",
              "repro_torch.configs.mistral_large_123b",
+             "repro_torch.configs.arctic_480b",
              "repro_torch.models.encdec",
              "repro_torch.configs.seamless_m4t_large_v2"):
     assert want in mods, (want, mods)
@@ -88,7 +89,9 @@ assert not bad, bad
                                     "_torch_t2d_zero_worker.py",
                                     "_torch_moe_ep_worker.py",
                                     "_torch_tp_worker.py",
-                                    "_torch_encdec_worker.py"])
+                                    "_torch_encdec_worker.py",
+                                    "_torch_moe_tp_worker.py",
+                                    "_torch_moe_serve_worker.py"])
 def test_gloo_workers_import_no_jax_and_no_repro(worker):
     """The port's side of each multi-process check (a gloo rank) loads, with
     the helpers it shares with its JAX side, nothing of JAX or of the JAX

@@ -4,8 +4,8 @@ dispatch implementations (shared experts and their gate, padded experts,
 ``norm_topk`` on and off, a router biased so that pairs pass the
 capacity and drop) with its aux stats and gradients; qwen2-moe's SMOKE
 config (init tree, dtypes, ``param_counts``, ``lm_loss`` with the
-load-balance aux and every gradient, two ``Trainer`` steps); and the
-refusal of MoE serving on a mesh.  JAX weights cross over through
+load-balance aux and every gradient, two ``Trainer`` steps); and MoE
+served on a mesh at a world of one.  JAX weights cross over through
 ``bridge.params_from_numpy``.  Tolerance 1e-4, as in
 ``test_torch_lm.py``: the same sums in another order."""
 import dataclasses
@@ -259,24 +259,37 @@ def test_trainer_steps_match_jax(params):
 
 
 def test_moe_serving_on_a_mesh_raises(params):
-    """MoE serves on one device; the engine and the serving forwards on a
-    mesh raise, naming the ROADMAP item that brings it."""
+    """MoE serves on a mesh (the refusal this test once pinned is lifted):
+    at a gloo world of one, the engine on a (1, 1) mesh under plan
+    ``dsp`` with ``ep`` gives one device's tokens, and
+    ``forward_prefill(sharder=)`` one device's logits and K/V."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.parallel.partition import ParallelPlan, make_sharder
     from repro_torch.serving.engine import ServingEngine
     _, tp = params
+    prompts = torch.from_numpy(np.random.RandomState(3).randint(
+        0, TCFG.vocab, (2, 6)))
+    want = ServingEngine(tp, TCFG, max_len=16, device="cpu").generate(
+        prompts, 4)
+    ref_logits, ref_caches = TLM.forward_prefill(tp, prompts, TCFG,
+                                                 backend="ref")
     with tempfile.TemporaryDirectory() as d:
         dist.init_process_group("gloo", store=dist.FileStore(
             os.path.join(d, "store"), 1), rank=0, world_size=1)
         try:
             mesh = make_mesh((1, 1), ("data", "model"), "cpu")
-            with pytest.raises(NotImplementedError, match="item 3.6"):
-                ServingEngine(tp, TCFG, mesh=mesh, device="cpu")
+            eng = ServingEngine(tp, TCFG, max_len=16, mesh=mesh, device="cpu",
+                                plan=ParallelPlan(mode="dsp", ep=True))
+            assert torch.equal(eng.generate(prompts, 4), want)
             sharder = make_sharder(mesh, ParallelPlan(
                 mode="dsp", zero=False, shard_vocab=False))
-            with pytest.raises(NotImplementedError, match="item 3.6"):
-                TLM.forward_prefill(tp, torch.zeros((1, 4), dtype=torch.long),
-                                    TCFG, sharder=sharder)
+            logits, caches = TLM.forward_prefill(tp, prompts, TCFG,
+                                                 sharder=sharder,
+                                                 backend="ref")
+            assert _rel(logits, ref_logits.numpy()) < TOL
+            kv = caches["periods"]["0"]["kv"]["k"]
+            assert _rel(kv, ref_caches["periods"]["0"]["kv"]["k"]
+                        .numpy()) < TOL
         finally:
             dist.destroy_process_group()
 

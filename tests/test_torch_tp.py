@@ -308,27 +308,43 @@ def _refused_configs():
         "ssm": (TL.LMConfig(name="ssm", ssm_every=2, ssm_attn_offset=1,
                             ssm_cfg=sc, **base), NotImplementedError, "7.9"),
         "moe": (TL.LMConfig(name="moe", n_experts=4, top_k=2, **base),
-                NotImplementedError, "7.8"),
+                None, "7.8"),
     }
 
 
 @pytest.mark.parametrize("case", ["ssm", "moe"])
 def test_tp_refuses_what_is_not_ported(world_of_one, case):
-    """``tp`` with SSM or MoE layers raises ``NotImplementedError`` naming
-    its ROADMAP item, from the forward and from the engine."""
+    """``tp`` with SSM layers raises ``NotImplementedError`` naming its
+    ROADMAP item, from the forward and from the engine.  ``tp`` with MoE
+    layers, refused until ROADMAP item 7.8, now runs: at a world of one
+    its forward and loss are one device's, and its engine serves one
+    device's tokens."""
     from repro_torch.serving.engine import ServingEngine
     cfg, exc, item = _refused_configs()[case]
     plan = ParallelPlan(mode="tp", zero=False, shard_vocab=False)
     params = TL.init_lm(0, cfg, device="cpu")
     sharder = make_sharder(world_of_one, plan, param_specs=param_pspecs(
         params, plan, axis_sizes={"data": 1, "model": 1}))
-    tokens = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(exc, match=f"ROADMAP queue 1 item {item}"):
-        TL.forward(params, tokens, cfg, sharder=sharder)
+    tokens = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab, (1, 8)))
     if case == "ssm":
+        with pytest.raises(exc, match=f"ROADMAP queue 1 item {item}"):
+            TL.forward(params, tokens, cfg, sharder=sharder)
         with pytest.raises(exc, match=f"item {item}"):
             ServingEngine(params, cfg, max_len=16, mesh=world_of_one,
                           plan=plan, device="cpu")
+        return
+    batch = {"tokens": tokens, "labels": tokens.roll(1, 1)}
+    want, _ = TL.lm_loss(params, batch, cfg, backend="ref")
+    got, _ = TL.lm_loss(params, batch, cfg, sharder=sharder, backend="ref")
+    assert abs(float(got) - float(want)) <= 1e-6 * abs(float(want))
+    np.testing.assert_allclose(
+        TL.forward(params, tokens, cfg, sharder=sharder)[0].detach(),
+        TL.forward(params, tokens, cfg)[0].detach(), rtol=0, atol=1e-5)
+    one = ServingEngine(params, cfg, max_len=16, device="cpu")
+    eng = ServingEngine(params, cfg, max_len=16, mesh=world_of_one,
+                        plan=plan, device="cpu")
+    assert torch.equal(eng.generate(tokens, 4), one.generate(tokens, 4))
 
 
 def test_tp_refuses_heads_the_ranks_do_not_divide():
