@@ -3,7 +3,10 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and exits non-zero:
+Phases, in order; any failure raises and exits non-zero.  The gloo
+ranks of 17 (b), 18 (b), 19 (b) and 20 (b) run beside the next phase's
+world-1 part, and 27 (e)'s beside phases 28 and 29 (a) (``behind``):
+their checks print where they are joined, before the next ranks start.
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
@@ -196,7 +199,7 @@ Phases, in order; any failure raises and exits non-zero:
     each step (``zero_contract``), K1 must launch 32 times and K2 192, all
     ``sm90``; step time and peak memory logged beside phase 16 (a)'s; (b)
     4 processes sharing the card over gloo, each this script with
-    ``--zero-rank``: qwen3-14b at depth 1 and mamba2-370m at depth 4 on a
+    ``--zero-rank``: qwen3-14b at depth 1 and mamba2-370m at depth 2 on a
     (2, 2) mesh at 2 x 4096 tokens: one loss, and each rank's grad slices
     against the same slices of (a)'s path at the same depth and batch
     (phase 7's bars, each leaf's worst over the ranks), the clip's norm
@@ -234,11 +237,11 @@ Phases, in order; any failure raises and exits non-zero:
     (K2) launch 320 (384) times on ``sm90``, and the calls and bytes must
     be exactly ``lm.serve_contract``'s; (b) 4 processes sharing the card
     over gloo, each this script with ``--serve-rank``, qwen3-14b at depth
-    1 and mamba2-370m at depth 4 of 48 on a (1, 4) mesh: the
+    1 and mamba2-370m at depth 2 of 48 on a (1, 4) mesh: the
     teacher-forced logits (SERVE_FORCED requests, SERVE_FORCED_STEPS
     decode steps on the one-rank reference's tokens) under SERVE_PLAN
     within LOGIT_BAR of the reference's, at each forced check's depth and
-    dtype (mamba2: depth 4 in f32, depth 2 in bf16); the trace, 8 new
+    dtype (mamba2: depth 2, in f32 and in bf16); the trace, 8 new
     tokens a request, through the scheduler under SERVE_RANK_PLAN with
     the pool asserted on the mesh after every step, every request
     finished, per rank each segment's calls and bytes exactly the
@@ -414,19 +417,19 @@ Phases, in order; any failure raises and exits non-zero:
 27. arctic-480b (its published config: 35 layers, d 7168, 56 q and 8
     K/V heads of 128, 128 experts top-2 of F 4864 beside a dense
     residual MLP of 4864, its KV cache in float8_e4m3fn) and MoE served
-    on a mesh, bf16, random weights from seed 0: (a) at depth 2 of 35
-    (27.7B parameters, 55.4 GB), kernel against plain on one set of
+    on a mesh, bf16, random weights from seed 0: (a) at depth 1 of 35
+    (14.1B parameters, 28.2 GB), kernel against plain on one set of
     weights with the plain path's routing replayed (``replayed``: where
     the paths' roundings flip a top-2 pick; the share logged), each
     within 2e-2 of the largest logit: the prefill logits at a
     2048-token prompt and 4 decode steps, and 4 requests over 512-2048
     tokens teacher-forced 4 decode steps through the slot pool and the
     block pool, both in the fp8 cache; (b) those 4 requests, 16 new
-    tokens each, at depth 2 through ``ContinuousScheduler``: K1 exactly
-    2 x 4 = 8 launches, all ``sm90``; the same trace at depth 1 on one
-    card and under ``tp`` + ``ep`` (the serving rule: experts over
-    ``model``, their hidden columns over ``data``) at world size 1 over
-    NCCL, the tokens equal, K1 4 each on ``sm90``, the calls exactly
+    tokens each, on the same weights through ``ContinuousScheduler``: K1
+    exactly 1 x 4 = 4 launches, all ``sm90``; the same trace under
+    ``tp`` + ``ep`` (the serving rule: experts over ``model``, their
+    hidden columns over ``data``) at world size 1 over NCCL, the tokens
+    equal, K1 4 on ``sm90``, the calls exactly
     ``lm.serve_contract`` (at one rank each expert read copies its leaf:
     beside depth 2's 55.4 GB that exceeds the card); (c) 4 Trainer steps
     at depth 1 with the experts cut from 128 to 16 at 1 x 4096: K1
@@ -437,12 +440,12 @@ Phases, in order; any failure raises and exits non-zero:
     qwen2-moe-a2.7b at full width and depth, phase 22's trace under
     ``dsp`` + ``ep`` at world size 1: the tokens phase 22's, K1 192 on
     ``sm90``, the calls exactly ``lm.serve_contract``; (e) 4 processes
-    sharing the card over gloo, each this script with
-    ``--arctic-rank``: arctic's widths at depth 1 with 8 experts in f32,
-    trained under the spec's plan at 2 x 256 tokens at (1, 4) and (2,
-    2): the loss within 1e-5 relative of one rank's, each rank's grad
-    slices within 1e-4 of their leaf's max, the dropped shares one
-    rank's, per rank the calls and bytes exactly the contract (the
+    sharing the card over gloo beside phases 28 and 29 (a), each this
+    script with ``--arctic-rank``: arctic's widths at depth 1 with 8
+    experts in f32, trained under the spec's plan at 2 x 256 tokens at
+    (1, 4) and (2, 2): the loss within 1e-5 relative of one rank's,
+    each rank's grad slices within 1e-4 of their leaf's max, the dropped
+    shares one rank's, per rank the calls and bytes exactly the contract (the
     dispatch's rows by ``route_rows``) and 2 K1 launches on
     ``cuda_cores`` on the rank's heads; then at (1, 4) with an f32 cache,
     ZeRO and the vocab split off, 2 requests under ``dsp`` without
@@ -453,18 +456,47 @@ Phases, in order; any failure raises and exits non-zero:
     ``torchrun --nproc-per-node 4 --backend gloo``;
 28. the CLIs under ``torchrun`` of phases 19 (c), 20 (c), 23 (c), 25
     (c), 26 (e) and 27 (f), each checked against its one-rank run in this
-    process: the four of ``EARLY_CLIS`` start together in phase 27, once
-    (b)'s run under ``tp`` + ``ep`` has given the card back its memory,
-    and run beside (c)-(e), whose times may carry that load; the other
-    five start together after phase 27 (``cli_launches``: each launch
-    spends most of its time starting its ranks);
-29. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
+    process: the other five start together at the top of phase 27, the
+    four of ``EARLY_CLIS`` once its (b)'s run under ``tp`` + ``ep`` has
+    given the card back its memory, and run beside (c)-(e), whose times
+    may carry that load (``cli_launches``: each launch spends most of its
+    time starting its ranks);
+29. seamless-m4t-large-v2 served on a ``("data", "model")`` mesh: (a)
+    phase 26 (b)'s trace at full width and depth at world size 1 over
+    NCCL under its spec's plan (``dsp`` + ZeRO-3): the tokens phase 26
+    (b)'s, the calls and bytes exactly ``encdec.serve_contract``'s, K1
+    72 launches on ``sm90`` at D 64, TTFT and TPOT beside phase 26 (b)'s;
+    (b) 4 processes sharing the card over gloo, each this script with
+    ``--seamless-serve-rank``: seamless's widths at depth 1 + 1 in f32
+    with ZeRO off, 4 requests of 1024 frames, 16-token prompts and 8 new
+    tokens at (1, 4) and (2, 2): each rank's tokens one rank's up to a
+    near-tie, its calls and bytes exactly the contract, 3 K1 launches on
+    ``cuda_cores`` on its heads;
+30. pixtral-12b (40 layers, d 5120, 32/8 heads of 160, its stub VLM
+    frontend's 1024 patch rows), bf16: (a) at depth 2 kernel against
+    plain on 1 x 4096 tokens whose first 1024 positions are patch rows:
+    the prefill's last logits within 2e-2 of the largest, the loss within
+    1e-4 relative, every grad leaf (the frontend's too) within 2e-2 of its
+    max; (b) at full depth 4 requests of 512-2048 prompt tokens and 16
+    new tokens behind the scheduler (text, as JAX's engine serves it; K1
+    160 launches on ``cuda_cores``, ``sm90`` takes D 64/72/128), then one
+    ``forward_prefill(extra=)`` of 2048 tokens with the patch rows (K1
+    40); (c) 4 Trainer steps at depth 2, 1 x 4096 with the patch rows (K1
+    16), and again under its spec's plan (``dsp`` + ZeRO-3) at world size
+    1: the losses bit-equal or within 1e-4, the calls and bytes exactly
+    ``zero_contract`` with ``lm.param_contract(patches=True)``; (d) K1 at
+    its prefill shape, (1, 32, 2048, 160) against (1, 8, 2048, 160)
+    causal, against its plain version and ``scaled_dot_product_attention``
+    (causal, GQA), medians of 3 in turns;
+31. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
     counts over the paths above (K1 320 + 32 + 224 + 224 + phase 14's
     training runs, 8 per mode, 4 for ring and hybrid, + phase 15 (a)'s
     28 + phase 16 (a)'s 32 + phase 17 (a)'s 32 + phase 19 (a)'s 320 +
     phase 20 (a)'s 720 + phase 21 (a)'s 224 + phase 22's 128 + 104 + 192
     + 32 + phase 23 (a)'s 32 + phase 24's 64 + 16 + phase 25 (a)'s 16 +
-    64 + phase 26's 72 + 576 + 576 + phase 27's 8 + 4 + 4 + 8 + 8 + 192;
+    64 + phase 26's 72 + 576 + 576 + phase 27's 4 + 4 + 8 + 8 + 192
+    + phase 29 (a)'s 72 + phase 30's 160 + 40 + 16 + 16, these 232 on
+    ``cuda_cores``);
     K2 576 + 384 + phase 16 (a)'s 192 + phase
     17 (a)'s 192 + phase 18 (a)'s 2 x 48 x 12 = 1152 + phase 19 (a)'s
     384)
@@ -476,7 +508,8 @@ Phases, in order; any failure raises and exits non-zero:
     three of ``SEAMLESS_ATTN`` and arctic's two of ``ARCTIC_ATTN`` with
     them), then the last
     line
-    ``{"ok": true, "device": {...}}``.
+    ``{"ok": true, "device": {...}}``.  Phases 29 (b)'s and 30 (d)'s
+    numbers stand in ``models`` too.
 
 Each phase's header logs the seconds since the start and the host's
 memory since the previous header (the peaks of the process tree's
@@ -496,6 +529,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Generator
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -506,8 +540,9 @@ import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import (  # noqa: E402
-    arctic_480b, gemma2_2b, mamba2_370m, mistral_large_123b, qwen2_moe_a2_7b,
-    qwen3_14b, seamless_m4t_large_v2, starcoder2_7b, transformer2d_720m)
+    arctic_480b, gemma2_2b, mamba2_370m, mistral_large_123b, pixtral_12b,
+    qwen2_moe_a2_7b, qwen3_14b, seamless_m4t_large_v2, starcoder2_7b,
+    transformer2d_720m)
 from repro_torch.core import dsp  # noqa: E402
 from repro_torch.core.layout import from_mesh  # noqa: E402
 from repro_torch.core.schedule import (  # noqa: E402
@@ -539,6 +574,9 @@ from repro_torch.serving.scheduler import (  # noqa: E402
     ContinuousScheduler, PagedScheduler)
 from repro_torch.train.trainer import (  # noqa: E402
     ElasticSpec, Trainer, TrainerConfig, allreduce_grads, slices_norm)
+
+# a phase's (b) part: a generator over ``ranks_exit``, its value the result
+Part = Generator[None, None, dict]
 
 # published H100 SXM peaks (NVIDIA data sheet, dense)
 PEAK_BF16_FLOPS = 989e12
@@ -657,8 +695,9 @@ LM_REDUCE_PIECE = 1 << 26
 # world 1's at the same depth and batch (phase 7's bars), and on the cases
 # of ZERO_TRAIN one Trainer step, whose grad norm must be within
 # ZERO_NORM_BAR of world 1's
-ZERO_CASES = (("qwen3-14b", 1, (2, 2), 2), ("mamba2-370m", 4, (2, 2), 2))
-# (qwen3 at depth 2 until phase 27 needed the seconds; at (1, 4) too, its Trainer step until phases 24-25 needed its 27
+ZERO_CASES = (("qwen3-14b", 1, (2, 2), 2), ("mamba2-370m", 2, (2, 2), 2))
+# (mamba2 at depth 4 until phases 29-30 needed the seconds; qwen3 at depth
+# 2 until phase 27 did; at (1, 4) too, its Trainer step until phases 24-25 needed its 27
 # s, its loss and grad slices until phase 26 needed their ~25 s: DSP with
 # ZeRO-3 at (1, 4) stays on the card in phases 23 (b) and 26 (e), the
 # vocab ring over 4 ranks in 25 (b))
@@ -711,13 +750,13 @@ SERVE_RANK_PLAN = ParallelPlan(mode="dsp", zero=False)
 # drift 0.17-0.40 of the largest logit apart over the forced steps
 # (``serve_refs`` logs it, and the gap layer by layer), in f32 the 4 ranks
 # stay within 7.6e-4 of one card; so its forced check at the served depth
-# runs in f32 (K2 on ``cuda_cores``), and a depth-4 one in bf16 holds K2's
+# runs in f32 (K2 on ``cuda_cores``), and one in bf16 holds K2's
 # ``sm90`` route; the trace runs in bf16 (on ``sm90``).  mamba2 serves at
-# depth 4 of 48 on the ranks (48 until phases 24-25 needed the seconds,
-# 12 until phase 26 did, 6 until phase 27 did)
+# depth 2 of 48 on the ranks (48 until phases 24-25 needed the seconds,
+# 12 until phase 26 did, 6 until phase 27 did, 4 until phases 29-30 did)
 SERVE_RANK_CASES = (("qwen3-14b", 1, True, ((1, torch.bfloat16),)),
-                    ("mamba2-370m", 4, False,
-                     ((4, torch.float32), (2, torch.bfloat16))))
+                    ("mamba2-370m", 2, False,
+                     ((2, torch.float32), (2, torch.bfloat16))))
 SERVE_FORCED, SERVE_FORCED_STEPS = (0, N_REQUESTS - 1), 4
 # the new tokens of each request of the ranks' trace (NEW_TOKENS until
 # phases 24-25 needed the seconds)
@@ -919,14 +958,15 @@ SEAMLESS_RANK_ATTN = tuple(
 # phase 27: arctic-480b (35 layers, d 7168, 56/8 heads of 128, 128 experts
 # top-2 of F 4864 beside a dense residual MLP of 4864, vocab 32000, its KV
 # cache in float8_e4m3fn: 13.61B parameters a layer), bf16, random weights
-# from seed 0: (a) at depth ARCTIC_DEPTH (27.7B parameters, 55.4 GB; depth
-# 3 is 82.6 GB) kernel against plain; (b) ARCTIC_LENS's requests,
-# ARCTIC_NEW new tokens each, at that depth, and again at depth
-# ARCTIC_MESH_DEPTH on one card and under ARCTIC_SERVE_PLAN at world size
-# 1 (at one rank every read of a leaf that a spec splits over ``data`` is
-# an all-gather that copies it: a period's 13.4B expert parameters copied
-# beside depth 2's 55.4 GB exceed the card); (c) ARCTIC_TRAIN_STEPS
-# Trainer steps at depth 1 with the experts cut to ARCTIC_TRAIN_EXPERTS
+# from seed 0: (a) at depth ARCTIC_DEPTH (14.1B parameters, 28.2 GB)
+# kernel against plain; (b) ARCTIC_LENS's requests, ARCTIC_NEW new tokens
+# each, on the same weights on one card, and again under
+# ARCTIC_SERVE_PLAN at world size 1 (at one rank every read of a leaf
+# that a spec splits over ``data`` is an all-gather that copies it: a
+# period's 13.4B expert parameters copied beside depth 2's 55.4 GB exceed
+# the card).  At depth 2 the init must stage a period on the host (~21
+# s) and its serving cannot be the mesh run's reference; (c)
+# ARCTIC_TRAIN_STEPS Trainer steps at depth 1 with the experts cut to ARCTIC_TRAIN_EXPERTS
 # (AdamW's f32 state for one full layer fits no card), at 1 x TRAIN_SEQ,
 # and again under the spec's plan (ARCTIC_PLAN: tp, ep, ZeRO-3 over data,
 # the vocab ring) at world size 1; (d) qwen2-moe-a2.7b's phase-22 trace
@@ -938,7 +978,7 @@ SEAMLESS_RANK_ATTN = tuple(
 # ARCTIC_RANK_PLANS (ZeRO and the vocab split off, as 25 (b)'s), ``tp`` +
 # ``ep`` through replan(SERVE_REPLAN_TO)
 _AR = arctic_480b.CONFIG
-ARCTIC_DEPTH, ARCTIC_MESH_DEPTH, ARCTIC_NEW = 2, 1, 16
+ARCTIC_DEPTH, ARCTIC_NEW = 1, 16
 ARCTIC_LENS = np.linspace(512, 2048, 4).astype(int).tolist()
 ARCTIC_TRAIN_EXPERTS, ARCTIC_TRAIN_STEPS = 16, 4
 ARCTIC_PLAN = arctic_480b.SPEC.plan
@@ -978,6 +1018,53 @@ ARCTIC_RANK_ATTN = tuple(
      _AR.head_dim, True, None, None)
     for s in sorted({DSP_RANKS * lm.prefill_shard_len(_AR, t, DSP_RANKS)
                      for t in ARCTIC_RANK_LENS}))
+
+
+# phase 29: seamless-m4t-large-v2 served on a (data, model) mesh: (a) phase
+# 26 (b)'s trace at full width and depth at world size 1 over NCCL under
+# SEAMLESS_PLAN (dsp, ZeRO-3), the tokens phase 26 (b)'s and the calls and
+# bytes exactly ``encdec.serve_contract``'s; (b) DSP_RANKS gloo ranks,
+# seamless's widths at depth SEAMLESS_RANK_DEPTH + SEAMLESS_RANK_DEPTH in
+# float32 at each mesh of SEAMLESS_RANK_MESHES under
+# SEAMLESS_SERVE_RANK_PLAN (ZeRO off: over gloo its per-step gathers would
+# move the 1.05 GB float32 table a step, as phase 19 (b) avoids),
+# SEAMLESS_REQUESTS requests of SEAMLESS_RANK_ENC frames with
+# SEAMLESS_PROMPT-token prompts and SEAMLESS_SERVE_RANK_NEW new tokens: the
+# tokens one rank's up to a near-tie (TP_TIE_BAR), the calls exactly the
+# contract
+SEAMLESS_SERVE_RANK_PLAN = dataclasses.replace(SEAMLESS_PLAN, zero=False)
+SEAMLESS_SERVE_RANK_NEW = 8
+SEAMLESS_SERVE_RANK_ATTN = tuple(
+    (SEAMLESS_REQUESTS // dp, _SE.n_heads // mp, _SE.n_kv_heads // mp, sq,
+     skv, _SE.head_dim, causal, None, None)
+    for dp, mp in SEAMLESS_RANK_MESHES
+    for sq, skv, causal in ((SEAMLESS_RANK_ENC, SEAMLESS_RANK_ENC, False),
+                            (SEAMLESS_PROMPT, SEAMLESS_PROMPT, True),
+                            (SEAMLESS_PROMPT, SEAMLESS_RANK_ENC, False)))
+# phase 30: pixtral-12b (40 layers, d 5120, 32/8 heads of 160, F 14336,
+# vocab 131072 untied, a stub frontend of 1024 patch rows of 1024
+# features: 12.77B parameters, 5.2M of them in the frontend, 25.5 GB; the
+# heads of 160 are the JAX package's config, whose source marks itself
+# unverified: the published model's are of 128), bf16,
+# random weights from seed 0: (a) at depth PIXTRAL_DEPTH kernel against
+# plain with a 1 x TRAIN_SEQ batch whose patch rows replace its first
+# 1024 positions; (b) PIXTRAL_LENS's requests, PIXTRAL_NEW new tokens each,
+# at full depth behind the scheduler (text, as JAX's engine serves it),
+# then one ``forward_prefill(extra=)`` of a PIXTRAL_PREFILL-token prompt
+# with its patch rows; (c) PIXTRAL_STEPS Trainer steps at depth
+# PIXTRAL_DEPTH, 1 x TRAIN_SEQ with the patch rows, and again under the
+# spec's plan (PIXTRAL_PLAN: dsp, ZeRO-3) at world size 1; (d) K1 at the
+# prefill's shape (PIXTRAL_ATTN), on ``cuda_cores`` (``sm90`` takes D
+# 64/72/128), against its plain version and scaled_dot_product_attention
+_PX = pixtral_12b.CONFIG
+PIXTRAL_PLAN = pixtral_12b.SPEC.plan
+PIXTRAL_DEPTH, PIXTRAL_STEPS = 2, 4
+PIXTRAL_LENS = np.linspace(512, 2048, 4).astype(int).tolist()
+PIXTRAL_NEW, PIXTRAL_PREFILL = 16, 2048
+PIXTRAL_ROUTE = ROUTES[(torch.bfloat16, _PX.head_dim)]
+PIXTRAL_ATTN = {"pixtral-12b": (1, _PX.n_heads, _PX.n_kv_heads,
+                                PIXTRAL_PREFILL, PIXTRAL_PREFILL,
+                                _PX.head_dim, True, None, None)}
 
 
 def prefill_case(s: int):
@@ -1923,7 +2010,7 @@ def dsp_rank_main(rank: int, world: int, work: str) -> None:
         dist.destroy_process_group()
 
 
-def dsp_four_ranks(cfg, work: str, device="cuda") -> dict:
+def dsp_four_ranks(cfg, work: str, device="cuda") -> Part:
     """(b) DSP_RANKS processes sharing the card over gloo on a (1,
     DSP_RANKS) mesh (a 4-rank NCCL group cannot be built on one card).
     Checks layouts and values, not speed: every rank's depth-2 loss and
@@ -1937,14 +2024,7 @@ def dsp_four_ranks(cfg, work: str, device="cuda") -> dict:
                            "d_model": cfg.d_model, "n_heads": cfg.n_heads,
                            "d_ff": cfg.d_ff, "in_dim": cfg.in_dim}}, f)
     t0 = time.perf_counter()
-    procs = spawn_ranks("--dsp-rank", work)
-    try:
-        rcs = [p.wait(timeout=900) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    rcs = yield from ranks_exit("--dsp-rank", work, timeout=900)
     log_t(f"  {DSP_RANKS} ranks exited {rcs} after "
           f"{time.perf_counter() - t0:.1f} s")
     if any(rcs):
@@ -2304,7 +2384,7 @@ def sp_rank_main(rank: int, world: int, work: str) -> None:
         dist.destroy_process_group()
 
 
-def sp_four_ranks(cfg, bucket2: int, work: str, device="cuda") -> dict:
+def sp_four_ranks(cfg, bucket2: int, work: str, device="cuda") -> Part:
     """(b) DSP_RANKS processes sharing the card over gloo, each mode on a
     (1, DSP_RANKS) mesh (``hybrid`` on the (2, DSP_RANKS / 2) SP grid).
     Checks layouts and values, not speed: every rank's depth-2 loss and
@@ -2320,14 +2400,7 @@ def sp_four_ranks(cfg, bucket2: int, work: str, device="cuda") -> dict:
                            "d_model": cfg.d_model, "n_heads": cfg.n_heads,
                            "d_ff": cfg.d_ff, "in_dim": cfg.in_dim}}, f)
     t0 = time.perf_counter()
-    procs = spawn_ranks("--sp-rank", work)
-    try:
-        rcs = [p.wait(timeout=900) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    rcs = yield from ranks_exit("--sp-rank", work, timeout=900)
     log_t(f"  {DSP_RANKS} ranks exited {rcs} after "
           f"{time.perf_counter() - t0:.1f} s")
     if any(rcs):
@@ -2546,7 +2619,7 @@ def l2d_rank_main(rank: int, world: int, work: str) -> None:
         dist.destroy_process_group()
 
 
-def l2d_four_ranks(cfg, work: str, device="cuda") -> dict:
+def l2d_four_ranks(cfg, work: str, device="cuda") -> Part:
     """(b) DSP_RANKS processes sharing the card over gloo, at each (grid,
     frames) of L2D_CASES: the gathered depth-28 forward2d against (a)'s
     reference at those frames within DSP_OUT_BAR of its largest |value|;
@@ -2560,14 +2633,7 @@ def l2d_four_ranks(cfg, work: str, device="cuda") -> dict:
                            "d_model": cfg.d_model, "n_heads": cfg.n_heads,
                            "d_ff": cfg.d_ff, "in_dim": cfg.in_dim}}, f)
     t0 = time.perf_counter()
-    procs = spawn_ranks("--l2d-rank", work)
-    try:
-        rcs = [p.wait(timeout=600) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    rcs = yield from ranks_exit("--l2d-rank", work)
     log_t(f"  {DSP_RANKS} ranks exited {rcs} after "
           f"{time.perf_counter() - t0:.1f} s")
     if any(rcs):
@@ -2802,7 +2868,7 @@ def lm_rank_main(rank: int, world: int, work: str) -> None:
         dist.destroy_process_group()
 
 
-def lm_four_ranks(work: str, device="cuda") -> dict:
+def lm_four_ranks(work: str, device="cuda") -> Part:
     """(b) DSP_RANKS processes sharing the card over gloo on a (1,
     DSP_RANKS) mesh, each LM of LM_RANK_DEPTHS at full width, 1 x
     TRAIN_SEQ tokens: the loss and every grad leaf summed over the ranks
@@ -2813,14 +2879,7 @@ def lm_four_ranks(work: str, device="cuda") -> dict:
     with open(os.path.join(work, "job16.json"), "w") as f:
         json.dump({"device": device}, f)
     t0 = time.perf_counter()
-    procs = spawn_ranks("--lm-rank", work)
-    try:
-        rcs = [p.wait(timeout=600) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    rcs = yield from ranks_exit("--lm-rank", work)
     log_t(f"  {DSP_RANKS} ranks exited {rcs} after "
           f"{time.perf_counter() - t0:.1f} s")
     if any(rcs):
@@ -3184,7 +3243,7 @@ def zero_train_step(cfg, lay: dict, batch: int, device="cuda") -> dict:
     return out
 
 
-def zero_four_ranks(work: str, device="cuda") -> dict:
+def zero_four_ranks(work: str, device="cuda") -> Part:
     """(b) DSP_RANKS processes sharing the card over gloo, each case of
     ZERO_CASES at full width: the loss and every grad leaf (each rank's
     slices against the same slices of (a)'s reference, the worst over the
@@ -3199,14 +3258,7 @@ def zero_four_ranks(work: str, device="cuda") -> dict:
     with open(os.path.join(work, "job17.json"), "w") as f:
         json.dump({"device": device}, f)
     t0 = time.perf_counter()
-    procs = spawn_ranks("--zero-rank", work)
-    try:
-        rcs = [p.wait(timeout=600) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    rcs = yield from ranks_exit("--zero-rank", work)
     log_t(f"  {DSP_RANKS} ranks exited {rcs} after "
           f"{time.perf_counter() - t0:.1f} s")
     if any(rcs):
@@ -3549,7 +3601,7 @@ def ckpt_rank_main(rank: int, world: int, work: str) -> None:
         dist.destroy_process_group()
 
 
-def ckpt_four_ranks(work: str, device="cuda") -> dict:
+def ckpt_four_ranks(work: str, device="cuda") -> Part:
     """(b) DSP_RANKS processes sharing the card over gloo
     (``ckpt_rank_main``): the state saved at (2, 2) restores bit-equal at
     (1, 4) on the ranks and at world size 1 here (gathered against the
@@ -3559,14 +3611,7 @@ def ckpt_four_ranks(work: str, device="cuda") -> dict:
     with open(os.path.join(work, "job18.json"), "w") as f:
         json.dump({"device": device}, f)
     t0 = time.perf_counter()
-    procs = spawn_ranks("--ckpt-rank", work)
-    try:
-        rcs = [p.wait(timeout=600) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    rcs = yield from ranks_exit("--ckpt-rank", work)
     log_t(f"  {DSP_RANKS} ranks exited {rcs} after "
           f"{time.perf_counter() - t0:.1f} s")
     if any(rcs):
@@ -4030,7 +4075,7 @@ def leaf_paths_of(tree, path=()) -> list:
     return [path]
 
 
-def serve_four_ranks(work: str, device="cuda") -> dict:
+def serve_four_ranks(work: str, device="cuda") -> Part:
     """(b) DSP_RANKS processes sharing the card over gloo, each case of
     SERVE_RANK_CASES at full width: the teacher-forced logits within
     LOGIT_BAR of the one-rank reference's, every request finished, the
@@ -4048,14 +4093,7 @@ def serve_four_ranks(work: str, device="cuda") -> dict:
           f"this process holding {torch.cuda.memory_reserved() / 1e9:.2f} "
           f"GB of the card ({elapsed()})")
     t0 = time.perf_counter()
-    procs = spawn_ranks("--serve-rank", work)
-    try:
-        rcs = [p.wait(timeout=900) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    rcs = yield from ranks_exit("--serve-rank", work, timeout=900)
     log_t(f"  {DSP_RANKS} ranks exited {rcs} after "
           f"{time.perf_counter() - t0:.1f} s")
     if any(rcs):
@@ -4527,7 +4565,7 @@ def paged_rank_main(rank: int, world: int, work: str) -> None:
         dist.destroy_process_group()
 
 
-def paged_four_ranks(work: str, device="cuda") -> dict:
+def paged_four_ranks(work: str, device="cuda") -> Part:
     """(b) DSP_RANKS processes sharing the card over gloo at (1,
     DSP_RANKS): the teacher-forced logits within LOGIT_BAR of the one-rank
     reference's before and after ``replan(SERVE_REPLAN_TO)``, which fires
@@ -4543,14 +4581,7 @@ def paged_four_ranks(work: str, device="cuda") -> dict:
     log_t(f"  reference at one rank in {time.perf_counter() - t0:.1f} s "
           f"({elapsed()})")
     t0 = time.perf_counter()
-    procs = spawn_ranks("--paged-rank", work)
-    try:
-        rcs = [p.wait(timeout=600) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    rcs = yield from ranks_exit("--paged-rank", work)
     log_t(f"  {DSP_RANKS} ranks exited {rcs} after "
           f"{time.perf_counter() - t0:.1f} s")
     if any(rcs):
@@ -4933,7 +4964,7 @@ def t2d_zero_rank_main(rank: int, world: int, work: str) -> None:
         dist.destroy_process_group()
 
 
-def t2d_zero_four_ranks(work: str, device="cuda") -> dict:
+def t2d_zero_four_ranks(work: str, device="cuda") -> Part:
     """(b) DSP_RANKS processes sharing the card over gloo
     (``t2d_zero_rank_main``), ``t2d_zero_rank_cfg`` in float32, so that
     only the order of the sums differs from one rank: at each mesh of
@@ -4946,14 +4977,7 @@ def t2d_zero_four_ranks(work: str, device="cuda") -> dict:
     with open(os.path.join(work, "job21.json"), "w") as f:
         json.dump({"device": device}, f)
     t0 = time.perf_counter()
-    procs = spawn_ranks("--t2d-zero-rank", work)
-    try:
-        rcs = [p.wait(timeout=600) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    rcs = yield from ranks_exit("--t2d-zero-rank", work)
     log_t(f"  {DSP_RANKS} ranks exited {rcs} after "
           f"{time.perf_counter() - t0:.1f} s")
     if any(rcs):
@@ -5442,7 +5466,7 @@ def assemble_routes(parts: dict, shape) -> list:
                        for a in range(dp)], dim=0) for i in range(calls)]
 
 
-def moe_four_ranks(work: str, device="cuda") -> dict:
+def moe_four_ranks(work: str, device="cuda") -> Part:
     """(b) DSP_RANKS processes sharing the card over gloo
     (``moe_rank_main``), ``moe_rank_cfg`` in float32 at each mesh of
     MOE_RANK_MESHES under MOE_PLAN: the loss within MOE_LOSS_BAR relative
@@ -5456,14 +5480,7 @@ def moe_four_ranks(work: str, device="cuda") -> dict:
     with open(os.path.join(work, "job23.json"), "w") as f:
         json.dump({"device": device}, f)
     t0 = time.perf_counter()
-    procs = spawn_ranks("--moe-rank", work)
-    try:
-        rcs = [p.wait(timeout=600) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    rcs = yield from ranks_exit("--moe-rank", work)
     log_t(f"  {DSP_RANKS} ranks exited {rcs} after "
           f"{time.perf_counter() - t0:.1f} s")
     if any(rcs):
@@ -5937,7 +5954,7 @@ def tp_rank_main(rank: int, world: int, work: str) -> None:
         dist.destroy_process_group()
 
 
-def tp_four_ranks(work: str, device="cuda") -> dict:
+def tp_four_ranks(work: str, device="cuda") -> Part:
     """(b) DSP_RANKS processes sharing the card over gloo
     (``tp_rank_main``), ``tp_rank_cfg`` in float32 at each mesh of
     TP_RANK_MESHES under TP_PLAN: the loss within TP_LOSS_BAR relative of
@@ -5951,14 +5968,7 @@ def tp_four_ranks(work: str, device="cuda") -> dict:
     with open(os.path.join(work, "job25.json"), "w") as f:
         json.dump({"device": device}, f)
     t0 = time.perf_counter()
-    procs = spawn_ranks("--tp-rank", work)
-    try:
-        rcs = [p.wait(timeout=600) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    rcs = yield from ranks_exit("--tp-rank", work)
     log_t(f"  {DSP_RANKS} ranks exited {rcs} after "
           f"{time.perf_counter() - t0:.1f} s")
     if any(rcs):
@@ -6201,14 +6211,59 @@ def seamless_bf16_grads(params, batch, cfg, truth, paths) -> dict:
     return gap
 
 
+def seamless_greedy(params, reqs, cfg, max_len: int, new: int,
+                    sharder=None, margins=None) -> dict:
+    """``reqs`` (one batch, on a mesh the rank's shard) through ``prefill``
+    into caches of ``max_len`` positions and greedy ``decode_step``s
+    (``encdec.argmax``) to ``new`` tokens a request, the counters set to
+    0 just before and read just after: the tokens, TTFT (the prefill and
+    the first token), TPOT p50/p99 over the decode steps, peak memory,
+    and what was counted (``read_counts``).  ``margins`` (a list; whole
+    logits only) takes each step's per-row margin: its two best logits'
+    gap over its largest |logit|."""
+    def pick(logits):
+        if margins is not None:
+            top = logits[:, -1].float().topk(2, dim=-1).values
+            margins.append(((top[:, 0] - top[:, 1]) / logits[:, -1].float()
+                            .abs().amax(-1)).tolist())
+        return ED.argmax(logits, cfg, sharder)
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        logits, caches = ED.prefill(params, reqs, cfg, sharder=sharder,
+                                    backend="kernel", max_len=max_len)
+        toks = [pick(logits)]
+        torch.cuda.synchronize()
+        ttft = time.perf_counter() - t0
+        tpot = []
+        for _ in range(new - 1):
+            t = time.perf_counter()
+            logits, caches = ED.decode_step(params, toks[-1], caches, cfg,
+                                            sharder=sharder)
+            toks.append(pick(logits))
+            torch.cuda.synchronize()
+            tpot.append(time.perf_counter() - t)
+        got = read_counts()
+    rows = reqs["tokens"].shape[0]
+    return {"tokens": torch.cat(toks, 1).tolist(), "counts": got,
+            "metrics": {"ttft_ms": ttft * 1e3,
+                        "tpot_ms_p50": float(np.percentile(tpot, 50)) * 1e3,
+                        "tpot_ms_p99": float(np.percentile(tpot, 99)) * 1e3,
+                        "peak_memory_gb":
+                            torch.cuda.max_memory_allocated() / 1e9,
+                        "new_tokens": rows * new}}
+
+
 def seamless_serve(device="cuda") -> dict:
     """(b) at full width and depth: seamless_requests through ``prefill``
     (caches of SEAMLESS_PROMPT + SEAMLESS_NEW positions) and greedy
-    ``decode_step``s to SEAMLESS_NEW new tokens a request, the counters
-    set to 0 just before and read just after: K1 exactly n_enc + 2 n_dec
-    launches, all ``sm90`` (the prefill's; a decode step attends in plain
-    PyTorch); TTFT (the prefill and the first token), TPOT p50/p99 over
-    the decode steps, peak memory."""
+    ``decode_step``s to SEAMLESS_NEW new tokens a request
+    (``seamless_greedy``): K1 exactly n_enc + 2 n_dec launches, all
+    ``sm90`` (the prefill's; a decode step attends in plain PyTorch);
+    TTFT, TPOT p50/p99, peak memory."""
     cfg = seamless_cfg()
     t0 = time.perf_counter()
     params = ED.init_encdec(0, cfg, device=device)
@@ -6218,30 +6273,9 @@ def seamless_serve(device="cuda") -> dict:
           f"{time.perf_counter() - t0:.1f} s")
     reqs = seamless_requests(cfg, device)
     k1 = cfg.n_enc_layers + 2 * cfg.n_dec_layers
-    with torch.no_grad():
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        t0 = time.perf_counter()
-        logits, caches = ED.prefill(params, reqs, cfg, backend="kernel",
-                                    max_len=SEAMLESS_PROMPT + SEAMLESS_NEW)
-        toks = [logits.argmax(-1)]
-        torch.cuda.synchronize()
-        ttft = time.perf_counter() - t0
-        tpot = []
-        for _ in range(SEAMLESS_NEW - 1):
-            t = time.perf_counter()
-            logits, caches = ED.decode_step(params, toks[-1], caches, cfg)
-            toks.append(logits.argmax(-1))
-            torch.cuda.synchronize()
-            tpot.append(time.perf_counter() - t)
-        got = read_counts()
-    tokens = torch.cat(toks, 1).tolist()
-    metrics = {"ttft_ms": ttft * 1e3,
-               "tpot_ms_p50": float(np.percentile(tpot, 50)) * 1e3,
-               "tpot_ms_p99": float(np.percentile(tpot, 99)) * 1e3,
-               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-               "new_tokens": SEAMLESS_REQUESTS * SEAMLESS_NEW}
+    run = seamless_greedy(params, reqs, cfg, SEAMLESS_PROMPT + SEAMLESS_NEW,
+                          SEAMLESS_NEW)
+    got, tokens, metrics = run["counts"], run["tokens"], run["metrics"]
     log_t(f"  {SEAMLESS_REQUESTS} requests of {SEAMLESS_ENC} frames, "
           f"{SEAMLESS_PROMPT}-token prompts, {SEAMLESS_NEW} new tokens each: "
           f"K1 {got['k1']} {got['k1_routes']} at head dims {got['k1_dims']}; "
@@ -6251,7 +6285,7 @@ def seamless_serve(device="cuda") -> dict:
                              f"{k1} on sm90")
     if any(len(t) != SEAMLESS_NEW for t in tokens):
         raise AssertionError(f"seamless serving did not finish: {tokens}")
-    del params, caches
+    del params
     free_device()
     return {"launches": got["k1"], "routes": got["k1_routes"],
             "tokens": tokens, "metrics": metrics}
@@ -6572,7 +6606,7 @@ def seamless_rank_main(rank: int, world: int, work: str) -> None:
         dist.destroy_process_group()
 
 
-def seamless_four_ranks(work: str, device="cuda") -> dict:
+def seamless_four_ranks(work: str, device="cuda") -> Part:
     """(e) DSP_RANKS processes sharing the card over gloo
     (``seamless_rank_main``), ``seamless_rank_cfg`` in float32 at each
     mesh of SEAMLESS_RANK_MESHES under SEAMLESS_PLAN: the loss within
@@ -6585,14 +6619,7 @@ def seamless_four_ranks(work: str, device="cuda") -> dict:
     with open(os.path.join(work, "job26.json"), "w") as f:
         json.dump({"device": device}, f)
     t0 = time.perf_counter()
-    procs = spawn_ranks("--seamless-rank", work)
-    try:
-        rcs = [p.wait(timeout=600) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    rcs = yield from ranks_exit("--seamless-rank", work)
     log_t(f"  {DSP_RANKS} ranks exited {rcs} after "
           f"{time.perf_counter() - t0:.1f} s")
     if any(rcs):
@@ -6638,8 +6665,9 @@ def seamless_four_ranks(work: str, device="cuda") -> dict:
     return {"ranks": ranks}
 
 
-def seamless_phase(work: str, device="cuda") -> dict:
-    """Phase 26, (a) to (e); (e)'s train CLI runs in phase 28."""
+def seamless_phase(work: str, device="cuda", early=None) -> dict:
+    """Phase 26, (a) to (e); (e)'s train CLI runs in phase 28.
+    ``early()`` runs before (e) (phase 25 (b)'s join)."""
     out = {}
     log("  (a) depth 2 + 2, kernel against plain")
     out["checks"] = seamless_checks(device)
@@ -6651,10 +6679,12 @@ def seamless_phase(work: str, device="cuda") -> dict:
     out["train"] = seamless_train(device)
     log(f"  (d) world size 1 over NCCL under {SEAMLESS_PLAN} ({elapsed()})")
     out["dsp"] = seamless_world_of_one(out["train"], work, device)
+    if early is not None:
+        early()
     log(f"  (e) {DSP_RANKS} ranks on the card over gloo, depth "
         f"{SEAMLESS_RANK_DEPTH} + {SEAMLESS_RANK_DEPTH} in float32 "
         f"({elapsed()})")
-    out["ranks"] = seamless_four_ranks(work, device)
+    out["ranks"] = run_part(seamless_four_ranks(work, device))
     return out
 
 
@@ -6688,20 +6718,6 @@ def replayed(fn) -> dict:
     return {"gap": logit_gap(got, want),
             "launches": nonzero(flash_attention_fwd.route_launches),
             "differ": differ / max(total, 1), "calls": len(calls)}
-
-
-def arctic_init(cfg, device="cuda"):
-    """``lm.init_lm(0, cfg)``'s weights, the periods before the last staged
-    on the host (``stage``): at depth ARCTIC_DEPTH the stack (55.4 GB) and
-    one period's draw (26.8 GB of experts and one leaf's float32 draw,
-    17.8 GB) do not fit the card together."""
-    t0 = time.perf_counter()
-    params = lm.init_lm(0, cfg, device=device, stage="cpu")
-    torch.cuda.synchronize()
-    log_t(f"  init {lm.param_counts(cfg)['total'] / 1e9:.2f}B params "
-          f"({torch.cuda.memory_allocated() / 1e9:.2f} GB), staged on the "
-          f"host, in {time.perf_counter() - t0:.1f} s")
-    return params
 
 
 def arctic_checks(params, cfg, device="cuda") -> dict:
@@ -6787,10 +6803,10 @@ def arctic_world_of_one(out: dict, phase22: dict, work: str,
         os.path.join(work, "store27"), 1), rank=0, world_size=1)
     try:
         mesh = make_mesh((1, 1), ("data", "model"), torch.device(device).type)
-        log(f"  (b) the depth-{ARCTIC_MESH_DEPTH} trace under "
+        log(f"  (b) the depth-{ARCTIC_DEPTH} trace under "
             f"{ARCTIC_SERVE_PLAN} at world size 1 ({elapsed()})")
         out["tp_serve"] = arctic_mesh_serve(
-            arctic_cfg(ARCTIC_MESH_DEPTH), out["serve1"], mesh,
+            arctic_cfg(ARCTIC_DEPTH), out["serve"], mesh,
             ARCTIC_SERVE_PLAN, device, lens=ARCTIC_LENS,
             new_tokens=ARCTIC_NEW)
         if early is not None:
@@ -7031,7 +7047,7 @@ def arctic_rank_main(rank: int, world: int, work: str) -> None:
         dist.destroy_process_group()
 
 
-def arctic_four_ranks(work: str, device="cuda") -> dict:
+def arctic_four_ranks(work: str, device="cuda") -> Part:
     """(e) DSP_RANKS processes sharing the card over gloo
     (``arctic_rank_main``), ``arctic_rank_cfg`` in float32 at each mesh of
     ARCTIC_RANK_MESHES under ARCTIC_PLAN: the loss within TP_LOSS_BAR
@@ -7046,14 +7062,7 @@ def arctic_four_ranks(work: str, device="cuda") -> dict:
     with open(os.path.join(work, "job27.json"), "w") as f:
         json.dump({"device": device}, f)
     t0 = time.perf_counter()
-    procs = spawn_ranks("--arctic-rank", work)
-    try:
-        rcs = [p.wait(timeout=600) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    rcs = yield from ranks_exit("--arctic-rank", work)
     log_t(f"  {DSP_RANKS} ranks exited {rcs} after "
           f"{time.perf_counter() - t0:.1f} s")
     if any(rcs):
@@ -7132,25 +7141,27 @@ def arctic_four_ranks(work: str, device="cuda") -> dict:
 
 def arctic_phase(phase22: dict, work: str, device="cuda",
                  early=None) -> dict:
-    """Phase 27, (a) to (e); (f)'s CLIs start with ``early`` (beside (c)
-    to (e)) and are checked in phase 28."""
+    """Phase 27, (a) to (d); (e) is ``arctic_four_ranks``, whose ranks run
+    beside phases 28 and 29 (a); (f)'s CLIs start with ``early`` (beside
+    (c) to (e)) and are checked in phase 28."""
     out = {}
     cfg = arctic_cfg(ARCTIC_DEPTH)
     log(f"  (a) depth {ARCTIC_DEPTH} of {arctic_480b.CONFIG.n_layers}, "
         f"kernel against plain, the KV cache in {cfg.cache_dtype}")
-    box = {"params": arctic_init(cfg, device)}
+    t0 = time.perf_counter()
+    box = {"params": lm.init_lm(0, cfg, device=device)}
+    torch.cuda.synchronize()
+    log_t(f"  init {lm.param_counts(cfg)['total'] / 1e9:.2f}B params "
+          f"({torch.cuda.memory_allocated() / 1e9:.2f} GB) in "
+          f"{time.perf_counter() - t0:.1f} s")
     out["checks"] = arctic_checks(box["params"], cfg, device)
     log(f"  (b) depth {ARCTIC_DEPTH}, the same weights: {len(ARCTIC_LENS)} "
-        f"requests over {ARCTIC_LENS} tokens, {ARCTIC_NEW} new tokens each "
+        f"requests over {ARCTIC_LENS} tokens, {ARCTIC_NEW} new tokens each, "
+        f"one card, the reference of its run under {ARCTIC_SERVE_PLAN} "
         f"({elapsed()})")
     out["serve"] = full_width_serve(cfg, flash_attention_fwd, device,
                                     lens=ARCTIC_LENS, new_tokens=ARCTIC_NEW,
                                     params=box.pop("params"))
-    log(f"  (b) the same trace at depth {ARCTIC_MESH_DEPTH}, one card, the "
-        f"reference of its run under {ARCTIC_SERVE_PLAN} ({elapsed()})")
-    out["serve1"] = full_width_serve(arctic_cfg(ARCTIC_MESH_DEPTH),
-                                     flash_attention_fwd, device,
-                                     lens=ARCTIC_LENS, new_tokens=ARCTIC_NEW)
     log(f"  (c) training at depth 1 with {ARCTIC_TRAIN_EXPERTS} experts, "
         f"{ARCTIC_TRAIN_STEPS} steps at 1 x {TRAIN_SEQ} ({elapsed()})")
     out["train"] = full_width_train(arctic_cfg(1, ARCTIC_TRAIN_EXPERTS),
@@ -7158,10 +7169,387 @@ def arctic_phase(phase22: dict, work: str, device="cuda",
                                     ARCTIC_TRAIN_STEPS, device)
     free_device()
     arctic_world_of_one(out, phase22, work, device, early)
-    log(f"  (e) {DSP_RANKS} ranks on the card over gloo, depth "
-        f"{ARCTIC_RANK_DEPTH} with {ARCTIC_RANK_EXPERTS} experts in float32 "
-        f"({elapsed()})")
-    out["ranks"] = arctic_four_ranks(work, device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 29: seamless-m4t-large-v2 served on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+def seamless_serve_contract(cfg, template, plan, shape, requests: int,
+                            s_enc: int, new: int) -> dict:
+    """{kind: [calls, bytes]} per rank of ``seamless_greedy`` on a
+    ``shape`` (data, model) mesh under ``plan``: one prefill of
+    ``requests`` requests of ``s_enc`` frames and SEAMLESS_PROMPT-token
+    prompts and ``new`` - 1 decode steps, each with its argmax
+    (``encdec.serve_contract``)."""
+    dp, n = shape
+    return add_contracts(
+        ED.serve_contract(cfg, n, template, plan, dp=dp,
+                          prefill=(requests, s_enc, SEAMLESS_PROMPT)),
+        *[ED.serve_contract(cfg, n, template, plan, dp=dp,
+                            decode=requests)] * (new - 1))
+
+
+def seamless_mesh_world_of_one(served: dict, work: str,
+                               device="cuda") -> dict:
+    """(a) phase 26 (b)'s trace at full width and depth on a (1, 1) mesh
+    over NCCL under SEAMLESS_PLAN (ZeRO-3: each layer's weights and the
+    table gathered where they are read, at one rank a copy): the tokens
+    phase 26 (b)'s, the calls and bytes exactly
+    ``seamless_serve_contract``, K1 n_enc + 2 n_dec launches on ``sm90``
+    at D 64; TTFT and TPOT beside phase 26 (b)'s.  Then (b)'s reference
+    (``seamless_serve_rank_ref``)."""
+    backend = BACKEND_OF[torch.device(device).type]
+    dist.init_process_group(backend, store=dist.FileStore(
+        os.path.join(work, "store29a"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), torch.device(device).type)
+        ctx = from_mesh(mesh)
+        cfg = seamless_cfg()
+        t0 = time.perf_counter()
+        params = ED.init_encdec(0, cfg, device=device)
+        template = meta_tree(params)
+        specs = param_pspecs(params, SEAMLESS_PLAN,
+                             axis_sizes=mesh_sizes(ctx))
+        params = shard_params(params, specs, ctx)
+        sharder = make_sharder(mesh, SEAMLESS_PLAN, param_specs=specs)
+        torch.cuda.synchronize()
+        log_t(f"  init and layout in {time.perf_counter() - t0:.1f} s")
+        reqs = lm.shard_lm_batch(seamless_requests(cfg, device), sharder)
+        run = seamless_greedy(params, reqs, cfg,
+                              SEAMLESS_PROMPT + SEAMLESS_NEW, SEAMLESS_NEW,
+                              sharder)
+        got, met = run["counts"], run["metrics"]
+        want = seamless_serve_contract(cfg, template, SEAMLESS_PLAN, (1, 1),
+                                       SEAMLESS_REQUESTS, SEAMLESS_ENC,
+                                       SEAMLESS_NEW)
+        k1 = cfg.n_enc_layers + 2 * cfg.n_dec_layers
+        ref = served["metrics"]
+        same = run["tokens"] == served["tokens"]
+        log_t(f"  under {SEAMLESS_PLAN}: tokens "
+              f"{'equal to' if same else 'NOT'} phase 26 (b)'s; TTFT {met['ttft_ms']:.2f} ms, TPOT p50 "
+              f"{met['tpot_ms_p50']:.2f} p99 {met['tpot_ms_p99']:.2f} ms "
+              f"against one card's {ref['ttft_ms']:.2f}, "
+              f"{ref['tpot_ms_p50']:.2f}, {ref['tpot_ms_p99']:.2f}; peak "
+              f"{met['peak_memory_gb']:.2f} GB against "
+              f"{ref['peak_memory_gb']:.2f}; K1 {got['k1']} "
+              f"{got['k1_routes']} at head dims {got['k1_dims']}; calls "
+              f"[count, bytes] {got['calls']}, the contract {want}")
+        if (not same or got["calls"] != want
+                or got["k1"] != k1 or got["k1_routes"] != {"sm90": k1}
+                or got["k1_dims"] != {str(cfg.head_dim): k1}):
+            raise AssertionError(f"seamless served under {SEAMLESS_PLAN}: "
+                                 f"tokens {run['tokens']} against "
+                                 f"{served['tokens']}, counted {got}, the "
+                                 f"contract {want}, {k1} K1 on sm90")
+        del params
+        free_device()
+        seamless_serve_rank_ref(work, device)
+    finally:
+        dist.destroy_process_group()
+    return {"launches": got["k1"], "routes": got["k1_routes"],
+            "tokens": run["tokens"], "metrics": met}
+
+
+def seamless_serve_rank_requests(cfg, device="cuda") -> dict:
+    """(b)'s requests: SEAMLESS_REQUESTS of SEAMLESS_RANK_ENC frames and
+    SEAMLESS_PROMPT-token prompts, as one batch."""
+    b = seamless_batch(cfg, SEAMLESS_REQUESTS, SEAMLESS_RANK_ENC,
+                       SEAMLESS_PROMPT, 9, device)
+    return {"feats": b["feats"], "tokens": b["tokens"]}
+
+
+def seamless_serve_rank_ref(work: str, device="cuda") -> None:
+    """(b)'s reference on one rank without a mesh: ``seamless_rank_cfg``
+    in float32 served greedily (``seamless_greedy``), each generated
+    token's margin beside it (``work/seamless_serve.json``)."""
+    cfg = seamless_rank_cfg()
+    params = ED.init_encdec(0, cfg, device=device)
+    margins = []
+    run = seamless_greedy(params, seamless_serve_rank_requests(cfg, device),
+                          cfg, SEAMLESS_PROMPT + SEAMLESS_SERVE_RANK_NEW,
+                          SEAMLESS_SERVE_RANK_NEW, margins=margins)
+    json.dump({"tokens": run["tokens"],
+               "margins": [list(m) for m in zip(*margins)]},
+              open(os.path.join(work, "seamless_serve.json"), "w"))
+    log_t(f"  (b)'s reference: depth {cfg.n_enc_layers} + "
+          f"{cfg.n_dec_layers} in float32, tokens {run['tokens']}")
+    del params
+    free_device()
+
+
+def seamless_serve_rank_main(rank: int, world: int, work: str) -> None:
+    """One of (b)'s ranks, started by ``seamless_serve_four_ranks`` as
+    ``chip_smoke.py --seamless-serve-rank <rank> <world> <dir>``: gloo over
+    the card's tensors.  At each mesh of SEAMLESS_RANK_MESHES:
+    ``seamless_rank_cfg`` laid out under SEAMLESS_SERVE_RANK_PLAN (the
+    ranks cut theirs in turn), its shard of
+    ``seamless_serve_rank_requests`` served greedily
+    (``seamless_greedy(sharder=)``), the tokens, the calls and K1's
+    launches beside the contract, in ``<dir>/seamless_serve_rank<r>.json``;
+    every rank waits at a barrier, then leaves the group."""
+    device = json.load(open(os.path.join(work, "job29.json")))["device"]
+    full_f32()
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(work, "store29b"), world), rank=rank, world_size=world)
+    try:
+        cfg = seamless_rank_cfg()
+        res = {}
+        for shape in SEAMLESS_RANK_MESHES:
+            label = f"{shape[0]}x{shape[1]}"
+            mesh = make_mesh(shape, ("data", "model"),
+                             torch.device(device).type, backend="gloo")
+            ctx = from_mesh(mesh)
+
+            def layout():
+                whole = ED.init_encdec(0, cfg, device=device)
+                specs = param_pspecs(whole, SEAMLESS_SERVE_RANK_PLAN,
+                                     axis_sizes=mesh_sizes(ctx))
+                return (shard_params(whole, specs, ctx), specs,
+                        meta_tree(whole))
+            params, specs, template = in_turn(rank, world, layout)
+            sharder = make_sharder(mesh, SEAMLESS_SERVE_RANK_PLAN,
+                                   param_specs=specs)
+            reqs = lm.shard_lm_batch(seamless_serve_rank_requests(
+                cfg, device), sharder)
+            t0 = time.perf_counter()
+            run = seamless_greedy(
+                params, reqs, cfg, SEAMLESS_PROMPT + SEAMLESS_SERVE_RANK_NEW,
+                SEAMLESS_SERVE_RANK_NEW, sharder)
+            res[label] = {
+                **run["counts"], "tokens": run["tokens"],
+                "seconds": time.perf_counter() - t0,
+                "coord": [ctx.dp_index, ctx.sp_index],
+                "contract": seamless_serve_contract(
+                    cfg, template, SEAMLESS_SERVE_RANK_PLAN, shape,
+                    SEAMLESS_REQUESTS, SEAMLESS_RANK_ENC,
+                    SEAMLESS_SERVE_RANK_NEW),
+                "host_gib": host_state()}
+            del params
+            host_empty_cache()
+            torch.cuda.empty_cache()
+        json.dump(res, open(os.path.join(
+            work, f"seamless_serve_rank{rank}.json"), "w"))
+    finally:
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def seamless_serve_four_ranks(work: str, device="cuda") -> Part:
+    """(b) DSP_RANKS processes sharing the card over gloo
+    (``seamless_serve_rank_main``): at each mesh of SEAMLESS_RANK_MESHES
+    each rank's tokens (its batch slice) one rank's up to a near-tie (at
+    the first step that differs, one rank's two best logits within
+    TP_TIE_BAR of its largest), its calls and bytes exactly the contract,
+    K1 n_enc + 2 n_dec launches on the float32 route on its heads."""
+    with open(os.path.join(work, "job29.json"), "w") as f:
+        json.dump({"device": device}, f)
+    t0 = time.perf_counter()
+    rcs = yield from ranks_exit("--seamless-serve-rank", work)
+    log_t(f"  {DSP_RANKS} ranks exited {rcs} after "
+          f"{time.perf_counter() - t0:.1f} s")
+    if any(rcs):
+        raise AssertionError(f"a seamless serving rank failed: exit codes "
+                             f"{rcs}")
+    ranks = [json.load(open(os.path.join(
+        work, f"seamless_serve_rank{r}.json"))) for r in range(DSP_RANKS)]
+    ref = json.load(open(os.path.join(work, "seamless_serve.json")))
+    cfg = seamless_rank_cfg()
+    route = ROUTES[(cfg.dtype, cfg.head_dim)]
+    k1 = cfg.n_enc_layers + 2 * cfg.n_dec_layers
+    for shape in SEAMLESS_RANK_MESHES:
+        label = f"{shape[0]}x{shape[1]}"
+        rows = SEAMLESS_REQUESTS // shape[0]
+        for r, res in enumerate(ranks):
+            got = res[label]
+            first = got["coord"][0] * rows
+            want = ref["tokens"][first:first + rows]
+            apart = [next(([t, m[t]] for t, (a, b) in enumerate(zip(g, w))
+                           if a != b), None)
+                     for g, w, m in zip(got["tokens"], want,
+                                        ref["margins"][first:first + rows])]
+            log_t(f"  {label} rank {r} (data {got['coord'][0]}, model "
+                  f"{got['coord'][1]}): {got['seconds']:.1f} s, tokens "
+                  f"{got['tokens']}, [first step apart, one rank's margin "
+                  f"there] {apart}; calls {got['calls']}; K1 {got['k1']} "
+                  f"{got['k1_routes']}; host GiB {got['host_gib']}")
+            if (any(a is not None and a[1] > TP_TIE_BAR for a in apart)
+                    or got["calls"] != got["contract"] or got["k1"] != k1
+                    or got["k1_routes"] != {route: k1}):
+                raise AssertionError(f"rank {r} {label}: {got}, one rank's "
+                                     f"tokens {want}, {k1} K1 on {route}")
+    log(f"  one rank's tokens {ref['tokens']}")
+    return {"ranks": ranks}
+
+
+# ---------------------------------------------------------------------------
+# Phase 30: pixtral-12b and the VLM frontend
+# ---------------------------------------------------------------------------
+
+def pixtral_cfg(depth=None):
+    return _PX if depth is None else dataclasses.replace(_PX, n_layers=depth)
+
+
+def pixtral_batch(cfg, seq: int, step: int, device="cuda") -> dict:
+    """One ``lm_random`` sequence of ``seq`` tokens with its patch rows
+    (``extra["patch_embeds"]``, float32), as JAX's data gives a VLM
+    config."""
+    return make_batch(DataConfig(
+        task="lm_random", vocab=cfg.vocab, seq=seq, batch=1,
+        frontend_tokens=cfg.frontend_tokens, in_dim=cfg.frontend_dim), step,
+        device=device)
+
+
+def pixtral_checks(device="cuda") -> dict:
+    """(a) depth PIXTRAL_DEPTH, kernel against plain on ``pixtral_batch``
+    at TRAIN_SEQ tokens whose patch rows replace the first 1024: the
+    prefill's last logits within LOGIT_BAR of the largest, the loss within
+    LOSS_BAR relative and every grad leaf, the frontend's included, within
+    GRAD_BAR of its max."""
+    cfg = pixtral_cfg(PIXTRAL_DEPTH)
+    params = lm.init_lm(0, cfg, device=device)
+    batch = pixtral_batch(cfg, TRAIN_SEQ, 0, device)
+    with torch.no_grad():
+        got, _ = lm.forward_prefill(params, batch["tokens"], cfg,
+                                    backend="kernel", extra=batch["extra"])
+        want, _ = lm.forward_prefill(params, batch["tokens"], cfg,
+                                     backend="ref", extra=batch["extra"])
+    logits = logit_gap(got, want)
+    gap = loss_grads_gap(params, batch, cfg)
+    log_t(f"  depth {cfg.n_layers}, 1 x {TRAIN_SEQ} with {cfg.frontend_tokens}"
+          f" patch rows: prefill logits |kernel - plain| / max |logit| "
+          f"{logits:.3e}; loss {gap['loss']:.6f}, |delta| / |loss| "
+          f"{gap['loss_rel']:.3e}; worst grad leaf {gap['leaf']} "
+          f"{gap['grad_rel']:.3e} over {gap['leaves']} leaves")
+    if not (logits <= LOGIT_BAR and gap_passes(gap)):
+        raise AssertionError(f"pixtral depth {cfg.n_layers}: logits "
+                             f"{logits}, {gap}")
+    del params
+    free_device()
+    return {"logits": logits, **gap}
+
+
+def pixtral_serve(device="cuda") -> dict:
+    """(b) full depth behind the scheduler (``full_width_serve``, text, K1
+    once a layer a prefill on PIXTRAL_ROUTE), then one
+    ``forward_prefill(extra=)`` of a PIXTRAL_PREFILL-token prompt with its
+    patch rows, the counters set to 0 just before and read just after:
+    K1 once a layer on PIXTRAL_ROUTE, finite logits."""
+    cfg = pixtral_cfg()
+    params = lm.init_lm(0, cfg, device=device)
+    out = full_width_serve(cfg, flash_attention_fwd, lens=PIXTRAL_LENS,
+                           new_tokens=PIXTRAL_NEW, route=PIXTRAL_ROUTE,
+                           params=params)
+    batch = pixtral_batch(cfg, PIXTRAL_PREFILL, 1, device)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        logits, _ = lm.forward_prefill(params, batch["tokens"], cfg,
+                                       backend="kernel",
+                                       extra=batch["extra"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = read_counts()
+    log_t(f"  one prefill of {PIXTRAL_PREFILL} tokens with "
+          f"{cfg.frontend_tokens} patch rows: {seconds * 1e3:.2f} ms, K1 "
+          f"{got['k1']} {got['k1_routes']} at head dims {got['k1_dims']}")
+    if (got["k1"] != cfg.n_layers
+            or got["k1_routes"] != {PIXTRAL_ROUTE: cfg.n_layers}
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"pixtral's prefill with patch rows: {got}, "
+                             f"finite {bool(torch.isfinite(logits).all())}")
+    del params, logits
+    free_device()
+    return {**out, "patch_prefill": {"launches": got["k1"],
+                                     "routes": got["k1_routes"],
+                                     "ms": seconds * 1e3}}
+
+
+def pixtral_train(device="cuda") -> tuple:
+    """(c) PIXTRAL_STEPS Trainer steps at depth PIXTRAL_DEPTH, 1 x
+    TRAIN_SEQ with the patch rows (``run_trainer``, K1 twice a layer a
+    step on PIXTRAL_ROUTE); then the same at world size 1 on a (1, 1)
+    mesh over NCCL under PIXTRAL_PLAN (ZeRO-3, the frontend gathered
+    where it is read): the losses within DSP_LOSS_BAR of the first run's
+    (bit-equal said so), the calls and bytes exactly ``zero_contract``
+    with ``param_contract(patches=True)`` each step."""
+    cfg = pixtral_cfg(PIXTRAL_DEPTH)
+    one = run_trainer(
+        lambda: lm.init_lm(0, cfg, device=device),
+        lambda p, b: lm.lm_loss(p, b, cfg, backend="kernel"),
+        lambda st: pixtral_batch(cfg, TRAIN_SEQ, st, device),
+        flash_attention_fwd, tokens=TRAIN_SEQ, n_steps=PIXTRAL_STEPS,
+        n_layers=cfg.n_layers, route=PIXTRAL_ROUTE, device=device)
+    backend = BACKEND_OF[torch.device(device).type]
+    with tempfile.TemporaryDirectory() as work:
+        dist.init_process_group(backend, store=dist.FileStore(
+            os.path.join(work, "store30c"), 1), rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"),
+                             torch.device(device).type)
+            ctx = from_mesh(mesh)
+            sizes = mesh_sizes(ctx)
+            params = lm.init_lm(0, cfg, device=device)
+            specs = param_pspecs(params, PIXTRAL_PLAN, axis_sizes=sizes)
+            contract = zero_contract(cfg, (1, 1), 1, lm.param_contract(
+                cfg, meta_tree(params), PIXTRAL_PLAN, sizes, patches=True))
+            sharder = make_sharder(mesh, PIXTRAL_PLAN, schedule=(
+                lm.dsp_schedule(cfg, 1, seq=TRAIN_SEQ, batch=1, joint=True)),
+                param_specs=specs)
+            params = [shard_params(params, specs, ctx)]
+            zero = run_trainer(
+                lambda: params.pop(),
+                lambda p, b: lm.lm_loss(p, b, cfg, sharder=sharder,
+                                        backend="kernel"),
+                lambda st: lm.shard_lm_batch(
+                    pixtral_batch(cfg, TRAIN_SEQ, st, device), sharder),
+                flash_attention_fwd, tokens=TRAIN_SEQ,
+                n_steps=PIXTRAL_STEPS, n_layers=cfg.n_layers,
+                route=PIXTRAL_ROUTE, device=device, sharder=sharder)
+        finally:
+            dist.destroy_process_group()
+    want = {k: [c * PIXTRAL_STEPS, b * PIXTRAL_STEPS]
+            for k, (c, b) in contract.items()}
+    got = {k: [zero["collectives"][k], zero["volume"][k]]
+           for k in sorted(zero["collectives"])}
+    met, ref = zero["metrics"], one["metrics"]
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(met["losses"], ref["losses"]))
+    same = met["losses"] == ref["losses"]
+    log_t(f"  under {PIXTRAL_PLAN}: calls [count, bytes] {got}; the "
+          f"contract {want}; losses {met['losses']} against "
+          f"{ref['losses']}: "
+          + ("bit-equal" if same else f"worst |delta| / |loss| {rel:.3e}")
+          + f"; step (median) {met['step_ms_median']:.2f} ms against "
+          f"{ref['step_ms_median']:.2f} ms; peak {met['peak_memory_gb']:.2f} "
+          f"GB against {ref['peak_memory_gb']:.2f} GB")
+    if got != want or not rel <= DSP_LOSS_BAR:
+        raise AssertionError(f"pixtral under {PIXTRAL_PLAN}: calls {got}, "
+                             f"the contract {want}; losses {met['losses']} "
+                             f"against {ref['losses']}")
+    zero["bit_equal"] = same
+    free_device()
+    return one, zero
+
+
+def pixtral_phase(device="cuda") -> dict:
+    """Phase 30, (a) to (d)."""
+    out = {}
+    log(f"  (a) depth {PIXTRAL_DEPTH}, kernel against plain, with patch rows")
+    out["checks"] = pixtral_checks(device)
+    log(f"  (b) served at full width and depth ({elapsed()})")
+    out["serve"] = pixtral_serve(device)
+    log(f"  (c) trained at depth {PIXTRAL_DEPTH}, {PIXTRAL_STEPS} steps at 1 "
+        f"x {TRAIN_SEQ} with patch rows, then under {PIXTRAL_PLAN} at world "
+        f"size 1 ({elapsed()})")
+    out["train"], out["zero"] = pixtral_train(device)
+    log(f"  (d) K1 at pixtral's prefill shape ({elapsed()})")
+    out["attn"] = {name: time_model_attention(name, case)
+                   for name, case in PIXTRAL_ATTN.items()}
     return out
 
 
@@ -7173,7 +7561,7 @@ def arctic_phase(phase22: dict, work: str, device="cuda",
 # share the card, and expandable segments let each give back what it frees
 EXPANDABLE = ("--zero-rank", "--ckpt-rank", "--serve-rank", "--paged-rank",
               "--t2d-zero-rank", "--moe-rank", "--tp-rank", "--seamless-rank",
-              "--arctic-rank")
+              "--arctic-rank", "--seamless-serve-rank")
 # (flag, work) -> the rank processes ``prespawn`` started, not yet released
 _READY: dict = {}
 
@@ -7213,24 +7601,110 @@ def wait_for_go(flag: str, work: str) -> None:
         time.sleep(0.05)
 
 
+def ranks_exit(flag: str, work: str, timeout: int = 600):
+    """Release the ranks of ``flag`` (``spawn_ranks``) and pause once: a
+    phase's (b) part, a generator that runs this by ``yield from``, stops
+    there while its caller goes on (``behind``), and is resumed to wait
+    for its ranks (``run_part``, ``join``).  Returns their exit codes; a
+    rank still running after ``timeout`` s, or when the part is closed,
+    is killed."""
+    procs = spawn_ranks(flag, work)
+    try:
+        yield
+        return [p.wait(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _resume(part):
+    """Resume the (b) part ``part`` from its pause to its end: its value."""
+    try:
+        next(part)
+    except StopIteration as stop:
+        return stop.value
+    raise AssertionError("a (b) part paused twice")
+
+
+def run_part(part):
+    """Run the (b) part ``part`` (a generator over ``ranks_exit``) through:
+    its ranks started and waited for, its checks made."""
+    next(part)
+    return _resume(part)
+
+
+# (b) parts that ``behind`` started and no ``join`` has ended: (part, work)
+_BEHIND: list = []
+# the directories of ``work_dir`` not yet removed
+_WORK: list = []
+
+
+def work_dir() -> str:
+    """A new directory for a phase whose (b) part outlives the phase:
+    ``join`` or ``remove_dir`` removes it, or ``stop_ready`` if the script
+    stops first."""
+    _WORK.append(tempfile.mkdtemp())
+    return _WORK[-1]
+
+
+def remove_dir(work: str) -> None:
+    shutil.rmtree(work, ignore_errors=True)
+    _WORK.remove(work)
+
+
+def behind(part, work: str) -> tuple:
+    """Start the (b) part ``part`` as far as its ranks' release, and leave
+    them running beside the next phase's world-1 part, whose device memory
+    theirs must leave room for.  ``join`` ends it; ``work`` (the phase's
+    directory, made by ``work_dir``) is removed then."""
+    next(part)
+    handle = (part, work)
+    _BEHIND.append(handle)
+    return handle
+
+
+def join(handle: tuple, label: str):
+    """Wait for the ranks that ``behind`` left running, make the part's
+    checks and log them here, under ``label``: the part's value."""
+    part, work = handle
+    _BEHIND.remove(handle)
+    log(f"  {label}, its ranks run beside this phase: waited for and "
+        f"checked ({elapsed()})")
+    try:
+        return _resume(part)
+    finally:
+        remove_dir(work)
+
+
 def stop_ready() -> None:
-    """Stop the rank processes that no phase released."""
+    """Stop the rank processes that no phase released or waited for."""
     for procs in _READY.values():
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
     _READY.clear()
+    for part, _ in _BEHIND:
+        part.close()
+    _BEHIND.clear()
+    for work in _WORK:
+        shutil.rmtree(work, ignore_errors=True)
+    _WORK.clear()
 
 
 # ---------------------------------------------------------------------------
 # Phase 28: the CLIs under torchrun, side by side
 # ---------------------------------------------------------------------------
 
-# the launches that start in phase 27, once (b)'s run under tp + ep at
+# the launches that start in phase 27 once (b)'s run under tp + ep at
 # world size 1 has given the card back its memory, and run beside (c)-(e):
 # ~4 GiB of host memory and ~3 GB of the card a launch, where phase 28's
-# nine together took 116-136 s
+# nine together took 116-136 s.  The other five start at the top of phase
+# 27, beside (a)-(e), whose world-1 parts leave the host's cores idle
+# (after phase 27 they took phase 28 66-71 s; beside 26 (c)-(e) they
+# slowed 26 (e)'s host-bound ranks by ~45 s)
 EARLY_CLIS = ("25c/train", "26e/train", "27f/train", "27f/serve")
 
 
@@ -7663,6 +8137,10 @@ def main() -> None:
                    for i, (name, case) in enumerate(ARCTIC_ATTN.items())}
     for i, case in enumerate(ARCTIC_RANK_ATTN):
         check_attention(case, torch.float32, seed=530 + i)
+    for i, case in enumerate(SEAMLESS_SERVE_RANK_ATTN):
+        check_attention(case, torch.float32, seed=540 + i)
+    pixtral_errs = {name: check_attention(case, torch.bfloat16, seed=550 + i)
+                    for i, (name, case) in enumerate(PIXTRAL_ATTN.items())}
 
     log(f"[4] timing at the slice's shape, bf16 ({elapsed()})")
     q, k, v = attn_inputs(SLICE, torch.bfloat16, seed=7)
@@ -7789,7 +8267,7 @@ def main() -> None:
         dsp_trained = dsp_world_of_one(dcfg, dit_trained, work)
         log(f"  (b) {DSP_RANKS} ranks on the card over gloo "
             f"({elapsed()})")
-        dsp_four_ranks(dcfg, work)
+        run_part(dsp_four_ranks(dcfg, work))
     log(f"  done ({elapsed()})")
 
     log(f"[14] transformer2d-720m under the embedded-SP baselines and the "
@@ -7800,7 +8278,7 @@ def main() -> None:
         log(f"  (a) world size 1 over NCCL, full width, depth {SP_DEPTH}")
         sp = sp_world_of_one(spcfg, work)
         log(f"  (b) {DSP_RANKS} ranks on the card over gloo ({elapsed()})")
-        sp_four_ranks(spcfg, sp["bucket2"], work)
+        run_part(sp_four_ranks(spcfg, sp["bucket2"], work))
     sp_launches = sum(r["launches"] for r in sp["modes"].values())
     log(f"  done ({elapsed()})")
 
@@ -7812,7 +8290,7 @@ def main() -> None:
         l2d = l2d_world_of_one(dcfg, work)
         log(f"  (b) {DSP_RANKS} ranks on the card over gloo at grids "
             f"{[g for g, _ in L2D_CASES]} ({elapsed()})")
-        l2d_ranks = l2d_four_ranks(dcfg, work)
+        l2d_ranks = run_part(l2d_four_ranks(dcfg, work))
     dit_runs = [dit_trained, dsp_trained, *sp["modes"].values(), l2d]
     log(f"  done ({elapsed()})")
 
@@ -7824,75 +8302,86 @@ def main() -> None:
         lm_dsp = lm_world_of_one({"qwen3-14b": q_trained,
                                   "mamba2-370m": trained}, work)
         log(f"  (b) {DSP_RANKS} ranks on the card over gloo ({elapsed()})")
-        lm_ranks = lm_four_ranks(work)
+        lm_ranks = run_part(lm_four_ranks(work))
     q_dsp, m_dsp = lm_dsp["qwen3-14b"], lm_dsp["mamba2-370m"]
     log(f"  done ({elapsed()})")
 
+    # Phases 17 to 20 leave their (b) ranks running beside the next
+    # phase's world-1 part (``behind``), in directories of their own, and
+    # check them (``join``) before the next phase's ranks start: the
+    # ranks spend their time on the host's gloo copies, the world-1 part
+    # on the card, and both fit its memory together (17 (b)'s 4 x 11.3 GB
+    # beside 18 (a)'s ~21 GB; at most 4 x 5.4 GB beside 19 (a)'s 33.5 GB).
     log(f"[17] qwen3-14b and mamba2-370m under their specs' own plans, "
         f"ZeRO-3 over (data, model) and the vocab ring ({elapsed()})")
-    with tempfile.TemporaryDirectory() as work:
-        prespawn("--zero-rank", work)
-        log("  (a) world size 1 over NCCL, full width")
-        lm_zero = zero_world_of_one(lm_dsp, work)
-        log(f"  (b) {DSP_RANKS} ranks on the card over gloo ({elapsed()})")
-        zero_ranks = zero_four_ranks(work)
+    work17 = work_dir()
+    prespawn("--zero-rank", work17)
+    log("  (a) world size 1 over NCCL, full width")
+    lm_zero = zero_world_of_one(lm_dsp, work17)
+    log(f"  (b) {DSP_RANKS} ranks on the card over gloo, beside phase 18 (a) "
+        f"({elapsed()})")
+    zero_b = behind(zero_four_ranks(work17), work17)
     q_zero, m_zero = lm_zero["qwen3-14b"], lm_zero["mamba2-370m"]
-    log(f"  done ({elapsed()})")
+    log(f"  done but (b) ({elapsed()})")
 
     log(f"[18] mamba2-370m checkpoints: save, resume, compression, "
         f"resharding and replan ({elapsed()})")
     t18 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as work:
-        prespawn("--ckpt-rank", work)
-        log("  (a) world size 1 over NCCL, full width and depth")
-        m_ckpt = ckpt_world_of_one(work)
-        log(f"  (b) {DSP_RANKS} ranks on the card over gloo ({elapsed()})")
-        ckpt_ranks = ckpt_four_ranks(work)
-        log(f"  (c) the CLIs at SMOKE size ({elapsed()})")
-        ckpt_clis(work, train_main, serve_main)
-    log_t(f"  done: phase 18 took {time.perf_counter() - t18:.1f} s "
+    work18 = work_dir()
+    prespawn("--ckpt-rank", work18)
+    log("  (a) world size 1 over NCCL, full width and depth")
+    m_ckpt = ckpt_world_of_one(work18)
+    zero_ranks = join(zero_b, "[17] (b)")
+    log(f"  (b) {DSP_RANKS} ranks on the card over gloo, beside (c) and "
+        f"phase 19 (a) ({elapsed()})")
+    ckpt_b = behind(ckpt_four_ranks(work18), work18)
+    log(f"  (c) the CLIs at SMOKE size ({elapsed()})")
+    ckpt_clis(work18, train_main, serve_main)
+    log_t(f"  done but (b): phase 18 took {time.perf_counter() - t18:.1f} s "
           f"({elapsed()})")
 
     log(f"[19] qwen3-14b and mamba2-370m served sharded: the KV cache "
         f"sequence-sharded, the SSM state head-sharded ({elapsed()})")
     t19 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as work:
-        prespawn("--serve-rank", work)
-        log("  (a) world size 1 over NCCL, full width and depth")
-        sv = serve_world_of_one({"qwen3-14b": served,
-                                 "mamba2-370m": m_served}, work)
-        log(f"  (b) {DSP_RANKS} ranks on the card over gloo ({elapsed()})")
-        serve_ranks = serve_four_ranks(work)
+    work19 = work_dir()
+    prespawn("--serve-rank", work19)
+    log("  (a) world size 1 over NCCL, full width and depth")
+    sv = serve_world_of_one({"qwen3-14b": served,
+                             "mamba2-370m": m_served}, work19)
+    ckpt_ranks = join(ckpt_b, "[18] (b)")
+    log(f"  (b) {DSP_RANKS} ranks on the card over gloo, beside phases 20 "
+        f"(a) and 21 (a) ({elapsed()})")
+    serve_b = behind(serve_four_ranks(work19), work19)
     q_sv, m_sv = sv["qwen3-14b"], sv["mamba2-370m"]
-    log_t(f"  done: phase 19 took {time.perf_counter() - t19:.1f} s "
+    log_t(f"  done but (b): phase 19 took {time.perf_counter() - t19:.1f} s "
           f"({elapsed()})")
 
+    # 20 (a) and 21 (a) run beside 19 (b)'s ranks, 22 beside 20 (b)'s
+    # (4 x ~3 GB beside its 54.7 GB); 21 (b) follows 22
     log(f"[20] qwen3-14b paged: block pool, prefix tree, chunked prefill "
         f"({elapsed()})")
     t20 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as work:
-        prespawn("--paged-rank", work)
-        log("  (a) one card, plan none, full width and depth")
-        paged = paged_world_of_one()
-        log(f"  (b) {DSP_RANKS} ranks on the card over gloo, depth "
-            f"{PAGED_RANK_DEPTH} ({elapsed()})")
-        paged_ranks = paged_four_ranks(work)
-    log_t(f"  done: phase 20 took {time.perf_counter() - t20:.1f} s "
+    work20 = work_dir()
+    prespawn("--paged-rank", work20)
+    log("  (a) one card, plan none, full width and depth")
+    paged = paged_world_of_one()
+    log_t(f"  done but (b): phase 20 took {time.perf_counter() - t20:.1f} s "
           f"({elapsed()})")
 
     log(f"[21] transformer2d-720m under its spec's own plan, ZeRO-3 over "
         f"(data, model) ({elapsed()})")
     t21 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as work:
-        prespawn("--t2d-zero-rank", work)
-        log("  (a) world size 1 over NCCL, full width and depth")
-        t2d_zero = t2d_zero_world_of_one(dcfg, dsp_trained, work)
-        log(f"  (b) {DSP_RANKS} ranks on the card over gloo, depth "
-            f"{T2D_ZERO_DEPTH} in float32 ({elapsed()})")
-        t2d_zero_ranks = t2d_zero_four_ranks(work)
+    work21 = work_dir()
+    prespawn("--t2d-zero-rank", work21)
+    log("  (a) world size 1 over NCCL, full width and depth")
+    t2d_zero = t2d_zero_world_of_one(dcfg, dsp_trained, work21)
     dit_runs.append(t2d_zero)
-    log_t(f"  done: phase 21 took {time.perf_counter() - t21:.1f} s "
+    log_t(f"  done but (b): phase 21 took {time.perf_counter() - t21:.1f} s "
           f"({elapsed()})")
+    serve_ranks = join(serve_b, "[19] (b)")
+    log(f"  [20] (b) {DSP_RANKS} ranks on the card over gloo, depth "
+        f"{PAGED_RANK_DEPTH}, beside phase 22 ({elapsed()})")
+    paged_b = behind(paged_four_ranks(work20), work20)
 
     log(f"[22] starcoder2-7b, gemma2-2b and qwen2-moe-a2.7b on one card "
         f"({elapsed()})")
@@ -7900,6 +8389,11 @@ def main() -> None:
     m22 = models_on_one_card()
     log_t(f"  done: phase 22 took {time.perf_counter() - t22:.1f} s "
           f"({elapsed()})")
+    paged_ranks = join(paged_b, "[20] (b)")
+    log(f"  [21] (b) {DSP_RANKS} ranks on the card over gloo, depth "
+        f"{T2D_ZERO_DEPTH} in float32 ({elapsed()})")
+    t2d_zero_ranks = run_part(t2d_zero_four_ranks(work21))
+    remove_dir(work21)
 
     log(f"[23] qwen2-moe-a2.7b under its spec's own plan: MoE with ep under "
         f"DSP on a (data, model) mesh ({elapsed()})")
@@ -7911,7 +8405,7 @@ def main() -> None:
         moe_dsp = moe_world_of_one(m22, work)
         log(f"  (b) {DSP_RANKS} ranks on the card over gloo, depth "
             f"{MOE_RANK_DEPTH} in float32 ({elapsed()})")
-        moe_ranks = moe_four_ranks(work)
+        moe_ranks = run_part(moe_four_ranks(work))
     log_t(f"  done: phase 23 took {time.perf_counter() - t23:.1f} s "
           f"({elapsed()})")
 
@@ -7926,25 +8420,32 @@ def main() -> None:
         f"over data and the vocab ring on a (data, model) mesh "
         f"({elapsed()})")
     t25 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as work:
-        prespawn("--tp-rank", work)
-        log(f"  (a) world size 1 over NCCL, full width, depth "
-            f"{MISTRAL_TRAIN_DEPTH} (training) and {MISTRAL_SERVE_DEPTH} "
-            f"(serving)")
-        m25 = tp_world_of_one(m24, work)
-        log(f"  (b) {DSP_RANKS} ranks on the card over gloo, depth "
-            f"{TP_RANK_DEPTH} in float32 ({elapsed()})")
-        tp_ranks = tp_four_ranks(work)
-    log_t(f"  done: phase 25 took {time.perf_counter() - t25:.1f} s "
+    work25 = work_dir()
+    prespawn("--tp-rank", work25)
+    log(f"  (a) world size 1 over NCCL, full width, depth "
+        f"{MISTRAL_TRAIN_DEPTH} (training) and {MISTRAL_SERVE_DEPTH} "
+        f"(serving)")
+    m25 = tp_world_of_one(m24, work25)
+    log(f"  (b) {DSP_RANKS} ranks on the card over gloo, depth "
+        f"{TP_RANK_DEPTH} in float32, beside phase 26 (a)-(d) "
+        f"({elapsed()})")
+    tp_b = behind(tp_four_ranks(work25), work25)
+    log_t(f"  done but (b): phase 25 took {time.perf_counter() - t25:.1f} s "
           f"({elapsed()})")
 
     log(f"[26] seamless-m4t-large-v2, the enc-dec model: served and trained "
         f"on one card, and under its spec's own plan on a (data, model) "
         f"mesh ({elapsed()})")
     t26 = time.perf_counter()
+    joined = {}
+
+    def before_26e():
+        # 25 (b)'s ranks ran beside (a)-(d): 4 x 9.1 GB beside <= 31 GB
+        joined["tp_ranks"] = join(tp_b, "[25] (b)")
     with tempfile.TemporaryDirectory() as work:
         prespawn("--seamless-rank", work)
-        m26 = seamless_phase(work)
+        m26 = seamless_phase(work, early=before_26e)
+    tp_ranks = joined["tp_ranks"]
     log_t(f"  done: phase 26 took {time.perf_counter() - t26:.1f} s "
           f"({elapsed()})")
 
@@ -7952,26 +8453,34 @@ def main() -> None:
         f"ZeRO-3) on a (data, model) mesh, and MoE served on a mesh "
         f"({elapsed()})")
     t27 = time.perf_counter()
-    early = {}
+    work27 = work_dir()
+    # phase 28's CLI launches, started here and after 27 (b)
+    launched = {}
     try:
-        with tempfile.TemporaryDirectory() as work:
-            prespawn("--arctic-rank", work)
-            m27 = arctic_phase(m22, work, early=lambda: early.update(
-                cli_launches(EARLY_CLIS)))
+        launched.update(cli_launches([n for n in cli_commands()
+                                      if n not in EARLY_CLIS]))
+        prespawn("--arctic-rank", work27)
+        m27 = arctic_phase(m22, work27, early=lambda: launched.update(
+            cli_launches(EARLY_CLIS)))
+        log(f"  (e) {DSP_RANKS} ranks on the card over gloo, depth "
+            f"{ARCTIC_RANK_DEPTH} with {ARCTIC_RANK_EXPERTS} experts in "
+            f"float32, beside phases 28 and 29 (a) ({elapsed()})")
+        arctic_b = behind(arctic_four_ranks(work27), work27)
     except BaseException:
-        close_launches(early)
+        close_launches(launched)
         raise
-    log_t(f"  done: phase 27 took {time.perf_counter() - t27:.1f} s "
+    log_t(f"  done but (e): phase 27 took {time.perf_counter() - t27:.1f} s "
           f"({elapsed()})")
 
     log(f"[28] the CLIs under torchrun at SMOKE size, side by side: phases "
         f"19 (c), 20 (c), 23 (c), 25 (c), 26 (e) and 27 (f)'s, "
-        f"{sorted(early)} started in phase 27 ({elapsed()})")
+        f"{sorted(n for n in launched if n not in EARLY_CLIS)} started at "
+        f"the top of phase 27, {sorted(EARLY_CLIS)} after its (b) "
+        f"({elapsed()})")
     t28 = time.perf_counter()
-    launched = dict(early)
     try:
         launched.update(cli_launches(
-            [n for n in cli_commands() if n not in early]))
+            [n for n in cli_commands() if n not in launched]))
         serve_cli_ranks(serve_main, launched)
         paged_clis(serve_main, launched)
         train_cli_ranks("23c/train", launched, train_main,
@@ -7988,13 +8497,38 @@ def main() -> None:
         close_launches(launched)
     log_t(f"  done: phase 28 took {time.perf_counter() - t28:.1f} s "
           f"({elapsed()})")
-    arctic_runs = [m27["serve"], m27["serve1"], m27["tp_serve"],
+
+    log(f"[29] seamless-m4t-large-v2 served on a (data, model) mesh under "
+        f"its spec's own plan ({elapsed()})")
+    t29 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        prespawn("--seamless-serve-rank", work)
+        log("  (a) world size 1 over NCCL, full width and depth, phase 26 "
+            "(b)'s trace")
+        m29 = {"serve": seamless_mesh_world_of_one(m26["serve"], work)}
+        m27["ranks"] = join(arctic_b, "[27] (e)")
+        log(f"  (b) {DSP_RANKS} ranks on the card over gloo, depth "
+            f"{SEAMLESS_RANK_DEPTH} + {SEAMLESS_RANK_DEPTH} in float32 "
+            f"({elapsed()})")
+        m29["ranks"] = run_part(seamless_serve_four_ranks(work))
+    log_t(f"  done: phase 29 took {time.perf_counter() - t29:.1f} s "
+          f"({elapsed()})")
+
+    log(f"[30] pixtral-12b with the VLM frontend on one card and under its "
+        f"spec's own plan ({elapsed()})")
+    t30 = time.perf_counter()
+    m30 = pixtral_phase()
+    log_t(f"  done: phase 30 took {time.perf_counter() - t30:.1f} s "
+          f"({elapsed()})")
+    pixtral_runs = [m30["serve"], m30["serve"]["patch_prefill"],
+                    m30["train"], m30["zero"]]
+    arctic_runs = [m27["serve"], m27["tp_serve"],
                    m27["train"], m27["tp_train"], m27["qwen2_mesh"]]
     model_runs = [m22["starcoder2-7b"], m22["gemma2-2b"],
                   m22["qwen2-moe-a2.7b"], m22["qwen2-moe-a2.7b/train"],
                   moe_dsp, m24["serve"], m24["train"], m25["train"],
                   m25["serve"], m26["serve"], m26["train"], m26["dsp"],
-                  *arctic_runs]
+                  *arctic_runs, m29["serve"], *pixtral_runs]
 
     log(facts)
     print(json.dumps({"kernels": [{
@@ -8046,7 +8580,6 @@ def main() -> None:
                    **arctic_times,
                    "arctic-480b/launches": {
                        "serve": m27["serve"]["launches"],
-                       "serve_depth1": m27["serve1"]["launches"],
                        "tp_ep_serve": m27["tp_serve"]["launches"],
                        "train": m27["train"]["launches"],
                        "tp_ep_zero_train": m27["tp_train"]["launches"],
@@ -8055,7 +8588,24 @@ def main() -> None:
                        "routes": by_route(arctic_runs)},
                    "arctic-480b/rank_launches": [
                        {label: r[label]["k1_routes"] for label in r}
-                       for r in m27["ranks"]["ranks"]]},
+                       for r in m27["ranks"]["ranks"]],
+                   "seamless-m4t-large-v2/mesh_serve": {
+                       "launches": m29["serve"]["launches"],
+                       "routes": m29["serve"]["routes"],
+                       "metrics": m29["serve"]["metrics"]},
+                   "seamless-m4t-large-v2/mesh_serve_rank_launches": [
+                       {label: r[label]["k1_routes"] for label in r}
+                       for r in m29["ranks"]["ranks"]],
+                   **{name: {**m30["attn"][name],
+                             "max_abs_err": pixtral_errs[name]}
+                      for name in PIXTRAL_ATTN},
+                   "pixtral-12b/launches": {
+                       "serve": m30["serve"]["launches"],
+                       "patch_prefill": m30["serve"]["patch_prefill"][
+                           "launches"],
+                       "train": m30["train"]["launches"],
+                       "dsp_zero_train": m30["zero"]["launches"],
+                       "routes": by_route(pixtral_runs)}},
         "paged_launches": paged["launches"],
         "paged_rank_launches": [r["k1_launches"]
                                 for r in paged_ranks["ranks"]],
@@ -8147,6 +8697,9 @@ if __name__ == "__main__":
         seamless_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif sys.argv[1:2] == ["--arctic-rank"]:
         arctic_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:2] == ["--seamless-serve-rank"]:
+        seamless_serve_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                                 sys.argv[4])
     else:
         try:
             main()

@@ -50,7 +50,7 @@ _REGISTRY: Dict[str, ArchSpec] = {}
 
 _MODULES = ["mamba2_370m", "qwen3_14b", "starcoder2_7b", "gemma2_2b",
             "mistral_large_123b", "qwen2_moe_a2_7b", "arctic_480b",
-            "transformer2d_720m", "transformer2d_3b",
+            "pixtral_12b", "transformer2d_720m", "transformer2d_3b",
             "seamless_m4t_large_v2"]
 
 

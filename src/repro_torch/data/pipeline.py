@@ -9,7 +9,10 @@ package's batches to both.  Tasks:
 
 * ``lm_shift``: next token = (token + 1) mod V with a small noise floor,
   learnable in a few hundred steps, so a short run shows the loss fall;
-* ``lm_random``: i.i.d. tokens and labels (throughput);
+* ``lm_random``: i.i.d. tokens and labels (throughput); with
+  ``frontend_tokens`` (a VLM config's) also ``extra["patch_embeds"]``
+  (batch, frontend_tokens, in_dim) float32 from normals, drawn after the
+  labels as JAX draws them from the labels' key;
 * ``video``: latent video tensors and diffusion targets for transformer2d,
   x and target (batch, temporal, spatial, in_dim) from normals, t (batch,)
   from a uniform draw, all float32;
@@ -17,7 +20,7 @@ package's batches to both.  Tasks:
   model, feats (batch, enc_seq, frontend_dim) float32 from normals,
   tokens (batch, seq) and labels = (tokens + 1) mod V.
 
-The VLM task comes with its model family.
+JAX has no separate VLM task: a VLM batch is ``lm_random``'s.
 """
 from __future__ import annotations
 
@@ -38,13 +41,15 @@ class DataConfig:
     seq: int = 512
     batch: int = 8
     noise: float = 0.05
-    # video
+    # video; the patch width of a VLM batch
     temporal: int = 8
     spatial: int = 64
     in_dim: int = 16
     # encdec
     enc_seq: int = 512
     frontend_dim: int = 80
+    # vlm
+    frontend_tokens: int = 0
 
 
 def _generator(step: int, device: torch.device) -> torch.Generator:
@@ -53,9 +58,10 @@ def _generator(step: int, device: torch.device) -> torch.Generator:
 
 def make_batch(cfg: DataConfig, step: int, *,
                device="cuda") -> Dict[str, torch.Tensor]:
-    """{"tokens", "labels"}: (batch, seq) int64 on ``device``; for
-    ``video``, {"x", "t", "target"}; for ``encdec``, {"feats", "tokens",
-    "labels"}."""
+    """{"tokens", "labels"}: (batch, seq) int64 on ``device``, and for
+    ``lm_random`` with ``frontend_tokens`` {"extra": {"patch_embeds"}};
+    for ``video``, {"x", "t", "target"}; for ``encdec``, {"feats",
+    "tokens", "labels"}."""
     if cfg.task not in TASKS:
         raise ValueError(f"task {cfg.task!r} not in {TASKS}")
     dev = resolve_device(device)
@@ -75,9 +81,14 @@ def make_batch(cfg: DataConfig, step: int, *,
     shape = (cfg.batch, cfg.seq)
     tokens = torch.randint(0, cfg.vocab, shape, generator=gen, device=dev)
     if cfg.task == "lm_random":
-        return {"tokens": tokens,
-                "labels": torch.randint(0, cfg.vocab, shape, generator=gen,
-                                        device=dev)}
+        out = {"tokens": tokens,
+               "labels": torch.randint(0, cfg.vocab, shape, generator=gen,
+                                       device=dev)}
+        if cfg.frontend_tokens:
+            out["extra"] = {"patch_embeds": torch.randn(
+                (cfg.batch, cfg.frontend_tokens, cfg.in_dim), generator=gen,
+                device=dev)}
+        return out
     labels = (tokens + 1) % cfg.vocab
     flip = torch.rand(shape, generator=gen, device=dev) < cfg.noise
     noise_tok = torch.randint(0, cfg.vocab, shape, generator=gen, device=dev)
@@ -91,7 +102,8 @@ def batch_for_arch(spec, shape_name: str, *,
     """A concrete batch for an ArchSpec x one of its shapes: ``video`` at
     the shape's temporal x spatial for the t2d family, ``encdec`` at
     S_enc = seq and S_dec = seq // 4 for the enc-dec family (JAX's
-    budget), ``lm_random`` for the LM family."""
+    budget), ``lm_random`` for the LM family (with a VLM config's patch
+    embeddings, as JAX's)."""
     shp = spec.shapes()[shape_name]
     if spec.family == "t2d":
         cfg = DataConfig(task="video", batch=batch_override or shp["batch"],
@@ -108,5 +120,7 @@ def batch_for_arch(spec, shape_name: str, *,
     if spec.family != "lm":
         raise NotImplementedError(f"{spec.family} batches: not yet ported")
     cfg = DataConfig(task="lm_random", vocab=spec.config.vocab, seq=seq,
-                     batch=batch)
+                     batch=batch,
+                     frontend_tokens=spec.config.frontend_tokens,
+                     in_dim=spec.config.frontend_dim or 16)
     return make_batch(cfg, step, device=device)

@@ -81,7 +81,9 @@ the decoder's shard to heads beside the encoder K/V's own switch):
         --arch seamless-m4t-large-v2 --mesh 1,4
     ... plan ParallelPlan(mode='dsp', ep=False, zero=True, shard_vocab=True)
 
-It takes no ``--replan`` (ROADMAP queue 1 item 3.7).
+It takes no ``--replan``: JAX's train CLI builds its elastic spec for the
+LM family alone, so ``Trainer.replan`` has no enc-dec counterpart there
+either (ROADMAP, standing notes).
 
 ``--grad-compress`` runs the summed grads through error-feedback int8
 compression.  ``--device`` defaults to ``cuda``.  The JAX CLI's
@@ -161,7 +163,8 @@ def main(argv=None):
     sharder = elastic = param_specs = psched = None
     if spec.family == "encdec" and args.replan:
         raise SystemExit("--replan: the enc-dec family has no elastic "
-                         "resize yet (ROADMAP queue 1 item 3.7)")
+                         "resize, as in JAX's train CLI (ROADMAP, standing "
+                         "notes)")
     if spec.family == "encdec":
         from repro_torch.models import encdec as ED
         from repro_torch.parallel.partition import make_sharder

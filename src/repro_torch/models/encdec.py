@@ -28,12 +28,19 @@ slices, each layer gathering its weights inside its checkpoint
 (``Sharder.whole``); ``collective_contract`` and ``param_contract``
 count what a step issues.
 
-Serving (``prefill``, then ``decode_step``s) runs on one device.  The
-prefill returns self-attention caches with room for the decode
-(``max_len``), so the first ``decode_step`` writes past the prompt; JAX's
-``prefill`` returns caches of exactly the prompt's length, whose first
-decode write clamps onto the prompt's last row (ROADMAP §3).  On a mesh
-both raise (ROADMAP queue 1 item 3.7).
+Serving (``prefill``, then ``decode_step``s) runs on one device or on
+the mesh.  The prefill returns self-attention caches with room for the
+decode (``max_len``), so the first ``decode_step`` writes past the
+prompt; JAX's ``prefill`` returns caches of exactly the prompt's length,
+whose first decode write clamps onto the prompt's last row (ROADMAP §3).
+On a mesh (``sharder`` serving sharded) both caches are split by
+sequence over ``model`` as JAX's ``cache_pspecs`` lays them out: the
+prefill runs under the training forward's hooks, its self-attention K/V
+re-cut onto the rank's block of the cache (``Sharder.kv_cache``) and the
+cross K/V kept as the rank's shard of the encoder sequence; a decode step
+takes its token whole on every model rank and merges each attention's
+softmax partials over ``model`` (``attention._sharded_decode``).
+``serve_contract`` counts what both issue.
 """
 from __future__ import annotations
 
@@ -52,12 +59,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models.lm import tree_map, unstack
 from repro_torch.parallel.partition import (
-    STACKED, ParallelPlan, Sharder, null_sharder, param_pspecs,
-    store_contract)
-
-SERVE_ON_MESH = ("enc-dec serving on a mesh (prefill and decode_step with "
-                 "a sharder) is not ported (ROADMAP queue 1 item 3.7)")
-
+    STACKED, ParallelPlan, Sharder, gathered_numels, kv_block, null_sharder,
+    param_pspecs, store_contract)
 
 @dataclasses.dataclass(frozen=True)
 class EncDecConfig:
@@ -307,6 +310,14 @@ def decode(params, tokens, enc_out, cfg: EncDecConfig, *,
     return _norm(cfg, sharder.whole(params["dec_norm"], "dec_norm"), x)
 
 
+def _shim(cfg: EncDecConfig) -> lm.LMConfig:
+    """The LM config whose table rules are the decoder's (JAX's shim): the
+    tied table, no embedding scale, no final softcap."""
+    return lm.LMConfig(name="_", n_layers=1, d_model=cfg.d_model,
+                       n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                       head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab)
+
+
 def encdec_loss(params, batch, cfg: EncDecConfig, *,
                 sharder: Optional[Sharder] = None, backend: str = "kernel",
                 remat: bool = True, fused_switch: bool = True):
@@ -324,10 +335,7 @@ def encdec_loss(params, batch, cfg: EncDecConfig, *,
     x = decode(params, batch["tokens"], enc, cfg, sharder=sharder,
                backend=backend, remat=remat, fused_switch=fused_switch,
                embed=embed)
-    shim = lm.LMConfig(name="_", n_layers=1, d_model=cfg.d_model,
-                       n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                       head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab)
-    loss = lm.chunked_xent(x, embed["table"], batch["labels"], shim,
+    loss = lm.chunked_xent(x, embed["table"], batch["labels"], _shim(cfg),
                            sharder=sharder)
     return loss, {"xent": loss}
 
@@ -435,21 +443,29 @@ def param_contract(cfg: EncDecConfig, params, plan: ParallelPlan,
 # ---------------------------------------------------------------------------
 
 def init_dec_caches(cfg: EncDecConfig, batch: int, max_len: int,
-                    enc_len: int, *, dtype=None, device="cuda"):
+                    enc_len: int, *, dtype=None, device="cuda",
+                    sharder: Optional[Sharder] = None):
     """Zero caches: the decoder's self-attention K/V (n_dec, B, Hkv,
     max_len, D) and the cross K/V (n_dec, B, Hkv, enc_len, D), with a
-    scalar ``pos``."""
+    scalar ``pos``.  With ``sharder`` serving sharded, this rank's layout
+    (JAX's ``cache_pspecs``): its batch slice over ``data`` and its block
+    of each sequence over ``model`` (``kv_block``)."""
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype
+    lengths = {"kv": max_len, "cross": enc_len}
+    if sharder is not None and sharder.serves_sharded:
+        batch //= sharder.dp_size
+        for k, n in lengths.items():
+            start, stop = kv_block(sharder.ctx, sharder.plan, n)
+            lengths[k] = stop - start
     shape = (cfg.n_dec_layers, batch, cfg.n_kv_heads)
 
     def zeros(length):
         return torch.zeros(shape + (length, cfg.head_dim), dtype=dtype,
                            device=dev)
     return {"pos": torch.zeros((), dtype=torch.long, device=dev),
-            "periods": {"kv": {"k": zeros(max_len), "v": zeros(max_len)},
-                        "cross": {"k": zeros(enc_len),
-                                  "v": zeros(enc_len)}}}
+            "periods": {k: {"k": zeros(n), "v": zeros(n)}
+                        for k, n in lengths.items()}}
 
 
 def build_cross_caches(params, enc_out, cfg: EncDecConfig):
@@ -467,9 +483,21 @@ def build_cross_caches(params, enc_out, cfg: EncDecConfig):
     return {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
-def _refuse_mesh(sharder: Optional[Sharder]) -> None:
-    if sharder is not None and sharder.ctx is not None:
-        raise NotImplementedError(SERVE_ON_MESH)
+def _logits(params, x, embed, cfg: EncDecConfig, sharder: Sharder):
+    """x (B, S, d) whole on every rank -> logits against the tied table:
+    this rank's vocab chunk where the table is split by vocab and read
+    there (``lm.vocab_sharded``), else against ``embed``, the table read
+    whole."""
+    if lm.vocab_sharded(_shim(cfg), sharder):
+        return x @ params["embed"]["table"].t()
+    return x @ embed["table"].t()
+
+
+def argmax(logits, cfg: EncDecConfig, sharder: Optional[Sharder] = None):
+    """The greedy tokens of ``prefill``'s or ``decode_step``'s logits, in
+    global vocab ids (``lm.sharded_argmax``: one all-gather of (max, id)
+    pairs over ``model`` where the logits are vocab-sharded)."""
+    return lm.sharded_argmax(logits, _shim(cfg), sharder)
 
 
 def decode_step(params, tokens, caches, cfg: EncDecConfig, *,
@@ -480,31 +508,54 @@ def decode_step(params, tokens, caches, cfg: EncDecConfig, *,
     JAX's does, so the cache needs room) and attends its prefix; the
     cross-attention attends the static cross K/V over the whole encoder
     length through ``attention._ref_decode``, as JAX's does.  The
-    returned caches hold the same tensors, ``pos`` one on."""
-    _refuse_mesh(sharder)
+    returned caches hold the same tensors, ``pos`` one on.
+
+    With ``sharder`` serving sharded the tokens are the rank's batch
+    slice, whole on every model rank, ``params`` the rank's slices (each
+    layer's gathered where it is read), ``caches`` the rank's layout
+    (``init_dec_caches(sharder=)``): the step's K/V go to the rank whose
+    block holds ``pos``, and both attentions merge their blocks' softmax
+    partials over ``model`` (``attention._sharded_decode``).  The
+    embedding and the logits read the tied table as the LM's decode does
+    (``lm.decode_embed``): vocab-sharded logits where the ranks divide the
+    vocab under ``shard_vocab`` (``argmax`` reads them)."""
+    sharder = sharder or null_sharder()
+    sharded = sharder.serves_sharded
+    shim = _shim(cfg)
     pos = caches["pos"]
     kv, cross = caches["periods"]["kv"], caches["periods"]["cross"]
-    x = L.embed(params["embed"], tokens)
+    if lm.vocab_sharded(shim, sharder):
+        embed = None
+        x = lm.decode_embed(params, tokens, shim, sharder)
+    else:
+        embed = sharder.whole(params["embed"], "embed")
+        x = L.embed(embed, tokens)
     acfg, xcfg = cfg.attn_cfg(), cfg.attn_cfg(rope=False)
     b, s, _ = x.shape
     for i, lp in enumerate(unstack(params["dec_periods"], cfg.n_dec_layers)):
+        lp = sharder.whole(lp, "dec_periods")
         h = _norm(cfg, lp["ln1"], x)
         h, _ = A.attention(lp["self_attn"], h, acfg, causal=True,
                            cache={"k": kv["k"][i], "v": kv["v"][i],
-                                  "pos": pos}, backend=backend)
+                                  "pos": pos}, backend=backend,
+                           sharder=sharder)
         x = x + h
         h = _norm(cfg, lp["ln_x"], x)
         q = L.linear(lp["cross_attn"]["wq"], h).reshape(
             b, s, cfg.n_heads, cfg.head_dim).transpose(1, 2)
-        o = A._ref_decode(q, cross["k"][i], cross["v"][i], xcfg, pos,
-                          causal=False)
+        if sharded:
+            o = A._sharded_decode(q, cross["k"][i], cross["v"][i], xcfg,
+                                  pos, False, sharder)
+        else:
+            o = A._ref_decode(q, cross["k"][i], cross["v"][i], xcfg, pos,
+                              causal=False)
         x = x + L.linear(lp["cross_attn"]["wo"],
                          o.transpose(1, 2).reshape(b, s, -1))
         h = _norm(cfg, lp["ln2"], x)
         x = x + L.mlp(lp["mlp"], h, cfg.mlp_kind)
-    x = _norm(cfg, params["dec_norm"], x)
-    logits = x @ params["embed"]["table"].t()
-    return logits, {"pos": pos + s, "periods": caches["periods"]}
+    x = _norm(cfg, sharder.whole(params["dec_norm"], "dec_norm"), x)
+    return (_logits(params, x, embed, cfg, sharder),
+            {"pos": pos + s, "periods": caches["periods"]})
 
 
 def prefill(params, batch, cfg: EncDecConfig, *,
@@ -519,52 +570,171 @@ def prefill(params, batch, cfg: EncDecConfig, *,
     are the ones its prompt's cross-attention projects (what
     ``build_cross_caches`` computes), kept as they come.  Every attention
     goes through ``flash_attention`` (K1 on the card: n_enc + 2 n_dec
-    launches)."""
-    _refuse_mesh(sharder)
+    launches).
+
+    With ``sharder`` serving sharded (JAX's ``prefill(sharder=)``) the
+    batch is the rank's shard (``lm.shard_lm_batch``: its batch slice,
+    its shard of both sequences, each dividing by the model ranks), the
+    encoder and the decoder run as ``encdec_loss`` runs them under the
+    planned schedules (K1 on the rank's heads), each layer's weights
+    gathered where they are read, and the caches come in the rank's
+    layout (``init_dec_caches(sharder=)``): every layer's self-attention
+    K/V re-cut onto the rank's block of the ``max_len`` cache in one
+    all-gather (``Sharder.kv_cache``), the cross K/V the rank's shard of
+    the encoder sequence as its cross-attention projects them.  The
+    logits come whole on every rank (``Sharder.seq_rows``), vocab-sharded
+    where ``decode_step``'s are."""
+    sharder = sharder or null_sharder()
+    sharded = sharder.serves_sharded
     tokens = batch["tokens"]
-    b, s_dec = tokens.shape
-    s_enc = batch["feats"].shape[1]
+    b, s_loc = tokens.shape
+    n = sharder.seq_shards if sharded else 1
+    s_dec, s_enc = s_loc * n, batch["feats"].shape[1] * n
     if caches is None:
         if max_len is None:
             raise ValueError("prefill needs caches with room for the "
                              "decode: pass max_len or init_dec_caches' "
                              "buffers")
-        caches = init_dec_caches(cfg, b, max_len, s_enc,
-                                 device=tokens.device)
+        caches = init_dec_caches(cfg, b * sharder.dp_size if sharded else b,
+                                 max_len, s_enc, device=tokens.device,
+                                 sharder=sharder)
     kv, cross = caches["periods"]["kv"], caches["periods"]["cross"]
-    if kv["k"].shape[3] < s_dec or cross["k"].shape[3] != s_enc:
+    if kv["k"].shape[3] * n < s_dec or cross["k"].shape[3] * n != s_enc:
         raise ValueError(
-            f"caches of {kv['k'].shape[3]} positions and {cross['k'].shape[3]}"
-            f" frames cannot take a {s_dec}-token prompt over {s_enc} frames")
-    enc = encode(params, batch["feats"], cfg, backend=backend, remat=False,
-                 fused_switch=fused_switch)
-    x = L.embed(params["embed"], tokens)
+            f"caches of {kv['k'].shape[3] * n} positions and "
+            f"{cross['k'].shape[3] * n} frames cannot take a {s_dec}-token "
+            f"prompt over {s_enc} frames")
+    enc = encode(params, batch["feats"], cfg, sharder=sharder,
+                 backend=backend, remat=False, fused_switch=fused_switch)
+    dec = _with_planned_schedule(sharder, cfg, s_dec=s_dec,
+                                 batch=b * sharder.dp_size)
+    embed = sharder.whole(params["embed"], "embed")
+    x = dec.enter3(L.embed(embed, tokens))
     acfg, xcfg = cfg.attn_cfg(), cfg.attn_cfg(rope=False)
+    ks, vs = [], []
     for i, lp in enumerate(unstack(params["dec_periods"], cfg.n_dec_layers)):
+        lp = dec.whole(lp, "dec_periods")
+        x = dec.wrap3(x)
         h = _norm(cfg, lp["ln1"], x)
-        h, (ck, cv) = A.attention_sp(lp["self_attn"], h, acfg,
+        h, (ck, cv) = A.attention_sp(lp["self_attn"], h, acfg, sharder=dec,
                                      backend=backend, causal=True,
+                                     fused_switch=fused_switch,
                                      return_kv=True)
-        kv["k"][i, :, :, :s_dec] = ck
-        kv["v"][i, :, :, :s_dec] = cv
+        ks.append(ck)
+        vs.append(cv)
         x = x + h
         h = _norm(cfg, lp["ln_x"], x)
-        h, (ck, cv) = A.attention_sp(lp["cross_attn"], h, xcfg,
+        h, (ck, cv) = A.attention_sp(lp["cross_attn"], h, xcfg, sharder=dec,
                                      backend=backend, causal=False, x_kv=enc,
+                                     fused_switch=fused_switch,
                                      return_kv=True)
         cross["k"][i] = ck
         cross["v"][i] = cv
         x = x + h
         h = _norm(cfg, lp["ln2"], x)
-        x = x + L.mlp(lp["mlp"], h, cfg.mlp_kind)
-    x = _norm(cfg, params["dec_norm"], x)
-    logits = x[:, -1:] @ params["embed"]["table"].t()
+        x = dec.act3(x + dec.act3(L.mlp(lp["mlp"], h, cfg.mlp_kind)))
+    # every layer's self K/V onto the rank's blocks of the cache at once
+    both = dec.kv_cache(torch.stack([torch.stack(ks), torch.stack(vs)]),
+                        s_dec, kv["k"].shape[3] * n)
+    kv["k"].copy_(both[0])
+    kv["v"].copy_(both[1])
+    x = _norm(cfg, dec.whole(params["dec_norm"], "dec_norm"),
+              dec.seq_rows(x, s_dec - 1, 1))
     caches["pos"] = torch.full((), s_dec, dtype=torch.long,
                                device=tokens.device)
-    return logits, caches
+    return _logits(params, x, embed, cfg, dec), caches
+
+
+def serve_contract(cfg: EncDecConfig, n: int, params, plan: ParallelPlan, *,
+                   dp: int = 1, prefill=None, decode: Optional[int] = None
+                   ) -> Dict[str, Dict[str, int]]:
+    """The ``torch.distributed`` calls and bytes (``core.dsp``'s rule), by
+    kind, that serving on a ``(dp, n)`` mesh under ``plan`` issues per
+    rank, from ``params`` (the GLOBAL tree; meta tensors will do):
+
+      ``prefill=(batch, s_enc, s_dec)``: one ``prefill`` of ``batch``
+        requests of ``s_enc`` frames and ``s_dec``-token prompts: the
+        hooks' forward without remat (``collective_contract`` at the
+        rank's shard: 2 all-to-alls an encoder layer, 5 a decoder layer
+        at 16 heads); every leaf a spec splits read once (each layer's
+        once per layer, the table once for the lookup and the logits);
+        one all-gather of every layer's stacked self K/V onto the cache's
+        blocks (``Sharder.kv_cache``); one all-reduce of the last
+        position (``Sharder.seq_rows``);
+      ``decode=rows``: one ``decode_step`` of ``rows`` rows: the
+        embedding's all-reduce where the table is split by vocab and read
+        there (``lm.decode_embed``), else the table read once; each
+        layer's leaves read once; per decoder layer two all-gathers of
+        the float32 softmax partials (the self-attention's and the
+        cross-attention's, ``attention._sharded_decode``); the final
+        norm read;
+
+    and after each, ``argmax``'s all-gather of (max, id) pairs in float64
+    over ``model`` where the logits are vocab-sharded.  The hooks are
+    counted with the fused switch, as ``prefill`` runs them.
+
+    The trainer's rules: an all-gather counts its result's bytes, an
+    all-reduce twice its result's."""
+    sizes = {"data": dp, "model": n}
+    calls: Dict[str, int] = {}
+    nbytes: Dict[str, int] = {}
+
+    def add(kind, size, times=1):
+        if times:
+            calls[kind] = calls.get(kind, 0) + times
+            nbytes[kind] = nbytes.get(kind, 0) + size * times
+
+    specs = param_pspecs(params, plan, axis_sizes=sizes)
+    split = plan.shard_vocab and n > 1 and cfg.vocab % n == 0
+    width = cfg.dtype.itemsize
+
+    def read(*keys):
+        node, spec = params, specs
+        for k in keys:
+            node, spec = node[k], spec[k]
+        for leaf, sp in zip(lm.tree_leaves(node), lm.tree_leaves(spec)):
+            times = 1
+            if keys[0] in STACKED:
+                shape, sp, times = tuple(leaf.shape[1:]), sp[1:], leaf.shape[0]
+            else:
+                shape = tuple(leaf.shape)
+            for numel in gathered_numels(shape, sp, sizes):
+                add("all-gather", numel * leaf.element_size(), times)
+
+    def take_argmax(rows):
+        if split:
+            add("all-gather", n * rows * 2 * 8)
+
+    if prefill is not None:
+        batch, s_enc, s_dec = prefill
+        b = batch // dp
+        hooks = collective_contract(cfg, n, b, s_enc // n, s_dec // n)
+        for kind, c in hooks["calls"].items():
+            calls[kind] = calls.get(kind, 0) + c
+            nbytes[kind] = nbytes.get(kind, 0) + hooks["bytes"][kind]
+        for key in ("frontend", "enc_periods", "enc_norm", "embed",
+                    "dec_periods", "dec_norm"):
+            read(key)
+        add("all-gather", 2 * cfg.n_dec_layers * b * cfg.n_kv_heads * s_dec
+            * cfg.head_dim * width)
+        add("all-reduce", 2 * b * cfg.d_model * width)
+        take_argmax(b)
+    if decode is not None:
+        r = decode // dp
+        if split:
+            add("all-reduce", 2 * r * cfg.d_model * width)
+        else:
+            read("embed")
+        read("dec_periods")
+        add("all-gather", n * r * cfg.n_heads * (cfg.head_dim + 2) * 4,
+            2 * cfg.n_dec_layers)
+        read("dec_norm")
+        take_argmax(r)
+    return {"calls": calls, "bytes": nbytes}
 
 
 __all__ = ["EncDecConfig", "stages", "dsp_schedule", "init_encdec",
            "encdec_param_count", "encode", "decode", "encdec_loss",
            "collective_contract", "param_contract", "init_dec_caches",
-           "build_cross_caches", "decode_step", "prefill"]
+           "build_cross_caches", "decode_step", "prefill", "argmax",
+           "serve_contract"]

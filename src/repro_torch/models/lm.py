@@ -356,19 +356,14 @@ def _init_layer(gen: torch.Generator, cfg: LMConfig, spec: LayerSpec):
     return p
 
 
-def init_lm(seed: int, cfg: LMConfig, *, device="cuda", stage=None):
+def init_lm(seed: int, cfg: LMConfig, *, device="cuda"):
     """Returns the parameter tree, drawn from a ``torch.Generator`` seeded
     with ``seed`` on ``device``.  Per-period layer params live under
     ``periods`` with a stacked leading dim of n_periods; each period is
     drawn and copied in turn, so the peak is the model plus one period
-    and one leaf's float32 draw.  ``stage`` (a device, "cpu") keeps the
-    periods before the last there as they are drawn, and assembles each
-    stacked leaf on ``device`` from them and the last period's leaf,
-    that leaf freed as its stack is made: the same values, for a model
-    whose stack and one period's draw do not fit the card together
-    (arctic-480b's 13.6B-parameter layer)."""
-    if cfg.frontend_dim:
-        raise NotImplementedError("the VLM frontend is not ported yet")
+    and one leaf's float32 draw.  A config with a frontend
+    (pixtral-12b's stub) draws its patch projection last, under
+    ``frontend``, JAX's place in the tree."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     specs = cfg.period_specs()
@@ -376,46 +371,24 @@ def init_lm(seed: int, cfg: LMConfig, *, device="cuda", stage=None):
         "embed": L.init_embedding(gen, cfg.vocab, cfg.d_model,
                                   dtype=cfg.dtype)}
     n = cfg.n_periods
-    periods, staged = None, []
+    periods = None
     for i in range(n):
         one = {str(j): _init_layer(gen, cfg, spec)
                for j, spec in enumerate(specs)}
-        if stage is not None and i < n - 1:
-            staged.append(tree_map(lambda a: a.to(stage), one))
-        elif stage is not None:
-            periods = _stack_last(one, staged, n)
-        else:
-            if periods is None:
-                periods = tree_map(
-                    lambda a: a.new_empty((n,) + tuple(a.shape)), one)
-            tree_map(lambda dst, src: dst[i].copy_(src), periods, one)
+        if periods is None:
+            periods = tree_map(
+                lambda a: a.new_empty((n,) + tuple(a.shape)), one)
+        tree_map(lambda dst, src: dst[i].copy_(src), periods, one)
         del one                  # before the next period's draw
     params["periods"] = periods
     params["final_norm"] = _init_norm_kind(cfg, cfg.d_model, dev)
     if not cfg.tie_embeddings:
         params["unembed"] = L.init_embedding(gen, cfg.vocab, cfg.d_model,
                                              dtype=cfg.dtype)
+    if cfg.frontend_dim:
+        params["frontend"] = L.init_patch_embed(gen, cfg.frontend_dim,
+                                                cfg.d_model, dtype=cfg.dtype)
     return params
-
-
-def _stack_last(last: dict, staged: list, n: int) -> dict:
-    """Each leaf of the last period's tree ``last`` stacked after its
-    ``staged`` earlier periods' (``init_lm``'s ``stage``) on its device,
-    popped from ``last`` as its stack is made so that it is freed then."""
-    out = {}
-    for k in list(last):
-        leaf = last.pop(k)
-        earlier = [t[k] for t in staged]
-        if isinstance(leaf, dict):
-            out[k] = _stack_last(leaf, earlier, n)
-            continue
-        stack = leaf.new_empty((n,) + tuple(leaf.shape))
-        for i, e in enumerate(earlier):
-            stack[i].copy_(e)
-        stack[n - 1].copy_(leaf)
-        out[k] = stack
-        del leaf
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -529,9 +502,43 @@ def sharded_embed(params, tokens, cfg: LMConfig, sharder: Sharder):
     return x.to(table.dtype)
 
 
+def with_patches(params, x, cfg: LMConfig, sharder: Sharder, extra,
+                 length: Optional[int] = None):
+    """The VLM stub frontend (JAX's ``forward``/``forward_prefill(extra=)``):
+    ``extra["patch_embeds"]`` (B, frontend_tokens, frontend_dim) through
+    ``params["frontend"]`` (computed in float32, as JAX's promotion of
+    its float32 patches against the weights does, then cast to x's
+    dtype) replace the first ``frontend_tokens`` positions of the
+    embedding x (B, S, d); x itself without a frontend or patches.  On a
+    mesh x is the rank's sequence chunk and ``patch_embeds`` the rank's
+    batch slice whole (``shard_lm_batch``): the rank writes the patch
+    rows that fall in its chunk, none or part of it or all of it.  Every
+    rank reads the frontend (under ZeRO-3 a gather where it is read) and
+    feeds it into its output, even with no rows, so the gradient's
+    reduce-scatter runs on every rank.  A prompt (of true ``length``)
+    shorter than ``frontend_tokens`` raises: JAX's concatenation would
+    lengthen the sequence to ``frontend_tokens`` there."""
+    if not (cfg.frontend_dim and extra and "patch_embeds" in extra):
+        return x
+    pe, ft = extra["patch_embeds"], cfg.frontend_tokens
+    s = x.shape[1]
+    length = s * sharder.seq_shards if length is None else length
+    if pe.shape[1] != ft or length < ft:
+        raise ValueError(
+            f"{pe.shape[1]} patch rows for a {length}-token sequence: the "
+            f"frontend replaces exactly the first {ft} positions of a "
+            f"sequence at least that long")
+    front = sharder.whole(params["frontend"], "frontend")["proj"]
+    off = sharder.seq_offset(s)
+    hi = max(off, min(off + s, ft))
+    rows = L.linear({"w": front["w"].float(), "b": front["b"].float()},
+                    pe[:, off:hi].float()).to(x.dtype)
+    return torch.cat([rows, x[:, hi - off:]], dim=1)
+
+
 def forward(params, tokens, cfg: LMConfig, *, sharder: Optional[Sharder] = None,
             backend: str = "kernel", remat: bool = True,
-            fused_switch: bool = True):
+            fused_switch: bool = True, extra=None):
     """tokens: (B, S) -> (final hidden states (B, S, C), aux), aux JAX's
     {"moe_load_balance": the MoE layers' load-balance stats summed} and
     {"moe_dropped": the mean over MoE layers of the share of (token, k)
@@ -547,7 +554,9 @@ def forward(params, tokens, cfg: LMConfig, *, sharder: Optional[Sharder] = None,
     ``remat_policy="full"``), its collectives included, so the backward
     runs every period's forward once more.  ``fused_switch`` is
     ``attention_sp``'s.  The aux sums run through each period's checkpoint
-    beside x, so the recompute's routing is the forward's."""
+    beside x, so the recompute's routing is the forward's.  ``extra``'s
+    ``patch_embeds`` replace the first ``frontend_tokens`` positions
+    (``with_patches``)."""
     sharder = sharder or null_sharder()
     sharder = fit_sharder(
         sharder, cfg, seq=tokens.shape[1] * sharder.seq_shards,
@@ -555,7 +564,9 @@ def forward(params, tokens, cfg: LMConfig, *, sharder: Optional[Sharder] = None,
     specs = cfg.period_specs()
     n_moe = n_moe_layers(cfg)
     place = sharder.moe_experts() if n_moe else None
-    x = sharder.enter3(sharded_embed(params, tokens, cfg, sharder))
+    x = sharder.enter3(with_patches(
+        params, sharded_embed(params, tokens, cfg, sharder), cfg, sharder,
+        extra))
 
     def period_body(x, pp):
         pp = sharder.whole(pp, "periods")
@@ -625,9 +636,11 @@ def lm_loss(params, batch, cfg: LMConfig, *, sharder: Optional[Sharder] = None,
     shard and the loss its share of the global mean: summed over the
     world (the trainer's all-reduce) it is the mean.  The unembedding
     table (the embedding's when tied) is gathered whole once, outside the
-    loss's per-chunk checkpoints."""
+    loss's per-chunk checkpoints.  The batch's ``extra`` (a VLM batch's
+    ``patch_embeds``) goes to ``forward``."""
     x, aux = forward(params, batch["tokens"], cfg, sharder=sharder,
-                     backend=backend, remat=remat, fused_switch=fused_switch)
+                     backend=backend, remat=remat, fused_switch=fused_switch,
+                     extra=batch.get("extra"))
     key = "embed" if cfg.tie_embeddings else "unembed"
     # gathered once, outside the chunks' checkpoints
     table = (sharder or null_sharder()).whole(params[key], key)["table"]
@@ -645,13 +658,18 @@ def shard_lm_batch(batch: Dict[str, torch.Tensor], sharder: Sharder):
     paper's dataloader split); the batch itself without a mesh.  An
     enc-dec batch splits the same way, each tensor on its own sequence:
     ``feats`` (B, S_enc, F) on S_enc, ``tokens`` and ``labels`` on
-    S_dec."""
+    S_dec.  A VLM batch's ``extra`` (``patch_embeds``) is split by batch
+    alone: the rank cuts the patch rows of its chunk (``with_patches``)."""
     ctx = sharder.ctx
     if ctx is None:
         return batch
     local = {k: dsp.shard(v, 0, ctx.dp_size, ctx.dp_index)
-             for k, v in batch.items()}
-    return dsp.dsp_shard_batch(local, 1, ctx.sp_group)
+             for k, v in batch.items() if k != "extra"}
+    out = dsp.dsp_shard_batch(local, 1, ctx.sp_group)
+    if "extra" in batch:
+        out["extra"] = {k: dsp.shard(v, 0, ctx.dp_size, ctx.dp_index)
+                        for k, v in batch["extra"].items()}
+    return out
 
 
 def collective_contract(cfg: LMConfig, n: int, batch: int, seq: int, *,
@@ -781,7 +799,8 @@ def remat_step(contract: Dict[str, Dict[str, int]]
 
 
 def param_contract(cfg: LMConfig, params, plan: ParallelPlan,
-                   sizes: Dict[str, int]) -> Dict[str, Dict[str, int]]:
+                   sizes: Dict[str, int], *, patches: bool = False
+                   ) -> Dict[str, Dict[str, int]]:
     """The ``torch.distributed`` calls and bytes, by kind (``core.dsp``'s
     rule), that the parameter layouts of ``plan`` add per rank to one
     training step with ``remat`` on a mesh of ``sizes`` (``mesh_sizes``),
@@ -803,7 +822,10 @@ def param_contract(cfg: LMConfig, params, plan: ParallelPlan,
       under ``ep`` an expert leaf only over its entries other than
         ``model``, under ``tp`` a column or row leaf only over ``data``,
         ``wk``/``wv`` over ``model`` too under ``kv_whole``
-        (``read_specs``).
+        (``read_specs``);
+      the VLM frontend, where a spec splits it: 1 all-gather and 1
+        reduce-scatter when the step's batch has ``patches``, none when
+        it is text alone (``with_patches`` does not read it).
 
     An entry naming only dims of size 1 is still issued (at one rank each
     is a copy)."""
@@ -811,7 +833,9 @@ def param_contract(cfg: LMConfig, params, plan: ParallelPlan,
     ring = n > 1 and cfg.vocab % n == 0 and plan.shard_vocab
     reads = {("embed", "table"): (0 if ring else 1) + cfg.tie_embeddings,
              ("unembed", "table"): 1, ("final_norm", "scale"): 1,
-             ("final_norm", "bias"): 1}
+             ("final_norm", "bias"): 1,
+             ("frontend", "proj", "w"): int(patches),
+             ("frontend", "proj", "b"): int(patches)}
 
     def times(path):
         if path[0] == "periods":
@@ -1146,7 +1170,8 @@ def prefill_shard_len(cfg: LMConfig, seq: int, n: int) -> int:
 
 def forward_prefill(params, tokens, cfg: LMConfig, *,
                     sharder: Optional[Sharder] = None,
-                    backend: str = "kernel", length: Optional[int] = None):
+                    backend: str = "kernel", length: Optional[int] = None,
+                    extra=None):
     """Full-sequence prefill: returns (logits (B, 1, V) at the prompt's
     last position, caches with pos = its length).  KV cache length ==
     prompt length, in the activation dtype as JAX's (``cache_dtype`` is
@@ -1164,7 +1189,10 @@ def forward_prefill(params, tokens, cfg: LMConfig, *,
     the SP size (padding after ``length``: causal masking keeps it out of
     the real positions, and the SSM state passes it unchanged); the
     logits are taken at position ``length - 1``, whole on every rank
-    (``Sharder.seq_rows``), vocab-sharded under ``vocab_sharded``."""
+    (``Sharder.seq_rows``), vocab-sharded under ``vocab_sharded``.
+    ``extra``'s ``patch_embeds`` replace the prompt's first
+    ``frontend_tokens`` positions, as in ``forward`` (``with_patches``;
+    on a mesh the rank's batch slice of them)."""
     sharder = sharder or null_sharder()
     seq = tokens.shape[1] * sharder.seq_shards
     sharder = fit_sharder(sharder, cfg, seq=seq,
@@ -1172,7 +1200,9 @@ def forward_prefill(params, tokens, cfg: LMConfig, *,
     length = seq if length is None else length
     specs = cfg.period_specs()
     place = sharder.moe_experts() if n_moe_layers(cfg) else None
-    x = sharder.enter3(sharded_embed(params, tokens, cfg, sharder))
+    x = sharder.enter3(with_patches(
+        params, sharded_embed(params, tokens, cfg, sharder), cfg, sharder,
+        extra, length))
     periods = [{} for _ in specs]
     for i, pp in enumerate(unstack(params["periods"], cfg.n_periods)):
         pp = sharder.whole(pp, "periods")

@@ -41,6 +41,14 @@ HLO_KINDS = ("all-to-all", "all-gather", "reduce-scatter", "all-reduce",
 BATCH, SEQ, VOCAB = 4, 32, 64
 
 
+def inputs():
+    """The checks' tokens and labels, (BATCH, SEQ) int32 from seed 3."""
+    import numpy as np
+    rng = np.random.RandomState(3)
+    return {k: rng.randint(0, VOCAB, (BATCH, SEQ)).astype(np.int32)
+            for k in ("tokens", "labels")}
+
+
 def configs(lm, ssm, dtype):
     """The checks' configs, from package ``lm``'s LMConfig and ``ssm``'s
     SSMConfig: ``hybrid`` is ``tests/md_scenarios.py``'s

@@ -27,13 +27,12 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
 from _torch_dsp_jax import flatten, unflatten  # noqa: E402
+from _torch_jax_flags import jax_xla_flags  # noqa: E402
 
 WORLD = 4
-# 4 simulated devices, compiled with LLVM's cheaper passes: the checks
-# compile ~20 small steps, and the compile, not the run, is their cost
-JAX_XLA_FLAGS = ("--xla_force_host_platform_device_count=4 "
-                 "--xla_backend_optimization_level=0 "
-                 "--xla_llvm_disable_expensive_passes=true")
+
+# 4 simulated devices
+JAX_XLA_FLAGS = jax_xla_flags(4)
 BATCH, SEQ = 2, 32
 # scenario -> (config, (data, model) mesh, ep); all under ZeRO-3 over data
 SCENARIOS = {f"{c}/{d}x{m}/{'ep' if ep else 'cols'}": (c, (d, m), ep)

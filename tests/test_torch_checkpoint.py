@@ -50,7 +50,8 @@ from repro_torch.parallel.partition import (ParallelPlan, mesh_sizes,
 from repro_torch.train.checkpoint import CheckpointManager
 
 from _torch_dsp_jax import flatten  # noqa: E402
-from test_torch_lm_dsp import world_of_one  # noqa: E402,F401
+from _torch_world import world_of_one  # noqa: E402,F401
+from _torch_threads import one_thread  # noqa: E402,F401
 
 HERE = os.path.dirname(__file__)
 SRC = os.path.join(HERE, "..", "src")

@@ -32,6 +32,7 @@ from repro_torch.optim import compress as TC
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
 from _torch_dsp_jax import flatten  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 # tests/test_system.py's TINY: 2 attention layers, GQA 4/2, f32
 JCFG = JLM.LMConfig(name="tiny", n_layers=2, d_model=64, n_heads=4,

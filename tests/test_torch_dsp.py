@@ -36,6 +36,8 @@ from repro_torch.core.layout import (ParallelContext, SeqLayout, divisible,
                                      from_mesh, local_shape)
 from repro_torch.models import transformer2d as TT
 from repro_torch.train.trainer import Trainer, TrainerConfig
+from _torch_jax_flags import jax_xla_flags  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 HERE = os.path.dirname(__file__)
 SRC = os.path.join(HERE, "..", "src")
@@ -89,7 +91,7 @@ def runs(tmp_path_factory):
     np.savez(os.path.join(work, "inputs.npz"), **inputs)
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
                + os.environ.get("PYTHONPATH", ""), JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               XLA_FLAGS=jax_xla_flags(4),
                OMP_NUM_THREADS="1")
     cmds = {"jax": [sys.executable, os.path.join(HERE, "_torch_dsp_jax.py"),
                     work]}

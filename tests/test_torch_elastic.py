@@ -41,6 +41,8 @@ from _torch_ckpt_worker import (CFG_KW, COMPRESS_STEPS, ELASTIC_STEPS,
                                 layout_tree)
 from _torch_ckpt_jax import WORLD  # noqa: E402
 from _torch_dsp_jax import flatten, unflatten  # noqa: E402
+from _torch_jax_flags import jax_xla_flags  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 HERE = os.path.dirname(__file__)
 SRC = os.path.join(HERE, "..", "src")
@@ -55,7 +57,7 @@ def runs(tmp_path_factory):
     np.savez(os.path.join(work, "params.npz"), **flatten(params))
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
                + os.environ.get("PYTHONPATH", ""), JAX_PLATFORMS="cpu",
-               XLA_FLAGS=f"--xla_force_host_platform_device_count={WORLD}",
+               XLA_FLAGS=jax_xla_flags(WORLD),
                OMP_NUM_THREADS="1")
     cmds = {"jax": [sys.executable, os.path.join(HERE, "_torch_ckpt_jax.py"),
                     work]}

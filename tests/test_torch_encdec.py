@@ -39,6 +39,7 @@ from repro_torch.parallel.partition import ParallelPlan, make_sharder
 
 from _torch_dsp_jax import flatten  # noqa: E402
 from _torch_encdec_jax import CONFIG_KW, config, inputs, params_np  # noqa
+from _torch_threads import one_thread  # noqa: E402,F401
 
 NAMES = ("smoke", "narrow")
 S_ENC, S_DEC = 24, 12
@@ -372,14 +373,15 @@ def test_encdec_batches():
 def test_train_cli_on_the_cpu():
     """The train CLI trains seamless's SMOKE config on ``encdec`` batches
     of ``--seq`` frames and ``--seq // 2`` tokens (the JAX CLI's), with a
-    finite loss each step, and refuses ``--replan``."""
+    finite loss each step, and refuses ``--replan``, as JAX's CLI has no
+    elastic resize for the enc-dec family."""
     from repro_torch.launch.train import main as train_main
     out = train_main(["--arch", "seamless-m4t-large-v2", "--device", "cpu",
                       "--steps", "4", "--seq", "32", "--batch", "2",
                       "--lr", "1e-2"])
     losses = [l for _, l in out["history"]]
     assert len(losses) == 4 and all(np.isfinite(losses))
-    with pytest.raises(SystemExit, match="item 3.7"):
+    with pytest.raises(SystemExit, match="as in JAX's train CLI"):
         train_main(["--arch", "seamless-m4t-large-v2", "--device", "cpu",
                     "--steps", "1", "--replan", "2"])
 
@@ -398,22 +400,32 @@ def world_of_one():
 
 
 def test_refusals_on_a_mesh(world_of_one):
-    """On a mesh ``prefill`` and ``decode_step`` raise naming ROADMAP item
-    3.7 (enc-dec serving on a mesh); ``dsp_schedule(overlap=)`` raises
-    naming item 2; a forced non-mirrored backward is rejected by the
-    explicit executor (``make_sharder``); cross-attention under ``tp``
-    raises.  The training loss runs at one rank."""
+    """On a mesh ``prefill`` and ``decode_step`` serve (ROADMAP item 3.7,
+    done): at one rank their logits and caches equal one device's bit for
+    bit.  ``dsp_schedule(overlap=)`` raises naming item 2; a forced
+    non-mirrored backward is rejected by the explicit executor
+    (``make_sharder``); cross-attention under ``tp`` raises.  The
+    training loss runs at one rank."""
     cfg = TSC.SMOKE
     params = ED.init_encdec(0, cfg, device="cpu")
     sh = make_sharder(world_of_one, ParallelPlan(mode="dsp", zero=False,
                                                  shard_vocab=False))
     raw = _port_batch(inputs(CONFIG_KW["smoke"], batch=2, s_enc=16,
                              s_dec=8))
-    with pytest.raises(NotImplementedError, match="item 3.7"):
-        ED.prefill(params, raw, cfg, sharder=sh, max_len=12)
-    caches = ED.init_dec_caches(cfg, 2, 12, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3.7"):
-        ED.decode_step(params, raw["tokens"][:, :1], caches, cfg, sharder=sh)
+    with torch.no_grad():
+        got, caches = ED.prefill(params, raw, cfg, sharder=sh, max_len=12)
+        want, one = ED.prefill(params, raw, cfg, max_len=12)
+        assert torch.equal(got, want)
+        for _ in range(2):
+            tok = ED.argmax(want, cfg)
+            got, caches = ED.decode_step(params, tok, caches, cfg,
+                                         sharder=sh)
+            want, one = ED.decode_step(params, tok, one, cfg)
+            assert torch.equal(got, want)
+    for part in ("kv", "cross"):
+        for kv in ("k", "v"):
+            assert torch.equal(caches["periods"][part][kv],
+                               one["periods"][part][kv])
     with pytest.raises(NotImplementedError, match="item 2"):
         ED.dsp_schedule(cfg, 1, overlap="chunked")
     n_stages = len(ED.stages(cfg))

@@ -53,6 +53,8 @@ from _torch_encdec_jax import (BATCH, CONFIG_KW, HLO_KINDS,  # noqa: E402
                                S_DEC, S_ENC, SCENARIOS, WORLD, config,
                                inputs, params_np)
 from _torch_lmdsp_worker import KINDS  # noqa: E402
+from _torch_jax_flags import jax_xla_flags  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 HERE = os.path.dirname(__file__)
 SRC = os.path.join(HERE, "..", "src")
@@ -74,7 +76,7 @@ def runs(tmp_path_factory):
                 for k, v in inputs(CONFIG_KW[c]).items()})
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
                + os.environ.get("PYTHONPATH", ""), JAX_PLATFORMS="cpu",
-               XLA_FLAGS=f"--xla_force_host_platform_device_count={WORLD}",
+               XLA_FLAGS=jax_xla_flags(WORLD),
                OMP_NUM_THREADS="1")
     cmds = {"jax": [sys.executable, os.path.join(HERE, "_torch_encdec_jax.py"),
                     work]}

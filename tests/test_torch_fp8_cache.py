@@ -25,6 +25,7 @@ from repro.serving import engine as JE
 from repro_torch import bridge
 from repro_torch.models import lm as TL
 from repro_torch.serving import engine as TE
+from _torch_threads import one_thread  # noqa: E402,F401
 
 ARCHS = {"qwen3-14b": "qwen3_14b", "mistral-large-123b": "mistral_large_123b"}
 BATCH, PROMPT, MAX_LEN, NEW = 2, 12, 32, 6

@@ -1,6 +1,7 @@
 """Guards of the port's two rules: it imports nothing of JAX or of the JAX
 package, and its entry points run on the card unless the caller asks for
 the CPU."""
+import json
 import os
 import subprocess
 import sys
@@ -11,6 +12,8 @@ import torch
 from repro_torch.configs import qwen3_14b
 from repro_torch.models import lm
 from repro_torch.serving.engine import ServingEngine
+
+from _torch_threads import one_thread  # noqa: E402,F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
@@ -45,13 +48,15 @@ for want in ("repro_torch.serving.scheduler", "repro_torch.train.trainer",
              "repro_torch.configs.mistral_large_123b",
              "repro_torch.configs.arctic_480b",
              "repro_torch.models.encdec",
-             "repro_torch.configs.seamless_m4t_large_v2"):
+             "repro_torch.configs.seamless_m4t_large_v2",
+             "repro_torch.configs.pixtral_12b"):
     assert want in mods, (want, mods)
 from repro_torch.core.schedule import ScheduleExecutor2D
 from repro_torch.models.transformer2d import (
     dsp2d_schedule, forward2d, make_spmd_forward2d, stages2d)
 from repro_torch.launch.mesh import elastic_submesh, resolve_topology
-from repro_torch.models.lm import serve_contract, sharded_argmax
+from repro_torch.models.lm import serve_contract, sharded_argmax, with_patches
+from repro_torch.models.encdec import argmax, decode_step, prefill
 from repro_torch.parallel.partition import (
     BLOCK_DIM, assert_kv_cache_on_mesh, cache_pspecs, read_specs, reshard,
     store_contract, whole_params)
@@ -69,39 +74,54 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-_IMPORT_WORKER = r"""
-import runpy, sys
-runpy.run_path(sys.argv[1], run_name="gloo_worker")
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-assert not bad, bad
+_IMPORT_WORKERS = r"""
+import json, runpy, sys
+out = {}
+for path in sys.argv[1:]:
+    # each worker starts from no JAX and no JAX package in sys.modules
+    for m in [m for m in sys.modules
+              if m.split(".")[0] in ("jax", "jaxlib", "repro")]:
+        del sys.modules[m]
+    try:
+        runpy.run_path(path, run_name="gloo_worker")
+        out[path] = sorted(m for m in sys.modules
+                           if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    except Exception as e:
+        out[path] = [f"raised {e!r}"]
+print(json.dumps(out))
 """
 
+WORKERS = ["_torch_dsp_worker.py", "_torch_sp_worker.py",
+           "_torch_l2d_worker.py", "_torch_lmdsp_worker.py",
+           "_torch_zero_worker.py", "_torch_ckpt_worker.py",
+           "_torch_serve_worker.py", "_torch_paged_worker.py",
+           "_torch_t2d_zero_worker.py", "_torch_moe_ep_worker.py",
+           "_torch_tp_worker.py", "_torch_encdec_worker.py",
+           "_torch_moe_tp_worker.py", "_torch_moe_serve_worker.py",
+           "_torch_encdec_serve_worker.py", "_torch_vlm_worker.py"]
 
-@pytest.mark.parametrize("worker", ["_torch_dsp_worker.py",
-                                    "_torch_sp_worker.py",
-                                    "_torch_l2d_worker.py",
-                                    "_torch_lmdsp_worker.py",
-                                    "_torch_zero_worker.py",
-                                    "_torch_ckpt_worker.py",
-                                    "_torch_serve_worker.py",
-                                    "_torch_paged_worker.py",
-                                    "_torch_t2d_zero_worker.py",
-                                    "_torch_moe_ep_worker.py",
-                                    "_torch_tp_worker.py",
-                                    "_torch_encdec_worker.py",
-                                    "_torch_moe_tp_worker.py",
-                                    "_torch_moe_serve_worker.py"])
-def test_gloo_workers_import_no_jax_and_no_repro(worker):
+
+@pytest.fixture(scope="module")
+def worker_imports():
+    """Each gloo worker loaded in turn in one subprocess (the JAX modules
+    cleared from ``sys.modules`` before each): {worker: the JAX and JAX
+    package modules it loaded, or what it raised}."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    paths = [os.path.join(ROOT, "tests", w) for w in WORKERS]
+    out = subprocess.run([sys.executable, "-c", _IMPORT_WORKERS, *paths],
+                         cwd=os.path.join(ROOT, "tests"), env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    return {os.path.basename(k): v for k, v in got.items()}
+
+
+@pytest.mark.parametrize("worker", WORKERS)
+def test_gloo_workers_import_no_jax_and_no_repro(worker_imports, worker):
     """The port's side of each multi-process check (a gloo rank) loads, with
     the helpers it shares with its JAX side, nothing of JAX or of the JAX
     package: the JAX side runs in its own subprocess."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    path = os.path.join(ROOT, "tests", worker)
-    out = subprocess.run([sys.executable, "-c", _IMPORT_WORKER, path],
-                         cwd=os.path.join(ROOT, "tests"), env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stdout + out.stderr
+    assert worker_imports[worker] == [], worker_imports[worker]
 
 
 @pytest.fixture

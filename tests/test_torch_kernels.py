@@ -22,6 +22,7 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                  flash_attention_plain)
 from test_kernels import ATTN_CASES
+from _torch_threads import one_thread  # noqa: E402,F401
 
 DTYPES = {"f32": (jnp.float32, torch.float32, 2e-5),
           "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}

@@ -14,6 +14,7 @@ from repro.parallel.partition import ParallelPlan, make_sharder
 from repro_torch import bridge
 from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
+from _torch_threads import one_thread  # noqa: E402,F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 KEY = jax.random.PRNGKey(0)

@@ -42,6 +42,8 @@ SRC = os.path.join(HERE, "..", "src")
 from _torch_dsp_jax import flatten  # noqa: E402
 from _torch_l2d_jax import CASES, HLO_KINDS, configs  # noqa: E402
 from _torch_l2d_worker import KINDS, TRANSITIONS  # noqa: E402
+from _torch_jax_flags import jax_xla_flags  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 WORLD = 8
 # case -> (B, T, S) of its input
@@ -96,7 +98,7 @@ def runs(tmp_path_factory):
     np.savez(os.path.join(work, "inputs.npz"), **inputs)
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
                + os.environ.get("PYTHONPATH", ""), JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               XLA_FLAGS=jax_xla_flags(8),
                OMP_NUM_THREADS="1")
     cmds = {"jax": [sys.executable, os.path.join(HERE, "_torch_l2d_jax.py"),
                     work]}

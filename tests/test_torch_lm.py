@@ -20,6 +20,7 @@ import torch
 from repro.models import lm as JLM
 from repro_torch import bridge
 from repro_torch.models import lm as TLM
+from _torch_threads import one_thread  # noqa: E402,F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 ARCHS = {"qwen3-14b": "qwen3_14b", "starcoder2-7b": "starcoder2_7b",

@@ -31,6 +31,7 @@ from repro_torch.models import lm as TLM
 from repro_torch.models import moe as TM
 from repro_torch.optim import adamw as TO
 from repro_torch.train.trainer import Trainer, TrainerConfig
+from _torch_threads import one_thread  # noqa: E402,F401
 
 TOL = 1e-4
 JCFG, TCFG = jconf.SMOKE, tconf.SMOKE

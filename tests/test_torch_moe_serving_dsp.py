@@ -42,6 +42,7 @@ from repro_torch.models import moe as TM
 from repro_torch.parallel.partition import ParallelPlan
 from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.scheduler import ContinuousScheduler, PagedScheduler
+from _torch_threads import one_thread  # noqa: E402,F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "..", "src")

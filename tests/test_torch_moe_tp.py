@@ -38,6 +38,7 @@ from repro_torch import bridge
 from repro_torch.models import lm as TL
 from repro_torch.parallel.partition import (ParallelPlan, param_pspecs,
                                             read_specs, reduce_axes)
+from _torch_threads import one_thread  # noqa: E402,F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "..", "src")

@@ -34,6 +34,7 @@ from repro_torch.serving import (GARBAGE_BLOCK, BlockPool, PagedScheduler,
                                  PoolExhausted, PrefixTree)
 from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.scheduler import ContinuousScheduler
+from _torch_threads import one_thread  # noqa: E402,F401
 
 TINY = dict(name="tiny-paged", n_layers=2, d_model=32, n_heads=4,
             n_kv_heads=2, head_dim=8, d_ff=64, vocab=64)

@@ -32,6 +32,8 @@ SRC = os.path.join(HERE, "..", "src")
 from _torch_dsp_jax import flatten  # noqa: E402
 from _torch_paged_jax import (BUDGETS, POOL_CHUNKS, POOL_PROMPTS,  # noqa: E402
                               SHARED, SP, SUFFIXES, config)
+from _torch_jax_flags import jax_xla_flags  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 LOGIT_BAR = 2e-3
 
@@ -54,7 +56,7 @@ def runs(tmp_path_factory):
     np.savez(os.path.join(work, "params.npz"), **flatten(params))
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
                + os.environ.get("PYTHONPATH", ""), JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               XLA_FLAGS=jax_xla_flags(8),
                OMP_NUM_THREADS="1")
     cmds = {"jax": [sys.executable, os.path.join(HERE, "_torch_paged_jax.py"),
                     work]}

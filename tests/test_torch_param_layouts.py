@@ -63,14 +63,16 @@ from _torch_lmdsp_worker import KINDS  # noqa: E402
 from _torch_zero_jax import HLO_KINDS, SCENARIOS, WORLD  # noqa: E402
 from _torch_zero_worker import (TRAIN, TRAIN_OPT, TRAIN_STEPS,  # noqa: E402
                                 train_batch)
-from test_torch_lm_dsp import world_of_one  # noqa: E402,F401
+from _torch_world import world_of_one  # noqa: E402,F401
+from _torch_jax_flags import jax_xla_flags  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 # ---------------------------------------------------------------------------
 # 1. param_pspecs, case by case
 # ---------------------------------------------------------------------------
 
 ARCHS = ("qwen3-14b", "mamba2-370m", "transformer2d-720m",
-         "transformer2d-3b")
+         "transformer2d-3b", "pixtral-12b")
 MESHES = ((1, 4), (2, 2), (4, 1), (16, 16))
 PLAN_KINDS = ("spec", "zero_off", "vocab_off", "tp_zero")
 
@@ -156,7 +158,7 @@ def runs(tmp_path_factory):
     np.savez(os.path.join(work, "inputs.npz"), **_inputs())
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
                + os.environ.get("PYTHONPATH", ""), JAX_PLATFORMS="cpu",
-               XLA_FLAGS=f"--xla_force_host_platform_device_count={WORLD}",
+               XLA_FLAGS=jax_xla_flags(WORLD),
                OMP_NUM_THREADS="1")
     cmds = {"jax": [sys.executable, os.path.join(HERE, "_torch_zero_jax.py"),
                     work]}

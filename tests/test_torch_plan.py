@@ -27,6 +27,7 @@ from repro_torch.core import plan as TP
 from repro_torch.core import schedule as TS
 from repro_torch.core import topology as TTopo
 from repro_torch.models import transformer2d as TT
+from _torch_threads import one_thread  # noqa: E402,F401
 
 PACKAGES = {"jax": (JP, JTopo), "torch": (TP, TTopo)}
 

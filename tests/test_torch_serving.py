@@ -17,6 +17,7 @@ from repro_torch import bridge
 from repro_torch.configs import qwen3_14b as tconf
 from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.scheduler import ContinuousScheduler, replay_static
+from _torch_threads import one_thread  # noqa: E402,F401
 
 MAX_LEN = 24
 

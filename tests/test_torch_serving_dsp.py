@@ -38,6 +38,8 @@ SRC = os.path.join(ROOT, "src")
 from _torch_dsp_jax import flatten  # noqa: E402
 from _torch_serve_jax import (BATCH, BUDGETS, CONT_BUDGETS,  # noqa: E402
                               MAX_LEN, MESHES, SEQ, SHORT, configs, label)
+from _torch_jax_flags import jax_xla_flags  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 WORLD = 4
 CONFIGS = ("attn", "hybrid")
@@ -69,7 +71,7 @@ def runs(tmp_path_factory):
     np.savez(os.path.join(work, "inputs.npz"), **inputs)
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
                + os.environ.get("PYTHONPATH", ""), JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               XLA_FLAGS=jax_xla_flags(8),
                OMP_NUM_THREADS="1")
     cmds = {"jax": [sys.executable, os.path.join(HERE, "_torch_serve_jax.py"),
                     work]}

@@ -44,6 +44,8 @@ HERE = os.path.dirname(__file__)
 sys.path.insert(0, HERE)
 from _torch_sp_jax import SCENARIOS  # noqa: E402
 from test_torch_dsp import _flatten, _inputs, _perturbed_params  # noqa: E402
+from _torch_jax_flags import jax_xla_flags  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 SRC = os.path.join(HERE, "..", "src")
 WORLD = 4
@@ -69,7 +71,7 @@ def runs(tmp_path_factory):
     np.savez(os.path.join(work, "inputs.npz"), **inputs)
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
                + os.environ.get("PYTHONPATH", ""), JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               XLA_FLAGS=jax_xla_flags(4),
                OMP_NUM_THREADS="1")
     cmds = {"jax": [sys.executable, os.path.join(HERE, "_torch_sp_jax.py"),
                     work]}

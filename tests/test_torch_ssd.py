@@ -25,6 +25,7 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd, ssd_scan_plain
 from repro_torch.models import ssm as TS
 from test_kernels import SSD_CASES
+from _torch_threads import one_thread  # noqa: E402,F401
 
 DTYPES = {"f32": (jnp.float32, torch.float32, 1e-5),
           "bf16": (jnp.bfloat16, torch.bfloat16, 3e-2)}

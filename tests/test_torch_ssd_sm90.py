@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ssd_scan as K
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd, ssd_scan_plain
 from test_torch_ssd import _inputs
+from _torch_threads import one_thread  # noqa: E402,F401
 
 SHAPES = [(64, 128, 128), (64, 128, 64), (32, 128, 128), (64, 64, 128),
           (16, 32, 64), (8, 16, 16)]

@@ -28,6 +28,7 @@ from repro_torch.models import ssm as TS
 from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.kv_pool import KVPool
 from repro_torch.serving.scheduler import ContinuousScheduler
+from _torch_threads import one_thread  # noqa: E402,F401
 
 JCFG, TCFG = jconf.SMOKE, tconf.SMOKE
 SCFG_J, SCFG_T = JCFG.ssm_cfg, TCFG.ssm_cfg

@@ -39,6 +39,7 @@ from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.models import layers as TL
 from repro_torch.models import lm as TLM
 from repro_torch.models import transformer2d as TT
+from _torch_threads import one_thread  # noqa: E402,F401
 
 CONFIGS = {"720m": (jc720, tc720), "3b": (jc3b, tc3b)}
 LOSS_REL, LEAF_REL = 1e-5, 1e-4

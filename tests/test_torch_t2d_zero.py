@@ -59,7 +59,9 @@ from _torch_t2d_zero_jax import HLO_KINDS, SCENARIOS, WORLD  # noqa: E402
 from _torch_t2d_zero_worker import (CFG, CKPT_AT, PLAN,  # noqa: E402
                                     TRAIN_OPT, TRAIN_STEPS, train_batch)
 from test_torch_dsp import _inputs, _perturbed_params  # noqa: E402
-from test_torch_lm_dsp import world_of_one  # noqa: E402,F401
+from _torch_world import world_of_one  # noqa: E402,F401
+from _torch_jax_flags import jax_xla_flags  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 HERE = os.path.dirname(__file__)
 SRC = os.path.join(HERE, "..", "src")
@@ -75,7 +77,7 @@ def runs(tmp_path_factory):
     np.savez(os.path.join(work, "inputs.npz"), **inputs)
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
                + os.environ.get("PYTHONPATH", ""), JAX_PLATFORMS="cpu",
-               XLA_FLAGS=f"--xla_force_host_platform_device_count={WORLD}",
+               XLA_FLAGS=jax_xla_flags(WORLD),
                OMP_NUM_THREADS="1")
     cmds = {"jax": [sys.executable, os.path.join(HERE,
                                                  "_torch_t2d_zero_jax.py"),

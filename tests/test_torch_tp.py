@@ -41,6 +41,8 @@ from repro_torch.models import ssm as TSSM
 from repro_torch.parallel.partition import (ParallelPlan, make_sharder,
                                             param_pspecs, read_specs,
                                             reduce_axes)
+from _torch_jax_flags import jax_xla_flags  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "..", "src")
@@ -76,7 +78,7 @@ def runs(tmp_path_factory):
                             os.path.join(HERE, "_torch_tp_worker.py"),
                             str(r), str(WORLD), work]
     env = _env(JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+               XLA_FLAGS=jax_xla_flags(4))
     procs, logs = {}, {}
     try:
         for name, cmd in cmds.items():

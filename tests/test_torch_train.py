@@ -31,6 +31,7 @@ from repro_torch.kernels.ssd_scan import ssd_scan_plain
 from repro_torch.models import lm as TLM
 from repro_torch.optim import adamw as TO
 from repro_torch.train.trainer import Trainer, TrainerConfig, make_train_step
+from _torch_threads import one_thread  # noqa: E402,F401
 
 JCFG, TCFG = jconf.SMOKE, tconf.SMOKE
 REL = 1e-4
