@@ -5,8 +5,9 @@
 
 Phases, in order; any failure raises and exits non-zero.  The gloo
 ranks of 17 (b), 18 (b), 19 (b) and 20 (b) run beside the next phase's
-world-1 part, and 27 (e)'s beside phases 28 and 29 (a) (``behind``):
-their checks print where they are joined, before the next ranks start.
+world-1 part, 27 (e)'s beside phases 28 and 29 (a), and 31 (d)'s beside
+31 (a)-(c) (``behind``): their checks print where they are joined,
+before the next ranks start.
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
@@ -17,8 +18,12 @@ their checks print where they are joined, before the next ranks start.
    64, 72 and 128, ``cuda_cores`` otherwise); the SSD scan (K2) over its test
    cases, the training slice's full-width shape and a ragged length at
    that width, one row, a part chunk and two B/C groups (``sm90`` for
-   bf16 at P 64, S 128, chunk 128, ``cuda_cores`` otherwise), and the
-   slice on ``cuda_cores`` in bf16 too; and K1 at head dim 72, non-causal,
+   bf16 at P 64 or 128, S 128, chunk 128, ``cuda_cores`` otherwise), and
+   the slice on ``cuda_cores`` in bf16 too; K2 at P 128 (``JAMBA_SSD_CASES``:
+   jamba's prefill with 8 B/C groups and a ragged length with one, bf16 on
+   ``sm90`` and on ``cuda_cores`` and f32; one row and a part chunk in
+   bf16; P 96, a partial second 64-column tile, on ``cuda_cores``); and K1
+   at head dim 72, non-causal,
    at the 2D DiT's shapes, bf16 on ``sm90`` and f32 on ``cuda_cores``:
    spatial (a few folded frames, 16 heads, 4096 patches), temporal (4096
    folded patches, 16 heads, the frames) and a ragged length; and both at
@@ -55,7 +60,11 @@ their checks print where they are joined, before the next ranks start.
    at arctic-480b's prefill shape, 56 q and 8 K/V heads over 2048
    tokens, and at one rank's heads under ``tp`` at n = 4, 14 and 2, in
    bf16 on ``sm90`` (``ARCTIC_ATTN``), and at the shapes a rank of phase
-   27 (e) gives it, f32 on ``cuda_cores`` (``ARCTIC_RANK_ATTN``);
+   27 (e) gives it, f32 on ``cuda_cores`` (``ARCTIC_RANK_ATTN``); and K1
+   at jamba-1.5-large-398b's prefill shape, 64 q and 8 K/V heads over
+   2048 tokens, bf16 on ``sm90`` (``JAMBA_ATTN``), and K1 and K2 at the
+   shapes a rank of phase 31 (d) gives them, f32 on ``cuda_cores``
+   (``JAMBA_RANK_ATTN``, ``JAMBA_RANK_SSD``);
 4. time each kernel, its plain version and, where one exists, one PyTorch
    library call that computes the same function (a yardstick the port
    never calls); K1's routed kernel and the library call three times each
@@ -328,8 +337,8 @@ their checks print where they are joined, before the next ranks start.
     the dispatch and the combine, their rows from the step's kept pairs,
     plus ``lm.param_contract``), K1 32 on ``sm90``; then (b)'s
     reference; (b) 4 processes sharing the card over gloo, each this
-    script with ``--moe-rank``, at full width, depth 1 in f32 at 2 x 1024
-    tokens, at (1, 4) and (2, 2): the loss within 1e-5 relative of one
+    script with ``--moe-rank``, at full width but a vocab of 32768, depth
+    1 in f32 at 2 x 1024 tokens, at (1, 4) and (2, 2): the loss within 1e-5 relative of one
     rank's, each rank's grad slices within 1e-4 of their leaf's max, the
     dropped pairs of each MoE call and the dropped share exactly one
     rank's, per rank the calls and bytes exactly the contract (the
@@ -488,7 +497,34 @@ their checks print where they are joined, before the next ranks start.
     its prefill shape, (1, 32, 2048, 160) against (1, 8, 2048, 160)
     causal, against its plain version and ``scaled_dot_product_attention``
     (causal, GQA), medians of 3 in turns;
-31. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
+31. jamba-1.5-large-398b (the JAX config's SSD heads of P 128, 8 B/C groups,
+    S 128; Mamba-2 heads are the JAX package's choice, not the paper's) at
+    full width, one 8-layer period with 8 of its 16 experts (25.9B
+    parameters, 51.8 GB; all 16 exceed the card), bf16, the KV cache in
+    float8_e4m3fn: (a) kernel against plain (``plain_kernels``), the plain
+    path's routing replayed: the prefill logits of a 2048-token prompt and 4
+    decode steps, and 4 requests of 512-2048 tokens teacher-forced 4 decode
+    steps through the slot pool, each within 2e-2 of the largest logit, or
+    twice the plain path's own noise where that reaches it
+    (``nudged_plain``: one period in bf16 turns any float32 summation
+    difference into ~2e-2); (b) those requests, 16 new tokens each, through
+    ``ContinuousScheduler`` (K1 exactly 4, K2 exactly 28, all ``sm90``;
+    TTFT, TPOT), then under ``dsp`` + ``ep`` with ZeRO off at world size 1
+    over NCCL (the tokens equal, K1 4 and K2 28, the calls and bytes exactly
+    ``lm.serve_contract``); (c) K2 at jamba's prefill shape on ``sm90``, on
+    ``cuda_cores`` and plain beside its bound, K1 at (1, 64/8, 2048, 128)
+    causal beside ``scaled_dot_product_attention``, medians of 3 in turns;
+    (d) 4 processes sharing the card over gloo (``--jamba-rank``), beside
+    (a)-(c): one period at cut widths with jamba's head shapes in f32
+    trained at (1, 4) and (2, 2) under its spec's plan (``dsp`` + ``ep`` +
+    ZeRO-3; loss 1e-5, grad slices 1e-4 of their leaf's max or twice the
+    reference's own f32 noise on it, the dropped pairs one rank's and not
+    none; a router bias makes them drop), calls and bytes exactly the
+    contract, K1 2 and K2 14 on ``cuda_cores``), then 2 requests served at
+    (1, 4) under ``dsp`` + ``ep`` with ZeRO off (tokens one rank's up to a
+    near-tie, calls and bytes exactly ``serve_contract``, K1 2 and K2 14 a
+    rank on ``cuda_cores``);
+32. a ``{"kernels": [...]}`` line, whose ``launches`` sum each kernel's
     counts over the paths above (K1 320 + 32 + 224 + 224 + phase 14's
     training runs, 8 per mode, 4 for ring and hybrid, + phase 15 (a)'s
     28 + phase 16 (a)'s 32 + phase 17 (a)'s 32 + phase 19 (a)'s 320 +
@@ -496,10 +532,10 @@ their checks print where they are joined, before the next ranks start.
     + 32 + phase 23 (a)'s 32 + phase 24's 64 + 16 + phase 25 (a)'s 16 +
     64 + phase 26's 72 + 576 + 576 + phase 27's 4 + 4 + 8 + 8 + 192
     + phase 29 (a)'s 72 + phase 30's 160 + 40 + 16 + 16, these 232 on
-    ``cuda_cores``);
+    ``cuda_cores``, + phase 31's 4 + 4);
     K2 576 + 384 + phase 16 (a)'s 192 + phase
     17 (a)'s 192 + phase 18 (a)'s 2 x 48 x 12 = 1152 + phase 19 (a)'s
-    384)
+    384 + phase 31's 28 + 28, at P 128)
     and whose ``launches_by_route`` split that sum by the route each
     launch took (``sm90``, and gemma2's 104 on ``cuda_cores``), with phase
     19 (b)'s and 20 (b)'s per rank beside (phase 21 (b)'s, 23 (b)'s,
@@ -509,7 +545,9 @@ their checks print where they are joined, before the next ranks start.
     them), then the last
     line
     ``{"ok": true, "device": {...}}``.  Phases 29 (b)'s and 30 (d)'s
-    numbers stand in ``models`` too.
+    numbers stand in ``models`` too, phase 31 (c)'s K1 there and its K2
+    under ``ssd_scan_fwd``'s ``jamba-1.5-large-398b`` with phase 3's P 128
+    checks and (d)'s launches per rank.
 
 Each phase's header logs the seconds since the start and the host's
 memory since the previous header (the peaks of the process tree's
@@ -540,15 +578,16 @@ import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import (  # noqa: E402
-    arctic_480b, gemma2_2b, mamba2_370m, mistral_large_123b, pixtral_12b,
-    qwen2_moe_a2_7b, qwen3_14b, seamless_m4t_large_v2, starcoder2_7b,
-    transformer2d_720m)
+    arctic_480b, gemma2_2b, jamba_1_5_large_398b, mamba2_370m,
+    mistral_large_123b, pixtral_12b, qwen2_moe_a2_7b, qwen3_14b,
+    seamless_m4t_large_v2, starcoder2_7b, transformer2d_720m)
 from repro_torch.core import dsp  # noqa: E402
 from repro_torch.core.layout import from_mesh  # noqa: E402
 from repro_torch.core.schedule import (  # noqa: E402
     ScheduleExecutor, ScheduleExecutor2D)
 from repro_torch.data.pipeline import DataConfig, make_batch  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import ops as kernel_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     ROUTES, flash_attention_fwd, flash_attention_plain, reset_launches)
 from repro_torch.kernels.ref import ssd_final_state, ssd_ref  # noqa: E402
@@ -562,6 +601,7 @@ from repro_torch.models import encdec as ED  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models import transformer2d as t2d  # noqa: E402
 from repro_torch.optim.adamw import OptConfig  # noqa: E402
 from repro_torch.parallel.partition import (  # noqa: E402
@@ -830,13 +870,19 @@ STARCODER_LENS = np.linspace(512, 2048, MODEL_REQUESTS).astype(int).tolist()
 GEMMA_LONG = 4608
 GEMMA_LENS = [512, 1024, 2048, GEMMA_LONG]
 MOE_TRAIN_DEPTH, MOE_TRAIN_STEPS = 4, 4
-# phase 23 (b): qwen2-moe-a2.7b at full width, depth MOE_RANK_DEPTH in
-# float32 at MOE_RANK_BATCH x MOE_RANK_SEQ, under its spec's plan (dsp, ep,
-# ZeRO-3) at each mesh of MOE_RANK_MESHES against one rank: the loss
-# within MOE_LOSS_BAR relative, each grad slice within MOE_GRAD_BAR of its
-# leaf's max (tests/test_torch_moe_ep.py's bars)
-# (depth 2 at 2048 tokens until phases 24-25 needed its seconds)
+# phase 23 (b): qwen2-moe-a2.7b at full width but its vocab, depth
+# MOE_RANK_DEPTH in float32 at MOE_RANK_BATCH x MOE_RANK_SEQ, under its
+# spec's plan (dsp, ep, ZeRO-3) at each mesh of MOE_RANK_MESHES against
+# one rank: the loss within MOE_LOSS_BAR relative, each grad slice within
+# MOE_GRAD_BAR of its leaf's max (tests/test_torch_moe_ep.py's bars)
+# (depth 2 at 2048 tokens until phases 24-25 needed its seconds).  Its
+# vocab is cut to MOE_RANK_VOCAB for the script's clock (151936 until
+# phase 31 needed the seconds): at depth 1 its two f32 tables are 2.49 GB
+# of the model's 4.77 GB, which ZeRO's gathers, the vocab ring and the
+# grads' sums move through the host (2.82 GB in all at 32768), and no
+# check of the phase reads the vocab
 MOE_RANK_DEPTH, MOE_RANK_BATCH, MOE_RANK_SEQ = 1, 2, 1024
+MOE_RANK_VOCAB = 32768
 MOE_RANK_MESHES = ((1, 4), (2, 2))
 MOE_LOSS_BAR, MOE_GRAD_BAR = 1e-5, 1e-4
 # K1 at the three models' prefill shapes: starcoder2's GQA group of 9,
@@ -1065,6 +1111,108 @@ PIXTRAL_ROUTE = ROUTES[(torch.bfloat16, _PX.head_dim)]
 PIXTRAL_ATTN = {"pixtral-12b": (1, _PX.n_heads, _PX.n_kv_heads,
                                 PIXTRAL_PREFILL, PIXTRAL_PREFILL,
                                 _PX.head_dim, True, None, None)}
+
+# the jamba phase (31): jamba-1.5-large-398b (arXiv:2403.19887; the SSD
+# geometry P 128, S 128, G 8 is the JAX config's own choice, Jamba's paper
+# builds its SSM layers from Mamba) at full width, one 8-layer period
+# (attention at layer 3, SSD elsewhere, MoE on the odd layers), bf16, the
+# KV cache in float8_e4m3fn, weights from seed 0.  The period holds 6.58B
+# parameters beside its experts and 2.42B for each expert kept; all 16
+# (45.2B, 90.4 GB) exceed the card, so it keeps JAMBA_EXPERTS: 25.9B, 51.8
+# GB (top-2 over 8 leaves each token's path jamba's).  (a) kernel against
+# plain on one set of weights, the plain path's routing replayed: the
+# prefill logits of a JAMBA_PREFILL-token prompt and SERVE_FORCED_STEPS
+# decode steps, JAMBA_LENS's requests teacher-forced through the slot pool
+# (BlockPool refuses SSM layers); (b) those requests, JAMBA_NEW new tokens
+# each, one card, then under JAMBA_SERVE_PLAN at world size 1 over NCCL
+# (JAX's serving rule drops ZeRO for decode; ``tp_flat`` waits for ``tp``
+# with SSM layers); (c) K2 at JAMBA_SSD and K1 at JAMBA_ATTN timed; (d)
+# DSP_RANKS gloo ranks in f32 on JAMBA_RANK_MESHES, widths cut with the
+# head shapes kept (P 128, S 128, chunk 128, attention D 128), trained
+# under the spec's plan and served under JAMBA_SERVE_PLAN
+_JA = jamba_1_5_large_398b.CONFIG
+_JS = _JA.ssm_cfg
+JAMBA_PLAN = jamba_1_5_large_398b.SPEC.plan
+JAMBA_SERVE_PLAN = dataclasses.replace(JAMBA_PLAN, zero=False)
+JAMBA_EXPERTS, JAMBA_NEW, JAMBA_PREFILL = 8, 16, 2048
+JAMBA_LENS = np.linspace(512, 2048, 4).astype(int).tolist()
+JAMBA_SSD = (1, JAMBA_PREFILL, _JS.n_heads, _JS.head_dim, _JS.n_groups,
+             _JS.d_state, _JS.chunk)
+JAMBA_ATTN = {"jamba-1.5-large-398b": (1, _JA.n_heads, _JA.n_kv_heads,
+                                       JAMBA_PREFILL, JAMBA_PREFILL,
+                                       _JA.head_dim, True, None, None)}
+# phase 3's K2 cases at P 128 (B, L, H, P, G, S, chunk), each with the
+# dtypes and routes it runs on (None: the route ``ssd_route`` gives):
+# jamba's prefill (G 8), one B/C group at a ragged length, the edge
+# lengths of SSD_SM90_EDGES, and P 96, whose second 64-column tile is
+# partial, on ``cuda_cores``
+JAMBA_SSD_CASES = (
+    (JAMBA_SSD, ((torch.bfloat16, None), (torch.bfloat16, "cuda_cores"),
+                 (torch.float32, None))),
+    ((2, 2000, 8, 128, 1, 128, 128),
+     ((torch.bfloat16, None), (torch.bfloat16, "cuda_cores"),
+      (torch.float32, None))),
+    ((2, 1, 4, 128, 1, 128, 128), ((torch.bfloat16, None),)),
+    ((2, 100, 4, 128, 2, 128, 128), ((torch.bfloat16, None),
+                                     (torch.float32, None))),
+    ((1, 300, 4, 96, 2, 128, 128), ((torch.bfloat16, None),
+                                    (torch.float32, None))),
+)
+# (a)'s bar: LOGIT_BAR, or JAMBA_NOISE_FACTOR times the plain path's own
+# rounding noise where that reaches it (phase 26's rule for seamless's
+# bf16 grads).  One period of jamba at full width in bf16 turns any
+# difference of float32 summation order into ~2e-2 of the largest logit:
+# the plain path against itself with K2's float32 result nudged by 2**-20
+# drifted 1.91e-2-2.45e-2 per row, K2 on ``cuda_cores`` 1.95e-2-2.55e-2,
+# on ``sm90`` 2.13e-2-2.48e-2 (one H100 80GB HBM3 at 700 W; K1 alone
+# 0.94e-2-1.10e-2).  The noise is measured in the run, as
+# ``nudged_plain``: each plain K1 and K2 call's float32 result perturbed
+# by JAMBA_NUDGE relative noise
+JAMBA_NUDGE, JAMBA_NOISE_FACTOR = 2.0 ** -20, 2.0
+# (d): one period at cut widths with jamba's head shapes (about 0.42B
+# parameters, 1.7 GB in float32), JAMBA_RANK_EXPERTS experts (at 4 no
+# pair dropped in phase 27 (e), which left its drop check empty), trained
+# on JAMBA_RANK_BATCH x JAMBA_RANK_SEQ at each mesh of JAMBA_RANK_MESHES,
+# then JAMBA_RANK_LENS's requests served at (1, DSP_RANKS), JAMBA_RANK_NEW
+# new tokens each
+JAMBA_RANK_WIDTHS = dict(d_model=1024, n_heads=8, n_kv_heads=4, d_ff=2048,
+                         d_inner=2048, n_groups=4)
+JAMBA_RANK_EXPERTS = 8
+# the router bias of (d)'s weights towards expert 0 (a ``b`` leaf the
+# router reads, as tests/_torch_moe_ep_jax.py's ``biased`` config): at
+# seed 0 the routing is near uniform, and a capacity of twice the mean
+# load dropped no pair (one H100 80GB HBM3 at 700 W), which would leave
+# the drop check empty
+JAMBA_RANK_ROUTER_BIAS = 1.2
+# (d)'s grad bar: MOE_GRAD_BAR of a leaf's max, or JAMBA_NOISE_FACTOR
+# times the reference's own f32 noise on that leaf where it reaches that:
+# the reference against itself with its embedding table nudged by
+# JAMBA_RANK_NUDGE relative noise.  The SSD layers' ``a_log`` grads sum
+# terms of both signs over every token: one rank's and 4 ranks' f32 sums
+# in other orders (GEMMs over 2 x 512 rows against 2 x 128) put the worst
+# slice at 1.199e-4 of its leaf's max, all others below (one H100 80GB
+# HBM3 at 700 W), where the reference's own noise was 1.084e-4
+JAMBA_RANK_NUDGE = 2.0 ** -23
+JAMBA_RANK_MESHES = ((1, 4), (2, 2))
+JAMBA_RANK_BATCH, JAMBA_RANK_SEQ = 2, 512
+JAMBA_RANK_LENS, JAMBA_RANK_NEW = (256, 512), 4
+# the kernels at the shapes a rank of (d) gives them, in float32 (on
+# ``cuda_cores``): the heads split over the model ranks by the switch, the
+# whole sequence, the batch over the data ranks; training at each mesh,
+# then each served prompt at (1, DSP_RANKS)
+_JW = JAMBA_RANK_WIDTHS
+JAMBA_RANK_ATTN = tuple(
+    (b, _JW["n_heads"] // m, _JW["n_kv_heads"] // m, s, s, _JA.head_dim,
+     True, None, None)
+    for b, m, s in [(JAMBA_RANK_BATCH // d, m, JAMBA_RANK_SEQ)
+                    for d, m in JAMBA_RANK_MESHES]
+    + [(1, DSP_RANKS, s) for s in JAMBA_RANK_LENS])
+JAMBA_RANK_SSD = tuple(
+    (b, s, _JW["d_inner"] // _JS.head_dim // m, _JS.head_dim,
+     _JW["n_groups"] // m, _JS.d_state, _JS.chunk)
+    for b, m, s in [(JAMBA_RANK_BATCH // d, m, JAMBA_RANK_SEQ)
+                    for d, m in JAMBA_RANK_MESHES]
+    + [(1, DSP_RANKS, s) for s in JAMBA_RANK_LENS])
 
 
 def prefill_case(s: int):
@@ -1403,13 +1551,15 @@ class StepLog:
     """Wraps an engine's steps and logs what each ran on, (SP degree,
     batch, prompt length) a prefill and (SP degree, rows) a decode step,
     for ``expected``: the sum of ``lm.serve_contract`` over them and the
-    scheduler's loop turns, as {kind: [calls, bytes]}.  Under ``ep`` (at
-    world size 1) each prefill's dispatch rows come from its routing
-    (``world_one_rows``)."""
+    scheduler's loop turns, as {kind: [calls, bytes]}.  Under ``ep`` each
+    prefill's routing is kept (``routes``, this rank's ``moe_calls``
+    record), and at world size 1 its dispatch rows come from it
+    (``world_one_rows``); on more ranks the caller finds them in the
+    ranks' routing (``route_rows``) and hands them to ``expected``."""
 
     def __init__(self, eng):
         self.prefills, self.decodes, self.every_prefill = [], [], []
-        self.rows = []
+        self.rows, self.routes = [], []
         self.max_len = eng.max_len
         pre, dec = eng._prefill, eng._decode
 
@@ -1420,7 +1570,10 @@ class StepLog:
                 return pre(tokens)
             with moe_calls() as calls:
                 out = pre(tokens)
-            self.rows.append(world_one_rows(eng, calls, tokens.shape[1]))
+            self.routes.append(calls)
+            if eng.sp_degree == 1 and eng.sharder.dp_size == 1:
+                self.rows.append(world_one_rows(eng, calls,
+                                                tokens.shape[1]))
             return out
 
         def decode(token, caches):
@@ -1429,15 +1582,27 @@ class StepLog:
         eng._prefill, eng._decode = prefill, decode
 
     def expected(self, cfg, template, plan, ticks: int) -> dict:
-        rows = self.rows or [None] * len(self.prefills)
-        parts = [lm.serve_contract(cfg, n, template, plan, prefill=(b, s),
-                                   max_len=self.max_len, moe_rows=r)
-                 for (n, b, s), r in zip(self.prefills, rows)]
-        parts += [lm.serve_contract(cfg, n, template, plan, decode=r)
-                  for n, r in self.decodes]
-        parts.append(lm.serve_contract(cfg, 1, template, plan, ticks=ticks))
+        out = steps_contract(cfg, template, plan, self.prefills,
+                             self.decodes, ticks, self.max_len,
+                             self.rows or None)
         self.prefills, self.decodes, self.rows = [], [], []
-        return add_contracts(*parts)
+        return out
+
+
+def steps_contract(cfg, template, plan, prefills, decodes, ticks: int,
+                   max_len: int, rows=None) -> dict:
+    """The sum of ``lm.serve_contract`` over the prefills ((SP degree,
+    batch, prompt length) each, its dispatch's ``rows`` under ``ep``), the
+    decode steps ((SP degree, rows) each) and the scheduler's loop turns,
+    as {kind: [calls, bytes]}."""
+    rows = rows or [None] * len(prefills)
+    parts = [lm.serve_contract(cfg, n, template, plan, prefill=(b, s),
+                               max_len=max_len, moe_rows=r)
+             for (n, b, s), r in zip(prefills, rows)]
+    parts += [lm.serve_contract(cfg, n, template, plan, decode=r)
+              for n, r in decodes]
+    parts.append(lm.serve_contract(cfg, 1, template, plan, ticks=ticks))
+    return add_contracts(*parts)
 
 
 def world_one_rows(eng, calls, seq: int) -> tuple:
@@ -1480,8 +1645,10 @@ def full_width_serve(cfg, kernel, device="cuda", mesh=None,
                      route: str = "sm90", params=None) -> dict:
     """``cfg`` at full depth behind ContinuousScheduler: 8 requests, prompts
     spread over 512-2048 tokens (or ``lens``), 32 (``new_tokens``) new
-    tokens each, all arriving at 0.  ``kernel`` (K1's or K2's wrapper)
-    must launch once per layer per prefill, every launch on ``route``.
+    tokens each, all arriving at 0.  K1 must launch once per attention
+    layer and K2 once per SSM layer a prefill (``kernel_layers``), every
+    launch on ``route``; ``launches`` and ``routes`` are ``kernel``'s (K1's
+    or K2's wrapper), ``kernels`` every launching kernel's.
     With ``mesh`` (and ``plan``) the engine serves sharded, and the calls
     and bytes counted must be exactly ``lm.serve_contract``'s.  The
     weights are ``lm.init_lm(0, cfg)``'s, or ``params`` (the caller's
@@ -1530,12 +1697,17 @@ def full_width_serve(cfg, kernel, device="cuda", mesh=None,
         f"prefills of {cfg.n_layers} layers, by route {routes}; "
         f"flash_attention_fwd {flash_attention_fwd.launches}, ssd_scan_fwd "
         f"{ssd_scan_fwd.launches} in all")
-    if launches != cfg.n_layers * prefills or prefills != len(lens):
-        raise AssertionError(f"{kernel.__name__} launched {launches} times, "
-                             f"expected {cfg.n_layers} x {len(lens)}")
-    if routes[route] != launches:
-        raise AssertionError(f"not every prefill launch took the {route} "
-                             f"route: {routes}")
+    if prefills != len(lens):
+        raise AssertionError(f"{prefills} prefills, expected {len(lens)}")
+    kernels = {}
+    for k, layers in kernel_layers(cfg).items():
+        got = dict(k.route_launches)
+        kernels[k.__name__] = {"launches": k.launches,
+                               "routes": nonzero(got)}
+        if k.launches != layers * prefills or got[route] != k.launches:
+            raise AssertionError(f"{k.__name__} launched {k.launches} "
+                                 f"times, by route {got}; expected {layers} "
+                                 f"x {len(lens)}, all on {route}")
     for r in reqs:
         if r.result is None or len(r.generated) != new_tokens:
             raise AssertionError(f"request {r.request_id} did not finish "
@@ -1554,7 +1726,18 @@ def full_width_serve(cfg, kernel, device="cuda", mesh=None,
     del eng, sched, steps
     free_device()
     return {"launches": launches, "routes": nonzero(routes),
-            "metrics": summary, "tokens": [r.generated for r in reqs]}
+            "kernels": kernels, "metrics": summary,
+            "tokens": [r.generated for r in reqs]}
+
+
+def kernel_layers(cfg) -> dict:
+    """{kernel wrapper: its launches a prefill of ``cfg``}: K1 once per
+    attention layer, K2 once per SSM layer (none of a kernel the model
+    does not run)."""
+    mixers = [sp.mixer for sp in cfg.period_specs()] * cfg.n_periods
+    out = {flash_attention_fwd: mixers.count("attn"),
+           ssd_scan_fwd: mixers.count("ssm")}
+    return {k: n for k, n in out.items() if n}
 
 
 def free_device() -> None:
@@ -5258,16 +5441,20 @@ def models_on_one_card(device="cuda") -> dict:
 MOE_PLAN = qwen2_moe_a2_7b.SPEC.plan
 
 
-def moe_layout(cfg, mesh, batch: int, seq: int, device="cuda") -> dict:
-    """``cfg``'s parameters from seed 0 under MOE_PLAN on ``mesh``: the
+def moe_layout(cfg, mesh, batch: int, seq: int, device="cuda",
+               plan=None, init=None) -> dict:
+    """``cfg``'s parameters from seed 0 (``init(cfg, device)``, by default
+    ``lm.init_lm``'s) under ``plan`` (MOE_PLAN by default) on ``mesh``: the
     rank's slices, the specs, the sharder of the joint planned schedule at
     ``batch`` x ``seq`` and the layouts' contract."""
+    plan = MOE_PLAN if plan is None else plan
     ctx = from_mesh(mesh)
     sizes = mesh_sizes(ctx)
-    params = lm.init_lm(0, cfg, device=device)
-    specs = param_pspecs(params, MOE_PLAN, axis_sizes=sizes)
-    layout = lm.param_contract(cfg, meta_tree(params), MOE_PLAN, sizes)
-    sharder = make_sharder(mesh, MOE_PLAN, schedule=lm.dsp_schedule(
+    params = (init(cfg, device) if init is not None
+              else lm.init_lm(0, cfg, device=device))
+    specs = param_pspecs(params, plan, axis_sizes=sizes)
+    layout = lm.param_contract(cfg, meta_tree(params), plan, sizes)
+    sharder = make_sharder(mesh, plan, schedule=lm.dsp_schedule(
         cfg, ctx.sp_size, seq=seq, batch=batch, joint=True),
         param_specs=specs)
     return {"params": shard_params(params, specs, ctx), "specs": specs,
@@ -5348,7 +5535,9 @@ def moe_world_of_one(phase22: dict, work: str, device="cuda") -> dict:
 
 
 def moe_rank_cfg():
-    return model_cfg("qwen2-moe-a2.7b", MOE_RANK_DEPTH, torch.float32)
+    return dataclasses.replace(
+        model_cfg("qwen2-moe-a2.7b", MOE_RANK_DEPTH, torch.float32),
+        vocab=MOE_RANK_VOCAB)
 
 
 def moe_rank_batch(cfg, device="cuda") -> dict:
@@ -6701,22 +6890,27 @@ def arctic_cfg(depth: int, experts=None, dtype=None):
     return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
 
 
-def replayed(fn) -> dict:
-    """``fn()`` (its logits) on the plain path (``plain_attention``, each
-    MoE call routing itself), then on the kernel path with the plain
-    path's routing replayed call by call (``moe_calls``): {"gap": max
-    |kernel - plain| / max |logit|, "launches": the kernel path's K1
-    launches by route, "differ": the share of (token, k) routes on which
-    the kernel path's own pick differs}."""
-    with torch.no_grad(), plain_attention(), moe_calls() as ref:
+def replayed(fn, plain=None, against=None) -> dict:
+    """``fn()`` (its logits) on the plain path (``plain``, by default
+    ``plain_attention``; each MoE call routing itself), then on the kernel
+    path (or under ``against``) with the plain path's routing replayed
+    call by call (``moe_calls``): {"gap": max |kernel - plain| / max
+    |logit|, "launches": the kernel path's K1 launches by route,
+    "k2_launches": its K2 launches by route, "differ": the share of
+    (token, k) routes on which the kernel path's own pick differs}."""
+    with (torch.no_grad(), (plain or plain_attention)(),
+          moe_calls() as ref):
         want = fn()
     reset_launches()
-    with torch.no_grad(), moe_calls([c["experts"] for c in ref]) as calls:
+    reset_ssd_launches()
+    with (torch.no_grad(), (against or contextlib.nullcontext)(),
+          moe_calls([c["experts"] for c in ref]) as calls):
         got = fn()
     differ = sum(c["differ"] for c in calls)
     total = sum(c["experts"].numel() for c in calls)
     return {"gap": logit_gap(got, want),
             "launches": nonzero(flash_attention_fwd.route_launches),
+            "k2_launches": nonzero(ssd_scan_fwd.route_launches),
             "differ": differ / max(total, 1), "calls": len(calls)}
 
 
@@ -7554,6 +7748,581 @@ def pixtral_phase(device="cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 31: jamba-1.5-large-398b
+# ---------------------------------------------------------------------------
+
+def jamba_cfg(experts=JAMBA_EXPERTS, dtype=None):
+    """jamba's published config cut to one period (8 layers) with
+    ``experts`` of its 16 experts, in ``dtype`` where given."""
+    cfg = dataclasses.replace(_JA, n_layers=len(_JA.period_specs()),
+                              n_experts=experts)
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+
+@contextlib.contextmanager
+def nudged_plain(seed: int = 11):
+    """``plain_kernels``, with the float32 result of every plain K1 and K2
+    call perturbed by JAMBA_NUDGE relative noise (seeded normals) before
+    its one rounding to the model's dtype: the plain path as another
+    order of the same float32 sums would give it."""
+    fa, ssd = kernel_ops.flash_attention_plain, kernel_ops.ssd_scan_plain
+    gen = {}
+
+    def nudge(y, dtype):
+        if not gen:
+            gen["g"] = torch.Generator(device=y.device).manual_seed(seed)
+        noise = torch.randn(y.shape, generator=gen["g"], device=y.device)
+        return (y * (1 + JAMBA_NUDGE * noise)).to(dtype)
+
+    def fa_nudged(q, k, v, **kw):
+        return nudge(fa(q.float(), k.float(), v.float(), **kw), q.dtype)
+
+    def ssd_nudged(xdt, da, b, c, *, chunk=128):
+        return nudge(ssd(xdt.float(), da, b.float(), c.float(), chunk=chunk),
+                     xdt.dtype)
+    kernel_ops.flash_attention_plain = fa_nudged
+    kernel_ops.ssd_scan_plain = ssd_nudged
+    try:
+        with plain_kernels():
+            yield
+    finally:
+        kernel_ops.flash_attention_plain = fa
+        kernel_ops.ssd_scan_plain = ssd
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """``plain_attention``, and every K2 call of the model's SSM layers
+    (``models.ssm.ssd_scan``) on its plain version too."""
+    inner = ssm_mod.ssd_scan
+
+    def plain(*a, **kw):
+        return inner(*a, **{**kw, "backend": "ref"})
+    ssm_mod.ssd_scan = plain
+    try:
+        with plain_attention():
+            yield
+    finally:
+        ssm_mod.ssd_scan = inner
+
+
+def jamba_checks(params, cfg, device="cuda") -> dict:
+    """(a) ``cfg`` (one period at full width in bf16, JAMBA_EXPERTS
+    experts) on ``params``, the kernel path against the plain one
+    (``plain_kernels``), the plain path's routing replayed
+    (``replayed``): the prefill logits of a JAMBA_PREFILL-token prompt and
+    SERVE_FORCED_STEPS decode steps; JAMBA_LENS's requests teacher-forced
+    SERVE_FORCED_STEPS decode steps through the slot pool in the config's
+    float8_e4m3fn cache beside the SSM states (``forced_logits``).  Each
+    within LOGIT_BAR of the largest logit or, where the plain path's own
+    rounding noise reaches that, within JAMBA_NOISE_FACTOR times it: the
+    plain path against itself with each kernel's float32 result nudged
+    (``nudged_plain``), the same routing.  The kernel path's launches: K1
+    once and K2 seven times a prefill, on ``sm90``."""
+    g = torch.Generator(device=device).manual_seed(6)
+    s = JAMBA_PREFILL
+    tok = torch.randint(0, cfg.vocab, (1, s + SERVE_FORCED_STEPS),
+                        generator=g, device=device)
+
+    def static():
+        logits, caches = lm.forward_prefill(params, tok[:, :s], cfg)
+        rows = [logits[0, -1].float()]
+        for t in range(SERVE_FORCED_STEPS):
+            logits, caches = lm.forward_decode(
+                params, tok[:, s + t:s + t + 1], caches, cfg)
+            rows.append(logits[0, -1].float())
+        return torch.stack(rows)
+    eng = ServingEngine(params, cfg, max_len=max(JAMBA_LENS)
+                        + SERVE_FORCED_STEPS, device=device)
+    reqs = trace_requests(cfg, device, JAMBA_LENS, SERVE_FORCED_STEPS)
+    fed = torch.randint(0, cfg.vocab, (len(reqs), SERVE_FORCED_STEPS),
+                        generator=g, device=device).tolist()
+    layers = {k.__name__: n for k, n in kernel_layers(cfg).items()}
+    out = {}
+    for name, fn, prefills in (
+            ("static", static, 1),
+            ("slot", lambda: forced_logits(eng, reqs, fed, device),
+             len(reqs))):
+        out[name] = r = replayed(fn, plain_kernels)
+        r["noise"] = replayed(fn, plain_kernels, nudged_plain)["gap"]
+        r["bar"] = max(LOGIT_BAR, JAMBA_NOISE_FACTOR * r["noise"])
+        log_t(f"  {name}: max |kernel - plain| / max |logit| "
+              f"{r['gap']:.3e} over {r['calls']} MoE calls, the plain "
+              f"path's routing replayed (the kernel path's own pick differs "
+              f"on {r['differ']:.3e} of the routes); the plain path "
+              f"against itself nudged {r['noise']:.3e}, so the bar "
+              f"{r['bar']:.3e}; K1 {r['launches']}, K2 {r['k2_launches']} "
+              f"on the kernel path")
+        want = ({"sm90": layers["flash_attention_fwd"] * prefills},
+                {"sm90": layers["ssd_scan_fwd"] * prefills})
+        if (r["launches"], r["k2_launches"]) != want:
+            raise AssertionError(f"jamba (a) {name}: K1 {r['launches']}, K2 "
+                                 f"{r['k2_launches']}; expected {want}")
+    kv = next(v for v in KVPool(cfg, 1, 16, device=device).caches[
+        "periods"].values() if "kv" in v)["kv"]["k"]
+    if kv.dtype != torch.float8_e4m3fn or not all(
+            r["gap"] <= r["bar"] for r in out.values()):
+        raise AssertionError(f"jamba: kernel against plain {out}, pool "
+                             f"{kv.dtype}")
+    del eng
+    free_device()
+    return out
+
+
+def time_ssd(case, seed: int, what: str) -> dict:
+    """K2 at ``case`` in bf16 on its route (``sm90``) and on ``cuda_cores``,
+    three times each in turns (medians), its plain version, beside the
+    bound (``ssd_bound_ms``); no PyTorch call computes the chunked scan.
+    ``what`` names the shape in the log."""
+    xdt, da, b, c = ssd_inputs(case, torch.bfloat16, seed=seed)
+    chunk = case[6]
+    route = ssd_route(torch.bfloat16, case[3], case[5], chunk)
+    runs = {route: [], "cuda_cores": []}
+    for who in (route, "cuda_cores", "cuda_cores", route, route,
+                "cuda_cores"):
+        runs[who].append(time_ms(
+            lambda: ssd_scan_fwd(xdt, da, b, c, chunk=chunk, route=who),
+            iters=20 if who == "sm90" else 5))
+    med = {w: float(np.median(r)) for w, r in runs.items()}
+    plain_ms = time_ms(lambda: ssd_scan_plain(xdt, da, b, c, chunk=chunk),
+                       iters=5)
+    bound = ssd_bound_ms(case, torch.bfloat16)
+    log_t(f"  ssd_scan at {what} {tuple(case)}: {route} {med[route]:.4f} ms "
+          f"(runs {runs[route]})  cuda_cores {med['cuda_cores']:.4f} ms "
+          f"(runs {runs['cuda_cores']})  plain {plain_ms:.4f} ms  library "
+          f"none  bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
+          f"{bound['flops']:.3e} FLOP, {bound['bytes']:.3e} B; {route} at "
+          f"{100 * bound['bound_ms'] / med[route]:.1f}% of the bound, "
+          f"{bound['bytes'] / med[route] / 1e6:.1f} GB/s)")
+    del xdt, da, b, c
+    torch.cuda.empty_cache()
+    return {"shape": list(case), "route": route, "ms": med[route],
+            "cuda_cores_ms": med["cuda_cores"], "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"]}
+
+
+def jamba_world_of_one(out: dict, work: str, device="cuda") -> None:
+    """(b) at world size 1 on a (1, 1) mesh over NCCL: the trace under
+    JAMBA_SERVE_PLAN (``arctic_mesh_serve``: the tokens one card's, the
+    calls and bytes exactly ``lm.serve_contract``'s, K1 4 and K2 28 on
+    ``sm90``)."""
+    backend = BACKEND_OF[torch.device(device).type]
+    dist.init_process_group(backend, store=dist.FileStore(
+        os.path.join(work, "store31b"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), torch.device(device).type)
+        out["mesh_serve"] = arctic_mesh_serve(
+            jamba_cfg(), out["serve"], mesh, JAMBA_SERVE_PLAN, device,
+            lens=JAMBA_LENS, new_tokens=JAMBA_NEW)
+    finally:
+        dist.destroy_process_group()
+
+
+def jamba_rank_cfg():
+    """(d)'s model: one period of jamba's layers at cut widths with its
+    head shapes kept (JAMBA_RANK_WIDTHS: SSD heads of P 128, S 128, chunk
+    128, attention heads of 128), JAMBA_RANK_EXPERTS experts top-2, in
+    float32 with an f32 KV cache (phase 25 (b)'s reason)."""
+    w = JAMBA_RANK_WIDTHS
+    sc = dataclasses.replace(_JS, d_model=w["d_model"],
+                             d_inner=w["d_inner"], n_groups=w["n_groups"])
+    return dataclasses.replace(
+        jamba_cfg(JAMBA_RANK_EXPERTS, torch.float32), d_model=w["d_model"],
+        n_heads=w["n_heads"], n_kv_heads=w["n_kv_heads"], d_ff=w["d_ff"],
+        ssm_cfg=sc, cache_dtype=None)
+
+
+def jamba_rank_init(cfg, device="cuda"):
+    """(d)'s weights: ``lm.init_lm(0, cfg)`` with a router bias
+    (JAMBA_RANK_ROUTER_BIAS on expert 0) on every MoE layer."""
+    params = lm.init_lm(0, cfg, device=device)
+    for layer in params["periods"].values():
+        if "moe" in layer:
+            w = layer["moe"]["router"]["w"]                 # (P, d, E)
+            b = w.new_zeros((w.shape[0], w.shape[2]))
+            b[:, 0] = JAMBA_RANK_ROUTER_BIAS
+            layer["moe"]["router"]["b"] = b
+    return params
+
+
+def jamba_rank_batch(cfg, device="cuda") -> dict:
+    return make_batch(DataConfig(task="lm_shift", vocab=cfg.vocab,
+                                 seq=JAMBA_RANK_SEQ,
+                                 batch=JAMBA_RANK_BATCH), 0, device=device)
+
+
+def jamba_rank_max_len() -> int:
+    need = max(JAMBA_RANK_LENS) + JAMBA_RANK_NEW
+    return need + (-need) % DSP_RANKS
+
+
+def jamba_rank_refs(work: str, device="cuda"):
+    """(d)'s references on one rank without a mesh, ``jamba_rank_cfg``:
+    the loss (the load-balance aux included), grads, dropped share and
+    each MoE call's routing and drops on ``jamba_rank_batch``
+    (``work/jamba_ref.pt``), and the tokens of JAMBA_RANK_LENS's requests
+    through ``ContinuousScheduler`` with each generated token's margin
+    (``work/jamba_serve.json``), as ``arctic_rank_refs`` takes them; and
+    each grad leaf's own f32 noise, max |nudged - grad| / max |grad| with
+    the embedding table nudged by JAMBA_RANK_NUDGE (``noise``).  Returns
+    the model's tree as meta tensors."""
+    cfg = jamba_rank_cfg()
+    params = jamba_rank_init(cfg, device)
+    template = meta_tree(params)
+    batch = jamba_rank_batch(cfg, device)
+    with torch.no_grad(), moe_calls() as calls:
+        lm.forward(params, batch["tokens"], cfg, backend="kernel",
+                   remat=False)
+
+    def loss_grads(tree):
+        leaves = lm.tree_map(lambda p: p.detach().requires_grad_(True), tree)
+        loss, metrics = lm.lm_loss(leaves, batch, cfg, backend="kernel")
+        return loss.detach(), metrics, torch.autograd.grad(
+            loss, lm.tree_leaves(leaves))
+    loss, metrics, grads = loss_grads(params)
+    table = params["embed"]["table"]
+    gen = torch.Generator(device=table.device).manual_seed(12)
+    _, _, nudged = loss_grads({**params, "embed": {"table": table * (
+        1 + JAMBA_RANK_NUDGE * torch.randn(table.shape, generator=gen,
+                                           device=table.device))}})
+    noise = [float((n - g).abs().max() / g.abs().max().clamp_min(1e-30))
+             for n, g in zip(nudged, grads)]
+    torch.save({"loss": loss.cpu(),
+                "dropped": float(metrics["moe_dropped"]),
+                "routes": [c["experts"] for c in calls],
+                "call_dropped": [c["dropped"] for c in calls],
+                "grads": [g.cpu() for g in grads], "noise": noise},
+               os.path.join(work, "jamba_ref.pt"))
+    del grads, nudged
+    eng = ServingEngine(params, cfg, max_len=jamba_rank_max_len(),
+                        device=device)
+    reqs = trace_requests(cfg, device, JAMBA_RANK_LENS, JAMBA_RANK_NEW)
+    eng.serve(reqs, continuous=True, max_batch=len(reqs))
+    margins = []
+    with torch.no_grad():
+        for r in reqs:
+            seq = torch.cat([r.prompt, torch.tensor(r.generated[:-1],
+                                                    device=device)])
+            x, _ = lm.forward(params, seq[None], cfg, remat=False)
+            logits = lm.logits_fn(params, x[:, len(r.prompt) - 1:],
+                                  cfg)[0].float()
+            top = logits.topk(2, dim=-1).values
+            margins.append(((top[:, 0] - top[:, 1])
+                            / logits.abs().amax(-1)).tolist())
+    json.dump({"tokens": [r.generated for r in reqs], "margins": margins},
+              open(os.path.join(work, "jamba_serve.json"), "w"))
+    worst = int(np.argmax(noise))
+    log_t(f"  (d)'s references: {lm.param_counts(cfg)['total'] / 1e9:.2f}B "
+          f"params in float32, {JAMBA_RANK_BATCH} x {JAMBA_RANK_SEQ}: loss "
+          f"{float(loss):.6f}, dropped share "
+          f"{float(metrics['moe_dropped']):.6f}; the grads' own noise at "
+          f"worst {leaf_paths(template)[worst]} {noise[worst]:.3e} of its "
+          f"max; tokens {[r.generated for r in reqs]}")
+    del params, eng
+    free_device()
+    return template
+
+
+def read_k2() -> dict:
+    """K2's launches since the last ``reset_ssd_launches``: in all, by
+    route and by head count."""
+    return {"k2": ssd_scan_fwd.launches,
+            "k2_routes": nonzero(ssd_scan_fwd.route_launches),
+            "k2_heads": {str(h): n for h, n in nonzero(
+                ssd_scan_fwd.heads_launches).items()}}
+
+
+def jamba_rank_main(rank: int, world: int, work: str) -> None:
+    """One of (d)'s ranks, started by ``jamba_four_ranks`` as
+    ``chip_smoke.py --jamba-rank <rank> <world> <dir>``: gloo over the
+    card's tensors.  At each mesh of JAMBA_RANK_MESHES: ``jamba_rank_cfg``
+    on its slices under JAMBA_PLAN (``moe_layout``; the ranks cut theirs in
+    turn), one ``lm_loss(sharder=)`` on its shard of ``jamba_rank_batch``
+    with its grads summed by ``allreduce_grads`` and the clip's norm, what
+    it counted (calls, K1 and K2 launches), its routing (the forward's MoE
+    calls), dropped share and peak memory, each grad slice against the
+    same slice of the reference.  Then at (1, world) JAMBA_RANK_LENS's
+    requests through ``ContinuousScheduler`` under JAMBA_SERVE_PLAN: the
+    tokens, the launches, the calls, and what each step ran on with each
+    prefill's routing (``StepLog``) for the contract.  Written to
+    ``<dir>/jamba_rank<r>.json`` and ``.pt``; every rank waits at a
+    barrier, then leaves the group."""
+    device = json.load(open(os.path.join(work, "job31.json")))["device"]
+    full_f32()
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(work, "store31d"), world), rank=rank, world_size=world)
+    t_start = time.perf_counter()
+
+    def note(what):
+        if rank == 0:
+            log(f"    rank 0: {what} at {time.perf_counter() - t_start:.1f} "
+                f"s, {torch.cuda.memory_allocated() / 1e9:.2f} GB held, "
+                f"host GiB {host_state()}")
+    try:
+        cfg = jamba_rank_cfg()
+        ref = torch.load(os.path.join(work, "jamba_ref.pt"), mmap=True)
+        res, routes = {}, {}
+        for shape in JAMBA_RANK_MESHES:
+            label = f"{shape[0]}x{shape[1]}"
+            mesh = make_mesh(shape, ("data", "model"),
+                             torch.device(device).type, backend="gloo")
+            ctx = from_mesh(mesh)
+            lay = in_turn(rank, world, lambda: moe_layout(
+                cfg, mesh, JAMBA_RANK_BATCH, JAMBA_RANK_SEQ, device,
+                plan=JAMBA_PLAN, init=jamba_rank_init))
+            note(f"{label}: the slices cut")
+            specs, sharder = lay["specs"], lay["sharder"]
+            leaves = lm.tree_map(lambda p: p.requires_grad_(True),
+                                 lay.pop("params"))
+            batch = lm.shard_lm_batch(jamba_rank_batch(cfg, device),
+                                      sharder)
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            reset_ssd_launches()
+            t0 = time.perf_counter()
+            with moe_calls() as calls:          # the forward's, not the
+                loss, metrics = lm.lm_loss(      # backward's recompute
+                    leaves, batch, cfg, sharder=sharder, backend="kernel")
+            routes[label] = calls
+            grads = iter(torch.autograd.grad(loss, lm.tree_leaves(leaves)))
+            loss, grads = allreduce_grads(loss.detach(), lm.tree_map(
+                lambda p: next(grads), leaves), specs, ctx)
+            slices_norm(grads, specs, ctx)
+            got = {**read_counts(), **read_k2()}
+            got.update(seconds=time.perf_counter() - t0,
+                       coord=[ctx.dp_index, ctx.sp_index],
+                       layout=lay["layout"],
+                       dropped=float(metrics["moe_dropped"]),
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            note(f"{label}: the loss and grads")
+            gaps = torch.tensor([slice_gap(g, w[tuple(
+                slice(a, b) for a, b in slice_index(w.shape, spec, ctx))])
+                for g, w, spec in zip(lm.tree_leaves(grads), ref["grads"],
+                                      lm.tree_leaves(specs))],
+                dtype=torch.float64)
+            dist.all_reduce(gaps, op=dist.ReduceOp.MAX)
+            shares = (gaps[:, 0] / gaps[:, 1].clamp_min(1e-30)).tolist()
+            worst = int(np.argmax(shares))
+            got.update(
+                loss=float(loss), loss_rel=float(
+                    (loss.cpu() - ref["loss"]).abs() / ref["loss"].abs()),
+                grad_rel=shares[worst], leaves=len(shares), shares=shares,
+                leaf=leaf_paths(specs)[worst], host_gib=host_state())
+            res[label] = got
+            del leaves, grads, lay
+            host_empty_cache()
+            torch.cuda.empty_cache()
+        mesh = make_mesh((1, world), ("data", "model"),
+                         torch.device(device).type, backend="gloo")
+        eng = in_turn(rank, world, lambda: ServingEngine(
+            jamba_rank_init(cfg, device), cfg,
+            max_len=jamba_rank_max_len(), mesh=mesh, plan=JAMBA_SERVE_PLAN,
+            device=device))
+        note("serve: the engine built")
+        reqs = trace_requests(cfg, device, JAMBA_RANK_LENS, JAMBA_RANK_NEW)
+        steps = StepLog(eng)
+        sched = ContinuousScheduler(eng, max_batch=len(reqs))
+        reset_counts()
+        reset_ssd_launches()
+        t0 = time.perf_counter()
+        sched.run(reqs)
+        got = {**read_counts(), **read_k2()}
+        routes["serve"] = steps.routes
+        res["serve"] = {
+            **got, "seconds": time.perf_counter() - t0,
+            "tokens": [r.generated for r in reqs],
+            "prefills": steps.prefills, "decodes": steps.decodes,
+            "ticks": sched.ticks, "coord": [eng.sharder.dp_index,
+                                            eng.sharder.sp_index],
+            "host_gib": host_state()}
+        note("serve: served")
+        del eng, sched, steps
+        free_device()
+        torch.save(routes, os.path.join(work, f"jamba_rank{rank}.pt"))
+        json.dump(res, open(os.path.join(work, f"jamba_rank{rank}.json"),
+                            "w"))
+    finally:
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def jamba_four_ranks(work: str, template, device="cuda") -> Part:
+    """(d) DSP_RANKS processes sharing the card over gloo
+    (``jamba_rank_main``), ``jamba_rank_cfg`` in float32.  Training at
+    each mesh of JAMBA_RANK_MESHES under the spec's plan: the loss within
+    MOE_LOSS_BAR relative of the one-rank reference, each rank's grad
+    slices within MOE_GRAD_BAR of their leaf's max or JAMBA_NOISE_FACTOR
+    times the reference's own noise on the leaf, the dropped pairs of
+    each MoE call (the ranks' shares summed) the reference's and not all
+    zero; per rank the calls and bytes exactly ``zero_contract`` with the
+    dispatch's rows from the run's routing (``route_rows``), K1 twice per
+    attention layer and K2 twice per SSM layer (the forward and the
+    checkpointed recompute) on ``cuda_cores`` at the rank's heads.
+    Serving at (1, DSP_RANKS) under JAMBA_SERVE_PLAN: the tokens one
+    rank's up to a near-tie (TP_TIE_BAR), per rank the calls and bytes
+    exactly ``lm.serve_contract`` over the run's prefills (each
+    dispatch's rows from the ranks' routing of it), decode steps and
+    loop turns, K1 and K2 once per layer a prefill on ``cuda_cores``
+    (``template``: the model's tree as meta tensors, which the contract
+    reads).  Each rank's peak memory and host memory logged."""
+    with open(os.path.join(work, "job31.json"), "w") as f:
+        json.dump({"device": device}, f)
+    t0 = time.perf_counter()
+    rcs = yield from ranks_exit("--jamba-rank", work)
+    log_t(f"  {DSP_RANKS} ranks exited {rcs} after "
+          f"{time.perf_counter() - t0:.1f} s")
+    if any(rcs):
+        raise AssertionError(f"a jamba rank failed: exit codes {rcs}")
+    ranks = [json.load(open(os.path.join(work, f"jamba_rank{r}.json")))
+             for r in range(DSP_RANKS)]
+    routes = [torch.load(os.path.join(work, f"jamba_rank{r}.pt"))
+              for r in range(DSP_RANKS)]
+    ref = torch.load(os.path.join(work, "jamba_ref.pt"), mmap=True)
+    cfg = jamba_rank_cfg()
+    e_phys = lm.moe_meta(cfg).e_phys
+    layers = {k.__name__: n for k, n in kernel_layers(cfg).items()}
+    n_attn, n_ssm = layers["flash_attention_fwd"], layers["ssd_scan_fwd"]
+    cap = lm_capacity(cfg, JAMBA_RANK_SEQ)
+    pairs = JAMBA_RANK_BATCH * JAMBA_RANK_SEQ * cfg.top_k
+
+    def count(shares):
+        return [int(round(float(x) * pairs)) for x in shares]
+    ref_dropped = count(ref["call_dropped"])
+    if ref_dropped != [int((~kept_pairs(e, e_phys, cap)).sum())
+                       for e in ref["routes"]] or not sum(ref_dropped):
+        raise AssertionError(f"one rank's dropped pairs per MoE call "
+                             f"{ref_dropped} are not its routing's, or none")
+    for shape in JAMBA_RANK_MESHES:
+        label = f"{shape[0]}x{shape[1]}"
+        parts = {tuple(res[label]["coord"]): rt[label]
+                 for res, rt in zip(ranks, routes)}
+        glob = assemble_routes(parts, shape)
+        dropped = count(np.sum([[c["dropped"] for c in calls]
+                                for calls in parts.values()], axis=0))
+        share = sum(res[label]["dropped"] for res in ranks)
+        g = ranks[0][label]
+        bars = [max(MOE_GRAD_BAR, JAMBA_NOISE_FACTOR * n)
+                for n in ref["noise"]]
+        near = int(np.argmax([a / b for a, b in zip(g["shares"], bars)]))
+        worst = g["shares"].index(g["grad_rel"])
+        log_t(f"  {label}: {cfg.n_layers} layers in float32, "
+              f"{JAMBA_RANK_BATCH} x {JAMBA_RANK_SEQ}: loss {g['loss']:.9f}, "
+              f"|delta| / |loss| against one rank {g['loss_rel']:.3e}, "
+              f"worst grad slice {g['leaf']} {g['grad_rel']:.3e} of its "
+              f"leaf's max over {g['leaves']} leaves (the reference's own "
+              f"noise there {ref['noise'][worst]:.3e}), nearest its bar "
+              f"{leaf_paths(template)[near]} {g['shares'][near]:.3e} against "
+              f"{bars[near]:.3e}; dropped pairs per MoE call {dropped} "
+              f"against one rank's {ref_dropped}, share {share} against "
+              f"{ref['dropped']}")
+        if not (all(a <= b for a, b in zip(g["shares"], bars))
+                and dropped == ref_dropped
+                and abs(share - ref["dropped"]) < 1e-9):
+            raise AssertionError(f"{label}: the {DSP_RANKS}-rank grads or "
+                                 f"drops disagree with one rank: {g}, "
+                                 f"dropped {dropped} against {ref_dropped}")
+        for r, res in enumerate(ranks):
+            got = res[label]
+            i, j = got["coord"]
+            rows = route_rows(glob, e_phys, cap, shape[0], shape[1], i, j)
+            want = zero_contract(cfg, shape, JAMBA_RANK_BATCH, got["layout"],
+                                 JAMBA_RANK_SEQ, rows)
+            k1, k2 = 2 * n_attn, 2 * n_ssm
+            heads = str(cfg.ssm_cfg.n_heads // shape[1])
+            log_t(f"  rank {r} (data {i}, model {j}): {got['seconds']:.1f} "
+                  f"s, peak {got['peak_gb']:.2f} GB, dispatch rows "
+                  f"(received, returned) {rows}, calls {got['calls']}, K1 "
+                  f"{got['k1']} {got['k1_routes']}, K2 {got['k2']} "
+                  f"{got['k2_routes']} at {got['k2_heads']} heads; host GiB "
+                  f"{got['host_gib']}")
+            if not (got["loss_rel"] <= MOE_LOSS_BAR and got["calls"] == want
+                    and got["k1_routes"] == {"cuda_cores": k1}
+                    and got["k2_routes"] == {"cuda_cores": k2}
+                    and got["k2_heads"] == {heads: k2}):
+                raise AssertionError(f"rank {r} {label}: {got}, the contract "
+                                     f"says {want}, K1 {k1} and K2 {k2} at "
+                                     f"{heads} heads on cuda_cores")
+    sref = json.load(open(os.path.join(work, "jamba_serve.json")))
+    n = DSP_RANKS
+    # each prefill's global routing, from its ranks' records, and the rows
+    # each model rank's dispatch moves at its padded length's capacity
+    rows_of = []
+    for p, (_, _, s) in enumerate(ranks[0]["serve"]["prefills"]):
+        glob = assemble_routes({(0, res["serve"]["coord"][1]):
+                                rt["serve"][p]
+                                for res, rt in zip(ranks, routes)}, (1, n))
+        cap = lm_capacity(cfg, n * lm.prefill_shard_len(cfg, s, n))
+        rows_of.append([route_rows(glob, e_phys, cap, 1, n, 0, j)
+                        for j in range(n)])
+    for r, res in enumerate(ranks):
+        sv = res["serve"]
+        j = sv["coord"][1]
+        prefills = [tuple(p) for p in sv["prefills"]]
+        want = steps_contract(cfg, template, JAMBA_SERVE_PLAN, prefills,
+                              [tuple(d) for d in sv["decodes"]], sv["ticks"],
+                              jamba_rank_max_len(),
+                              [rows[j] for rows in rows_of])
+        apart = [next(([t, m[t]] for t, (a, b) in enumerate(zip(g, w))
+                       if a != b), None)
+                 for g, w, m in zip(sv["tokens"], sref["tokens"],
+                                    sref["margins"])]
+        k1, k2 = n_attn * len(prefills), n_ssm * len(prefills)
+        log_t(f"  serve, rank {r}: {sv['seconds']:.1f} s, tokens "
+              f"{sv['tokens']}, K1 {sv['k1']} {sv['k1_routes']}, K2 "
+              f"{sv['k2']} {sv['k2_routes']} at {sv['k2_heads']} heads, "
+              f"calls {sv['calls']}; host GiB {sv['host_gib']}; [first step "
+              f"apart, one rank's margin there] {apart}")
+        if (any(a is not None and a[1] > TP_TIE_BAR for a in apart)
+                or sv["calls"] != want
+                or sv["k1_routes"] != {"cuda_cores": k1}
+                or sv["k2_routes"] != {"cuda_cores": k2}):
+            raise AssertionError(f"serve, rank {r}: {sv}, one rank {sref}, "
+                                 f"the contract {want}, K1 {k1} and K2 {k2} "
+                                 f"on cuda_cores")
+    log(f"  tokens against one rank's {sref['tokens']}, margins "
+        f"{sref['margins']}")
+    return {"ranks": ranks}
+
+
+def jamba_phase(work: str, device="cuda") -> dict:
+    """Phase 31, (a) to (d): (d)'s references first, then its ranks beside
+    (a) to (c) (``behind``; 4 x ~1.6 GB beside (a)-(b)'s ~54 GB), joined
+    last."""
+    out = {}
+    log(f"  (d)'s references, {DSP_RANKS} ranks started beside (a)-(c) "
+        f"({elapsed()})")
+    template = jamba_rank_refs(work, device)
+    ranks = behind(jamba_four_ranks(work, template, device), work)
+    cfg = jamba_cfg()
+    log(f"  (a) one period of {_JA.n_layers} layers at full width with "
+        f"{cfg.n_experts} of {_JA.n_experts} experts, kernel against plain, "
+        f"the KV cache in {cfg.cache_dtype} ({elapsed()})")
+    t0 = time.perf_counter()
+    box = {"params": lm.init_lm(0, cfg, device=device)}
+    torch.cuda.synchronize()
+    log_t(f"  init {lm.param_counts(cfg)['total'] / 1e9:.2f}B params "
+          f"({torch.cuda.memory_allocated() / 1e9:.2f} GB) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    out["checks"] = jamba_checks(box["params"], cfg, device)
+    log(f"  (b) the same weights: {len(JAMBA_LENS)} requests over "
+        f"{JAMBA_LENS} tokens, {JAMBA_NEW} new tokens each, one card, then "
+        f"under {JAMBA_SERVE_PLAN} at world size 1 ({elapsed()})")
+    out["serve"] = full_width_serve(cfg, flash_attention_fwd, device,
+                                    lens=JAMBA_LENS, new_tokens=JAMBA_NEW,
+                                    params=box.pop("params"))
+    jamba_world_of_one(out, work, device)
+    log(f"  (c) K2 and K1 at jamba's prefill shapes ({elapsed()})")
+    out["ssd"] = time_ssd(JAMBA_SSD, 9, "jamba's prefill")
+    out["attn"] = {name: time_model_attention(name, case)
+                   for name, case in JAMBA_ATTN.items()}
+    out["ranks"] = join(ranks, "(d)")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The 4-rank phases' processes
 # ---------------------------------------------------------------------------
 
@@ -7561,7 +8330,7 @@ def pixtral_phase(device="cuda") -> dict:
 # share the card, and expandable segments let each give back what it frees
 EXPANDABLE = ("--zero-rank", "--ckpt-rank", "--serve-rank", "--paged-rank",
               "--t2d-zero-rank", "--moe-rank", "--tp-rank", "--seamless-rank",
-              "--arctic-rank", "--seamless-serve-rank")
+              "--arctic-rank", "--seamless-serve-rank", "--jamba-rank")
 # (flag, work) -> the rank processes ``prespawn`` started, not yet released
 _READY: dict = {}
 
@@ -8141,6 +8910,18 @@ def main() -> None:
         check_attention(case, torch.float32, seed=540 + i)
     pixtral_errs = {name: check_attention(case, torch.bfloat16, seed=550 + i)
                     for i, (name, case) in enumerate(PIXTRAL_ATTN.items())}
+    jamba_ssd_errs = {}
+    for i, (case, runs) in enumerate(JAMBA_SSD_CASES):
+        for dtype, route in runs:
+            err = check_ssd(case, dtype, seed=560 + i, route=route)
+            route = route or ssd_route(dtype, case[3], case[5], case[6])
+            jamba_ssd_errs[f"{tuple(case)} {str(dtype)[6:]} {route}"] = err
+    jamba_errs = {name: check_attention(case, torch.bfloat16, seed=570 + i)
+                  for i, (name, case) in enumerate(JAMBA_ATTN.items())}
+    for i, case in enumerate(JAMBA_RANK_ATTN):
+        check_attention(case, torch.float32, seed=580 + i)
+    for i, case in enumerate(JAMBA_RANK_SSD):
+        check_ssd(case, torch.float32, seed=590 + i)
 
     log(f"[4] timing at the slice's shape, bf16 ({elapsed()})")
     q, k, v = attn_inputs(SLICE, torch.bfloat16, seed=7)
@@ -8167,31 +8948,7 @@ def main() -> None:
           f"{bound['flops']:.3e} FLOP, {bound['bytes']:.3e} B; the kernel "
           f"at {bound['flops'] / ms / 1e9:.1f} TFLOP/s)")
     del q, k, v
-    xdt, da, b, c = ssd_inputs(SSD_SLICE, torch.bfloat16, seed=8)
-    ssd_route_slice = ssd_route(torch.bfloat16, SSD_SLICE[3], *SSD_SLICE[5:])
-    # the routed kernel and the cuda_cores one in turns: medians
-    ssd_runs = {ssd_route_slice: [], "cuda_cores": []}
-    for who in (ssd_route_slice, "cuda_cores", "cuda_cores",
-                ssd_route_slice, ssd_route_slice, "cuda_cores"):
-        ssd_runs[who].append(time_ms(
-            lambda: ssd_scan_fwd(xdt, da, b, c, chunk=128, route=who),
-            iters=20 if who == "sm90" else 5))
-    ssd_ms, ssd_cuda_cores_ms = (float(np.median(ssd_runs[w]))
-                                 for w in (ssd_route_slice, "cuda_cores"))
-    ssd_plain_ms = time_ms(lambda: ssd_scan_plain(xdt, da, b, c, chunk=128),
-                           iters=5)
-    ssd_bound = ssd_bound_ms(SSD_SLICE, torch.bfloat16)
-    log_t(f"  ssd_scan kernel ({ssd_route_slice}) runs "
-          f"{ssd_runs[ssd_route_slice]}  cuda_cores runs "
-          f"{ssd_runs['cuda_cores']}")
-    log_t(f"  ssd_scan kernel ({ssd_route_slice}) {ssd_ms:.4f} ms  cuda_cores "
-          f"kernel {ssd_cuda_cores_ms:.4f} ms  plain {ssd_plain_ms:.4f} ms  "
-          f"library none  bound {ssd_bound['bound_ms']:.4f} ms "
-          f"({ssd_bound['bound_by']}: {ssd_bound['flops']:.3e} FLOP, "
-          f"{ssd_bound['bytes']:.3e} B; the kernel at "
-          f"{ssd_bound['bytes'] / ssd_ms / 1e6:.1f} GB/s)")
-    del xdt, da, b, c
-    torch.cuda.empty_cache()
+    ssd_t = time_ssd(SSD_SLICE, 8, "the training slice")
     dit = time_dit_attention(DIT_SLICE)
     dit_temporal = time_dit_attention(DIT_TEMPORAL)
     chunks = [time_chunk_attention(case) for case in PAGED_ATTN]
@@ -8520,15 +9277,26 @@ def main() -> None:
     m30 = pixtral_phase()
     log_t(f"  done: phase 30 took {time.perf_counter() - t30:.1f} s "
           f"({elapsed()})")
+    log(f"[31] jamba-1.5-large-398b: one period at full width on one "
+        f"card, served under {JAMBA_SERVE_PLAN} at world size 1, and on "
+        f"{DSP_RANKS} ranks under its spec's own plan ({elapsed()})")
+    t31 = time.perf_counter()
+    work31 = work_dir()
+    prespawn("--jamba-rank", work31)
+    m31 = jamba_phase(work31)
+    log_t(f"  done: phase 31 took {time.perf_counter() - t31:.1f} s "
+          f"({elapsed()})")
     pixtral_runs = [m30["serve"], m30["serve"]["patch_prefill"],
                     m30["train"], m30["zero"]]
+    jamba_runs = [m31["serve"], m31["mesh_serve"]]
+    jamba_k2 = [r["kernels"]["ssd_scan_fwd"] for r in jamba_runs]
     arctic_runs = [m27["serve"], m27["tp_serve"],
                    m27["train"], m27["tp_train"], m27["qwen2_mesh"]]
     model_runs = [m22["starcoder2-7b"], m22["gemma2-2b"],
                   m22["qwen2-moe-a2.7b"], m22["qwen2-moe-a2.7b/train"],
                   moe_dsp, m24["serve"], m24["train"], m25["train"],
                   m25["serve"], m26["serve"], m26["train"], m26["dsp"],
-                  *arctic_runs, m29["serve"], *pixtral_runs]
+                  *arctic_runs, m29["serve"], *pixtral_runs, *jamba_runs]
 
     log(facts)
     print(json.dumps({"kernels": [{
@@ -8605,7 +9373,17 @@ def main() -> None:
                            "launches"],
                        "train": m30["train"]["launches"],
                        "dsp_zero_train": m30["zero"]["launches"],
-                       "routes": by_route(pixtral_runs)}},
+                       "routes": by_route(pixtral_runs)},
+                   **{name: {**m31["attn"][name],
+                             "max_abs_err": jamba_errs[name]}
+                      for name in JAMBA_ATTN},
+                   "jamba-1.5-large-398b/launches": {
+                       "serve": m31["serve"]["launches"],
+                       "dsp_ep_serve": m31["mesh_serve"]["launches"],
+                       "routes": by_route(jamba_runs)},
+                   "jamba-1.5-large-398b/rank_launches": [
+                       {label: r[label]["k1_routes"] for label in r}
+                       for r in m31["ranks"]["ranks"]]},
         "paged_launches": paged["launches"],
         "paged_rank_launches": [r["k1_launches"]
                                 for r in paged_ranks["ranks"]],
@@ -8643,9 +9421,20 @@ def main() -> None:
         "replaces": "src/repro/kernels/ssd_scan.py:35",
         "launches": (trained["launches"] + m_served["launches"]
                      + m_dsp["launches"] + m_zero["launches"]
-                     + m_ckpt["launches"] + m_sv["launches"]),
+                     + m_ckpt["launches"] + m_sv["launches"]
+                     + sum(r["launches"] for r in jamba_k2)),
         "launches_by_route": by_route([trained, m_served, m_dsp, m_zero,
-                                       m_ckpt, m_sv]),
+                                       m_ckpt, m_sv, *jamba_k2]),
+        "jamba-1.5-large-398b": {
+            **m31["ssd"],
+            "max_abs_err": jamba_ssd_errs[
+                f"{tuple(JAMBA_SSD)} bfloat16 sm90"],
+            "launches": {"serve": jamba_k2[0]["launches"],
+                         "dsp_ep_serve": jamba_k2[1]["launches"],
+                         "routes": by_route(jamba_k2)},
+            "p128_checks": jamba_ssd_errs,
+            "rank_launches": [{label: r[label]["k2_routes"] for label in r}
+                              for r in m31["ranks"]["ranks"]]},
         "serve_sharded_launches": m_sv["launches"],
         "serve_sharded_rank_launches": [
             r["mamba2-370m"]["heads"] for r in serve_ranks["ranks"]],
@@ -8659,10 +9448,10 @@ def main() -> None:
         "ckpt_rank_launches": [r["k2"]["launches"]
                                for r in ckpt_ranks["ranks"]],
         "max_abs_err": ssd_err,
-        "ms": ssd_ms, "plain_ms": ssd_plain_ms,
-        "bound_ms": ssd_bound["bound_ms"], "bound_by": ssd_bound["bound_by"],
-        "library_ms": None, "kernel_route": ssd_route_slice,
-        "cuda_cores_ms": ssd_cuda_cores_ms}]}))
+        "ms": ssd_t["ms"], "plain_ms": ssd_t["plain_ms"],
+        "bound_ms": ssd_t["bound_ms"], "bound_by": ssd_t["bound_by"],
+        "library_ms": None, "kernel_route": ssd_t["route"],
+        "cuda_cores_ms": ssd_t["cuda_cores_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -8700,6 +9489,8 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--seamless-serve-rank"]:
         seamless_serve_rank_main(int(sys.argv[2]), int(sys.argv[3]),
                                  sys.argv[4])
+    elif sys.argv[1:2] == ["--jamba-rank"]:
+        jamba_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     else:
         try:
             main()

@@ -51,7 +51,7 @@ _REGISTRY: Dict[str, ArchSpec] = {}
 _MODULES = ["mamba2_370m", "qwen3_14b", "starcoder2_7b", "gemma2_2b",
             "mistral_large_123b", "qwen2_moe_a2_7b", "arctic_480b",
             "pixtral_12b", "transformer2d_720m", "transformer2d_3b",
-            "seamless_m4t_large_v2"]
+            "seamless_m4t_large_v2", "jamba_1_5_large_398b"]
 
 
 def register(spec: ArchSpec) -> ArchSpec:

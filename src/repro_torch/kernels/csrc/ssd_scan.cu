@@ -20,15 +20,15 @@
 // SQ(Q+1) FLOP; per head the masked product with xdt, PQ(Q+1), and the
 // inter-chunk output and the state update, 4PQS.
 //
-// Design, simple first: one block of 256 threads owns one (batch, head)
-// and loops over the chunks itself -- that loop replaces the TPU's
-// sequential ("arbitrary") chunk axis, and the state stays in shared
-// memory between chunks instead of VMEM scratch.  A chunk's xdt, b and c
-// are staged in shared memory as f32 (b and c with a padded stride), the
-// (Q, Q) decayed c b^T is built 32 columns at a time (a 128 x 32 tile, so
-// the whole working set is 211 KB of dynamic shared memory instead of the
-// 256.5 KB a full (Q, Q) tile would need), and tiles wholly above the
-// diagonal are skipped.  Every product runs on the CUDA cores in f32 FMAs
+// Design, simple first: one block of 256 threads owns one (batch, head,
+// 64-column tile of P) and loops over the chunks itself -- that loop
+// replaces the TPU's sequential ("arbitrary") chunk axis, and the state
+// stays in shared memory between chunks instead of VMEM scratch.  A
+// chunk's xdt, b and c are staged in shared memory as f32 (b and c with a
+// padded stride), the (Q, Q) decayed c b^T is built 32 columns at a time
+// (a 128 x 32 tile, so the whole working set is 211 KB of dynamic shared
+// memory instead of the 256.5 KB a full (Q, Q) tile would need), and
+// tiles wholly above the diagonal are skipped.  Every product runs on the CUDA cores in f32 FMAs
 // from shared memory; tensor cores (wgmma) and TMA are left for a later
 // change, so the kernel runs far below the bound above.  The cumsum is a
 // warp scan.  The mask comes before exp: entries with j > i are 0, never
@@ -37,8 +37,16 @@
 //
 // Any L works: the last chunk is short, and rows past L load as zeros
 // (da = 0: decay 1; xdt = b = c = 0: no contribution) and are not stored,
-// which is exactly the TPU wrapper's zero padding.  Likewise chunk < 128,
-// P < 64 and S < 128 sit zero-padded in the fixed 128/64/128 tiles.
+// which is exactly the TPU wrapper's zero padding.  Likewise chunk < 128
+// and S < 128 sit zero-padded in the fixed 128/128 tiles.
+//
+// Any P works too: column block t of y and row block t of the state depend
+// only on column block t of xdt, while c b^T, the decay, the mask and the
+// cumsum are the same for every block.  So the grid is (H * ceil(P / 64),
+// B), the P tile innermost (the tiles of one head run side by side and
+// read its b/c through L2), and each block computes what a P <= 64 block
+// computes on its 64 columns, the last tile zero-padded.  c b^T is
+// recomputed once per tile: extra arithmetic, not a different result.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,7 +54,7 @@
 namespace {
 
 constexpr int QM = 128;          // rows per chunk tile (max chunk)
-constexpr int PM = 64;           // max head dim P
+constexpr int PM = 64;           // columns of P one block owns
 constexpr int SMX = 128;         // max state dim S
 constexpr int THREADS = 256;
 constexpr int JT = 32;           // columns of one decayed c b^T tile
@@ -151,15 +159,18 @@ ssd_scan_kernel(const T* __restrict__ xdt, const float* __restrict__ da,
   float* sm_wq = smem + Smem::wq;
 
   const int tid = threadIdx.x;
-  const int h = blockIdx.x, bi = blockIdx.y;
+  const int n_tiles = (p_dim + PM - 1) / PM;
+  const int h = blockIdx.x / n_tiles, bi = blockIdx.y;
+  const int p0 = (blockIdx.x % n_tiles) * PM;   // this block's columns
+  const int pw = min(PM, p_dim - p0);
   const int grp = h / (h_dim / g_dim);
   const size_t xo = ((size_t)bi * h_dim + h) * l_dim;
   const size_t bo = ((size_t)bi * g_dim + grp) * l_dim;
-  const T* xp = xdt + xo * p_dim;
+  const T* xp = xdt + xo * p_dim + p0;
   const float* dp = da + xo;
   const T* bp = bm + bo * s_dim;
   const T* cp = cm + bo * s_dim;
-  T* yp = y + xo * p_dim;
+  T* yp = y + xo * p_dim + p0;
 
   for (int i = tid; i < PM * BS; i += THREADS) sm_st[i] = 0.f;
 
@@ -169,10 +180,11 @@ ssd_scan_kernel(const T* __restrict__ xdt, const float* __restrict__ da,
 
   for (int l0 = 0; l0 < l_dim; l0 += chunk) {
     const int n = min(chunk, l_dim - l0);    // valid rows of this chunk
-    // ---- stage the chunk; rows >= n and columns >= P / S are zeros
+    // ---- stage the chunk; rows >= n and columns past the tile / S are
+    // zeros
     for (int i = tid; i < QM * PM; i += THREADS) {
       const int r = i / PM, col = i % PM;
-      sm_x[r * XS + col] = r < n && col < p_dim
+      sm_x[r * XS + col] = r < n && col < pw
           ? to_float(xp[(size_t)(l0 + r) * p_dim + col]) : 0.f;
     }
     for (int i = tid; i < QM * SMX; i += THREADS) {
@@ -252,7 +264,7 @@ ssd_scan_kernel(const T* __restrict__ xdt, const float* __restrict__ da,
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         const int p = cp8 + 8 * c;
-        if (p < p_dim) store(yp + (size_t)(l0 + q) * p_dim + p, acc[i][c]);
+        if (p < pw) store(yp + (size_t)(l0 + q) * p_dim + p, acc[i][c]);
       }
     }
 
@@ -296,7 +308,7 @@ cudaError_t launch(const void* xdt, const float* da, const void* b,
       ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(h, batch);
+  const dim3 grid(h * ((p + PM - 1) / PM), batch);
   ssd_scan_kernel<T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(xdt), da, static_cast<const T*>(b),
       static_cast<const T*>(c), static_cast<T*>(y), h, g, l, p, s, chunk);
@@ -308,13 +320,13 @@ cudaError_t launch(const void* xdt, const float* da, const void* b,
 extern "C" {
 
 // dtype of xdt, b, c and y: 0 = float32, 1 = bfloat16; da is float32.
-// Requires 1 <= chunk <= 128, 1 <= p <= 64, 1 <= s <= 128, h % g == 0.
+// Requires 1 <= chunk <= 128, p >= 1, 1 <= s <= 128, h % g == 0.
 // Returns the launch's cudaError_t.
 int ssd_scan_fwd(const void* xdt, const void* da, const void* b,
                  const void* c, void* y, int dtype, int batch, int h, int g,
                  int l, int p, int s, int chunk, void* stream) {
-  if (chunk < 1 || chunk > QM || p < 1 || p > PM || s < 1 || s > SMX ||
-      g < 1 || h % g != 0)
+  if (chunk < 1 || chunk > QM || p < 1 || s < 1 || s > SMX || g < 1 ||
+      h % g != 0 || (long long)h * ((p + PM - 1) / PM) > 0x7fffffff)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* daf = static_cast<const float*>(da);

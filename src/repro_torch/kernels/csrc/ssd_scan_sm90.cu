@@ -4,10 +4,11 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/ssd_scan.py (_ssd_kernel,
 // driven by ssd_scan_fwd and reached through repro/kernels/ops.py:ssd_scan)
-// for bf16 inputs at head dim P = 64, state dim S = 128 and chunk Q = 128,
-// with any B/C group count G dividing H; kernels/ssd_scan.py routes every
-// other case to ssd_scan.cu.  Same function and the same sequential-over-
-// chunks algorithm, per chunk of Q rows of one (batch, head):
+// for bf16 inputs at head dim P = 64 or 128 (any multiple of 64), state dim
+// S = 128 and chunk Q = 128, with any B/C group count G dividing H;
+// kernels/ssd_scan.py routes every other case to ssd_scan.cu.  Same
+// function and the same sequential-over-chunks algorithm, per chunk of Q
+// rows of one (batch, head):
 //   cum_i   = cumsum(da)_i
 //   y_intra = ((c b^T) * exp(cum_i - cum_j) * [j <= i]) xdt
 //   y_inter = (c state^T) * exp(cum)
@@ -24,13 +25,19 @@
 // bf16 hi + lo pair (below).
 //
 // Design:
-// - Work split.  One CTA per (batch, head), heads of a batch side by side
-//   so that they read their shared b/c through L2; it loops over its
-//   chunks.  Three warpgroups (384 threads): warpgroup 2 is the producer,
-//   one thread of which issues every TMA load; warpgroups 0 and 1 are
-//   consumers.  Consumer wg owns chunk rows [64 wg, 64 wg + 64) of the
-//   output products (the wgmma M) and state columns [64 wg, 64 wg + 64) of
-//   the update.  setmaxnreg gives the producer 24 registers a thread and
+// - Work split.  One CTA per (batch, head, 64-column tile of P), the P
+//   tiles of a head innermost and the heads of a batch side by side, so
+//   that they read their shared b/c through L2; it loops over its chunks.
+//   Column block t of y and row block t of the state depend only on
+//   column block t of xdt (c b^T, the decay, the mask and the cumsum are
+//   the same for every block), so a CTA at P = 128 computes exactly what
+//   a CTA at P = 64 does on its 64 columns: the same shared memory,
+//   registers and barriers.  c b^T is recomputed once per tile.  Three
+//   warpgroups (384 threads): warpgroup 2 is the producer, one thread of
+//   which issues every TMA load; warpgroups 0 and 1 are consumers.
+//   Consumer wg owns chunk rows [64 wg, 64 wg + 64) of the output
+//   products (the wgmma M) and state columns [64 wg, 64 wg + 64) of the
+//   update.  setmaxnreg gives the producer 24 registers a thread and
 //   the consumers 240.  No wait ends in __trap(): with one, ptxas keeps
 //   the consumers at the 168 registers a 384-thread block starts with.
 // - Loads.  xdt, b and c are 4-D tensor maps over (P, L, H, B) and
@@ -79,7 +86,8 @@
 //
 // Shared memory: 2 stages x 80 KB + the state copy (hi, lo: 32 KB) + the
 // scan results (4 KB) = 197 KB, one CTA per SM; 256 CTAs at the slice's
-// shape run in two waves over 132 SMs.
+// shape run in two waves over 132 SMs, 256 (128 heads x 2 tiles) at
+// jamba-1.5-large-398b's prefill likewise.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,7 +98,7 @@
 namespace {
 
 constexpr int Q = 128;             // rows per chunk
-constexpr int P = 64;              // head dim
+constexpr int P = 64;              // head-dim columns one CTA owns
 constexpr int S = 128;             // state dim
 constexpr int STAGES = 2;          // chunk ring depth
 constexpr int CONSUMERS = 256;     // two warpgroups
@@ -124,6 +132,7 @@ struct Params {
   long long da_sb, da_sh, da_sl;   // element strides
   long long y_sb, y_sh, y_sl;
   int h, g, l, n_chunks;
+  int p_tiles;                     // head dim / P
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -345,9 +354,12 @@ ssd_scan_sm90_kernel(const __grid_constant__ CUtensorMap tx,
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
 
-  // heads of one batch side by side: with G < H they share b/c in L2
-  const int bi = static_cast<int>(blockIdx.x) / p.h;
-  const int hi = static_cast<int>(blockIdx.x) % p.h;
+  // the P tiles of a head, then the heads of one batch, side by side:
+  // with G < H they share b/c in L2
+  const int pt = static_cast<int>(blockIdx.x) % p.p_tiles;
+  const int bh = static_cast<int>(blockIdx.x) / p.p_tiles;
+  const int bi = bh / p.h;
+  const int hi = bh % p.h;
   const int grp = hi / (p.h / p.g);
 
   if (threadIdx.x == 0) {
@@ -373,7 +385,7 @@ ssd_scan_sm90_kernel(const __grid_constant__ CUtensorMap tx,
           tma_load(c_s(s) + c * Q * 128, &tc, full(s), c * PANEL, l0, grp, bi);
           tma_load(b_s(s) + c * Q * 128, &tb, full(s), c * PANEL, l0, grp, bi);
         }
-        tma_load(x_s(s), &tx, full(s), 0, l0, hi, bi);
+        tma_load(x_s(s), &tx, full(s), pt * P, l0, hi, bi);
       }
     }
     return;
@@ -389,7 +401,7 @@ ssd_scan_sm90_kernel(const __grid_constant__ CUtensorMap tx,
   float* const scan_base =
       reinterpret_cast<float*>(base_ptr + OFF_SCAN) + wg * 2 * SCAN_FLOATS;
   const float* const da_p = p.da + bi * p.da_sb + hi * p.da_sh;
-  __nv_bfloat16* const y_p = p.y + bi * p.y_sb + hi * p.y_sh;
+  __nv_bfloat16* const y_p = p.y + bi * p.y_sb + hi * p.y_sh + pt * P;
   const uint32_t st_hi = base + OFF_ST_HI, st_lo = base + OFF_ST_LO;
   const uint32_t c_wg = 64 * wg * 128;               // this wg's rows of c
 
@@ -666,17 +678,18 @@ int make_map(CUtensorMap* map, const void* ptr, int cols, int l, int m,
 
 extern "C" {
 
-// dtype must be 1 (bfloat16; da is float32), p 64, s 128, chunk 128 and
-// h % g == 0.  strides holds element strides, 3 per tensor in the order
-// xdt (b, h, l), da (b, h, l), b (b, g, l), c (b, g, l), y (b, h, l); the
-// last dim of xdt, b, c and y is unit-stride.  Returns 0, a cudaError_t,
-// or one of the negative codes above.
+// dtype must be 1 (bfloat16; da is float32), p a multiple of 64, s 128,
+// chunk 128 and h % g == 0.  strides holds element strides, 3 per tensor
+// in the order xdt (b, h, l), da (b, h, l), b (b, g, l), c (b, g, l), y
+// (b, h, l); the last dim of xdt, b, c and y is unit-stride.  Returns 0,
+// a cudaError_t, or one of the negative codes above.
 int ssd_scan_sm90_fwd(const void* xdt, const void* da, const void* b,
                       const void* c, void* y, int dtype, int batch, int h,
                       int g, int l, int p, int s, int chunk,
                       const long long* strides, void* stream) {
-  if (dtype != 1 || p != P || s != S || chunk != Q || g < 1 || h % g != 0 ||
-      l < 1 || batch < 1)
+  if (dtype != 1 || p < P || p % P != 0 || s != S || chunk != Q || g < 1 ||
+      h % g != 0 || l < 1 || batch < 1 ||
+      static_cast<long long>(batch) * h * (p / P) > 0x7fffffff)
     return cudaErrorInvalidValue;
   const long long* sx = strides;
   const long long* sd = strides + 3;
@@ -684,7 +697,7 @@ int ssd_scan_sm90_fwd(const void* xdt, const void* da, const void* b,
   const long long* scm = strides + 9;
   const long long* sy = strides + 12;
   CUtensorMap tx, tb, tc;
-  int err = make_map(&tx, xdt, P, l, h, batch, sx[2], sx[1], sx[0]);
+  int err = make_map(&tx, xdt, p, l, h, batch, sx[2], sx[1], sx[0]);
   if (err == 0) err = make_map(&tb, b, S, l, g, batch, sbm[2], sbm[1], sbm[0]);
   if (err == 0) err = make_map(&tc, c, S, l, g, batch, scm[2], scm[1], scm[0]);
   if (err == 0 && (reinterpret_cast<uintptr_t>(y) % 4 || sy[0] % 2 ||
@@ -708,7 +721,8 @@ int ssd_scan_sm90_fwd(const void* xdt, const void* da, const void* b,
   prm.g = g;
   prm.l = l;
   prm.n_chunks = (l + Q - 1) / Q;
-  ssd_scan_sm90_kernel<<<batch * h, THREADS, SMEM_BYTES,
+  prm.p_tiles = p / P;
+  ssd_scan_sm90_kernel<<<batch * h * prm.p_tiles, THREADS, SMEM_BYTES,
                          static_cast<cudaStream_t>(stream)>>>(tx, tb, tc, prm);
   return cudaGetLastError();
 }

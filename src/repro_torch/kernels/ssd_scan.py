@@ -3,13 +3,17 @@
 Counterpart of ``repro.kernels.ssd_scan`` (the Pallas TPU kernel
 ``_ssd_kernel``).  Two CUDA kernels compute it, and ``route_for`` picks one
 by (dtype, P, S, chunk): ``"sm90"`` is ``csrc/ssd_scan_sm90.cu`` (bf16 on
-the tensor cores, wgmma fed by TMA) for bf16 at P = 64, S = 128 and chunk
-128, any G; ``"cuda_cores"`` is ``csrc/ssd_scan.cu`` (f32 FMAs) for every
-other case, f32 included.  ``ssd_scan_fwd`` launches the routed kernel on
-CUDA tensors and counts its launches in ``ssd_scan_fwd.launches``, by
-route in ``ssd_scan_fwd.route_launches`` and by head count in
-``ssd_scan_fwd.heads_launches``; ``ssd_scan_plain`` computes the
-same function in plain PyTorch, chunk by chunk in the kernels' order.
+the tensor cores, wgmma fed by TMA) for bf16 at P = 64 or 128, S = 128
+and chunk 128, any G; ``"cuda_cores"`` is ``csrc/ssd_scan.cu`` (f32 FMAs)
+for every other case, f32 included, at any P.  Both split P over the grid
+in tiles of 64 columns (y's and the state's columns of a tile depend only
+on xdt's columns of that tile), so one block's tiles, registers and shared
+memory are the same at every P.  ``ssd_scan_fwd`` launches the routed
+kernel on CUDA tensors and counts its launches (one a call, however many
+P tiles) in ``ssd_scan_fwd.launches``, by route in
+``ssd_scan_fwd.route_launches`` and by head count in
+``ssd_scan_fwd.heads_launches``; ``ssd_scan_plain`` computes the same
+function in plain PyTorch, chunk by chunk in the kernels' order.
 
 Layouts (``kernels.ops.ssd_scan`` forms them from the model layout):
   xdt: (B, H, L, P)  = dt * x
@@ -46,18 +50,20 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build
 
-MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128
+MAX_CHUNK, MAX_STATE = 128, 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# (P, S, chunk) of the sm90 kernel: mamba2-370m's, in bf16
-SM90_SHAPE = (64, 128, 128)
+# (P, S, chunk) of the sm90 kernel in bf16: mamba2-370m's and
+# jamba-1.5-large-398b's
+SM90_SHAPES = ((64, 128, 128), (128, 128, 128))
 # route -> its source in csrc/, which also prefixes its C entry points
 _KERNELS = {"sm90": "ssd_scan_sm90", "cuda_cores": "ssd_scan"}
 
 
 def route_for(dtype: torch.dtype, p: int, s: int, chunk: int) -> str:
     """The kernel that takes (dtype, head dim P, state dim S, chunk):
-    ``"sm90"`` for bf16 at ``SM90_SHAPE``, ``"cuda_cores"`` otherwise."""
-    return ("sm90" if dtype == torch.bfloat16 and (p, s, chunk) == SM90_SHAPE
+    ``"sm90"`` for bf16 at one of ``SM90_SHAPES``, ``"cuda_cores"``
+    otherwise."""
+    return ("sm90" if dtype == torch.bfloat16 and (p, s, chunk) in SM90_SHAPES
             else "cuda_cores")
 
 
@@ -124,8 +130,8 @@ def _check(xdt: torch.Tensor, da: torch.Tensor, b: torch.Tensor,
                          f"{tuple(c.shape)} do not match")
     if g < 1 or h % g:
         raise ValueError(f"heads {h} not a multiple of groups {g}")
-    if not 1 <= p <= MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {p} not in [1, {MAX_HEAD_DIM}]")
+    if p < 1:
+        raise ValueError(f"head_dim {p} must be >= 1")
     if not 1 <= s <= MAX_STATE:
         raise ValueError(f"d_state {s} not in [1, {MAX_STATE}]")
     if not 1 <= chunk <= MAX_CHUNK:
@@ -171,7 +177,7 @@ def ssd_scan_fwd(xdt: torch.Tensor, da: torch.Tensor, b: torch.Tensor,
                  c: torch.Tensor, *, chunk: int = 128,
                  route: Optional[str] = None) -> torch.Tensor:
     """Launch a CUDA kernel on the current stream: xdt (B, H, L, P) and
-    b/c (B, G, L, S), float32 or bfloat16; da (B, H, L) float32; P <= 64,
+    b/c (B, G, L, S), float32 or bfloat16; da (B, H, L) float32; any P,
     S <= 128, chunk <= 128.  ``route`` defaults to ``route_for``'s; naming
     one runs that kernel instead (to time one design against the other).
     The ``sm90`` kernel reads its inputs through their strides and returns
@@ -188,7 +194,7 @@ def ssd_scan_fwd(xdt: torch.Tensor, da: torch.Tensor, b: torch.Tensor,
     if route == "sm90":
         if table != "sm90":
             raise ValueError(f"the sm90 kernel takes bfloat16 at (P, S, "
-                             f"chunk) = {SM90_SHAPE}, got {xdt.dtype}, "
+                             f"chunk) in {SM90_SHAPES}, got {xdt.dtype}, "
                              f"{(p, s, chunk)}")
         strides = (_tma_strides("xdt", xdt) + list(da.stride())
                    + _tma_strides("b", b) + _tma_strides("c", c))

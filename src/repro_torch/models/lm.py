@@ -361,7 +361,10 @@ def init_lm(seed: int, cfg: LMConfig, *, device="cuda"):
     with ``seed`` on ``device``.  Per-period layer params live under
     ``periods`` with a stacked leading dim of n_periods; each period is
     drawn and copied in turn, so the peak is the model plus one period
-    and one leaf's float32 draw.  A config with a frontend
+    and one leaf's float32 draw.  One period is its own stack (a view of
+    the draw, no copy): the peak is then the model and one leaf's draw,
+    which lets a model whose one period is most of a card (jamba's) be
+    drawn on it.  A config with a frontend
     (pixtral-12b's stub) draws its patch projection last, under
     ``frontend``, JAX's place in the tree."""
     dev = resolve_device(device)
@@ -375,6 +378,9 @@ def init_lm(seed: int, cfg: LMConfig, *, device="cuda"):
     for i in range(n):
         one = {str(j): _init_layer(gen, cfg, spec)
                for j, spec in enumerate(specs)}
+        if n == 1:
+            periods = tree_map(lambda a: a.unsqueeze(0), one)
+            break
         if periods is None:
             periods = tree_map(
                 lambda a: a.new_empty((n,) + tuple(a.shape)), one)

@@ -49,7 +49,8 @@ for want in ("repro_torch.serving.scheduler", "repro_torch.train.trainer",
              "repro_torch.configs.arctic_480b",
              "repro_torch.models.encdec",
              "repro_torch.configs.seamless_m4t_large_v2",
-             "repro_torch.configs.pixtral_12b"):
+             "repro_torch.configs.pixtral_12b",
+             "repro_torch.configs.jamba_1_5_large_398b"):
     assert want in mods, (want, mods)
 from repro_torch.core.schedule import ScheduleExecutor2D
 from repro_torch.models.transformer2d import (
@@ -98,7 +99,8 @@ WORKERS = ["_torch_dsp_worker.py", "_torch_sp_worker.py",
            "_torch_t2d_zero_worker.py", "_torch_moe_ep_worker.py",
            "_torch_tp_worker.py", "_torch_encdec_worker.py",
            "_torch_moe_tp_worker.py", "_torch_moe_serve_worker.py",
-           "_torch_encdec_serve_worker.py", "_torch_vlm_worker.py"]
+           "_torch_encdec_serve_worker.py", "_torch_vlm_worker.py",
+           "_torch_jamba_worker.py"]
 
 
 @pytest.fixture(scope="module")

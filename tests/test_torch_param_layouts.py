@@ -72,7 +72,7 @@ from _torch_threads import one_thread  # noqa: E402,F401
 # ---------------------------------------------------------------------------
 
 ARCHS = ("qwen3-14b", "mamba2-370m", "transformer2d-720m",
-         "transformer2d-3b", "pixtral-12b")
+         "transformer2d-3b", "pixtral-12b", "jamba-1.5-large-398b")
 MESHES = ((1, 4), (2, 2), (4, 1), (16, 16))
 PLAN_KINDS = ("spec", "zero_off", "vocab_off", "tp_zero")
 

@@ -75,6 +75,26 @@ def test_ssd_scan_matches_pallas(case, dt):
     assert _rel(got, want) < tol
 
 
+# B, L, H, P, G, S, chunk: heads wider than one 64-column tile of the
+# CUDA kernels (P 96: a partial second tile; P 128: jamba-1.5-large-398b's),
+# a ragged L and two B/C groups
+WIDE_CASES = [(1, 200, 2, 96, 1, 32, 64), (1, 160, 4, 128, 2, 32, 64)]
+
+
+@pytest.mark.parametrize("case", WIDE_CASES, ids=lambda c: f"P{c[3]}")
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_ssd_scan_matches_pallas_at_wide_heads(case, dt):
+    """The plain K2 at P 96 and 128 against JAX's Pallas kernel (interpret
+    mode), at the bars of ``test_ssd_scan_matches_pallas``."""
+    b, l, h, p, g, s, chunk = case
+    jdt, tdt, tol = DTYPES[dt]
+    jin, tin = _both(_inputs(b, l, h, p, g, s, seed=5), jdt, tdt)
+    want = jops.ssd_scan(*jin, chunk=chunk)
+    got = tops.ssd_scan(*tin, chunk=chunk)
+    assert got.dtype == tdt and tuple(got.shape) == want.shape
+    assert _rel(got, want) < tol
+
+
 @pytest.mark.parametrize("with_state", [False, True])
 def test_ssd_ref_matches_jax(with_state):
     """The sequential oracle, with a carried initial state and the final

@@ -21,15 +21,30 @@ from test_torch_ssd import _inputs
 from _torch_threads import one_thread  # noqa: E402,F401
 
 SHAPES = [(64, 128, 128), (64, 128, 64), (32, 128, 128), (64, 64, 128),
-          (16, 32, 64), (8, 16, 16)]
+          (16, 32, 64), (8, 16, 16), (128, 128, 128), (96, 128, 128),
+          (128, 64, 128)]
 
 
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_route_table_sends_bf16_at_the_mamba2_shape_to_sm90(dtype, shape):
-    want = ("sm90" if dtype == torch.bfloat16 and shape == (64, 128, 128)
-            else "cuda_cores")
+    """bf16 at mamba2-370m's (P, S, chunk) = (64, 128, 128) and at
+    jamba-1.5-large-398b's (128, 128, 128) takes ``sm90``; every other
+    case, P 96 included, ``cuda_cores``."""
+    want = ("sm90" if dtype == torch.bfloat16
+            and shape in ((64, 128, 128), (128, 128, 128)) else "cuda_cores")
     assert K.route_for(dtype, *shape) == want
+
+
+def test_no_head_dim_is_refused_before_the_device_check():
+    """Any P reaches the wrapper's device check (the kernels split P over
+    the grid): P 96, 128 and 256 on CPU tensors raise for the device, not
+    for the head dim."""
+    for p in (96, 128, 256):
+        xdt, da, b, c = _kernel_inputs(1, 16, 2, p, 1, 32, torch.float32)
+        with pytest.raises(ValueError, match="CUDA"):
+            ssd_scan_fwd(xdt, da, b, c, chunk=64)
+    assert not hasattr(K, "MAX_HEAD_DIM")
 
 
 def _kernel_inputs(b, l, h, p, g, s, dtype, seed=0):
@@ -183,6 +198,26 @@ def test_chip_smoke_ssd_bar_passes_the_sm90_arithmetic(case):
     want = ssd_scan_plain(xdt, da, b, c, chunk=128)
     got = _sm90_emulation(xdt, da, b, c)
     assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert chip_smoke.ssd_worst_share(got, want) < 0.5
+
+
+def test_p128_splits_into_two_independent_tiles():
+    """At P = 128 each CTA computes its 64 columns alone (the kernels'
+    split of P over the grid): the plain version run on each 64-column
+    panel of xdt, concatenated, is the plain version on the whole (the
+    products never reduce over P), and the sm90 emulation run tile by tile
+    stays under half of chip_smoke's bf16 bar against the whole plain
+    version, at a ragged L over two B/C groups."""
+    import chip_smoke
+    xdt, da, b, c = _kernel_inputs(1, 300, 4, 128, 2, 128, torch.bfloat16,
+                                   seed=23)
+    want = ssd_scan_plain(xdt, da, b, c, chunk=128)
+    tiles = [xdt[..., 64 * t:64 * t + 64] for t in range(2)]
+    split = torch.cat([ssd_scan_plain(x, da, b, c, chunk=128)
+                       for x in tiles], dim=-1)
+    assert torch.equal(split, want)
+    got = torch.cat([_sm90_emulation(x, da, b, c) for x in tiles], dim=-1)
+    assert got.shape == want.shape
     assert chip_smoke.ssd_worst_share(got, want) < 0.5
 
 
